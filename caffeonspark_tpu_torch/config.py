@@ -1,0 +1,121 @@
+"""Config: the CLI flag surface of CaffeOnSpark (Config.scala), plus
+`-device`.
+
+A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
+solver/net prototxt parsing, data-layer location by `include.phase`),
+cut to the flags this package acts on so far (the serving ones); the
+training flags come with the training slice.  `-device` picks where
+the net runs: `cuda` (the default) or `cpu`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+from .proto import NetParameter, Phase, SolverParameter, read_net, read_solver
+
+DATA_LAYER_TYPES = ("MemoryData", "CoSData", "Data", "HDF5Data", "ImageData")
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="CaffeOnSparkTorch", add_help=True)
+    a = p.add_argument
+    a("-conf", dest="protoFile", default="",
+      help="solver configuration (prototxt)")
+    a("-features", dest="features", default="",
+      help="comma-separated blob names for feature extraction/serving")
+    a("-label", dest="label", default="",
+      help="label blob name (feature extraction)")
+    a("-model", dest="modelPath", default="",
+      help="model file path (in/out)")
+    a("-weights", dest="snapshotModelFile", default="",
+      help="caffemodel to finetune from")
+    a("-serve", dest="serve", action="store_true",
+      help="online inference serving: dynamic micro-batching over a "
+           "JSON HTTP front end (weights from -model/-weights; knobs "
+           "COS_SERVE_MAX_BATCH / COS_SERVE_MAX_WAIT_MS / "
+           "COS_SERVE_QUEUE_DEPTH)")
+    a("-servePort", dest="servePort", type=int, default=0,
+      help="serving HTTP port (0 = ephemeral, printed at startup)")
+    a("-serveHost", dest="serveHost", default="127.0.0.1",
+      help="serving bind address (loopback by default; the unauth'd "
+           "/v1/reload endpoint makes wider binds an explicit opt-in)")
+    a("-device", dest="device", default="cuda",
+      help="where the net runs: cuda (default) or cpu")
+    return p
+
+
+def resolve_net_path(solver_path: str, net_path: str) -> str:
+    """Resolve the solver's `net:` reference: absolute/cwd-relative, else
+    look next to the solver file."""
+    if not os.path.isabs(net_path) and not os.path.exists(net_path):
+        cand = os.path.join(os.path.dirname(os.path.abspath(solver_path)),
+                            os.path.basename(net_path))
+        if os.path.exists(cand):
+            return cand
+    return net_path
+
+
+class Config:
+    """Parsed CLI + solver/net prototxt."""
+
+    def __init__(self, args: Optional[List[str]] = None, **overrides):
+        ns, _ = build_argparser().parse_known_args(args or [])
+        for k, v in overrides.items():
+            setattr(ns, k, v)
+        self.args = ns
+        for k in vars(ns):
+            setattr(self, k, getattr(ns, k))
+
+        self.solverParameter: Optional[SolverParameter] = None
+        self.netParam: Optional[NetParameter] = None
+        if self.protoFile:
+            self.solverParameter = read_solver(self.protoFile)
+            self.netParam = read_net(
+                resolve_net_path(self.protoFile, self.solverParameter.net))
+
+    # -- data-layer location by phase (Config.scala:73-86) ---------------
+    def _data_layer_ids(self, phase: int) -> List[int]:
+        out = []
+        if self.netParam is None:
+            return out
+        from .net import layer_included
+        from .proto import NetState
+        state = NetState(phase=phase)
+        for i, lyr in enumerate(self.netParam.layer):
+            if lyr.type in DATA_LAYER_TYPES and layer_included(lyr, state):
+                out.append(i)
+        return out
+
+    @property
+    def train_data_layer_id(self) -> int:
+        ids = self._data_layer_ids(Phase.TRAIN)
+        return ids[0] if ids else -1
+
+    @property
+    def test_data_layer_id(self) -> int:
+        ids = self._data_layer_ids(Phase.TEST)
+        return ids[0] if ids else -1
+
+    def train_data_layer(self):
+        i = self.train_data_layer_id
+        return self.netParam.layer[i] if i >= 0 else None
+
+    def test_data_layer(self):
+        i = self.test_data_layer_id
+        return self.netParam.layer[i] if i >= 0 else None
+
+    def validate(self) -> None:
+        if self.device not in ("cuda", "cpu") \
+                and not str(self.device).startswith("cuda:"):
+            raise ValueError(f"-device {self.device!r}: expected cuda, "
+                             "cuda:<index> or cpu")
+        if self.serve:
+            if self.netParam is None:
+                raise ValueError("-serve needs -conf (solver prototxt "
+                                 "resolving a net)")
+            if not (self.modelPath or self.snapshotModelFile):
+                raise ValueError("-serve needs trained weights: "
+                                 "-model or -weights")

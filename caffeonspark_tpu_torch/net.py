@@ -1,0 +1,351 @@
+"""Net compiler: NetParameter (+ NetState) -> a PyTorch net.
+
+The counterpart of `caffeonspark_tpu/net.py`.  Construction filters the
+layers by phase/stage/level rules, resolves the data-layer inputs, runs
+the ReLU->LRN and conv-bias peepholes, and infers every blob's shape by
+running the layers on "meta" tensors (no memory, no compute).  Then:
+
+  * ``Net.init(seed)``              -> params {layer: {blob: tensor}}
+  * ``Net(params, inputs)``         -> {blob: tensor} (the forward)
+
+Parameters live outside the module, keyed `{layer: {blob: tensor}}` as
+in the JAX package, so a serving registry can swap versions under one
+net.  This slice runs the forward only; training comes later.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from .ops import layers as L
+from .proto.caffe import (LayerParameter, NetParameter, NetState,
+                          NetStateRule, NormRegion, Phase)
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def state_meets_rule(rule: NetStateRule, state: NetState) -> bool:
+    if rule.has("phase") and rule.phase != state.phase:
+        return False
+    if rule.has("min_level") and state.level < rule.min_level:
+        return False
+    if rule.has("max_level") and state.level > rule.max_level:
+        return False
+    stages = set(state.stage)
+    for s in rule.stage:
+        if s not in stages:
+            return False
+    for s in rule.not_stage:
+        if s in stages:
+            return False
+    return True
+
+
+def layer_included(lp: LayerParameter, state: NetState) -> bool:
+    if lp.include:
+        return any(state_meets_rule(r, state) for r in lp.include)
+    if lp.exclude:
+        return not any(state_meets_rule(r, state) for r in lp.exclude)
+    return True
+
+
+def data_layer_input_specs(lp: LayerParameter
+                           ) -> List[Tuple[str, Tuple[int, ...], str]]:
+    """(blob_name, shape, kind) for each top of a data layer; kind is
+    'data' or 'label'.  A `Data` layer's geometry would come from its
+    database's first record; reading databases waits for the data
+    slice, so its shape is the crop (or 1x1) on 3 channels, which is
+    what the JAX package falls back to for an unreadable database."""
+    t = lp.type
+    if t == "MemoryData":
+        p = lp.memory_data_param
+        b = int(p.batch_size)
+        shape = (b, int(p.channels), int(p.height), int(p.width))
+        if lp.transform_param.crop_size:
+            cs = int(lp.transform_param.crop_size)
+            shape = (b, int(p.channels), cs, cs)
+        specs = [(lp.top[0], shape, "data")]
+        if len(lp.top) > 1:
+            specs.append((lp.top[1], (b,), "label"))
+        return specs
+    if t == "Input":
+        shapes = list(lp.input_param.shape)
+        if len(shapes) == 1 and len(lp.top) > 1:
+            shapes = shapes * len(lp.top)
+        if len(shapes) != len(lp.top):
+            raise ValueError(f"Input layer {lp.name!r}: {len(shapes)} "
+                             f"shapes for {len(lp.top)} tops")
+        return [(name, tuple(int(d) for d in shp.dim), "data")
+                for name, shp in zip(lp.top, shapes)]
+    if t == "Data":
+        p = lp.data_param
+        b = int(p.batch_size)
+        cs = int(p.crop_size or lp.transform_param.crop_size or 0)
+        specs = [(lp.top[0], (b, 3, cs or 1, cs or 1), "data")]
+        if len(lp.top) > 1:
+            specs.append((lp.top[1], (b,), "label"))
+        return specs
+    raise NotImplementedError(f"data layer {t} not in the PyTorch port")
+
+
+def fusable_relu_for_lrn(layers: Sequence[LayerParameter],
+                         lrn_lp: LayerParameter
+                         ) -> Optional[LayerParameter]:
+    """The ReLU layer the ReLU->LRN peephole would absorb into `lrn_lp`,
+    or None.  Eligible: `lrn_lp` is a 1-bottom ACROSS_CHANNELS LRN whose
+    bottom's last producer is a plain ReLU (negative_slope 0, no loss
+    weight, 1 bottom / 1 top) consumed by nothing but the LRN."""
+    if (lrn_lp.type != "LRN" or len(lrn_lp.bottom) != 1
+            or lrn_lp.lrn_param.norm_region
+            != NormRegion.ACROSS_CHANNELS):
+        return None
+    prod, pi = None, -1
+    found = False
+    for j, l2 in enumerate(layers):
+        if l2 is lrn_lp:
+            found = True
+            break
+        if lrn_lp.bottom[0] in l2.top:
+            prod, pi = l2, j
+    if not found or prod is None or prod.type != "ReLU":
+        return None
+    if len(prod.bottom) != 1 or len(prod.top) != 1:
+        return None
+    if float(getattr(prod.relu_param, "negative_slope", 0.0) or 0.0):
+        return None
+    if any(float(w) for w in prod.loss_weight):
+        return None
+    consumers = [l2 for j, l2 in enumerate(layers)
+                 if j > pi and prod.top[0] in l2.bottom]
+    if consumers != [lrn_lp]:
+        return None
+    return prod
+
+
+def prefuse_conv_bias_eligible(layers: Sequence[LayerParameter],
+                               lrn_lp: LayerParameter,
+                               relu_lp: LayerParameter) -> bool:
+    """Would the conv feeding `relu_lp` get its bias deferred into
+    `lrn_lp` once the relu is fused away?  True when that producer is a
+    bias_term Convolution whose top feeds nothing but the relu chain
+    (for an in-place relu the LRN also reads the name)."""
+    conv, ci = None, -1
+    for j, l2 in enumerate(layers):
+        if l2 is relu_lp:
+            break
+        if relu_lp.bottom[0] in l2.top:
+            conv, ci = l2, j
+    if (conv is None or conv.type != "Convolution"
+            or not conv.convolution_param.bias_term):
+        return False
+    others = [l2 for j, l2 in enumerate(layers)
+              if j > ci and conv.top[0] in l2.bottom
+              and l2 is not relu_lp]
+    return others in ([], [lrn_lp])
+
+
+class Net(nn.Module):
+    """A phase-filtered network; `forward(params, inputs)` runs it.
+
+    Peepholes, read once here from the environment:
+      * COS_FUSE_RELU_LRN=1 — a ReLU feeding an across-channel LRN runs
+        inside the LRN kernel (K1 with fuse_relu); the ReLU's top is then
+        not materialized;
+      * COS_FUSE_BIAS_RELU_LRN=1 — the above, and the producing conv's
+        bias add joins too (K3): the conv emits its raw output and the
+        LRN receives the conv's bias as params[0].  The conv's top then
+        holds UNBIASED activations, so do not extract features from it.
+    """
+
+    def __init__(self, net_param: NetParameter,
+                 state: Optional[NetState] = None,
+                 dtype=torch.float32, device="cuda"):
+        super().__init__()
+        self.net_param = net_param
+        self.state = state or NetState(phase=Phase.TRAIN)
+        self.name = net_param.name
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.layers: List[LayerParameter] = [
+            lp for lp in net_param.layer if layer_included(lp, self.state)]
+
+        # --- net inputs ----------------------------------------------------
+        self.input_specs: List[Tuple[str, Tuple[int, ...], str]] = []
+        if net_param.input:     # legacy net-level inputs (deploy prototxts)
+            for i, name in enumerate(net_param.input):
+                if net_param.input_shape:
+                    shp = tuple(int(d)
+                                for d in net_param.input_shape[i].dim)
+                else:
+                    shp = tuple(int(d)
+                                for d in net_param.input_dim[4 * i:4 * i + 4])
+                self.input_specs.append((name, shp, "data"))
+        for lp in self.layers:
+            if L.get_op(lp.type).is_data:
+                self.input_specs.extend(data_layer_input_specs(lp))
+        self.compute_layers = [lp for lp in self.layers
+                               if not L.get_op(lp.type).is_data]
+
+        # --- ReLU->LRN and conv-bias peepholes ----------------------------
+        self.fused_relu_lrn: frozenset = frozenset()
+        self.fused_bias_lrn: Dict[str, str] = {}      # lrn -> conv
+        env_relu = os.environ.get("COS_FUSE_RELU_LRN") == "1"
+        env_bias = os.environ.get("COS_FUSE_BIAS_RELU_LRN") == "1"
+        if env_relu or env_bias:
+            fused: set = set()
+            self.compute_layers = self._fuse_relu_lrn(self.compute_layers,
+                                                      fused)
+            self.fused_relu_lrn = frozenset(fused)
+            if env_bias:
+                self.fused_bias_lrn = self._fuse_conv_bias()
+        self._bias_lrn_set = frozenset(self.fused_bias_lrn)
+        self._defer_bias = frozenset(self.fused_bias_lrn.values())
+
+        # --- shape inference on meta tensors + param layout ---------------
+        blob_shapes: Dict[str, Tuple[int, ...]] = {
+            name: tuple(shape) for name, shape, _ in self.input_specs}
+        self.param_layout: Dict[str, List[Tuple[str, Tuple[int, ...],
+                                                object]]] = {}
+        for lp in self.compute_layers:
+            op = L.get_op(lp.type)
+            for b in lp.bottom:
+                if b not in blob_shapes:
+                    raise ValueError(
+                        f"layer {lp.name!r} ({lp.type}) consumes unknown "
+                        f"blob {b!r}; produced so far: "
+                        f"{sorted(blob_shapes)}")
+            bshapes = [blob_shapes[b] for b in lp.bottom]
+            specs = [(n, tuple(int(x) for x in s), f)
+                     for (n, s, f) in op.param_specs(lp, bshapes)]
+            if specs:
+                self.param_layout[lp.name] = specs
+            meta = [torch.empty(s, dtype=dtype, device="meta")
+                    for (_, s, _) in specs]
+            if lp.name in self.fused_bias_lrn:
+                conv = self.fused_bias_lrn[lp.name]
+                bshape = next(s for (n2, s, _) in self.param_layout[conv]
+                              if n2 == "bias")
+                meta = [torch.empty(bshape, dtype=dtype,
+                                    device="meta")] + meta
+            bottoms = [torch.empty(s, dtype=dtype, device="meta")
+                       for s in bshapes]
+            ctx = self._ctx()
+            ctx.layer_name = lp.name
+            for name, top in zip(lp.top, op.apply(ctx, lp, meta, bottoms)):
+                blob_shapes[name] = tuple(top.shape)
+        self.blob_shapes = blob_shapes
+
+        # --- net outputs: tops never consumed ------------------------------
+        consumed = {b for lp in self.compute_layers for b in lp.bottom}
+        produced: List[str] = [n for n, _, _ in self.input_specs]
+        for lp in self.compute_layers:
+            for t in lp.top:
+                if t not in produced:
+                    produced.append(t)
+        self.output_blobs = [n for n in produced if n not in consumed]
+
+    # ------------------------------------------------------------------
+    def _fuse_relu_lrn(self, layers: List[LayerParameter], fused: set
+                       ) -> List[LayerParameter]:
+        """Replace eligible [ReLU, LRN] pairs with one LRN layer whose op
+        applies relu in-kernel.  The LRN entry is a copy (the source
+        NetParameter may build other Nets)."""
+        out: List[LayerParameter] = list(layers)
+        i = 0
+        while i < len(out):
+            nl = out[i]
+            r = fusable_relu_for_lrn(out, nl) if nl.type == "LRN" else None
+            if r is None:
+                i += 1
+                continue
+            fused_lp = LayerParameter.from_binary(nl.to_binary())
+            fused_lp.bottom = [r.bottom[0]]
+            out[i] = fused_lp
+            del out[next(j for j, l2 in enumerate(out) if l2 is r)]
+            fused.add(nl.name)
+        return out
+
+    def _fuse_conv_bias(self) -> Dict[str, str]:
+        """For relu-fused LRNs whose bottom is a bias_term Convolution's
+        top that no other layer consumes, defer the conv's bias add into
+        the LRN kernel.  Returns {lrn_name: conv_name}."""
+        out: Dict[str, str] = {}
+        by_top: Dict[str, LayerParameter] = {}
+        for lp in self.compute_layers:
+            for t in lp.top:
+                by_top[t] = lp
+        for lp in self.compute_layers:
+            if lp.name not in self.fused_relu_lrn:
+                continue
+            src = by_top.get(lp.bottom[0])
+            if (src is None or src.type != "Convolution"
+                    or not src.convolution_param.bias_term):
+                continue
+            if any(o is not lp and src.top[0] in o.bottom
+                   for o in self.compute_layers):
+                continue     # someone else needs the biased activation
+            out[lp.name] = src.name
+        return out
+
+    def _ctx(self, qscales=None) -> L.Ctx:
+        return L.Ctx(fused_relu_lrn=self.fused_relu_lrn,
+                     defer_bias=self._defer_bias,
+                     bias_lrn=self._bias_lrn_set, qscales=qscales)
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0,
+             layers: Optional[Sequence[str]] = None) -> Params:
+        """Filler-initialized params on `self.device` (of `layers` only,
+        when given).  Each blob draws from its own CPU generator seeded
+        by (seed, layer name, blob index), so adding a layer never
+        shifts another's weights."""
+        from .ops.fillers import fill
+        params: Params = {}
+        for lname, specs in self.param_layout.items():
+            if layers is not None and lname not in layers:
+                continue
+            blobs = {}
+            for i, (bname, shape, filler) in enumerate(specs):
+                g = torch.Generator().manual_seed(
+                    (seed * 1_000_003 + L.stable_hash(lname) * 31 + i)
+                    % (2 ** 63))
+                blobs[bname] = fill(g, filler, shape, self.dtype,
+                                    self.device)
+            params[lname] = blobs
+        return params
+
+    def num_params(self) -> int:
+        return sum(math.prod(s) for specs in self.param_layout.values()
+                   for (_, s, _) in specs)
+
+    # ------------------------------------------------------------------
+    def forward(self, params: Params, inputs: Dict[str, torch.Tensor], *,
+                qscales: Optional[Dict] = None
+                ) -> Dict[str, torch.Tensor]:
+        """Inference forward pass (Caffe's TEST-phase layer semantics,
+        whatever the net's phase); returns every blob.  `qscales`
+        ({layer: {blob: f32 0-dim tensor}}) carries the publish-time
+        scales of int8 serving weights (serving/quant.py), which the int8
+        InnerProduct kernel consumes without dequantizing."""
+        blobs: Dict[str, torch.Tensor] = dict(inputs)
+        ctx = self._ctx(qscales)
+        for lp in self.compute_layers:
+            op = L.get_op(lp.type)
+            ctx.layer_name = lp.name
+            lparams = []
+            if lp.name in self.param_layout:
+                pd = params[lp.name]
+                lparams = [pd[bname]
+                           for bname, _, _ in self.param_layout[lp.name]]
+            if lp.name in self.fused_bias_lrn:
+                lparams = [params[self.fused_bias_lrn[lp.name]]["bias"]] \
+                    + lparams
+            tops = op.apply(ctx, lp, lparams, [blobs[b] for b in lp.bottom])
+            for name, val in zip(lp.top, tops):
+                blobs[name] = val
+        return blobs

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+
+Each source is compiled by `nvcc` for `sm_90a` into its own shared
+library with a plain C interface and loaded with ctypes: no PyTorch
+headers, so a build takes seconds.  All sources compile in parallel
+(one `nvcc` each, started together).  Libraries land in
+`build/torch_kernels/` at the repository root, named by the hash of
+their source and flags, so a later process of the same checkout loads
+an earlier one's build instead of compiling again.
+
+Nothing here runs at import time: the CPU tests import every module,
+and a build starts only when a wrapper in `ops.kernels` is handed a
+CUDA tensor (or a caller such as chip_smoke.py asks for it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+SOURCES = ("lrn", "int8_matmul")
+
+# the process's loaded libraries: one load per process, shared by every
+# wrapper (a loaded CUDA library is a process-wide resource)
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    """`nvcc` from $CUDA_HOME, /usr/local/cuda, or PATH; raises when
+    the toolkit is missing (a machine without a card often has none)."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(ARCH_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all(verbose: bool = False) -> Dict[str, object]:
+    """Compile every source that has no up-to-date library, all at once
+    (one nvcc process per source).  Returns a report: `libraries`
+    {name: path}, `built` (the names compiled now), `seconds`, and
+    `nvcc` {name: compiler output}, which with `verbose` holds the
+    `-Xptxas -v` report (registers, shared memory, spills)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in SOURCES}
+    todo = {n: p for n, p in targets.items() if not p.exists()}
+    t0 = time.monotonic()
+    nvcc_out: Dict[str, str] = {}
+    if todo:
+        nvcc = find_nvcc()
+        procs = {}
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+                   "-Xcompiler", "-fPIC", "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        errors = []
+        for name, (proc, tmp, out) in procs.items():
+            text, _ = proc.communicate()
+            nvcc_out[name] = text
+            if proc.returncode != 0:
+                errors.append(f"nvcc {name}.cu failed ({proc.returncode}):"
+                              f"\n{text}")
+                continue
+            os.replace(tmp, out)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return {"libraries": targets, "built": sorted(todo),
+            "seconds": time.monotonic() - t0, "nvcc": nvcc_out}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, building on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            paths = build_all()["libraries"]
+            for n, p in paths.items():
+                _libs[n] = _declare(n, ctypes.CDLL(str(p)))
+            lib = _libs[name]
+    return lib
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """argtypes/restype for every entry point: pointers and the stream
+    as c_void_p (a bare int would be cut to 32 bits)."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "lrn":
+        lib.cos_lrn_fwd.argtypes = [P, P, I, I, I, I, F, F, F, I, I, P]
+        lib.cos_lrn_fwd.restype = I
+        lib.cos_bias_relu_lrn_fwd.argtypes = [P, P, P, I, I, I, I, F, F, F,
+                                              I, P]
+        lib.cos_bias_relu_lrn_fwd.restype = I
+    elif name == "int8_matmul":
+        lib.cos_int8_matmul.argtypes = [P, P, P, I, I, I, P]
+        lib.cos_int8_matmul.restype = I
+    return lib

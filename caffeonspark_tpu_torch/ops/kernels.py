@@ -1,0 +1,243 @@
+"""The port's hand-written CUDA kernels, their wrappers and their plain
+PyTorch versions — the counterpart of caffeonspark_tpu/ops/pallas_kernels.py.
+
+Three kernels serve the image nets' TEST-phase forward:
+
+  * `lrn_across_channels`            K1, csrc/lrn.cu `cos_lrn_fwd`
+    (Caffe across-channel LRN, optional fused ReLU);
+  * `bias_relu_lrn_across_channels`  K3, csrc/lrn.cu `cos_bias_relu_lrn_fwd`
+    (the conv-stem epilogue lrn(relu(x + bias)));
+  * `int8_matmul`                    K5, csrc/int8_matmul.cu
+    (int8 x int8 -> int32, under `int8_inner_product`).
+
+Routing is by the tensor's device and nothing else: a CPU tensor (or a
+shape-only "meta" tensor during Net construction) takes the plain
+version; a CUDA tensor launches the kernel or raises.  There is no
+fallback from a kernel to its plain version.
+
+Each wrapper adds one to `launch_counts[name]` per kernel launch, so a
+run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+launch_counts: Dict[str, int] = {"lrn_across_channels": 0,
+                                 "bias_relu_lrn_across_channels": 0,
+                                 "int8_matmul": 0}
+_count_lock = threading.Lock()
+
+_LRN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for k in launch_counts:
+            launch_counts[k] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def _check_status(name: str, status: int) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed "
+                           f"(cudaError {status})")
+
+
+def _route(x: torch.Tensor, name: str) -> bool:
+    """True -> launch the kernel (CUDA); False -> plain version."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type in _PLAIN_DEVICES:
+        return False
+    raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# K1 / K3: across-channel LRN forward (optionally relu, bias+relu)
+# ---------------------------------------------------------------------------
+
+def _window_sum(v: torch.Tensor, pad: int) -> torch.Tensor:
+    """Sum over the symmetric channel window, in the TPU kernel's order:
+    centre, then (-1, +1), (-2, +2), ... (zero-padded channels)."""
+    if pad == 0:
+        return v
+    c = v.shape[1]
+    vp = F.pad(v, (0, 0, 0, 0, pad, pad))
+    acc = v
+    for off in range(1, pad + 1):
+        acc = acc + vp[:, pad - off:pad - off + c] \
+            + vp[:, pad + off:pad + off + c]
+    return acc
+
+
+def lrn_plain(x: torch.Tensor, local_size: int, alpha: float, beta: float,
+              k: float, fuse_relu: bool = False,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K1/K3: y = x'·(k + α/n·Σ x'²)^−β with
+    x' = x, relu(x), or relu(x + bias); f32 math for any I/O dtype."""
+    xf = x.float()
+    if bias is not None:
+        xf = xf + bias.float().reshape(1, -1, 1, 1)
+    if fuse_relu or bias is not None:
+        xf = torch.clamp_min(xf, 0.0)
+    scale = k + (alpha / local_size) * _window_sum(xf * xf,
+                                                   local_size // 2)
+    return (xf * torch.exp(-beta * torch.log(scale))).to(x.dtype)
+
+
+def _check_lrn_input(name: str, x: torch.Tensor, local_size: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected (N, C, H, W), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _LRN_DTYPES:
+        raise ValueError(f"{name}: dtype {x.dtype} not in "
+                         f"{list(_LRN_DTYPES)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: input must be contiguous")
+    if local_size < 1 or local_size // 2 > 5:
+        raise ValueError(f"{name}: local_size {local_size} outside 1..11")
+    if x.shape[0] > 65535:
+        raise ValueError(f"{name}: batch {x.shape[0]} > 65535")
+
+
+def lrn_across_channels(x: torch.Tensor, local_size: int = 5,
+                        alpha: float = 1e-4, beta: float = 0.75,
+                        k: float = 1.0,
+                        fuse_relu: bool = False) -> torch.Tensor:
+    """(N, C, H, W) -> Caffe LRN (alpha/local_size); with fuse_relu,
+    lrn(relu(x)) in one pass.  Forward only (serving)."""
+    name = "lrn_across_channels"
+    if not _route(x, name):
+        return lrn_plain(x, local_size, alpha, beta, k, fuse_relu)
+    _check_lrn_input(name, x, local_size)
+    n, c, h, w = x.shape
+    y = torch.empty_like(x)
+    lib = cuda_build.library("lrn")
+    with torch.cuda.device(x.device):
+        status = lib.cos_lrn_fwd(
+            x.data_ptr(), y.data_ptr(), n, c, h * w, int(local_size),
+            alpha / local_size, beta, k, int(bool(fuse_relu)),
+            _LRN_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return y
+
+
+def bias_relu_lrn_across_channels(x: torch.Tensor, bias: torch.Tensor,
+                                  local_size: int = 5, alpha: float = 1e-4,
+                                  beta: float = 0.75,
+                                  k: float = 1.0) -> torch.Tensor:
+    """(N, C, H, W) raw conv output + (C,) bias -> lrn(relu(x + bias)),
+    one fused pass (the bias is read as an f32 column)."""
+    name = "bias_relu_lrn_across_channels"
+    if not _route(x, name):
+        return lrn_plain(x, local_size, alpha, beta, k, bias=bias)
+    _check_lrn_input(name, x, local_size)
+    n, c, h, w = x.shape
+    if bias.shape != (c,) or bias.device != x.device:
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} on "
+                         f"{bias.device} for {c} channels on {x.device}")
+    b = bias.to(torch.float32).contiguous()
+    y = torch.empty_like(x)
+    lib = cuda_build.library("lrn")
+    with torch.cuda.device(x.device):
+        status = lib.cos_bias_relu_lrn_fwd(
+            x.data_ptr(), b.data_ptr(), y.data_ptr(), n, c, h * w,
+            int(local_size), alpha / local_size, beta, k,
+            _LRN_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# K5: int8 x int8 -> int32 (serving InnerProduct)
+# ---------------------------------------------------------------------------
+
+def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5.  float64 products and sums of int8 values
+    are exact integers (|sum| <= 127^2·K < 2^53 for any K below 5e11),
+    so this is the exact int32 result on every device."""
+    return torch.matmul(xq.to(torch.float64),
+                        wq.to(torch.float64).T).to(torch.int32)
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """(M, K) int8 @ (N, K) int8ᵀ -> (M, N) int32, any M, N, K."""
+    name = "int8_matmul"
+    if not _route(xq, name):
+        return int8_matmul_plain(xq, wq)
+    if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[1]:
+        raise ValueError(f"{name}: shapes {tuple(xq.shape)} x "
+                         f"{tuple(wq.shape)} do not contract")
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"{name}: dtypes {xq.dtype}, {wq.dtype} "
+                         "(need int8)")
+    if wq.device != xq.device:
+        raise ValueError(f"{name}: operands on {xq.device} and "
+                         f"{wq.device}")
+    if not (xq.is_contiguous() and wq.is_contiguous()):
+        raise ValueError(f"{name}: operands must be contiguous")
+    m, kk = xq.shape
+    n = wq.shape[0]
+    if m * n == 0 or kk == 0:
+        raise ValueError(f"{name}: empty operand")
+    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    lib = cuda_build.library("int8_matmul")
+    with torch.cuda.device(xq.device):
+        status = lib.cos_int8_matmul(
+            xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, kk,
+            torch.cuda.current_stream(xq.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return out
+
+
+def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-tensor int8 on a max-abs scale, round-to-nearest-
+    even — gradsync's `quantize_int8` without an rng.  Returns
+    (int8 tensor, f32 0-dim scale).  The scale divides as a tensor on
+    the input's device: PyTorch's CUDA division by a host scalar
+    multiplies by its reciprocal, which can round differently."""
+    f = x.to(torch.float32)
+    c127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
+    scale = torch.clamp_min(f.abs().max(), 1e-30) / c127
+    q = torch.clamp(torch.round(f / scale), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def int8_inner_product(x: torch.Tensor, w: torch.Tensor, *,
+                       transpose: bool = False,
+                       w_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Quantized InnerProduct forward: y ≈ x @ wᵀ (Caffe layout; x @ w
+    with `transpose`), int8 operands on per-tensor max-abs scales, int32
+    accumulation, output in x's dtype.  A float `w` quantizes per call;
+    an int8 `w` is the publish-time resident weight and needs its
+    `w_scale`.  The activation quantizes per call."""
+    wn = w.T if transpose else w                  # (N, K)
+    xq, sx = quantize_int8(x)
+    if wn.dtype == torch.int8:
+        if w_scale is None:
+            raise ValueError("int8_inner_product: pre-quantized int8 "
+                             "weight needs its publish-time w_scale")
+        wqn, sw = wn, torch.as_tensor(w_scale, dtype=torch.float32,
+                                      device=x.device)
+    else:
+        wqn, sw = quantize_int8(wn)
+    acc = int8_matmul(xq, wqn.contiguous())
+    return (acc.to(torch.float32) * (sx * sw)).to(x.dtype)

@@ -1,0 +1,406 @@
+"""Caffe layer semantics as PyTorch functions (the TEST-phase image nets).
+
+Each layer type registers:
+  * ``param_specs(lp, bottom_shapes)`` -> list of (blob_name, shape,
+    filler) for its learnable blobs (Caffe blob order, so `.caffemodel`
+    import/export maps 1:1), and
+  * ``apply(ctx, lp, params, bottoms)`` -> list of top tensors.
+
+Layout is NCHW at layer boundaries, as in the JAX package, so the two
+compare like with like.  Caffe behaviours reproduced: pooling ceil-mode
+output sizing with tail-window clipping, the AVE divisor = window ∩
+padded region, LRN ACROSS_CHANNELS with alpha/local_size,
+SoftmaxWithLoss VALID normalization + ignore_label.
+
+The across-channel LRN (plain, relu-fused, bias+relu-fused) and the
+int8 InnerProduct route to the hand-written kernels of `ops.kernels`.
+Convolutions go to cuDNN through `torch.nn.functional.conv2d`, as the
+JAX package left them to XLA.  Layers run with Caffe's TEST-phase
+(inference) semantics, so Dropout is the identity; the training
+semantics come with the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+import zlib
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..proto.caffe import (FillerParameter, NormalizationMode, NormRegion,
+                           PoolMethod)
+from . import kernels as K
+
+
+@dataclass
+class Ctx:
+    """Per-call context threaded through layer application."""
+    layer_name: str = ""
+    # LRN layer names whose op applies relu in-kernel (net.py's
+    # COS_FUSE_RELU_LRN peephole)
+    fused_relu_lrn: frozenset = frozenset()
+    # conv-stem bias fusion (net.py peephole): conv layers whose bias add
+    # is deferred into the consuming LRN kernel, and the LRN layers that
+    # receive that bias as params[0]
+    defer_bias: frozenset = frozenset()
+    bias_lrn: frozenset = frozenset()
+    # per-blob dequant scales of quantized-resident serving weights
+    # ({layer: {blob: f32 0-dim tensor}}, serving/quant.py)
+    qscales: Optional[Dict] = None
+
+    def qscale(self, bname: str):
+        if not self.qscales:
+            return None
+        return self.qscales.get(self.layer_name, {}).get(bname)
+
+
+def stable_hash(name: str) -> int:
+    """Process-independent name hash (per-layer filler seeds)."""
+    return zlib.crc32(name.encode("utf-8"))
+
+
+@dataclass
+class LayerOp:
+    name: str
+    apply: Callable
+    param_specs: Callable = field(default=lambda lp, shapes: [])
+    is_data: bool = False
+
+
+_REGISTRY: Dict[str, LayerOp] = {}
+
+
+def register(name: str, *, params=None, is_data=False):
+    def deco(fn):
+        _REGISTRY[name] = LayerOp(name, fn, params or (lambda lp, s: []),
+                                  is_data=is_data)
+        return fn
+    return deco
+
+
+def get_op(type_name: str) -> LayerOp:
+    if type_name not in _REGISTRY:
+        raise NotImplementedError(
+            f"layer type {type_name!r} not supported by the PyTorch port")
+    return _REGISTRY[type_name]
+
+
+def _filler(msg, default_type="constant") -> FillerParameter:
+    if isinstance(msg, FillerParameter):
+        return msg
+    return FillerParameter(type=default_type)
+
+
+# ---------------------------------------------------------------------------
+# data layers — net inputs; shapes resolved by the net compiler
+# ---------------------------------------------------------------------------
+
+def _data_layer(ctx, lp, params, bottoms):
+    raise RuntimeError("data layers are net inputs; never applied")
+
+
+for _t in ("MemoryData", "Input", "Data"):
+    register(_t, is_data=True)(_data_layer)
+
+
+# ---------------------------------------------------------------------------
+# Convolution / InnerProduct
+# ---------------------------------------------------------------------------
+
+def _conv_geometry(cp):
+    def pair(rep, h, w, default):
+        if cp.has(h) or cp.has(w):
+            if not (cp.has(h) and cp.has(w)):
+                raise ValueError(f"{h} and {w} must be set together")
+            return (int(getattr(cp, h)), int(getattr(cp, w)))
+        v = getattr(cp, rep)
+        if isinstance(v, list):
+            if len(v) == 0:
+                return (default, default)
+            if len(v) == 1:
+                return (int(v[0]), int(v[0]))
+            return (int(v[0]), int(v[1]))
+        return (int(v), int(v))
+
+    kernel = pair("kernel_size", "kernel_h", "kernel_w", None)
+    if kernel[0] is None:
+        raise ValueError("convolution_param needs kernel_size or "
+                         "kernel_h/kernel_w")
+    stride = pair("stride", "stride_h", "stride_w", 1)
+    pad = pair("pad", "pad_h", "pad_w", 0)
+    dil = cp.dilation
+    dilation = ((int(dil[0]), int(dil[-1] if len(dil) > 1 else dil[0]))
+                if dil else (1, 1))
+    return kernel, stride, pad, dilation
+
+
+def _conv_params(lp, shapes):
+    cp = lp.convolution_param
+    (kh, kw), _, _, _ = _conv_geometry(cp)
+    c_in = shapes[0][1]
+    group = max(1, cp.group)
+    specs = [("weight", (cp.num_output, c_in // group, kh, kw),
+              _filler(cp.weight_filler if cp.has("weight_filler")
+                      else None))]
+    if cp.bias_term:
+        specs.append(("bias", (cp.num_output,),
+                      _filler(cp.bias_filler if cp.has("bias_filler")
+                              else None)))
+    return specs
+
+
+@register("Convolution", params=_conv_params)
+def _conv(ctx, lp, params, bottoms):
+    cp = lp.convolution_param
+    _, stride, pad, dilation = _conv_geometry(cp)
+    out = F.conv2d(bottoms[0], params[0], stride=stride, padding=pad,
+                   dilation=dilation, groups=max(1, cp.group))
+    if cp.bias_term and ctx.layer_name not in ctx.defer_bias:
+        # defer_bias: the bias add (and relu+LRN) runs in the consuming
+        # LRN layer's fused epilogue (net.py stem peephole)
+        out = out + params[1].reshape(1, -1, 1, 1)
+    return [out]
+
+
+def _ip_params(lp, shapes):
+    ip = lp.inner_product_param
+    k = math.prod(shapes[0][ip.axis:])
+    shape = (k, ip.num_output) if ip.transpose else (ip.num_output, k)
+    specs = [("weight", shape,
+              _filler(ip.weight_filler if ip.has("weight_filler")
+                      else None))]
+    if ip.bias_term:
+        specs.append(("bias", (ip.num_output,),
+                      _filler(ip.bias_filler if ip.has("bias_filler")
+                              else None)))
+    return specs
+
+
+@register("InnerProduct", params=_ip_params)
+def _inner_product(ctx, lp, params, bottoms):
+    ip = lp.inner_product_param
+    x = bottoms[0]
+    lead = tuple(x.shape[:ip.axis])
+    x2 = x.reshape(math.prod(lead), -1)
+    w = params[0]
+    if w.dtype == torch.int8:
+        # quantized-RESIDENT serving weight (serving/quant.py): quantized
+        # once at publish, consumed by the int8 kernel with its scale
+        y = K.int8_inner_product(x2, w, transpose=bool(ip.transpose),
+                                 w_scale=ctx.qscale("weight"))
+    else:
+        y = torch.matmul(x2, w) if ip.transpose else torch.matmul(x2, w.T)
+    if ip.bias_term:
+        y = y + params[1]
+    return [y.reshape(lead + (ip.num_output,))]
+
+
+# ---------------------------------------------------------------------------
+# Pooling (Caffe ceil-mode + divisor semantics)
+# ---------------------------------------------------------------------------
+
+def pool_output_dim(size: int, kernel: int, stride: int, pad: int) -> int:
+    out = int(math.ceil((size + 2 * pad - kernel) / stride)) + 1
+    if pad > 0 and (out - 1) * stride >= size + pad:
+        out -= 1
+    return out
+
+
+def _ave_divisor(size: int, kernel: int, stride: int, pad: int,
+                 out: int) -> List[float]:
+    """Per-output-position count of window elements inside the
+    symmetric padded region [0, size + 2*pad) (Caffe's AVE divisor)."""
+    return [float(min(o * stride + kernel, size + 2 * pad) - o * stride)
+            for o in range(out)]
+
+
+@register("Pooling")
+def _pooling(ctx, lp, params, bottoms):
+    pp = lp.pooling_param
+    x = bottoms[0]
+    n, c, h, w = x.shape
+    if pp.global_pooling:
+        kh, kw = h, w
+        sh = sw = 1
+        ph = pw = 0
+    else:
+        for a, b in (("kernel_h", "kernel_w"), ("stride_h", "stride_w"),
+                     ("pad_h", "pad_w")):
+            if pp.has(a) != pp.has(b):
+                raise ValueError(f"pooling_param: {a} and {b} must be set "
+                                 "together")
+        kh = int(pp.kernel_h) if pp.has("kernel_h") else int(pp.kernel_size)
+        kw = int(pp.kernel_w) if pp.has("kernel_w") else int(pp.kernel_size)
+        if kh == 0 or kw == 0:
+            raise ValueError("pooling_param needs kernel_size or "
+                             "kernel_h/kernel_w")
+        sh = int(pp.stride_h) if pp.has("stride_h") else int(pp.stride)
+        sw = int(pp.stride_w) if pp.has("stride_w") else int(pp.stride)
+        ph = int(pp.pad_h) if pp.has("pad_h") else int(pp.pad)
+        pw = int(pp.pad_w) if pp.has("pad_w") else int(pp.pad)
+    oh = pool_output_dim(h, kh, sh, ph)
+    ow = pool_output_dim(w, kw, sw, pw)
+    # explicit asymmetric padding so the ceil-mode tail window exists
+    eh = max(0, (oh - 1) * sh + kh - h - ph)
+    ew = max(0, (ow - 1) * sw + kw - w - pw)
+    if pp.pool == PoolMethod.MAX:
+        xp = F.pad(x, (pw, ew, ph, eh), value=-math.inf)
+        out = F.max_pool2d(xp, (kh, kw), (sh, sw))
+    elif pp.pool == PoolMethod.AVE:
+        xp = F.pad(x, (pw, ew, ph, eh))
+        s = F.avg_pool2d(xp, (kh, kw), (sh, sw), divisor_override=1)
+        div_h = torch.tensor(_ave_divisor(h, kh, sh, ph, oh),
+                             dtype=x.dtype, device=x.device)
+        div_w = torch.tensor(_ave_divisor(w, kw, sw, pw, ow),
+                             dtype=x.dtype, device=x.device)
+        out = s / (div_h.reshape(1, 1, -1, 1) * div_w.reshape(1, 1, 1, -1))
+    else:
+        raise NotImplementedError(
+            f"pooling method {pp.pool} not in the PyTorch port")
+    return [out]
+
+
+# ---------------------------------------------------------------------------
+# elementwise
+# ---------------------------------------------------------------------------
+
+@register("ReLU")
+def _relu(ctx, lp, params, bottoms):
+    slope = lp.relu_param.negative_slope
+    x = bottoms[0]
+    if slope:
+        return [torch.where(x > 0, x, slope * x)]
+    return [torch.relu(x)]
+
+
+@register("Dropout")
+def _dropout(ctx, lp, params, bottoms):
+    # inference semantics (Caffe's TEST phase): the identity
+    return [bottoms[0]]
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+@register("LRN")
+def _lrn(ctx, lp, params, bottoms):
+    p = lp.lrn_param
+    x = bottoms[0]
+    n = int(p.local_size)
+    alpha, beta, k = p.alpha, p.beta, p.k
+    if lp.name in ctx.bias_lrn:
+        # conv-stem epilogue (net.py bias peephole): the producing conv's
+        # bias arrives as params[0]; bias + relu + LRN in one kernel (K3)
+        return [K.bias_relu_lrn_across_channels(
+            x.contiguous(), params[0], n, alpha, beta, k)]
+    if p.norm_region == NormRegion.ACROSS_CHANNELS:
+        # K1; net.py's ReLU->LRN peephole routed the pre-activation here
+        return [K.lrn_across_channels(x.contiguous(), n, alpha, beta, k,
+                                      lp.name in ctx.fused_relu_lrn)]
+    # WITHIN_CHANNEL: spatial window average of squares (plain)
+    pad = n // 2
+    s = F.avg_pool2d(F.pad(x * x, (pad, pad, pad, pad)), (n, n), (1, 1),
+                     divisor_override=1)
+    scale = k + (alpha / (n * n)) * s
+    return [x / torch.pow(scale, beta)]
+
+
+# ---------------------------------------------------------------------------
+# shape ops
+# ---------------------------------------------------------------------------
+
+@register("Flatten")
+def _flatten(ctx, lp, params, bottoms):
+    p = lp.flatten_param
+    x = bottoms[0]
+    axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+    end = p.end_axis if p.end_axis >= 0 else x.dim() + p.end_axis
+    return [x.reshape(tuple(x.shape[:axis]) + (-1,)
+                      + tuple(x.shape[end + 1:]))]
+
+
+@register("Split")
+def _split(ctx, lp, params, bottoms):
+    return [bottoms[0] for _ in lp.top]
+
+
+# ---------------------------------------------------------------------------
+# softmax / loss / metrics
+# ---------------------------------------------------------------------------
+
+@register("Softmax")
+def _softmax(ctx, lp, params, bottoms):
+    return [torch.softmax(bottoms[0], dim=lp.softmax_param.axis)]
+
+
+def _loss_normalizer(norm_mode, valid_count, batch, full):
+    if norm_mode == NormalizationMode.FULL:
+        return full
+    if norm_mode == NormalizationMode.BATCH_SIZE:
+        return batch
+    if norm_mode == NormalizationMode.NONE:
+        return 1.0
+    return torch.clamp_min(valid_count, 1.0) \
+        if torch.is_tensor(valid_count) else max(valid_count, 1.0)
+
+
+@register("SoftmaxWithLoss")
+def _softmax_loss(ctx, lp, params, bottoms):
+    axis = lp.softmax_param.axis if lp.has("softmax_param") else 1
+    scores, labels = bottoms[0], bottoms[1]
+    logp = torch.log_softmax(scores, dim=axis)
+    outer = tuple(scores.shape[:axis])
+    inner = tuple(scores.shape[axis + 1:])
+    lbl = labels.to(torch.int64).reshape(outer + inner)
+    lp_msg = lp.loss_param
+    has_ignore = lp.has("loss_param") and lp_msg.has("ignore_label")
+    ignore = lp_msg.ignore_label if has_ignore else -1
+    safe_lbl = torch.where(lbl == ignore, torch.zeros_like(lbl), lbl) \
+        if has_ignore else lbl
+    nll = -torch.gather(logp, axis, safe_lbl.unsqueeze(axis)).squeeze(axis)
+    if has_ignore:
+        mask = (lbl != ignore).to(scores.dtype)
+        nll = nll * mask
+        valid = torch.sum(mask)
+    else:
+        valid = float(math.prod(outer + inner))
+    # legacy loss_param.normalize: true -> VALID, false -> BATCH_SIZE
+    if lp.has("loss_param") and not lp_msg.has("normalization") \
+            and lp_msg.has("normalize"):
+        norm_mode = (NormalizationMode.VALID if lp_msg.normalize
+                     else NormalizationMode.BATCH_SIZE)
+    elif lp.has("loss_param"):
+        norm_mode = lp_msg.normalization
+    else:
+        norm_mode = NormalizationMode.VALID
+    denom = _loss_normalizer(norm_mode, valid, scores.shape[0],
+                             math.prod(outer + inner))
+    return [torch.sum(nll) / denom]
+
+
+@register("Accuracy")
+def _accuracy(ctx, lp, params, bottoms):
+    p = lp.accuracy_param
+    axis = p.axis
+    k = int(p.top_k)
+    scores, labels = bottoms[0], bottoms[1]
+    outer = tuple(scores.shape[:axis])
+    inner = tuple(scores.shape[axis + 1:])
+    lbl = labels.to(torch.int64).reshape(outer + inner)
+    has_ignore = lp.has("accuracy_param") and p.has("ignore_label")
+    moved = torch.movedim(scores, axis, -1)
+    if k == 1:
+        correct = torch.argmax(moved, dim=-1) == lbl
+    else:
+        topi = torch.topk(moved, k, dim=-1).indices
+        correct = torch.any(topi == lbl.unsqueeze(-1), dim=-1)
+    correct = correct.to(scores.dtype)
+    if has_ignore:
+        mask = (lbl != p.ignore_label).to(scores.dtype)
+        return [torch.sum(correct * mask)
+                / torch.clamp_min(torch.sum(mask), 1.0)]
+    return [torch.mean(correct)]

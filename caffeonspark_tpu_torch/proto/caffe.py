@@ -1,0 +1,764 @@
+"""Caffe message schema (reconstructed, plus CaffeOnSpark fork extensions).
+
+The reference's schema lives in its absent `caffe-public` submodule
+(`caffe.proto`); field numbers here follow upstream BVLC Caffe so that
+binary `.caffemodel` / `.binaryproto` / `.solverstate` files and LMDB
+`Datum` records interoperate.  CoS fork extensions (`source_class`,
+`cos_data_param`, `MemoryDataParameter.{source,dataframe_format,
+dataframe_column_select,image_encoded,share_in_parallel}`) have no public
+numbers — they are visible only at call sites (SURVEY.md §2.9, e.g.
+`DataSource.scala:139`, `ImageDataFrame.scala:35-45`) — so they are
+assigned numbers in unclaimed ranges; only their *text*-format names
+matter for config compatibility.
+"""
+
+from __future__ import annotations
+
+from .descriptor import (BOOL, BYTES, DOUBLE, ENUM, FLOAT, INT32, INT64,
+                         MESSAGE, STRING, UINT32, Enum, Field, Message)
+
+# ---------------------------------------------------------------------------
+# enums
+# ---------------------------------------------------------------------------
+
+Phase = Enum("Phase", TRAIN=0, TEST=1)
+PoolMethod = Enum("PoolMethod", MAX=0, AVE=1, STOCHASTIC=2)
+NormRegion = Enum("NormRegion", ACROSS_CHANNELS=0, WITHIN_CHANNEL=1)
+EltwiseOp = Enum("EltwiseOp", PROD=0, SUM=1, MAX=2)
+SnapshotFormat = Enum("SnapshotFormat", HDF5=0, BINARYPROTO=1)
+SolverMode = Enum("SolverMode", CPU=0, GPU=1, TPU=2)
+SolverType = Enum("SolverType", SGD=0, NESTEROV=1, ADAGRAD=2, RMSPROP=3,
+                  ADADELTA=4, ADAM=5)
+VarianceNorm = Enum("VarianceNorm", FAN_IN=0, FAN_OUT=1, AVERAGE=2)
+DBBackend = Enum("DBBackend", LEVELDB=0, LMDB=1)
+NormalizationMode = Enum("NormalizationMode", FULL=0, VALID=1, BATCH_SIZE=2,
+                         NONE=3)
+# CoS DataFrame top types (DataFrameSource.scala Top class, SURVEY §2.3)
+TopBlobType = Enum("TopBlobType", STRING=0, INT=1, FLOAT=2, INT_ARRAY=3,
+                   FLOAT_ARRAY=4, RAW_IMAGE=5, ENCODED_IMAGE=6,
+                   ENCODED_IMAGE_WITH_DIM=7)
+
+
+# ---------------------------------------------------------------------------
+# basic blobs / data records
+# ---------------------------------------------------------------------------
+
+class BlobShape(Message):
+    FIELDS = [Field(1, "dim", INT64, repeated=True, packed=True)]
+
+
+class BlobProto(Message):
+    FIELDS = [
+        Field(7, "shape", MESSAGE, message=BlobShape),
+        Field(5, "data", FLOAT, repeated=True, packed=True),
+        Field(6, "diff", FLOAT, repeated=True, packed=True),
+        Field(8, "double_data", DOUBLE, repeated=True, packed=True),
+        Field(9, "double_diff", DOUBLE, repeated=True, packed=True),
+        Field(1, "num", INT32),
+        Field(2, "channels", INT32),
+        Field(3, "height", INT32),
+        Field(4, "width", INT32),
+    ]
+
+
+class BlobProtoVector(Message):
+    FIELDS = [Field(1, "blobs", MESSAGE, message=BlobProto, repeated=True)]
+
+
+class Datum(Message):
+    """One LMDB record (image bytes CHW u8 or float_data, + label)."""
+    FIELDS = [
+        Field(1, "channels", INT32),
+        Field(2, "height", INT32),
+        Field(3, "width", INT32),
+        Field(4, "data", BYTES),
+        Field(5, "label", INT32),
+        Field(6, "float_data", FLOAT, repeated=True),
+        Field(7, "encoded", BOOL, default=False),
+    ]
+
+
+class FillerParameter(Message):
+    FIELDS = [
+        Field(1, "type", STRING, default="constant"),
+        Field(2, "value", FLOAT, default=0.0),
+        Field(3, "min", FLOAT, default=0.0),
+        Field(4, "max", FLOAT, default=1.0),
+        Field(5, "mean", FLOAT, default=0.0),
+        Field(6, "std", FLOAT, default=1.0),
+        Field(7, "sparse", INT32, default=-1),
+        Field(8, "variance_norm", ENUM, enum=VarianceNorm, default=0),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# net state / rules / param specs
+# ---------------------------------------------------------------------------
+
+class NetState(Message):
+    FIELDS = [
+        Field(1, "phase", ENUM, enum=Phase, default=Phase.TEST),
+        Field(2, "level", INT32, default=0),
+        Field(3, "stage", STRING, repeated=True),
+    ]
+
+
+class NetStateRule(Message):
+    FIELDS = [
+        Field(1, "phase", ENUM, enum=Phase),
+        Field(2, "min_level", INT32),
+        Field(3, "max_level", INT32),
+        Field(4, "stage", STRING, repeated=True),
+        Field(5, "not_stage", STRING, repeated=True),
+    ]
+
+
+class ParamSpec(Message):
+    FIELDS = [
+        Field(1, "name", STRING),
+        Field(2, "share_mode", ENUM,
+              enum=Enum("DimCheckMode", STRICT=0, PERMISSIVE=1)),
+        Field(3, "lr_mult", FLOAT, default=1.0),
+        Field(4, "decay_mult", FLOAT, default=1.0),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# layer-specific parameter messages
+# ---------------------------------------------------------------------------
+
+class TransformationParameter(Message):
+    FIELDS = [
+        Field(1, "scale", FLOAT, default=1.0),
+        Field(2, "mirror", BOOL, default=False),
+        Field(3, "crop_size", UINT32, default=0),
+        Field(4, "mean_file", STRING),
+        Field(5, "mean_value", FLOAT, repeated=True),
+        Field(6, "force_color", BOOL, default=False),
+        Field(7, "force_gray", BOOL, default=False),
+    ]
+
+
+class LossParameter(Message):
+    FIELDS = [
+        Field(1, "ignore_label", INT32, default=-1),
+        Field(3, "normalization", ENUM, enum=NormalizationMode, default=1),
+        Field(2, "normalize", BOOL),
+    ]
+
+
+class AccuracyParameter(Message):
+    FIELDS = [
+        Field(1, "top_k", UINT32, default=1),
+        Field(2, "axis", INT32, default=1),
+        Field(3, "ignore_label", INT32, default=-1),
+    ]
+
+
+class ArgMaxParameter(Message):
+    FIELDS = [
+        Field(1, "out_max_val", BOOL, default=False),
+        Field(2, "top_k", UINT32, default=1),
+        Field(3, "axis", INT32),
+    ]
+
+
+class ConcatParameter(Message):
+    FIELDS = [
+        Field(2, "axis", INT32, default=1),
+        Field(1, "concat_dim", UINT32, default=1),
+    ]
+
+
+class ConvolutionParameter(Message):
+    FIELDS = [
+        Field(1, "num_output", UINT32),
+        Field(2, "bias_term", BOOL, default=True),
+        Field(3, "pad", UINT32, repeated=True),
+        Field(4, "kernel_size", UINT32, repeated=True),
+        Field(6, "stride", UINT32, repeated=True),
+        Field(18, "dilation", UINT32, repeated=True),
+        Field(9, "pad_h", UINT32, default=0),
+        Field(10, "pad_w", UINT32, default=0),
+        Field(11, "kernel_h", UINT32),
+        Field(12, "kernel_w", UINT32),
+        Field(13, "stride_h", UINT32),
+        Field(14, "stride_w", UINT32),
+        Field(5, "group", UINT32, default=1),
+        Field(7, "weight_filler", MESSAGE, message=FillerParameter),
+        Field(8, "bias_filler", MESSAGE, message=FillerParameter),
+        Field(15, "engine", ENUM,
+              enum=Enum("Engine", DEFAULT=0, CAFFE=1, CUDNN=2)),
+        Field(16, "axis", INT32, default=1),
+        Field(17, "force_nd_im2col", BOOL, default=False),
+    ]
+
+
+class CropParameter(Message):
+    FIELDS = [
+        Field(1, "axis", INT32, default=2),
+        Field(2, "offset", UINT32, repeated=True),
+    ]
+
+
+class DataParameter(Message):
+    FIELDS = [
+        Field(1, "source", STRING),
+        Field(4, "batch_size", UINT32),
+        Field(7, "rand_skip", UINT32, default=0),
+        Field(8, "backend", ENUM, enum=DBBackend, default=0),
+        Field(2, "scale", FLOAT, default=1.0),
+        Field(3, "mean_file", STRING),
+        Field(5, "crop_size", UINT32, default=0),
+        Field(6, "mirror", BOOL, default=False),
+        Field(9, "force_encoded_color", BOOL, default=False),
+        Field(10, "prefetch", UINT32, default=4),
+    ]
+
+
+class DropoutParameter(Message):
+    FIELDS = [Field(1, "dropout_ratio", FLOAT, default=0.5)]
+
+
+class DummyDataParameter(Message):
+    FIELDS = [
+        Field(1, "data_filler", MESSAGE, message=FillerParameter,
+              repeated=True),
+        Field(6, "shape", MESSAGE, message=BlobShape, repeated=True),
+        Field(2, "num", UINT32, repeated=True),
+        Field(3, "channels", UINT32, repeated=True),
+        Field(4, "height", UINT32, repeated=True),
+        Field(5, "width", UINT32, repeated=True),
+    ]
+
+
+class EltwiseParameter(Message):
+    FIELDS = [
+        Field(1, "operation", ENUM, enum=EltwiseOp, default=EltwiseOp.SUM),
+        Field(2, "coeff", FLOAT, repeated=True),
+        Field(3, "stable_prod_grad", BOOL, default=True),
+    ]
+
+
+class ELUParameter(Message):
+    FIELDS = [Field(1, "alpha", FLOAT, default=1.0)]
+
+
+class EmbedParameter(Message):
+    FIELDS = [
+        Field(1, "num_output", UINT32),
+        Field(2, "input_dim", UINT32),
+        Field(3, "bias_term", BOOL, default=True),
+        Field(4, "weight_filler", MESSAGE, message=FillerParameter),
+        Field(5, "bias_filler", MESSAGE, message=FillerParameter),
+    ]
+
+
+class ExpParameter(Message):
+    FIELDS = [
+        Field(1, "base", FLOAT, default=-1.0),
+        Field(2, "scale", FLOAT, default=1.0),
+        Field(3, "shift", FLOAT, default=0.0),
+    ]
+
+
+class FlattenParameter(Message):
+    FIELDS = [
+        Field(1, "axis", INT32, default=1),
+        Field(2, "end_axis", INT32, default=-1),
+    ]
+
+
+class HDF5DataParameter(Message):
+    FIELDS = [
+        Field(1, "source", STRING),
+        Field(2, "batch_size", UINT32),
+        Field(3, "shuffle", BOOL, default=False),
+    ]
+
+
+class HDF5OutputParameter(Message):
+    FIELDS = [Field(1, "file_name", STRING)]
+
+
+class HingeLossParameter(Message):
+    FIELDS = [Field(1, "norm", ENUM, enum=Enum("Norm", L1=1, L2=2),
+                    default=1)]
+
+
+class ImageDataParameter(Message):
+    FIELDS = [
+        Field(1, "source", STRING),
+        Field(4, "batch_size", UINT32, default=1),
+        Field(7, "rand_skip", UINT32, default=0),
+        Field(8, "shuffle", BOOL, default=False),
+        Field(9, "new_height", UINT32, default=0),
+        Field(10, "new_width", UINT32, default=0),
+        Field(11, "is_color", BOOL, default=True),
+        Field(2, "scale", FLOAT, default=1.0),
+        Field(3, "mean_file", STRING),
+        Field(5, "crop_size", UINT32, default=0),
+        Field(6, "mirror", BOOL, default=False),
+        Field(12, "root_folder", STRING),
+    ]
+
+
+class InfogainLossParameter(Message):
+    FIELDS = [Field(1, "source", STRING), Field(2, "axis", INT32, default=1)]
+
+
+class InnerProductParameter(Message):
+    FIELDS = [
+        Field(1, "num_output", UINT32),
+        Field(2, "bias_term", BOOL, default=True),
+        Field(3, "weight_filler", MESSAGE, message=FillerParameter),
+        Field(4, "bias_filler", MESSAGE, message=FillerParameter),
+        Field(5, "axis", INT32, default=1),
+        Field(6, "transpose", BOOL, default=False),
+    ]
+
+
+class InputParameter(Message):
+    FIELDS = [Field(1, "shape", MESSAGE, message=BlobShape, repeated=True)]
+
+
+class LogParameter(Message):
+    FIELDS = [
+        Field(1, "base", FLOAT, default=-1.0),
+        Field(2, "scale", FLOAT, default=1.0),
+        Field(3, "shift", FLOAT, default=0.0),
+    ]
+
+
+class LRNParameter(Message):
+    FIELDS = [
+        Field(1, "local_size", UINT32, default=5),
+        Field(2, "alpha", FLOAT, default=1.0),
+        Field(3, "beta", FLOAT, default=0.75),
+        Field(4, "norm_region", ENUM, enum=NormRegion, default=0),
+        Field(5, "k", FLOAT, default=1.0),
+    ]
+
+
+class MemoryDataParameter(Message):
+    # fields 1-4 are upstream; 100+ are CoS fork extensions
+    # (ImageDataSource.scala:49-60, ImageDataFrame.scala:35-45,
+    #  CaffeNet.cpp:183-188)
+    FIELDS = [
+        Field(1, "batch_size", UINT32),
+        Field(2, "channels", UINT32),
+        Field(3, "height", UINT32),
+        Field(4, "width", UINT32),
+        Field(100, "source", STRING),
+        Field(101, "dataframe_format", STRING, default="parquet"),
+        Field(102, "dataframe_column_select", STRING, repeated=True),
+        Field(103, "image_encoded", BOOL, default=True),
+        Field(104, "share_in_parallel", BOOL, default=False),
+    ]
+
+
+class ContrastiveLossParameter(Message):
+    FIELDS = [
+        Field(1, "margin", FLOAT, default=1.0),
+        # legacy: penalize (margin - d^2) instead of (margin - d)^2
+        Field(2, "legacy_version", BOOL, default=False),
+    ]
+
+
+class MVNParameter(Message):
+    FIELDS = [
+        Field(1, "normalize_variance", BOOL, default=True),
+        Field(2, "across_channels", BOOL, default=False),
+        Field(3, "eps", FLOAT, default=1e-9),
+    ]
+
+
+class ParameterParameter(Message):
+    FIELDS = [Field(1, "shape", MESSAGE, message=BlobShape)]
+
+
+class PoolingParameter(Message):
+    FIELDS = [
+        Field(1, "pool", ENUM, enum=PoolMethod, default=PoolMethod.MAX),
+        Field(4, "pad", UINT32, default=0),
+        Field(9, "pad_h", UINT32, default=0),
+        Field(10, "pad_w", UINT32, default=0),
+        Field(2, "kernel_size", UINT32),
+        Field(5, "kernel_h", UINT32),
+        Field(6, "kernel_w", UINT32),
+        Field(3, "stride", UINT32, default=1),
+        Field(7, "stride_h", UINT32),
+        Field(8, "stride_w", UINT32),
+        Field(12, "global_pooling", BOOL, default=False),
+        Field(13, "round_mode", ENUM,
+              enum=Enum("RoundMode", CEIL=0, FLOOR=1), default=0),
+    ]
+
+
+class PowerParameter(Message):
+    FIELDS = [
+        Field(1, "power", FLOAT, default=1.0),
+        Field(2, "scale", FLOAT, default=1.0),
+        Field(3, "shift", FLOAT, default=0.0),
+    ]
+
+
+class SPPParameter(Message):
+    FIELDS = [
+        Field(1, "pyramid_height", UINT32),
+        Field(2, "pool", ENUM, enum=PoolMethod, default=PoolMethod.MAX),
+    ]
+
+
+class PReLUParameter(Message):
+    FIELDS = [
+        Field(1, "filler", MESSAGE, message=FillerParameter),
+        Field(2, "channel_shared", BOOL, default=False),
+    ]
+
+
+class PythonParameter(Message):
+    FIELDS = [
+        Field(1, "module", STRING),
+        Field(2, "layer", STRING),
+        Field(3, "param_str", STRING),
+        Field(4, "share_in_parallel", BOOL, default=False),
+    ]
+
+
+class RecurrentParameter(Message):
+    FIELDS = [
+        Field(1, "num_output", UINT32, default=0),
+        Field(2, "weight_filler", MESSAGE, message=FillerParameter),
+        Field(3, "bias_filler", MESSAGE, message=FillerParameter),
+        Field(4, "debug_info", BOOL, default=False),
+        Field(5, "expose_hidden", BOOL, default=False),
+    ]
+
+
+class ReductionParameter(Message):
+    FIELDS = [
+        Field(1, "operation", ENUM,
+              enum=Enum("ReductionOp", SUM=1, ASUM=2, SUMSQ=3, MEAN=4),
+              default=1),
+        Field(2, "axis", INT32, default=0),
+        Field(3, "coeff", FLOAT, default=1.0),
+    ]
+
+
+class ReLUParameter(Message):
+    FIELDS = [Field(1, "negative_slope", FLOAT, default=0.0)]
+
+
+class ReshapeParameter(Message):
+    FIELDS = [
+        Field(1, "shape", MESSAGE, message=BlobShape),
+        Field(2, "axis", INT32, default=0),
+        Field(3, "num_axes", INT32, default=-1),
+    ]
+
+
+class ScaleParameter(Message):
+    FIELDS = [
+        Field(1, "axis", INT32, default=1),
+        Field(2, "num_axes", INT32, default=1),
+        Field(3, "filler", MESSAGE, message=FillerParameter),
+        Field(4, "bias_term", BOOL, default=False),
+        Field(5, "bias_filler", MESSAGE, message=FillerParameter),
+    ]
+
+
+class BiasParameter(Message):
+    FIELDS = [
+        Field(1, "axis", INT32, default=1),
+        Field(2, "num_axes", INT32, default=1),
+        Field(3, "filler", MESSAGE, message=FillerParameter),
+    ]
+
+
+class BatchNormParameter(Message):
+    FIELDS = [
+        Field(1, "use_global_stats", BOOL),
+        Field(2, "moving_average_fraction", FLOAT, default=0.999),
+        Field(3, "eps", FLOAT, default=1e-5),
+    ]
+
+
+class SigmoidParameter(Message):
+    FIELDS = []
+
+
+class SliceParameter(Message):
+    FIELDS = [
+        Field(3, "axis", INT32, default=1),
+        Field(2, "slice_point", UINT32, repeated=True),
+        Field(1, "slice_dim", UINT32, default=1),
+    ]
+
+
+class SoftmaxParameter(Message):
+    FIELDS = [Field(2, "axis", INT32, default=1)]
+
+
+class TanHParameter(Message):
+    FIELDS = []
+
+
+class ThresholdParameter(Message):
+    FIELDS = [Field(1, "threshold", FLOAT, default=0.0)]
+
+
+class TileParameter(Message):
+    FIELDS = [Field(1, "axis", INT32, default=1), Field(2, "tiles", INT32)]
+
+
+# ---------------------------------------------------------------------------
+# CoS fork: CoSData layer parameters (SURVEY §2.9, lrcn_cos.prototxt)
+# ---------------------------------------------------------------------------
+
+class TopBlob(Message):
+    """One typed top of a CoSData layer (DataFrameSource.scala Top class)."""
+    FIELDS = [
+        Field(1, "name", STRING),
+        Field(2, "type", ENUM, enum=TopBlobType, default=TopBlobType.FLOAT),
+        Field(3, "channels", UINT32, default=1),
+        Field(4, "height", UINT32, default=1),
+        Field(5, "width", UINT32, default=1),
+        Field(6, "out_channels", UINT32, default=0),
+        Field(7, "out_height", UINT32, default=0),
+        Field(8, "out_width", UINT32, default=0),
+        Field(9, "sample_num_axes", INT32, default=3),
+        Field(10, "transpose", BOOL, default=False),
+        Field(11, "transform_param", MESSAGE,
+              message=TransformationParameter),
+    ]
+
+
+class CoSDataParameter(Message):
+    FIELDS = [
+        Field(1, "batch_size", UINT32, default=1),
+        Field(2, "source", STRING),
+        Field(3, "dataframe_format", STRING, default="parquet"),
+        Field(4, "top", MESSAGE, message=TopBlob, repeated=True),
+    ]
+
+
+class MoEParameter(Message):
+    """Extension (no reference equivalent): top-k routed
+    mixture-of-experts FFN with fixed expert capacity; the expert
+    dimension shards over the ep mesh axis.  A second top, when
+    declared, emits the load-balancing auxiliary loss (weight it via
+    the layer's second loss_weight)."""
+    FIELDS = [
+        Field(1, "num_experts", UINT32, default=4),
+        Field(2, "hidden_dim", UINT32, default=256),
+        Field(3, "weight_filler", MESSAGE, message=FillerParameter),
+        Field(4, "top_k", UINT32, default=1),
+        Field(5, "capacity_factor", FLOAT, default=1.25),
+    ]
+
+
+class AttentionParameter(Message):
+    """Extension (no reference equivalent): multi-head self-attention for
+    long-context models.  The layer computes fused O(T²) attention that
+    GSPMD partitions over whatever mesh axes the activations carry; for
+    explicit O(T/S)-memory ring execution over the sp axis use
+    `parallel.sp.ring_attention` directly."""
+    FIELDS = [
+        Field(1, "num_heads", UINT32, default=1),
+        Field(2, "head_dim", UINT32, default=64),
+        Field(3, "causal", BOOL, default=False),
+        Field(4, "weight_filler", MESSAGE, message=FillerParameter),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# LayerParameter / NetParameter / SolverParameter
+# ---------------------------------------------------------------------------
+
+class LayerParameter(Message):
+    FIELDS = [
+        Field(1, "name", STRING),
+        Field(2, "type", STRING),
+        Field(3, "bottom", STRING, repeated=True),
+        Field(4, "top", STRING, repeated=True),
+        Field(10, "phase", ENUM, enum=Phase),
+        Field(5, "loss_weight", FLOAT, repeated=True),
+        Field(6, "param", MESSAGE, message=ParamSpec, repeated=True),
+        Field(7, "blobs", MESSAGE, message=BlobProto, repeated=True),
+        Field(11, "propagate_down", BOOL, repeated=True),
+        Field(8, "include", MESSAGE, message=NetStateRule, repeated=True),
+        Field(9, "exclude", MESSAGE, message=NetStateRule, repeated=True),
+        # CoS fork extensions (numbers fork-private; text names are the API)
+        Field(147, "source_class", STRING),
+        Field(148, "cos_data_param", MESSAGE, message=CoSDataParameter),
+        Field(149, "attention_param", MESSAGE, message=AttentionParameter),
+        Field(150, "moe_param", MESSAGE, message=MoEParameter),
+        # layer-specific params (upstream numbers)
+        Field(100, "transform_param", MESSAGE,
+              message=TransformationParameter),
+        Field(101, "loss_param", MESSAGE, message=LossParameter),
+        Field(102, "accuracy_param", MESSAGE, message=AccuracyParameter),
+        Field(103, "argmax_param", MESSAGE, message=ArgMaxParameter),
+        Field(139, "batch_norm_param", MESSAGE, message=BatchNormParameter),
+        Field(141, "bias_param", MESSAGE, message=BiasParameter),
+        Field(104, "concat_param", MESSAGE, message=ConcatParameter),
+        Field(105, "contrastive_loss_param", MESSAGE,
+              message=ContrastiveLossParameter),
+        Field(132, "spp_param", MESSAGE, message=SPPParameter),
+        Field(106, "convolution_param", MESSAGE,
+              message=ConvolutionParameter),
+        Field(144, "crop_param", MESSAGE, message=CropParameter),
+        Field(107, "data_param", MESSAGE, message=DataParameter),
+        Field(108, "dropout_param", MESSAGE, message=DropoutParameter),
+        Field(109, "dummy_data_param", MESSAGE, message=DummyDataParameter),
+        Field(110, "eltwise_param", MESSAGE, message=EltwiseParameter),
+        Field(140, "elu_param", MESSAGE, message=ELUParameter),
+        Field(137, "embed_param", MESSAGE, message=EmbedParameter),
+        Field(111, "exp_param", MESSAGE, message=ExpParameter),
+        Field(135, "flatten_param", MESSAGE, message=FlattenParameter),
+        Field(112, "hdf5_data_param", MESSAGE, message=HDF5DataParameter),
+        Field(113, "hdf5_output_param", MESSAGE,
+              message=HDF5OutputParameter),
+        Field(114, "hinge_loss_param", MESSAGE, message=HingeLossParameter),
+        Field(115, "image_data_param", MESSAGE, message=ImageDataParameter),
+        Field(116, "infogain_loss_param", MESSAGE,
+              message=InfogainLossParameter),
+        Field(117, "inner_product_param", MESSAGE,
+              message=InnerProductParameter),
+        Field(143, "input_param", MESSAGE, message=InputParameter),
+        Field(134, "log_param", MESSAGE, message=LogParameter),
+        Field(118, "lrn_param", MESSAGE, message=LRNParameter),
+        Field(119, "memory_data_param", MESSAGE,
+              message=MemoryDataParameter),
+        Field(120, "mvn_param", MESSAGE, message=MVNParameter),
+        Field(145, "parameter_param", MESSAGE, message=ParameterParameter),
+        Field(121, "pooling_param", MESSAGE, message=PoolingParameter),
+        Field(122, "power_param", MESSAGE, message=PowerParameter),
+        Field(131, "prelu_param", MESSAGE, message=PReLUParameter),
+        Field(130, "python_param", MESSAGE, message=PythonParameter),
+        Field(146, "recurrent_param", MESSAGE, message=RecurrentParameter),
+        Field(136, "reduction_param", MESSAGE, message=ReductionParameter),
+        Field(123, "relu_param", MESSAGE, message=ReLUParameter),
+        Field(133, "reshape_param", MESSAGE, message=ReshapeParameter),
+        Field(142, "scale_param", MESSAGE, message=ScaleParameter),
+        Field(124, "sigmoid_param", MESSAGE, message=SigmoidParameter),
+        Field(126, "slice_param", MESSAGE, message=SliceParameter),
+        Field(125, "softmax_param", MESSAGE, message=SoftmaxParameter),
+        Field(127, "tanh_param", MESSAGE, message=TanHParameter),
+        Field(128, "threshold_param", MESSAGE, message=ThresholdParameter),
+        Field(138, "tile_param", MESSAGE, message=TileParameter),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# V1 legacy layers (deprecated upstream format still used by many published
+# .caffemodel files, e.g. the original bvlc_reference_caffenet.caffemodel)
+# ---------------------------------------------------------------------------
+
+# V1LayerParameter.LayerType enum value → modern string type
+V1_LAYER_TYPES = {
+    35: "AbsVal", 1: "Accuracy", 30: "ArgMax", 2: "BNLL", 3: "Concat",
+    37: "ContrastiveLoss", 4: "Convolution", 5: "Data", 39: "Deconvolution",
+    6: "Dropout", 32: "DummyData", 7: "EuclideanLoss", 25: "Eltwise",
+    38: "Exp", 8: "Flatten", 9: "HDF5Data", 10: "HDF5Output", 28: "HingeLoss",
+    11: "Im2col", 12: "ImageData", 13: "InfogainLoss", 14: "InnerProduct",
+    15: "LRN", 29: "MemoryData", 16: "MultinomialLogisticLoss", 34: "MVN",
+    17: "Pooling", 26: "Power", 18: "ReLU", 19: "Sigmoid",
+    27: "SigmoidCrossEntropyLoss", 36: "Silence", 20: "Softmax",
+    21: "SoftmaxWithLoss", 22: "Split", 33: "Slice", 23: "TanH",
+    24: "WindowData", 31: "Threshold",
+}
+
+
+class V1LayerParameter(Message):
+    """Just enough of the deprecated layer message to import weights:
+    name/type/blobs (+ topology for completeness)."""
+    FIELDS = [
+        Field(2, "bottom", STRING, repeated=True),
+        Field(3, "top", STRING, repeated=True),
+        Field(4, "name", STRING),
+        Field(5, "type", ENUM,
+              enum=Enum("V1LayerType", NONE=0, **{f"T{k}": k
+                                                  for k in V1_LAYER_TYPES})),
+        Field(6, "blobs", MESSAGE, message=BlobProto, repeated=True),
+        Field(7, "blobs_lr", FLOAT, repeated=True),
+        Field(8, "weight_decay", FLOAT, repeated=True),
+    ]
+
+    def type_name(self) -> str:
+        return V1_LAYER_TYPES.get(int(self.type), f"V1:{int(self.type)}")
+
+
+class NetParameter(Message):
+    FIELDS = [
+        Field(1, "name", STRING),
+        Field(3, "input", STRING, repeated=True),
+        Field(8, "input_shape", MESSAGE, message=BlobShape, repeated=True),
+        Field(4, "input_dim", INT32, repeated=True),
+        Field(5, "force_backward", BOOL, default=False),
+        Field(6, "state", MESSAGE, message=NetState),
+        Field(7, "debug_info", BOOL, default=False),
+        Field(100, "layer", MESSAGE, message=LayerParameter, repeated=True),
+        Field(2, "layers", MESSAGE, message=V1LayerParameter,
+              repeated=True),
+    ]
+
+
+class SolverParameter(Message):
+    FIELDS = [
+        Field(24, "net", STRING),
+        Field(25, "net_param", MESSAGE, message=NetParameter),
+        Field(1, "train_net", STRING),
+        Field(2, "test_net", STRING, repeated=True),
+        Field(21, "train_net_param", MESSAGE, message=NetParameter),
+        Field(22, "test_net_param", MESSAGE, message=NetParameter,
+              repeated=True),
+        Field(26, "train_state", MESSAGE, message=NetState),
+        Field(27, "test_state", MESSAGE, message=NetState, repeated=True),
+        Field(3, "test_iter", INT32, repeated=True),
+        Field(4, "test_interval", INT32, default=0),
+        Field(19, "test_compute_loss", BOOL, default=False),
+        Field(32, "test_initialization", BOOL, default=True),
+        Field(5, "base_lr", FLOAT),
+        Field(6, "display", INT32),
+        Field(33, "average_loss", INT32, default=1),
+        Field(7, "max_iter", INT32),
+        Field(36, "iter_size", INT32, default=1),
+        Field(8, "lr_policy", STRING),
+        Field(9, "gamma", FLOAT),
+        Field(10, "power", FLOAT),
+        Field(11, "momentum", FLOAT),
+        Field(12, "weight_decay", FLOAT),
+        Field(29, "regularization_type", STRING, default="L2"),
+        Field(13, "stepsize", INT32),
+        Field(34, "stepvalue", INT32, repeated=True),
+        Field(35, "clip_gradients", FLOAT, default=-1.0),
+        Field(14, "snapshot", INT32, default=0),
+        Field(15, "snapshot_prefix", STRING),
+        Field(16, "snapshot_diff", BOOL, default=False),
+        Field(37, "snapshot_format", ENUM, enum=SnapshotFormat,
+              default=SnapshotFormat.BINARYPROTO),
+        Field(17, "solver_mode", ENUM, enum=SolverMode,
+              default=SolverMode.GPU),
+        Field(18, "device_id", INT32, default=0),
+        Field(20, "random_seed", INT64, default=-1),
+        Field(40, "type", STRING, default="SGD"),
+        Field(31, "delta", FLOAT, default=1e-8),
+        Field(39, "momentum2", FLOAT, default=0.999),
+        Field(38, "rms_decay", FLOAT, default=0.99),
+        Field(23, "debug_info", BOOL, default=False),
+        Field(28, "snapshot_after_train", BOOL, default=True),
+        Field(30, "solver_type", ENUM, enum=SolverType,
+              default=SolverType.SGD),
+    ]
+
+
+class SolverState(Message):
+    """Serialized optimizer state (.solverstate): iter + momentum history."""
+    FIELDS = [
+        Field(1, "iter", INT32),
+        Field(2, "learned_net", STRING),
+        Field(3, "history", MESSAGE, message=BlobProto, repeated=True),
+        Field(4, "current_step", INT32, default=0),
+    ]

@@ -1,0 +1,583 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (`caffeonspark_tpu_torch`).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py                 # the whole check
+    python3 chip_smoke.py --kernels-only  # build + kernel checks only
+
+It exits non-zero, printing no result, when no CUDA device is visible
+or the package is not importable, and when any phase fails.  Phases:
+
+  1. the card's name and power limit (nvidia-smi);
+  2. build every CUDA kernel from csrc/ (nvcc, all sources at once);
+  3. each kernel against its plain PyTorch version on the card, at the
+     serving path's B=64 shapes (f32, and bf16 for the LRN kernels),
+     with kernel / plain / library / bound times;
+  4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
+     written with the port's own save_caffemodel and seeded fillers;
+  5. that model served through the CLI's start_server (-serve path),
+     answering /v1/predict over HTTP; rows held against the same
+     forward with every kernel swapped for its plain version;
+  6. the same for AlexNet under COS_FUSE_BIAS_RELU_LRN=1 and
+     COS_SERVE_WEIGHT_DTYPE=int8;
+  7. after the counts are read, one B=64 flush per net under
+     torch.profiler: device busy time against the flush's wall time;
+  8. a `kernels` JSON line: launches counted on the serving path of
+     phases 5-6 (counts zeroed just before phase 5) and the numbers of
+     phase 3; then the card line again;
+  9. the device line, last: {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import urllib.request
+import zlib
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
+L2_BYTES = 50 * 2**20
+SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's ~1.98 GHz boost
+B = 64                         # the serving path's largest bucket
+
+LRN_RTOL, LRN_ATOL = 2e-5, 2e-6          # f32, as tests/test_pallas.py
+BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-6   # one bf16 ulp of the output
+ROWS_F32_TOL = 1e-4    # max |served - plain| / max |plain|, f32 net
+ROWS_INT8_TOL = 1e-2   # int8: a flipped rounding moves 1/127 of a max
+
+PALLAS = "caffeonspark_tpu/ops/pallas_kernels.py"
+KERNELS = {
+    "lrn_across_channels": dict(
+        source="caffeonspark_tpu_torch/csrc/lrn.cu",
+        replaces=f"{PALLAS}:113"),
+    "bias_relu_lrn_across_channels": dict(
+        source="caffeonspark_tpu_torch/csrc/lrn.cu",
+        replaces=f"{PALLAS}:228"),
+    "int8_matmul": dict(
+        source="caffeonspark_tpu_torch/csrc/int8_matmul.cu",
+        replaces=f"{PALLAS}:352"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, arg_sets, iters: int = 20):
+    """(device ms per call, host us per call) over `iters` calls after 3
+    warm-up calls.  A sleep kernel holds the stream while the host
+    enqueues every call, so the CUDA events bracket back-to-back device
+    work, not the Python launch path (whose cost per call is the second
+    number).  Calls cycle through `arg_sets`, which the caller sizes past
+    the 50 MB L2, so every call reads its operands from device memory
+    as a serving flush does."""
+    import torch
+    for i in range(3):
+        fn(*arg_sets[i % len(arg_sets)])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    host_s = time.perf_counter() - t0
+    end.record()
+    torch.cuda.synchronize()
+    dev_ms = start.elapsed_time(end) / iters
+    check(host_s < 0.9 * SLEEP_CYCLES / 1.98e9,
+          f"enqueue took {host_s:.3f} s, longer than the sleep that "
+          "should hide it: the timing would include host time")
+    return dev_ms, 1e6 * host_s / iters
+
+
+def rotations(nbytes: int) -> int:
+    return max(2, math.ceil(3 * L2_BYTES / max(1, nbytes)))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def lrn_ops_per_elem(local_size: int, relu: bool, bias: bool) -> int:
+    # local_size squares + (local_size - 1) adds, then scale = k + c*s
+    # (2), log, *(-beta), exp, *x (4); +1 for relu, +1 for bias
+    return 2 * local_size + 5 + int(relu) + int(bias)
+
+
+def check_lrn(K, torch, name, shape, dtype, relu, bias, results):
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"{name}{shape}{dtype}{relu}".encode()))
+    x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=g)
+    ls, alpha, beta, k = 5, 1e-4, 0.75, 1.0
+    if bias:
+        run = lambda x, b: K.bias_relu_lrn_across_channels(  # noqa: E731
+            x, b, ls, alpha, beta, k)
+        plain = lambda x, b: K.lrn_plain(  # noqa: E731
+            x, ls, alpha, beta, k, bias=b)
+    else:
+        run = lambda x, b: K.lrn_across_channels(  # noqa: E731
+            x, ls, alpha, beta, k, relu)
+        plain = lambda x, b: K.lrn_plain(  # noqa: E731
+            x, ls, alpha, beta, k, relu)
+    got = run(x, b)
+    torch.cuda.synchronize()
+    want = plain(x, b)
+    err = (got.float() - want.float()).abs()
+    rtol, atol = ((LRN_RTOL, LRN_ATOL) if dtype == torch.float32
+                  else (BF16_RTOL, BF16_ATOL))
+    bad = err > atol + rtol * want.float().abs()
+    max_err = float(err.max())
+    check(not bool(bad.any()),
+          f"{name} {shape} {dtype}: {int(bad.sum())} elements outside "
+          f"rtol {rtol} atol {atol} (max abs err {max_err:.3g})")
+    nbytes = 2 * x.numel() * x.element_size() + (4 * shape[1] if bias
+                                                 else 0)
+    sets = [(x.clone(), b.clone()) for _ in range(rotations(nbytes))]
+    ms, host_us = time_ms(run, sets)
+    plain_ms, _ = time_ms(plain, sets)
+    lib_ms = None
+    if not relu and not bias:
+        lib = lambda x, b: F.local_response_norm(  # noqa: E731
+            x, ls, alpha, beta, k)
+        lib_ms, _ = time_ms(lib, sets)
+    ops = x.numel() * lrn_ops_per_elem(ls, relu or bias, bias)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               relu=relu, max_abs_err=max_err, ms=ms, host_us=host_us,
+               plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    results.setdefault(name, []).append(rec)
+    log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu}: "
+        f"max_abs_err {max_err:.3g} (rtol {rtol:.3g} atol {atol:.3g}) "
+        f"kernel {ms:.4f} ms (launch path {host_us:.1f} us on the host) "
+        f"plain {plain_ms:.4f} ms library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def check_int8(K, torch, m, n, kk, results, timed=True):
+    g = torch.Generator(device="cuda").manual_seed(m * 131 + n * 7 + kk)
+    xq = torch.randint(-127, 128, (m, kk), device="cuda", generator=g,
+                       dtype=torch.int64).to(torch.int8)
+    wq = torch.randint(-127, 128, (n, kk), device="cuda", generator=g,
+                       dtype=torch.int64).to(torch.int8)
+    got = K.int8_matmul(xq, wq)
+    torch.cuda.synchronize()
+    want = K.int8_matmul_plain(xq, wq)
+    max_err = int((got.long() - want.long()).abs().max())
+    check(got.dtype == torch.int32 and max_err == 0,
+          f"int8_matmul ({m},{kk})x({n},{kk}): not exact "
+          f"(max abs err {max_err})")
+    rec = dict(shape=[m, n, kk], dtype="int8", max_abs_err=max_err)
+    if timed:
+        nbytes = m * kk + n * kk + 4 * m * n
+        sets = [(xq.clone(), wq.clone()) for _ in range(rotations(nbytes))]
+        ms, host_us = time_ms(K.int8_matmul, sets)
+        plain_ms, _ = time_ms(K.int8_matmul_plain, sets, iters=5)
+        try:
+            lib_ms, _ = time_ms(lambda a, w: torch._int_mm(a, w.t()),
+                                sets)
+        except RuntimeError as e:
+            log(f"  torch._int_mm refused ({m},{kk})x({n},{kk}): {e}")
+            lib_ms = None
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 2.0 * m * n * kk / INT8_OPS_PER_S
+        rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
+                   library_ms=lib_ms,
+                   bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"  int8_matmul M={m} N={n} K={kk}: exact; kernel {ms:.4f} ms "
+            f"(launch path {host_us:.1f} us on the host) "
+            f"plain {plain_ms:.4f} ms library "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    else:
+        log(f"  int8_matmul M={m} N={n} K={kk}: exact")
+    results.setdefault("int8_matmul", []).append(rec)
+
+
+def kernel_phase(K, torch) -> dict:
+    res: dict = {}
+    lrn_cases = [  # (name, shape, relu, bias); the first of each is main
+        ("lrn_across_channels", (B, 96, 27, 27), False, False),
+        ("lrn_across_channels", (B, 256, 13, 13), False, False),
+        ("lrn_across_channels", (B, 96, 55, 55), True, False),
+        ("lrn_across_channels", (B, 256, 27, 27), True, False),
+        ("bias_relu_lrn_across_channels", (B, 96, 55, 55), False, True),
+        ("bias_relu_lrn_across_channels", (B, 256, 27, 27), False, True),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, relu, bias in lrn_cases:
+            check_lrn(K, torch, name, shape, dtype, relu, bias, res)
+    for m, n, kk in ((B, 4096, 9216), (B, 4096, 4096), (B, 1000, 4096)):
+        check_int8(K, torch, m, n, kk, res)
+    for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
+                     (5, 70, 1001), (3, 37, 16)):
+        check_int8(K, torch, m, n, kk, res, timed=False)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: serve full-width nets through the CLI path
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_kernels(K):
+    """Swap every kernel wrapper for its plain PyTorch version (the
+    reference forward of phase 5/6 only; restored on exit)."""
+    saved = (K.lrn_across_channels, K.bias_relu_lrn_across_channels,
+             K.int8_matmul)
+    K.lrn_across_channels = (
+        lambda x, ls=5, a=1e-4, b=0.75, k=1.0, fuse_relu=False:
+        K.lrn_plain(x, ls, a, b, k, fuse_relu))
+    K.bias_relu_lrn_across_channels = (
+        lambda x, bias, ls=5, a=1e-4, b=0.75, k=1.0:
+        K.lrn_plain(x, ls, a, b, k, bias=bias))
+    K.int8_matmul = K.int8_matmul_plain
+    try:
+        yield
+    finally:
+        (K.lrn_across_channels, K.bias_relu_lrn_across_channels,
+         K.int8_matmul) = saved
+
+
+@contextlib.contextmanager
+def env_set(env):
+    """The knobs a configuration sets, for the construction of one
+    service (the net and the registry read them once, there)."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def write_model(workdir: str, zoo_fn, seed: int):
+    """solver + net prototxt and a seeded full-width .caffemodel."""
+    from caffeonspark_tpu_torch import checkpoint
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetState, Phase
+    npm = zoo_fn(batch_size=B)
+    data = npm.layer[0]
+    data.source_class = "com.yahoo.ml.caffe.LMDB"
+    data.memory_data_param.source = os.path.join(workdir, "unused_lmdb")
+    name = npm.name.lower()
+    net_path = os.path.join(workdir, f"{name}_net.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, f"{name}_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{net_path}"\nbase_lr: 0.01\nlr_policy: "fixed"\n')
+    t0 = time.monotonic()
+    net = Net(npm, NetState(phase=Phase.TEST), device="cpu")
+    check(net.num_params() == 60_965_224,
+          f"{npm.name}: {net.num_params()} params, expected 60,965,224")
+    model = os.path.join(workdir, f"{name}.caffemodel")
+    checkpoint.save_caffemodel(model, net, net.init(seed))
+    del net
+    log(f"  wrote {model} ({os.path.getsize(model) / 2**20:.1f} MiB, "
+        f"{time.monotonic() - t0:.2f} s)")
+    return solver_path, model
+
+
+def post(port: int, payload: dict) -> dict:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/predict",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read().decode())
+
+
+def _stage_totals(svc):
+    st = svc.metrics.summary()["stages"]
+    return {k: (st[k]["total_s"], st[k]["count"]) for k in ("fwd", "pack")}
+
+
+def serve_phase(K, torch, solver_path, model, env, rows_tol, label,
+                sizes=(4, 4, 4, 4, 4, 4, B), device="cuda"):
+    """Serve `model` through the CLI's start_server, answer one
+    sequential /v1/predict call per entry of `sizes` (that many records
+    each; a request of B records is one full flush at the B=64 shapes),
+    and hold every row against the plain-kernel forward of the same
+    batch."""
+    import numpy as np
+    from caffeonspark_tpu_torch import caffe_on_spark
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.serving.forward import fetch_rows
+    with env_set(env):
+        conf = Config(["-conf", solver_path, "-serve", "-model", model,
+                       "-features", "fc8", "-device", device])
+        conf.validate()
+        t0 = time.monotonic()
+        svc, httpd = caffe_on_spark.start_server(conf)
+        boot_s = time.monotonic() - t0
+    httpd.start_background()
+    try:
+        mv = svc.registry.current()
+        want_wd = env.get("COS_SERVE_WEIGHT_DTYPE", "f32")
+        check(mv.weight_dtype == want_wd,
+              f"{label}: resident weights are {mv.weight_dtype}, expected "
+              f"{want_wd} ({svc.registry.quant_fallback})")
+        log(f"  {label}: boot (load + warm-up of buckets "
+            f"{list(svc.batcher.buckets)}) {boot_s:.2f} s, weights "
+            f"{mv.weight_dtype}, fused bias LRNs "
+            f"{sorted(svc.registry.net.fused_bias_lrn)}")
+        rng = np.random.RandomState(11)
+        c, h, w = svc.source.image_dims()
+        lat = {}
+        worst = 0.0
+        before = _stage_totals(svc)
+        for r, n in enumerate(sizes):
+            pix = rng.randint(0, 256, (n, c, h, w))
+            recs = [{"id": f"r{r}_{i}", "data": pix[i].ravel().tolist()}
+                    for i in range(n)]
+            t1 = time.monotonic()
+            out = post(httpd.port, {"records": recs})
+            lat.setdefault(n, []).append(time.monotonic() - t1)
+            rows = out["rows"]
+            check(len(rows) == n and [x["SampleID"] for x in rows]
+                  == [x["id"] for x in recs],
+                  f"{label}: wrong rows for request {r}")
+            got = np.asarray([x["fc8"] for x in rows], np.float32)
+            check(got.shape == (n, 1000) and bool(np.isfinite(got).all()),
+                  f"{label}: fc8 rows {got.shape} not finite (1000 wide)")
+            records = [(x["id"], 0.0, c, h, w, False,
+                        pix[i].astype(np.float32))
+                       for i, x in enumerate(recs)]
+            host = svc.source.next_batch(records)
+            batch = {k: torch.from_numpy(v).to(svc.device)
+                     for k, v in host.items()}
+            fwd = svc.registry.forward(svc.blob_names,
+                                       weight_dtype=mv.weight_dtype)
+            with plain_kernels(K):
+                ref_out = (fwd(mv.params, batch) if mv.weight_dtype == "f32"
+                           else fwd(mv.params, mv.scales, batch))
+            ref = np.asarray([x["fc8"] for x in fetch_rows(
+                ref_out, ("fc8",), [x["id"] for x in recs], n, n)],
+                np.float32)
+            err = float(np.abs(got - ref).max()) / (
+                float(np.abs(ref).max()) + 1e-30)
+            worst = max(worst, err)
+            check(err <= rows_tol,
+                  f"{label}: request {r} rows differ from the plain path "
+                  f"by {err:.3g} of max |fc8| (tol {rows_tol})")
+        after = _stage_totals(svc)
+        flushes = after["fwd"][1] - before["fwd"][1]
+        check(flushes == len(sizes), f"{label}: {flushes} flushes for "
+              f"{len(sizes)} requests")
+        res = dict(label=label, boot_s=boot_s, rows_rel_err=worst,
+                   flushes=flushes,
+                   server_fwd_ms=1e3 * (after["fwd"][0]
+                                        - before["fwd"][0]) / flushes,
+                   server_pack_ms=1e3 * (after["pack"][0]
+                                         - before["pack"][0]) / flushes)
+        for n, ts in sorted(lat.items()):
+            ms = sorted(1e3 * t for t in ts)
+            res[f"request_{n}_ms"] = ms
+            log(f"  {label}: {len(ms)} request(s) of {n} records: latency "
+                f"median {ms[len(ms) // 2]:.2f} ms max {ms[-1]:.2f} ms, "
+                f"{1e3 * n / ms[len(ms) // 2]:.1f} rows/s")
+        log(f"  {label}: per flush (mean of {flushes} request flushes): "
+            f"server forward {res['server_fwd_ms']:.2f} ms (H2D, net, "
+            f"rows), pack {res['server_pack_ms']:.2f} ms; rows vs plain "
+            f"path: max rel err {worst:.3g} (tol {rows_tol})")
+        return res
+    finally:
+        httpd.stop()
+        svc.stop(drain=True)
+
+
+def profile_flush(torch, solver_path, model, env, label, device="cuda"):
+    """One B=64 flush (pack, H2D, forward, rows) of a warmed service
+    under torch.profiler: the device's busy time (union of kernel
+    intervals) against the flush's wall time, the copy time, and the
+    kernels that took most of it.  Runs after the launch counts were
+    read, so its launches are not counted.  Returns None, and says why,
+    when the profiler records no device activity."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.serving import InferenceService
+    with env_set(env):
+        svc = InferenceService(Config(["-conf", solver_path, "-model", model,
+                                       "-features", "fc8", "-device",
+                                       device]))
+    c, h, w = svc.source.image_dims()
+    rng = np.random.RandomState(5)
+    recs = [(str(i), 0.0, c, h, w, False,
+             rng.randint(0, 256, (c, h, w)).astype(np.float32))
+            for i in range(B)]
+    svc._run_batch(recs, B)                      # warm this shape
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:      # the profiler itself, not the program
+        log(f"  {label}: profile: not measured ({e})")
+        return None
+    try:
+        t0 = time.perf_counter()
+        svc._run_batch(recs, B)
+        sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        prof.stop()
+    kernels, copies = [], 0.0
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        if "memcpy" in e.name.lower() or "memset" in e.name.lower():
+            copies += span[1] - span[0]
+        else:
+            kernels.append((span, e.name))
+    if not kernels:
+        log(f"  {label}: profile: not measured (the profiler recorded no "
+            "device kernels)")
+        return None
+    busy, end = 0.0, None
+    for (a, b), _ in sorted(kernels):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_name: dict = {}
+    for (a, b), name in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    res = dict(label=label, flush_wall_us=wall_us, device_busy_us=busy,
+               copy_us=copies, idle_share=1.0 - busy / wall_us,
+               kernels=len(kernels),
+               top=[[name[:60], us] for name, us in top])
+    log(f"  {label}: one B={B} flush: wall {wall_us:.0f} us, device busy "
+        f"{busy:.0f} us in {len(kernels)} kernels (idle share "
+        f"{res['idle_share']:.3f}), copies {copies:.0f} us; top: " +
+        "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
+    return res
+
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    try:
+        from caffeonspark_tpu_torch.models import zoo
+        from caffeonspark_tpu_torch.ops import cuda_build
+        from caffeonspark_tpu_torch.ops import kernels as K
+    except ImportError as e:
+        print(f"chip_smoke: the package is not importable here: {e}",
+              file=sys.stderr)
+        return 2
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0 and smi.stdout.strip(),
+          f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    report = cuda_build.build_all(verbose=True)
+    log(f"build: {report['seconds']:.2f} s (built {report['built']})")
+    for name, text in report["nvcc"].items():
+        if text.strip():
+            log(f"--- nvcc {name}.cu ---\n{text.strip()}")
+
+    log("kernels against their plain versions (B=64 serving shapes):")
+    res = kernel_phase(K, torch)
+    if "--kernels-only" in argv:
+        return 0
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(
+        cuda_build.__file__)), "..", "..", "build", "chip_smoke")
+    workdir = os.path.normpath(workdir)
+    os.makedirs(workdir, exist_ok=True)
+    log("writing full-width models:")
+    caffenet = write_model(workdir, zoo.caffenet, seed=1)
+    alexnet = write_model(workdir, zoo.alexnet, seed=2)
+
+    configs = [  # (label, solver + model, knobs, rows tolerance)
+        ("CaffeNet f32", caffenet, {}, ROWS_F32_TOL),
+        ("AlexNet bias+relu+LRN int8", alexnet,
+         {"COS_FUSE_BIAS_RELU_LRN": "1", "COS_SERVE_WEIGHT_DTYPE": "int8"},
+         ROWS_INT8_TOL)]
+    log("serving (counts zeroed):")
+    K.reset_launch_counts()
+    serve = [serve_phase(K, torch, *files, env, tol, label)
+             for label, files, env, tol in configs]
+    launches = dict(K.launch_counts)
+    log(f"launches on the serving path: {launches}")
+    for name in KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"{name} was never launched on the serving path")
+
+    log("profile of one B=64 flush per net (after the counts):")
+    profiles = [profile_flush(torch, *files, env, label)
+                for label, files, env, _ in configs]
+
+    lines = []
+    for name, meta in KERNELS.items():
+        main_rec = res[name][0]
+        lines.append(dict(
+            name=name, route="cuda", source=meta["source"],
+            replaces=meta["replaces"], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in res[name]
+                            if r["dtype"] in ("float32", "int8")),
+            ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
+            bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
+            library_ms=main_rec["library_ms"],
+            shape=main_rec["shape"], dtype=main_rec["dtype"]))
+    log(json.dumps({"serving": serve, "profile": profiles}))
+    log(json.dumps({"kernels": lines}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main(sys.argv[1:]))
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        sys.exit(1)
