@@ -1,24 +1,28 @@
-""".caffemodel I/O: the Caffe binaryproto file both packages read and
-write.
+""".caffemodel / .solverstate I/O: the Caffe binaryproto files both
+packages read and write.
 
 A `.caffemodel` is a NetParameter whose layers carry `blobs` (the
-weights in Caffe blob order).  The file written by the JAX package's
-`save_caffemodel` loads here and the other way round: that format is
-the contract between the two packages.  Snapshot/restore of solver
-state, HDF5 variants and sharded sidecars come with later slices.
+weights in Caffe blob order); a `.solverstate` is a SolverState holding
+the iteration, the model's file name (`learned_net`) and the solver's
+history blobs.  Files written by the JAX package load here and the
+other way round: those bytes are the contract between the two packages.
+Every file lands through a temporary file and `os.replace`, so a reader
+never sees half of one.  HDF5 snapshots, sharded sidecars and the
+write-behind snapshotter come with later slices.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .net import Net, Params
 from .proto.caffe import (BlobProto, BlobShape, LayerParameter,
-                          NetParameter, SolverState)
+                          NetParameter, SnapshotFormat, SolverState)
+from .solver import OptState
 
 
 def _to_blobproto(arr: np.ndarray) -> BlobProto:
@@ -51,14 +55,18 @@ def params_to_net_param(net: Net, params: Params) -> NetParameter:
     return out
 
 
-def save_caffemodel(path: str, net: Net, params: Params) -> None:
-    """Write atomically (tmp + rename): a reader never sees half a
-    model."""
-    data = params_to_net_param(net, params).to_binary()
+def _write_atomic(path: str, data: bytes) -> None:
+    """tmp + fsync + rename: a reader never sees half a file."""
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def save_caffemodel(path: str, net: Net, params: Params) -> None:
+    _write_atomic(path, params_to_net_param(net, params).to_binary())
 
 
 def load_caffemodel_blobs(path: str) -> Dict[str, List[np.ndarray]]:
@@ -171,3 +179,89 @@ def load_serving_params(net: Net, model_path: str, *,
     missing = [ln for ln, specs in net.param_layout.items()
                if len(found.get(ln, {})) < len(specs)]
     return _overlay(net, net.init(0, layers=missing), found)
+
+
+# ---------------------------------------------------------------------------
+# snapshot / restore (model + solver state)
+# ---------------------------------------------------------------------------
+
+def snapshot_filename(prefix: str, it: int, *, is_state: bool) -> str:
+    ext = "solverstate" if is_state else "caffemodel"
+    return f"{prefix}_iter_{it}.{ext}"
+
+
+def _state_blob_seq(net: Net, opt_state: OptState, solver_type: str
+                    ) -> Iterator[torch.Tensor]:
+    """State blobs in the .solverstate order: history, then (for the
+    two-accumulator solvers only) history2, each in the net's blob
+    order, as the JAX package and Caffe write them."""
+    hists = ((opt_state.history, opt_state.history2)
+             if solver_type.upper() in ("ADAM", "ADADELTA")
+             else (opt_state.history,))
+    for hist in hists:
+        for lname, specs in net.param_layout.items():
+            for bname, _, _ in specs:
+                yield hist[lname][bname]
+
+
+def snapshot(net: Net, params: Params, opt_state: OptState, prefix: str,
+             *, fmt: int = SnapshotFormat.BINARYPROTO,
+             solver_type: str = "SGD") -> Tuple[str, str]:
+    """Write `<prefix>_iter_<it>.caffemodel`, then its `.solverstate`
+    (the commit point: a state file always has its model); returns the
+    two paths."""
+    if fmt == SnapshotFormat.HDF5:
+        raise NotImplementedError("HDF5 snapshots wait for a later slice "
+                                  "of the PyTorch port (use BINARYPROTO)")
+    it = int(opt_state.iter)
+    os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
+    model_path = snapshot_filename(prefix, it, is_state=False)
+    state_path = snapshot_filename(prefix, it, is_state=True)
+    save_caffemodel(model_path, net, params)
+    st = SolverState(iter=it, learned_net=os.path.basename(model_path))
+    st.history.extend(
+        _to_blobproto(b.detach().to("cpu", torch.float32).numpy())
+        for b in _state_blob_seq(net, opt_state, solver_type))
+    _write_atomic(state_path, st.to_binary())
+    return model_path, state_path
+
+
+def restore(net: Net, params: Params, opt_state: OptState,
+            state_path: str, *, weights_path: Optional[str] = None
+            ) -> Tuple[Params, OptState]:
+    """Resume from a .solverstate and its model: the model is -weights
+    when given, else `learned_net` next to the state file.  History
+    blobs keep the dtype of `opt_state`'s (the file stores f32); a state
+    without second moments leaves history2 as given."""
+    if state_path.endswith(".h5"):
+        raise NotImplementedError("HDF5 solver states wait for a later "
+                                  "slice of the PyTorch port")
+    with open(state_path, "rb") as f:
+        st = SolverState.from_binary(f.read())
+    hist = [_from_blobproto(bp) for bp in st.history]
+    if weights_path is None:
+        cand = os.path.join(os.path.dirname(state_path),
+                            os.path.basename(st.learned_net or ""))
+        if not st.learned_net or not os.path.exists(cand):
+            raise ValueError(f"{state_path}: resume needs its model file "
+                             f"(learned_net={st.learned_net!r} is not next "
+                             "to it; pass -weights)")
+        weights_path = cand
+    params = copy_layers(net, params, weights_path)
+    n_blobs = sum(len(specs) for specs in net.param_layout.values())
+    history = {ln: dict(bl) for ln, bl in opt_state.history.items()}
+    history2 = {ln: dict(bl) for ln, bl in opt_state.history2.items()}
+    i = 0
+    for dest in (history, history2):
+        for lname, specs in net.param_layout.items():
+            for bname, shape, _ in specs:
+                if i < len(hist) and hist[i].size == int(np.prod(shape)):
+                    old = dest[lname][bname]
+                    dest[lname][bname] = torch.from_numpy(
+                        np.array(hist[i].reshape(shape))).to(
+                            dtype=old.dtype, device=old.device)
+                i += 1
+        if len(hist) < 2 * n_blobs:
+            break      # a state without second moments
+    return params, OptState(iter=int(st.iter), history=history,
+                            history2=history2)

@@ -3,9 +3,9 @@
 
 A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
 solver/net prototxt parsing, data-layer location by `include.phase`),
-cut to the flags this package acts on so far (the serving ones); the
-training flags come with the training slice.  `-device` picks where
-the net runs: `cuda` (the default) or `cpu`.
+cut to the flags this package acts on so far: training (`-train`,
+single process) and serving.  `-device` picks where the net runs:
+`cuda` (the default) or `cpu`.
 """
 
 from __future__ import annotations
@@ -24,6 +24,21 @@ def build_argparser() -> argparse.ArgumentParser:
     a = p.add_argument
     a("-conf", dest="protoFile", default="",
       help="solver configuration (prototxt)")
+    a("-train", dest="isTraining", action="store_true",
+      help="training mode")
+    a("-output", dest="outputPath", default="",
+      help="output directory (snapshots, the default -model)")
+    a("-snapshot", dest="snapshotStateFile", default="",
+      help="solverstate to resume from (its model: -weights, else the "
+           "learned_net file next to it)")
+    a("-persistent", dest="isPersistent", action="store_true",
+      help="cache decoded source records in memory after epoch 0 "
+           "(sourceRDD.persist analog)")
+    a("-clusterSize", dest="clusterSize", type=int, default=1,
+      help="number of executor processes (1: the port trains on one "
+           "device so far)")
+    a("-resize", dest="resize", action="store_true",
+      help="resize images to layer dims (encoded images only)")
     a("-features", dest="features", default="",
       help="comma-separated blob names for feature extraction/serving")
     a("-label", dest="label", default="",
@@ -112,6 +127,19 @@ class Config:
                 and not str(self.device).startswith("cuda:"):
             raise ValueError(f"-device {self.device!r}: expected cuda, "
                              "cuda:<index> or cpu")
+        if self.clusterSize != 1:
+            raise ValueError(f"-clusterSize {self.clusterSize}: the PyTorch "
+                             "port trains in one process on one device so "
+                             "far (data parallelism is a later slice)")
+        if self.isTraining:
+            if self.netParam is None:
+                raise ValueError("-train needs -conf (solver prototxt "
+                                 "resolving a net)")
+            if self.train_data_layer_id < 0:
+                raise ValueError("no TRAIN-phase data layer in net "
+                                 "prototxt")
+            if self.serve:
+                raise ValueError("-train and -serve are separate runs")
         if self.serve:
             if self.netParam is None:
                 raise ValueError("-serve needs -conf (solver prototxt "

@@ -1,26 +1,35 @@
-"""Data sources: record packing for the serving path.
+"""Data sources: records from a store, packed into the data layer's blobs.
 
-The part of `caffeonspark_tpu/data/source.py` that serving needs.  A
-record is the reference's 7-tuple `(id, label, C, H, W, encoded,
-payload)`; `DataSource.next_batch` packs raw-pixel records through the
-TEST-phase transformer into the data layer's named blobs (numpy, on the
-host).  The serving path uses a source only as this packer: requests
-carry their own pixels, so the backing store named by `source_class`
-is never read.  Reading stores (LMDB, SequenceFile, DataFrame) and
-decoding encoded images come with later slices.
+The counterpart of `caffeonspark_tpu/data/source.py` (the DataSource SPI
+of the reference, `DataSource.scala:27-128`).  A record is the
+reference's 7-tuple `(id, label, C, H, W, encoded, payload)`;
+`DataSource.next_batch` packs raw-pixel records through the phase's
+transformer into the data layer's named blobs (numpy, on the host).
+
+Read by the port: LMDB databases of Caffe `Datum` records, through a
+CaffeOnSpark `LMDB` source class or Caffe's own source-less `Data`
+layer.  Serving uses a source only as its packer: requests carry their
+own pixels, so the SequenceFile and DataFrame source classes pack
+records there, but reading their stores waits for a later slice, as do
+HDF5, image-list and DataFrameSource layers, LevelDB and the decoding of
+encoded images.  Each of those raises and names itself.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..proto.caffe import LayerParameter
+from ..proto.caffe import Datum, LayerParameter
+from .lmdb_io import LmdbReader
 from .transformer import Transformer
 
 ImageRecord = Tuple[str, float, int, int, int, bool, object]
+
+# epoch boundary in a feed queue: the packer drops the ragged tail
+STOP_MARK = object()
 
 
 def _strip_scheme(uri: str) -> str:
@@ -30,14 +39,61 @@ def _strip_scheme(uri: str) -> str:
     return uri
 
 
-class DataSource:
-    """Record packer for one data layer (TEST phase)."""
+def datum_to_record(key: bytes, raw: bytes) -> ImageRecord:
+    """LMDB value (serialized Datum) -> 7-tuple record
+    (`LmdbRDD.scala:136-151`): uint8 pixel bytes, a float32 array for a
+    float-payload Datum, or the encoded bytes flagged as encoded."""
+    d = Datum.from_binary(raw)
+    rid = key.decode("latin-1")
+    if not d.encoded and not d.has("data") and d.float_data:
+        arr = np.asarray(list(d.float_data), np.float32).reshape(
+            d.channels, d.height, d.width)
+        return (rid, float(d.label), d.channels, d.height, d.width, False,
+                arr)
+    if d.encoded or not d.has("data"):
+        data = d.data if d.has("data") else b""
+        return (rid, float(d.label), d.channels, d.height, d.width, True,
+                data)
+    return (rid, float(d.label), d.channels, d.height, d.width, False,
+            d.data)
 
-    def __init__(self, layer: LayerParameter):
+
+def first_datum_dims(reader: LmdbReader) -> Optional[Tuple[int, int, int]]:
+    """(C, H, W) of the database's first Datum; None when it is empty."""
+    for _k, v in reader.items(None, None):
+        d = Datum.from_binary(v)
+        return int(d.channels), int(d.height), int(d.width)
+    return None
+
+
+class DataSource:
+    """SPI base: record packing for one data layer; stores that the port
+    reads implement `records()`."""
+
+    SHUFFLE_BUFFER = 4096
+
+    def __init__(self, layer: LayerParameter, *, phase_train: bool = False,
+                 rank: int = 0, num_ranks: int = 1, seed: int = 0,
+                 resize: bool = False):
         self.layer = layer
+        self.phase_train = phase_train
+        self.rank = rank
+        self.num_ranks = num_ranks
+        self.seed = seed
+        self.resize = resize
+        self.batch_size = self._batch_size()
         self.transformer = Transformer(
             layer.transform_param if layer.has("transform_param") else None,
+            phase_train=phase_train, seed=seed + rank,
             mean_dir=os.path.dirname(self.source_uri()) or None)
+
+    # -- config ------------------------------------------------------------
+    def _batch_size(self) -> int:
+        if self.layer.has("memory_data_param"):
+            return int(self.layer.memory_data_param.batch_size)
+        if self.layer.has("cos_data_param"):
+            return int(self.layer.cos_data_param.batch_size)
+        raise ValueError(f"data layer {self.layer.name!r} has no batch size")
 
     def source_uri(self) -> str:
         if self.layer.has("memory_data_param"):
@@ -49,6 +105,12 @@ class DataSource:
     def image_dims(self) -> Tuple[int, int, int]:
         p = self.layer.memory_data_param
         return int(p.channels), int(p.height), int(p.width)
+
+    # -- SPI ---------------------------------------------------------------
+    def records(self) -> Iterator[ImageRecord]:
+        raise NotImplementedError(
+            f"{type(self).__name__}: reading this store waits for a later "
+            "slice of the PyTorch port (it packs records only)")
 
     def next_batch(self, records: Sequence[ImageRecord]
                    ) -> Dict[str, np.ndarray]:
@@ -64,37 +126,134 @@ class DataSource:
             if encoded:
                 raise NotImplementedError(
                     f"record {rid}: encoded images are not decoded by the "
-                    "PyTorch port yet; send raw pixels ('data')")
+                    "PyTorch port yet; send raw pixels")
             if (rh, rw) != (h, w):
                 raise ValueError(
                     f"record {rid}: {rh}x{rw} != layer {h}x{w}")
             if isinstance(payload, np.ndarray):
                 data[i] = payload.reshape(rc, rh, rw)
             else:
-                data[i] = np.frombuffer(payload, np.uint8).astype(
-                    np.float32).reshape(rc, rh, rw)
+                data[i] = np.frombuffer(payload, np.uint8).reshape(
+                    rc, rh, rw)
         out_names = list(self.layer.top)
         batch = {out_names[0]: self.transformer(data)}
         if len(out_names) > 1:
             batch[out_names[1]] = labels
         return batch
 
+    # the packer's name on the training path (the JAX package's pool
+    # hands it a pre-drawn augmentation; here it draws inline)
+    pack_batch = next_batch
 
-# the CaffeOnSpark source classes a MemoryData/CoSData layer may name;
-# serving packs their records the same way whatever the store is
-SOURCE_CLASSES = (
-    "com.yahoo.ml.caffe.LMDB", "com.yahoo.ml.caffe.SeqImageDataSource",
-    "com.yahoo.ml.caffe.ImageDataFrame", "LMDB", "SeqImageDataSource",
-    "ImageDataFrame")
+    # -- epochs ------------------------------------------------------------
+    def epoch_seed(self, epoch: int) -> int:
+        """Deterministic per-(seed, rank, epoch) shuffle seed."""
+        return (self.seed + self.rank * 9973
+                + epoch * 131071) & 0x7FFFFFFF
+
+    def shuffled_records(self, epoch: int) -> Iterator[ImageRecord]:
+        """Streaming shuffle over records(): a bounded reservoir buffer
+        (capacity SHUFFLE_BUFFER) emits a random resident element as
+        each new record arrives; the order is fully determined by
+        (seed, rank, epoch), as in the JAX package."""
+        rng = np.random.RandomState(self.epoch_seed(epoch))
+        buf: List[ImageRecord] = []
+        for rec in self.records():
+            if len(buf) < self.SHUFFLE_BUFFER:
+                buf.append(rec)
+                continue
+            j = rng.randint(0, len(buf))
+            out, buf[j] = buf[j], rec
+            yield out
+        rng.shuffle(buf)
+        yield from buf
 
 
-def get_source(layer: LayerParameter) -> DataSource:
+class LMDB(DataSource):
+    """LMDB of Caffe Datum records (source_class com.yahoo.ml.caffe.LMDB),
+    read rank-sharded by key range."""
+
+    def _reader(self) -> LmdbReader:
+        return LmdbReader(self.source_uri())
+
+    def records(self) -> Iterator[ImageRecord]:
+        with self._reader() as r:
+            ranges = r.partition_ranges(self.num_ranks)
+            lo, hi = ranges[self.rank % len(ranges)]
+            for k, v in r.items(lo, hi):
+                yield datum_to_record(k, v)
+
+
+class CaffeDataSource(LMDB):
+    """Caffe's own `Data` layer (`data_param { source backend }`) over an
+    LMDB; geometry comes from the first record, as Caffe's DataLayer
+    sizes its tops."""
+
+    def _batch_size(self) -> int:
+        return int(self.layer.data_param.batch_size)
+
+    def source_uri(self) -> str:
+        return _strip_scheme(self.layer.data_param.source)
+
+    def _reader(self) -> LmdbReader:
+        from ..proto.caffe import DBBackend
+        if self.layer.data_param.backend == DBBackend.LEVELDB:
+            raise NotImplementedError(
+                f"Data layer {self.layer.name!r}: LevelDB databases wait "
+                "for a later slice of the PyTorch port (use LMDB)")
+        return LmdbReader(self.source_uri())
+
+    def image_dims(self) -> Tuple[int, int, int]:
+        dims = getattr(self, "_dims", None)
+        if dims is None:
+            with self._reader() as r:
+                dims = first_datum_dims(r)
+            if dims is None:
+                raise ValueError(f"{self.source_uri()!r}: empty database")
+            self._dims = dims
+        return dims
+
+
+class SeqImageDataSource(DataSource):
+    """SequenceFile of (id, Datum) records: packs records; reading the
+    SequenceFile waits for a later slice."""
+
+
+class ImageDataFrame(DataSource):
+    """Parquet DataFrame of images: packs records; reading the DataFrame
+    waits for a later slice."""
+
+
+_CLASS_MAP = {
+    "com.yahoo.ml.caffe.LMDB": LMDB,
+    "com.yahoo.ml.caffe.SeqImageDataSource": SeqImageDataSource,
+    "com.yahoo.ml.caffe.ImageDataFrame": ImageDataFrame,
+    "LMDB": LMDB,
+    "SeqImageDataSource": SeqImageDataSource,
+    "ImageDataFrame": ImageDataFrame,
+}
+SOURCE_CLASSES = tuple(_CLASS_MAP)
+
+_LATER = {"HDF5Data": "HDF5 data layers", "ImageData": "image-list layers"}
+
+
+def get_source(layer: LayerParameter, **kw) -> DataSource:
     """Factory keyed on the prototxt `source_class`
-    (DataSource.scala:130-167)."""
+    (DataSource.scala:130-167); `kw` as for DataSource."""
+    if layer.type in _LATER:
+        raise NotImplementedError(f"{_LATER[layer.type]} ({layer.name!r}) "
+                                  "wait for a later slice of the PyTorch "
+                                  "port")
+    if layer.type == "Data" and not layer.source_class:
+        return CaffeDataSource(layer, **kw)
     cls_name = layer.source_class
     if not cls_name:
         raise ValueError(f"data layer {layer.name!r} has no source_class")
-    if cls_name not in SOURCE_CLASSES:
+    if cls_name.endswith("DataFrameSource"):
+        raise NotImplementedError(f"source_class {cls_name!r}: DataFrame "
+                                  "sources wait for a later slice of the "
+                                  "PyTorch port")
+    if cls_name not in _CLASS_MAP:
         raise ValueError(f"source_class {cls_name!r} is not in the "
                          f"PyTorch port (have {list(SOURCE_CLASSES)})")
-    return DataSource(layer)
+    return _CLASS_MAP[cls_name](layer, **kw)

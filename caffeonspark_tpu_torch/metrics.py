@@ -5,14 +5,17 @@ sample, summarized on demand.
 The serving path records its stages through it (latency / assemble /
 pack / fwd / exec_wait / time_to_first_flush series, queue_depth /
 batch_fill gauges, served_rows / flushes / flush_bucket_<n> counters),
-so serving metrics dump in the JAX package's JSON format.
+and the trainer its own (pack / queue_wait / step series, a feed_depth
+gauge, dropped_batches, and one `mark_step` per solver step for the
+steady steps/s), so both dump in the JAX package's JSON format.
 """
 
 from __future__ import annotations
 
+import json
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 _DEFAULT_CAPACITY = 8192
 
@@ -94,6 +97,8 @@ class PipelineMetrics:
         self._counters: Dict[str, int] = {}
         self._gauges: Dict[str, _Gauge] = {}
         self._info: Dict[str, object] = {}
+        self._steps: List[float] = []
+        self._step_i = 0
         self._cap = capacity
         self._created = time.monotonic()
 
@@ -116,6 +121,16 @@ class PipelineMetrics:
                 g = self._gauges[name] = _Gauge()
             g.observe(value)
 
+    def mark_step(self):
+        """Timestamp one completed solver step (throughput series)."""
+        with self._lock:
+            now = time.monotonic()
+            if len(self._steps) < self._cap:
+                self._steps.append(now)
+            else:
+                self._steps[self._step_i] = now
+                self._step_i = (self._step_i + 1) % self._cap
+
     def set_info(self, name: str, value) -> None:
         """Attach a static (JSON-serializable) fact to the summary."""
         with self._lock:
@@ -126,18 +141,44 @@ class PipelineMetrics:
         with self._lock:
             return self._counters.get(name, 0)
 
+    def has_samples(self) -> bool:
+        with self._lock:
+            return bool(self._series or self._counters or self._steps
+                        or self._info)
+
+    def steady_steps_per_sec(self, skip: int = 5) -> Optional[float]:
+        """Steps per second over the step marks after the first `skip`
+        (warm-up); None if too few."""
+        with self._lock:
+            ts = self._steps[self._step_i:] + self._steps[:self._step_i]
+        ts = ts[skip:]
+        if len(ts) < 2 or ts[-1] <= ts[0]:
+            return None
+        return (len(ts) - 1) / (ts[-1] - ts[0])
+
     def summary(self) -> dict:
         with self._lock:
             stages = {k: v.summary() for k, v in self._series.items()}
             counters = dict(self._counters)
             gauges = {k: v.summary() for k, v in self._gauges.items()}
+            nsteps = len(self._steps)
             info = dict(self._info)
         out = {
             "stages": stages,
             "counters": counters,
             "queue_depths": gauges,
+            "steps": nsteps,
             "uptime_s": round(time.monotonic() - self._created, 3),
         }
         if info:
             out["info"] = info
+        sps = self.steady_steps_per_sec()
+        if sps is not None:
+            out["steady_steps_per_sec"] = round(sps, 3)
         return out
+
+    def dump(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.summary(), f, indent=2, sort_keys=True)
+            f.write("\n")
+        return path

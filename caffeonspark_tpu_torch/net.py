@@ -6,11 +6,14 @@ the ReLU->LRN and conv-bias peepholes, and infers every blob's shape by
 running the layers on "meta" tensors (no memory, no compute).  Then:
 
   * ``Net.init(seed)``              -> params {layer: {blob: tensor}}
-  * ``Net(params, inputs)``         -> {blob: tensor} (the forward)
+  * ``Net(params, inputs)``         -> {blob: tensor} (the forward;
+    ``train=True`` with a generator gives Caffe's TRAIN semantics)
+  * ``Net.loss(params, inputs)``    -> (weighted loss, blobs), the
+    scalar the solver differentiates with autograd
 
 Parameters live outside the module, keyed `{layer: {blob: tensor}}` as
 in the JAX package, so a serving registry can swap versions under one
-net.  This slice runs the forward only; training comes later.
+net and the solver can update them in place.
 """
 
 from __future__ import annotations
@@ -54,13 +57,28 @@ def layer_included(lp: LayerParameter, state: NetState) -> bool:
     return True
 
 
+def _peek_db_dims(lp: LayerParameter) -> Tuple[int, int, int]:
+    """First-record (C, H, W) of a Data layer's LMDB; (3, 0, 0) when the
+    database is not readable at graph-build time (a deploy net parsed
+    away from its data), as in the JAX package."""
+    from .proto.caffe import DBBackend
+    if lp.data_param.backend == DBBackend.LEVELDB:
+        return 3, 0, 0             # LevelDB is not read by the port yet
+    from .data.lmdb_io import LmdbReader
+    from .data.source import _strip_scheme, first_datum_dims
+    try:
+        with LmdbReader(_strip_scheme(lp.data_param.source)) as r:
+            dims = first_datum_dims(r)
+    except (OSError, ValueError):
+        dims = None
+    return dims or (3, 0, 0)
+
+
 def data_layer_input_specs(lp: LayerParameter
                            ) -> List[Tuple[str, Tuple[int, ...], str]]:
     """(blob_name, shape, kind) for each top of a data layer; kind is
-    'data' or 'label'.  A `Data` layer's geometry would come from its
-    database's first record; reading databases waits for the data
-    slice, so its shape is the crop (or 1x1) on 3 channels, which is
-    what the JAX package falls back to for an unreadable database."""
+    'data' or 'label'.  A `Data` layer's geometry comes from its
+    database's first record, as Caffe's DataLayer sizes its tops."""
     t = lp.type
     if t == "MemoryData":
         p = lp.memory_data_param
@@ -86,7 +104,10 @@ def data_layer_input_specs(lp: LayerParameter
         p = lp.data_param
         b = int(p.batch_size)
         cs = int(p.crop_size or lp.transform_param.crop_size or 0)
-        specs = [(lp.top[0], (b, 3, cs or 1, cs or 1), "data")]
+        c, h, w = _peek_db_dims(lp)
+        if cs:
+            h = w = cs
+        specs = [(lp.top[0], (b, c, h or 1, w or 1), "data")]
         if len(lp.top) > 1:
             specs.append((lp.top[1], (b,), "label"))
         return specs
@@ -248,6 +269,18 @@ class Net(nn.Module):
                 if t not in produced:
                     produced.append(t)
         self.output_blobs = [n for n in produced if n not in consumed]
+        # loss weight per top: loss_weight when given, else 1 for a loss
+        # layer's tops and 0 for the rest (JAX net.py:467-478)
+        self.loss_weights: Dict[str, float] = {}
+        for lp in self.compute_layers:
+            op = L.get_op(lp.type)
+            for i, t in enumerate(lp.top):
+                if i < len(lp.loss_weight):
+                    w = float(lp.loss_weight[i])
+                else:
+                    w = 1.0 if op.is_loss else 0.0
+                if w:
+                    self.loss_weights[t] = w
 
     # ------------------------------------------------------------------
     def _fuse_relu_lrn(self, layers: List[LayerParameter], fused: set
@@ -292,8 +325,10 @@ class Net(nn.Module):
             out[lp.name] = src.name
         return out
 
-    def _ctx(self, qscales=None) -> L.Ctx:
-        return L.Ctx(fused_relu_lrn=self.fused_relu_lrn,
+    def _ctx(self, qscales=None, train: bool = False,
+             generator: Optional[torch.Generator] = None) -> L.Ctx:
+        return L.Ctx(train=train, generator=generator,
+                     fused_relu_lrn=self.fused_relu_lrn,
                      defer_bias=self._defer_bias,
                      bias_lrn=self._bias_lrn_set, qscales=qscales)
 
@@ -325,15 +360,17 @@ class Net(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, params: Params, inputs: Dict[str, torch.Tensor], *,
-                qscales: Optional[Dict] = None
+                qscales: Optional[Dict] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        """Inference forward pass (Caffe's TEST-phase layer semantics,
-        whatever the net's phase); returns every blob.  `qscales`
+        """Forward pass; returns every blob.  Caffe's TEST-phase layer
+        semantics unless `train`, whatever the net's phase; at TRAIN,
+        Dropout draws from `generator` (on the net's device).  `qscales`
         ({layer: {blob: f32 0-dim tensor}}) carries the publish-time
         scales of int8 serving weights (serving/quant.py), which the int8
         InnerProduct kernel consumes without dequantizing."""
         blobs: Dict[str, torch.Tensor] = dict(inputs)
-        ctx = self._ctx(qscales)
+        ctx = self._ctx(qscales, train, generator)
         for lp in self.compute_layers:
             op = L.get_op(lp.type)
             ctx.layer_name = lp.name
@@ -349,3 +386,22 @@ class Net(nn.Module):
             for name, val in zip(lp.top, tops):
                 blobs[name] = val
         return blobs
+
+    def loss(self, params: Params, inputs: Dict[str, torch.Tensor], *,
+             train: bool = True,
+             generator: Optional[torch.Generator] = None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total weighted loss, every blob): each loss top summed in f32
+        and weighted, as the JAX package's `Net.loss`."""
+        blobs = self.forward(params, inputs, train=train,
+                             generator=generator)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for name, w in self.loss_weights.items():
+            total = total + w * torch.sum(blobs[name], dtype=torch.float32)
+        return total, blobs
+
+    def stat_param_layers(self) -> List[str]:
+        """Layers whose param blobs are running statistics, updated by
+        the forward pass and never by the solver (BatchNorm); none of
+        the port's layer types is one yet."""
+        return []

@@ -116,6 +116,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cos_bias_relu_lrn_fwd.argtypes = [P, P, P, I, I, I, I, F, F, F,
                                               I, P]
         lib.cos_bias_relu_lrn_fwd.restype = I
+        lib.cos_lrn_bwd.argtypes = [P, P, P, I, I, I, I, F, F, F, F, I, I,
+                                    P]
+        lib.cos_lrn_bwd.restype = I
+        lib.cos_bias_relu_lrn_bwd.argtypes = [P, P, P, P, I, I, I, I, F, F,
+                                              F, F, I, P]
+        lib.cos_bias_relu_lrn_bwd.restype = I
     elif name == "int8_matmul":
         lib.cos_int8_matmul.argtypes = [P, P, P, I, I, I, P]
         lib.cos_int8_matmul.restype = I

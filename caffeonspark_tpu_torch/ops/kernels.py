@@ -1,14 +1,23 @@
 """The port's hand-written CUDA kernels, their wrappers and their plain
 PyTorch versions — the counterpart of caffeonspark_tpu/ops/pallas_kernels.py.
 
-Three kernels serve the image nets' TEST-phase forward:
+Five kernels serve the image nets' forward and backward:
 
   * `lrn_across_channels`            K1, csrc/lrn.cu `cos_lrn_fwd`
     (Caffe across-channel LRN, optional fused ReLU);
+  * `lrn_across_channels_bwd`        K2, csrc/lrn.cu `cos_lrn_bwd`
+    (its dx, recomputing the normalizer from x);
   * `bias_relu_lrn_across_channels`  K3, csrc/lrn.cu `cos_bias_relu_lrn_fwd`
     (the conv-stem epilogue lrn(relu(x + bias)));
+  * `bias_relu_lrn_across_channels_bwd`  K4, csrc/lrn.cu
+    `cos_bias_relu_lrn_bwd` (its dx; d_bias is the channel sum of dx);
   * `int8_matmul`                    K5, csrc/int8_matmul.cu
     (int8 x int8 -> int32, under `int8_inner_product`).
+
+`LRNAcrossChannels` and `BiasReluLRNAcrossChannels` are the autograd
+Functions that pair K1 with K2 and K3 with K4; the net's LRN layer
+calls them in every phase.  Each saves only its raw inputs (x, and the
+bias), as the JAX package's custom VJPs do.
 
 Routing is by the tensor's device and nothing else: a CPU tensor (or a
 shape-only "meta" tensor during Net construction) takes the plain
@@ -30,7 +39,9 @@ import torch.nn.functional as F
 from . import cuda_build
 
 launch_counts: Dict[str, int] = {"lrn_across_channels": 0,
+                                 "lrn_across_channels_bwd": 0,
                                  "bias_relu_lrn_across_channels": 0,
+                                 "bias_relu_lrn_across_channels_bwd": 0,
                                  "int8_matmul": 0}
 _count_lock = threading.Lock()
 
@@ -117,7 +128,8 @@ def lrn_across_channels(x: torch.Tensor, local_size: int = 5,
                         k: float = 1.0,
                         fuse_relu: bool = False) -> torch.Tensor:
     """(N, C, H, W) -> Caffe LRN (alpha/local_size); with fuse_relu,
-    lrn(relu(x)) in one pass.  Forward only (serving)."""
+    lrn(relu(x)) in one pass.  Forward only: `LRNAcrossChannels` adds
+    the backward."""
     name = "lrn_across_channels"
     if not _route(x, name):
         return lrn_plain(x, local_size, alpha, beta, k, fuse_relu)
@@ -162,6 +174,150 @@ def bias_relu_lrn_across_channels(x: torch.Tensor, bias: torch.Tensor,
     _check_status(name, status)
     _count(name)
     return y
+
+
+# ---------------------------------------------------------------------------
+# K2 / K4: across-channel LRN backward, and the autograd Functions
+# ---------------------------------------------------------------------------
+
+def lrn_bwd_plain(x: torch.Tensor, dy: torch.Tensor, local_size: int,
+                  alpha: float, beta: float, k: float,
+                  fuse_relu: bool = False,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of K2/K4, formula for formula as the TPU
+    kernels `_lrn_bwd_kernel` / `_lrn_bwd_kernel_bias`: with x' = x,
+    relu(x) or relu(x + bias) and s = k + α/n·Σ x'² recomputed,
+    dx = dy·s^−β − (2αβ/n)·x'·Σ_W(dy·x'·s^−β/s), zero where x' ≤ 0 when
+    a ReLU is fused; f32 math for any I/O dtype."""
+    xr = x.float()
+    if bias is not None:
+        xr = xr + bias.float().reshape(1, -1, 1, 1)
+    relu = fuse_relu or bias is not None
+    xx = torch.clamp_min(xr, 0.0) if relu else xr
+    d = dy.float()
+    pad = local_size // 2
+    s = k + (alpha / local_size) * _window_sum(xx * xx, pad)
+    s_nb = torch.exp(-beta * torch.log(s))
+    u = d * xx * s_nb / s
+    dx = d * s_nb - (2.0 * alpha * beta / local_size) * xx \
+        * _window_sum(u, pad)
+    if relu:
+        dx = torch.where(xr > 0.0, dx, 0.0)
+    return dx.to(x.dtype)
+
+
+def bias_relu_lrn_bwd_plain(x: torch.Tensor, bias: torch.Tensor,
+                            dy: torch.Tensor, local_size: int = 5,
+                            alpha: float = 1e-4, beta: float = 0.75,
+                            k: float = 1.0) -> torch.Tensor:
+    """Plain version of K4: dx of lrn(relu(x + bias)) (also d(x + bias))."""
+    return lrn_bwd_plain(x, dy, local_size, alpha, beta, k, bias=bias)
+
+
+def _check_grad_input(name: str, x: torch.Tensor, dy: torch.Tensor) -> None:
+    if dy.shape != x.shape or dy.dtype != x.dtype \
+            or dy.device != x.device:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} {dy.dtype} on "
+                         f"{dy.device} does not match x {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+    if not dy.is_contiguous():
+        raise ValueError(f"{name}: dy must be contiguous")
+
+
+def lrn_across_channels_bwd(x: torch.Tensor, dy: torch.Tensor,
+                            local_size: int = 5, alpha: float = 1e-4,
+                            beta: float = 0.75, k: float = 1.0,
+                            fuse_relu: bool = False) -> torch.Tensor:
+    """dx of `lrn_across_channels(x, ...)` for the upstream gradient dy
+    (K2); the normalizer and the ReLU mask are recomputed from x."""
+    name = "lrn_across_channels_bwd"
+    if not _route(x, name):
+        return lrn_bwd_plain(x, dy, local_size, alpha, beta, k, fuse_relu)
+    _check_lrn_input(name, x, local_size)
+    _check_grad_input(name, x, dy)
+    n, c, h, w = x.shape
+    dx = torch.empty_like(x)
+    lib = cuda_build.library("lrn")
+    with torch.cuda.device(x.device):
+        status = lib.cos_lrn_bwd(
+            x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, h * w,
+            int(local_size), alpha / local_size, beta, k,
+            2.0 * alpha * beta / local_size, int(bool(fuse_relu)),
+            _LRN_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return dx
+
+
+def bias_relu_lrn_across_channels_bwd(x: torch.Tensor, bias: torch.Tensor,
+                                      dy: torch.Tensor, local_size: int = 5,
+                                      alpha: float = 1e-4,
+                                      beta: float = 0.75,
+                                      k: float = 1.0) -> torch.Tensor:
+    """dx of `bias_relu_lrn_across_channels(x, bias, ...)` (K4); it is
+    also the gradient with respect to x + bias, so d_bias is its
+    (N, H, W) sum."""
+    name = "bias_relu_lrn_across_channels_bwd"
+    if not _route(x, name):
+        return bias_relu_lrn_bwd_plain(x, bias, dy, local_size, alpha, beta,
+                                       k)
+    _check_lrn_input(name, x, local_size)
+    _check_grad_input(name, x, dy)
+    n, c, h, w = x.shape
+    if bias.shape != (c,) or bias.device != x.device:
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} on "
+                         f"{bias.device} for {c} channels on {x.device}")
+    b = bias.to(torch.float32).contiguous()
+    dx = torch.empty_like(x)
+    lib = cuda_build.library("lrn")
+    with torch.cuda.device(x.device):
+        status = lib.cos_bias_relu_lrn_bwd(
+            x.data_ptr(), b.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c,
+            h * w, int(local_size), alpha / local_size, beta, k,
+            2.0 * alpha * beta / local_size, _LRN_DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return dx
+
+
+class LRNAcrossChannels(torch.autograd.Function):
+    """lrn(x) (or lrn(relu(x))): forward K1, backward K2.  Saves only x;
+    the backward recomputes the normalizer from it."""
+
+    @staticmethod
+    def forward(ctx, x, local_size, alpha, beta, k, fuse_relu):
+        ctx.save_for_backward(x)
+        ctx.args = (local_size, alpha, beta, k, fuse_relu)
+        return lrn_across_channels(x, local_size, alpha, beta, k, fuse_relu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (x,) = ctx.saved_tensors
+        dx = lrn_across_channels_bwd(x, dy.contiguous(), *ctx.args)
+        return dx, None, None, None, None, None
+
+
+class BiasReluLRNAcrossChannels(torch.autograd.Function):
+    """lrn(relu(x + bias)): forward K3, backward K4 plus d_bias, the
+    channel sum of dx in f32 (the TPU version sums it in XLA, outside
+    the kernel).  Saves the raw x and the bias."""
+
+    @staticmethod
+    def forward(ctx, x, bias, local_size, alpha, beta, k):
+        ctx.save_for_backward(x, bias)
+        ctx.args = (local_size, alpha, beta, k)
+        return bias_relu_lrn_across_channels(x, bias, local_size, alpha,
+                                             beta, k)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bias = ctx.saved_tensors
+        dx = bias_relu_lrn_across_channels_bwd(x, bias, dy.contiguous(),
+                                               *ctx.args)
+        db = dx.float().sum(dim=(0, 2, 3)).to(bias.dtype)
+        return dx, db, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

@@ -12,12 +12,13 @@ output sizing with tail-window clipping, the AVE divisor = window ∩
 padded region, LRN ACROSS_CHANNELS with alpha/local_size,
 SoftmaxWithLoss VALID normalization + ignore_label.
 
-The across-channel LRN (plain, relu-fused, bias+relu-fused) and the
-int8 InnerProduct route to the hand-written kernels of `ops.kernels`.
-Convolutions go to cuDNN through `torch.nn.functional.conv2d`, as the
-JAX package left them to XLA.  Layers run with Caffe's TEST-phase
-(inference) semantics, so Dropout is the identity; the training
-semantics come with the training slice.
+The across-channel LRN (plain, relu-fused, bias+relu-fused) goes
+through the autograd Functions of `ops.kernels` (K1/K2, K3/K4) and the
+int8 InnerProduct to K5.  Convolutions go to cuDNN through
+`torch.nn.functional.conv2d`, as the JAX package left them to XLA.
+Every other op is differentiable through autograd.  `Ctx.train` picks
+Caffe's TRAIN semantics (Dropout draws its keep-mask from
+`Ctx.generator`) or TEST semantics (Dropout is the identity).
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ from . import kernels as K
 @dataclass
 class Ctx:
     """Per-call context threaded through layer application."""
+    # Caffe's TRAIN phase (Dropout active) and the generator its random
+    # draws come from (on the net's device)
+    train: bool = False
+    generator: Optional[torch.Generator] = None
     layer_name: str = ""
     # LRN layer names whose op applies relu in-kernel (net.py's
     # COS_FUSE_RELU_LRN peephole)
@@ -67,16 +72,17 @@ class LayerOp:
     name: str
     apply: Callable
     param_specs: Callable = field(default=lambda lp, shapes: [])
+    is_loss: bool = False
     is_data: bool = False
 
 
 _REGISTRY: Dict[str, LayerOp] = {}
 
 
-def register(name: str, *, params=None, is_data=False):
+def register(name: str, *, params=None, is_loss=False, is_data=False):
     def deco(fn):
         _REGISTRY[name] = LayerOp(name, fn, params or (lambda lp, s: []),
-                                  is_data=is_data)
+                                  is_loss=is_loss, is_data=is_data)
         return fn
     return deco
 
@@ -278,8 +284,17 @@ def _relu(ctx, lp, params, bottoms):
 
 @register("Dropout")
 def _dropout(ctx, lp, params, bottoms):
-    # inference semantics (Caffe's TEST phase): the identity
-    return [bottoms[0]]
+    ratio = lp.dropout_param.dropout_ratio
+    x = bottoms[0]
+    if not ctx.train or ratio == 0.0:
+        return [x]             # TEST phase: the identity
+    if ctx.generator is None:
+        raise ValueError(f"Dropout {ctx.layer_name!r} at TRAIN needs a "
+                         "generator (Ctx.generator)")
+    keep = 1.0 - ratio
+    mask = torch.rand(x.shape, generator=ctx.generator,
+                      device=x.device) < keep
+    return [torch.where(mask, x / keep, 0.0)]
 
 
 # ---------------------------------------------------------------------------
@@ -294,13 +309,15 @@ def _lrn(ctx, lp, params, bottoms):
     alpha, beta, k = p.alpha, p.beta, p.k
     if lp.name in ctx.bias_lrn:
         # conv-stem epilogue (net.py bias peephole): the producing conv's
-        # bias arrives as params[0]; bias + relu + LRN in one kernel (K3)
-        return [K.bias_relu_lrn_across_channels(
+        # bias arrives as params[0]; bias + relu + LRN in one kernel (K3,
+        # backward K4), and the bias gradient flows back to the conv
+        return [K.BiasReluLRNAcrossChannels.apply(
             x.contiguous(), params[0], n, alpha, beta, k)]
     if p.norm_region == NormRegion.ACROSS_CHANNELS:
-        # K1; net.py's ReLU->LRN peephole routed the pre-activation here
-        return [K.lrn_across_channels(x.contiguous(), n, alpha, beta, k,
-                                      lp.name in ctx.fused_relu_lrn)]
+        # K1 (backward K2); net.py's ReLU->LRN peephole routed the
+        # pre-activation here
+        return [K.LRNAcrossChannels.apply(x.contiguous(), n, alpha, beta,
+                                          k, lp.name in ctx.fused_relu_lrn)]
     # WITHIN_CHANNEL: spatial window average of squares (plain)
     pad = n // 2
     s = F.avg_pool2d(F.pad(x * x, (pad, pad, pad, pad)), (n, n), (1, 1),
@@ -348,7 +365,7 @@ def _loss_normalizer(norm_mode, valid_count, batch, full):
         if torch.is_tensor(valid_count) else max(valid_count, 1.0)
 
 
-@register("SoftmaxWithLoss")
+@register("SoftmaxWithLoss", is_loss=True)
 def _softmax_loss(ctx, lp, params, bottoms):
     axis = lp.softmax_param.axis if lp.has("softmax_param") else 1
     scores, labels = bottoms[0], bottoms[1]

@@ -1,0 +1,309 @@
+"""Solver: Caffe SolverParameter semantics as an eager PyTorch train step.
+
+The counterpart of `caffeonspark_tpu/solver.py` (caffe::Solver /
+SGDSolver through `CaffeNet<Dtype>::train`):
+
+    train_step(params, state, inputs) -> (loss, outputs)
+
+runs the TRAIN-phase net forward, `torch.autograd.grad` for the
+gradients (the across-channel LRN layers run their backward in the
+hand-written K2/K4 kernels), then Caffe's update under `torch.no_grad()`,
+in place on the parameter and history tensors.  Reproduced, operation
+for operation as the JAX package computes them:
+
+  * learning-rate policies fixed/step/exp/inv/multistep/poly/sigmoid
+    (sgd_solver.cpp GetLearningRate), in float32;
+  * clip_gradients by global L2 norm, against clip_gradients/iter_size
+    (the accumulated sum is clipped in Caffe; the mean here);
+  * L2/L1 regularization (weight_decay x decay_mult), then the update
+    with lr x lr_mult;
+  * solver types SGD / Nesterov / AdaGrad / RMSProp / AdaDelta / Adam;
+  * iter_size gradient accumulation (sum over sub-batches / iter_size);
+  * seeding: weights from random_seed (default 1701), dropout from a
+    generator seeded random_seed + rank (CaffeNet.cpp:614-618).
+
+`torch.optim` is not used: Caffe's momentum history holds the update,
+not the gradient.  The history of each blob has the blob's dtype.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .net import Net, Params
+from .proto.caffe import NetParameter, NetState, Phase, SolverParameter
+
+SOLVER_TYPES = ("SGD", "NESTEROV", "ADAGRAD", "RMSPROP", "ADADELTA", "ADAM")
+
+
+@dataclass
+class OptState:
+    """Iteration counter + per-blob histories (`{layer: {blob: t}}`):
+    history is the momentum / squared-gradient accumulator, history2 the
+    second moment (Adam) or the update accumulator (AdaDelta)."""
+    iter: int
+    history: Params
+    history2: Params
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def learning_rate(sp: SolverParameter, it: int) -> torch.Tensor:
+    """Caffe GetLearningRate as a float32 0-dim tensor, computed in
+    float32 as the JAX package computes it."""
+    policy = sp.lr_policy or "fixed"
+    base = sp.base_lr
+    itf = _f32(float(it))
+    if policy == "fixed":
+        return _f32(base)
+    if policy == "step":
+        step = torch.floor(itf / max(1, sp.stepsize))
+        return base * torch.pow(_f32(sp.gamma), step)
+    if policy == "exp":
+        return base * torch.pow(_f32(sp.gamma), itf)
+    if policy == "inv":
+        return base * torch.pow(1.0 + sp.gamma * itf, -sp.power)
+    if policy == "multistep":
+        steps = list(sp.stepvalue) or [1 << 30]
+        current = sum(1 for s in steps if it >= s)
+        return base * torch.pow(_f32(sp.gamma), _f32(float(current)))
+    if policy == "poly":
+        frac = torch.clamp(itf / max(1, sp.max_iter), 0.0, 1.0)
+        return base * torch.pow(1.0 - frac, sp.power)
+    if policy == "sigmoid":
+        return base / (1.0 + torch.exp(-sp.gamma * (itf - sp.stepsize)))
+    raise ValueError(f"unknown lr_policy {policy!r}")
+
+
+def _zeros_like(params: Params) -> Params:
+    return {ln: {bn: torch.zeros_like(t) for bn, t in bl.items()}
+            for ln, bl in params.items()}
+
+
+class Solver:
+    """Owns the TRAIN and TEST nets of a SolverParameter, the dropout
+    generator and the update rule."""
+
+    def __init__(self, solver_param: SolverParameter,
+                 net_param: NetParameter, *, rank: int = 0,
+                 dtype=torch.float32, device="cuda"):
+        from .serving.forward import pin_f32_precision
+        self.param = solver_param
+        self.device = torch.device(device)
+        # f32 training computes in f32: no TF32 in cuDNN or cuBLAS
+        pin_f32_precision()
+
+        train_state = NetState(phase=Phase.TRAIN)
+        if solver_param.has("train_state"):
+            train_state = solver_param.train_state.clone()
+            train_state.phase = Phase.TRAIN
+        self.train_net = Net(net_param, train_state, dtype=dtype,
+                             device=self.device)
+        test_state = NetState(phase=Phase.TEST)
+        if solver_param.test_state:
+            test_state = solver_param.test_state[0].clone()
+            test_state.phase = Phase.TEST
+        try:
+            self.test_net: Optional[Net] = Net(net_param, test_state,
+                                               dtype=dtype,
+                                               device=self.device)
+            if not self.test_net.compute_layers:
+                self.test_net = None
+        except (ValueError, NotImplementedError):
+            self.test_net = None
+
+        seed = solver_param.random_seed
+        if seed < 0:
+            seed = 1701    # Caffe seeds from the clock; fixed for replay
+        # identical weight init on every rank; only the dropout stream
+        # is decorrelated by rank
+        self.init_seed = int(seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            int(seed) + rank)
+        self.solver_type = (solver_param.type or "SGD").upper()
+        if self.solver_type not in SOLVER_TYPES:
+            raise ValueError(f"unknown solver type {self.solver_type!r} "
+                             f"(have {list(SOLVER_TYPES)})")
+        self._lr_mults, self._decay_mults = self._collect_mults()
+
+    # ------------------------------------------------------------------
+    def _collect_mults(self) -> Tuple[Dict, Dict]:
+        """Per-blob lr/decay multipliers from the layers' `param {}`."""
+        lr_m: Dict[str, Dict[str, float]] = {}
+        dc_m: Dict[str, Dict[str, float]] = {}
+        net = self.train_net
+        by_name = {lp.name: lp for lp in net.compute_layers}
+        for lname, specs in net.param_layout.items():
+            lp = by_name[lname]
+            lr_m[lname], dc_m[lname] = {}, {}
+            for i, (bname, _, _) in enumerate(specs):
+                ps = lp.param[i] if i < len(lp.param) else None
+                lr_m[lname][bname] = (ps.lr_mult if ps is not None
+                                      and ps.has("lr_mult") else 1.0)
+                dc_m[lname][bname] = (ps.decay_mult if ps is not None
+                                      and ps.has("decay_mult") else 1.0)
+        for lname in net.stat_param_layers():
+            for bname in lr_m.get(lname, {}):
+                lr_m[lname][bname] = 0.0
+                dc_m[lname][bname] = 0.0
+        return lr_m, dc_m
+
+    # ------------------------------------------------------------------
+    def init(self) -> Tuple[Params, OptState]:
+        params = self.train_net.init(self.init_seed)
+        return params, self.init_state(params)
+
+    def init_state(self, params: Params) -> OptState:
+        return OptState(iter=0, history=_zeros_like(params),
+                        history2=_zeros_like(params))
+
+    # ------------------------------------------------------------------
+    def loss_and_grads(self, params: Params,
+                       inputs: Dict[str, torch.Tensor]
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                  Params]:
+        """(loss, output blobs, grads) of one solver step's batch: with
+        iter_size > 1 the batch splits into iter_size sub-batches whose
+        gradients are summed and divided by iter_size (loss and outputs
+        are the sub-batch means)."""
+        net = self.train_net
+        iter_size = max(1, int(self.param.iter_size))
+        names = [(ln, bn) for ln, bl in params.items() for bn in bl]
+        subs = [inputs]
+        if iter_size > 1:
+            subs = []
+            for i in range(iter_size):
+                sub = {}
+                for k, v in inputs.items():
+                    b = v.shape[0]
+                    if b % iter_size:
+                        raise ValueError(f"batch {b} not divisible by "
+                                         f"iter_size {iter_size} (input "
+                                         f"{k!r})")
+                    m = b // iter_size
+                    sub[k] = v[i * m:(i + 1) * m]
+                subs.append(sub)
+        gsum = None
+        loss_sum = None
+        osum: Dict[str, torch.Tensor] = {}
+        for sub in subs:
+            leaves = {ln: {bn: t.detach().requires_grad_(True)
+                           for bn, t in bl.items()}
+                      for ln, bl in params.items()}
+            loss, blobs = net.loss(leaves, sub, train=True,
+                                   generator=self.generator)
+            grads = torch.autograd.grad(
+                loss, [leaves[ln][bn] for ln, bn in names],
+                allow_unused=True)
+            grads = [torch.zeros_like(params[ln][bn]) if g is None else g
+                     for (ln, bn), g in zip(names, grads)]
+            gsum = grads if gsum is None else [a + b for a, b in
+                                               zip(gsum, grads)]
+            loss_sum = loss.detach() if loss_sum is None \
+                else loss_sum + loss.detach()
+            for n in net.output_blobs:
+                v = blobs[n].detach()
+                osum[n] = v if n not in osum else osum[n] + v
+        if iter_size > 1:
+            gsum = [g / iter_size for g in gsum]
+            loss_sum = loss_sum / iter_size
+            osum = {n: v / iter_size for n, v in osum.items()}
+        grads_p: Params = {}
+        for (ln, bn), g in zip(names, gsum):
+            grads_p.setdefault(ln, {})[bn] = g
+        return loss_sum, osum, grads_p
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def apply_update(self, params: Params, grads: Params, state: OptState,
+                     lr: torch.Tensor) -> None:
+        """Caffe's ApplyUpdate, in place on params and state: clip, then
+        regularize, then the solver type's rule (JAX solver.py:222-303,
+        in the same operation order)."""
+        sp = self.param
+        momentum = sp.momentum
+        wd = sp.weight_decay
+        l1 = sp.regularization_type == "L1"
+        t = self.solver_type
+        it1 = _f32(float(state.iter + 1))
+
+        if sp.clip_gradients > 0:
+            thresh = sp.clip_gradients / max(1, int(sp.iter_size))
+            # the JAX package's leaf order: sorted layer, then blob names
+            leaves = [grads[ln][bn] for ln in sorted(grads)
+                      for bn in sorted(grads[ln])]
+            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+            scale = torch.where(gnorm > thresh, thresh / gnorm, 1.0)
+            grads = {ln: {bn: g * scale for bn, g in bl.items()}
+                     for ln, bl in grads.items()}
+
+        for ln, bl in params.items():
+            for bn, w in bl.items():
+                g = grads[ln][bn]
+                dm = self._decay_mults[ln][bn]
+                if wd != 0.0 and dm != 0.0:
+                    g = g + wd * dm * (torch.sign(w) if l1 else w)
+                h = state.history[ln][bn]
+                h2 = state.history2[ln][bn]
+                local_lr = float(lr * self._lr_mults[ln][bn])
+                if t == "SGD":
+                    upd = local_lr * g + momentum * h
+                    w2, h_n, h2_n = w - upd, upd, None
+                elif t == "NESTEROV":
+                    h_n = local_lr * g + momentum * h
+                    upd = (1 + momentum) * h_n - momentum * h
+                    w2, h2_n = w - upd, None
+                elif t == "ADAGRAD":
+                    h_n = h + g * g
+                    w2 = w - local_lr * g / (torch.sqrt(h_n) + sp.delta)
+                    h2_n = None
+                elif t == "RMSPROP":
+                    h_n = sp.rms_decay * h + (1 - sp.rms_decay) * g * g
+                    w2 = w - local_lr * g / (torch.sqrt(h_n) + sp.delta)
+                    h2_n = None
+                elif t == "ADADELTA":
+                    h_n = momentum * h + (1 - momentum) * g * g
+                    upd = g * torch.sqrt((h2 + sp.delta) / (h_n + sp.delta))
+                    h2_n = momentum * h2 + (1 - momentum) * upd * upd
+                    w2 = w - local_lr * upd
+                else:  # ADAM
+                    b1, b2 = momentum, sp.momentum2
+                    h_n = b1 * h + (1 - b1) * g
+                    h2_n = b2 * h2 + (1 - b2) * g * g
+                    corr = (torch.sqrt(1.0 - torch.pow(_f32(b2), it1))
+                            / (1.0 - torch.pow(_f32(b1), it1)))
+                    lr_corr = float(_f32(local_lr) * corr)   # f32 product
+                    w2 = w - lr_corr * h_n / (torch.sqrt(h2_n) + sp.delta)
+                # in place; each blob and history keeps its own dtype
+                w.copy_(w2)
+                h.copy_(h_n)
+                if h2_n is not None:
+                    h2.copy_(h2_n)
+        state.iter += 1
+
+    # ------------------------------------------------------------------
+    def train_step(self, params: Params, state: OptState,
+                   inputs: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One solver iteration, in place on params and state.  Returns
+        the loss (a device scalar, not synchronized) and the output
+        blobs with `lr` added."""
+        lr = learning_rate(self.param, state.iter)
+        loss, outputs, grads = self.loss_and_grads(params, inputs)
+        self.apply_update(params, grads, state, lr)
+        outputs["lr"] = lr
+        return loss, outputs
+
+    def eval_step_fn(self):
+        """Validation forward, made by the serving path's
+        `make_forward_fn` (serving/forward.py), as in the JAX package."""
+        if self.test_net is None:
+            raise ValueError("no TEST-phase net in this config")
+        from .serving.forward import make_forward_fn
+        return make_forward_fn(self.test_net,
+                               tuple(self.test_net.output_blobs))

@@ -11,22 +11,40 @@ or the package is not importable, and when any phase fails.  Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (nvcc, all sources at once);
-  3. each kernel against its plain PyTorch version on the card, at the
-     serving path's B=64 shapes (f32, and bf16 for the LRN kernels),
-     with kernel / plain / library / bound times;
+  3. each kernel against its plain PyTorch version on the card: the
+     forward kernels at the serving path's B=64 shapes (f32, and bf16
+     for the LRN kernels) and at the training path's B=256 shapes, the
+     LRN backward kernels (K2, K4) at the B=256 shapes in f32 and bf16
+     and at a ragged shape, with kernel / plain / library / bound times;
   4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
      written with the port's own save_caffemodel and seeded fillers;
   5. that model served through the CLI's start_server (-serve path),
      answering /v1/predict over HTTP; rows held against the same
      forward with every kernel swapped for its plain version;
   6. the same for AlexNet under COS_FUSE_BIAS_RELU_LRN=1 and
-     COS_SERVE_WEIGHT_DTYPE=int8;
-  7. after the counts are read, one B=64 flush per net under
-     torch.profiler: device busy time against the flush's wall time;
-  8. a `kernels` JSON line: launches counted on the serving path of
-     phases 5-6 (counts zeroed just before phase 5) and the numbers of
-     phase 3; then the card line again;
-  9. the device line, last: {"ok": true, "device": {...}}.
+     COS_SERVE_WEIGHT_DTYPE=int8 (launch counts of phases 5-6 zeroed
+     before phase 5 and read after phase 6);
+  7. one B=64 flush per net under torch.profiler: device busy time
+     against the flush's wall time;
+  8. training data: an LMDB of 512 seeded 3x256x256 Datum records
+     written with the port's LmdbWriter, and train_val-style prototxts
+     of full-width CaffeNet and AlexNet (B=256, random 227 crop, mirror,
+     mean_value; the bvlc_reference_caffenet SGD solver cut to
+     max_iter 8, snapshot 4);
+  9. both trained through the CLI (`caffe_on_spark.main([... -train])`,
+     counts zeroed before each, read after): the first loss near ln 1000,
+     every loss finite, snapshots at 4 and 8 and the final model, K1+K2
+     (CaffeNet) and K3+K4 (AlexNet, COS_FUSE_BIAS_RELU_LRN=1) each
+     launched 2 x max_iter times; median step time and images/s over
+     steps 3-8;
+ 10. one solver step's loss and gradients with the kernels against the
+     same step with every kernel swapped for its plain version (same
+     params, batch and dropout seed; cuDNN deterministic);
+ 11. the trained CaffeNet served through start_server (finite fc8 rows);
+ 12. one training step per net under torch.profiler;
+ 13. a `kernels` JSON line: launches on the serving and training paths
+     and the numbers of phase 3; then the card line again;
+ 14. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,23 +65,35 @@ INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
 L2_BYTES = 50 * 2**20
 SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's ~1.98 GHz boost
 B = 64                         # the serving path's largest bucket
+TRAIN_B = 256                  # the training path's batch
+TRAIN_ITERS = 8
 
 LRN_RTOL, LRN_ATOL = 2e-5, 2e-6          # f32, as tests/test_pallas.py
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-6   # one bf16 ulp of the output
+BWD_RTOL, BWD_ATOL = 3e-4, 3e-5          # f32 backward, tests/test_pallas.py
+STEP_LOSS_RTOL = 1e-5  # kernel vs plain solver step: loss
+STEP_GRAD_TOL = 1e-4   # ... and each gradient, of its max |grad|
 ROWS_F32_TOL = 1e-4    # max |served - plain| / max |plain|, f32 net
 ROWS_INT8_TOL = 1e-2   # int8: a flipped rounding moves 1/127 of a max
 
 PALLAS = "caffeonspark_tpu/ops/pallas_kernels.py"
-KERNELS = {
+KERNELS = {  # `library`: the one PyTorch call timed as library_ms
     "lrn_across_channels": dict(
         source="caffeonspark_tpu_torch/csrc/lrn.cu",
-        replaces=f"{PALLAS}:113"),
+        replaces=f"{PALLAS}:113", library="F.local_response_norm"),
+    "lrn_across_channels_bwd": dict(
+        source="caffeonspark_tpu_torch/csrc/lrn.cu",
+        replaces=f"{PALLAS}:155",
+        library="torch.autograd.grad of F.local_response_norm"),
     "bias_relu_lrn_across_channels": dict(
         source="caffeonspark_tpu_torch/csrc/lrn.cu",
-        replaces=f"{PALLAS}:228"),
+        replaces=f"{PALLAS}:228", library=None),
+    "bias_relu_lrn_across_channels_bwd": dict(
+        source="caffeonspark_tpu_torch/csrc/lrn.cu",
+        replaces=f"{PALLAS}:267", library=None),
     "int8_matmul": dict(
         source="caffeonspark_tpu_torch/csrc/int8_matmul.cu",
-        replaces=f"{PALLAS}:352"),
+        replaces=f"{PALLAS}:352", library="torch._int_mm"),
 }
 
 
@@ -181,6 +211,85 @@ def check_lrn(K, torch, name, shape, dtype, relu, bias, results):
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
 
 
+def lrn_bwd_ops_per_elem(local_size: int, relu: bool, bias: bool) -> int:
+    # s: local_size squares + (local_size - 1) adds + 2; s^-beta: log,
+    # mul, exp (3); u: 2 muls + div (3); dy*s^-beta (1); the window sum
+    # of u (local_size - 1); dx: 2 muls + sub (3); +1 relu, +1 bias
+    return 3 * local_size + 10 + int(relu) + int(bias)
+
+
+def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
+                  timed=True):
+    """K2 / K4 against lrn_bwd_plain on the same x, dy (and bias)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"{name}{shape}{dtype}{relu}".encode()))
+    x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=g)
+    ls, alpha, beta, k = 5, 1e-4, 0.75, 1.0
+    if bias:
+        run = lambda x, dy, b: K.bias_relu_lrn_across_channels_bwd(  # noqa: E731
+            x, b, dy, ls, alpha, beta, k)
+        plain = lambda x, dy, b: K.bias_relu_lrn_bwd_plain(  # noqa: E731
+            x, b, dy, ls, alpha, beta, k)
+    else:
+        run = lambda x, dy, b: K.lrn_across_channels_bwd(  # noqa: E731
+            x, dy, ls, alpha, beta, k, relu)
+        plain = lambda x, dy, b: K.lrn_bwd_plain(  # noqa: E731
+            x, dy, ls, alpha, beta, k, relu)
+    got = run(x, dy, b)
+    torch.cuda.synchronize()
+    want = plain(x, dy, b)
+    err = (got.float() - want.float()).abs()
+    rtol, atol = ((BWD_RTOL, BWD_ATOL) if dtype == torch.float32
+                  else (BF16_RTOL, BF16_ATOL))
+    bad = err > atol + rtol * want.float().abs()
+    max_err = float(err.max())
+    exact = bool(torch.equal(got, want))
+    check(not bool(bad.any()),
+          f"{name} {shape} {dtype}: {int(bad.sum())} elements outside "
+          f"rtol {rtol} atol {atol} (max abs err {max_err:.3g})")
+    rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               relu=relu, max_abs_err=max_err, bit_equal=exact)
+    if not timed:
+        log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu}: "
+            f"max_abs_err {max_err:.3g} bit-equal {exact}")
+        results.setdefault(name, []).append(rec)
+        return
+    nbytes = 3 * x.numel() * x.element_size() + (4 * shape[1] if bias
+                                                 else 0)
+    sets = [(x.clone(), dy.clone(), b.clone())
+            for _ in range(rotations(nbytes))]
+    ms, host_us = time_ms(run, sets)
+    plain_ms, _ = time_ms(plain, sets)
+    lib_ms = None
+    if not relu and not bias:
+        # the library yardstick: autograd's backward of
+        # F.local_response_norm on a retained graph (the same dx)
+        graphs = []
+        for xs, dys, _ in sets:
+            xg = xs.detach().requires_grad_(True)
+            graphs.append((F.local_response_norm(xg, ls, alpha, beta, k),
+                           xg, dys))
+        lib = lambda y, xg, dys: torch.autograd.grad(  # noqa: E731
+            y, xg, dys, retain_graph=True)
+        lib_ms, _ = time_ms(lib, graphs)
+        del graphs
+    ops = x.numel() * lrn_bwd_ops_per_elem(ls, relu or bias, bias)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
+               library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    results.setdefault(name, []).append(rec)
+    log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu}: "
+        f"max_abs_err {max_err:.3g} (rtol {rtol:.3g} atol {atol:.3g}, "
+        f"bit-equal {exact}) kernel {ms:.4f} ms (launch path "
+        f"{host_us:.1f} us on the host) plain {plain_ms:.4f} ms library "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
 def check_int8(K, torch, m, n, kk, results, timed=True):
     g = torch.Generator(device="cuda").manual_seed(m * 131 + n * 7 + kk)
     xq = torch.randint(-127, 128, (m, kk), device="cuda", generator=g,
@@ -235,6 +344,31 @@ def kernel_phase(K, torch) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape, relu, bias in lrn_cases:
             check_lrn(K, torch, name, shape, dtype, relu, bias, res)
+    # the training path's forward shapes (f32; after the serving rows,
+    # so each kernel's first record stays its B=64 serving shape)
+    for name, shape, relu, bias in lrn_cases:
+        if relu:
+            continue
+        check_lrn(K, torch, name, (TRAIN_B,) + shape[1:], torch.float32,
+                  relu, bias, res)
+    bwd_cases = [  # the training path's shapes; the first of each is main
+        ("lrn_across_channels_bwd", (TRAIN_B, 96, 27, 27), False, False),
+        ("lrn_across_channels_bwd", (TRAIN_B, 256, 13, 13), False, False),
+        ("lrn_across_channels_bwd", (TRAIN_B, 96, 55, 55), True, False),
+        ("bias_relu_lrn_across_channels_bwd", (TRAIN_B, 96, 55, 55),
+         False, True),
+        ("bias_relu_lrn_across_channels_bwd", (TRAIN_B, 256, 27, 27),
+         False, True),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, relu, bias in bwd_cases:
+            check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, res)
+        for name, relu, bias in (("lrn_across_channels_bwd", False, False),
+                                 ("lrn_across_channels_bwd", True, False),
+                                 ("bias_relu_lrn_across_channels_bwd",
+                                  False, True)):
+            check_lrn_bwd(K, torch, name, (3, 13, 7, 9), dtype, relu, bias,
+                          res, timed=False)
     for m, n, kk in ((B, 4096, 9216), (B, 4096, 4096), (B, 1000, 4096)):
         check_int8(K, torch, m, n, kk, res)
     for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
@@ -250,21 +384,27 @@ def kernel_phase(K, torch) -> dict:
 @contextlib.contextmanager
 def plain_kernels(K):
     """Swap every kernel wrapper for its plain PyTorch version (the
-    reference forward of phase 5/6 only; restored on exit)."""
-    saved = (K.lrn_across_channels, K.bias_relu_lrn_across_channels,
-             K.int8_matmul)
+    reference forward of phases 5/6 and the reference step of phase 10
+    only; restored on exit).  The autograd Functions look the wrappers
+    up in the module, so they follow the swap."""
+    names = ("lrn_across_channels", "lrn_across_channels_bwd",
+             "bias_relu_lrn_across_channels",
+             "bias_relu_lrn_across_channels_bwd", "int8_matmul")
+    saved = {n: getattr(K, n) for n in names}
     K.lrn_across_channels = (
         lambda x, ls=5, a=1e-4, b=0.75, k=1.0, fuse_relu=False:
         K.lrn_plain(x, ls, a, b, k, fuse_relu))
+    K.lrn_across_channels_bwd = K.lrn_bwd_plain
     K.bias_relu_lrn_across_channels = (
         lambda x, bias, ls=5, a=1e-4, b=0.75, k=1.0:
         K.lrn_plain(x, ls, a, b, k, bias=bias))
+    K.bias_relu_lrn_across_channels_bwd = K.bias_relu_lrn_bwd_plain
     K.int8_matmul = K.int8_matmul_plain
     try:
         yield
     finally:
-        (K.lrn_across_channels, K.bias_relu_lrn_across_channels,
-         K.int8_matmul) = saved
+        for n, fn in saved.items():
+            setattr(K, n, fn)
 
 
 @contextlib.contextmanager
@@ -455,6 +595,13 @@ def profile_flush(torch, solver_path, model, env, label, device="cuda"):
         wall_us = 1e6 * (time.perf_counter() - t0)
     finally:
         prof.stop()
+    return summarize_profile(prof, wall_us, label, f"one B={B} flush")
+
+
+def summarize_profile(prof, wall_us, label, what):
+    """Device busy time (union of kernel intervals) against the wall time
+    of the profiled window, the copy time, and the kernels that took most
+    of it; None, said so, when the profiler recorded no device kernels."""
     kernels, copies = [], 0.0
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
@@ -480,15 +627,220 @@ def profile_flush(torch, solver_path, model, env, label, device="cuda"):
     for (a, b), name in kernels:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    res = dict(label=label, flush_wall_us=wall_us, device_busy_us=busy,
+    res = dict(label=label, what=what, wall_us=wall_us, device_busy_us=busy,
                copy_us=copies, idle_share=1.0 - busy / wall_us,
                kernels=len(kernels),
                top=[[name[:60], us] for name, us in top])
-    log(f"  {label}: one B={B} flush: wall {wall_us:.0f} us, device busy "
+    log(f"  {label}: {what}: wall {wall_us:.0f} us, device busy "
         f"{busy:.0f} us in {len(kernels)} kernels (idle share "
         f"{res['idle_share']:.3f}), copies {copies:.0f} us; top: " +
         "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 8-12: train full-width nets through the CLI path
+# ---------------------------------------------------------------------------
+
+TRAIN_SOLVER = """net: "{net}"
+base_lr: 0.01
+lr_policy: "step"
+gamma: 0.1
+stepsize: 4
+momentum: 0.9
+weight_decay: 0.0005
+max_iter: {max_iter}
+snapshot: 4
+snapshot_prefix: "{name}_train"
+snapshot_after_train: true
+random_seed: {seed}
+"""
+
+
+def write_train_data(workdir: str) -> str:
+    """512 seeded 3x256x256 uint8 Datum records (labels in [0, 1000)) in
+    an LMDB written with the port's own LmdbWriter."""
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch.data import LmdbWriter
+    from caffeonspark_tpu_torch.proto.caffe import Datum
+    path = os.path.join(workdir, "train_lmdb")
+    shutil.rmtree(path, ignore_errors=True)
+    rng = np.random.RandomState(7)
+    t0 = time.monotonic()
+    recs = [(b"%08d" % i, Datum(
+        channels=3, height=256, width=256,
+        data=rng.randint(0, 256, 3 * 256 * 256, dtype=np.uint8).tobytes(),
+        label=int(rng.randint(1000))).to_binary()) for i in range(512)]
+    LmdbWriter(path).write(recs)
+    log(f"  wrote {path}: 512 records of 3x256x256 "
+        f"({time.monotonic() - t0:.2f} s)")
+    return path
+
+
+def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int) -> str:
+    """train_val-style prototxts: the zoo's full-width net on an LMDB
+    MemoryData layer (B=256, random 227 crop, mirror, mean_value) and
+    the bvlc_reference_caffenet solver cut to max_iter 8."""
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import (NetParameter, NetState, Phase,
+                                              TransformationParameter)
+    npm = zoo_fn(batch_size=TRAIN_B)
+    data = npm.layer[0]
+    data.source_class = "com.yahoo.ml.caffe.LMDB"
+    data.memory_data_param.source = lmdb
+    data.memory_data_param.height = 256
+    data.memory_data_param.width = 256
+    data.transform_param = TransformationParameter(
+        crop_size=227, mirror=True, mean_value=[104.0, 117.0, 123.0])
+    name = npm.name.lower()
+    net_path = os.path.join(workdir, f"{name}_train_val.prototxt")
+    text = npm.to_text()
+    check(NetParameter.from_text(text).layer[0].transform_param.crop_size
+          == 227, f"{name}: transform_param did not survive the prototxt")
+    n_params = Net(npm, NetState(phase=Phase.TRAIN), device="cpu").num_params()
+    check(n_params == 60_965_224,
+          f"{npm.name}: {n_params} params, expected 60,965,224")
+    with open(net_path, "w") as f:
+        f.write(text)
+    solver_path = os.path.join(workdir, f"{name}_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(TRAIN_SOLVER.format(net=net_path, max_iter=TRAIN_ITERS,
+                                    name=name, seed=seed))
+    return solver_path
+
+
+def train_phase(K, label, solver_path, env, outdir, kernels,
+                device="cuda"):
+    """-train through caffe_on_spark.main with the counts zeroed just
+    before and read just after; checks losses, snapshots and launches."""
+    import shutil
+    from caffeonspark_tpu_torch import caffe_on_spark
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    metrics_path = os.path.join(outdir, "metrics.json")
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with env_set({**env, "COS_PIPELINE_METRICS": metrics_path}):
+        rc = caffe_on_spark.main(["-conf", solver_path, "-train",
+                                  "-output", outdir, "-device", device])
+    wall_s = time.monotonic() - t0
+    counts = dict(K.launch_counts)
+    check(rc == 0, f"{label}: -train returned {rc}")
+    with open(metrics_path) as f:
+        m = json.load(f)
+    tr = m["info"]["train"]
+    losses = tr["loss"]
+    check(tr["iter"] == list(range(1, TRAIN_ITERS + 1)),
+          f"{label}: iterations {tr['iter']}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss in {losses}")
+    check(6.0 <= losses[0] <= 8.0,
+          f"{label}: first loss {losses[0]:.4f} not near ln 1000")
+    name = os.path.basename(solver_path).split("_")[0]
+    for it in (4, TRAIN_ITERS):
+        for ext in ("caffemodel", "solverstate"):
+            f = os.path.join(outdir, f"{name}_train_iter_{it}.{ext}")
+            check(os.path.exists(f), f"{label}: no snapshot {f}")
+    model = os.path.join(outdir, "model.caffemodel")
+    check(os.path.exists(model), f"{label}: no final model {model}")
+    want = {k: (2 * TRAIN_ITERS if k in kernels else 0) for k in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    t = tr["t"]
+    steps_ms = sorted(1e3 * (t[i] - t[i - 1]) for i in range(2, len(t)))
+    med = steps_ms[len(steps_ms) // 2]
+    st = m["stages"]
+    res = dict(label=label, wall_s=wall_s, losses=losses, lr=tr["lr"],
+               step_interval_ms=steps_ms, median_step_ms=med,
+               images_per_s=1e3 * TRAIN_B / med,
+               pack_ms_p50=st["pack"]["p50_ms"],
+               dispatch_ms_p50=st["step"]["p50_ms"],
+               queue_wait_ms_p50=st["queue_wait"]["p50_ms"],
+               launches=counts)
+    log(f"  {label}: -train of {TRAIN_ITERS} steps in {wall_s:.1f} s; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"steps 3-{TRAIN_ITERS}: "
+        f"median {med:.1f} ms ({res['images_per_s']:.0f} images/s), "
+        f"pack p50 {res['pack_ms_p50']:.1f} ms, step dispatch p50 "
+        f"{res['dispatch_ms_p50']:.1f} ms; launches {counts}")
+    return res, model
+
+
+def step_vs_plain(K, torch, label, solver_path, env, device="cuda"):
+    """One solver step's loss and gradients with the kernels against the
+    same step with every kernel swapped for its plain version: the same
+    params, batch and dropout seed, cuDNN deterministic.  Returns the
+    record and what the profile phase reuses."""
+    import itertools
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.solver import Solver
+    with env_set(env):
+        conf = Config(["-conf", solver_path, "-train", "-device", device])
+        solver = Solver(conf.solverParameter, conf.netParam,
+                        device=device)
+    src = get_source(conf.train_data_layer(), phase_train=True, seed=1)
+    host = src.next_batch(list(itertools.islice(src.records(), TRAIN_B)))
+    batch = to_device(host, solver.device)
+    params, state = solver.init()
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        solver.generator.manual_seed(99)
+        loss_k, _, g_k = solver.loss_and_grads(params, batch)
+        solver.generator.manual_seed(99)
+        with plain_kernels(K):
+            loss_p, _, g_p = solver.loss_and_grads(params, batch)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    lk, lp = float(loss_k), float(loss_p)
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(loss_rel <= STEP_LOSS_RTOL, f"{label}: loss {lk} with kernels, "
+          f"{lp} plain (rel {loss_rel:.3g})")
+    worst, worst_at = 0.0, ""
+    for ln, bl in g_p.items():
+        for bn, gp in bl.items():
+            rel = float((g_k[ln][bn] - gp).abs().max()) / max(
+                float(gp.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_at = rel, f"{ln}/{bn}"
+            check(rel <= STEP_GRAD_TOL, f"{label}: {ln}/{bn} gradient "
+                  f"differs from the plain step by {rel:.3g} of its max")
+    log(f"  {label}: loss {lk:.6f} with kernels, {lp:.6f} plain (rel "
+        f"{loss_rel:.3g}); worst gradient {worst:.3g} of max |grad| at "
+        f"{worst_at} (tol {STEP_GRAD_TOL})")
+    rec = dict(label=label, loss_kernel=lk, loss_plain=lp,
+               loss_rel=loss_rel, worst_grad_rel=worst,
+               worst_grad_at=worst_at)
+    return rec, (solver, params, state, host)
+
+
+def profile_train_step(torch, label, solver, params, state, host):
+    """One training step (H2D of a packed batch, forward, backward,
+    update) of a warmed solver under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    sync = (torch.cuda.synchronize if solver.device.type == "cuda"
+            else (lambda: None))
+    solver.train_step(params, state, to_device(host, solver.device))
+    sync()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        prof.start()
+    except RuntimeError as e:
+        log(f"  {label}: profile: not measured ({e})")
+        return None
+    try:
+        t0 = time.perf_counter()
+        solver.train_step(params, state, to_device(host, solver.device))
+        sync()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    finally:
+        prof.stop()
+    return summarize_profile(prof, wall_us, label,
+                             f"one B={TRAIN_B} training step")
 
 
 def main(argv) -> int:
@@ -522,7 +874,8 @@ def main(argv) -> int:
         if text.strip():
             log(f"--- nvcc {name}.cu ---\n{text.strip()}")
 
-    log("kernels against their plain versions (B=64 serving shapes):")
+    log("kernels against their plain versions (B=64 serving and B=256 "
+        "training shapes):")
     res = kernel_phase(K, torch)
     if "--kernels-only" in argv:
         return 0
@@ -544,29 +897,82 @@ def main(argv) -> int:
     K.reset_launch_counts()
     serve = [serve_phase(K, torch, *files, env, tol, label)
              for label, files, env, tol in configs]
-    launches = dict(K.launch_counts)
-    log(f"launches on the serving path: {launches}")
-    for name in KERNELS:
-        check(launches.get(name, 0) > 0,
+    serve_launches = dict(K.launch_counts)
+    log(f"launches on the serving path: {serve_launches}")
+    for name in ("lrn_across_channels", "bias_relu_lrn_across_channels",
+                 "int8_matmul"):
+        check(serve_launches.get(name, 0) > 0,
               f"{name} was never launched on the serving path")
 
     log("profile of one B=64 flush per net (after the counts):")
     profiles = [profile_flush(torch, *files, env, label)
                 for label, files, env, _ in configs]
 
+    log("training data and configurations:")
+    lmdb = write_train_data(workdir)
+    train_configs = [  # (label, solver, knobs, kernels of the path)
+        ("CaffeNet train", write_train_config(workdir, zoo.caffenet, lmdb,
+                                              seed=1), {},
+         ("lrn_across_channels", "lrn_across_channels_bwd")),
+        ("AlexNet train bias+relu+LRN",
+         write_train_config(workdir, zoo.alexnet, lmdb, seed=2),
+         {"COS_FUSE_BIAS_RELU_LRN": "1"},
+         ("bias_relu_lrn_across_channels",
+          "bias_relu_lrn_across_channels_bwd"))]
+    log(f"training through the CLI (-train, B={TRAIN_B}, {TRAIN_ITERS} "
+        "steps; counts zeroed before each):")
+    train, train_launches, trained = [], {}, {}
+    for label, solver_path, env, kernels in train_configs:
+        rec, model = train_phase(K, label, solver_path, env,
+                                 os.path.join(workdir, label.split()[0]
+                                              .lower() + "_out"), kernels)
+        train.append(rec)
+        trained[label] = (solver_path, model)
+        for k, v in rec["launches"].items():
+            train_launches[k] = train_launches.get(k, 0) + v
+
+    log("one solver step with the kernels against the plain step:")
+    steps, reuse = [], []
+    for label, solver_path, env, _ in train_configs:
+        rec, kept = step_vs_plain(K, torch, label, solver_path, env)
+        steps.append(rec)
+        reuse.append((label, kept))
+
+    log("the trained CaffeNet served (-serve of the -train output):")
+    served_trained = serve_phase(K, torch, *trained["CaffeNet train"], {},
+                                 ROWS_F32_TOL, "CaffeNet trained",
+                                 sizes=(4, 4))
+
+    log("profile of one training step per net:")
+    train_profiles = []
+    for label, (solver, params, state, host) in reuse:
+        train_profiles.append(profile_train_step(torch, label, solver,
+                                                 params, state, host))
+        del solver, params, state, host
+
     lines = []
     for name, meta in KERNELS.items():
         main_rec = res[name][0]
+        by_path = {"serve": serve_launches.get(name, 0),
+                   "train": train_launches.get(name, 0)}
         lines.append(dict(
             name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"], launches=launches[name],
+            replaces=meta["replaces"], launches=sum(by_path.values()),
+            launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in res[name]
                             if r["dtype"] in ("float32", "int8")),
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
-            library_ms=main_rec["library_ms"],
+            library_ms=main_rec["library_ms"], library=meta["library"],
             shape=main_rec["shape"], dtype=main_rec["dtype"]))
+    for line in lines:
+        check(line["launches"] > 0,
+              f"{line['name']} was never launched on a main path")
     log(json.dumps({"serving": serve, "profile": profiles}))
+    log(json.dumps({"training": train, "step_vs_plain": steps,
+                    "trained_served": served_trained,
+                    "train_profile": train_profiles}))
+    log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))
     log(card)
     print(json.dumps({"ok": True, "device": {

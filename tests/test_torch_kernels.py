@@ -13,8 +13,8 @@ Tolerances: LRN rtol 2e-5 / atol 2e-6 in f32, as in test_pallas.py
 bf16 the two outputs may differ by one bf16 ulp (rtol 2^-7), since each
 rounds an f32 value that may differ in its last bits.  int8 products
 are exact; int8_inner_product matches to 1e-6.  The CUDA kernels
-themselves run only on a card: `test_kernels_match_plain_on_card`
-(marker `cuda`) and chip_smoke.py hold them against the plain versions.
+themselves run only on a card: tests/test_torch_cuda.py (marker
+`cuda`) and chip_smoke.py hold them against the plain versions.
 """
 
 import jax
@@ -199,33 +199,3 @@ def test_wrappers_route_by_device_and_count_only_launches():
     meta = K.lrn_across_channels(torch.empty((2, 4, 5, 5), device="meta"))
     assert meta.shape == (2, 4, 5, 5) and meta.device.type == "meta"
     assert all(v == 0 for v in K.launch_counts.values())
-
-
-@pytest.fixture()
-def cuda_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (run on the card: python -m "
-                    "pytest -m cuda tests/test_torch_kernels.py)")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_card(cuda_card):
-    """K1, K3 and K5 on the card against their plain versions on the
-    same inputs (chip_smoke.py repeats this at the serving shapes)."""
-    for shape in LRN_SHAPES:
-        x = torch.from_numpy(_x(shape, 9)).to(cuda_card)
-        b = torch.randn(shape[1], device=cuda_card)
-        for relu in (False, True):
-            _close(K.lrn_across_channels(x, 5, 1e-4, 0.75, 1.0,
-                                         relu).cpu(),
-                   K.lrn_plain(x, 5, 1e-4, 0.75, 1.0, relu).cpu())
-        _close(K.bias_relu_lrn_across_channels(x, b).cpu(),
-               K.lrn_plain(x, 5, 1e-4, 0.75, 1.0, bias=b).cpu())
-    for m, n, kk in ((1, 1000, 4096), (64, 128, 256), (3, 37, 1001)):
-        xq = torch.randint(-127, 128, (m, kk), dtype=torch.int8,
-                           device=cuda_card)
-        wq = torch.randint(-127, 128, (n, kk), dtype=torch.int8,
-                           device=cuda_card)
-        assert torch.equal(K.int8_matmul(xq, wq).cpu(),
-                           K.int8_matmul_plain(xq, wq).cpu())
