@@ -90,11 +90,13 @@ class FeedQueue:
         return self._q.qsize()
 
 
-def combine_batches(batches: Iterator[Dict[str, np.ndarray]], k: int
+def combine_batches(batches: Iterator[Dict[str, np.ndarray]], k: int,
+                    time_major: frozenset = frozenset()
                     ) -> Iterator[Dict[str, np.ndarray]]:
-    """Concatenate k consecutive batches along the batch axis: the
-    (iter_size * B, ...) input of one solver step, which the solver
-    splits into its iter_size sub-batches again."""
+    """Concatenate k consecutive batches along the batch axis (axis 1
+    for the time-major keys): the (iter_size * B, ...) input of one
+    solver step, which the solver splits into its iter_size sub-batches
+    again."""
     if k <= 1:
         yield from batches
         return
@@ -102,8 +104,9 @@ def combine_batches(batches: Iterator[Dict[str, np.ndarray]], k: int
     for b in batches:
         buf.append(b)
         if len(buf) == k:
-            yield {key: np.concatenate([x[key] for x in buf], axis=0)
-                   for key in buf[0]}
+            yield {key: np.concatenate(
+                [x[key] for x in buf], axis=1 if key in time_major else 0)
+                for key in buf[0]}
             buf = []
     if buf:
         _LOG.info("combine_batches: dropping %d trailing sub-batch(es) "

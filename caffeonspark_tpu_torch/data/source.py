@@ -8,11 +8,13 @@ transformer into the data layer's named blobs (numpy, on the host).
 
 Read by the port: LMDB databases of Caffe `Datum` records, through a
 CaffeOnSpark `LMDB` source class or Caffe's own source-less `Data`
-layer.  Serving uses a source only as its packer: requests carry their
-own pixels, so the SequenceFile and DataFrame source classes pack
-records there, but reading their stores waits for a later slice, as do
-HDF5, image-list and DataFrameSource layers, LevelDB and the decoding of
-encoded images.  Each of those raises and names itself.
+layer, and tables of typed columns through `DataFrameSource`
+(data/dataframe.py) for CoSData layers.  Serving uses a source only as
+its packer: requests carry their own pixels, so the SequenceFile and
+image DataFrame source classes pack records there, but reading their
+stores waits for a later slice, as do HDF5 and image-list layers,
+LevelDB and the decoding of encoded images.  Each of those raises and
+names itself.
 """
 
 from __future__ import annotations
@@ -250,9 +252,8 @@ def get_source(layer: LayerParameter, **kw) -> DataSource:
     if not cls_name:
         raise ValueError(f"data layer {layer.name!r} has no source_class")
     if cls_name.endswith("DataFrameSource"):
-        raise NotImplementedError(f"source_class {cls_name!r}: DataFrame "
-                                  "sources wait for a later slice of the "
-                                  "PyTorch port")
+        from .dataframe import DataFrameSource
+        return DataFrameSource(layer, **kw)
     if cls_name not in _CLASS_MAP:
         raise ValueError(f"source_class {cls_name!r} is not in the "
                          f"PyTorch port (have {list(SOURCE_CLASSES)})")

@@ -1,6 +1,7 @@
-"""Model zoo: programmatic NetParameters for the image nets this package
-serves (a copy of `caffeonspark_tpu/models/zoo.py`'s LeNet, CaffeNet
-and AlexNet definitions, so both packages build the same graphs)."""
+"""Model zoo: programmatic NetParameters for the nets this package trains
+and serves (a copy of `caffeonspark_tpu/models/zoo.py`'s LeNet,
+CaffeNet, AlexNet and transformer LM definitions, so both packages
+build the same graphs)."""
 
 from __future__ import annotations
 
@@ -151,3 +152,54 @@ def lenet(batch_size: int = 64) -> NetParameter:
         if lyr.type == "MemoryData":
             lyr.memory_data_param.batch_size = batch_size
     return npm
+
+
+def transformer_lm(vocab: int = 1000, d_model: int = 128, heads: int = 4,
+                   layers: int = 2, seq: int = 32, batch: int = 8
+                   ) -> NetParameter:
+    """Small causal transformer language model (extension family: the
+    reference tops out at LSTM; this exercises MultiHeadAttention from a
+    plain prototxt).  Time-major (T, B) int inputs like the LSTM path."""
+    t = f"""
+name: "TransformerLM"
+layer {{ name: "data" type: "CoSData" top: "input_sentence"
+  top: "target_sentence"
+  cos_data_param {{ batch_size: {batch}
+    top {{ name: "input_sentence" type: INT_ARRAY channels: {seq}
+          sample_num_axes: 1 transpose: true }}
+    top {{ name: "target_sentence" type: INT_ARRAY channels: {seq}
+          sample_num_axes: 1 transpose: true }} }} }}
+layer {{ name: "embed" type: "Embed" bottom: "input_sentence"
+  top: "h0" embed_param {{ input_dim: {vocab} num_output: {d_model}
+    bias_term: false
+    weight_filler {{ type: "uniform" min: -0.05 max: 0.05 }} }} }}
+"""
+    bottom = "h0"
+    hd = d_model // heads
+    for i in range(1, layers + 1):
+        t += f"""
+layer {{ name: "attn{i}" type: "MultiHeadAttention" bottom: "{bottom}"
+  top: "attn{i}"
+  attention_param {{ num_heads: {heads} head_dim: {hd} causal: true }} }}
+layer {{ name: "res{i}a" type: "Eltwise" bottom: "{bottom}"
+  bottom: "attn{i}" top: "res{i}a" }}
+layer {{ name: "ff{i}" type: "InnerProduct" bottom: "res{i}a"
+  top: "ff{i}" inner_product_param {{ num_output: {4 * d_model} axis: 2
+    weight_filler {{ type: "xavier" }} }} }}
+layer {{ name: "ff{i}_relu" type: "ReLU" bottom: "ff{i}" top: "ff{i}" }}
+layer {{ name: "ff{i}_out" type: "InnerProduct" bottom: "ff{i}"
+  top: "ff{i}_out" inner_product_param {{ num_output: {d_model} axis: 2
+    weight_filler {{ type: "xavier" }} }} }}
+layer {{ name: "res{i}b" type: "Eltwise" bottom: "res{i}a"
+  bottom: "ff{i}_out" top: "res{i}b" }}
+"""
+        bottom = f"res{i}b"
+    t += f"""
+layer {{ name: "logits" type: "InnerProduct" bottom: "{bottom}"
+  top: "logits" inner_product_param {{ num_output: {vocab} axis: 2
+    weight_filler {{ type: "xavier" }} }} }}
+layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "logits"
+  bottom: "target_sentence" top: "loss"
+  loss_param {{ ignore_label: -1 }} softmax_param {{ axis: 2 }} }}
+"""
+    return parse_net_prototxt(t)

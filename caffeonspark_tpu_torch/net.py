@@ -27,7 +27,7 @@ from torch import nn
 
 from .ops import layers as L
 from .proto.caffe import (LayerParameter, NetParameter, NetState,
-                          NetStateRule, NormRegion, Phase)
+                          NetStateRule, NormRegion, Phase, TopBlobType)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -74,11 +74,35 @@ def _peek_db_dims(lp: LayerParameter) -> Tuple[int, int, int]:
     return dims or (3, 0, 0)
 
 
+def _cos_top_shape(top, batch: int) -> Tuple[int, ...]:
+    """Shape of one CoSData top (cos_data_layer.cpp:10-47 semantics)."""
+    if top.transpose:
+        # time-major (T, B) layout for sequence inputs
+        return (int(top.channels), batch)
+    axes = top.sample_num_axes
+    t = top.type
+    if t in (TopBlobType.ENCODED_IMAGE_WITH_DIM, TopBlobType.ENCODED_IMAGE,
+             TopBlobType.RAW_IMAGE):
+        c = int(top.out_channels or top.channels)
+        h = int(top.out_height or top.height)
+        w = int(top.out_width or top.width)
+        if top.transform_param.crop_size:
+            h = w = int(top.transform_param.crop_size)
+        return (batch, c, h, w)
+    if axes == 1:
+        return (batch, int(top.channels))
+    if axes == 0:
+        return (batch,)
+    return (batch, int(top.channels), int(top.height), int(top.width))
+
+
 def data_layer_input_specs(lp: LayerParameter
                            ) -> List[Tuple[str, Tuple[int, ...], str]]:
     """(blob_name, shape, kind) for each top of a data layer; kind is
-    'data' or 'label'.  A `Data` layer's geometry comes from its
-    database's first record, as Caffe's DataLayer sizes its tops."""
+    'data', 'label' or 'int' (integer-valued CoSData tops), with ':T'
+    appended for a time-major (T, B) top.  A `Data` layer's geometry
+    comes from its database's first record, as Caffe's DataLayer sizes
+    its tops."""
     t = lp.type
     if t == "MemoryData":
         p = lp.memory_data_param
@@ -91,6 +115,14 @@ def data_layer_input_specs(lp: LayerParameter
         if len(lp.top) > 1:
             specs.append((lp.top[1], (b,), "label"))
         return specs
+    if t == "CoSData":
+        p = lp.cos_data_param
+        b = int(p.batch_size)
+        return [(top.name, _cos_top_shape(top, b),
+                 ("int" if top.type in (TopBlobType.INT,
+                                        TopBlobType.INT_ARRAY) else "data")
+                 + (":T" if top.transpose else ""))
+                for top in p.top]
     if t == "Input":
         shapes = list(lp.input_param.shape)
         if len(shapes) == 1 and len(lp.top) > 1:

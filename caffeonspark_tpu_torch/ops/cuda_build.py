@@ -28,7 +28,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-SOURCES = ("lrn", "int8_matmul")
+SOURCES = ("lrn", "int8_matmul", "flash_attn")
 
 # the process's loaded libraries: one load per process, shared by every
 # wrapper (a loaded CUDA library is a process-wide resource)
@@ -125,4 +125,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "int8_matmul":
         lib.cos_int8_matmul.argtypes = [P, P, P, I, I, I, P]
         lib.cos_int8_matmul.restype = I
+    elif name == "flash_attn":
+        lib.cos_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, F, I, I, P]
+        lib.cos_flash_fwd.restype = I
+        lib.cos_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I,
+                                         I, I, P]
+        lib.cos_flash_bwd_dq.restype = I
+        lib.cos_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F,
+                                          I, I, I, P]
+        lib.cos_flash_bwd_dkv.restype = I
     return lib

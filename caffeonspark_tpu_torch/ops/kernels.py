@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, their wrappers and their plain
 PyTorch versions — the counterpart of caffeonspark_tpu/ops/pallas_kernels.py.
 
-Five kernels serve the image nets' forward and backward:
+Five kernels serve the image nets' forward and backward, three the
+transformer's attention:
 
   * `lrn_across_channels`            K1, csrc/lrn.cu `cos_lrn_fwd`
     (Caffe across-channel LRN, optional fused ReLU);
@@ -12,12 +13,19 @@ Five kernels serve the image nets' forward and backward:
   * `bias_relu_lrn_across_channels_bwd`  K4, csrc/lrn.cu
     `cos_bias_relu_lrn_bwd` (its dx; d_bias is the channel sum of dx);
   * `int8_matmul`                    K5, csrc/int8_matmul.cu
-    (int8 x int8 -> int32, under `int8_inner_product`).
+    (int8 x int8 -> int32, under `int8_inner_product`);
+  * `flash_attention_fwd`            K6, csrc/flash_attn.cu
+    `cos_flash_fwd` (blockwise attention: O and the row log-sum-exp);
+  * `flash_attention_bwd_dq`         K7, `cos_flash_bwd_dq`;
+  * `flash_attention_bwd_dkv`        K8, `cos_flash_bwd_dkv` (K7 and K8
+    together are `flash_bwd_block`).
 
 `LRNAcrossChannels` and `BiasReluLRNAcrossChannels` are the autograd
 Functions that pair K1 with K2 and K3 with K4; the net's LRN layer
 calls them in every phase.  Each saves only its raw inputs (x, and the
-bias), as the JAX package's custom VJPs do.
+bias), as the JAX package's custom VJPs do.  `FlashAttention` pairs K6
+with K7/K8 for the MultiHeadAttention layer and saves q, k, v, O and
+lse, the JAX custom VJP's residuals.
 
 Routing is by the tensor's device and nothing else: a CPU tensor (or a
 shape-only "meta" tensor during Net construction) takes the plain
@@ -30,6 +38,7 @@ run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -42,7 +51,10 @@ launch_counts: Dict[str, int] = {"lrn_across_channels": 0,
                                  "lrn_across_channels_bwd": 0,
                                  "bias_relu_lrn_across_channels": 0,
                                  "bias_relu_lrn_across_channels_bwd": 0,
-                                 "int8_matmul": 0}
+                                 "int8_matmul": 0,
+                                 "flash_attention_fwd": 0,
+                                 "flash_attention_bwd_dq": 0,
+                                 "flash_attention_bwd_dkv": 0}
 _count_lock = threading.Lock()
 
 _LRN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -397,3 +409,240 @@ def int8_inner_product(x: torch.Tensor, w: torch.Tensor, *,
         wqn, sw = quantize_int8(wn)
     acc = int8_matmul(xq, wqn.contiguous())
     return (acc.to(torch.float32) * (sx * sw)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7 / K8: flash attention forward and backward
+# ---------------------------------------------------------------------------
+
+FLASH_NEG = -1e30        # the TPU kernels' finite mask value (_NEG_INF)
+FLASH_MAX_D = 128
+
+
+def _causal_mask(s: torch.Tensor) -> torch.Tensor:
+    """Scores with key c hidden from query r < c by the finite -1e30."""
+    t_q, t_k = s.shape[-2], s.shape[-1]
+    keep = torch.ones((t_q, t_k), dtype=torch.bool, device=s.device).tril()
+    return torch.where(keep, s, FLASH_NEG)
+
+
+def flash_attention_plain(qf: torch.Tensor, kf: torch.Tensor,
+                          vf: torch.Tensor, causal: bool = False
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K6 on (B·H, T, D): (O in q's dtype, lse (B·H, T)
+    f32) at full width in f32, with the TPU kernel's finite -1e30 causal
+    mask and its final O = acc / l, lse = m + log l."""
+    scale = 1.0 / math.sqrt(qf.shape[-1])
+    s = torch.matmul(qf.float(), kf.float().transpose(-1, -2)) * scale
+    if causal:
+        s = _causal_mask(s)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.matmul(p, vf.float()) / l
+    return out.to(qf.dtype), (m + torch.log(l))[..., 0]
+
+
+def _flash_bwd_scores_plain(qf, kf, vf, dof, lse, delta, causal):
+    """f32 operands, P and dS of the TPU backward kernels
+    (pallas_kernels.py:509-519 and 549-557): p = exp(s - lse),
+    ds = p·(dO·Vᵀ - delta)·scale."""
+    scale = 1.0 / math.sqrt(qf.shape[-1])
+    q, k, v, do = (x.float() for x in (qf, kf, vf, dof))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if causal:
+        s = _causal_mask(s)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - delta[..., None]) * scale
+    return q, k, do, p, ds
+
+
+def flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal: bool = False,
+                       out_dtype=None) -> torch.Tensor:
+    """Plain version of K7: dq = dS·K."""
+    _, k, _, _, ds = _flash_bwd_scores_plain(qf, kf, vf, dof, lse, delta,
+                                             causal)
+    return torch.matmul(ds, k).to(out_dtype or qf.dtype)
+
+
+def flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal: bool = False,
+                        out_dtype=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K8: dk = dSᵀ·q, dv = Pᵀ·dO."""
+    q, _, do, p, ds = _flash_bwd_scores_plain(qf, kf, vf, dof, lse, delta,
+                                              causal)
+    return (torch.matmul(ds.transpose(-1, -2), q).to(out_dtype or kf.dtype),
+            torch.matmul(p.transpose(-1, -2), do).to(out_dtype or vf.dtype))
+
+
+def flash_bwd_block_plain(qf, kf, vf, dof, lse, delta, *, causal: bool,
+                          out_dtype=None):
+    """Plain version of `flash_bwd_block` (K7 and K8 together), formula
+    for formula as pallas_kernels.py:509-522 and 549-558."""
+    q, k, do, p, ds = _flash_bwd_scores_plain(qf, kf, vf, dof, lse, delta,
+                                              causal)
+    return (torch.matmul(ds, k).to(out_dtype or qf.dtype),
+            torch.matmul(ds.transpose(-1, -2), q).to(out_dtype or kf.dtype),
+            torch.matmul(p.transpose(-1, -2), do).to(out_dtype or vf.dtype))
+
+
+def _check_flash(name: str, qf: torch.Tensor, *others: torch.Tensor,
+                 stats: Tuple[torch.Tensor, ...] = ()) -> None:
+    """(B·H, T, D) operands of one dtype, device and shape, contiguous,
+    D <= 128; the row statistics (B·H, T) f32 contiguous."""
+    if qf.dim() != 3 or qf.numel() == 0:
+        raise ValueError(f"{name}: expected a non-empty (B*H, T, D), got "
+                         f"{tuple(qf.shape)}")
+    if qf.dtype not in _LRN_DTYPES:
+        raise ValueError(f"{name}: dtype {qf.dtype} not in "
+                         f"{list(_LRN_DTYPES)}")
+    if qf.shape[-1] > FLASH_MAX_D:
+        raise ValueError(f"{name}: head dim {qf.shape[-1]} > "
+                         f"{FLASH_MAX_D}")
+    for x in (qf,) + others:
+        if x.shape != qf.shape or x.dtype != qf.dtype \
+                or x.device != qf.device:
+            raise ValueError(f"{name}: operand {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device} does not match q "
+                             f"{tuple(qf.shape)} {qf.dtype} on {qf.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    for x in stats:
+        if x.shape != qf.shape[:2] or x.dtype != torch.float32 \
+                or x.device != qf.device or not x.is_contiguous():
+            raise ValueError(f"{name}: row statistics must be contiguous "
+                             f"f32 {tuple(qf.shape[:2])} on {qf.device}, "
+                             f"got {tuple(x.shape)} {x.dtype} on {x.device}")
+
+
+def _flash_out_dtype(name: str, qf: torch.Tensor, out_dtype) -> torch.dtype:
+    dt = out_dtype or qf.dtype
+    if dt not in _LRN_DTYPES:
+        raise ValueError(f"{name}: out_dtype {dt} not in "
+                         f"{list(_LRN_DTYPES)}")
+    return dt
+
+
+def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor,
+                        vf: torch.Tensor, causal: bool = False
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 on (B·H, T, D): (O in q's dtype, lse (B·H, T) f32), any T >= 1,
+    D <= 128, f32 or bf16."""
+    name = "flash_attention_fwd"
+    if not _route(qf, name):
+        return flash_attention_plain(qf, kf, vf, causal)
+    _check_flash(name, qf, kf, vf)
+    bh, t, d = qf.shape
+    out = torch.empty_like(qf)
+    lse = torch.empty((bh, t), dtype=torch.float32, device=qf.device)
+    lib = cuda_build.library("flash_attn")
+    with torch.cuda.device(qf.device):
+        status = lib.cos_flash_fwd(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), bh, t, d, 1.0 / math.sqrt(d), int(bool(causal)),
+            _LRN_DTYPES[qf.dtype],
+            torch.cuda.current_stream(qf.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return out, lse
+
+
+def flash_attention_bwd_dq(qf, kf, vf, dof, lse, delta,
+                           causal: bool = False,
+                           out_dtype=None) -> torch.Tensor:
+    """K7: dq of flash attention from the saved lse and
+    delta = Σ_d dO∘O, in `out_dtype` (default q's)."""
+    name = "flash_attention_bwd_dq"
+    if not _route(qf, name):
+        return flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal,
+                                  out_dtype)
+    _check_flash(name, qf, kf, vf, dof, stats=(lse, delta))
+    dt = _flash_out_dtype(name, qf, out_dtype)
+    bh, t, d = qf.shape
+    dq = torch.empty((bh, t, d), dtype=dt, device=qf.device)
+    lib = cuda_build.library("flash_attn")
+    with torch.cuda.device(qf.device):
+        status = lib.cos_flash_bwd_dq(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
+            1.0 / math.sqrt(d), int(bool(causal)), _LRN_DTYPES[qf.dtype],
+            _LRN_DTYPES[dt], torch.cuda.current_stream(qf.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return dq
+
+
+def flash_attention_bwd_dkv(qf, kf, vf, dof, lse, delta,
+                            causal: bool = False, out_dtype=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8: (dk, dv) of flash attention, in `out_dtype` (default k's)."""
+    name = "flash_attention_bwd_dkv"
+    if not _route(qf, name):
+        return flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal,
+                                   out_dtype)
+    _check_flash(name, qf, kf, vf, dof, stats=(lse, delta))
+    dt = _flash_out_dtype(name, qf, out_dtype)
+    bh, t, d = qf.shape
+    dk = torch.empty((bh, t, d), dtype=dt, device=qf.device)
+    dv = torch.empty_like(dk)
+    lib = cuda_build.library("flash_attn")
+    with torch.cuda.device(qf.device):
+        status = lib.cos_flash_bwd_dkv(
+            qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, t, d, 1.0 / math.sqrt(d), int(bool(causal)),
+            _LRN_DTYPES[qf.dtype], _LRN_DTYPES[dt],
+            torch.cuda.current_stream(qf.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return dk, dv
+
+
+def flash_bwd_block(qf, kf, vf, dof, lse, delta, *, causal: bool,
+                    out_dtype=None):
+    """dq, dk, dv of one attention block from the saved statistics: K7,
+    then K8 (the JAX function of this name, without its TPU block and
+    interpret arguments).  All operands (B·H, T, D) / (B·H, T);
+    `causal` masks with local positions; `out_dtype` overrides the
+    gradients' dtype (float32 for callers that accumulate bf16 parts)."""
+    dq = flash_attention_bwd_dq(qf, kf, vf, dof, lse, delta, causal,
+                                out_dtype)
+    dk, dv = flash_attention_bwd_dkv(qf, kf, vf, dof, lse, delta, causal,
+                                     out_dtype)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q·kᵀ/√D)·v on (B, H, T, D), optional causal mask: forward
+    K6, backward K7 + K8.  Saves q, k, v, O and lse (flattened to
+    (B·H, T, D) / (B·H, T)), the JAX custom VJP's residuals; delta =
+    Σ_d dO∘O is one f32 PyTorch expression outside the kernels, as XLA
+    computes it outside the TPU kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        b, h, t, d = q.shape
+        qf, kf, vf = (x.reshape(b * h, t, d).contiguous() for x in (q, k, v))
+        out, lse = flash_attention_fwd(qf, kf, vf, causal)
+        ctx.save_for_backward(qf, kf, vf, out, lse)
+        ctx.causal = causal
+        return out.reshape(b, h, t, d)
+
+    @staticmethod
+    def backward(ctx, do):
+        qf, kf, vf, out, lse = ctx.saved_tensors
+        dof = do.reshape(qf.shape).to(qf.dtype).contiguous()
+        delta = torch.sum(dof.float() * out.float(), dim=-1)
+        dq, dk, dv = flash_bwd_block(qf, kf, vf, dof, lse, delta,
+                                     causal=ctx.causal)
+        shape = do.shape
+        return dq.reshape(shape), dk.reshape(shape), dv.reshape(shape), None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False) -> torch.Tensor:
+    """Fused blockwise attention, (B, H, T, D) -> (B, H, T, D), through
+    `FlashAttention` (K6, backward K7/K8 on the card; their plain
+    versions for a CPU or meta tensor), at any T."""
+    return FlashAttention.apply(q, k, v, causal)

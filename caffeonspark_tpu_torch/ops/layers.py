@@ -1,4 +1,5 @@
-"""Caffe layer semantics as PyTorch functions (the TEST-phase image nets).
+"""Caffe layer semantics as PyTorch functions (the image nets and the
+transformer language model).
 
 Each layer type registers:
   * ``param_specs(lp, bottom_shapes)`` -> list of (blob_name, shape,
@@ -13,9 +14,11 @@ padded region, LRN ACROSS_CHANNELS with alpha/local_size,
 SoftmaxWithLoss VALID normalization + ignore_label.
 
 The across-channel LRN (plain, relu-fused, bias+relu-fused) goes
-through the autograd Functions of `ops.kernels` (K1/K2, K3/K4) and the
-int8 InnerProduct to K5.  Convolutions go to cuDNN through
-`torch.nn.functional.conv2d`, as the JAX package left them to XLA.
+through the autograd Functions of `ops.kernels` (K1/K2, K3/K4), the
+int8 InnerProduct to K5 and MultiHeadAttention's attention to the flash
+kernels (K6, backward K7/K8).  Convolutions go to cuDNN through
+`torch.nn.functional.conv2d` and the attention projections to
+`torch.matmul`, as the JAX package left them to XLA.
 Every other op is differentiable through autograd.  `Ctx.train` picks
 Caffe's TRAIN semantics (Dropout draws its keep-mask from
 `Ctx.generator`) or TEST semantics (Dropout is the identity).
@@ -31,8 +34,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from ..proto.caffe import (FillerParameter, NormalizationMode, NormRegion,
-                           PoolMethod)
+from ..proto.caffe import (EltwiseOp, FillerParameter, NormalizationMode,
+                           NormRegion, PoolMethod)
 from . import kernels as K
 
 
@@ -108,7 +111,7 @@ def _data_layer(ctx, lp, params, bottoms):
     raise RuntimeError("data layers are net inputs; never applied")
 
 
-for _t in ("MemoryData", "Input", "Data"):
+for _t in ("MemoryData", "CoSData", "Input", "Data"):
     register(_t, is_data=True)(_data_layer)
 
 
@@ -204,6 +207,27 @@ def _inner_product(ctx, lp, params, bottoms):
     return [y.reshape(lead + (ip.num_output,))]
 
 
+def _embed_params(lp, shapes):
+    ep = lp.embed_param
+    specs = [("weight", (ep.input_dim, ep.num_output),
+              _filler(ep.weight_filler if ep.has("weight_filler") else None))]
+    if ep.bias_term:
+        specs.append(("bias", (ep.num_output,),
+                      _filler(ep.bias_filler if ep.has("bias_filler")
+                              else None)))
+    return specs
+
+
+@register("Embed", params=_embed_params)
+def _embed(ctx, lp, params, bottoms):
+    """Rows of the (input_dim, num_output) table at the bottom's values,
+    cast to integers (float token ids from the data layer)."""
+    out = F.embedding(bottoms[0].to(torch.int64), params[0])
+    if lp.embed_param.bias_term:
+        out = out + params[1]
+    return [out]
+
+
 # ---------------------------------------------------------------------------
 # Pooling (Caffe ceil-mode + divisor semantics)
 # ---------------------------------------------------------------------------
@@ -297,6 +321,30 @@ def _dropout(ctx, lp, params, bottoms):
     return [torch.where(mask, x / keep, 0.0)]
 
 
+@register("Eltwise")
+def _eltwise(ctx, lp, params, bottoms):
+    p = lp.eltwise_param
+    op = p.operation
+    if op == EltwiseOp.PROD:
+        y = bottoms[0]
+        for b in bottoms[1:]:
+            y = y * b
+    elif op == EltwiseOp.SUM:
+        coeffs = p.coeff if p.coeff else [1.0] * len(bottoms)
+        if len(coeffs) != len(bottoms):
+            raise ValueError(
+                f"Eltwise SUM: {len(coeffs)} coeffs for "
+                f"{len(bottoms)} bottoms (must match)")
+        y = coeffs[0] * bottoms[0]
+        for c, b in zip(coeffs[1:], bottoms[1:]):
+            y = y + c * b
+    else:  # MAX
+        y = bottoms[0]
+        for b in bottoms[1:]:
+            y = torch.maximum(y, b)
+    return [y]
+
+
 # ---------------------------------------------------------------------------
 # normalization
 # ---------------------------------------------------------------------------
@@ -343,6 +391,46 @@ def _flatten(ctx, lp, params, bottoms):
 @register("Split")
 def _split(ctx, lp, params, bottoms):
     return [bottoms[0] for _ in lp.top]
+
+
+# ---------------------------------------------------------------------------
+# attention (time-major, like the recurrent layers)
+# ---------------------------------------------------------------------------
+
+def _mha_params(lp, shapes):
+    ap = lp.attention_param
+    d_model = math.prod(shapes[0][2:]) if len(shapes[0]) > 2 else 1
+    h = int(ap.num_heads)
+    hd = int(ap.head_dim)
+    wf = _filler(ap.weight_filler if ap.has("weight_filler") else None,
+                 "xavier")
+    return [("W_qkv", (3 * h * hd, d_model), wf),
+            ("W_o", (d_model, h * hd), wf)]
+
+
+@register("MultiHeadAttention", params=_mha_params)
+def _mha(ctx, lp, params, bottoms):
+    """Multi-head self-attention on time-major (T, B, D) input: the
+    W_qkv projection, attention on (B, H, T, hd), the W_o projection.
+    The attention is the JAX dispatch's single-device branch: the flash
+    kernels for a CUDA tensor at any T (they mask their own ragged
+    tail, so no CUDA path runs O(T²) plain attention), their plain
+    versions behind the same autograd Function for a CPU or meta
+    tensor."""
+    ap = lp.attention_param
+    x = bottoms[0]
+    t_steps, batch = x.shape[0], x.shape[1]
+    h, hd = int(ap.num_heads), int(ap.head_dim)
+    xf = x.reshape(t_steps, batch, -1)
+    qkv = torch.matmul(xf, params[0].T).reshape(t_steps, batch, 3, h, hd)
+    # (B, H, T, hd)
+    q, k, v = (torch.movedim(qkv[:, :, i], (0, 1, 2), (2, 0, 1))
+               for i in range(3))
+    o = K.flash_attention(q, k, v, bool(ap.causal))
+    # back to (T, B, H*hd)
+    o = torch.movedim(o, (0, 1, 2), (1, 2, 0)).reshape(t_steps, batch,
+                                                       h * hd)
+    return [torch.matmul(o, params[1].T)]
 
 
 # ---------------------------------------------------------------------------

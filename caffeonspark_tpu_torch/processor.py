@@ -192,8 +192,11 @@ class CaffeProcessor:
             display = sp.display or 0
             params, st = self.params, self.opt_state
             m = self.metrics
+            tmajor = frozenset(
+                n for n, _, kind in solver.train_net.input_specs
+                if kind.endswith(":T"))
             batches = combine_batches(self._train_batches(),
-                                      max(1, sp.iter_size))
+                                      max(1, sp.iter_size), tmajor)
             while st.iter < sp.max_iter:
                 t_wait = time.perf_counter()
                 batch = next(batches, None)

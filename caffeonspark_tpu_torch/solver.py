@@ -176,17 +176,21 @@ class Solver:
         names = [(ln, bn) for ln, bl in params.items() for bn in bl]
         subs = [inputs]
         if iter_size > 1:
+            # time-major (":T") inputs carry the batch on axis 1
+            tmajor = {n for n, _, kind in net.input_specs
+                      if kind.endswith(":T")}
             subs = []
             for i in range(iter_size):
                 sub = {}
                 for k, v in inputs.items():
-                    b = v.shape[0]
+                    ax = 1 if k in tmajor else 0
+                    b = v.shape[ax]
                     if b % iter_size:
                         raise ValueError(f"batch {b} not divisible by "
                                          f"iter_size {iter_size} (input "
                                          f"{k!r})")
                     m = b // iter_size
-                    sub[k] = v[i * m:(i + 1) * m]
+                    sub[k] = v.narrow(ax, i * m, m)
                 subs.append(sub)
         gsum = None
         loss_sum = None

@@ -15,7 +15,10 @@ or the package is not importable, and when any phase fails.  Phases:
      forward kernels at the serving path's B=64 shapes (f32, and bf16
      for the LRN kernels) and at the training path's B=256 shapes, the
      LRN backward kernels (K2, K4) at the B=256 shapes in f32 and bf16
-     and at a ragged shape, with kernel / plain / library / bound times;
+     and at a ragged shape, the flash attention kernels (K6 forward, K7
+     dq, K8 dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and
+     not, f32 and bf16, and at ragged (3, 200, 48) and (4, 384, 32),
+     with kernel / plain / library / bound times;
   4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
      written with the port's own save_caffemodel and seeded fillers;
   5. that model served through the CLI's start_server (-serve path),
@@ -42,14 +45,23 @@ or the package is not importable, and when any phase fails.  Phases:
      params, batch and dropout seed; cuDNN deterministic);
  11. the trained CaffeNet served through start_server (finite fc8 rows);
  12. one training step per net under torch.profiler;
- 13. a `kernels` JSON line: launches on the serving and training paths
-     and the numbers of phase 3; then the card line again;
- 14. the device line, last: {"ok": true, "device": {...}}.
+ 13. the zoo's causal transformer LM at d_model 1024, 16 heads, 2
+     layers, vocab 1000, T 2048, batch 4: 64 seeded JSON rows of 2,049
+     tokens read by a DataFrameSource, trained through the CLI for 8
+     Adam steps (counts zeroed before, read after): first loss near
+     ln 1000, every loss finite, snapshots at 4 and 8, K6, K7 and K8
+     each launched layers x max_iter = 16 times, median step time and
+     tokens/s over steps 3-8; one step against the plain step; one
+     step under torch.profiler, with the flash kernels' share;
+ 14. a `kernels` JSON line: launches on the serving and both training
+     paths and the numbers of phase 3; then the card line again;
+ 15. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -61,6 +73,7 @@ import zlib
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
 L2_BYTES = 50 * 2**20
 SLEEP_CYCLES = 200_000_000     # ~0.1 s at the H100's ~1.98 GHz boost
@@ -73,8 +86,26 @@ BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-6   # one bf16 ulp of the output
 BWD_RTOL, BWD_ATOL = 3e-4, 3e-5          # f32 backward, tests/test_pallas.py
 STEP_LOSS_RTOL = 1e-5  # kernel vs plain solver step: loss
 STEP_GRAD_TOL = 1e-4   # ... and each gradient, of its max |grad|
+# The LM's step: K6's online softmax rounds O differently from the plain
+# full softmax (max abs err 9.5e-7 at the LM's shapes), and the FFN's
+# ReLUs flip on pre-activations that close to 0, moving ff*/weight and
+# ff*/bias gradients by up to 5.7e-3 of their max, embed/weight by
+# 1.7e-3 (measured on an H100 by this script; with only K6 swapped for
+# its plain version every gradient equalled the plain step's, so the
+# backward kernels are held to STEP_GRAD_TOL in the net separately)
+LM_STEP_GRAD_TOL = 2e-2
 ROWS_F32_TOL = 1e-4    # max |served - plain| / max |plain|, f32 net
 ROWS_INT8_TOL = 1e-2   # int8: a flipped rounding moves 1/127 of a max
+# flash attention (K6-K8) against its plain version, whose matmuls sum
+# in another order: tests/test_pallas.py:210, 236; bf16 one bf16 ulp of
+# the output beyond that (both round the same f32 math once)
+FLASH_FWD_TOL = 2e-5
+FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 2e-4, 1e-5
+FLASH_BH, FLASH_T, FLASH_D = 64, 2048, 64   # the LM's (B*H, T, head_dim)
+# the transformer LM: the zoo's vocab and depth, heads/head_dim/T of
+# scripts/bench_attention.py:56, batch 4 (8,192 tokens a step)
+LM = dict(vocab=1000, d_model=1024, heads=16, layers=2, seq=2048, batch=4)
+LM_ROWS = 64
 
 PALLAS = "caffeonspark_tpu/ops/pallas_kernels.py"
 KERNELS = {  # `library`: the one PyTorch call timed as library_ms
@@ -94,6 +125,20 @@ KERNELS = {  # `library`: the one PyTorch call timed as library_ms
     "int8_matmul": dict(
         source="caffeonspark_tpu_torch/csrc/int8_matmul.cu",
         replaces=f"{PALLAS}:352", library="torch._int_mm"),
+    "flash_attention_fwd": dict(
+        source="caffeonspark_tpu_torch/csrc/flash_attn.cu",
+        replaces=f"{PALLAS}:598",
+        library="F.scaled_dot_product_attention"),
+    "flash_attention_bwd_dq": dict(
+        source="caffeonspark_tpu_torch/csrc/flash_attn.cu",
+        replaces=f"{PALLAS}:656",
+        library="autograd backward of F.scaled_dot_product_attention "
+                "(dq, dk, dv; against K7 + K8)"),
+    "flash_attention_bwd_dkv": dict(
+        source="caffeonspark_tpu_torch/csrc/flash_attn.cu",
+        replaces=f"{PALLAS}:666",
+        library="autograd backward of F.scaled_dot_product_attention "
+                "(dq, dk, dv; against K7 + K8)"),
 }
 
 
@@ -331,6 +376,147 @@ def check_int8(K, torch, m, n, kk, results, timed=True):
     results.setdefault("int8_matmul", []).append(rec)
 
 
+def flash_pairs(t: int, causal: bool) -> int:
+    """(query, key) pairs a head's attention scores: the causal pass
+    skips the hidden half, so count what these inputs need."""
+    return t * (t + 1) // 2 if causal else t * t
+
+
+def _flash_err(name, got, want, dtype, torch, fwd):
+    """max abs error, bit-equality and the tolerance check of one
+    output against its plain version."""
+    rtol = atol = FLASH_FWD_TOL
+    if not fwd:
+        rtol, atol = FLASH_GRAD_RTOL, FLASH_GRAD_ATOL
+    if dtype == torch.bfloat16:
+        rtol += BF16_RTOL
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = err > atol + rtol * w.abs()
+    max_err = float(err.max())
+    check(not bool(bad.any()), f"{name}: {int(bad.sum())} elements outside "
+          f"rtol {rtol:.3g} atol {atol:.3g} (max abs err {max_err:.3g}, "
+          f"max |plain| {float(w.abs().max()):.3g})")
+    return max_err, bool(torch.equal(got, want)), int((g != w).sum())
+
+
+def check_flash(K, torch, shape, dtype, causal, results, timed=True):
+    """K6, K7 and K8 against their plain versions on the same q, k, v,
+    dO (B*H, T, D) and, timed, against F.scaled_dot_product_attention
+    and its autograd backward on the same inputs as (B, H, T, D)."""
+    import torch.nn.functional as F
+    bh, t, d = shape
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"flash{shape}{dtype}{causal}".encode()))
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+                   for _ in range(4))
+    o, lse = K.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
+    tag = f"{shape} {str(dtype).replace('torch.', '')} causal={causal}"
+    e_o = _flash_err(f"flash_attention_fwd {tag} O", o, o_p, dtype, torch,
+                     True)
+    e_l = _flash_err(f"flash_attention_fwd {tag} lse", lse, lse_p,
+                     torch.float32, torch, True)
+    # the backward from the plain forward's statistics, as autograd does
+    delta = torch.sum(do.float() * o_p.float(), dim=-1)
+    dq = K.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, causal)
+    dk, dv = K.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, causal)
+    torch.cuda.synchronize()
+    dq_p, dk_p, dv_p = K.flash_bwd_block_plain(q, k, v, do, lse_p, delta,
+                                               causal=causal)
+    e_dq = _flash_err(f"flash_attention_bwd_dq {tag}", dq, dq_p, dtype,
+                      torch, False)
+    e_dk = _flash_err(f"flash_attention_bwd_dkv {tag} dk", dk, dk_p, dtype,
+                      torch, False)
+    e_dv = _flash_err(f"flash_attention_bwd_dkv {tag} dv", dv, dv_p, dtype,
+                      torch, False)
+    base = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+                causal=causal)
+    recs = {
+        "flash_attention_fwd": dict(base, max_abs_err=max(e_o[0], e_l[0]),
+                                    bit_equal=e_o[1] and e_l[1],
+                                    elements_differing=e_o[2] + e_l[2]),
+        "flash_attention_bwd_dq": dict(base, max_abs_err=e_dq[0],
+                                       bit_equal=e_dq[1],
+                                       elements_differing=e_dq[2]),
+        "flash_attention_bwd_dkv": dict(
+            base, max_abs_err=max(e_dk[0], e_dv[0]),
+            bit_equal=e_dk[1] and e_dv[1],
+            elements_differing=e_dk[2] + e_dv[2]),
+    }
+    maxes = (float(o_p.float().abs().max()), float(dq_p.float().abs().max()),
+             float(dk_p.float().abs().max()), float(dv_p.float().abs().max()))
+    del o, lse, dq, dk, dv, dq_p, dk_p, dv_p
+    if timed:
+        b4 = bh // 16
+        esz = q.element_size()
+        pairs = bh * flash_pairs(t, causal)
+        peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        row = 4 * bh * t                 # one (B*H, T) f32 statistic
+        io = bh * t * d * esz            # one (B*H, T, D) operand
+        sets = [tuple(x.clone() for x in (q, k, v, do, lse_p, delta))
+                for _ in range(rotations(6 * io))]
+        timing = {
+            "flash_attention_fwd": (
+                lambda q, k, v, do, lse, dl: K.flash_attention_fwd(
+                    q, k, v, causal),
+                lambda q, k, v, do, lse, dl: K.flash_attention_plain(
+                    q, k, v, causal),
+                4 * d * pairs, 4 * io + row),
+            "flash_attention_bwd_dq": (
+                lambda q, k, v, do, lse, dl: K.flash_attention_bwd_dq(
+                    q, k, v, do, lse, dl, causal),
+                lambda q, k, v, do, lse, dl: K.flash_bwd_dq_plain(
+                    q, k, v, do, lse, dl, causal),
+                6 * d * pairs, 5 * io + 2 * row),
+            "flash_attention_bwd_dkv": (
+                lambda q, k, v, do, lse, dl: K.flash_attention_bwd_dkv(
+                    q, k, v, do, lse, dl, causal),
+                lambda q, k, v, do, lse, dl: K.flash_bwd_dkv_plain(
+                    q, k, v, do, lse, dl, causal),
+                8 * d * pairs, 6 * io + 2 * row),
+        }
+        # the library yardstick: one SDPA call, and one autograd backward
+        # of it (dq, dk, dv together) on a retained graph
+        lib_sets = [tuple(x.reshape(b4, 16, t, d) for x in st[:3])
+                    for st in sets]
+        lib_fwd, _ = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal), lib_sets)
+        graphs = []
+        for st in sets:
+            xs = [x.reshape(b4, 16, t, d).detach().requires_grad_(True)
+                  for x in st[:3]]
+            graphs.append((F.scaled_dot_product_attention(
+                *xs, is_causal=causal), xs, st[3].reshape(b4, 16, t, d)))
+        lib_bwd, _ = time_ms(lambda y, xs, dy: torch.autograd.grad(
+            y, xs, dy, retain_graph=True), graphs)
+        del graphs
+        for name, (run, plain, ops, nbytes) in timing.items():
+            ms, host_us = time_ms(run, sets)
+            plain_ms, _ = time_ms(plain, sets, iters=5)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+            recs[name].update(
+                ms=ms, host_us=host_us, plain_ms=plain_ms,
+                library_ms=lib_fwd if name == "flash_attention_fwd"
+                else lib_bwd, bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                gflop=ops / 1e9)
+        del sets
+    for name, rec in recs.items():
+        results.setdefault(name, []).append(rec)
+        times = ("" if "ms" not in rec else
+                 f" kernel {rec['ms']:.4f} ms (launch path "
+                 f"{rec['host_us']:.1f} us) plain {rec['plain_ms']:.4f} ms "
+                 f"library {rec['library_ms']:.4f} ms bound "
+                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        log(f"  {name} {tag}: max_abs_err {rec['max_abs_err']:.3g} "
+            f"(bit-equal {rec['bit_equal']}, "
+            f"{rec['elements_differing']} elements differ){times}")
+    log(f"    max |plain| O {maxes[0]:.3g} dq {maxes[1]:.3g} "
+        f"dk {maxes[2]:.3g} dv {maxes[3]:.3g}")
+
+
 def kernel_phase(K, torch) -> dict:
     res: dict = {}
     lrn_cases = [  # (name, shape, relu, bias); the first of each is main
@@ -374,7 +560,24 @@ def kernel_phase(K, torch) -> dict:
     for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
                      (5, 70, 1001), (3, 37, 16)):
         check_int8(K, torch, m, n, kk, res, timed=False)
+    flash_phase(K, torch, res)
     return res
+
+
+def flash_phase(K, torch, res):
+    """K6-K8 at the LM's (B*H, T, D), causal first (the main path's),
+    f32 then bf16, then ragged shapes untimed."""
+    # the plain versions' f32 products in full f32, as the solver pins
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            check_flash(K, torch, (FLASH_BH, FLASH_T, FLASH_D), dtype,
+                        causal, res)
+    for shape in ((3, 200, 48), (4, 384, 32)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                check_flash(K, torch, shape, dtype, causal, res,
+                            timed=False)
 
 
 # ---------------------------------------------------------------------------
@@ -382,24 +585,30 @@ def kernel_phase(K, torch) -> dict:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def plain_kernels(K):
-    """Swap every kernel wrapper for its plain PyTorch version (the
-    reference forward of phases 5/6 and the reference step of phase 10
-    only; restored on exit).  The autograd Functions look the wrappers
-    up in the module, so they follow the swap."""
-    names = ("lrn_across_channels", "lrn_across_channels_bwd",
-             "bias_relu_lrn_across_channels",
-             "bias_relu_lrn_across_channels_bwd", "int8_matmul")
+def plain_kernels(K, names=None):
+    """Swap every kernel wrapper (or those in `names`) for its plain
+    PyTorch version (the reference forward of phases 5/6 and the
+    reference steps of phases 10 and 13 only; restored on exit).  The
+    autograd Functions look the wrappers up in the module, so they
+    follow the swap."""
+    plain = {
+        "lrn_across_channels": (
+            lambda x, ls=5, a=1e-4, b=0.75, k=1.0, fuse_relu=False:
+            K.lrn_plain(x, ls, a, b, k, fuse_relu)),
+        "lrn_across_channels_bwd": K.lrn_bwd_plain,
+        "bias_relu_lrn_across_channels": (
+            lambda x, bias, ls=5, a=1e-4, b=0.75, k=1.0:
+            K.lrn_plain(x, ls, a, b, k, bias=bias)),
+        "bias_relu_lrn_across_channels_bwd": K.bias_relu_lrn_bwd_plain,
+        "int8_matmul": K.int8_matmul_plain,
+        "flash_attention_fwd": K.flash_attention_plain,
+        "flash_attention_bwd_dq": K.flash_bwd_dq_plain,
+        "flash_attention_bwd_dkv": K.flash_bwd_dkv_plain,
+    }
+    names = tuple(plain) if names is None else names
     saved = {n: getattr(K, n) for n in names}
-    K.lrn_across_channels = (
-        lambda x, ls=5, a=1e-4, b=0.75, k=1.0, fuse_relu=False:
-        K.lrn_plain(x, ls, a, b, k, fuse_relu))
-    K.lrn_across_channels_bwd = K.lrn_bwd_plain
-    K.bias_relu_lrn_across_channels = (
-        lambda x, bias, ls=5, a=1e-4, b=0.75, k=1.0:
-        K.lrn_plain(x, ls, a, b, k, bias=bias))
-    K.bias_relu_lrn_across_channels_bwd = K.bias_relu_lrn_bwd_plain
-    K.int8_matmul = K.int8_matmul_plain
+    for n in names:
+        setattr(K, n, plain[n])
     try:
         yield
     finally:
@@ -627,13 +836,18 @@ def summarize_profile(prof, wall_us, label, what):
     for (a, b), name in kernels:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    # the port's flash kernels (flash_{fwd,bwd_dq,bwd_dkv}_kernel)
+    flash_us = sum(us for name, us in by_name.items() if "flash_" in name)
     res = dict(label=label, what=what, wall_us=wall_us, device_busy_us=busy,
                copy_us=copies, idle_share=1.0 - busy / wall_us,
-               kernels=len(kernels),
+               kernels=len(kernels), flash_us=flash_us,
+               flash_share_of_busy=flash_us / busy,
                top=[[name[:60], us] for name, us in top])
     log(f"  {label}: {what}: wall {wall_us:.0f} us, device busy "
         f"{busy:.0f} us in {len(kernels)} kernels (idle share "
-        f"{res['idle_share']:.3f}), copies {copies:.0f} us; top: " +
+        f"{res['idle_share']:.3f}), copies {copies:.0f} us, flash kernels "
+        f"{flash_us:.0f} us ({res['flash_share_of_busy']:.3f} of busy); "
+        "top: " +
         "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
     return res
 
@@ -711,10 +925,65 @@ def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int) -> str:
     return solver_path
 
 
+LM_SOLVER = """net: "{net}"
+type: "Adam"
+base_lr: 0.001
+momentum: 0.9
+momentum2: 0.999
+delta: 1e-8
+lr_policy: "fixed"
+max_iter: {max_iter}
+snapshot: 4
+snapshot_prefix: "{name}_train"
+snapshot_after_train: true
+random_seed: 1
+"""
+
+
+def write_lm_config(workdir: str) -> str:
+    """64 JSON rows of 2,049 seeded tokens (vocab 1000; input = the first
+    2,048, target = the last), the zoo's transformer_lm at the LM widths
+    on a DataFrameSource over them, and an Adam solver cut to max_iter 8."""
+    import numpy as np
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetState, Phase
+    rows = os.path.join(workdir, "lm_rows.json")
+    rng = np.random.RandomState(17)
+    t0 = time.monotonic()
+    with open(rows, "w") as f:
+        for _ in range(LM_ROWS):
+            toks = rng.randint(0, LM["vocab"], LM["seq"] + 1).tolist()
+            f.write(json.dumps({"input_sentence": toks[:-1],
+                                "target_sentence": toks[1:]}) + "\n")
+    npm = zoo.transformer_lm(**LM)
+    data = npm.layer[0]
+    data.source_class = "com.yahoo.ml.caffe.DataFrameSource"
+    data.cos_data_param.source = rows
+    data.cos_data_param.dataframe_format = "json"
+    n_params = Net(npm, NetState(phase=Phase.TRAIN), device="meta"
+                   ).num_params()
+    name = npm.name.lower()
+    net_path = os.path.join(workdir, f"{name}_train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, f"{name}_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(LM_SOLVER.format(net=net_path, max_iter=TRAIN_ITERS,
+                                 name=name))
+    log(f"  wrote {rows}: {LM_ROWS} rows of {LM['seq'] + 1} tokens "
+        f"({time.monotonic() - t0:.2f} s); {npm.name} {LM}: "
+        f"{n_params:,} parameters")
+    return solver_path
+
+
 def train_phase(K, label, solver_path, env, outdir, kernels,
-                device="cuda"):
+                device="cuda", per_step=TRAIN_B, unit="images",
+                launches_each=2 * TRAIN_ITERS):
     """-train through caffe_on_spark.main with the counts zeroed just
-    before and read just after; checks losses, snapshots and launches."""
+    before and read just after; checks losses, snapshots and that each
+    of `kernels` launched `launches_each` times (and no other kernel).
+    `per_step` `unit`s (images, tokens) make one step."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark
     shutil.rmtree(outdir, ignore_errors=True)
@@ -745,7 +1014,7 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
             check(os.path.exists(f), f"{label}: no snapshot {f}")
     model = os.path.join(outdir, "model.caffemodel")
     check(os.path.exists(model), f"{label}: no final model {model}")
-    want = {k: (2 * TRAIN_ITERS if k in kernels else 0) for k in counts}
+    want = {k: (launches_each if k in kernels else 0) for k in counts}
     check(counts == want, f"{label}: launches {counts}, expected {want}")
     t = tr["t"]
     steps_ms = sorted(1e3 * (t[i] - t[i - 1]) for i in range(2, len(t)))
@@ -753,7 +1022,7 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     st = m["stages"]
     res = dict(label=label, wall_s=wall_s, losses=losses, lr=tr["lr"],
                step_interval_ms=steps_ms, median_step_ms=med,
-               images_per_s=1e3 * TRAIN_B / med,
+               **{f"{unit}_per_s": 1e3 * per_step / med},
                pack_ms_p50=st["pack"]["p50_ms"],
                dispatch_ms_p50=st["step"]["p50_ms"],
                queue_wait_ms_p50=st["queue_wait"]["p50_ms"],
@@ -761,16 +1030,34 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     log(f"  {label}: -train of {TRAIN_ITERS} steps in {wall_s:.1f} s; "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"steps 3-{TRAIN_ITERS}: "
-        f"median {med:.1f} ms ({res['images_per_s']:.0f} images/s), "
+        f"median {med:.1f} ms ({res[f'{unit}_per_s']:.0f} {unit}/s), "
         f"pack p50 {res['pack_ms_p50']:.1f} ms, step dispatch p50 "
         f"{res['dispatch_ms_p50']:.1f} ms; launches {counts}")
     return res, model
 
 
-def step_vs_plain(K, torch, label, solver_path, env, device="cuda"):
+def _grad_diff(label, g_p, g_x, tol, what):
+    """Worst per-blob max |g_x - g_p| / max |g_p|, checked against tol."""
+    worst, worst_at = 0.0, ""
+    for ln, bl in g_p.items():
+        for bn, gp in bl.items():
+            rel = float((g_x[ln][bn] - gp).abs().max()) / max(
+                float(gp.abs().max()), 1e-30)
+            if rel > worst:
+                worst, worst_at = rel, f"{ln}/{bn}"
+            check(rel <= tol, f"{label}: {ln}/{bn} gradient {what} differs "
+                  f"from the plain step by {rel:.3g} of its max")
+    return worst, worst_at
+
+
+def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
+                  grad_tol=STEP_GRAD_TOL, plain_forwards=()):
     """One solver step's loss and gradients with the kernels against the
     same step with every kernel swapped for its plain version: the same
-    params, batch and dropout seed, cuDNN deterministic.  Returns the
+    params, batch and dropout seed, cuDNN deterministic.  With
+    `plain_forwards` (forward kernels' names), also the step with only
+    those swapped, whose gradients must then match the plain step to
+    STEP_GRAD_TOL: the backward kernels alone, in the net.  Returns the
     record and what the profile phase reuses."""
     import itertools
     from caffeonspark_tpu_torch.config import Config
@@ -782,7 +1069,8 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda"):
         solver = Solver(conf.solverParameter, conf.netParam,
                         device=device)
     src = get_source(conf.train_data_layer(), phase_train=True, seed=1)
-    host = src.next_batch(list(itertools.islice(src.records(), TRAIN_B)))
+    host = src.next_batch(list(itertools.islice(src.records(),
+                                                src.batch_size)))
     batch = to_device(host, solver.device)
     params, state = solver.init()
     prev = torch.backends.cudnn.deterministic
@@ -793,31 +1081,51 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda"):
         solver.generator.manual_seed(99)
         with plain_kernels(K):
             loss_p, _, g_p = solver.loss_and_grads(params, batch)
+        g_b = None
+        if plain_forwards:
+            solver.generator.manual_seed(99)
+            with plain_kernels(K, plain_forwards):
+                _, _, g_b = solver.loss_and_grads(params, batch)
     finally:
         torch.backends.cudnn.deterministic = prev
     lk, lp = float(loss_k), float(loss_p)
     loss_rel = abs(lk - lp) / abs(lp)
     check(loss_rel <= STEP_LOSS_RTOL, f"{label}: loss {lk} with kernels, "
           f"{lp} plain (rel {loss_rel:.3g})")
-    worst, worst_at = 0.0, ""
-    for ln, bl in g_p.items():
-        for bn, gp in bl.items():
-            rel = float((g_k[ln][bn] - gp).abs().max()) / max(
-                float(gp.abs().max()), 1e-30)
-            if rel > worst:
-                worst, worst_at = rel, f"{ln}/{bn}"
-            check(rel <= STEP_GRAD_TOL, f"{label}: {ln}/{bn} gradient "
-                  f"differs from the plain step by {rel:.3g} of its max")
+    worst, worst_at = _grad_diff(label, g_p, g_k, grad_tol, "")
     log(f"  {label}: loss {lk:.6f} with kernels, {lp:.6f} plain (rel "
         f"{loss_rel:.3g}); worst gradient {worst:.3g} of max |grad| at "
-        f"{worst_at} (tol {STEP_GRAD_TOL})")
+        f"{worst_at} (tol {grad_tol})")
     rec = dict(label=label, loss_kernel=lk, loss_plain=lp,
                loss_rel=loss_rel, worst_grad_rel=worst,
-               worst_grad_at=worst_at)
+               worst_grad_at=worst_at, grad_tol=grad_tol)
+    if g_b is not None:
+        wb, wb_at = _grad_diff(label, g_p, g_b, STEP_GRAD_TOL,
+                               "with plain forwards")
+        log(f"  {label}: with {', '.join(plain_forwards)} plain and the "
+            f"backward kernels: worst gradient {wb:.3g} of max |grad| at "
+            f"{wb_at} (tol {STEP_GRAD_TOL})")
+        rec.update(bwd_kernels_worst_grad_rel=wb,
+                   bwd_kernels_worst_grad_at=wb_at)
     return rec, (solver, params, state, host)
 
 
-def profile_train_step(torch, label, solver, params, state, host):
+def direct_steps(torch, solver, params, state, host, n=5):
+    """ms of `n` training steps called on this thread, each ended by a
+    device synchronize (the step without the CLI's threads and queue)."""
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.train_step(params, state, to_device(host, solver.device))
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def profile_train_step(torch, label, solver, params, state, host,
+                       what=f"one B={TRAIN_B} training step"):
     """One training step (H2D of a packed batch, forward, backward,
     update) of a warmed solver under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -839,8 +1147,7 @@ def profile_train_step(torch, label, solver, params, state, host):
         wall_us = 1e6 * (time.perf_counter() - t0)
     finally:
         prof.stop()
-    return summarize_profile(prof, wall_us, label,
-                             f"one B={TRAIN_B} training step")
+    return summarize_profile(prof, wall_us, label, what)
 
 
 def main(argv) -> int:
@@ -875,7 +1182,7 @@ def main(argv) -> int:
             log(f"--- nvcc {name}.cu ---\n{text.strip()}")
 
     log("kernels against their plain versions (B=64 serving and B=256 "
-        "training shapes):")
+        "training shapes; flash attention at the LM's shapes):")
     res = kernel_phase(K, torch)
     if "--kernels-only" in argv:
         return 0
@@ -950,11 +1257,43 @@ def main(argv) -> int:
                                                  params, state, host))
         del solver, params, state, host
 
+    log(f"transformer LM {LM} through the CLI (-train, DataFrameSource, "
+        f"{TRAIN_ITERS} Adam steps; counts zeroed before):")
+    lm_solver = write_lm_config(workdir)
+    # the phase starts on an empty allocator cache, as a run of its own
+    # would (the image nets' phases leave gigabytes cached)
+    del reuse
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+    lm_train, _ = train_phase(
+        K, "TransformerLM train", lm_solver, {},
+        os.path.join(workdir, "transformerlm_out"), lm_kernels,
+        per_step=LM["batch"] * LM["seq"], unit="tokens",
+        launches_each=LM["layers"] * TRAIN_ITERS)
+    lm_launches = dict(lm_train["launches"])
+    log("one LM solver step with the kernels against the plain step:")
+    lm_step, (solver, params, state, host) = step_vs_plain(
+        K, torch, "TransformerLM train", lm_solver, {},
+        grad_tol=LM_STEP_GRAD_TOL, plain_forwards=("flash_attention_fwd",))
+    lm_step["direct_step_ms"] = direct_steps(torch, solver, params, state,
+                                             host)
+    log(f"  TransformerLM train: {len(lm_step['direct_step_ms'])} steps "
+        "called directly on the main thread, each synchronized: "
+        + ", ".join(f"{x:.1f}" for x in lm_step["direct_step_ms"]) + " ms")
+    log("profile of one LM training step:")
+    lm_profile = profile_train_step(
+        torch, "TransformerLM train", solver, params, state, host,
+        what=f"one B={LM['batch']} T={LM['seq']} LM training step")
+    del solver, params, state, host
+
     lines = []
     for name, meta in KERNELS.items():
         main_rec = res[name][0]
         by_path = {"serve": serve_launches.get(name, 0),
-                   "train": train_launches.get(name, 0)}
+                   "train": train_launches.get(name, 0),
+                   "train_lm": lm_launches.get(name, 0)}
         lines.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -972,6 +1311,8 @@ def main(argv) -> int:
     log(json.dumps({"training": train, "step_vs_plain": steps,
                     "trained_served": served_trained,
                     "train_profile": train_profiles}))
+    log(json.dumps({"training_lm": lm_train, "lm_step_vs_plain": lm_step,
+                    "lm_train_profile": lm_profile}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))
     log(card)

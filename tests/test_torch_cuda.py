@@ -8,8 +8,11 @@ machine with a card and no JAX:
 
 (COS_TPU_TESTS=1 keeps tests/conftest.py from importing jax.)
 chip_smoke.py repeats these checks at the serving and training shapes.
-Tolerances: forward rtol 2e-5 / atol 2e-6, backward rtol 3e-4 /
-atol 3e-5, int8 exact; every check so far has been bit-equal.
+Tolerances: LRN forward rtol 2e-5 / atol 2e-6, backward rtol 3e-4 /
+atol 3e-5, int8 exact (every LRN and int8 check so far has been
+bit-equal); flash attention (K6-K8, whose sums run in another order
+than the plain version's matmuls) forward rtol/atol 2e-5, gradients
+rtol 2e-4 / atol 1e-5, and in bf16 one bf16 ulp (2^-7) beyond those.
 """
 
 import numpy as np
@@ -104,9 +107,94 @@ def test_lrn_functions_launch_kernels_on_card(cuda_card):
     assert K.launch_counts == {
         "lrn_across_channels": 1, "lrn_across_channels_bwd": 1,
         "bias_relu_lrn_across_channels": 1,
-        "bias_relu_lrn_across_channels_bwd": 1, "int8_matmul": 0}
+        "bias_relu_lrn_across_channels_bwd": 1, "int8_matmul": 0,
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+        "flash_attention_bwd_dkv": 0}
     _close(xg.grad.cpu(), K.lrn_bwd_plain(x, dy, 5, ALPHA, BETA, KK).cpu(),
            3e-4, 3e-5)
     dx = K.bias_relu_lrn_bwd_plain(x, b, dy, 5, ALPHA, BETA, KK)
     _close(xb.grad.cpu(), dx.cpu(), 3e-4, 3e-5)
     _close(bg.grad.cpu(), dx.sum((0, 2, 3)).cpu(), 3e-4, 3e-5)
+
+
+# (B·H, T, D): tiles of 64 rows whole and ragged, every padded width
+FLASH_SHAPES = [(2, 64, 16), (3, 200, 48), (4, 384, 32), (1, 1, 8),
+                (2, 130, 128), (1, 65, 64), (2, 100, 96)]
+FLASH_FWD_TOL, FLASH_RTOL, FLASH_ATOL = 2e-5, 2e-4, 1e-5
+BF16_ULP = 2.0 ** -7
+
+
+def _flash_inputs(shape, seed, device, dtype):
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(device=device, dtype=dtype) for _ in range(4))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_match_plain_on_card(cuda_card, dtype):
+    """K6, K7 and K8 on the card against their plain versions on the
+    same inputs, causal and not, at whole and ragged tiles and every
+    padded head width (chip_smoke.py repeats this at (64, 2048, 64))."""
+    dt = getattr(torch, dtype)
+    extra = BF16_ULP if dt == torch.bfloat16 else 0.0
+    for i, shape in enumerate(FLASH_SHAPES):
+        for causal in (False, True):
+            q, k, v, do = _flash_inputs(shape, i, cuda_card, dt)
+            o, lse = K.flash_attention_fwd(q, k, v, causal)
+            o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
+            assert o.dtype == dt and lse.dtype == torch.float32
+            _close(o.float().cpu(), o_p.float().cpu(),
+                   FLASH_FWD_TOL + extra, FLASH_FWD_TOL)
+            _close(lse.cpu(), lse_p.cpu(), FLASH_FWD_TOL, FLASH_FWD_TOL)
+            delta = (do.float() * o_p.float()).sum(-1)
+            got = K.flash_bwd_block(q, k, v, do, lse_p, delta,
+                                    causal=causal)
+            want = K.flash_bwd_block_plain(q, k, v, do, lse_p, delta,
+                                           causal=causal)
+            for g, w in zip(got, want):
+                assert g.dtype == dt
+                _close(g.float().cpu(), w.float().cpu(),
+                       FLASH_RTOL + extra, FLASH_ATOL)
+    # bf16 inputs with f32 gradients (the ring backward's out_dtype)
+    if dt == torch.bfloat16:
+        q, k, v, do = _flash_inputs((3, 200, 48), 9, cuda_card, dt)
+        o_p, lse_p = K.flash_attention_plain(q, k, v, True)
+        delta = (do.float() * o_p.float()).sum(-1)
+        got = K.flash_bwd_block(q, k, v, do, lse_p, delta, causal=True,
+                                out_dtype=torch.float32)
+        want = K.flash_bwd_block_plain(q, k, v, do, lse_p, delta,
+                                       causal=True, out_dtype=torch.float32)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32
+            _close(g.cpu(), w.cpu(), FLASH_RTOL, FLASH_ATOL)
+
+
+@pytest.mark.cuda
+def test_flash_function_launches_kernels_on_card(cuda_card):
+    """FlashAttention routes a CUDA tensor to K6 and its backward to K7
+    and K8 (one launch each), with the plain versions' gradients; a
+    non-contiguous or over-wide operand is refused, not run plain."""
+    q, k, v, do = _flash_inputs((2, 3, 150, 40), 4, cuda_card,
+                                torch.float32)
+    K.reset_launch_counts()
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    K.flash_attention(*xs, True).backward(do)
+    assert {n: c for n, c in K.launch_counts.items()
+            if n.startswith("flash")} == {
+        "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_dkv": 1}
+    flat = [x.reshape(6, 150, 40) for x in (q, k, v, do)]
+    o_p, lse_p = K.flash_attention_plain(*flat[:3], True)
+    delta = (flat[3] * o_p).sum(-1)
+    want = K.flash_bwd_block_plain(*flat, lse_p, delta, causal=True)
+    for x, w in zip(xs, want):
+        _close(x.grad.reshape(6, 150, 40).cpu(), w.cpu(), FLASH_RTOL,
+               FLASH_ATOL)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention_fwd(flat[0].transpose(1, 2).contiguous()
+                              .transpose(1, 2), flat[1], flat[2])
+    wide = torch.zeros(1, 8, 129, device=cuda_card)
+    with pytest.raises(ValueError, match="head dim"):
+        K.flash_attention_fwd(wide, wide, wide)

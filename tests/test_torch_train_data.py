@@ -375,9 +375,10 @@ def test_cli_refuses_what_waits_for_later_slices(tmp_path):
         'width: 2 } }').layer[0]
     with pytest.raises(NotImplementedError, match="SeqImageDataSource"):
         next(get_source(lp, phase_train=True).records())
-    lp.source_class = "com.yahoo.ml.caffe.DataFrameSource"
-    with pytest.raises(NotImplementedError, match="DataFrame"):
-        get_source(lp)
+    h5 = NetParameter.from_text(
+        'layer { name: "h" type: "HDF5Data" top: "data" }').layer[0]
+    with pytest.raises(NotImplementedError, match="HDF5"):
+        get_source(h5)
 
 
 def test_bad_records_drop_their_batch_then_fail_loudly(tmp_path,
