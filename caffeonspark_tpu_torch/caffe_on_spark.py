@@ -11,7 +11,11 @@ records (a seeded shuffle per epoch) through the bounded feed queue into
 the TRAIN-phase transformer, and runs Caffe's solver for max_iter steps
 (`CaffeOnSpark.train` -> `CaffeProcessor`).  Snapshots land at the
 `snapshot` interval and after training; the final model goes to
-`-model` (default `<output>/model.caffemodel`), which -serve loads:
+`-model` (default `<output>/model.caffemodel`), which -serve loads.
+`-mesh 1,1,4` trains on a mesh with an sp axis of 4 ranks (the JAX
+CLI's grammar dp,tp,sp): every MultiHeadAttention runs as a ring over
+time blocks, the ranks all on `-device`'s card (parallel/sp.py).
+
 
     python -m caffeonspark_tpu_torch.caffe_on_spark -conf solver.prototxt \\
         -serve -model m.caffemodel -features fc8

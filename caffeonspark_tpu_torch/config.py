@@ -4,8 +4,9 @@
 A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
 solver/net prototxt parsing, data-layer location by `include.phase`),
 cut to the flags this package acts on so far: training (`-train`,
-single process) and serving.  `-device` picks where the net runs:
-`cuda` (the default) or `cpu`.
+single process, `-mesh` with an sp axis) and serving.  `-device` picks
+where the net runs: `cuda` (the default) or `cpu`; a mesh's ranks all
+sit on that device.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ def build_argparser() -> argparse.ArgumentParser:
            "/v1/reload endpoint makes wider binds an explicit opt-in)")
     a("-device", dest="device", default="cuda",
       help="where the net runs: cuda (default) or cpu")
+    # mesh extensions (not in the reference)
+    a("-mesh", dest="mesh", default="",
+      help="mesh spec dp[,tp[,sp[,ep]]] per process")
     return p
 
 
@@ -140,6 +144,12 @@ class Config:
                                  "prototxt")
             if self.serve:
                 raise ValueError("-train and -serve are separate runs")
+        if self.mesh:
+            from .parallel.mesh import parse_mesh_spec
+            parse_mesh_spec(self.mesh)   # the grammar; build_mesh refuses axes
+            if self.serve:
+                raise ValueError("-mesh applies to -train (the serving "
+                                 "mesh is a later slice)")
         if self.serve:
             if self.netParam is None:
                 raise ValueError("-serve needs -conf (solver prototxt "

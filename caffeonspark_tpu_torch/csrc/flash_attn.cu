@@ -6,7 +6,11 @@
 //   * `flash_bwd_block`, its dq call (`_flash_bwd_dq_kernel`)
 //     -> `cos_flash_bwd_dq` (K7);
 //   * `flash_bwd_block`, its dk/dv call (`_flash_bwd_dkv_kernel`)
-//     -> `cos_flash_bwd_dkv` (K8).
+//     -> `cos_flash_bwd_dkv` (K8);
+//   * `flash_block_update` (kernel `_flash_carry_kernel`)
+//     -> `cos_flash_block_update` (K9): one ring-attention hop, K6's
+//     loop started from and ended in an (m, l, acc) carry in memory
+//     (see the section of K9 below).
 //
 // q, k, v, dO are (BH, T, D) row-major, f32 or bf16; lse and delta are
 // (BH, T) f32.  scale = 1/sqrt(D).  With `causal`, key c is visible to
@@ -442,6 +446,129 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K9: one ring hop.  grid (BH, ceil(Tq / 64)); a block owns 64 query rows
+// of the fixed shard and walks the visiting block's key tiles.
+//
+// It is K6 with three changes: the (m, l, acc) carry is read from memory
+// at the start and written back at the end (no acc / l, no lse); the
+// causal test uses the blocks' global offsets, q_off + r >= k_off + c,
+// passed as plain int arguments (scalar prefetch on the TPU); and Tq and
+// Tk may differ.  What bounds it is what bounds K6: at the LM's per-rank
+// shape (64, 512, 512, 64) a full hop is 4.3 GFLOP of f32 FMA against
+// ~42 MB of operands and carry, ~100 operations per byte.
+//
+// The TPU kernel walks every key tile, so a row whose keys in this hop
+// are all hidden leaves with m' = max(m, -1e30): -1e30 where it came in
+// at -inf (the ring's first carry), with l and acc unchanged (corr =
+// exp(-inf - 0) = 0 multiplies zeros).  This kernel skips the tiles past
+// the causal edge, as K6 does, and writes max(m, -1e30) for a causal hop
+// instead, which gives the same m' for every row: a row that processed a
+// tile saw a score >= -1e30 there.  m_safe is finite in every processed
+// tile (each holds a key < Tk, visible or -1e30), so exp(m - m_safe) is
+// exp(-inf) = 0, never NaN, for a row that has seen nothing yet.
+// The outputs are separate buffers (the wrapper allocates them).
+// ---------------------------------------------------------------------------
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const float* __restrict__ m_in,
+                   const float* __restrict__ l_in,
+                   const float* __restrict__ acc_in,
+                   float* __restrict__ m_out, float* __restrict__ l_out,
+                   float* __restrict__ acc_out, int Tq, int Tk, int D,
+                   float scale, int q_off, int k_off, int causal) {
+  constexpr int TD = DP / 16;
+  extern __shared__ float4 smem4[];
+  float* qt = reinterpret_cast<float*>(smem4);  // [DP][kLdT] queries
+  float* kt = qt + DP * kLdT;                   // [DP][kLdT] keys
+  float* vs = kt + DP * kLdT;                   // [kRows][DP] values
+  float* pt = vs + kRows * DP;                  // [kRows][kLdT] P, key-major
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int64_t qhead = (int64_t)blockIdx.x * Tq * D;
+  const int64_t khead = (int64_t)blockIdx.x * Tk * D;
+  const int64_t row0 = (int64_t)blockIdx.x * Tq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+
+  load_tile<T, kRows, DP>(q + qhead, q0, Tq, D, qt, kLdT, nullptr);
+  float m[8], l[8], acc[8][TD];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + ty * 8 + i;
+    const bool in = r < Tq;
+    m[i] = in ? m_in[row0 + r] : kNeg;  // rows past Tq are never stored
+    l[i] = in ? l_in[row0 + r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) {
+      const int d = tx * TD + j;
+      acc[i][j] = in && d < D ? acc_in[qhead + (int64_t)r * D + d] : 0.f;
+    }
+  }
+  const int q_end = min(Tq, q0 + kRows);
+  // causal: keys c with k_off + c > q_off + q_end - 1 are hidden from
+  // every row of the tile
+  const int kv_end = causal ? max(0, min(Tk, q_off + q_end - k_off)) : Tk;
+  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T, kRows, DP>(k + khead, k0, Tk, D, kt, kLdT, nullptr);
+    load_tile<T, kRows, DP>(v + khead, k0, Tk, D, nullptr, 0, vs);
+    __syncthreads();
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    tile_mma<DP, 8, 4>(qt + ty * 8, kLdT, kt + tx * 4, kLdT, s);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = q_off + q0 + ty * 8 + i;  // global positions
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx * 4 + j;
+        float x = s[i][j] * scale;
+        if (c >= Tk) x = -INFINITY;  // past the end: no contribution
+        else if (causal && r < k_off + c) x = kNeg;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = row_max(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const float m_safe = m_new <= kNeg * 0.5f ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = expf(s[i][j] - m_safe);
+        sum += s[i][j];
+      }
+      sum = row_sum(sum);
+      const float corr = expf(m[i] - m_safe);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < TD; ++j) acc[i][j] *= corr;
+    }
+    store_t<4>(pt, ty * 8, tx * 4, s);
+    __syncthreads();
+    tile_mma<kRows, 8, TD>(pt + ty * 8, kLdT, vs + tx * TD, DP, acc);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + ty * 8 + i;
+    if (r >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < TD; ++j) {
+      const int d = tx * TD + j;
+      if (d < D) acc_out[qhead + (int64_t)r * D + d] = acc[i][j];
+    }
+    if (tx == 0) {
+      m_out[row0 + r] = causal ? fmaxf(m[i], kNeg) : m[i];
+      l_out[row0 + r] = l[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -499,6 +626,23 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DP>
+int carry_launch(const void* q, const void* k, const void* v,
+                 const float* m_in, const float* l_in, const float* acc_in,
+                 float* m_out, float* l_out, float* acc_out, int BH, int Tq,
+                 int Tk, int D, float scale, int q_off, int k_off,
+                 int causal, cudaStream_t s) {
+  auto kern = flash_carry_kernel<T, DP>;
+  constexpr size_t smem = fwd_smem<DP>();
+  int err = prepare(kern, smem);
+  if (err) return err;
+  kern<<<grid_for(BH, Tq), kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), m_in, l_in, acc_in, m_out, l_out, acc_out,
+      Tq, Tk, D, scale, q_off, k_off, causal);
+  return (int)cudaGetLastError();
+}
+
 int check_args(int BH, int Tn, int D) {
   if (BH <= 0 || Tn <= 0 || D <= 0 || D > 128 ||
       (Tn + kRows - 1) / kRows > 65535)
@@ -538,6 +682,15 @@ struct Dkv {
   struct W {
     template <typename... A>
     static int run(A... a) { return dkv_launch<TI, TO, DP>(a...); }
+  };
+};
+
+template <typename T>
+struct Carry {
+  template <int DP>
+  struct W {
+    template <typename... A>
+    static int run(A... a) { return carry_launch<T, DP>(a...); }
   };
 };
 
@@ -602,5 +755,32 @@ extern "C" int cos_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (in_dtype == 1 && out_dtype == 0) COS_DKV(__nv_bfloat16, float);
   if (in_dtype == 1 && out_dtype == 1) COS_DKV(__nv_bfloat16, __nv_bfloat16);
 #undef COS_DKV
+  return (int)cudaErrorInvalidValue;
+}
+
+// K9: (m_out, l_out, acc_out) = the (m_in, l_in, acc_in) carry of q (BH, Tq,
+// D) with the block k, v (BH, Tk, D) folded in; q, k, v in `dtype`, the
+// carry (BH, Tq) / (BH, Tq, D) f32; q_off, k_off the global offsets.
+extern "C" int cos_flash_block_update(const void* q, const void* k,
+                                      const void* v, const float* m_in,
+                                      const float* l_in, const float* acc_in,
+                                      float* m_out, float* l_out,
+                                      float* acc_out, int BH, int Tq, int Tk,
+                                      int D, float scale, int q_off,
+                                      int k_off, int causal, int dtype,
+                                      void* stream) {
+  int err = check_args(BH, Tq, D);
+  if (!err) err = check_args(BH, Tk, D);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return by_width<Carry<float>::W>(D, q, k, v, m_in, l_in, acc_in, m_out,
+                                     l_out, acc_out, BH, Tq, Tk, D, scale,
+                                     q_off, k_off, causal, s);
+  if (dtype == 1)
+    return by_width<Carry<__nv_bfloat16>::W>(D, q, k, v, m_in, l_in, acc_in,
+                                             m_out, l_out, acc_out, BH, Tq,
+                                             Tk, D, scale, q_off, k_off,
+                                             causal, s);
   return (int)cudaErrorInvalidValue;
 }

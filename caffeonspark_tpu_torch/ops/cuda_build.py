@@ -134,4 +134,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cos_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F,
                                           I, I, I, P]
         lib.cos_flash_bwd_dkv.restype = I
+        lib.cos_flash_block_update.argtypes = [P, P, P, P, P, P, P, P, P, I,
+                                               I, I, I, F, I, I, I, I, P]
+        lib.cos_flash_block_update.restype = I
     return lib

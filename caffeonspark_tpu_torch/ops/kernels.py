@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, their wrappers and their plain
 PyTorch versions — the counterpart of caffeonspark_tpu/ops/pallas_kernels.py.
 
-Five kernels serve the image nets' forward and backward, three the
+Five kernels serve the image nets' forward and backward, four the
 transformer's attention:
 
   * `lrn_across_channels`            K1, csrc/lrn.cu `cos_lrn_fwd`
@@ -18,14 +18,18 @@ transformer's attention:
     `cos_flash_fwd` (blockwise attention: O and the row log-sum-exp);
   * `flash_attention_bwd_dq`         K7, `cos_flash_bwd_dq`;
   * `flash_attention_bwd_dkv`        K8, `cos_flash_bwd_dkv` (K7 and K8
-    together are `flash_bwd_block`).
+    together are `flash_bwd_block`);
+  * `flash_block_update`             K9, `cos_flash_block_update` (one
+    ring-attention hop: a K/V block folded into the online-softmax
+    carry, masked with global offsets).
 
 `LRNAcrossChannels` and `BiasReluLRNAcrossChannels` are the autograd
 Functions that pair K1 with K2 and K3 with K4; the net's LRN layer
 calls them in every phase.  Each saves only its raw inputs (x, and the
 bias), as the JAX package's custom VJPs do.  `FlashAttention` pairs K6
 with K7/K8 for the MultiHeadAttention layer and saves q, k, v, O and
-lse, the JAX custom VJP's residuals.
+lse, the JAX custom VJP's residuals.  K9 has no Function of its own:
+`parallel.sp.RingFlash` pairs it with K7/K8 over a ring of ranks.
 
 Routing is by the tensor's device and nothing else: a CPU tensor (or a
 shape-only "meta" tensor during Net construction) takes the plain
@@ -54,7 +58,8 @@ launch_counts: Dict[str, int] = {"lrn_across_channels": 0,
                                  "int8_matmul": 0,
                                  "flash_attention_fwd": 0,
                                  "flash_attention_bwd_dq": 0,
-                                 "flash_attention_bwd_dkv": 0}
+                                 "flash_attention_bwd_dkv": 0,
+                                 "flash_block_update": 0}
 _count_lock = threading.Lock()
 
 _LRN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -646,3 +651,86 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `FlashAttention` (K6, backward K7/K8 on the card; their plain
     versions for a CPU or meta tensor), at any T."""
     return FlashAttention.apply(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# K9: flash block update (one ring-attention hop)
+# ---------------------------------------------------------------------------
+
+def flash_block_update_plain(q: torch.Tensor, k_blk: torch.Tensor,
+                             v_blk: torch.Tensor, m: torch.Tensor,
+                             l: torch.Tensor, acc: torch.Tensor,
+                             q_off: int, k_off: int, causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain version of K9 over the whole hop, formula for formula as the
+    TPU kernel's `_online_softmax_step` (pallas_kernels.py:436-455): with
+    `causal`, key c is hidden from query r by the finite -1e30 unless
+    q_off + r >= k_off + c; m' = max(m, rowmax s), m_safe = (m' <= -5e29
+    ? 0 : m'), p = exp(s - m_safe), corr = exp(m - m_safe), l' = l·corr
+    + rowsum p, acc' = acc·corr + p·v.  q (BH, Tq, D) and k_blk, v_blk
+    (BH, Tk, D) in f32 or bf16; the carry (m, l (BH, Tq), acc (BH, Tq,
+    D)) and the results in f32."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), k_blk.float().transpose(-1, -2)) * scale
+    if causal:
+        qpos = q_off + torch.arange(q.shape[1], device=q.device)
+        kpos = k_off + torch.arange(k_blk.shape[1], device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s, FLASH_NEG)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    m_safe = torch.where(m_new <= FLASH_NEG * 0.5, 0.0, m_new)
+    p = torch.exp(s - m_safe[..., None])
+    corr = torch.exp(m - m_safe)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    acc_new = acc * corr[..., None] + torch.matmul(p, v_blk.float())
+    return m_new, l_new, acc_new
+
+
+def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
+                       v_blk: torch.Tensor, m: torch.Tensor,
+                       l: torch.Tensor, acc: torch.Tensor, q_off: int,
+                       k_off: int, causal: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K9: fold the rotating block (k_blk, v_blk) (BH, Tk, D) into the
+    online-softmax carry of the fixed queries q (BH, Tq, D), returning
+    the new (m, l, acc).  q_off and k_off are the blocks' global time
+    offsets (host integers: no hop synchronizes the device), used for
+    the causal mask.  Any Tq, Tk >= 1 and D <= 128; q, k_blk, v_blk f32
+    or bf16 of one dtype; the carry is always f32, as the ring passes
+    it, and any other carry dtype is refused."""
+    name = "flash_block_update"
+    for x in (m, l, acc):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name}: the (m, l, acc) carry must be "
+                             f"float32, got {x.dtype}")
+    if not _route(q, name):
+        return flash_block_update_plain(q, k_blk, v_blk, m, l, acc, q_off,
+                                        k_off, causal)
+    _check_flash(name, q, stats=(m, l))
+    _check_flash(name, k_blk, v_blk)
+    bh, t_q, d = q.shape
+    t_k = k_blk.shape[1]
+    if k_blk.shape[0] != bh or k_blk.shape[2] != d \
+            or k_blk.dtype != q.dtype or k_blk.device != q.device:
+        raise ValueError(f"{name}: block {tuple(k_blk.shape)} "
+                         f"{k_blk.dtype} on {k_blk.device} does not fit q "
+                         f"{tuple(q.shape)} {q.dtype} on {q.device}")
+    if acc.shape != q.shape or acc.device != q.device \
+            or not acc.is_contiguous():
+        raise ValueError(f"{name}: acc must be contiguous f32 "
+                         f"{tuple(q.shape)} on {q.device}, got "
+                         f"{tuple(acc.shape)} on {acc.device}")
+    m_out = torch.empty_like(m)
+    l_out = torch.empty_like(l)
+    acc_out = torch.empty_like(acc)
+    lib = cuda_build.library("flash_attn")
+    with torch.cuda.device(q.device):
+        status = lib.cos_flash_block_update(
+            q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
+            acc_out.data_ptr(), bh, t_q, t_k, d, 1.0 / math.sqrt(d),
+            int(q_off), int(k_off), int(bool(causal)), _LRN_DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    _check_status(name, status)
+    _count(name)
+    return m_out, l_out, acc_out

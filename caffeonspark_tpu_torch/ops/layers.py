@@ -16,9 +16,10 @@ SoftmaxWithLoss VALID normalization + ignore_label.
 The across-channel LRN (plain, relu-fused, bias+relu-fused) goes
 through the autograd Functions of `ops.kernels` (K1/K2, K3/K4), the
 int8 InnerProduct to K5 and MultiHeadAttention's attention to the flash
-kernels (K6, backward K7/K8).  Convolutions go to cuDNN through
-`torch.nn.functional.conv2d` and the attention projections to
-`torch.matmul`, as the JAX package left them to XLA.
+kernels (K6, backward K7/K8), or, under a mesh that shards time over
+sp (`flash_mesh`), to the ring (K9, backward K7/K8).  Convolutions go
+to cuDNN through `torch.nn.functional.conv2d` and the attention
+projections to `torch.matmul`, as the JAX package left them to XLA.
 Every other op is differentiable through autograd.  `Ctx.train` picks
 Caffe's TRAIN semantics (Dropout draws its keep-mask from
 `Ctx.generator`) or TEST semantics (Dropout is the identity).
@@ -26,7 +27,9 @@ Caffe's TRAIN semantics (Dropout draws its keep-mask from
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 import zlib
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -408,15 +411,65 @@ def _mha_params(lp, shapes):
             ("W_o", (d_model, h * hd), wf)]
 
 
+# the dispatch's meshes, per thread: a training step's mesh never
+# reaches a serving thread
+_FLASH_STATE = threading.local()
+
+
+def _mesh_stack() -> list:
+    st = _FLASH_STATE
+    if not hasattr(st, "meshes"):
+        st.meshes = []
+    return st.meshes
+
+
+@contextlib.contextmanager
+def flash_mesh(mesh):
+    """Route the attention dispatch over `mesh` for the duration (on this
+    thread).  When the mesh shards TIME (an sp axis), the attention is
+    the differentiable fused ring (parallel.sp), so prototxt-driven
+    sequence-parallel training gets ring + flash without hand-rolled
+    steps."""
+    meshes = _mesh_stack()
+    meshes.append(mesh)
+    try:
+        yield
+    finally:
+        meshes.pop()
+
+
+def _attention_dispatch(q, k, v, *, causal: bool):
+    """Attention on (B, H, T, hd), the counterpart of the JAX dispatch:
+      * under `flash_mesh` with an sp axis: the fused ring,
+        `parallel.sp.ring_attention(flash=True)` — K9 forward, K7/K8
+        backward on the card, their plain versions on the CPU (T must
+        divide over sp: the ring raises otherwise, and the processor
+        refuses such a -mesh at startup);
+      * otherwise: `FlashAttention` on the whole tensor (K6, K7/K8).
+    The batch and head axes need no split of their own: attention is
+    independent over them, so the ring over the whole batch is the same
+    math as the JAX package's per-device blocks.  One deliberate
+    difference: the JAX route falls back to einsum attention when the
+    local extent T / sp does not suit the TPU kernels' blocks; here the
+    ring runs at any local T, so the card never runs O(T²) plain
+    attention."""
+    meshes = _mesh_stack()
+    if meshes and meshes[-1].shape["sp"] > 1:
+        from ..parallel import sp
+        return sp.ring_attention(q, k, v, meshes[-1], causal=causal,
+                                 flash=True)
+    return K.flash_attention(q, k, v, causal)
+
+
 @register("MultiHeadAttention", params=_mha_params)
 def _mha(ctx, lp, params, bottoms):
     """Multi-head self-attention on time-major (T, B, D) input: the
-    W_qkv projection, attention on (B, H, T, hd), the W_o projection.
-    The attention is the JAX dispatch's single-device branch: the flash
-    kernels for a CUDA tensor at any T (they mask their own ragged
-    tail, so no CUDA path runs O(T²) plain attention), their plain
-    versions behind the same autograd Function for a CPU or meta
-    tensor."""
+    W_qkv projection, attention on (B, H, T, hd) through
+    `_attention_dispatch`, the W_o projection.  Without a mesh the
+    dispatch takes its single-device branch: the flash kernels for a
+    CUDA tensor at any T (they mask their own ragged tail, so no CUDA
+    path runs O(T²) plain attention), their plain versions behind the
+    same autograd Function for a CPU or meta tensor."""
     ap = lp.attention_param
     x = bottoms[0]
     t_steps, batch = x.shape[0], x.shape[1]
@@ -426,7 +479,7 @@ def _mha(ctx, lp, params, bottoms):
     # (B, H, T, hd)
     q, k, v = (torch.movedim(qkv[:, :, i], (0, 1, 2), (2, 0, 1))
                for i in range(3))
-    o = K.flash_attention(q, k, v, bool(ap.causal))
+    o = _attention_dispatch(q, k, v, causal=bool(ap.causal))
     # back to (T, B, H*hd)
     o = torch.movedim(o, (0, 1, 2), (1, 2, 0)).reshape(t_steps, batch,
                                                        h * hd)

@@ -1,3 +1,3 @@
 """Parallelism of the PyTorch port (the counterpart of
-`caffeonspark_tpu/parallel/`); so far only the single-device attention
-reference of `sp.py`."""
+`caffeonspark_tpu/parallel/`): device meshes (`mesh.py`) and the
+sequence-parallel ring attention (`sp.py`)."""

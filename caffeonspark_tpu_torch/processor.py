@@ -2,13 +2,15 @@
 
 The counterpart of `caffeonspark_tpu/processor.py` (and of
 `CaffeProcessor.scala`), cut to what one process training on one device
-needs: a singleton (`instance()`) that owns the Solver, two bounded feed
-queues with the STOP_MARK protocol (0 train, 1 validation), and a solver
-thread (`_run_train`) that packs records from queue 0 into batches,
-copies each to the device, takes the solver step, snapshots at the
-`snapshot` cadence and after training, and finally writes the model to
-`-model`.  Bad records drop their batch (the reference's per-iteration
-failure tolerance) until DROP_LIMIT_DEFAULT consecutive batches fail.
+needs: a singleton (`instance()`) that owns the Solver (and, with
+`-mesh`, the mesh whose attention route its steps run under), two
+bounded feed queues with the STOP_MARK protocol (0 train, 1
+validation), and a solver thread (`_run_train`) that packs records from
+queue 0 into batches, copies each to the device, takes the solver step,
+snapshots at the `snapshot` cadence and after training, and finally
+writes the model to `-model`.  Bad records drop their batch (the
+reference's per-iteration failure tolerance) until DROP_LIMIT_DEFAULT
+consecutive batches fail.
 An error on the solver thread surfaces on `join()` / `stop()`.
 
 Interleaved validation, the threaded transformer pool, the device-side
@@ -19,6 +21,7 @@ observability server wait for later slices.
 from __future__ import annotations
 
 import logging
+import math
 import os
 import queue
 import threading
@@ -34,6 +37,8 @@ from .data.queue_runner import (DROP_LIMIT_DEFAULT, FeedQueue,
                                 combine_batches, to_device)
 from .data.source import STOP_MARK, DataSource, get_source
 from .metrics import PipelineMetrics
+from .ops.layers import flash_mesh
+from .parallel.mesh import Mesh, build_mesh, parse_mesh_spec
 from .solver import Solver
 
 _LOG = logging.getLogger(__name__)
@@ -61,6 +66,20 @@ class CaffeProcessor:
         self.rank = rank
         self.solver = Solver(conf.solverParameter, conf.netParam, rank=rank,
                              device=conf.device)
+        # -mesh: the mesh's ranks all sit on -device's card, several to a
+        # card (the counterpart of the JAX package's virtual devices)
+        self.mesh: Optional[Mesh] = None
+        if conf.mesh:
+            dims = parse_mesh_spec(conf.mesh)
+            n = math.prod(dims.values())
+            self.mesh = build_mesh(devices=[self.solver.device] * n, **dims)
+            n_sp = self.mesh.shape["sp"]
+            for name, shape, kind in self.solver.train_net.input_specs:
+                if kind.endswith(":T") and shape[0] % n_sp:
+                    raise ValueError(
+                        f"-mesh {conf.mesh}: the time-major input {name!r} "
+                        f"has {shape[0]} steps, which the sp axis ({n_sp} "
+                        "ranks) does not divide")
         self.queues = [FeedQueue(), FeedQueue()]   # 0 train, 1 validation
         self.metrics = PipelineMetrics()
         self.params = None
@@ -192,6 +211,8 @@ class CaffeProcessor:
             display = sp.display or 0
             params, st = self.params, self.opt_state
             m = self.metrics
+            if self.mesh is not None:
+                m.set_info("mesh", self.mesh.describe())
             tmajor = frozenset(
                 n for n, _, kind in solver.train_net.input_specs
                 if kind.endswith(":T"))
@@ -206,7 +227,11 @@ class CaffeProcessor:
                 m.gauge("feed_depth", len(self.queues[0]))
                 t_step = time.perf_counter()
                 inputs = to_device(batch, solver.device)
-                loss, out = solver.train_step(params, st, inputs)
+                if self.mesh is None:
+                    loss, out = solver.train_step(params, st, inputs)
+                else:
+                    with flash_mesh(self.mesh):
+                        loss, out = solver.train_step(params, st, inputs)
                 now = time.perf_counter()
                 m.add("step", now - t_step)
                 m.mark_step()

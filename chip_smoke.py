@@ -18,7 +18,13 @@ or the package is not importable, and when any phase fails.  Phases:
      and at a ragged shape, the flash attention kernels (K6 forward, K7
      dq, K8 dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and
      not, f32 and bf16, and at ragged (3, 200, 48) and (4, 384, 32),
-     with kernel / plain / library / bound times;
+     with kernel / plain / library / bound times; K9 (the ring hop) at
+     the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512, 512, 64), f32
+     and bf16: the diagonal causal hop (q_off = k_off = 512), a fully
+     visible causal hop (q_off 1536, k_off 0) and a non-causal hop, each
+     from the ring's first carry (timed: kernel / plain / bound) and
+     from a mid-ring carry, then the ragged (3, 200, 328, 48) at q_off
+     100, k_off 150, whose first rows see no key, causal and not;
   4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
      written with the port's own save_caffemodel and seeded fillers;
   5. that model served through the CLI's start_server (-serve path),
@@ -53,9 +59,23 @@ or the package is not importable, and when any phase fails.  Phases:
      each launched layers x max_iter = 16 times, median step time and
      tokens/s over steps 3-8; one step against the plain step; one
      step under torch.profiler, with the flash kernels' share;
- 14. a `kernels` JSON line: launches on the serving and both training
-     paths and the numbers of phase 3; then the card line again;
- 15. the device line, last: {"ok": true, "device": {...}}.
+ 14. the same LM, rows and solver on an sp4 mesh, trained through the
+     CLI with `-mesh 1,1,4` for 8 steps (counts zeroed before, read
+     after): the ring attention, its 4 ranks on the one card (512 time
+     steps each); first loss near ln 1000, every loss finite, snapshots
+     at 4 and 8, K9 (the ring's forward hops), K7 and K8 (its backward
+     pairs) each launched layers x 10 x max_iter = 160 times and K6
+     never; one sp step against the same step with every kernel plain
+     (loss 1e-5, gradients LM_STEP_GRAD_TOL), with only K9 plain against
+     the all-plain step (gradients STEP_GRAD_TOL: the backward kernels
+     in the ring) and against the single-device kernel step of phase 13
+     (loss 1e-5, gradients LM_STEP_GRAD_TOL); 5 synchronized direct
+     steps; one step under torch.profiler, with K9's and the flash
+     kernels' share of the busy time;
+ 15. a `kernels` JSON line: launches on the serving, image-net training,
+     LM training and sp LM training paths and the numbers of phase 3;
+     then the card line again;
+ 16. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -102,6 +122,9 @@ ROWS_INT8_TOL = 1e-2   # int8: a flipped rounding moves 1/127 of a max
 FLASH_FWD_TOL = 2e-5
 FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 2e-4, 1e-5
 FLASH_BH, FLASH_T, FLASH_D = 64, 2048, 64   # the LM's (B*H, T, head_dim)
+FLASH_NEG_HALF = -5e29    # at or below: a row that has seen no key (m_safe)
+SP = 4                    # the sp ring's ranks, all on the one card
+SP_T_LOCAL = FLASH_T // SP
 # the transformer LM: the zoo's vocab and depth, heads/head_dim/T of
 # scripts/bench_attention.py:56, batch 4 (8,192 tokens a step)
 LM = dict(vocab=1000, d_model=1024, heads=16, layers=2, seq=2048, batch=4)
@@ -139,6 +162,10 @@ KERNELS = {  # `library`: the one PyTorch call timed as library_ms
         replaces=f"{PALLAS}:666",
         library="autograd backward of F.scaled_dot_product_attention "
                 "(dq, dk, dv; against K7 + K8)"),
+    "flash_block_update": dict(
+        source="caffeonspark_tpu_torch/csrc/flash_attn.cu",
+        replaces=f"{PALLAS}:773",
+        library=None),  # no one PyTorch call folds a block into a carry
 }
 
 
@@ -517,6 +544,93 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True):
         f"dk {maxes[2]:.3g} dv {maxes[3]:.3g}")
 
 
+def carry_pairs(bh, t_q, t_k, q_off, k_off, causal) -> int:
+    """(query, key) pairs one K9 hop scores: with `causal`, only those
+    with q_off + r >= k_off + c (what these offsets need)."""
+    if not causal:
+        return bh * t_q * t_k
+    return bh * sum(min(t_k, max(0, q_off + r - k_off + 1))
+                    for r in range(t_q))
+
+
+def check_block_update(K, torch, shape, dtype, causal, q_off, k_off, first,
+                       results, timed=True):
+    """K9 against its plain version on the same q, block (k, v) and carry:
+    the ring's first carry (-inf, 0, 0) or a mid-ring one (the carry after
+    an earlier hop over the block before k).  m, l and acc are
+    held to FLASH_FWD_TOL relative and FLASH_FWD_TOL of their largest
+    finite element (acc is an unnormalized sum of signed terms); a row
+    the plain version leaves at -1e30 must not come back -inf."""
+    bh, t_q, t_k, d = shape
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"carry{shape}{dtype}{causal}{q_off}{k_off}{first}".encode()))
+    q = torch.randn((bh, t_q, d), device="cuda", generator=g).to(dtype)
+    k, v = (torch.randn((bh, t_k, d), device="cuda", generator=g).to(dtype)
+            for _ in range(2))
+    if first:
+        carry = (torch.full((bh, t_q), -math.inf, device="cuda"),
+                 torch.zeros((bh, t_q), device="cuda"),
+                 torch.zeros((bh, t_q, d), device="cuda"))
+    else:     # an earlier hop's carry: keys 0..t_k of a block before k
+        kp, vp = (torch.randn((bh, t_k, d), device="cuda", generator=g)
+                  .to(dtype) for _ in range(2))
+        carry = K.flash_block_update_plain(
+            q, kp, vp, torch.full((bh, t_q), -math.inf, device="cuda"),
+            torch.zeros((bh, t_q), device="cuda"),
+            torch.zeros((bh, t_q, d), device="cuda"), q_off,
+            k_off - t_k, causal)
+    got = K.flash_block_update(q, k, v, *carry, q_off, k_off, causal)
+    torch.cuda.synchronize()
+    want = K.flash_block_update_plain(q, k, v, *carry, q_off, k_off, causal)
+    tag = (f"({bh}, {t_q}, {t_k}, {d}) {str(dtype).replace('torch.', '')} "
+           f"causal={causal} q_off={q_off} k_off={k_off} "
+           f"carry={'first' if first else 'mid-ring'}")
+    max_err, unseen = 0.0, int((want[0] <= FLASH_NEG_HALF).sum())
+    for part, gx, wx in zip(("m", "l", "acc"), got, want):
+        real = wx[wx > FLASH_NEG_HALF]
+        scale = float(real.abs().max()) if real.numel() else 0.0
+        err = (gx - wx).abs()
+        bad = err > FLASH_FWD_TOL * (wx.abs() + scale)
+        check(not bool(bad.any()), f"flash_block_update {tag} {part}: "
+              f"{int(bad.sum())} elements outside rtol {FLASH_FWD_TOL} "
+              f"(max abs err {float(err.max()):.3g}, scale {scale:.3g})")
+        if part != "m":
+            max_err = max(max_err, float(err.max()))
+    check(torch.equal(got[0] <= FLASH_NEG_HALF, want[0] <= FLASH_NEG_HALF),
+          f"flash_block_update {tag}: rows that saw no key differ")
+    rec = dict(shape=[bh, t_q, t_k, d],
+               dtype=str(dtype).replace("torch.", ""), causal=causal,
+               q_off=q_off, k_off=k_off, carry="first" if first else "mid",
+               max_abs_err=max_err, rows_unseen=unseen)
+    if timed:
+        esz = q.element_size()
+        pairs = carry_pairs(bh, t_q, t_k, q_off, k_off, causal)
+        peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        # q, k, v read; m, l, acc read and written (f32)
+        nbytes = (t_q + 2 * t_k) * bh * d * esz + 2 * 4 * bh * t_q * (d + 2)
+        sets = [tuple(x.clone() for x in (q, k, v) + tuple(carry))
+                for _ in range(rotations(nbytes))]
+        run = lambda *a: K.flash_block_update(  # noqa: E731
+            *a, q_off, k_off, causal)
+        plain = lambda *a: K.flash_block_update_plain(  # noqa: E731
+            *a, q_off, k_off, causal)
+        ms, host_us = time_ms(run, sets)
+        plain_ms, _ = time_ms(plain, sets, iters=5)
+        del sets
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * d * pairs / peak
+        rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=1e3 * max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   gflop=4 * d * pairs / 1e9)
+    results.setdefault("flash_block_update", []).append(rec)
+    times = ("" if "ms" not in rec else
+             f" kernel {rec['ms']:.4f} ms (launch path {rec['host_us']:.1f}"
+             f" us) plain {rec['plain_ms']:.4f} ms bound "
+             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    log(f"  flash_block_update {tag}: max_abs_err (l, acc) {max_err:.3g}, "
+        f"{unseen} rows saw no key{times}")
+
+
 def kernel_phase(K, torch) -> dict:
     res: dict = {}
     lrn_cases = [  # (name, shape, relu, bias); the first of each is main
@@ -578,6 +692,21 @@ def flash_phase(K, torch, res):
             for causal in (True, False):
                 check_flash(K, torch, shape, dtype, causal, res,
                             timed=False)
+    # K9 at the ring's per-rank shape (T 2048 over sp 4): the diagonal
+    # causal hop first (the main record), a fully visible causal hop, a
+    # non-causal one; first-hop and mid-ring carries; then a ragged hop
+    # whose causal edge leaves rows with no visible key
+    t = SP_T_LOCAL
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal, q_off, k_off in ((True, t, t), (True, 3 * t, 0),
+                                     (False, t, 0)):
+            for first in (True, False):
+                check_block_update(K, torch, (FLASH_BH, t, t, FLASH_D),
+                                   dtype, causal, q_off, k_off, first, res,
+                                   timed=first)
+        for causal in (True, False):
+            check_block_update(K, torch, (3, 200, 328, 48), dtype, causal,
+                               100, 150, True, res, timed=False)
 
 
 # ---------------------------------------------------------------------------
@@ -604,6 +733,7 @@ def plain_kernels(K, names=None):
         "flash_attention_fwd": K.flash_attention_plain,
         "flash_attention_bwd_dq": K.flash_bwd_dq_plain,
         "flash_attention_bwd_dkv": K.flash_bwd_dkv_plain,
+        "flash_block_update": K.flash_block_update_plain,
     }
     names = tuple(plain) if names is None else names
     saved = {n: getattr(K, n) for n in names}
@@ -836,17 +966,20 @@ def summarize_profile(prof, wall_us, label, what):
     for (a, b), name in kernels:
         by_name[name] = by_name.get(name, 0.0) + (b - a)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    # the port's flash kernels (flash_{fwd,bwd_dq,bwd_dkv}_kernel)
+    # the port's flash kernels (flash_{fwd,bwd_dq,bwd_dkv,carry}_kernel)
     flash_us = sum(us for name, us in by_name.items() if "flash_" in name)
+    carry_us = sum(us for name, us in by_name.items() if "flash_carry" in name)
     res = dict(label=label, what=what, wall_us=wall_us, device_busy_us=busy,
                copy_us=copies, idle_share=1.0 - busy / wall_us,
                kernels=len(kernels), flash_us=flash_us,
-               flash_share_of_busy=flash_us / busy,
+               flash_share_of_busy=flash_us / busy, k9_us=carry_us,
+               k9_share_of_busy=carry_us / busy,
                top=[[name[:60], us] for name, us in top])
     log(f"  {label}: {what}: wall {wall_us:.0f} us, device busy "
         f"{busy:.0f} us in {len(kernels)} kernels (idle share "
         f"{res['idle_share']:.3f}), copies {copies:.0f} us, flash kernels "
-        f"{flash_us:.0f} us ({res['flash_share_of_busy']:.3f} of busy); "
+        f"{flash_us:.0f} us ({res['flash_share_of_busy']:.3f} of busy; K9 "
+        f"{carry_us:.0f} us, {res['k9_share_of_busy']:.3f}); "
         "top: " +
         "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
     return res
@@ -979,11 +1112,12 @@ def write_lm_config(workdir: str) -> str:
 
 def train_phase(K, label, solver_path, env, outdir, kernels,
                 device="cuda", per_step=TRAIN_B, unit="images",
-                launches_each=2 * TRAIN_ITERS):
-    """-train through caffe_on_spark.main with the counts zeroed just
-    before and read just after; checks losses, snapshots and that each
-    of `kernels` launched `launches_each` times (and no other kernel).
-    `per_step` `unit`s (images, tokens) make one step."""
+                launches_each=2 * TRAIN_ITERS, args=()):
+    """-train through caffe_on_spark.main (with the extra CLI `args`)
+    with the counts zeroed just before and read just after; checks
+    losses, snapshots and that each of `kernels` launched `launches_each`
+    times (and no other kernel).  `per_step` `unit`s (images, tokens)
+    make one step."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark
     shutil.rmtree(outdir, ignore_errors=True)
@@ -993,7 +1127,8 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     t0 = time.monotonic()
     with env_set({**env, "COS_PIPELINE_METRICS": metrics_path}):
         rc = caffe_on_spark.main(["-conf", solver_path, "-train",
-                                  "-output", outdir, "-device", device])
+                                  "-output", outdir, "-device", device,
+                                  *args])
     wall_s = time.monotonic() - t0
     counts = dict(K.launch_counts)
     check(rc == 0, f"{label}: -train returned {rc}")
@@ -1051,19 +1186,25 @@ def _grad_diff(label, g_p, g_x, tol, what):
 
 
 def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
-                  grad_tol=STEP_GRAD_TOL, plain_forwards=()):
+                  grad_tol=STEP_GRAD_TOL, plain_forwards=(), mesh=None):
     """One solver step's loss and gradients with the kernels against the
     same step with every kernel swapped for its plain version: the same
     params, batch and dropout seed, cuDNN deterministic.  With
     `plain_forwards` (forward kernels' names), also the step with only
     those swapped, whose gradients must then match the plain step to
-    STEP_GRAD_TOL: the backward kernels alone, in the net.  Returns the
-    record and what the profile phase reuses."""
+    STEP_GRAD_TOL: the backward kernels alone, in the net.  With a
+    `mesh`, every step runs under its attention route (the sp ring), and
+    the kernel step is also held against the same step without the mesh
+    (loss STEP_LOSS_RTOL, gradients `grad_tol`).  Returns the record and
+    what the profile phase reuses."""
     import itertools
     from caffeonspark_tpu_torch.config import Config
     from caffeonspark_tpu_torch.data.queue_runner import to_device
     from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.ops.layers import flash_mesh
     from caffeonspark_tpu_torch.solver import Solver
+    route = ((lambda: flash_mesh(mesh)) if mesh is not None
+             else contextlib.nullcontext)
     with env_set(env):
         conf = Config(["-conf", solver_path, "-train", "-device", device])
         solver = Solver(conf.solverParameter, conf.netParam,
@@ -1077,15 +1218,19 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
     torch.backends.cudnn.deterministic = True
     try:
         solver.generator.manual_seed(99)
-        loss_k, _, g_k = solver.loss_and_grads(params, batch)
+        with route():
+            loss_k, _, g_k = solver.loss_and_grads(params, batch)
         solver.generator.manual_seed(99)
-        with plain_kernels(K):
+        with plain_kernels(K), route():
             loss_p, _, g_p = solver.loss_and_grads(params, batch)
         g_b = None
         if plain_forwards:
             solver.generator.manual_seed(99)
-            with plain_kernels(K, plain_forwards):
+            with plain_kernels(K, plain_forwards), route():
                 _, _, g_b = solver.loss_and_grads(params, batch)
+        if mesh is not None:
+            solver.generator.manual_seed(99)
+            loss_s, _, g_s = solver.loss_and_grads(params, batch)
     finally:
         torch.backends.cudnn.deterministic = prev
     lk, lp = float(loss_k), float(loss_p)
@@ -1107,32 +1252,48 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
             f"{wb_at} (tol {STEP_GRAD_TOL})")
         rec.update(bwd_kernels_worst_grad_rel=wb,
                    bwd_kernels_worst_grad_at=wb_at)
+    if mesh is not None:
+        ls = float(loss_s)
+        rel = abs(lk - ls) / abs(ls)
+        check(rel <= STEP_LOSS_RTOL, f"{label}: loss {lk} on the mesh, {ls} "
+              f"without it (rel {rel:.3g})")
+        ws, ws_at = _grad_diff(label, g_s, g_k, grad_tol,
+                               "on the mesh against the single-device step")
+        log(f"  {label}: against the single-device kernel step: loss "
+            f"{ls:.6f} (rel {rel:.3g}); worst gradient {ws:.3g} of max "
+            f"|grad| at {ws_at} (tol {grad_tol})")
+        rec.update(loss_single=ls, single_loss_rel=rel,
+                   single_worst_grad_rel=ws, single_worst_grad_at=ws_at)
     return rec, (solver, params, state, host)
 
 
-def direct_steps(torch, solver, params, state, host, n=5):
-    """ms of `n` training steps called on this thread, each ended by a
-    device synchronize (the step without the CLI's threads and queue)."""
+def direct_steps(torch, solver, params, state, host, n=5, step=None):
+    """ms of `n` training steps (`step`, default the solver's) called on
+    this thread, each ended by a device synchronize (the step without
+    the CLI's threads and queue)."""
     from caffeonspark_tpu_torch.data.queue_runner import to_device
+    step = step or solver.train_step
     out = []
     for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        solver.train_step(params, state, to_device(host, solver.device))
+        step(params, state, to_device(host, solver.device))
         torch.cuda.synchronize()
         out.append(1e3 * (time.perf_counter() - t0))
     return out
 
 
 def profile_train_step(torch, label, solver, params, state, host,
-                       what=f"one B={TRAIN_B} training step"):
-    """One training step (H2D of a packed batch, forward, backward,
-    update) of a warmed solver under torch.profiler."""
+                       what=f"one B={TRAIN_B} training step", step=None):
+    """One training step (`step`, default the solver's: H2D of a packed
+    batch, forward, backward, update) of a warmed solver under
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     from caffeonspark_tpu_torch.data.queue_runner import to_device
+    step = step or solver.train_step
     sync = (torch.cuda.synchronize if solver.device.type == "cuda"
             else (lambda: None))
-    solver.train_step(params, state, to_device(host, solver.device))
+    step(params, state, to_device(host, solver.device))
     sync()
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
@@ -1142,7 +1303,7 @@ def profile_train_step(torch, label, solver, params, state, host,
         return None
     try:
         t0 = time.perf_counter()
-        solver.train_step(params, state, to_device(host, solver.device))
+        step(params, state, to_device(host, solver.device))
         sync()
         wall_us = 1e6 * (time.perf_counter() - t0)
     finally:
@@ -1288,12 +1449,55 @@ def main(argv) -> int:
         what=f"one B={LM['batch']} T={LM['seq']} LM training step")
     del solver, params, state, host
 
+    log(f"the same LM on an sp{SP} mesh through the CLI (-train -mesh "
+        f"1,1,{SP}: the ring, its {SP} ranks on the one card, "
+        f"{TRAIN_ITERS} Adam steps; counts zeroed before):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_kernels = ("flash_block_update", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+    hops = SP * (SP + 1) // 2     # causal: K9 hops = K7/K8 pairs a layer
+    sp_train, _ = train_phase(
+        K, "TransformerLM train sp", lm_solver, {},
+        os.path.join(workdir, "transformerlm_sp_out"), sp_kernels,
+        per_step=LM["batch"] * LM["seq"], unit="tokens",
+        launches_each=LM["layers"] * hops * TRAIN_ITERS,
+        args=("-mesh", f"1,1,{SP}"))
+    sp_launches = dict(sp_train["launches"])
+    log("one sp step with the kernels against the plain step, the step "
+        "with only K9 plain, and the single-device kernel step:")
+    from caffeonspark_tpu_torch.ops.layers import flash_mesh
+    from caffeonspark_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(sp=SP, devices=[torch.device("cuda")] * SP)
+    sp_step, (solver, params, state, host) = step_vs_plain(
+        K, torch, "TransformerLM train sp", lm_solver, {},
+        grad_tol=LM_STEP_GRAD_TOL, plain_forwards=("flash_block_update",),
+        mesh=mesh)
+
+    def sp_train_step(params, state, inputs):
+        # the processor's step under -mesh
+        with flash_mesh(mesh):
+            return solver.train_step(params, state, inputs)
+
+    sp_step["direct_step_ms"] = direct_steps(torch, solver, params, state,
+                                             host, step=sp_train_step)
+    log(f"  TransformerLM train sp: {len(sp_step['direct_step_ms'])} steps "
+        "called directly on the main thread, each synchronized: "
+        + ", ".join(f"{x:.1f}" for x in sp_step["direct_step_ms"]) + " ms")
+    log("profile of one sp LM training step:")
+    sp_profile = profile_train_step(
+        torch, "TransformerLM train sp", solver, params, state, host,
+        what=f"one B={LM['batch']} T={LM['seq']} sp{SP} LM training step",
+        step=sp_train_step)
+    del solver, params, state, host, sp_train_step
+
     lines = []
     for name, meta in KERNELS.items():
         main_rec = res[name][0]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
-                   "train_lm": lm_launches.get(name, 0)}
+                   "train_lm": lm_launches.get(name, 0),
+                   "train_lm_sp": sp_launches.get(name, 0)}
         lines.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -1313,6 +1517,9 @@ def main(argv) -> int:
                     "train_profile": train_profiles}))
     log(json.dumps({"training_lm": lm_train, "lm_step_vs_plain": lm_step,
                     "lm_train_profile": lm_profile}))
+    log(json.dumps({"training_lm_sp": sp_train,
+                    "lm_sp_step_vs_plain": sp_step,
+                    "lm_sp_train_profile": sp_profile}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))
     log(card)

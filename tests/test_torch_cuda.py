@@ -10,7 +10,7 @@ machine with a card and no JAX:
 chip_smoke.py repeats these checks at the serving and training shapes.
 Tolerances: LRN forward rtol 2e-5 / atol 2e-6, backward rtol 3e-4 /
 atol 3e-5, int8 exact (every LRN and int8 check so far has been
-bit-equal); flash attention (K6-K8, whose sums run in another order
+bit-equal); flash attention (K6-K9, whose sums run in another order
 than the plain version's matmuls) forward rtol/atol 2e-5, gradients
 rtol 2e-4 / atol 1e-5, and in bf16 one bf16 ulp (2^-7) beyond those.
 """
@@ -109,7 +109,7 @@ def test_lrn_functions_launch_kernels_on_card(cuda_card):
         "bias_relu_lrn_across_channels": 1,
         "bias_relu_lrn_across_channels_bwd": 1, "int8_matmul": 0,
         "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-        "flash_attention_bwd_dkv": 0}
+        "flash_attention_bwd_dkv": 0, "flash_block_update": 0}
     _close(xg.grad.cpu(), K.lrn_bwd_plain(x, dy, 5, ALPHA, BETA, KK).cpu(),
            3e-4, 3e-5)
     dx = K.bias_relu_lrn_bwd_plain(x, b, dy, 5, ALPHA, BETA, KK)
@@ -184,7 +184,7 @@ def test_flash_function_launches_kernels_on_card(cuda_card):
     assert {n: c for n, c in K.launch_counts.items()
             if n.startswith("flash")} == {
         "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
-        "flash_attention_bwd_dkv": 1}
+        "flash_attention_bwd_dkv": 1, "flash_block_update": 0}
     flat = [x.reshape(6, 150, 40) for x in (q, k, v, do)]
     o_p, lse_p = K.flash_attention_plain(*flat[:3], True)
     delta = (flat[3] * o_p).sum(-1)
@@ -198,3 +198,87 @@ def test_flash_function_launches_kernels_on_card(cuda_card):
     wide = torch.zeros(1, 8, 129, device=cuda_card)
     with pytest.raises(ValueError, match="head dim"):
         K.flash_attention_fwd(wide, wide, wide)
+
+
+# (BH, Tq, Tk, D, q_off, k_off): whole and ragged tiles, Tq != Tk, hops
+# whose causal edge leaves some rows with no visible key, every width
+K9_SHAPES = [(2, 64, 64, 16, 64, 64), (2, 64, 64, 16, 128, 0),
+             (3, 200, 328, 48, 100, 150), (1, 65, 130, 64, 0, 40),
+             (2, 100, 37, 128, 10, 60), (1, 1, 1, 8, 0, 0)]
+
+
+def _k9_carry(bh, tq, d, seed, first, device):
+    if first:
+        return (torch.full((bh, tq), -float("inf"), device=device),
+                torch.zeros(bh, tq, device=device),
+                torch.zeros(bh, tq, d, device=device))
+    rng = np.random.RandomState(seed)
+    m = torch.from_numpy((rng.randn(bh, tq) + 2).astype(np.float32))
+    l = torch.from_numpy(rng.uniform(1, 5, (bh, tq)).astype(np.float32))
+    acc = torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32))
+    m[:, 0], l[:, 0], acc[:, 0] = -1e30, 0.0, 0.0
+    return m.to(device), l.to(device), acc.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_block_update_matches_plain_on_card(cuda_card, dtype):
+    """K9 on the card against its plain version on the same q, block and
+    carry: causal and not, a first-hop (-inf, 0, 0) and a mid-ring carry
+    (chip_smoke.py repeats this at the LM's per-rank (64, 512, 512,
+    64))."""
+    dt = getattr(torch, dtype)
+    extra = BF16_ULP if dt == torch.bfloat16 else 0.0
+    K.reset_launch_counts()
+    launches = 0
+    for i, (bh, tq, tk, d, q_off, k_off) in enumerate(K9_SHAPES):
+        rng = np.random.RandomState(i)
+        q = torch.from_numpy(rng.randn(bh, tq, d).astype(np.float32))
+        k, v = (torch.from_numpy(rng.randn(bh, tk, d).astype(np.float32))
+                for _ in range(2))
+        q, k, v = (x.to(device=cuda_card, dtype=dt) for x in (q, k, v))
+        for causal in (False, True):
+            for first in (True, False):
+                carry = _k9_carry(bh, tq, d, i, first, cuda_card)
+                got = K.flash_block_update(q, k, v, *carry, q_off, k_off,
+                                           causal)
+                launches += 1
+                want = K.flash_block_update_plain(q, k, v, *carry, q_off,
+                                                  k_off, causal)
+                for g, w in zip(got, want):
+                    assert g.dtype == torch.float32
+                    real = w[w.abs() < 1e29]     # not -inf, not -1e30
+                    scale = float(real.abs().max()) if real.numel() else 0.
+                    _close(g.cpu(), w.cpu(), FLASH_FWD_TOL + extra,
+                           FLASH_FWD_TOL * (scale + 1.0))
+    assert K.launch_counts["flash_block_update"] == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_flash_grads_match_flash_attention_on_card(cuda_card, causal):
+    """The fused ring on an sp4 mesh whose ranks share the card: its
+    output and gradients against FlashAttention's on the whole sequence,
+    and K9/K7/K8 launched as the ring's choreography says (K6 not)."""
+    from caffeonspark_tpu_torch.parallel import sp
+    from caffeonspark_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(sp=4, devices=[cuda_card] * 4)
+    q, k, v, do = _flash_inputs((2, 3, 256, 40), 7, cuda_card,
+                                torch.float32)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    K.reset_launch_counts()
+    out = sp.ring_attention(*xs, mesh, causal=causal, flash=True)
+    out.backward(do)
+    n = 4
+    hops = n * (n + 1) // 2 if causal else n * n
+    assert {name: c for name, c in K.launch_counts.items()
+            if name.startswith("flash")} == {
+        "flash_attention_fwd": 0, "flash_attention_bwd_dq": hops,
+        "flash_attention_bwd_dkv": hops, "flash_block_update": hops}
+    ys = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = K.flash_attention(*ys, causal)
+    ref.backward(do)
+    _close(out.detach().cpu(), ref.detach().cpu(), FLASH_FWD_TOL,
+           FLASH_FWD_TOL)
+    for x, y in zip(xs, ys):
+        _close(x.grad.cpu(), y.grad.cpu(), FLASH_RTOL, FLASH_ATOL)

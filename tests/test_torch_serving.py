@@ -156,7 +156,7 @@ def test_service_and_http_match_jax(alexnet_model):
             "bias_relu_lrn_across_channels",
             "bias_relu_lrn_across_channels_bwd", "int8_matmul",
             "flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkv"}
+            "flash_attention_bwd_dkv", "flash_block_update"}
         assert metrics["buckets"] == [1, 2, 4]
         code, out = _post(httpd.port, "/v1/reload", {"model": model})
         assert code == 200 and out["model_version"] == 2
