@@ -204,6 +204,10 @@ def _state_blob_seq(net: Net, opt_state: OptState, solver_type: str
                 yield hist[lname][bname]
 
 
+HDF5_REFUSAL = ("HDF5 snapshots wait for a later slice of the PyTorch "
+                "port (use BINARYPROTO)")
+
+
 def snapshot(net: Net, params: Params, opt_state: OptState, prefix: str,
              *, fmt: int = SnapshotFormat.BINARYPROTO,
              solver_type: str = "SGD") -> Tuple[str, str]:
@@ -211,8 +215,7 @@ def snapshot(net: Net, params: Params, opt_state: OptState, prefix: str,
     (the commit point: a state file always has its model); returns the
     two paths."""
     if fmt == SnapshotFormat.HDF5:
-        raise NotImplementedError("HDF5 snapshots wait for a later slice "
-                                  "of the PyTorch port (use BINARYPROTO)")
+        raise NotImplementedError(HDF5_REFUSAL)
     it = int(opt_state.iter)
     os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
     model_path = snapshot_filename(prefix, it, is_state=False)

@@ -7,6 +7,11 @@ cut to the flags this package acts on so far: training (`-train`,
 single process, `-mesh` with an sp axis) and serving.  `-device` picks
 where the net runs: `cuda` (the default) or `cpu`; a mesh's ranks all
 sit on that device.
+
+The JAX command line's other flags are parsed too, and `validate`
+refuses each one by name when it is set (`LATER_FLAGS`): a run never
+drops a mode or an option without a word.  Flags no JAX version knows
+still pass through `parse_known_args`, as Spark passes its own.
 """
 
 from __future__ import annotations
@@ -18,6 +23,33 @@ from typing import List, Optional
 from .proto import NetParameter, Phase, SolverParameter, read_net, read_solver
 
 DATA_LAYER_TYPES = ("MemoryData", "CoSData", "Data", "HDF5Data", "ImageData")
+
+# The JAX command line's flags that this package does not act on yet
+# (caffeonspark_tpu/config.py's table): flag -> (dest, type or
+# "switch", the largest value a one-process run takes, or None for
+# "refused whenever given").  `validate` refuses each beyond that.
+LATER_FLAGS = {
+    "-test": ("isTest", "switch", None),
+    "-outputFormat": ("outputFormat", str, None),
+    "-devices": ("devices", int, 1),
+    "-async_snapshot": ("asyncSnapshot", "switch", None),
+    "-connection": ("connection", str, None),
+    "-lmdb_partitions": ("lmdb_partitions", int, None),
+    "-imageRoot": ("imageRoot", str, None),
+    "-labelFile": ("labelFile", str, None),
+    "-captionFile": ("captionFile", str, None),
+    "-captionLength": ("captionLength", int, None),
+    "-vocabSize": ("vocabSize", int, None),
+    "-imageCaptionDFDir": ("imageCaptionDFDir", str, None),
+    "-vocabDir": ("vocabDir", str, None),
+    "-embeddingDFDir": ("embeddingDFDir", str, None),
+    "-serveMesh": ("serveMesh", str, None),
+    "-serveReplicas": ("serveReplicas", int, 1),
+    "-deploy": ("deploy", "switch", None),
+    "-deployRounds": ("deployRounds", int, None),
+    "-server": ("server", str, None),
+    "-rank": ("rank", int, 0),
+}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -63,6 +95,13 @@ def build_argparser() -> argparse.ArgumentParser:
     # mesh extensions (not in the reference)
     a("-mesh", dest="mesh", default="",
       help="mesh spec dp[,tp[,sp[,ep]]] per process")
+    for flag, (dest, kind, _) in LATER_FLAGS.items():
+        if kind == "switch":
+            a(flag, dest=dest, action="store_true",
+              help="a later slice of the PyTorch port (refused)")
+        else:
+            a(flag, dest=dest, type=kind, default=None,
+              help="a later slice of the PyTorch port (refused when set)")
     return p
 
 
@@ -127,6 +166,21 @@ class Config:
         return self.netParam.layer[i] if i >= 0 else None
 
     def validate(self) -> None:
+        for flag, (dest, kind, most) in LATER_FLAGS.items():
+            value = getattr(self, dest)
+            if value in (None, False) or (most is not None
+                                          and value <= most):
+                continue
+            shown = flag if kind == "switch" else f"{flag} {value}"
+            raise ValueError(f"{shown}: a later slice of the PyTorch port "
+                             "(this package runs -train and -serve in one "
+                             "process so far)")
+        if self.features and not self.serve:
+            raise ValueError(
+                f"-features {self.features} without -serve: feature "
+                "extraction (alone or after -train) is a later slice of "
+                "the PyTorch port; -features here names the blobs -serve "
+                "returns")
         if self.device not in ("cuda", "cpu") \
                 and not str(self.device).startswith("cuda:"):
             raise ValueError(f"-device {self.device!r}: expected cuda, "

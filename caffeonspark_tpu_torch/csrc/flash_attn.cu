@@ -26,47 +26,55 @@
 // are left out: p = 0) and any D <= 128 (padded with zeros to 32, 64 or
 // 128 in shared memory).
 //
-// What bounds it on the H100: operations.  At (BH, T, D) = (64, 2048,
+// What bounds them on the H100: operations.  At (BH, T, D) = (64, 2048,
 // 64), causal, the forward does 34.4 GFLOP (two products over half the
-// T^2 scores), dq 51.5 and dk/dv 68.7, against 134-200 MB of operands
-// and results: about 250 f32 operations per byte moved, far above the
-// ~20 at which the card's f32 units (67 TFLOP/s outside the tensor
-// cores) stop waiting on its 3.35 TB/s.
+// T^2 scores), dq 51.5 and dk/dv 68.7 (together about 120 GFLOP),
+// against 134-200 MB of operands and results: about 250 operations per
+// byte moved, above the ~20 at which the card's f32 units (67 TFLOP/s
+// outside the tensor cores) and the ~150 at which its TF32 tensor cores
+// (495 TFLOP/s) stop waiting on its 3.35 TB/s.
 //
-// What the design does about it (a first, simple SIMT kernel; wgmma and
-// TMA are later work):
-//   * a block of 128 threads owns a 64-row tile (queries for K6/K7, keys
-//     for K8) and streams the other side's tiles through shared memory,
-//     so every score, probability and dS stays on chip: no T^2 matrix
-//     touches device memory, as on the TPU;
+// K6 and K9 are simple SIMT kernels (their redesign is later work):
+//   * a block of 128 threads owns a 64-row query tile and streams the
+//     key tiles through shared memory, so every score and probability
+//     stays on chip: no T^2 matrix touches device memory, as on the TPU;
 //   * each product is a register-blocked f32 FMA loop: a thread owns an
-//     8 x 4 piece of the 64 x 64 score tile (8 x 2 of K8's 64 x 32, and
-//     8 x D/16 of the output tile) and reads both operands as float4
-//     from tiles stored with the reduction index outermost, so a step is
-//     2-3 vector loads for 16-32 FMAs and the loads are conflict-free or
-//     broadcasts;
+//     8 x 4 piece of the 64 x 64 score tile (and 8 x D/16 of the output
+//     tile) and reads both operands as float4 from tiles stored with the
+//     reduction index outermost;
 //   * the 16 lanes that share a row reduce its max and sum by warp
-//     shuffles; P (and dS) go back through shared memory, transposed,
-//     to feed the next product;
-//   * no atomics: every output tile has one owner block (K7 walks key
-//     tiles for its queries, K8 query tiles for its keys), so all three
-//     are deterministic, as the TPU split is;
-//   * causal blocks stop at (K6, K7) or start from (K8) the diagonal,
-//     the TPU kernels' skip, and the grid hands out the longest rows
-//     first so the short ones fill the tail;
+//     shuffles; P goes back through shared memory, transposed, to feed
+//     the second product;
 //   * math is f32 for f32 and bf16 inputs alike (bf16 is converted on
 //     load; results are rounded with __float2bfloat16_rn); exp and log
 //     are the accurate expf/logf.
 //
-// Shared memory is dynamic (cudaFuncSetAttribute above 48 KB): K6 67 KB
-// at D <= 64 (117 KB at 128), K7 101 KB (185 KB), K8 85 KB (153 KB).
-// K8 walks 32-row query tiles: with 64-row tiles it needed 134 KB at
-// D = 64, so only one block fitted an SM (PERF.md has both times).
+// K7 and K8 run all four of their products on the tensor cores
+// (`mma.sync`, 3xTF32 for f32 inputs, bf16 for bf16 inputs, f32
+// accumulators) and stream their tiles with `cp.async` in a two-stage
+// ring; the section of K7 and K8 below has the details.  At the causal
+// main shape their 120 GFLOP cost 3 x 120 TF32 GFLOP under 3xTF32, at
+// least 0.73 ms at 495 TFLOP/s (1.8 ms at f32's 67 TFLOP/s).
+//
+// Common to all four:
+//   * no atomics: every output tile has one owner block (K6, K7 and K9
+//     own query rows, K8 key rows), so all are deterministic, as the TPU
+//     split is;
+//   * causal blocks stop at (K6, K7) or start from (K8) the diagonal,
+//     the TPU kernels' skip, and the grid hands out the longest rows
+//     first so the short ones fill the tail.
+//
+// Shared memory is dynamic (cudaFuncSetAttribute above 48 KB): K6 and K9
+// 67 KB at D <= 64 (117 KB at 128); K7 104 KB in f32 at D <= 64 (203 KB
+// at 128; 55 KB in bf16 at 64), K8 87 KB (136 KB at 128; 56 KB in bf16
+// at 64): two blocks an SM in f32 at D <= 64, one at 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace {
 
@@ -262,13 +270,267 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K7: dq.  grid (BH, ceil(T / 64)); a block owns 64 query rows and walks
-// the key tiles up to the diagonal.
+// K7 and K8: the backward on the tensor cores.
+//
+// Each block has 4 warps; a warp owns one or two 16-row m-tiles of the
+// block's tile (BwdTiles below) and computes its rows of every product
+// with `mma.sync` (m16n8k8 tf32 for f32 inputs, m16n8k16 bf16 for bf16
+// inputs, f32 accumulators).  The operands that stream past the owned
+// tile sit in a two-stage ring of dynamic shared memory, filled by
+// 16-byte `cp.async` copies (zero-filled past T and past D); the next
+// tile's copies are issued before the current tile's products.  Rows
+// are padded by 16 bytes (4 floats, 8 bf16), so the fragment loads
+// below hit 32 distinct banks.
+//
+// Fragments (PTX ISA, "Matrix fragments for mma.m16n8k8 / m16n8k16"),
+// with g = lane / 4 and t = lane % 4:
+//   C (16 x 8)  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
+//   tf32 A (16 x 8): (g, t) (g+8, t) (g, t+4) (g+8, t+4); B (8 x 8):
+//     (t, g) (t+4, g)
+//   bf16 A (16 x 16): pairs (g, 2t..2t+1) (g+8, 2t..) (g, 2t+8..)
+//     (g+8, 2t+8..); B (16 x 8): pairs (2t..2t+1, g) (2t+8..2t+9, g)
+// The second product of each pair (dS K; P^T dO, dS^T Q) takes its A
+// operand straight from the first product's C registers.  In bf16 the C
+// layout of two n-tiles is the A layout of one k-step.  In tf32 it is
+// not, so the reduction index is permuted: A's column t stands for key
+// (or query) 2t of the k-step and column t+4 for 2t+1, and the B loads
+// read the same rows (`load_bt`).  A product's sum does not depend on
+// the order of its reduction index, so nothing else changes.
+//
+// Precision: f32 inputs go through 3xTF32: each operand x is split into
+// big = tf32(x) and small = tf32(x - big) (round to nearest), and a
+// product is small*big + big*small + big*big, which keeps about f32's
+// accuracy where one tf32 product keeps three digits.  bf16 inputs (Q,
+// K, V, dO) are exact in bf16, so Q K^T and dO V^T are one bf16 product
+// each; P and dS are f32 values and enter their products as a bf16 high
+// part plus a bf16 remainder (two products), about 16 bits of mantissa.
 // ---------------------------------------------------------------------------
 
-template <int DP>
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [r0, r0 + R) of one head's (T, D) matrix into a shared tile of row
+// stride LD in the input type, zero past T and past D (up to DP).  With
+// `vec` (rows a whole number of 16-byte chunks, 16-byte aligned) the
+// copies are asynchronous; otherwise element by element.
+template <typename T, int R, int DP, int LD>
+__device__ __forceinline__ void load_rows(T* s, const T* __restrict__ g,
+                                          int r0, int Tn, int D, int vec) {
+  constexpr int EPC = 16 / sizeof(T);
+  constexpr int CPR = DP / EPC;
+  if (vec) {
+    for (int idx = threadIdx.x; idx < R * CPR; idx += kThreads) {
+      const int r = idx / CPR, c = (idx % CPR) * EPC;
+      const bool ok = r0 + r < Tn && c < D;
+      cp_async16(s + r * LD + c, ok ? g + (int64_t)(r0 + r) * D + c : g, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < R * DP; idx += kThreads) {
+      const int r = idx / DP, d = idx % DP;
+      const bool ok = r0 + r < Tn && d < D;
+      s[r * LD + d] = ok ? g[(int64_t)(r0 + r) * D + d] : T(0.f);
+    }
+  }
+}
+
+// the nearest tf32 value of x, as f32 bits (low 13 bits zero)
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rn(x);
+  small = tf32_rn(x - __uint_as_float(big));
+}
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The fragment loads and products of one input type.  `AS` is an A
+// operand read from shared memory, `AR` one built from C registers, `B`
+// a B operand; `load_bn` reads B[k][n] = tile[n][k] (the other side's
+// rows, e.g. K in Q K^T) and `load_bt` B[k][n] = tile[k][n] (its
+// columns, e.g. K in dS K).
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<float> {
+  static constexpr int KS = 8;   // reduction depth of one mma
+  static constexpr int LDP = 4;  // row padding, elements
+  struct Frag {
+    uint32_t big[4], small[4];
+  };
+  using AS = Frag;
+  using AR = Frag;
+  struct B {
+    uint32_t big[2], small[2];
+  };
+  __device__ static void load_a(AS& a, const float* s, int ld, int r, int k,
+                                int g, int t) {
+    const float* p = s + (r + g) * ld + k + t;
+    split_tf32(p[0], a.big[0], a.small[0]);
+    split_tf32(p[8 * ld], a.big[1], a.small[1]);
+    split_tf32(p[4], a.big[2], a.small[2]);
+    split_tf32(p[8 * ld + 4], a.big[3], a.small[3]);
+  }
+  __device__ static void load_bn(B& b, const float* s, int ld, int n, int k,
+                                 int g, int t) {
+    const float* p = s + (n + g) * ld + k + t;
+    split_tf32(p[0], b.big[0], b.small[0]);
+    split_tf32(p[4], b.big[1], b.small[1]);
+  }
+  __device__ static void load_bt(B& b, const float* s, int ld, int k, int n,
+                                 int g, int t) {
+    const float* p = s + (k + 2 * t) * ld + n + g;  // permuted rows
+    split_tf32(p[0], b.big[0], b.small[0]);
+    split_tf32(p[ld], b.big[1], b.small[1]);
+  }
+  // k-step j of a row of C tiles (8 columns each): tile j, permuted
+  __device__ static void a_from_c(AR& a, const float (*c)[4], int j) {
+    split_tf32(c[j][0], a.big[0], a.small[0]);
+    split_tf32(c[j][2], a.big[1], a.small[1]);
+    split_tf32(c[j][1], a.big[2], a.small[2]);
+    split_tf32(c[j][3], a.big[3], a.small[3]);
+  }
+  __device__ static void mma(float (&c)[4], const Frag& a, const B& b) {
+    mma_tf32(c, a.small, b.big);
+    mma_tf32(c, a.big, b.small);
+    mma_tf32(c, a.big, b.big);
+  }
+};
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static constexpr int KS = 16;
+  static constexpr int LDP = 8;
+  struct AS {
+    uint32_t x[4];
+  };
+  struct AR {
+    uint32_t hi[4], lo[4];
+  };
+  struct B {
+    uint32_t x[2];
+  };
+  __device__ static uint32_t word(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  __device__ static uint32_t pair(const __nv_bfloat16* p, int ld) {
+    const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
+    return (uint32_t)u[0] | ((uint32_t)u[ld] << 16);
+  }
+  __device__ static void load_a(AS& a, const __nv_bfloat16* s, int ld, int r,
+                                int k, int g, int t) {
+    const __nv_bfloat16* p = s + (r + g) * ld + k + 2 * t;
+    a.x[0] = word(p);
+    a.x[1] = word(p + 8 * ld);
+    a.x[2] = word(p + 8);
+    a.x[3] = word(p + 8 * ld + 8);
+  }
+  __device__ static void load_bn(B& b, const __nv_bfloat16* s, int ld, int n,
+                                 int k, int g, int t) {
+    const __nv_bfloat16* p = s + (n + g) * ld + k + 2 * t;
+    b.x[0] = word(p);
+    b.x[1] = word(p + 8);
+  }
+  __device__ static void load_bt(B& b, const __nv_bfloat16* s, int ld, int k,
+                                 int n, int g, int t) {
+    const __nv_bfloat16* p = s + (k + 2 * t) * ld + n + g;
+    b.x[0] = pair(p, ld);
+    b.x[1] = pair(p + 8 * ld, ld);
+  }
+  // k-step j of a row of C tiles: tiles 2j and 2j + 1, high and remainder
+  __device__ static void split_pair(float x0, float x1, uint32_t& hi,
+                                    uint32_t& lo) {
+    const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
+    const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
+    hi = (uint32_t)__bfloat16_as_ushort(h0) |
+         ((uint32_t)__bfloat16_as_ushort(h1) << 16);
+    lo = bf16_pair(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+  }
+  __device__ static void a_from_c(AR& a, const float (*c)[4], int j) {
+    split_pair(c[2 * j][0], c[2 * j][1], a.hi[0], a.lo[0]);
+    split_pair(c[2 * j][2], c[2 * j][3], a.hi[1], a.lo[1]);
+    split_pair(c[2 * j + 1][0], c[2 * j + 1][1], a.hi[2], a.lo[2]);
+    split_pair(c[2 * j + 1][2], c[2 * j + 1][3], a.hi[3], a.lo[3]);
+  }
+  __device__ static void mma(float (&c)[4], const AS& a, const B& b) {
+    mma_bf16(c, a.x, b.x);
+  }
+  __device__ static void mma(float (&c)[4], const AR& a, const B& b) {
+    mma_bf16(c, a.lo, b.x);
+    mma_bf16(c, a.hi, b.x);
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Tile shapes of K7 and K8.  A warp owns MT m-tiles (16 rows each), so
+// every B fragment it loads from shared memory feeds MT products.  f32
+// inputs at D <= 64 take MT = 2 (a block owns 128 rows; by chip_smoke.py
+// on an H100, K7 + K8 6-10 % faster than with MT = 1, whose 3xTF32
+// fragments are split anew for every product); bf16 inputs and D = 128
+// take MT = 1 (64 rows), where two m-tiles need smaller streamed tiles
+// to fit the registers (the accumulators alone take D floats an
+// m-tile), and the extra tile steps cost bf16 more than the shared
+// loads save (11 % slower with MT = 2).
+// ---------------------------------------------------------------------------
+
+template <typename TI, int DP>
+struct BwdTiles {
+  static constexpr bool kTwoTiles = sizeof(TI) == 4 && DP <= 64;
+  static constexpr int MT = kTwoTiles ? 2 : 1;         // m-tiles a warp
+  static constexpr int ROWS = 4 * 16 * MT;             // rows a block owns
+  static constexpr int DQ_KEYS = kTwoTiles ? 32 : 64;  // K7's key tile
+  static constexpr int DKV_QUERIES =                   // K8's query tile
+      kTwoTiles ? 16 : (DP <= 64 ? 64 : 32);
+};
+
+// ---------------------------------------------------------------------------
+// K7: dq.  grid (BH, ceil(T / ROWS)); a block owns ROWS query rows (Q and
+// dO resident) and walks the key tiles (K and V, two stages) up to the
+// diagonal.  Per key tile a warp computes its rows of S = Q K^T and
+// dP = dO V^T, then dS, then dQ += dS K from dS's registers.
+// ---------------------------------------------------------------------------
+
+template <typename TI, int DP>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * DP * kLdT + kRows * DP + kRows * kLdT);
+  using S = BwdTiles<TI, DP>;
+  return sizeof(TI) * 2 * (S::ROWS + 2 * S::DQ_KEYS) * (DP + Mma<TI>::LDP);
 }
 
 template <typename TI, typename TO, int DP>
@@ -277,85 +539,151 @@ flash_bwd_dq_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                     const TI* __restrict__ v, const TI* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, TO* __restrict__ dq,
-                    int Tn, int D, float scale, int causal) {
-  constexpr int TD = DP / 16;
+                    int Tn, int D, float scale, int causal, int vec) {
+  using M = Mma<TI>;
+  using S = BwdTiles<TI, DP>;
+  constexpr int LD = DP + M::LDP;
+  constexpr int MT = S::MT;
+  constexpr int BR = S::ROWS;     // query rows a block
+  constexpr int BC = S::DQ_KEYS;  // keys a tile
+  constexpr int NT = BC / 8;      // n-tiles of S
+  constexpr int ND = DP / 8;      // n-tiles of dQ
   extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DP][kLdT] queries
-  float* dot = qt + DP * kLdT;                  // [DP][kLdT] dO
-  float* kt = dot + DP * kLdT;                  // [DP][kLdT] keys
-  float* vt = kt + DP * kLdT;                   // [DP][kLdT] values
-  float* ks = vt + DP * kLdT;                   // [kRows][DP] keys
-  float* dst = ks + kRows * DP;                 // [kRows][kLdT] dS, key-major
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  TI* qs = reinterpret_cast<TI*>(smem4);  // [BR][LD] queries
+  TI* dos = qs + BR * LD;                 // [BR][LD] dO
+  TI* ks = dos + BR * LD;                 // [2][BC][LD] keys
+  TI* vs = ks + 2 * BC * LD;              // [2][BC][LD] values
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16 * MT;
   const int64_t head = (int64_t)blockIdx.x * Tn * D;
   const int64_t row0 = (int64_t)blockIdx.x * Tn;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest first
+  const int q_end = min(Tn, q0 + BR);
+  const int n_tiles = ((causal ? q_end : Tn) + BC - 1) / BC;
 
-  load_tile<TI, kRows, DP>(q + head, q0, Tn, D, qt, kLdT, nullptr);
-  load_tile<TI, kRows, DP>(dout + head, q0, Tn, D, dot, kLdT, nullptr);
-  float lr[8], dr[8], acc[8][TD];
+  load_rows<TI, BR, DP, LD>(qs, q + head, q0, Tn, D, vec);
+  load_rows<TI, BR, DP, LD>(dos, dout + head, q0, Tn, D, vec);
+  load_rows<TI, BC, DP, LD>(ks, k + head, 0, Tn, D, vec);
+  load_rows<TI, BC, DP, LD>(vs, v + head, 0, Tn, D, vec);
+  cp_async_commit();
+
+  float lr[MT][2], dr[MT][2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    lr[i] = r < Tn ? lse[row0 + r] : 0.f;
-    dr[i] = r < Tn ? delta[row0 + r] : 0.f;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
-  const int q_end = min(Tn, q0 + kRows);
-  const int kv_end = causal ? q_end : Tn;
-  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + rw + 16 * m + g + 8 * h;
+      lr[m][h] = r < Tn ? lse[row0 + r] : 0.f;
+      dr[m][h] = r < Tn ? delta[row0 + r] : 0.f;
+    }
+  float acc[MT][ND][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BC;
+    const int buf = it & 1;
+    __syncthreads();  // every warp is done with the other stage
+    if (it + 1 < n_tiles) {
+      load_rows<TI, BC, DP, LD>(ks + (buf ^ 1) * BC * LD, k + head, k0 + BC,
+                                Tn, D, vec);
+      load_rows<TI, BC, DP, LD>(vs + (buf ^ 1) * BC * LD, v + head, k0 + BC,
+                                Tn, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage's copies (all but the newest group)
     __syncthreads();
-    load_tile<TI, kRows, DP>(k + head, k0, Tn, D, kt, kLdT, ks);
-    load_tile<TI, kRows, DP>(v + head, k0, Tn, D, vt, kLdT, nullptr);
-    __syncthreads();
-    float s[8][4], dp[8][4];
+    const TI* kt = ks + buf * BC * LD;
+    const TI* vt = vs + buf * BC * LD;
+
+    float s[MT][NT][4], dp[MT][NT][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_mma<DP, 8, 4>(qt + ty * 8, kLdT, kt + tx * 4, kLdT, s);
-    tile_mma<DP, 8, 4>(dot + ty * 8, kLdT, vt + tx * 4, kLdT, dp);
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = q0 + ty * 8 + i;
+        for (int e = 0; e < 4; ++e) s[m][j][e] = dp[m][j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        float x = s[i][j] * scale;
-        if (causal && r < c) x = kNeg;
-        const float p = c < Tn ? expf(x - lr[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - dr[i]) * scale;
+    for (int kk = 0; kk < DP; kk += M::KS) {
+      typename M::AS aq[MT], ado[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        M::load_a(aq[m], qs, LD, rw + 16 * m, kk, g, t);
+        M::load_a(ado[m], dos, LD, rw + 16 * m, kk, g, t);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        typename M::B bk, bv;
+        M::load_bn(bk, kt, LD, 8 * j, kk, g, t);
+        M::load_bn(bv, vt, LD, 8 * j, kk, g, t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          M::mma(s[m][j], aq[m], bk);
+          M::mma(dp[m][j], ado[m], bv);
+        }
       }
     }
-    store_t<4>(dst, ty * 8, tx * 4, s);
-    __syncthreads();
-    tile_mma<kRows, 8, TD>(dst + ty * 8, kLdT, ks + tx * TD, DP, acc);
-  }
+    // p = exp(s scale - lse), dS = p (dP - delta) scale, into s
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    if (r >= Tn) continue;
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx * TD + j;
-      if (d < D) store(dq + head + (int64_t)r * D + d, acc[i][j]);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = q0 + rw + 16 * m + g + 8 * (e >> 1);
+          const int c = k0 + 8 * j + 2 * t + (e & 1);
+          float x = s[m][j][e] * scale;
+          if (causal && r < c) x = kNeg;
+          const float p = c < Tn ? expf(x - lr[m][e >> 1]) : 0.f;
+          s[m][j][e] = p * (dp[m][j][e] - dr[m][e >> 1]) * scale;
+        }
+    // dQ += dS K
+#pragma unroll
+    for (int j = 0; j < BC / M::KS; ++j) {
+      typename M::AR a[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) M::a_from_c(a[m], s[m], j);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        typename M::B b;
+        M::load_bt(b, kt, LD, j * M::KS, 8 * n, g, t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) M::mma(acc[m][n], a[m], b);
+      }
     }
   }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + rw + 16 * m + g + 8 * (e >> 1);
+        const int d = 8 * n + 2 * t + (e & 1);
+        if (r < Tn && d < D)
+          store(dq + head + (int64_t)r * D + d, acc[m][n][e]);
+      }
 }
 
 // ---------------------------------------------------------------------------
-// K8: dk and dv.  grid (BH, ceil(T / 64)); a block owns 64 key rows and
-// walks the query tiles, kDkvRows rows each, from the diagonal.
+// K8: dk and dv.  grid (BH, ceil(T / ROWS)); a block owns ROWS key rows (K
+// and V resident) and walks the query tiles (Q, dO, lse and delta, two
+// stages) from the diagonal.  A warp computes the transposed scores of
+// its keys, S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T are the
+// A operands of dV += P^T dO and dK += dS^T Q in its own registers.
 // ---------------------------------------------------------------------------
 
-constexpr int kDkvRows = 32;
-
-template <int DP>
+template <typename TI, int DP>
 constexpr size_t dkv_smem() {
-  constexpr int BN = kDkvRows;
-  return sizeof(float) * (2 * DP * kLdT + 2 * DP * (BN + 4) + 2 * BN * DP +
-                          2 * BN * kLdT + 2 * BN);
+  using S = BwdTiles<TI, DP>;
+  return sizeof(TI) * 2 * (S::ROWS + 2 * S::DKV_QUERIES) *
+             (DP + Mma<TI>::LDP) +
+         sizeof(float) * 4 * S::DKV_QUERIES;
 }
 
 template <typename TI, typename TO, int DP>
@@ -365,84 +693,143 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, TO* __restrict__ dk,
                      TO* __restrict__ dv, int Tn, int D, float scale,
-                     int causal) {
-  constexpr int TD = DP / 16;
-  constexpr int BN = kDkvRows;
-  constexpr int TN = BN / 16;
-  constexpr int LDN = BN + 4;
+                     int causal, int vec) {
+  using M = Mma<TI>;
+  using S = BwdTiles<TI, DP>;
+  constexpr int LD = DP + M::LDP;
+  constexpr int MT = S::MT;
+  constexpr int BK = S::ROWS;         // key rows a block
+  constexpr int BQ = S::DKV_QUERIES;  // queries a tile
+  constexpr int NT = BQ / 8;          // n-tiles of S^T
+  constexpr int ND = DP / 8;          // n-tiles of dK, dV
   extern __shared__ float4 smem4[];
-  float* kt = reinterpret_cast<float*>(smem4);  // [DP][kLdT] keys
-  float* vt = kt + DP * kLdT;                   // [DP][kLdT] values
-  float* qt = vt + DP * kLdT;                   // [DP][LDN] queries
-  float* dot = qt + DP * LDN;                   // [DP][LDN] dO
-  float* qs = dot + DP * LDN;                   // [BN][DP] queries
-  float* dos = qs + BN * DP;                    // [BN][DP] dO
-  float* ps = dos + BN * DP;                    // [BN][kLdT] P, query-major
-  float* dss = ps + BN * kLdT;                  // [BN][kLdT] dS, query-major
-  float* ls = dss + BN * kLdT;                  // [BN] lse
-  float* dls = ls + BN;                         // [BN] delta
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  TI* ks = reinterpret_cast<TI*>(smem4);  // [BK][LD] keys
+  TI* vs = ks + BK * LD;                  // [BK][LD] values
+  TI* qs = vs + BK * LD;                  // [2][BQ][LD] queries
+  TI* dos = qs + 2 * BQ * LD;             // [2][BQ][LD] dO
+  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ] lse
+  float* dls = ls + 2 * BQ;                                 // [2][BQ] delta
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16 * MT;
   const int64_t head = (int64_t)blockIdx.x * Tn * D;
   const int64_t row0 = (int64_t)blockIdx.x * Tn;
-  const int k0 = blockIdx.y * kRows;  // causal: the first keys see most
+  const int k0 = blockIdx.y * BK;        // causal: the first keys see most
+  const int q_begin = causal ? k0 : 0;   // earlier queries see none of them
+  const int n_tiles = (Tn - q_begin + BQ - 1) / BQ;
 
-  load_tile<TI, kRows, DP>(k + head, k0, Tn, D, kt, kLdT, nullptr);
-  load_tile<TI, kRows, DP>(v + head, k0, Tn, D, vt, kLdT, nullptr);
-  float gk[8][TD], gv[8][TD];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TD; ++j) gk[i][j] = gv[i][j] = 0.f;
-  // causal: query tiles ending before k0 see only hidden scores
-  for (int q0 = causal ? k0 : 0; q0 < Tn; q0 += BN) {
-    __syncthreads();
-    load_tile<TI, BN, DP>(q + head, q0, Tn, D, qt, LDN, qs);
-    load_tile<TI, BN, DP>(dout + head, q0, Tn, D, dot, LDN, dos);
-    for (int r = threadIdx.x; r < BN; r += kThreads) {
-      const bool in = q0 + r < Tn;
-      ls[r] = in ? lse[row0 + q0 + r] : 0.f;
-      dls[r] = in ? delta[row0 + q0 + r] : 0.f;
+  auto load_stage = [&](int stage, int q0) {
+    load_rows<TI, BQ, DP, LD>(qs + stage * BQ * LD, q + head, q0, Tn, D, vec);
+    load_rows<TI, BQ, DP, LD>(dos + stage * BQ * LD, dout + head, q0, Tn, D,
+                              vec);
+    for (int i = threadIdx.x; i < BQ; i += kThreads) {
+      const bool ok = q0 + i < Tn;
+      cp_async4(ls + stage * BQ + i, ok ? lse + row0 + q0 + i : lse, ok);
+      cp_async4(dls + stage * BQ + i, ok ? delta + row0 + q0 + i : delta, ok);
     }
+  };
+  load_rows<TI, BK, DP, LD>(ks, k + head, k0, Tn, D, vec);
+  load_rows<TI, BK, DP, LD>(vs, v + head, k0, Tn, D, vec);
+  load_stage(0, q_begin);
+  cp_async_commit();
+
+  float gk[MT][ND][4], gv[MT][ND][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gk[m][n][e] = gv[m][n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ;
+    const int buf = it & 1;
     __syncthreads();
-    float st[8][TN], dpt[8][TN];  // [key][query]
+    if (it + 1 < n_tiles) load_stage(buf ^ 1, q0 + BQ);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const TI* qt = qs + buf * BQ * LD;
+    const TI* dot = dos + buf * BQ * LD;
+    const float* lt = ls + buf * BQ;
+    const float* dlt = dls + buf * BQ;
+
+    float st[MT][NT][4], dpt[MT][NT][4];  // [key][query]
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < TN; ++j) st[i][j] = dpt[i][j] = 0.f;
-    tile_mma<DP, 8, TN>(kt + ty * 8, kLdT, qt + tx * TN, LDN, st);
-    tile_mma<DP, 8, TN>(vt + ty * 8, kLdT, dot + tx * TN, LDN, dpt);
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int c = k0 + ty * 8 + i;
+        for (int e = 0; e < 4; ++e) st[m][j][e] = dpt[m][j][e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int rl = tx * TN + j;
-        float x = st[i][j] * scale;
-        if (causal && q0 + rl < c) x = kNeg;
-        const float p = q0 + rl < Tn ? expf(x - ls[rl]) : 0.f;
-        st[i][j] = p;
-        dpt[i][j] = p * (dpt[i][j] - dls[rl]) * scale;
+    for (int kk = 0; kk < DP; kk += M::KS) {
+      typename M::AS ak[MT], av[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        M::load_a(ak[m], ks, LD, rw + 16 * m, kk, g, t);
+        M::load_a(av[m], vs, LD, rw + 16 * m, kk, g, t);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        typename M::B bq, bdo;
+        M::load_bn(bq, qt, LD, 8 * j, kk, g, t);
+        M::load_bn(bdo, dot, LD, 8 * j, kk, g, t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          M::mma(st[m][j], ak[m], bq);
+          M::mma(dpt[m][j], av[m], bdo);
+        }
       }
     }
-    store_t<TN>(ps, ty * 8, tx * TN, st);
-    store_t<TN>(dss, ty * 8, tx * TN, dpt);
-    __syncthreads();
-    tile_mma<BN, 8, TD>(ps + ty * 8, kLdT, dos + tx * TD, DP, gv);
-    tile_mma<BN, 8, TD>(dss + ty * 8, kLdT, qs + tx * TD, DP, gk);
-  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = k0 + ty * 8 + i;
-    if (c >= Tn) continue;
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx * TD + j;
-      if (d < D) {
-        store(dk + head + (int64_t)c * D + d, gk[i][j]);
-        store(dv + head + (int64_t)c * D + d, gv[i][j]);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = k0 + rw + 16 * m + g + 8 * (e >> 1);
+          const int rl = 8 * j + 2 * t + (e & 1);
+          float x = st[m][j][e] * scale;
+          if (causal && q0 + rl < c) x = kNeg;
+          const float p = q0 + rl < Tn ? expf(x - lt[rl]) : 0.f;
+          st[m][j][e] = p;
+          dpt[m][j][e] = p * (dpt[m][j][e] - dlt[rl]) * scale;
+        }
+    // dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < BQ / M::KS; ++j) {
+      typename M::AR ap[MT], ads[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        M::a_from_c(ap[m], st[m], j);
+        M::a_from_c(ads[m], dpt[m], j);
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        typename M::B bdo, bq;
+        M::load_bt(bdo, dot, LD, j * M::KS, 8 * n, g, t);
+        M::load_bt(bq, qt, LD, j * M::KS, 8 * n, g, t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          M::mma(gv[m][n], ap[m], bdo);
+          M::mma(gk[m][n], ads[m], bq);
+        }
       }
     }
   }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + rw + 16 * m + g + 8 * (e >> 1);
+        const int d = 8 * n + 2 * t + (e & 1);
+        if (c < Tn && d < D) {
+          store(dk + head + (int64_t)c * D + d, gk[m][n][e]);
+          store(dv + head + (int64_t)c * D + d, gv[m][n][e]);
+        }
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -578,7 +965,9 @@ int prepare(Kern kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-dim3 grid_for(int BH, int Tn) { return dim3(BH, (Tn + kRows - 1) / kRows); }
+dim3 grid_for(int BH, int Tn, int rows = kRows) {
+  return dim3(BH, (Tn + rows - 1) / rows);
+}
 
 template <typename T, int DP>
 int fwd_launch(const void* q, const void* k, const void* v, void* o,
@@ -595,18 +984,29 @@ int fwd_launch(const void* q, const void* k, const void* v, void* o,
   return (int)cudaGetLastError();
 }
 
+// 16-byte copies need rows of whole 16-byte chunks and aligned bases
+template <typename TI>
+int vec_ok(int D, const void* q, const void* k, const void* v,
+           const void* dout) {
+  if ((D * sizeof(TI)) % 16) return 0;
+  for (const void* p : {q, k, v, dout})
+    if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
+  return 1;
+}
+
 template <typename TI, typename TO, int DP>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int BH, int Tn,
               int D, float scale, int causal, cudaStream_t s) {
   auto kern = flash_bwd_dq_kernel<TI, TO, DP>;
-  constexpr size_t smem = dq_smem<DP>();
+  constexpr size_t smem = dq_smem<TI, DP>();
   int err = prepare(kern, smem);
   if (err) return err;
-  kern<<<grid_for(BH, Tn), kThreads, smem, s>>>(
+  kern<<<grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS), kThreads, smem, s>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<const TI*>(dout), lse, delta,
-      static_cast<TO*>(dq), Tn, D, scale, causal);
+      static_cast<TO*>(dq), Tn, D, scale, causal,
+      vec_ok<TI>(D, q, k, v, dout));
   return (int)cudaGetLastError();
 }
 
@@ -616,13 +1016,14 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                int BH, int Tn, int D, float scale, int causal,
                cudaStream_t s) {
   auto kern = flash_bwd_dkv_kernel<TI, TO, DP>;
-  constexpr size_t smem = dkv_smem<DP>();
+  constexpr size_t smem = dkv_smem<TI, DP>();
   int err = prepare(kern, smem);
   if (err) return err;
-  kern<<<grid_for(BH, Tn), kThreads, smem, s>>>(
+  kern<<<grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS), kThreads, smem, s>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<const TI*>(dout), lse, delta,
-      static_cast<TO*>(dk), static_cast<TO*>(dv), Tn, D, scale, causal);
+      static_cast<TO*>(dk), static_cast<TO*>(dv), Tn, D, scale, causal,
+      vec_ok<TI>(D, q, k, v, dout));
   return (int)cudaGetLastError();
 }
 

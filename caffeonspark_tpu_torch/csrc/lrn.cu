@@ -29,10 +29,16 @@
 //   * the 2*pad+1 window of x' values lives in a register ring shifted by
 //     one channel per step: inside its run a thread loads each element
 //     once and writes only y;
-//   * the channel axis is cut into runs (grid.z) so that layers with a
-//     small H*W (norm2: 13x13) still launch enough blocks to cover the
-//     SMs; a run re-reads only its 2*pad halo channels, which the
-//     neighbouring run also reads (an L2 hit in the common case);
+//   * grid.x walks (n, block of h*w) pairs, so any N fits (no 65,535
+//     cap of grid.y); the channel axis is cut into runs (grid.y) so that
+//     layers with a small H*W (norm2: 13x13) still launch enough blocks
+//     to cover the SMs; a run re-reads only its 2*pad halo channels,
+//     which the neighbouring run also reads (an L2 hit in the common
+//     case);
+//   * windows up to local_size 11 are compile-time variants with the
+//     register ring; wider ones take one runtime-window variant that
+//     reads each window from memory, with the same operations in the
+//     same order (any local_size, as the Pallas LRN takes);
 //   * the window sum is taken directly from the ring in the order of the
 //     TPU kernel's `_window_sum` (centre, then -1/+1, -2/+2, ...) rather
 //     than as a running add/subtract, which would drift from it;
@@ -51,7 +57,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kUnroll = 8;
-constexpr int kMaxPad = 5;  // local_size up to 11
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -65,14 +70,15 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
 template <typename T, int PAD, bool RELU, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
 lrn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
-               T* __restrict__ y, int C, int HW, int run, float coef,
-               float neg_beta, float k) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+               T* __restrict__ y, int C, int HW, int hwb, int run,
+               float coef, float neg_beta, float k) {
+  const int n = blockIdx.x / hwb;
+  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
   if (p >= HW) return;
   const int64_t plane = (int64_t)HW;
-  const T* xp = x + (int64_t)blockIdx.y * C * plane + p;
-  T* yp = y + (int64_t)blockIdx.y * C * plane + p;
-  const int cs = blockIdx.z * run;
+  const T* xp = x + (int64_t)n * C * plane + p;
+  T* yp = y + (int64_t)n * C * plane + p;
+  const int cs = blockIdx.y * run;
   const int ce = min(C, cs + run);
   constexpr int W = 2 * PAD + 1;
 
@@ -138,10 +144,62 @@ template <typename T, int PAD, bool RELU, bool BIAS>
 int launch(const void* x, const float* bias, void* y, int N, int C, int HW,
            float coef, float neg_beta, float k, cudaStream_t s) {
   const int run = channel_run(N, C, HW, PAD);
-  dim3 grid((HW + kThreads - 1) / kThreads, N, (C + run - 1) / run);
+  const int hwb = (HW + kThreads - 1) / kThreads;
+  dim3 grid(hwb * N, (C + run - 1) / run);
   lrn_fwd_kernel<T, PAD, RELU, BIAS><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), bias, static_cast<T*>(y), C, HW, run, coef,
-      neg_beta, k);
+      static_cast<const T*>(x), bias, static_cast<T*>(y), C, HW, hwb, run,
+      coef, neg_beta, k);
+  return (int)cudaGetLastError();
+}
+
+// Windows wider than the register ring's (local_size > 11): a thread
+// sums each channel's window straight from memory (2 pad + 1 reads of
+// its column, neighbours' reads L1/L2 hits), in the same order and with
+// the same operations as the ring, so the two agree bit for bit.
+template <typename T, bool RELU, bool BIAS>
+__global__ void __launch_bounds__(kThreads)
+lrn_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ bias,
+                    T* __restrict__ y, int C, int HW, int hwb, int run,
+                    int pad, float coef, float neg_beta, float k) {
+  const int n = blockIdx.x / hwb;
+  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
+  if (p >= HW) return;
+  const int64_t plane = (int64_t)HW;
+  const T* xp = x + (int64_t)n * C * plane + p;
+  T* yp = y + (int64_t)n * C * plane + p;
+  const int cs = blockIdx.y * run;
+  const int ce = min(C, cs + run);
+  auto load = [&](int ch) -> float {
+    if (ch < 0 || ch >= C) return 0.f;
+    float t = load_f32(xp + ch * plane);
+    if (BIAS) t = __fadd_rn(t, __ldg(bias + ch));
+    if (RELU) t = fmaxf(t, 0.f);
+    return t;
+  };
+  for (int c = cs; c < ce; ++c) {
+    const float xc = load(c);
+    float acc = __fmul_rn(xc, xc);
+    for (int off = 1; off <= pad; ++off) {
+      const float a = load(c - off), b = load(c + off);
+      acc = __fadd_rn(acc, __fmul_rn(a, a));
+      acc = __fadd_rn(acc, __fmul_rn(b, b));
+    }
+    const float scale = __fadd_rn(k, __fmul_rn(coef, acc));
+    const float f = expf(__fmul_rn(neg_beta, logf(scale)));
+    store_f32(yp + c * plane, __fmul_rn(xc, f));
+  }
+}
+
+template <typename T, bool RELU, bool BIAS>
+int launch_wide(int pad, const void* x, const float* bias, void* y, int N,
+                int C, int HW, float coef, float neg_beta, float k,
+                cudaStream_t s) {
+  const int run = channel_run(N, C, HW, pad);
+  const int hwb = (HW + kThreads - 1) / kThreads;
+  dim3 grid(hwb * N, (C + run - 1) / run);
+  lrn_fwd_wide_kernel<T, RELU, BIAS><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), bias, static_cast<T*>(y), C, HW, hwb, run,
+      pad, coef, neg_beta, k);
   return (int)cudaGetLastError();
 }
 
@@ -156,13 +214,13 @@ int dispatch_pad(int pad, const void* x, const float* bias, void* y, int N,
     case 3: return launch<T, 3, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
     case 4: return launch<T, 4, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
     case 5: return launch<T, 5, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_wide<T, RELU, BIAS>(pad, x, bias, y, N, C, HW, coef, neg_beta, k, s);
   }
 }
 
 int check_args(int N, int C, int HW, int local_size) {
-  if (N <= 0 || N > 65535 || C <= 0 || HW <= 0 || local_size <= 0 ||
-      local_size / 2 > kMaxPad)
+  if (N <= 0 || C <= 0 || HW <= 0 || local_size <= 0 ||
+      (int64_t)((HW + kThreads - 1) / kThreads) * N > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -202,15 +260,17 @@ template <typename T, int PAD, bool RELU, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
 lrn_bwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
                const T* __restrict__ dy, T* __restrict__ dx, int C, int HW,
-               int run, float coef, float neg_beta, float k, float coef2) {
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+               int hwb, int run, float coef, float neg_beta, float k,
+               float coef2) {
+  const int n = blockIdx.x / hwb;
+  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
   if (p >= HW) return;
   const int64_t plane = (int64_t)HW;
-  const int64_t base = (int64_t)blockIdx.y * C * plane + p;
+  const int64_t base = (int64_t)n * C * plane + p;
   const T* xp = x + base;
   const T* dyp = dy + base;
   T* dxp = dx + base;
-  const int cs = blockIdx.z * run;
+  const int cs = blockIdx.y * run;
   const int ce = min(C, cs + run);
   constexpr int W = 2 * PAD + 1;
 
@@ -291,10 +351,84 @@ int launch_bwd(const void* x, const float* bias, const void* dy, void* dx,
                int N, int C, int HW, float coef, float neg_beta, float k,
                float coef2, cudaStream_t s) {
   const int run = channel_run(N, C, HW, PAD);
-  dim3 grid((HW + kThreads - 1) / kThreads, N, (C + run - 1) / run);
+  const int hwb = (HW + kThreads - 1) / kThreads;
+  dim3 grid(hwb * N, (C + run - 1) / run);
   lrn_bwd_kernel<T, PAD, RELU, BIAS><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(x), bias, static_cast<const T*>(dy),
-      static_cast<T*>(dx), C, HW, run, coef, neg_beta, k, coef2);
+      static_cast<T*>(dx), C, HW, hwb, run, coef, neg_beta, k, coef2);
+  return (int)cudaGetLastError();
+}
+
+// The backward for windows wider than the ring's: dx_c from u_j and t_j
+// of the channels j in c's window, each recomputed from its own window
+// of x' (O(local_size^2) reads, L1/L2 hits), with the ring's operations
+// in the ring's order.
+template <typename T, bool RELU, bool BIAS>
+__global__ void __launch_bounds__(kThreads)
+lrn_bwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ bias,
+                    const T* __restrict__ dy, T* __restrict__ dx, int C,
+                    int HW, int hwb, int run, int pad, float coef,
+                    float neg_beta, float k, float coef2) {
+  const int n = blockIdx.x / hwb;
+  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
+  if (p >= HW) return;
+  const int64_t plane = (int64_t)HW;
+  const int64_t base = (int64_t)n * C * plane + p;
+  const T* xp = x + base;
+  const T* dyp = dy + base;
+  T* dxp = dx + base;
+  const int cs = blockIdx.y * run;
+  const int ce = min(C, cs + run);
+  auto load_x = [&](int ch) -> float {
+    if (ch < 0 || ch >= C) return 0.f;
+    float t = load_f32(xp + ch * plane);
+    if (BIAS) t = __fadd_rn(t, __ldg(bias + ch));
+    if (RELU) t = fmaxf(t, 0.f);
+    return t;
+  };
+  // u_j and t_j = dy_j * s_j^-beta (both 0 outside [0, C))
+  auto u_t = [&](int j, float& u, float& tj) {
+    u = tj = 0.f;
+    if (j < 0 || j >= C) return;
+    const float xj = load_x(j);
+    float acc = __fmul_rn(xj, xj);
+    for (int off = 1; off <= pad; ++off) {
+      const float a = load_x(j - off), b = load_x(j + off);
+      acc = __fadd_rn(acc, __fmul_rn(a, a));
+      acc = __fadd_rn(acc, __fmul_rn(b, b));
+    }
+    const float s = __fadd_rn(k, __fmul_rn(coef, acc));
+    const float snb = expf(__fmul_rn(neg_beta, logf(s)));
+    const float d = load_f32(dyp + j * plane);
+    u = __fdiv_rn(__fmul_rn(__fmul_rn(d, xj), snb), s);
+    tj = __fmul_rn(d, snb);
+  };
+  for (int c = cs; c < ce; ++c) {
+    float ws, tc, u, unused;
+    u_t(c, ws, tc);
+    for (int off = 1; off <= pad; ++off) {
+      u_t(c - off, u, unused);
+      ws = __fadd_rn(ws, u);
+      u_t(c + off, u, unused);
+      ws = __fadd_rn(ws, u);
+    }
+    const float xc = load_x(c);
+    float d = __fsub_rn(tc, __fmul_rn(__fmul_rn(coef2, xc), ws));
+    if (RELU && !(xc > 0.f)) d = 0.f;
+    store_f32(dxp + c * plane, d);
+  }
+}
+
+template <typename T, bool RELU, bool BIAS>
+int launch_bwd_wide(int pad, const void* x, const float* bias, const void* dy,
+                    void* dx, int N, int C, int HW, float coef,
+                    float neg_beta, float k, float coef2, cudaStream_t s) {
+  const int run = channel_run(N, C, HW, pad);
+  const int hwb = (HW + kThreads - 1) / kThreads;
+  dim3 grid(hwb * N, (C + run - 1) / run);
+  lrn_bwd_wide_kernel<T, RELU, BIAS><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(x), bias, static_cast<const T*>(dy),
+      static_cast<T*>(dx), C, HW, hwb, run, pad, coef, neg_beta, k, coef2);
   return (int)cudaGetLastError();
 }
 
@@ -310,7 +444,7 @@ int dispatch_pad_bwd(int pad, const void* x, const float* bias,
     case 3: return launch_bwd<T, 3, RELU, BIAS>(x, bias, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
     case 4: return launch_bwd<T, 4, RELU, BIAS>(x, bias, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
     case 5: return launch_bwd<T, 5, RELU, BIAS>(x, bias, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return launch_bwd_wide<T, RELU, BIAS>(pad, x, bias, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
   }
 }
 

@@ -134,10 +134,12 @@ def _check_lrn_input(name: str, x: torch.Tensor, local_size: int) -> None:
                          f"{list(_LRN_DTYPES)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
-    if local_size < 1 or local_size // 2 > 5:
-        raise ValueError(f"{name}: local_size {local_size} outside 1..11")
-    if x.shape[0] > 65535:
-        raise ValueError(f"{name}: batch {x.shape[0]} > 65535")
+    if local_size < 1:
+        raise ValueError(f"{name}: local_size {local_size} < 1")
+    n, _, h, w = x.shape
+    if n * -(-h * w // 128) > 2**31 - 1:   # grid.x: (n, block of h*w)
+        raise ValueError(f"{name}: {n} x {h}x{w} needs more than 2^31 - 1 "
+                         "blocks")
 
 
 def lrn_across_channels(x: torch.Tensor, local_size: int = 5,

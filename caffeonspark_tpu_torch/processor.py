@@ -12,6 +12,10 @@ writes the model to `-model`.  Bad records drop their batch (the
 reference's per-iteration failure tolerance) until DROP_LIMIT_DEFAULT
 consecutive batches fail.
 An error on the solver thread surfaces on `join()` / `stop()`.
+The training log keeps each step's loss as a device scalar only until
+the next `display` or `snapshot` boundary (at most LOSS_FOLD_MAX
+steps): there it is folded to host floats with one sync.  An HDF5
+solver is refused before the first step.
 
 Interleaved validation, the threaded transformer pool, the device-side
 transform, the fused multi-step loop, the chaos injectors and the
@@ -39,9 +43,14 @@ from .data.source import STOP_MARK, DataSource, get_source
 from .metrics import PipelineMetrics
 from .ops.layers import flash_mesh
 from .parallel.mesh import Mesh, build_mesh, parse_mesh_spec
+from .proto.caffe import SnapshotFormat
 from .solver import Solver
 
 _LOG = logging.getLogger(__name__)
+
+# the most steps whose losses stay device scalars when neither display
+# nor snapshot sets a boundary sooner
+LOSS_FOLD_MAX = 1000
 
 
 class CaffeProcessor:
@@ -62,6 +71,9 @@ class CaffeProcessor:
         return cls._instance
 
     def __init__(self, conf: Config, rank: int = 0):
+        if conf.solverParameter.snapshot_format == SnapshotFormat.HDF5:
+            # refused here, before any step, not at the first snapshot
+            raise NotImplementedError(checkpoint.HDF5_REFUSAL)
         self.conf = conf
         self.rank = rank
         self.solver = Solver(conf.solverParameter, conf.netParam, rank=rank,
@@ -89,9 +101,11 @@ class CaffeProcessor:
         self._error: Optional[BaseException] = None
         self._stopped = False
         self._metrics_dumped = False
-        # per step: (iter after the step, loss as a device scalar, lr,
-        # host time when the step was dispatched)
+        # per step: (iter after the step, loss, lr, host time when the
+        # step was dispatched); the loss is a device scalar in the entries
+        # from _folded on, a host float before
         self.train_log: List[tuple] = []
+        self._folded = 0
         seed = int(conf.solverParameter.random_seed) \
             if conf.solverParameter.random_seed >= 0 else 0
         tl = conf.train_data_layer()
@@ -237,10 +251,16 @@ class CaffeProcessor:
                 m.mark_step()
                 self.train_log.append((st.iter, loss, float(out["lr"]),
                                        now))
-                if display and st.iter % display == 0:
+                shown = display and st.iter % display == 0
+                snapped = snap and st.iter % snap == 0
+                if shown or snapped or \
+                        len(self.train_log) - self._folded >= LOSS_FOLD_MAX:
+                    self._fold_losses()
+                if shown:
                     _LOG.info("Iteration %d, loss = %.6g, lr = %.6g",
-                              st.iter, float(loss), float(out["lr"]))
-                if snap and st.iter % snap == 0:
+                              st.iter, self.train_log[-1][1],
+                              float(out["lr"]))
+                if snapped:
                     self._snapshot(params, st)
             if sp.snapshot_after_train:
                 self._snapshot(params, st)
@@ -254,12 +274,22 @@ class CaffeProcessor:
             for q in self.queues:      # unblock feeders in offer()
                 q.stop()
 
+    def _fold_losses(self) -> None:
+        """The log's device-scalar losses to host floats (one sync)."""
+        log, start = self.train_log, self._folded
+        if start == len(log):
+            return
+        losses = torch.stack([x[1] for x in log[start:]]).cpu().tolist()
+        for i, loss in enumerate(losses, start):
+            it, _, lr, t = log[i]
+            log[i] = (it, loss, lr, t)
+        self._folded = len(log)
+
     def _train_info(self) -> dict:
-        """The training log as plain numbers (one device sync)."""
+        """The training log as plain numbers."""
+        self._fold_losses()
         log = self.train_log
-        losses = (torch.stack([x[1] for x in log]).cpu().tolist()
-                  if log else [])
-        return {"iter": [x[0] for x in log], "loss": losses,
+        return {"iter": [x[0] for x in log], "loss": [x[1] for x in log],
                 "lr": [x[2] for x in log], "t": [x[3] for x in log],
                 "batch": (self.train_source.batch_size
                           * max(1, self.solver.param.iter_size)

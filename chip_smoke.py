@@ -15,10 +15,15 @@ or the package is not importable, and when any phase fails.  Phases:
      forward kernels at the serving path's B=64 shapes (f32, and bf16
      for the LRN kernels) and at the training path's B=256 shapes, the
      LRN backward kernels (K2, K4) at the B=256 shapes in f32 and bf16
-     and at a ragged shape, the flash attention kernels (K6 forward, K7
-     dq, K8 dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and
-     not, f32 and bf16, and at ragged (3, 200, 48) and (4, 384, 32),
-     with kernel / plain / library / bound times; K9 (the ring hop) at
+     and at a ragged shape, K1-K4 at local_size 13 and at N = 65,600
+     (untimed), the flash attention kernels (K6 forward, K7 dq, K8
+     dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and not,
+     f32 and bf16, at (64, 2048, 128) f32 causal, at the sp ring's
+     backward call (64, 512, 64) bf16 in, f32 gradients out, causal and
+     not, and at ragged (3, 200, 48) and (4, 384, 32), with kernel /
+     plain / library / bound times (K7/K8's bound on their tensor-core
+     route, 3xTF32 or bf16, beside the f32 SIMT figure) and K7/K8 run
+     twice for bit-equal gradients; K9 (the ring hop) at
      the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512, 512, 64), f32
      and bf16: the diagonal causal hop (q_off = k_off = 512), a fully
      visible causal hop (q_off 1536, k_off 0) and a non-causal hop, each
@@ -93,6 +98,8 @@ import zlib
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # tf32 tensor cores, dense; K7/K8 take f32
+                               # inputs as 3xTF32: three products each
 BF16_OPS_PER_S = 989e12        # bf16 tensor cores, dense
 INT8_OPS_PER_S = 1979e12       # int8 tensor cores, dense
 L2_BYTES = 50 * 2**20
@@ -229,13 +236,14 @@ def lrn_ops_per_elem(local_size: int, relu: bool, bias: bool) -> int:
     return 2 * local_size + 5 + int(relu) + int(bias)
 
 
-def check_lrn(K, torch, name, shape, dtype, relu, bias, results):
+def check_lrn(K, torch, name, shape, dtype, relu, bias, results, ls=5,
+              timed=True):
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
-        f"{name}{shape}{dtype}{relu}".encode()))
+        f"{name}{shape}{dtype}{relu}{ls}".encode()))
     x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dtype)
     b = torch.randn(shape[1], device="cuda", generator=g)
-    ls, alpha, beta, k = 5, 1e-4, 0.75, 1.0
+    alpha, beta, k = 1e-4, 0.75, 1.0
     if bias:
         run = lambda x, b: K.bias_relu_lrn_across_channels(  # noqa: E731
             x, b, ls, alpha, beta, k)
@@ -255,8 +263,19 @@ def check_lrn(K, torch, name, shape, dtype, relu, bias, results):
     bad = err > atol + rtol * want.float().abs()
     max_err = float(err.max())
     check(not bool(bad.any()),
-          f"{name} {shape} {dtype}: {int(bad.sum())} elements outside "
-          f"rtol {rtol} atol {atol} (max abs err {max_err:.3g})")
+          f"{name} {shape} {dtype} local_size {ls}: {int(bad.sum())} "
+          f"elements outside rtol {rtol} atol {atol} (max abs err "
+          f"{max_err:.3g})")
+    if not timed:
+        exact = bool(torch.equal(got, want))
+        results.setdefault(name, []).append(dict(
+            shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+            relu=relu, local_size=ls, max_abs_err=max_err,
+            bit_equal=exact))
+        log(f"  {name} {tuple(shape)} {str(dtype).replace('torch.', '')} "
+            f"relu={relu} local_size {ls}: max_abs_err {max_err:.3g} "
+            f"bit-equal {exact}")
+        return
     nbytes = 2 * x.numel() * x.element_size() + (4 * shape[1] if bias
                                                  else 0)
     sets = [(x.clone(), b.clone()) for _ in range(rotations(nbytes))]
@@ -291,15 +310,15 @@ def lrn_bwd_ops_per_elem(local_size: int, relu: bool, bias: bool) -> int:
 
 
 def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
-                  timed=True):
+                  timed=True, ls=5):
     """K2 / K4 against lrn_bwd_plain on the same x, dy (and bias)."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
-        f"{name}{shape}{dtype}{relu}".encode()))
+        f"{name}{shape}{dtype}{relu}{ls}".encode()))
     x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dtype)
     dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
     b = torch.randn(shape[1], device="cuda", generator=g)
-    ls, alpha, beta, k = 5, 1e-4, 0.75, 1.0
+    alpha, beta, k = 1e-4, 0.75, 1.0
     if bias:
         run = lambda x, dy, b: K.bias_relu_lrn_across_channels_bwd(  # noqa: E731
             x, b, dy, ls, alpha, beta, k)
@@ -320,13 +339,15 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
     max_err = float(err.max())
     exact = bool(torch.equal(got, want))
     check(not bool(bad.any()),
-          f"{name} {shape} {dtype}: {int(bad.sum())} elements outside "
-          f"rtol {rtol} atol {atol} (max abs err {max_err:.3g})")
+          f"{name} {shape} {dtype} local_size {ls}: {int(bad.sum())} "
+          f"elements outside rtol {rtol} atol {atol} (max abs err "
+          f"{max_err:.3g})")
     rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
-               relu=relu, max_abs_err=max_err, bit_equal=exact)
+               relu=relu, local_size=ls, max_abs_err=max_err,
+               bit_equal=exact)
     if not timed:
-        log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu}: "
-            f"max_abs_err {max_err:.3g} bit-equal {exact}")
+        log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu} "
+            f"local_size {ls}: max_abs_err {max_err:.3g} bit-equal {exact}")
         results.setdefault(name, []).append(rec)
         return
     nbytes = 3 * x.numel() * x.element_size() + (4 * shape[1] if bias
@@ -427,10 +448,25 @@ def _flash_err(name, got, want, dtype, torch, fwd):
     return max_err, bool(torch.equal(got, want)), int((g != w).sum())
 
 
-def check_flash(K, torch, shape, dtype, causal, results, timed=True):
+def bwd_bound(ops, dtype):
+    """K7/K8's bound on their route: f32 inputs as 3xTF32 (three tf32
+    products per product) at TF32_OPS_PER_S, bf16 at BF16_OPS_PER_S;
+    and the f32 SIMT figure (F32_OPS_PER_S) earlier rows were held to."""
+    import torch
+    if dtype == torch.float32:
+        return 3 * ops / TF32_OPS_PER_S, "3xTF32 tensor cores", \
+            ops / F32_OPS_PER_S
+    return ops / BF16_OPS_PER_S, "bf16 tensor cores", ops / F32_OPS_PER_S
+
+
+def check_flash(K, torch, shape, dtype, causal, results, timed=True,
+                out_dtype=None):
     """K6, K7 and K8 against their plain versions on the same q, k, v,
     dO (B*H, T, D) and, timed, against F.scaled_dot_product_attention
-    and its autograd backward on the same inputs as (B, H, T, D)."""
+    and its autograd backward on the same inputs as (B, H, T, D).  K7
+    and K8 run twice on the same inputs and must give bit-equal
+    gradients.  `out_dtype` is the gradients' dtype (the sp ring's
+    backward asks for float32 from bf16 inputs)."""
     import torch.nn.functional as F
     bh, t, d = shape
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
@@ -440,35 +476,50 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True):
     o, lse = K.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
     o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
-    tag = f"{shape} {str(dtype).replace('torch.', '')} causal={causal}"
+    gdt = out_dtype or dtype
+    tag = (f"{shape} {str(dtype).replace('torch.', '')} causal={causal}"
+           + (f" out {str(gdt).replace('torch.', '')}" if out_dtype else ""))
     e_o = _flash_err(f"flash_attention_fwd {tag} O", o, o_p, dtype, torch,
                      True)
     e_l = _flash_err(f"flash_attention_fwd {tag} lse", lse, lse_p,
                      torch.float32, torch, True)
     # the backward from the plain forward's statistics, as autograd does
     delta = torch.sum(do.float() * o_p.float(), dim=-1)
-    dq = K.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, causal)
-    dk, dv = K.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, causal)
+    bwd = lambda: (  # noqa: E731
+        K.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, causal,
+                                 out_dtype),
+        *K.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, causal,
+                                   out_dtype))
+    dq, dk, dv = bwd()
+    again = bwd()
     torch.cuda.synchronize()
+    deterministic = all(torch.equal(x, y) for x, y in zip((dq, dk, dv),
+                                                          again))
+    check(deterministic, f"flash backward {tag}: two runs on the same "
+          "inputs differ")
+    del again
     dq_p, dk_p, dv_p = K.flash_bwd_block_plain(q, k, v, do, lse_p, delta,
-                                               causal=causal)
-    e_dq = _flash_err(f"flash_attention_bwd_dq {tag}", dq, dq_p, dtype,
+                                               causal=causal,
+                                               out_dtype=out_dtype)
+    e_dq = _flash_err(f"flash_attention_bwd_dq {tag}", dq, dq_p, gdt,
                       torch, False)
-    e_dk = _flash_err(f"flash_attention_bwd_dkv {tag} dk", dk, dk_p, dtype,
+    e_dk = _flash_err(f"flash_attention_bwd_dkv {tag} dk", dk, dk_p, gdt,
                       torch, False)
-    e_dv = _flash_err(f"flash_attention_bwd_dkv {tag} dv", dv, dv_p, dtype,
+    e_dv = _flash_err(f"flash_attention_bwd_dkv {tag} dv", dv, dv_p, gdt,
                       torch, False)
     base = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
                 causal=causal)
+    bwd_base = dict(base, out_dtype=str(gdt).replace("torch.", ""),
+                    deterministic=deterministic)
     recs = {
         "flash_attention_fwd": dict(base, max_abs_err=max(e_o[0], e_l[0]),
                                     bit_equal=e_o[1] and e_l[1],
                                     elements_differing=e_o[2] + e_l[2]),
-        "flash_attention_bwd_dq": dict(base, max_abs_err=e_dq[0],
+        "flash_attention_bwd_dq": dict(bwd_base, max_abs_err=e_dq[0],
                                        bit_equal=e_dq[1],
                                        elements_differing=e_dq[2]),
         "flash_attention_bwd_dkv": dict(
-            base, max_abs_err=max(e_dk[0], e_dv[0]),
+            bwd_base, max_abs_err=max(e_dk[0], e_dv[0]),
             bit_equal=e_dk[1] and e_dv[1],
             elements_differing=e_dk[2] + e_dv[2]),
     }
@@ -478,10 +529,11 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True):
     if timed:
         b4 = bh // 16
         esz = q.element_size()
+        gsz = torch.empty((), dtype=gdt).element_size()
         pairs = bh * flash_pairs(t, causal)
-        peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
         row = 4 * bh * t                 # one (B*H, T) f32 statistic
         io = bh * t * d * esz            # one (B*H, T, D) operand
+        gio = bh * t * d * gsz           # one (B*H, T, D) gradient
         sets = [tuple(x.clone() for x in (q, k, v, do, lse_p, delta))
                 for _ in range(rotations(6 * io))]
         timing = {
@@ -493,16 +545,16 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True):
                 4 * d * pairs, 4 * io + row),
             "flash_attention_bwd_dq": (
                 lambda q, k, v, do, lse, dl: K.flash_attention_bwd_dq(
-                    q, k, v, do, lse, dl, causal),
+                    q, k, v, do, lse, dl, causal, out_dtype),
                 lambda q, k, v, do, lse, dl: K.flash_bwd_dq_plain(
-                    q, k, v, do, lse, dl, causal),
-                6 * d * pairs, 5 * io + 2 * row),
+                    q, k, v, do, lse, dl, causal, out_dtype),
+                6 * d * pairs, 4 * io + gio + 2 * row),
             "flash_attention_bwd_dkv": (
                 lambda q, k, v, do, lse, dl: K.flash_attention_bwd_dkv(
-                    q, k, v, do, lse, dl, causal),
+                    q, k, v, do, lse, dl, causal, out_dtype),
                 lambda q, k, v, do, lse, dl: K.flash_bwd_dkv_plain(
-                    q, k, v, do, lse, dl, causal),
-                8 * d * pairs, 6 * io + 2 * row),
+                    q, k, v, do, lse, dl, causal, out_dtype),
+                8 * d * pairs, 4 * io + 2 * gio + 2 * row),
         }
         # the library yardstick: one SDPA call, and one autograd backward
         # of it (dq, dk, dv together) on a retained graph
@@ -522,13 +574,23 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True):
         for name, (run, plain, ops, nbytes) in timing.items():
             ms, host_us = time_ms(run, sets)
             plain_ms, _ = time_ms(plain, sets, iters=5)
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            if name == "flash_attention_fwd":
+                t_ops, route = ops / (F32_OPS_PER_S if dtype == torch.float32
+                                      else BF16_OPS_PER_S), None
+                simt = t_ops
+            else:
+                t_ops, route, simt = bwd_bound(ops, dtype)
             recs[name].update(
                 ms=ms, host_us=host_us, plain_ms=plain_ms,
                 library_ms=lib_fwd if name == "flash_attention_fwd"
                 else lib_bwd, bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 gflop=ops / 1e9)
+            if route is not None:
+                recs[name].update(bound_route=route,
+                                  f32_simt_bound_ms=1e3 * max(t_bytes,
+                                                              simt))
         del sets
     for name, rec in recs.items():
         results.setdefault(name, []).append(rec)
@@ -536,10 +598,15 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True):
                  f" kernel {rec['ms']:.4f} ms (launch path "
                  f"{rec['host_us']:.1f} us) plain {rec['plain_ms']:.4f} ms "
                  f"library {rec['library_ms']:.4f} ms bound "
-                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+                 f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}"
+                 + (f", {rec['bound_route']}; f32 SIMT "
+                    f"{rec['f32_simt_bound_ms']:.4f} ms"
+                    if "bound_route" in rec else "") + ")")
+        det = ("" if "deterministic" not in rec
+               else f", deterministic {rec['deterministic']}")
         log(f"  {name} {tag}: max_abs_err {rec['max_abs_err']:.3g} "
             f"(bit-equal {rec['bit_equal']}, "
-            f"{rec['elements_differing']} elements differ){times}")
+            f"{rec['elements_differing']} elements differ{det}){times}")
     log(f"    max |plain| O {maxes[0]:.3g} dq {maxes[1]:.3g} "
         f"dk {maxes[2]:.3g} dv {maxes[3]:.3g}")
 
@@ -669,6 +736,24 @@ def kernel_phase(K, torch) -> dict:
                                   False, True)):
             check_lrn_bwd(K, torch, name, (3, 13, 7, 9), dtype, relu, bias,
                           res, timed=False)
+    # windows wider than the register ring's (the runtime-window
+    # variant), and a batch past grid.y's 65,535 at a small C*H*W
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, ls in (((8, 96, 27, 27), 13), ((3, 13, 7, 9), 13),
+                          ((65_600, 4, 3, 3), 5), ((65_600, 4, 3, 3), 13)):
+            for name, relu, bias in (("lrn_across_channels", False, False),
+                                     ("lrn_across_channels", True, False),
+                                     ("bias_relu_lrn_across_channels",
+                                      False, True)):
+                check_lrn(K, torch, name, shape, dtype, relu, bias, res,
+                          ls=ls, timed=False)
+            for name, relu, bias in (("lrn_across_channels_bwd", False,
+                                      False),
+                                     ("lrn_across_channels_bwd", True, False),
+                                     ("bias_relu_lrn_across_channels_bwd",
+                                      False, True)):
+                check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, res,
+                              timed=False, ls=ls)
     for m, n, kk in ((B, 4096, 9216), (B, 4096, 4096), (B, 1000, 4096)):
         check_int8(K, torch, m, n, kk, res)
     for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
@@ -687,6 +772,12 @@ def flash_phase(K, torch, res):
         for causal in (True, False):
             check_flash(K, torch, (FLASH_BH, FLASH_T, FLASH_D), dtype,
                         causal, res)
+    # the widest head the kernels take, and the sp ring's backward call:
+    # one rank's 512-row blocks, bf16 in, f32 gradients out
+    check_flash(K, torch, (FLASH_BH, FLASH_T, 128), torch.float32, True, res)
+    for causal in (True, False):
+        check_flash(K, torch, (FLASH_BH, SP_T_LOCAL, FLASH_D),
+                    torch.bfloat16, causal, res, out_dtype=torch.float32)
     for shape in ((3, 200, 48), (4, 384, 32)):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
@@ -1507,7 +1598,10 @@ def main(argv) -> int:
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
             bound_ms=main_rec["bound_ms"], bound_by=main_rec["bound_by"],
             library_ms=main_rec["library_ms"], library=meta["library"],
-            shape=main_rec["shape"], dtype=main_rec["dtype"]))
+            shape=main_rec["shape"], dtype=main_rec["dtype"],
+            **{key: main_rec[key] for key in ("bound_route",
+                                              "f32_simt_bound_ms")
+               if key in main_rec}))
     for line in lines:
         check(line["launches"] > 0,
               f"{line['name']} was never launched on a main path")

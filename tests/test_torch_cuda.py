@@ -117,6 +117,34 @@ def test_lrn_functions_launch_kernels_on_card(cuda_card):
     _close(bg.grad.cpu(), dx.sum((0, 2, 3)).cpu(), 3e-4, 3e-5)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,local_size", [
+    ((2, 20, 5, 7), 13), ((1, 96, 13, 13), 15), ((3, 13, 7, 9), 13),
+    ((65_600, 4, 2, 3), 5), ((65_600, 3, 2, 2), 13)])
+def test_lrn_kernels_take_any_window_and_batch_on_card(cuda_card, shape,
+                                                       local_size):
+    """K1-K4 at windows wider than the register ring's (local_size > 11)
+    and at a batch past 65,535, against their plain versions, bit for
+    bit as at the narrower windows."""
+    x = torch.from_numpy(_x(shape, 5)).to(cuda_card)
+    dy = torch.from_numpy(_x(shape, 6, 1.0)).to(cuda_card)
+    b = torch.randn(shape[1], device=cuda_card)
+    ls = local_size
+    for relu in (False, True):
+        y = K.lrn_across_channels(x, ls, ALPHA, BETA, KK, relu)
+        assert torch.equal(y, K.lrn_plain(x, ls, ALPHA, BETA, KK, relu))
+        dx = K.lrn_across_channels_bwd(x, dy, ls, ALPHA, BETA, KK, relu)
+        _close(dx.cpu(), K.lrn_bwd_plain(x, dy, ls, ALPHA, BETA, KK,
+                                         relu).cpu(), 3e-4, 3e-5)
+    assert torch.equal(K.bias_relu_lrn_across_channels(x, b, ls, ALPHA,
+                                                       BETA, KK),
+                       K.lrn_plain(x, ls, ALPHA, BETA, KK, bias=b))
+    _close(K.bias_relu_lrn_across_channels_bwd(x, b, dy, ls, ALPHA, BETA,
+                                               KK).cpu(),
+           K.bias_relu_lrn_bwd_plain(x, b, dy, ls, ALPHA, BETA, KK).cpu(),
+           3e-4, 3e-5)
+
+
 # (B·H, T, D): tiles of 64 rows whole and ragged, every padded width
 FLASH_SHAPES = [(2, 64, 16), (3, 200, 48), (4, 384, 32), (1, 1, 8),
                 (2, 130, 128), (1, 65, 64), (2, 100, 96)]
@@ -169,6 +197,26 @@ def test_flash_kernels_match_plain_on_card(cuda_card, dtype):
         for g, w in zip(got, want):
             assert g.dtype == torch.float32
             _close(g.cpu(), w.cpu(), FLASH_RTOL, FLASH_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("bfloat16", "float32")])
+def test_flash_backward_is_deterministic_on_card(cuda_card, dtype,
+                                                 out_dtype):
+    """K7 and K8 have one owner block per output tile and no atomics:
+    two runs on the same inputs give bit-equal dq, dk, dv, in every
+    (input, output) dtype pair."""
+    dt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+    for causal in (False, True):
+        q, k, v, do = _flash_inputs((4, 384, 64), 3, cuda_card, dt)
+        o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
+        delta = (do.float() * o_p.float()).sum(-1)
+        runs = [K.flash_bwd_block(q, k, v, do, lse_p, delta, causal=causal,
+                                  out_dtype=odt) for _ in range(2)]
+        for a, b in zip(*runs):
+            assert a.dtype == odt and torch.equal(a, b)
 
 
 @pytest.mark.cuda
