@@ -8,9 +8,9 @@
 //   * `flash_bwd_block`, its dk/dv call (`_flash_bwd_dkv_kernel`)
 //     -> `cos_flash_bwd_dkv` (K8);
 //   * `flash_block_update` (kernel `_flash_carry_kernel`)
-//     -> `cos_flash_block_update` (K9): one ring-attention hop, K6's
-//     loop started from and ended in an (m, l, acc) carry in memory
-//     (see the section of K9 below).
+//     -> `cos_flash_block_update` (K9): one ring-attention hop, the
+//     forward's online softmax started from and ended in an (m, l, acc)
+//     carry in memory (see the section of K9 below).
 //
 // q, k, v, dO are (BH, T, D) row-major, f32 or bf16; lse and delta are
 // (BH, T) f32.  scale = 1/sqrt(D).  With `causal`, key c is visible to
@@ -23,8 +23,8 @@
 //   backward  p = exp(s - lse), dp = dO V^T, ds = p (dp - delta) scale,
 //             dq = ds K, dv = p^T dO, dk = ds^T q.
 // Any T >= 1 (the ragged tail of a tile is zero-filled, and its keys
-// are left out: p = 0) and any D <= 128 (padded with zeros to 32, 64 or
-// 128 in shared memory).
+// are left out: p = 0) and any D <= 256 (padded with zeros to 32, 64,
+// 128 or 256 in shared memory).
 //
 // What bounds them on the H100: operations.  At (BH, T, D) = (64, 2048,
 // 64), causal, the forward does 34.4 GFLOP (two products over half the
@@ -34,7 +34,14 @@
 // outside the tensor cores) and the ~150 at which its TF32 tensor cores
 // (495 TFLOP/s) stop waiting on its 3.35 TB/s.
 //
-// K6 and K9 are simple SIMT kernels (their redesign is later work):
+// K6, K7 and K8 run all their products on the tensor cores (`mma.sync`,
+// 3xTF32 for f32 inputs, bf16 for bf16 inputs, f32 accumulators) and
+// stream the other side's tiles with `cp.async` in a two-stage ring; the
+// section of K6, K7 and K8 below has the details.  Under 3xTF32 the
+// forward's 34.4 GFLOP cost at least 0.208 ms at 495 TFLOP/s, K7 + K8's
+// 120 GFLOP at least 0.73 ms.
+//
+// K9 is a simple SIMT kernel (its redesign is later work):
 //   * a block of 128 threads owns a 64-row query tile and streams the
 //     key tiles through shared memory, so every score and probability
 //     stays on chip: no T^2 matrix touches device memory, as on the TPU;
@@ -46,28 +53,20 @@
 //     shuffles; P goes back through shared memory, transposed, to feed
 //     the second product;
 //   * math is f32 for f32 and bf16 inputs alike (bf16 is converted on
-//     load; results are rounded with __float2bfloat16_rn); exp and log
-//     are the accurate expf/logf.
-//
-// K7 and K8 run all four of their products on the tensor cores
-// (`mma.sync`, 3xTF32 for f32 inputs, bf16 for bf16 inputs, f32
-// accumulators) and stream their tiles with `cp.async` in a two-stage
-// ring; the section of K7 and K8 below has the details.  At the causal
-// main shape their 120 GFLOP cost 3 x 120 TF32 GFLOP under 3xTF32, at
-// least 0.73 ms at 495 TFLOP/s (1.8 ms at f32's 67 TFLOP/s).
+//     load); exp and log are the accurate expf/logf.
 //
 // Common to all four:
 //   * no atomics: every output tile has one owner block (K6, K7 and K9
-//     own query rows, K8 key rows), so all are deterministic, as the TPU
-//     split is;
+//     own query rows, K8 key rows and, at D > 128, half of the columns),
+//     so all are deterministic, as the TPU split is;
 //   * causal blocks stop at (K6, K7) or start from (K8) the diagonal,
 //     the TPU kernels' skip, and the grid hands out the longest rows
 //     first so the short ones fill the tail.
 //
-// Shared memory is dynamic (cudaFuncSetAttribute above 48 KB): K6 and K9
-// 67 KB at D <= 64 (117 KB at 128); K7 104 KB in f32 at D <= 64 (203 KB
-// at 128; 55 KB in bf16 at 64), K8 87 KB (136 KB at 128; 56 KB in bf16
-// at 64): two blocks an SM in f32 at D <= 64, one at 128.
+// Shared memory is dynamic (cudaFuncSetAttribute above 48 KB); the
+// sizes of K6, K7 and K8 follow from `FwdTiles` and `BwdTiles` below
+// (at most 200 KB, f32 at D = 256), K9's from `fwd_smem` (67 KB at
+// D <= 64, 117 KB at 128, 217 KB at 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -177,105 +176,12 @@ __device__ __forceinline__ void store_t(float* s, int row0, int col0,
 }
 
 // ---------------------------------------------------------------------------
-// K6: forward.  grid (BH, ceil(T / 64)); a block owns 64 query rows.
-// ---------------------------------------------------------------------------
-
-template <int DP>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * DP * kLdT + kRows * DP + kRows * kLdT);
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Tn, int D, float scale,
-                 int causal) {
-  constexpr int TD = DP / 16;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DP][kLdT] queries
-  float* kt = qt + DP * kLdT;                   // [DP][kLdT] keys
-  float* vs = kt + DP * kLdT;                   // [kRows][DP] values
-  float* pt = vs + kRows * DP;                  // [kRows][kLdT] P, key-major
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t head = (int64_t)blockIdx.x * Tn * D;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
-
-  load_tile<T, kRows, DP>(q + head, q0, Tn, D, qt, kLdT, nullptr);
-  float m[8], l[8], acc[8][TD];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
-  }
-  const int q_end = min(Tn, q0 + kRows);
-  const int kv_end = causal ? q_end : Tn;
-  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, kRows, DP>(k + head, k0, Tn, D, kt, kLdT, nullptr);
-    load_tile<T, kRows, DP>(v + head, k0, Tn, D, nullptr, 0, vs);
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_mma<DP, 8, 4>(qt + ty * 8, kLdT, kt + tx * 4, kLdT, s);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = q0 + ty * 8 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        float x = s[i][j] * scale;
-        if (c >= Tn) x = -INFINITY;  // past the end: no contribution
-        else if (causal && r < c) x = kNeg;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = m_new <= kNeg * 0.5f ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_safe);
-        sum += s[i][j];
-      }
-      sum = row_sum(sum);
-      const float corr = expf(m[i] - m_safe);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= corr;
-    }
-    store_t<4>(pt, ty * 8, tx * 4, s);
-    __syncthreads();
-    tile_mma<kRows, 8, TD>(pt + ty * 8, kLdT, vs + tx * TD, DP, acc);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    if (r >= Tn) continue;
-#pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx * TD + j;
-      if (d < D) store(o + head + (int64_t)r * D + d, acc[i][j] / l[i]);
-    }
-    if (tx == 0) lse[(int64_t)blockIdx.x * Tn + r] = m[i] + logf(l[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K7 and K8: the backward on the tensor cores.
+// K6, K7 and K8 on the tensor cores.
 //
 // Each block has 4 warps; a warp owns one or two 16-row m-tiles of the
-// block's tile (BwdTiles below) and computes its rows of every product
-// with `mma.sync` (m16n8k8 tf32 for f32 inputs, m16n8k16 bf16 for bf16
-// inputs, f32 accumulators).  The operands that stream past the owned
+// block's tile (FwdTiles, BwdTiles below) and computes its rows of every
+// product with `mma.sync` (m16n8k8 tf32 for f32 inputs, m16n8k16 bf16
+// for bf16 inputs, f32 accumulators).  The operands that stream past the owned
 // tile sit in a two-stage ring of dynamic shared memory, filled by
 // 16-byte `cp.async` copies (zero-filled past T and past D); the next
 // tile's copies are issued before the current tile's products.  Rows
@@ -289,8 +195,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //     (t, g) (t+4, g)
 //   bf16 A (16 x 16): pairs (g, 2t..2t+1) (g+8, 2t..) (g, 2t+8..)
 //     (g+8, 2t+8..); B (16 x 8): pairs (2t..2t+1, g) (2t+8..2t+9, g)
-// The second product of each pair (dS K; P^T dO, dS^T Q) takes its A
-// operand straight from the first product's C registers.  In bf16 the C
+// The second product of each pair (P V in K6; dS K; P^T dO, dS^T Q)
+// takes its A operand straight from the first product's C registers.  In bf16 the C
 // layout of two n-tiles is the A layout of one k-step.  In tf32 it is
 // not, so the reduction index is permuted: A's column t stands for key
 // (or query) 2t of the k-step and column t+4 for 2t+1, and the B loads
@@ -304,6 +210,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // K, V, dO) are exact in bf16, so Q K^T and dO V^T are one bf16 product
 // each; P and dS are f32 values and enter their products as a bf16 high
 // part plus a bf16 remainder (two products), about 16 bits of mantissa.
+//
+// K6 reads its bf16 fragments with `ldmatrix` (one instruction loads the
+// A fragment, or the B fragments of two n-tiles; `.trans` for V, whose
+// rows are the reduction index), and keeps the Q fragments in registers
+// for the whole key loop where they fit (bf16 at D <= 128: 4 D/16
+// registers an m-tile).  Its f32 fragments are split as they are loaded
+// (`frag_*` fall back to the scalar loads), Q's anew for every key tile.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -432,6 +345,21 @@ struct Mma<float> {
     mma_tf32(c, a.big, b.small);
     mma_tf32(c, a.big, b.big);
   }
+  // K6's loads: the fragments above, B two n-tiles at a time
+  __device__ static void frag_a(AS& a, const float* s, int ld, int r, int k,
+                                int lane) {
+    load_a(a, s, ld, r, k, lane >> 2, lane & 3);
+  }
+  __device__ static void frag_bn2(B (&b)[2], const float* s, int ld, int n,
+                                  int k, int lane) {
+    load_bn(b[0], s, ld, n, k, lane >> 2, lane & 3);
+    load_bn(b[1], s, ld, n + 8, k, lane >> 2, lane & 3);
+  }
+  __device__ static void frag_bt2(B (&b)[2], const float* s, int ld, int k,
+                                  int n, int lane) {
+    load_bt(b[0], s, ld, k, n, lane >> 2, lane & 3);
+    load_bt(b[1], s, ld, k, n + 8, lane >> 2, lane & 3);
+  }
 };
 
 template <>
@@ -496,29 +424,347 @@ struct Mma<__nv_bfloat16> {
     mma_bf16(c, a.lo, b.x);
     mma_bf16(c, a.hi, b.x);
   }
+  // K6's loads by ldmatrix: lane l gives the row address of 8 x 8 matrix
+  // l / 8 and receives its (l / 4, 2 (l % 4)) pair of every matrix, which
+  // is the fragment layout above (`.trans`: the (2 (l % 4), l / 4) pair)
+  __device__ static void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  }
+  __device__ static void ldsm4_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  }
+  // matrices: rows r / r+8 / r / r+8, columns k / k / k+8 / k+8
+  __device__ static void frag_a(AS& a, const __nv_bfloat16* s, int ld,
+                                int r, int k, int lane) {
+    const int i = lane >> 3;
+    ldsm4(a.x, s + (r + (i & 1) * 8 + (lane & 7)) * ld + k + (i >> 1) * 8);
+  }
+  // tile[n][k]: matrices (n, k) (n, k+8) (n+8, k) (n+8, k+8)
+  __device__ static void frag_bn2(B (&b)[2], const __nv_bfloat16* s, int ld,
+                                  int n, int k, int lane) {
+    const int i = lane >> 3;
+    uint32_t r[4];
+    ldsm4(r, s + (n + (i >> 1) * 8 + (lane & 7)) * ld + k + (i & 1) * 8);
+    b[0].x[0] = r[0];
+    b[0].x[1] = r[1];
+    b[1].x[0] = r[2];
+    b[1].x[1] = r[3];
+  }
+  // tile[k][n], transposed: matrices (k, n) (k+8, n) (k, n+8) (k+8, n+8)
+  __device__ static void frag_bt2(B (&b)[2], const __nv_bfloat16* s, int ld,
+                                  int k, int n, int lane) {
+    const int i = lane >> 3;
+    uint32_t r[4];
+    ldsm4_t(r, s + (k + (i & 1) * 8 + (lane & 7)) * ld + n + (i >> 1) * 8);
+    b[0].x[0] = r[0];
+    b[0].x[1] = r[1];
+    b[1].x[0] = r[2];
+    b[1].x[1] = r[3];
+  }
 };
 
+// The reduction depth of one partial sum of the score products: f32
+// inputs at D > 128 sum Q K^T and dO V^T in groups of 64 (see the tile
+// shapes below); everything else in one chain.
+constexpr int score_group(bool f32, int dp) {
+  return f32 && dp > 128 ? 64 : dp;
+}
+
+// s = p (first group) or s += p, elementwise over one warp's C tiles
+template <int MT, int NT>
+__device__ __forceinline__ void add_group(float (&s)[MT][NT][4],
+                                          const float (&p)[MT][NT][4],
+                                          bool first) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[m][j][e] = first ? p[m][j][e] : s[m][j][e] + p[m][j][e];
+}
+
 // ---------------------------------------------------------------------------
-// Tile shapes of K7 and K8.  A warp owns MT m-tiles (16 rows each), so
-// every B fragment it loads from shared memory feeds MT products.  f32
-// inputs at D <= 64 take MT = 2 (a block owns 128 rows; by chip_smoke.py
-// on an H100, K7 + K8 6-10 % faster than with MT = 1, whose 3xTF32
-// fragments are split anew for every product); bf16 inputs and D = 128
-// take MT = 1 (64 rows), where two m-tiles need smaller streamed tiles
-// to fit the registers (the accumulators alone take D floats an
-// m-tile), and the extra tile steps cost bf16 more than the shared
-// loads save (11 % slower with MT = 2).
+// Tile shapes of K6, K7 and K8.  A warp owns MT m-tiles (16 rows each),
+// so every B fragment it loads from shared memory feeds MT products.
+// f32 inputs at D <= 64 take MT = 2 (a block owns 128 rows; by
+// chip_smoke.py on an H100, K7 + K8 6-10 % faster than with MT = 1, whose
+// 3xTF32 fragments are split anew for every product); bf16 inputs and
+// D >= 128 take MT = 1 (64 rows), where two m-tiles need smaller
+// streamed tiles to fit the registers (the accumulators alone take D
+// floats an m-tile), and the extra tile steps cost bf16 more than the
+// shared loads save (11 % slower with MT = 2).
+//
+// D = 256 (D in 129..256, padded): one m-tile a warp, and streamed
+// tiles of 16 (f32) or 32 (bf16) rows, so that two stages of them
+// beside the resident 64 rows fit 227 KB (f32 K7: 4 B x 2 x (64 + 2 x
+// 16) x 260 = 200 KB).  K8 cannot hold dK and dV of a 16-row m-tile in
+// registers there (2 x 16 x 256 f32 over 32 lanes is 256 registers a
+// lane), so it splits the D columns of its accumulators over grid.z:
+// each of two blocks owns the same 64 keys and half of dK's and dV's
+// columns, and both compute the full S^T and dP^T (their reduction runs
+// over all of D).  The split costs those two products twice (1.5x K8's
+// operations) but no extra shared memory, no second warp layout and no
+// exchange between warps; splitting over two warps of one block would
+// save the recomputation's loads of Q and dO but needs 8 warps and an
+// exchange of P^T and dS^T, or the same recomputation inside the block.
+//
+// Also at D = 256 in f32, the score products (S and dP; S^T and dP^T)
+// sum their reduction over D in groups of GK = 64: each group's mma
+// chain starts from zero registers and is added to the scores by f32
+// adds.  The tensor cores' f32 accumulation does not round to nearest,
+// and one chain over all 256 (3 x 32 mma steps) drifted dq and dk past
+// FLASH_GRAD_ATOL on a few elements of (16, 2048, 256) on an H100,
+// where shorter chains stayed inside it; groups of 64 kept most of that
+// accuracy for a few per cent of time, shorter groups cost more time
+// than they gained accuracy (chip_smoke.py reports each D = 256 check's
+// error against a float64 reference beside the plain version's).
 // ---------------------------------------------------------------------------
 
 template <typename TI, int DP>
 struct BwdTiles {
-  static constexpr bool kTwoTiles = sizeof(TI) == 4 && DP <= 64;
+  static constexpr bool kF32 = sizeof(TI) == 4;
+  static constexpr bool kTwoTiles = kF32 && DP <= 64;
   static constexpr int MT = kTwoTiles ? 2 : 1;         // m-tiles a warp
   static constexpr int ROWS = 4 * 16 * MT;             // rows a block owns
-  static constexpr int DQ_KEYS = kTwoTiles ? 32 : 64;  // K7's key tile
+  static constexpr int DQ_KEYS =                       // K7's key tile
+      kTwoTiles ? 32 : (DP <= 128 ? 64 : (kF32 ? 16 : 32));
   static constexpr int DKV_QUERIES =                   // K8's query tile
-      kTwoTiles ? 16 : (DP <= 64 ? 64 : 32);
+      kTwoTiles ? 16 : (DP <= 64 ? 64 : (DP <= 128 || !kF32 ? 32 : 16));
+  static constexpr int DKV_SPLIT = DP > 128 ? 2 : 1;   // K8's grid.z
+  static constexpr int GK = score_group(kF32, DP);
 };
+
+// K6: f32 at D <= 64 two m-tiles a warp and 32-key tiles (three blocks
+// an SM), f32 at D = 128 32-key tiles (two an SM); bf16 64-key tiles at
+// D <= 128; 32-key tiles at D = 256 (f32 one block an SM, bf16 two).
+template <typename TI, int DP>
+struct FwdTiles {
+  static constexpr bool kF32 = sizeof(TI) == 4;
+  static constexpr int MT = kF32 && DP <= 64 ? 2 : 1;
+  static constexpr int ROWS = 4 * 16 * MT;
+  static constexpr int KEYS = kF32 || DP > 128 ? 32 : 64;
+  static constexpr bool kQRegs = !kF32 && DP <= 128;  // Q in registers
+  static constexpr int GK = score_group(kF32, DP);
+};
+
+template <typename TI, int DP>
+constexpr size_t fwd_mma_smem() {
+  using S = FwdTiles<TI, DP>;
+  return sizeof(TI) * (S::ROWS + 4 * S::KEYS) * (DP + Mma<TI>::LDP);
+}
+
+// ---------------------------------------------------------------------------
+// K6: forward.  grid (BH, ceil(T / ROWS)); a block owns ROWS query rows
+// (Q resident) and walks the key tiles (K and V, two stages) up to the
+// diagonal.  Per key tile a warp computes its rows of S = Q K^T in C
+// registers, runs the online softmax on them (the 4 lanes of a quad
+// share a row: its max and sum by two xor shuffles), rescales its O
+// accumulators by corr and adds P V with P's registers as the A operand.
+// O = acc / l and lse = m + log l are written by the owner block.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <typename TI, int DP>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                 const TI* __restrict__ v, TI* __restrict__ o,
+                 float* __restrict__ lse, int Tn, int D, float scale,
+                 int causal, int vec) {
+  using M = Mma<TI>;
+  using S = FwdTiles<TI, DP>;
+  constexpr int LD = DP + M::LDP;
+  constexpr int MT = S::MT;
+  constexpr int BR = S::ROWS;  // query rows a block
+  constexpr int BC = S::KEYS;  // keys a tile
+  constexpr int NT = BC / 8;   // n-tiles of S
+  constexpr int ND = DP / 8;   // n-tiles of O
+  constexpr int KQ = S::kQRegs ? DP / M::KS : 1;
+  extern __shared__ float4 smem4[];
+  TI* qs = reinterpret_cast<TI*>(smem4);  // [BR][LD] queries
+  TI* ks = qs + BR * LD;                  // [2][BC][LD] keys
+  TI* vs = ks + 2 * BC * LD;              // [2][BC][LD] values
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16 * MT;
+  const int64_t head = (int64_t)blockIdx.x * Tn * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest first
+  const int q_end = min(Tn, q0 + BR);
+  const int n_tiles = ((causal ? q_end : Tn) + BC - 1) / BC;
+
+  load_rows<TI, BR, DP, LD>(qs, q + head, q0, Tn, D, vec);
+  load_rows<TI, BC, DP, LD>(ks, k + head, 0, Tn, D, vec);
+  load_rows<TI, BC, DP, LD>(vs, v + head, 0, Tn, D, vec);
+  cp_async_commit();
+
+  float m[MT][2], l[MT][2], acc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[mt][h] = kNeg;
+      l[mt][h] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
+  }
+  typename M::AS aq[MT][KQ];  // Q's fragments, where kQRegs
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BC;
+    const int buf = it & 1;
+    __syncthreads();  // every warp is done with the other stage
+    if (it + 1 < n_tiles) {
+      load_rows<TI, BC, DP, LD>(ks + (buf ^ 1) * BC * LD, k + head, k0 + BC,
+                                Tn, D, vec);
+      load_rows<TI, BC, DP, LD>(vs + (buf ^ 1) * BC * LD, v + head, k0 + BC,
+                                Tn, D, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage's copies (all but the newest group)
+    __syncthreads();
+    const TI* kt = ks + buf * BC * LD;
+    const TI* vt = vs + buf * BC * LD;
+    if constexpr (S::kQRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int kq = 0; kq < KQ; ++kq)
+            M::frag_a(aq[mt][kq], qs, LD, rw + 16 * mt, kq * M::KS, lane);
+      }
+    }
+
+    // S = Q K^T
+    float s[MT][NT][4];
+#pragma unroll
+    for (int kg = 0; kg < DP; kg += S::GK) {
+      float ps[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ps[mt][j][e] = 0.f;
+#pragma unroll
+      for (int kk = kg; kk < kg + S::GK; kk += M::KS) {
+        typename M::AS a[MT];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (S::kQRegs)
+            a[mt] = aq[mt][kk / M::KS];
+          else
+            M::frag_a(a[mt], qs, LD, rw + 16 * mt, kk, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          typename M::B b[2];
+          M::frag_bn2(b, kt, LD, 8 * j, kk, lane);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            M::mma(ps[mt][j], a[mt], b[0]);
+            M::mma(ps[mt][j + 1], a[mt], b[1]);
+          }
+        }
+      }
+      add_group(s, ps, kg == 0);
+    }
+    // the online softmax of rows g and g + 8 of each m-tile
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = q0 + rw + 16 * mt + g + 8 * h;
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = k0 + 8 * j + 2 * t + e;
+            float x = s[mt][j][2 * h + e] * scale;
+            if (c >= Tn) x = -INFINITY;  // past the end: no contribution
+            else if (causal && r < c) x = kNeg;
+            s[mt][j][2 * h + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = quad_max(mx);
+        const float m_new = fmaxf(m[mt][h], mx);
+        const float m_safe = m_new <= kNeg * 0.5f ? 0.f : m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = expf(s[mt][j][2 * h + e] - m_safe);
+            s[mt][j][2 * h + e] = p;
+            sum += p;
+          }
+        sum = quad_sum(sum);
+        const float corr = expf(m[mt][h] - m_safe);
+        l[mt][h] = l[mt][h] * corr + sum;
+        m[mt][h] = m_new;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[mt][n][2 * h] *= corr;
+          acc[mt][n][2 * h + 1] *= corr;
+        }
+      }
+    // O += P V
+#pragma unroll
+    for (int j = 0; j < BC / M::KS; ++j) {
+      typename M::AR a[MT];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) M::a_from_c(a[mt], s[mt], j);
+#pragma unroll
+      for (int n = 0; n < ND; n += 2) {
+        typename M::B b[2];
+        M::frag_bt2(b, vt, LD, j * M::KS, 8 * n, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          M::mma(acc[mt][n], a[mt], b[0]);
+          M::mma(acc[mt][n + 1], a[mt], b[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + rw + 16 * mt + g + 8 * h;
+      if (r >= Tn) continue;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = 8 * n + 2 * t + e;
+          if (d < D)
+            store(o + head + (int64_t)r * D + d,
+                  acc[mt][n][2 * h + e] / l[mt][h]);
+        }
+      if (t == 0)
+        lse[(int64_t)blockIdx.x * Tn + r] = m[mt][h] + logf(l[mt][h]);
+    }
+}
 
 // ---------------------------------------------------------------------------
 // K7: dq.  grid (BH, ceil(T / ROWS)); a block owns ROWS query rows (Q and
@@ -602,30 +848,36 @@ flash_bwd_dq_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 
     float s[MT][NT][4], dp[MT][NT][4];
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+    for (int kg = 0; kg < DP; kg += S::GK) {
+      float ps[MT][NT][4], pdp[MT][NT][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[m][j][e] = dp[m][j][e] = 0.f;
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += M::KS) {
-      typename M::AS aq[MT], ado[MT];
+          for (int e = 0; e < 4; ++e) ps[m][j][e] = pdp[m][j][e] = 0.f;
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        M::load_a(aq[m], qs, LD, rw + 16 * m, kk, g, t);
-        M::load_a(ado[m], dos, LD, rw + 16 * m, kk, g, t);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        typename M::B bk, bv;
-        M::load_bn(bk, kt, LD, 8 * j, kk, g, t);
-        M::load_bn(bv, vt, LD, 8 * j, kk, g, t);
+      for (int kk = kg; kk < kg + S::GK; kk += M::KS) {
+        typename M::AS aq[MT], ado[MT];
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          M::mma(s[m][j], aq[m], bk);
-          M::mma(dp[m][j], ado[m], bv);
+          M::load_a(aq[m], qs, LD, rw + 16 * m, kk, g, t);
+          M::load_a(ado[m], dos, LD, rw + 16 * m, kk, g, t);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          typename M::B bk, bv;
+          M::load_bn(bk, kt, LD, 8 * j, kk, g, t);
+          M::load_bn(bv, vt, LD, 8 * j, kk, g, t);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            M::mma(ps[m][j], aq[m], bk);
+            M::mma(pdp[m][j], ado[m], bv);
+          }
         }
       }
+      add_group(s, ps, kg == 0);
+      add_group(dp, pdp, kg == 0);
     }
     // p = exp(s scale - lse), dS = p (dP - delta) scale, into s
 #pragma unroll
@@ -675,7 +927,9 @@ flash_bwd_dq_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 // and V resident) and walks the query tiles (Q, dO, lse and delta, two
 // stages) from the diagonal.  A warp computes the transposed scores of
 // its keys, S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T are the
-// A operands of dV += P^T dO and dK += dS^T Q in its own registers.
+// A operands of dV += P^T dO and dK += dS^T Q in its own registers.  At
+// D > 128 block z of grid.z = 2 owns columns [z DP/2, (z+1) DP/2) of dK
+// and dV (BwdTiles).
 // ---------------------------------------------------------------------------
 
 template <typename TI, int DP>
@@ -701,7 +955,8 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   constexpr int BK = S::ROWS;         // key rows a block
   constexpr int BQ = S::DKV_QUERIES;  // queries a tile
   constexpr int NT = BQ / 8;          // n-tiles of S^T
-  constexpr int ND = DP / 8;          // n-tiles of dK, dV
+  constexpr int DH = DP / S::DKV_SPLIT;  // columns of dK, dV a block
+  constexpr int ND = DH / 8;          // n-tiles of dK, dV
   extern __shared__ float4 smem4[];
   TI* ks = reinterpret_cast<TI*>(smem4);  // [BK][LD] keys
   TI* vs = ks + BK * LD;                  // [BK][LD] values
@@ -713,6 +968,7 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   const int g = lane >> 2, t = lane & 3, rw = warp * 16 * MT;
   const int64_t head = (int64_t)blockIdx.x * Tn * D;
   const int64_t row0 = (int64_t)blockIdx.x * Tn;
+  const int d0 = blockIdx.z * DH;        // the block's dK, dV columns
   const int k0 = blockIdx.y * BK;        // causal: the first keys see most
   const int q_begin = causal ? k0 : 0;   // earlier queries see none of them
   const int n_tiles = (Tn - q_begin + BQ - 1) / BQ;
@@ -755,30 +1011,36 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 
     float st[MT][NT][4], dpt[MT][NT][4];  // [key][query]
 #pragma unroll
-    for (int m = 0; m < MT; ++m)
+    for (int kg = 0; kg < DP; kg += S::GK) {
+      float ps[MT][NT][4], pdp[MT][NT][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+      for (int m = 0; m < MT; ++m)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) st[m][j][e] = dpt[m][j][e] = 0.f;
+        for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int kk = 0; kk < DP; kk += M::KS) {
-      typename M::AS ak[MT], av[MT];
+          for (int e = 0; e < 4; ++e) ps[m][j][e] = pdp[m][j][e] = 0.f;
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        M::load_a(ak[m], ks, LD, rw + 16 * m, kk, g, t);
-        M::load_a(av[m], vs, LD, rw + 16 * m, kk, g, t);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        typename M::B bq, bdo;
-        M::load_bn(bq, qt, LD, 8 * j, kk, g, t);
-        M::load_bn(bdo, dot, LD, 8 * j, kk, g, t);
+      for (int kk = kg; kk < kg + S::GK; kk += M::KS) {
+        typename M::AS ak[MT], av[MT];
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          M::mma(st[m][j], ak[m], bq);
-          M::mma(dpt[m][j], av[m], bdo);
+          M::load_a(ak[m], ks, LD, rw + 16 * m, kk, g, t);
+          M::load_a(av[m], vs, LD, rw + 16 * m, kk, g, t);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          typename M::B bq, bdo;
+          M::load_bn(bq, qt, LD, 8 * j, kk, g, t);
+          M::load_bn(bdo, dot, LD, 8 * j, kk, g, t);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            M::mma(ps[m][j], ak[m], bq);
+            M::mma(pdp[m][j], av[m], bdo);
+          }
         }
       }
+      add_group(st, ps, kg == 0);
+      add_group(dpt, pdp, kg == 0);
     }
 #pragma unroll
     for (int m = 0; m < MT; ++m)
@@ -806,8 +1068,8 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
         typename M::B bdo, bq;
-        M::load_bt(bdo, dot, LD, j * M::KS, 8 * n, g, t);
-        M::load_bt(bq, qt, LD, j * M::KS, 8 * n, g, t);
+        M::load_bt(bdo, dot, LD, j * M::KS, d0 + 8 * n, g, t);
+        M::load_bt(bq, qt, LD, j * M::KS, d0 + 8 * n, g, t);
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
           M::mma(gv[m][n], ap[m], bdo);
@@ -824,7 +1086,7 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = k0 + rw + 16 * m + g + 8 * (e >> 1);
-        const int d = 8 * n + 2 * t + (e & 1);
+        const int d = d0 + 8 * n + 2 * t + (e & 1);
         if (c < Tn && d < D) {
           store(dk + head + (int64_t)c * D + d, gk[m][n][e]);
           store(dv + head + (int64_t)c * D + d, gv[m][n][e]);
@@ -836,13 +1098,16 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 // K9: one ring hop.  grid (BH, ceil(Tq / 64)); a block owns 64 query rows
 // of the fixed shard and walks the visiting block's key tiles.
 //
-// It is K6 with three changes: the (m, l, acc) carry is read from memory
-// at the start and written back at the end (no acc / l, no lse); the
-// causal test uses the blocks' global offsets, q_off + r >= k_off + c,
-// passed as plain int arguments (scalar prefetch on the TPU); and Tq and
-// Tk may differ.  What bounds it is what bounds K6: at the LM's per-rank
-// shape (64, 512, 512, 64) a full hop is 4.3 GFLOP of f32 FMA against
-// ~42 MB of operands and carry, ~100 operations per byte.
+// It is the forward's online softmax as a SIMT kernel (`load_tile`,
+// `tile_mma`), with three changes from the forward: the (m, l, acc)
+// carry is read from memory at the start and written back at the end
+// (no acc / l, no lse); the causal test uses the blocks' global offsets,
+// q_off + r >= k_off + c, passed as plain int arguments (scalar prefetch
+// on the TPU); and Tq and Tk may differ.  What bounds it is operations,
+// as for K6: at the LM's per-rank shape (64, 512, 512, 64) a full hop is
+// 4.3 GFLOP of f32 FMA against ~42 MB of operands and carry, ~100
+// operations per byte.  At D = 256 its tiles take 217 KB of shared
+// memory (one block an SM) and a thread's acc is 8 x 16 floats.
 //
 // The TPU kernel walks every key tile, so a row whose keys in this hop
 // are all hidden leaves with m' = max(m, -1e30): -1e30 where it came in
@@ -855,6 +1120,11 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 // exp(-inf) = 0, never NaN, for a row that has seen nothing yet.
 // The outputs are separate buffers (the wrapper allocates them).
 // ---------------------------------------------------------------------------
+
+template <int DP>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (2 * DP * kLdT + kRows * DP + kRows * kLdT);
+}
 
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
@@ -969,21 +1239,6 @@ dim3 grid_for(int BH, int Tn, int rows = kRows) {
   return dim3(BH, (Tn + rows - 1) / rows);
 }
 
-template <typename T, int DP>
-int fwd_launch(const void* q, const void* k, const void* v, void* o,
-               float* lse, int BH, int Tn, int D, float scale, int causal,
-               cudaStream_t s) {
-  auto kern = flash_fwd_kernel<T, DP>;
-  constexpr size_t smem = fwd_smem<DP>();
-  int err = prepare(kern, smem);
-  if (err) return err;
-  kern<<<grid_for(BH, Tn), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Tn, D, scale,
-      causal);
-  return (int)cudaGetLastError();
-}
-
 // 16-byte copies need rows of whole 16-byte chunks and aligned bases
 template <typename TI>
 int vec_ok(int D, const void* q, const void* k, const void* v,
@@ -992,6 +1247,21 @@ int vec_ok(int D, const void* q, const void* k, const void* v,
   for (const void* p : {q, k, v, dout})
     if (reinterpret_cast<uintptr_t>(p) % 16) return 0;
   return 1;
+}
+
+template <typename T, int DP>
+int fwd_launch(const void* q, const void* k, const void* v, void* o,
+               float* lse, int BH, int Tn, int D, float scale, int causal,
+               cudaStream_t s) {
+  auto kern = flash_fwd_kernel<T, DP>;
+  constexpr size_t smem = fwd_mma_smem<T, DP>();
+  int err = prepare(kern, smem);
+  if (err) return err;
+  kern<<<grid_for(BH, Tn, FwdTiles<T, DP>::ROWS), kThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Tn, D, scale,
+      causal, vec_ok<T>(D, q, k, v, q));
+  return (int)cudaGetLastError();
 }
 
 template <typename TI, typename TO, int DP>
@@ -1019,7 +1289,9 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
   constexpr size_t smem = dkv_smem<TI, DP>();
   int err = prepare(kern, smem);
   if (err) return err;
-  kern<<<grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS), kThreads, smem, s>>>(
+  dim3 grid = grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS);
+  grid.z = BwdTiles<TI, DP>::DKV_SPLIT;
+  kern<<<grid, kThreads, smem, s>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<const TI*>(dout), lse, delta,
       static_cast<TO*>(dk), static_cast<TO*>(dv), Tn, D, scale, causal,
@@ -1045,7 +1317,7 @@ int carry_launch(const void* q, const void* k, const void* v,
 }
 
 int check_args(int BH, int Tn, int D) {
-  if (BH <= 0 || Tn <= 0 || D <= 0 || D > 128 ||
+  if (BH <= 0 || Tn <= 0 || D <= 0 || D > 256 ||
       (Tn + kRows - 1) / kRows > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -1056,7 +1328,8 @@ template <template <int> class Fn, typename... Args>
 int by_width(int D, Args... args) {
   if (D <= 32) return Fn<32>::run(args...);
   if (D <= 64) return Fn<64>::run(args...);
-  return Fn<128>::run(args...);
+  if (D <= 128) return Fn<128>::run(args...);
+  return Fn<256>::run(args...);
 }
 
 template <typename T>

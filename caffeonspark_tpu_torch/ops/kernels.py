@@ -423,7 +423,7 @@ def int8_inner_product(x: torch.Tensor, w: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 FLASH_NEG = -1e30        # the TPU kernels' finite mask value (_NEG_INF)
-FLASH_MAX_D = 128
+FLASH_MAX_D = 256
 
 
 def _causal_mask(s: torch.Tensor) -> torch.Tensor:
@@ -497,7 +497,7 @@ def flash_bwd_block_plain(qf, kf, vf, dof, lse, delta, *, causal: bool,
 def _check_flash(name: str, qf: torch.Tensor, *others: torch.Tensor,
                  stats: Tuple[torch.Tensor, ...] = ()) -> None:
     """(B·H, T, D) operands of one dtype, device and shape, contiguous,
-    D <= 128; the row statistics (B·H, T) f32 contiguous."""
+    D <= FLASH_MAX_D; the row statistics (B·H, T) f32 contiguous."""
     if qf.dim() != 3 or qf.numel() == 0:
         raise ValueError(f"{name}: expected a non-empty (B*H, T, D), got "
                          f"{tuple(qf.shape)}")
@@ -535,7 +535,7 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor,
                         vf: torch.Tensor, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 on (B·H, T, D): (O in q's dtype, lse (B·H, T) f32), any T >= 1,
-    D <= 128, f32 or bf16."""
+    D <= 256, f32 or bf16."""
     name = "flash_attention_fwd"
     if not _route(qf, name):
         return flash_attention_plain(qf, kf, vf, causal)
@@ -697,7 +697,7 @@ def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
     online-softmax carry of the fixed queries q (BH, Tq, D), returning
     the new (m, l, acc).  q_off and k_off are the blocks' global time
     offsets (host integers: no hop synchronizes the device), used for
-    the causal mask.  Any Tq, Tk >= 1 and D <= 128; q, k_blk, v_blk f32
+    the causal mask.  Any Tq, Tk >= 1 and D <= 256; q, k_blk, v_blk f32
     or bf16 of one dtype; the carry is always f32, as the ring passes
     it, and any other carry dtype is refused."""
     name = "flash_block_update"

@@ -20,16 +20,22 @@ or the package is not importable, and when any phase fails.  Phases:
      dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and not,
      f32 and bf16, at (64, 2048, 128) f32 causal, at the sp ring's
      backward call (64, 512, 64) bf16 in, f32 gradients out, causal and
-     not, and at ragged (3, 200, 48) and (4, 384, 32), with kernel /
-     plain / library / bound times (K7/K8's bound on their tensor-core
-     route, 3xTF32 or bf16, beside the f32 SIMT figure) and K7/K8 run
-     twice for bit-equal gradients; K9 (the ring hop) at
+     not, at head_dim 256 (16, 2048, 256), f32 and bf16, causal and not
+     (with each output's error against float64 beside the plain
+     version's), and at ragged (3, 200, 48), (4, 384, 32) and (4, 384,
+     200), with kernel / plain / library / bound times (the bound on
+     the kernels' tensor-core route, 3xTF32 or bf16, beside the f32 SIMT
+     figure), K6 run twice for bit-equal O and lse and K7/K8 twice for
+     bit-equal gradients; K5 twice per shape and once more after its
+     timed calls, exact each time; K9 (the ring hop) at
      the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512, 512, 64), f32
      and bf16: the diagonal causal hop (q_off = k_off = 512), a fully
      visible causal hop (q_off 1536, k_off 0) and a non-causal hop, each
      from the ring's first carry (timed: kernel / plain / bound) and
      from a mid-ring carry, then the ragged (3, 200, 328, 48) at q_off
-     100, k_off 150, whose first rows see no key, causal and not;
+     100, k_off 150, whose first rows see no key, causal and not, and at
+     head_dim 256 (16, 512, 512, 256) on a diagonal and a full causal
+     hop (timed) and at a ragged (3, 200, 328, 200);
   4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
      written with the port's own save_caffemodel and seeded fillers;
   5. that model served through the CLI's start_server (-serve path),
@@ -77,10 +83,16 @@ or the package is not importable, and when any phase fails.  Phases:
      (loss 1e-5, gradients LM_STEP_GRAD_TOL); 5 synchronized direct
      steps; one step under torch.profiler, with K9's and the flash
      kernels' share of the busy time;
- 15. a `kernels` JSON line: launches on the serving, image-net training,
-     LM training and sp LM training paths and the numbers of phase 3;
-     then the card line again;
- 16. the device line, last: {"ok": true, "device": {...}}.
+ 15. the LM with 4 heads of 256 (d_model 1024, the zoo's transformer_lm
+     at heads 4), same rows and solver, trained through the CLI for 8
+     steps (counts zeroed before, read after): K6, K7 and K8 at head_dim
+     256, 16 launches each; one step against the all-plain step (loss
+     1e-5, gradients LM_STEP_GRAD_TOL) and the step with only K6 plain
+     (STEP_GRAD_TOL); 5 synchronized direct steps; one profiled step;
+ 16. a `kernels` JSON line: launches on the serving, image-net training,
+     LM training, sp LM training and head_dim-256 LM training paths and
+     the numbers of phase 3; then the card line again;
+ 17. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -135,6 +147,9 @@ SP_T_LOCAL = FLASH_T // SP
 # the transformer LM: the zoo's vocab and depth, heads/head_dim/T of
 # scripts/bench_attention.py:56, batch 4 (8,192 tokens a step)
 LM = dict(vocab=1000, d_model=1024, heads=16, layers=2, seq=2048, batch=4)
+# the same LM with 4 heads of 256 (the zoo's transformer_lm at d_model
+# 1024, heads 4; the head width of published LMs such as Gemma 7B)
+LM256 = dict(LM, heads=4)
 LM_ROWS = 64
 
 PALLAS = "caffeonspark_tpu/ops/pallas_kernels.py"
@@ -396,6 +411,9 @@ def check_int8(K, torch, m, n, kk, results, timed=True):
     check(got.dtype == torch.int32 and max_err == 0,
           f"int8_matmul ({m},{kk})x({n},{kk}): not exact "
           f"(max abs err {max_err})")
+    # a second call on the same inputs gives the same exact product
+    check(torch.equal(K.int8_matmul(xq, wq), want),
+          f"int8_matmul ({m},{kk})x({n},{kk}): a second call differs")
     rec = dict(shape=[m, n, kk], dtype="int8", max_abs_err=max_err)
     if timed:
         nbytes = m * kk + n * kk + 4 * m * n
@@ -414,6 +432,9 @@ def check_int8(K, torch, m, n, kk, results, timed=True):
                    library_ms=lib_ms,
                    bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+        check(torch.equal(K.int8_matmul(xq, wq), want),
+              f"int8_matmul ({m},{kk})x({n},{kk}): not exact after "
+              "the timed calls")
         log(f"  int8_matmul M={m} N={n} K={kk}: exact; kernel {ms:.4f} ms "
             f"(launch path {host_us:.1f} us on the host) "
             f"plain {plain_ms:.4f} ms library "
@@ -448,8 +469,8 @@ def _flash_err(name, got, want, dtype, torch, fwd):
     return max_err, bool(torch.equal(got, want)), int((g != w).sum())
 
 
-def bwd_bound(ops, dtype):
-    """K7/K8's bound on their route: f32 inputs as 3xTF32 (three tf32
+def mma_bound(ops, dtype):
+    """K6/K7/K8's bound on their route: f32 inputs as 3xTF32 (three tf32
     products per product) at TF32_OPS_PER_S, bf16 at BF16_OPS_PER_S;
     and the f32 SIMT figure (F32_OPS_PER_S) earlier rows were held to."""
     import torch
@@ -457,6 +478,23 @@ def bwd_bound(ops, dtype):
         return 3 * ops / TF32_OPS_PER_S, "3xTF32 tensor cores", \
             ops / F32_OPS_PER_S
     return ops / BF16_OPS_PER_S, "bf16 tensor cores", ops / F32_OPS_PER_S
+
+
+def _flash_ref64(q, k, v, do, lse, delta, causal):
+    """O, dq, dk, dv in float64 from the same inputs and statistics
+    (the plain versions' formulas)."""
+    import torch
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    s = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        t = s.shape[-1]
+        keep = torch.ones(t, t, dtype=torch.bool, device=s.device).tril()
+        s = torch.where(keep, s, -1e30)
+    o = torch.softmax(s, -1) @ v
+    p = torch.exp(s - lse.double()[..., None])
+    ds = p * (do @ v.transpose(-1, -2) - delta.double()[..., None]) \
+        / math.sqrt(q.shape[-1])
+    return o, ds @ k, ds.transpose(-1, -2) @ q, p.transpose(-1, -2) @ do
 
 
 def check_flash(K, torch, shape, dtype, causal, results, timed=True,
@@ -474,7 +512,12 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
     q, k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
     o, lse = K.flash_attention_fwd(q, k, v, causal)
+    o2, lse2 = K.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
+    fwd_det = torch.equal(o, o2) and torch.equal(lse, lse2)
+    check(fwd_det, f"flash_attention_fwd {shape} {dtype} causal={causal}: "
+          "two runs on the same inputs differ")
+    del o2, lse2
     o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
     gdt = out_dtype or dtype
     tag = (f"{shape} {str(dtype).replace('torch.', '')} causal={causal}"
@@ -514,7 +557,8 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
     recs = {
         "flash_attention_fwd": dict(base, max_abs_err=max(e_o[0], e_l[0]),
                                     bit_equal=e_o[1] and e_l[1],
-                                    elements_differing=e_o[2] + e_l[2]),
+                                    elements_differing=e_o[2] + e_l[2],
+                                    deterministic=fwd_det),
         "flash_attention_bwd_dq": dict(bwd_base, max_abs_err=e_dq[0],
                                        bit_equal=e_dq[1],
                                        elements_differing=e_dq[2]),
@@ -525,6 +569,18 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
     }
     maxes = (float(o_p.float().abs().max()), float(dq_p.float().abs().max()),
              float(dk_p.float().abs().max()), float(dv_p.float().abs().max()))
+    if d > 128:
+        # the kernels' and the plain versions' error against float64
+        ref = _flash_ref64(q, k, v, do, lse_p, delta, causal)
+        errs = {nm: [float((x.double() - r).abs().max()) for x in xs]
+                for nm, xs, r in zip(("O", "dq", "dk", "dv"),
+                                     ((o, o_p), (dq, dq_p), (dk, dk_p),
+                                      (dv, dv_p)), ref)}
+        del ref
+        for name in recs:
+            recs[name]["f64_err_kernel_plain"] = errs
+        log("    against float64, kernel / plain: " + ", ".join(
+            f"{nm} {e[0]:.3g} / {e[1]:.3g}" for nm, e in errs.items()))
     del o, lse, dq, dk, dv, dq_p, dk_p, dv_p
     if timed:
         b4 = bh // 16
@@ -575,22 +631,15 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
             ms, host_us = time_ms(run, sets)
             plain_ms, _ = time_ms(plain, sets, iters=5)
             t_bytes = nbytes / HBM_BYTES_PER_S
-            if name == "flash_attention_fwd":
-                t_ops, route = ops / (F32_OPS_PER_S if dtype == torch.float32
-                                      else BF16_OPS_PER_S), None
-                simt = t_ops
-            else:
-                t_ops, route, simt = bwd_bound(ops, dtype)
+            t_ops, route, simt = mma_bound(ops, dtype)
             recs[name].update(
                 ms=ms, host_us=host_us, plain_ms=plain_ms,
                 library_ms=lib_fwd if name == "flash_attention_fwd"
                 else lib_bwd, bound_ms=1e3 * max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 gflop=ops / 1e9)
-            if route is not None:
-                recs[name].update(bound_route=route,
-                                  f32_simt_bound_ms=1e3 * max(t_bytes,
-                                                              simt))
+            recs[name].update(bound_route=route,
+                              f32_simt_bound_ms=1e3 * max(t_bytes, simt))
         del sets
     for name, rec in recs.items():
         results.setdefault(name, []).append(rec)
@@ -778,7 +827,12 @@ def flash_phase(K, torch, res):
     for causal in (True, False):
         check_flash(K, torch, (FLASH_BH, SP_T_LOCAL, FLASH_D),
                     torch.bfloat16, causal, res, out_dtype=torch.float32)
-    for shape in ((3, 200, 48), (4, 384, 32)):
+    # head_dim 256, the widest the kernels take (the LM at 4 heads)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            check_flash(K, torch, (FLASH_BH // 4, FLASH_T, 256), dtype,
+                        causal, res)
+    for shape in ((3, 200, 48), (4, 384, 32), (4, 384, 200)):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 check_flash(K, torch, shape, dtype, causal, res,
@@ -798,6 +852,12 @@ def flash_phase(K, torch, res):
         for causal in (True, False):
             check_block_update(K, torch, (3, 200, 328, 48), dtype, causal,
                                100, 150, True, res, timed=False)
+        # head_dim 256: a diagonal and a full causal hop; a ragged D
+        for q_off, k_off in ((t, t), (3 * t, 0)):
+            check_block_update(K, torch, (FLASH_BH // 4, t, t, 256), dtype,
+                               True, q_off, k_off, True, res)
+        check_block_update(K, torch, (3, 200, 328, 200), dtype, True, 100,
+                           150, False, res, timed=False)
 
 
 # ---------------------------------------------------------------------------
@@ -1164,10 +1224,13 @@ random_seed: 1
 """
 
 
-def write_lm_config(workdir: str) -> str:
+def write_lm_config(workdir: str, lm=None, name=None) -> str:
     """64 JSON rows of 2,049 seeded tokens (vocab 1000; input = the first
-    2,048, target = the last), the zoo's transformer_lm at the LM widths
-    on a DataFrameSource over them, and an Adam solver cut to max_iter 8."""
+    2,048, target = the last), the zoo's transformer_lm at the widths
+    `lm` (default LM) on a DataFrameSource over them, and an Adam solver
+    cut to max_iter 8; `name` renames the net (and its files and
+    snapshots)."""
+    lm = lm or LM
     import numpy as np
     from caffeonspark_tpu_torch.models import zoo
     from caffeonspark_tpu_torch.net import Net
@@ -1177,10 +1240,12 @@ def write_lm_config(workdir: str) -> str:
     t0 = time.monotonic()
     with open(rows, "w") as f:
         for _ in range(LM_ROWS):
-            toks = rng.randint(0, LM["vocab"], LM["seq"] + 1).tolist()
+            toks = rng.randint(0, lm["vocab"], lm["seq"] + 1).tolist()
             f.write(json.dumps({"input_sentence": toks[:-1],
                                 "target_sentence": toks[1:]}) + "\n")
-    npm = zoo.transformer_lm(**LM)
+    npm = zoo.transformer_lm(**lm)
+    if name:
+        npm.name = name
     data = npm.layer[0]
     data.source_class = "com.yahoo.ml.caffe.DataFrameSource"
     data.cos_data_param.source = rows
@@ -1195,8 +1260,8 @@ def write_lm_config(workdir: str) -> str:
     with open(solver_path, "w") as f:
         f.write(LM_SOLVER.format(net=net_path, max_iter=TRAIN_ITERS,
                                  name=name))
-    log(f"  wrote {rows}: {LM_ROWS} rows of {LM['seq'] + 1} tokens "
-        f"({time.monotonic() - t0:.2f} s); {npm.name} {LM}: "
+    log(f"  wrote {rows}: {LM_ROWS} rows of {lm['seq'] + 1} tokens "
+        f"({time.monotonic() - t0:.2f} s); {npm.name} {lm}: "
         f"{n_params:,} parameters")
     return solver_path
 
@@ -1356,6 +1421,10 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
         rec.update(loss_single=ls, single_loss_rel=rel,
                    single_worst_grad_rel=ws, single_worst_grad_at=ws_at)
     return rec, (solver, params, state, host)
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
 
 
 def direct_steps(torch, solver, params, state, host, n=5, step=None):
@@ -1533,7 +1602,8 @@ def main(argv) -> int:
                                              host)
     log(f"  TransformerLM train: {len(lm_step['direct_step_ms'])} steps "
         "called directly on the main thread, each synchronized: "
-        + ", ".join(f"{x:.1f}" for x in lm_step["direct_step_ms"]) + " ms")
+        + ", ".join(f"{x:.1f}" for x in lm_step["direct_step_ms"])
+        + f" ms (median {median(lm_step['direct_step_ms']):.1f})")
     log("profile of one LM training step:")
     lm_profile = profile_train_step(
         torch, "TransformerLM train", solver, params, state, host,
@@ -1574,7 +1644,8 @@ def main(argv) -> int:
                                              host, step=sp_train_step)
     log(f"  TransformerLM train sp: {len(sp_step['direct_step_ms'])} steps "
         "called directly on the main thread, each synchronized: "
-        + ", ".join(f"{x:.1f}" for x in sp_step["direct_step_ms"]) + " ms")
+        + ", ".join(f"{x:.1f}" for x in sp_step["direct_step_ms"])
+        + f" ms (median {median(sp_step['direct_step_ms']):.1f})")
     log("profile of one sp LM training step:")
     sp_profile = profile_train_step(
         torch, "TransformerLM train sp", solver, params, state, host,
@@ -1582,13 +1653,45 @@ def main(argv) -> int:
         step=sp_train_step)
     del solver, params, state, host, sp_train_step
 
+    hd = LM256["d_model"] // LM256["heads"]
+    log(f"the LM at {LM256['heads']} heads x {hd} through the CLI (-train, "
+        f"DataFrameSource, {TRAIN_ITERS} Adam steps; counts zeroed "
+        "before):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    h256_solver = write_lm_config(workdir, LM256, name="TransformerLMh256")
+    h256_train, _ = train_phase(
+        K, "TransformerLM h256 train", h256_solver, {},
+        os.path.join(workdir, "transformerlm_h256_out"), lm_kernels,
+        per_step=LM256["batch"] * LM256["seq"], unit="tokens",
+        launches_each=LM256["layers"] * TRAIN_ITERS)
+    h256_launches = dict(h256_train["launches"])
+    log(f"one head_dim-{hd} LM step with the kernels against the plain "
+        "step and the step with only K6 plain:")
+    h256_step, (solver, params, state, host) = step_vs_plain(
+        K, torch, "TransformerLM h256 train", h256_solver, {},
+        grad_tol=LM_STEP_GRAD_TOL, plain_forwards=("flash_attention_fwd",))
+    h256_step["direct_step_ms"] = direct_steps(torch, solver, params, state,
+                                               host)
+    log(f"  TransformerLM h256 train: {len(h256_step['direct_step_ms'])} "
+        "steps called directly on the main thread, each synchronized: "
+        + ", ".join(f"{x:.1f}" for x in h256_step["direct_step_ms"])
+        + f" ms (median {median(h256_step['direct_step_ms']):.1f})")
+    log(f"profile of one head_dim-{hd} LM training step:")
+    h256_profile = profile_train_step(
+        torch, "TransformerLM h256 train", solver, params, state, host,
+        what=f"one B={LM256['batch']} T={LM256['seq']} {LM256['heads']}x{hd}"
+             " LM training step")
+    del solver, params, state, host
+
     lines = []
     for name, meta in KERNELS.items():
         main_rec = res[name][0]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
                    "train_lm": lm_launches.get(name, 0),
-                   "train_lm_sp": sp_launches.get(name, 0)}
+                   "train_lm_sp": sp_launches.get(name, 0),
+                   "train_lm_h256": h256_launches.get(name, 0)}
         lines.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -1614,6 +1717,9 @@ def main(argv) -> int:
     log(json.dumps({"training_lm_sp": sp_train,
                     "lm_sp_step_vs_plain": sp_step,
                     "lm_sp_train_profile": sp_profile}))
+    log(json.dumps({"training_lm_h256": h256_train,
+                    "lm_h256_step_vs_plain": h256_step,
+                    "lm_h256_train_profile": h256_profile}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))
     log(card)

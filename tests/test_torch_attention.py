@@ -196,13 +196,13 @@ def test_flash_bf16_inputs():
 
 def test_flash_wrappers_validate_what_the_kernels_take():
     """The checks a CUDA launch runs first (shapes, dtypes, contiguity,
-    D <= 128, f32 row statistics) refuse what the kernels do not take."""
+    D <= 256, f32 row statistics) refuse what the kernels do not take."""
     x = torch.zeros(2, 8, 16)
     stats = torch.zeros(2, 8)
     K._check_flash("f", x, x, x, x, stats=(stats, stats))
     bad = [((torch.zeros(2, 8, 16, 1),), {}, "non-empty"),
            ((torch.zeros(2, 8, 16, dtype=torch.float16),), {}, "dtype"),
-           ((torch.zeros(2, 8, 129),), {}, "head dim"),
+           ((torch.zeros(2, 8, 257),), {}, "head dim"),
            ((x, torch.zeros(2, 9, 16)), {}, "does not match"),
            ((x, torch.zeros(2, 16, 8).transpose(1, 2)), {}, "contiguous"),
            ((x,), {"stats": (torch.zeros(2, 8, dtype=torch.bfloat16),)},

@@ -243,7 +243,7 @@ def test_flash_function_launches_kernels_on_card(cuda_card):
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention_fwd(flat[0].transpose(1, 2).contiguous()
                               .transpose(1, 2), flat[1], flat[2])
-    wide = torch.zeros(1, 8, 129, device=cuda_card)
+    wide = torch.zeros(1, 8, 257, device=cuda_card)
     with pytest.raises(ValueError, match="head dim"):
         K.flash_attention_fwd(wide, wide, wide)
 
@@ -330,3 +330,91 @@ def test_ring_flash_grads_match_flash_attention_on_card(cuda_card, causal):
            FLASH_FWD_TOL)
     for x, y in zip(xs, ys):
         _close(x.grad.cpu(), y.grad.cpu(), FLASH_RTOL, FLASH_ATOL)
+
+
+# head widths the kernels pad to 256 (one whole, two ragged)
+WIDE_SHAPES = [(2, 256, 256), (1, 100, 200), (2, 130, 160)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernels_take_head_dim_256_on_card(cuda_card, dtype):
+    """K6, K7, K8 and K9 at D 256, 200 and 160 against their plain
+    versions, causal and not (K8 splits dK and dV's columns over two
+    blocks there; chip_smoke.py repeats this at (16, 2048, 256))."""
+    dt = getattr(torch, dtype)
+    extra = BF16_ULP if dt == torch.bfloat16 else 0.0
+    for i, shape in enumerate(WIDE_SHAPES):
+        q, k, v, do = _flash_inputs(shape, 20 + i, cuda_card, dt)
+        for causal in (False, True):
+            o, lse = K.flash_attention_fwd(q, k, v, causal)
+            o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
+            _close(o.float().cpu(), o_p.float().cpu(),
+                   FLASH_FWD_TOL + extra, FLASH_FWD_TOL)
+            _close(lse.cpu(), lse_p.cpu(), FLASH_FWD_TOL, FLASH_FWD_TOL)
+            delta = (do.float() * o_p.float()).sum(-1)
+            got = K.flash_bwd_block(q, k, v, do, lse_p, delta,
+                                    causal=causal)
+            want = K.flash_bwd_block_plain(q, k, v, do, lse_p, delta,
+                                           causal=causal)
+            for g, w in zip(got, want):
+                _close(g.float().cpu(), w.float().cpu(),
+                       FLASH_RTOL + extra, FLASH_ATOL)
+            bh, t, d = shape
+            carry = _k9_carry(bh, t, d, i, False, cuda_card)
+            got = K.flash_block_update(q, k, v, *carry, t, 0, causal)
+            want = K.flash_block_update_plain(q, k, v, *carry, t, 0, causal)
+            for g, w in zip(got, want):
+                real = w[w.abs() < 1e29]
+                scale = float(real.abs().max()) if real.numel() else 0.
+                _close(g.cpu(), w.cpu(), FLASH_FWD_TOL + extra,
+                       FLASH_FWD_TOL * (scale + 1.0))
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_head_dim_257_on_card(cuda_card):
+    """D = 257 is past the kernels' widest tiles: every flash wrapper
+    refuses it by name on a CUDA tensor (no plain fallback)."""
+    x = torch.zeros(1, 8, 257, device=cuda_card)
+    st = torch.zeros(1, 8, device=cuda_card)
+    calls = [lambda: K.flash_attention_fwd(x, x, x),
+             lambda: K.flash_attention_bwd_dq(x, x, x, x, st, st),
+             lambda: K.flash_attention_bwd_dkv(x, x, x, x, st, st),
+             lambda: K.flash_block_update(x, x, x, st, st, x, 0, 0)]
+    for call in calls:
+        with pytest.raises(ValueError, match="head dim 257 > 256"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_forward_is_deterministic_on_card(cuda_card, dtype):
+    """K6 has one owner block per output row and no atomics: two runs on
+    the same inputs give bit-equal O and lse."""
+    dt = getattr(torch, dtype)
+    for shape in ((4, 384, 64), (2, 256, 256)):
+        q, k, v, _ = _flash_inputs(shape, 11, cuda_card, dt)
+        for causal in (False, True):
+            a = K.flash_attention_fwd(q, k, v, causal)
+            b = K.flash_attention_fwd(q, k, v, causal)
+            assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.cuda
+def test_int8_matmul_is_exact_over_repeated_calls_on_card(cuda_card):
+    """K5 at fc6's shape, a bucket of 1, and ragged M, N and K, each
+    called three times and interleaved with the others: every result
+    equals the exact plain product, so the split-K tile counters come
+    back to zero after each call."""
+    shapes = [(64, 4096, 9216), (1, 1000, 4096), (5, 70, 1001), (3, 37, 16)]
+    g = torch.Generator(device=cuda_card).manual_seed(5)
+    ops = []
+    for m, n, kk in shapes:
+        xq = torch.randint(-127, 128, (m, kk), device=cuda_card,
+                           generator=g, dtype=torch.int64).to(torch.int8)
+        wq = torch.randint(-127, 128, (n, kk), device=cuda_card,
+                           generator=g, dtype=torch.int64).to(torch.int8)
+        ops.append((xq, wq, K.int8_matmul_plain(xq, wq)))
+    for _ in range(3):
+        for xq, wq, want in ops:
+            assert torch.equal(K.int8_matmul(xq, wq), want)
