@@ -8,14 +8,20 @@
 //   * `flash_bwd_block`, its dk/dv call (`_flash_bwd_dkv_kernel`)
 //     -> `cos_flash_bwd_dkv` (K8);
 //   * `flash_block_update` (kernel `_flash_carry_kernel`)
-//     -> `cos_flash_block_update` (K9): one ring-attention hop, the
-//     forward's online softmax started from and ended in an (m, l, acc)
-//     carry in memory (see the section of K9 below).
+//     -> `cos_flash_block_update` (K9): one ring-attention hop, K6's
+//     online softmax started from and ended in an (m, l, acc) carry in
+//     memory (see "K6 and K9" below).
+// Each has a `_wide` twin for head widths above 256 (see "Wide heads"):
+// a second entry point rather than a width argument, because the two
+// families hold D differently (compile-time padded tiles against
+// run-time slices and column groups over grid.z), so each entry keeps
+// its own checks (the padded one still refuses D > 256) and geometry.
 //
 // q, k, v, dO are (BH, T, D) row-major, f32 or bf16; lse and delta are
 // (BH, T) f32.  scale = 1/sqrt(D).  With `causal`, key c is visible to
-// query r when r >= c; a hidden score is the TPU kernels' finite -1e30,
-// and the forward keeps their m_safe guard, so the arithmetic is theirs:
+// query r when r >= c (K9: q_off + r >= k_off + c); a hidden score is the
+// TPU kernels' finite -1e30, and the forward keeps their m_safe guard,
+// so the arithmetic is theirs:
 //   forward   m' = max(m, rowmax s), m_safe = (m' <= -5e29 ? 0 : m'),
 //             p = exp(s - m_safe), corr = exp(m - m_safe),
 //             l = l corr + rowsum p, acc = acc corr + p V;
@@ -23,8 +29,8 @@
 //   backward  p = exp(s - lse), dp = dO V^T, ds = p (dp - delta) scale,
 //             dq = ds K, dv = p^T dO, dk = ds^T q.
 // Any T >= 1 (the ragged tail of a tile is zero-filled, and its keys
-// are left out: p = 0) and any D <= 256 (padded with zeros to 32, 64,
-// 128 or 256 in shared memory).
+// are left out: p = 0) and any D >= 1: D <= 256 runs tiles padded with
+// zeros to 32, 64, 128 or 256 columns, D > 256 the wide kernels.
 //
 // What bounds them on the H100: operations.  At (BH, T, D) = (64, 2048,
 // 64), causal, the forward does 34.4 GFLOP (two products over half the
@@ -32,41 +38,29 @@
 // against 134-200 MB of operands and results: about 250 operations per
 // byte moved, above the ~20 at which the card's f32 units (67 TFLOP/s
 // outside the tensor cores) and the ~150 at which its TF32 tensor cores
-// (495 TFLOP/s) stop waiting on its 3.35 TB/s.
+// (495 TFLOP/s) stop waiting on its 3.35 TB/s.  A K9 hop at the ring's
+// per-rank (64, 512, 512, 64) is 2.2 (diagonal) or 4.3 (full) GFLOP
+// against ~42 MB of operands and carry, ~100 operations per byte.
 //
-// K6, K7 and K8 run all their products on the tensor cores (`mma.sync`,
-// 3xTF32 for f32 inputs, bf16 for bf16 inputs, f32 accumulators) and
-// stream the other side's tiles with `cp.async` in a two-stage ring; the
-// section of K6, K7 and K8 below has the details.  Under 3xTF32 the
-// forward's 34.4 GFLOP cost at least 0.208 ms at 495 TFLOP/s, K7 + K8's
-// 120 GFLOP at least 0.73 ms.
+// All four run every product on the tensor cores (`mma.sync`, 3xTF32
+// for f32 inputs, bf16 for bf16 inputs, f32 accumulators) and stream
+// the other side's tiles with `cp.async` in a two-stage ring; the
+// sections below have the details.  Under 3xTF32 the forward's 34.4
+// GFLOP cost at least 0.208 ms at 495 TFLOP/s, K7 + K8's 120 GFLOP at
+// least 0.73 ms.
 //
-// K9 is a simple SIMT kernel (its redesign is later work):
-//   * a block of 128 threads owns a 64-row query tile and streams the
-//     key tiles through shared memory, so every score and probability
-//     stays on chip: no T^2 matrix touches device memory, as on the TPU;
-//   * each product is a register-blocked f32 FMA loop: a thread owns an
-//     8 x 4 piece of the 64 x 64 score tile (and 8 x D/16 of the output
-//     tile) and reads both operands as float4 from tiles stored with the
-//     reduction index outermost;
-//   * the 16 lanes that share a row reduce its max and sum by warp
-//     shuffles; P goes back through shared memory, transposed, to feed
-//     the second product;
-//   * math is f32 for f32 and bf16 inputs alike (bf16 is converted on
-//     load); exp and log are the accurate expf/logf.
-//
-// Common to all four:
+// Common to all:
 //   * no atomics: every output tile has one owner block (K6, K7 and K9
-//     own query rows, K8 key rows and, at D > 128, half of the columns),
-//     so all are deterministic, as the TPU split is;
-//   * causal blocks stop at (K6, K7) or start from (K8) the diagonal,
-//     the TPU kernels' skip, and the grid hands out the longest rows
-//     first so the short ones fill the tail.
+//     own query rows, K8 key rows; at D > 128 K8, and at D > 256 all of
+//     them, own a group of the output's columns too), so all are
+//     deterministic, as the TPU split is;
+//   * causal blocks stop at (K6, K7, K9) or start from (K8) the
+//     diagonal, the TPU kernels' skip, and the grid hands out the
+//     longest rows first so the short ones fill the tail.
 //
 // Shared memory is dynamic (cudaFuncSetAttribute above 48 KB); the
-// sizes of K6, K7 and K8 follow from `FwdTiles` and `BwdTiles` below
-// (at most 200 KB, f32 at D = 256), K9's from `fwd_smem` (67 KB at
-// D <= 64, 117 KB at 128, 217 KB at 256).
+// sizes follow from `FwdTiles`, `BwdTiles` and `WideTiles` below (at
+// most 200 KB, f32 at D = 256; 37-104 KB for the wide kernels).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,106 +71,17 @@
 
 namespace {
 
-constexpr int kThreads = 128;    // 8 row groups (ty) x 16 lanes (tx)
-constexpr int kRows = 64;        // rows of the tile a block owns
-constexpr int kLdT = kRows + 4;  // row stride of a 64-wide transposed tile
+constexpr int kThreads = 128;    // 4 warps
+constexpr int kMinRows = 64;     // the fewest rows a block owns (grid.y)
 constexpr float kNeg = -1e30f;   // the TPU kernels' finite mask value
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// N contiguous floats from shared memory (16-byte aligned for N % 4 == 0,
-// 8-byte for N == 2)
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&r)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int u = 0; u < N / 4; ++u) {
-      const float4 t = reinterpret_cast<const float4*>(p)[u];
-      r[4 * u] = t.x;
-      r[4 * u + 1] = t.y;
-      r[4 * u + 2] = t.z;
-      r[4 * u + 3] = t.w;
-    }
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x;
-    r[1] = t.y;
-  } else {
-#pragma unroll
-    for (int u = 0; u < N; ++u) r[u] = p[u];
-  }
-}
-
-// One thread's TM x TN piece of a tile product whose operands are stored
-// reduction-index outermost:  c[i][j] += sum_k a[k * lda + i] * b[k * ldb + j]
-template <int K, int TM, int TN>
-__device__ __forceinline__ void tile_mma(const float* a, int lda,
-                                         const float* b, int ldb,
-                                         float (&c)[TM][TN]) {
-#pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float ar[TM], br[TN];
-    load_vec<TM>(a + kk * lda, ar);
-    load_vec<TN>(b + kk * ldb, br);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) c[i][j] = fmaf(ar[i], br[j], c[i][j]);
-  }
-}
-
-// max / sum over the 16 lanes (tx) that hold one row
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Rows [r0, r0 + R) of one head's (T, D) matrix into shared memory as f32,
-// zero past T and past D (up to DP): transposed `t[d * ld + r]` and/or
-// natural `n[r * DP + d]` (either may be null).  Global reads run along D.
-template <typename T, int R, int DP>
-__device__ __forceinline__ void load_tile(const T* __restrict__ g, int r0,
-                                          int Tn, int D, float* t, int ld,
-                                          float* n) {
-  for (int idx = threadIdx.x; idx < R * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    float v = 0.f;
-    if (r0 + r < Tn && d < D) v = to_f32(g[(int64_t)(r0 + r) * D + d]);
-    if (t) t[d * ld + r] = v;
-    if (n) n[idx] = v;
-  }
-}
-
-// x[i][j] of one thread's 8 x TN piece -> shared tile s, transposed:
-// s[(col0 + j) * kLdT + row0 + i] (two float4 stores per column)
-template <int TN>
-__device__ __forceinline__ void store_t(float* s, int row0, int col0,
-                                        const float (&x)[8][TN]) {
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    float4* dst = reinterpret_cast<float4*>(s + (col0 + j) * kLdT + row0);
-    dst[0] = make_float4(x[0][j], x[1][j], x[2][j], x[3][j]);
-    dst[1] = make_float4(x[4][j], x[5][j], x[6][j], x[7][j]);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K6, K7 and K8 on the tensor cores.
+// The tensor-core pieces of K6-K9.
 //
 // Each block has 4 warps; a warp owns one or two 16-row m-tiles of the
 // block's tile (FwdTiles, BwdTiles below) and computes its rows of every
@@ -239,28 +144,38 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Rows [r0, r0 + R) of one head's (T, D) matrix into a shared tile of row
-// stride LD in the input type, zero past T and past D (up to DP).  With
-// `vec` (rows a whole number of 16-byte chunks, 16-byte aligned) the
-// copies are asynchronous; otherwise element by element.
-template <typename T, int R, int DP, int LD>
-__device__ __forceinline__ void load_rows(T* s, const T* __restrict__ g,
-                                          int r0, int Tn, int D, int vec) {
+// Rows [r0, r0 + R) and columns [c0, c0 + W) of one head's (T, D)
+// matrix into a shared tile of row stride LD in the input type, zero past
+// T and past D.  With `vec` (rows a whole number of 16-byte chunks,
+// 16-byte aligned; c0 a multiple of 16 bytes) the copies are
+// asynchronous; otherwise element by element.
+template <typename T, int R, int W, int LD>
+__device__ __forceinline__ void load_block(T* s, const T* __restrict__ g,
+                                           int r0, int Tn, int D, int c0,
+                                           int vec) {
   constexpr int EPC = 16 / sizeof(T);
-  constexpr int CPR = DP / EPC;
+  constexpr int CPR = W / EPC;
   if (vec) {
     for (int idx = threadIdx.x; idx < R * CPR; idx += kThreads) {
       const int r = idx / CPR, c = (idx % CPR) * EPC;
-      const bool ok = r0 + r < Tn && c < D;
-      cp_async16(s + r * LD + c, ok ? g + (int64_t)(r0 + r) * D + c : g, ok);
+      const bool ok = r0 + r < Tn && c0 + c < D;
+      cp_async16(s + r * LD + c,
+                 ok ? g + (int64_t)(r0 + r) * D + c0 + c : g, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < R * DP; idx += kThreads) {
-      const int r = idx / DP, d = idx % DP;
-      const bool ok = r0 + r < Tn && d < D;
-      s[r * LD + d] = ok ? g[(int64_t)(r0 + r) * D + d] : T(0.f);
+    for (int idx = threadIdx.x; idx < R * W; idx += kThreads) {
+      const int r = idx / W, d = idx % W;
+      const bool ok = r0 + r < Tn && c0 + d < D;
+      s[r * LD + d] = ok ? g[(int64_t)(r0 + r) * D + c0 + d] : T(0.f);
     }
   }
+}
+
+// all DP (padded) columns of rows [r0, r0 + R)
+template <typename T, int R, int DP, int LD>
+__device__ __forceinline__ void load_rows(T* s, const T* __restrict__ g,
+                                          int r0, int Tn, int D, int vec) {
+  load_block<T, R, DP, LD>(s, g, r0, Tn, D, 0, vec);
 }
 
 // the nearest tf32 value of x, as f32 bits (low 13 bits zero)
@@ -544,9 +459,11 @@ struct BwdTiles {
   static constexpr int GK = score_group(kF32, DP);
 };
 
-// K6: f32 at D <= 64 two m-tiles a warp and 32-key tiles (three blocks
-// an SM), f32 at D = 128 32-key tiles (two an SM); bf16 64-key tiles at
-// D <= 128; 32-key tiles at D = 256 (f32 one block an SM, bf16 two).
+// K6 and K9: f32 at D <= 64 two m-tiles a warp and 32-key tiles (three
+// blocks an SM), f32 at D = 128 32-key tiles (two an SM); bf16 64-key
+// tiles at D <= 128; 32-key tiles at D = 256 (f32 one block an SM, bf16
+// two).  At the ring's per-rank (64, 512, 512, 64) f32 a hop is 256
+// blocks of 128 rows, all resident at once.
 template <typename TI, int DP>
 struct FwdTiles {
   static constexpr bool kF32 = sizeof(TI) == 4;
@@ -564,13 +481,33 @@ constexpr size_t fwd_mma_smem() {
 }
 
 // ---------------------------------------------------------------------------
-// K6: forward.  grid (BH, ceil(T / ROWS)); a block owns ROWS query rows
-// (Q resident) and walks the key tiles (K and V, two stages) up to the
-// diagonal.  Per key tile a warp computes its rows of S = Q K^T in C
-// registers, runs the online softmax on them (the 4 lanes of a quad
-// share a row: its max and sum by two xor shuffles), rescales its O
-// accumulators by corr and adds P V with P's registers as the A operand.
-// O = acc / l and lse = m + log l are written by the owner block.
+// K6 and K9: the forward, one body in two modes.  grid (BH, ceil(Tq /
+// ROWS)); a block owns ROWS query rows (Q resident) and walks the key
+// tiles (K and V, two stages) up to the causal edge.  Per key tile a
+// warp computes its rows of S = Q K^T in C registers, runs the online
+// softmax on them (the 4 lanes of a quad share a row: its max and sum by
+// two xor shuffles), rescales its O accumulators by corr and adds P V
+// with P's registers as the A operand.
+//
+// K6 (`flash_fwd_kernel`) starts every row at (m, l, acc) = (-1e30, 0,
+// 0) and writes O = acc / l and lse = m + log l.  K9
+// (`flash_carry_kernel`) is one ring hop: it reads the (m, l, acc) carry
+// into the same registers at the start and writes it back at the end (no
+// acc / l, no lse); Tq and Tk may differ, and the causal test uses the
+// blocks' global offsets, q_off + r >= k_off + c (plain int arguments,
+// scalar prefetch on the TPU).  K6 is the case q_off = k_off = 0, Tq =
+// Tk.  The carry is f32 for f32 and bf16 inputs alike.  The outputs are
+// separate buffers (the wrapper allocates them).
+//
+// The TPU's K9 walks every key tile, so a row whose keys in this hop
+// are all hidden leaves with m' = max(m, -1e30): -1e30 where it came in
+// at -inf (the ring's first carry), with l and acc unchanged (corr =
+// exp(-inf - 0) = 0 multiplies zeros).  This kernel skips the tiles past
+// the causal edge, as K6 does, and writes max(m, -1e30) for a causal hop
+// instead, which gives the same m' for every row: a row that processed a
+// tile saw a score >= -1e30 there.  m_safe is finite in every processed
+// tile (each holds a key < Tk, visible or -1e30), so exp(m - m_safe) is
+// exp(-inf) = 0, never NaN, for a row that has seen nothing yet.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -582,12 +519,155 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-template <typename TI, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
-                 const TI* __restrict__ v, TI* __restrict__ o,
-                 float* __restrict__ lse, int Tn, int D, float scale,
-                 int causal, int vec) {
+// What a forward launch reads and writes: K6 fills o and lse, K9 reads
+// (m_in, l_in, acc_in) and fills (m_out, l_out, acc_out).
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  const float* m_in;
+  const float* l_in;
+  const float* acc_in;
+  float* m_out;
+  float* l_out;
+  float* acc_out;
+  int Tq, Tk, D;
+  float scale;
+  int q_off, k_off, causal, vec;
+};
+
+// the block's key tiles: all of Tk, or (causal) those with a key visible
+// to its last row q_end - 1
+__device__ __forceinline__ int key_tiles(int causal, int Tk, int q_off,
+                                         int k_off, int q_end, int bc) {
+  const int kv_end = causal ? max(0, min(Tk, q_off + q_end - k_off)) : Tk;
+  return (kv_end + bc - 1) / bc;
+}
+
+// The rows' state at the start: K6 (-1e30, 0, 0); K9 the carry of the
+// rows < Tq, columns [c0, c0 + 8 ND) of acc.  `rq` is the local row of
+// lane group g of m-tile 0.
+template <bool CARRY, int MT, int ND>
+__device__ __forceinline__ void fwd_start(const FwdArgs& a, int64_t row0,
+                                          int rq, int c0, int t,
+                                          float (&m)[MT][2],
+                                          float (&l)[MT][2],
+                                          float (&acc)[MT][ND][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rq + 16 * mt + 8 * h;
+      const bool in = CARRY && r < a.Tq;  // rows past Tq are never stored
+      const int64_t at = (row0 + r) * a.D;
+      m[mt][h] = in ? a.m_in[row0 + r] : kNeg;
+      l[mt][h] = in ? a.l_in[row0 + r] : 0.f;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = c0 + 8 * n + 2 * t + e;
+          acc[mt][n][2 * h + e] = in && d < a.D ? a.acc_in[at + d] : 0.f;
+        }
+    }
+}
+
+// The online softmax of one key tile's scores s (keys k0 + [0, 8 NT)
+// of Tk, as raw Q K^T sums) into (m, l, acc); `rq` as in fwd_start,
+// q_off and k_off the global offsets (K6 passes literal zeros, and its
+// Tq as Tk).
+template <int MT, int NT, int ND>
+__device__ __forceinline__ void online_softmax(const FwdArgs& a, int Tk,
+                                               int q_off, int k_off, int rq,
+                                               int k0, int t,
+                                               float (&s)[MT][NT][4],
+                                               float (&m)[MT][2],
+                                               float (&l)[MT][2],
+                                               float (&acc)[MT][ND][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q_off + rq + 16 * mt + 8 * h;  // global positions
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = k0 + 8 * j + 2 * t + e;
+          float x = s[mt][j][2 * h + e] * a.scale;
+          if (c >= Tk) x = -INFINITY;  // past the end: no contribution
+          else if (a.causal && r < k_off + c) x = kNeg;
+          s[mt][j][2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = quad_max(mx);
+      const float m_new = fmaxf(m[mt][h], mx);
+      const float m_safe = m_new <= kNeg * 0.5f ? 0.f : m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = expf(s[mt][j][2 * h + e] - m_safe);
+          s[mt][j][2 * h + e] = p;
+          sum += p;
+        }
+      sum = quad_sum(sum);
+      const float corr = expf(m[mt][h] - m_safe);
+      l[mt][h] = l[mt][h] * corr + sum;
+      m[mt][h] = m_new;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[mt][n][2 * h] *= corr;
+        acc[mt][n][2 * h + 1] *= corr;
+      }
+    }
+}
+
+// The end: K6 writes O = acc / l (columns [c0, c0 + 8 ND)) and, where
+// `stats`, lse; K9 writes acc and, where `stats`, m (max(m, -1e30) for
+// a causal hop) and l.
+template <bool CARRY, typename TI, int MT, int ND>
+__device__ __forceinline__ void fwd_finish(const FwdArgs& a, int64_t row0,
+                                           int rq, int c0, bool stats,
+                                           int t, const float (&m)[MT][2],
+                                           const float (&l)[MT][2],
+                                           const float (&acc)[MT][ND][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rq + 16 * mt + 8 * h;
+      if (r >= a.Tq) continue;
+      const int64_t at = (row0 + r) * a.D;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = c0 + 8 * n + 2 * t + e;
+          if (d >= a.D) continue;
+          if constexpr (CARRY)
+            a.acc_out[at + d] = acc[mt][n][2 * h + e];
+          else
+            store(static_cast<TI*>(a.o) + at + d,
+                  acc[mt][n][2 * h + e] / l[mt][h]);
+        }
+      if (stats && t == 0) {
+        if constexpr (CARRY) {
+          a.m_out[row0 + r] = a.causal ? fmaxf(m[mt][h], kNeg) : m[mt][h];
+          a.l_out[row0 + r] = l[mt][h];
+        } else {
+          a.lse[row0 + r] = m[mt][h] + logf(l[mt][h]);
+        }
+      }
+    }
+}
+
+template <typename TI, int DP, bool CARRY>
+__device__ __forceinline__ void fwd_body(const FwdArgs& a) {
   using M = Mma<TI>;
   using S = FwdTiles<TI, DP>;
   constexpr int LD = DP + M::LDP;
@@ -601,31 +681,30 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
   TI* qs = reinterpret_cast<TI*>(smem4);  // [BR][LD] queries
   TI* ks = qs + BR * LD;                  // [2][BC][LD] keys
   TI* vs = ks + 2 * BC * LD;              // [2][BC][LD] values
+  const TI* q = static_cast<const TI*>(a.q);
+  const TI* k = static_cast<const TI*>(a.k);
+  const TI* v = static_cast<const TI*>(a.v);
+  const int D = a.D, vec = a.vec;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3, rw = warp * 16 * MT;
-  const int64_t head = (int64_t)blockIdx.x * Tn * D;
+  const int64_t row0 = (int64_t)blockIdx.x * a.Tq;
+  const int64_t qhead = row0 * D;
+  // K6: Tk = Tq and no offsets, as literals where the compiler can see them
+  const int Tk = CARRY ? a.Tk : a.Tq;
+  const int q_off = CARRY ? a.q_off : 0, k_off = CARRY ? a.k_off : 0;
+  const int64_t khead = (int64_t)blockIdx.x * Tk * D;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest first
-  const int q_end = min(Tn, q0 + BR);
-  const int n_tiles = ((causal ? q_end : Tn) + BC - 1) / BC;
+  const int n_tiles =
+      key_tiles(a.causal, Tk, q_off, k_off, min(a.Tq, q0 + BR), BC);
+  const int rq = q0 + rw + g;
 
-  load_rows<TI, BR, DP, LD>(qs, q + head, q0, Tn, D, vec);
-  load_rows<TI, BC, DP, LD>(ks, k + head, 0, Tn, D, vec);
-  load_rows<TI, BC, DP, LD>(vs, v + head, 0, Tn, D, vec);
+  load_rows<TI, BR, DP, LD>(qs, q + qhead, q0, a.Tq, D, vec);
+  load_rows<TI, BC, DP, LD>(ks, k + khead, 0, Tk, D, vec);
+  load_rows<TI, BC, DP, LD>(vs, v + khead, 0, Tk, D, vec);
   cp_async_commit();
 
   float m[MT][2], l[MT][2], acc[MT][ND][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m[mt][h] = kNeg;
-      l[mt][h] = 0.f;
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][n][e] = 0.f;
-  }
+  fwd_start<CARRY>(a, row0, rq, 0, t, m, l, acc);
   typename M::AS aq[MT][KQ];  // Q's fragments, where kQRegs
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -633,10 +712,10 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
     const int buf = it & 1;
     __syncthreads();  // every warp is done with the other stage
     if (it + 1 < n_tiles) {
-      load_rows<TI, BC, DP, LD>(ks + (buf ^ 1) * BC * LD, k + head, k0 + BC,
-                                Tn, D, vec);
-      load_rows<TI, BC, DP, LD>(vs + (buf ^ 1) * BC * LD, v + head, k0 + BC,
-                                Tn, D, vec);
+      load_rows<TI, BC, DP, LD>(ks + (buf ^ 1) * BC * LD, k + khead, k0 + BC,
+                                Tk, D, vec);
+      load_rows<TI, BC, DP, LD>(vs + (buf ^ 1) * BC * LD, v + khead, k0 + BC,
+                                Tk, D, vec);
     }
     cp_async_commit();
     cp_async_wait<1>();  // this stage's copies (all but the newest group)
@@ -666,13 +745,13 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
           for (int e = 0; e < 4; ++e) ps[mt][j][e] = 0.f;
 #pragma unroll
       for (int kk = kg; kk < kg + S::GK; kk += M::KS) {
-        typename M::AS a[MT];
+        typename M::AS af[MT];
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           if constexpr (S::kQRegs)
-            a[mt] = aq[mt][kk / M::KS];
+            af[mt] = aq[mt][kk / M::KS];
           else
-            M::frag_a(a[mt], qs, LD, rw + 16 * mt, kk, lane);
+            M::frag_a(af[mt], qs, LD, rw + 16 * mt, kk, lane);
         }
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
@@ -680,90 +759,44 @@ flash_fwd_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
           M::frag_bn2(b, kt, LD, 8 * j, kk, lane);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt) {
-            M::mma(ps[mt][j], a[mt], b[0]);
-            M::mma(ps[mt][j + 1], a[mt], b[1]);
+            M::mma(ps[mt][j], af[mt], b[0]);
+            M::mma(ps[mt][j + 1], af[mt], b[1]);
           }
         }
       }
       add_group(s, ps, kg == 0);
     }
-    // the online softmax of rows g and g + 8 of each m-tile
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = q0 + rw + 16 * mt + g + 8 * h;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = k0 + 8 * j + 2 * t + e;
-            float x = s[mt][j][2 * h + e] * scale;
-            if (c >= Tn) x = -INFINITY;  // past the end: no contribution
-            else if (causal && r < c) x = kNeg;
-            s[mt][j][2 * h + e] = x;
-            mx = fmaxf(mx, x);
-          }
-        mx = quad_max(mx);
-        const float m_new = fmaxf(m[mt][h], mx);
-        const float m_safe = m_new <= kNeg * 0.5f ? 0.f : m_new;
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = expf(s[mt][j][2 * h + e] - m_safe);
-            s[mt][j][2 * h + e] = p;
-            sum += p;
-          }
-        sum = quad_sum(sum);
-        const float corr = expf(m[mt][h] - m_safe);
-        l[mt][h] = l[mt][h] * corr + sum;
-        m[mt][h] = m_new;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          acc[mt][n][2 * h] *= corr;
-          acc[mt][n][2 * h + 1] *= corr;
-        }
-      }
+    online_softmax(a, Tk, q_off, k_off, rq, k0, t, s, m, l, acc);
     // O += P V
 #pragma unroll
     for (int j = 0; j < BC / M::KS; ++j) {
-      typename M::AR a[MT];
+      typename M::AR ar[MT];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) M::a_from_c(a[mt], s[mt], j);
+      for (int mt = 0; mt < MT; ++mt) M::a_from_c(ar[mt], s[mt], j);
 #pragma unroll
       for (int n = 0; n < ND; n += 2) {
         typename M::B b[2];
         M::frag_bt2(b, vt, LD, j * M::KS, 8 * n, lane);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
-          M::mma(acc[mt][n], a[mt], b[0]);
-          M::mma(acc[mt][n + 1], a[mt], b[1]);
+          M::mma(acc[mt][n], ar[mt], b[0]);
+          M::mma(acc[mt][n + 1], ar[mt], b[1]);
         }
       }
     }
   }
   cp_async_wait<0>();
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = q0 + rw + 16 * mt + g + 8 * h;
-      if (r >= Tn) continue;
-#pragma unroll
-      for (int n = 0; n < ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int d = 8 * n + 2 * t + e;
-          if (d < D)
-            store(o + head + (int64_t)r * D + d,
-                  acc[mt][n][2 * h + e] / l[mt][h]);
-        }
-      if (t == 0)
-        lse[(int64_t)blockIdx.x * Tn + r] = m[mt][h] + logf(l[mt][h]);
-    }
+  fwd_finish<CARRY, TI>(a, row0, rq, 0, true, t, m, l, acc);
+}
+
+template <typename TI, int DP>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FwdArgs a) {
+  fwd_body<TI, DP, false>(a);
+}
+
+template <typename TI, int DP>
+__global__ void __launch_bounds__(kThreads) flash_carry_kernel(FwdArgs a) {
+  fwd_body<TI, DP, true>(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1095,134 +1128,503 @@ flash_bwd_dkv_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K9: one ring hop.  grid (BH, ceil(Tq / 64)); a block owns 64 query rows
-// of the fixed shard and walks the visiting block's key tiles.
+// Wide heads: K6, K7, K8 and K9 at D > 256.
 //
-// It is the forward's online softmax as a SIMT kernel (`load_tile`,
-// `tile_mma`), with three changes from the forward: the (m, l, acc)
-// carry is read from memory at the start and written back at the end
-// (no acc / l, no lse); the causal test uses the blocks' global offsets,
-// q_off + r >= k_off + c, passed as plain int arguments (scalar prefetch
-// on the TPU); and Tq and Tk may differ.  What bounds it is operations,
-// as for K6: at the LM's per-rank shape (64, 512, 512, 64) a full hop is
-// 4.3 GFLOP of f32 FMA against ~42 MB of operands and carry, ~100
-// operations per byte.  At D = 256 its tiles take 217 KB of shared
-// memory (one block an SM) and a thread's acc is 8 x 16 floats.
+// The padded-width kernels above hold a whole row of D in shared memory
+// and their column accumulators in registers; at D = 512 an f32 64-row Q
+// alone is 128 KB, and O's accumulators would be 256 registers a lane.
+// The wide kernels take D at run time and split it two ways:
+//   * the output's columns over grid.z, in groups of DC = 256 for O / acc
+//     (K6, K9) and dQ (K7), 128 for dK and dV together (K8): the widths
+//     whose accumulators a warp already holds at D = 256.  Block z owns
+//     its rows (keys for K8) and columns [z DC, (z + 1) DC);
+//   * the score products S = Q K^T and dP = dO V^T (K8: S^T, dP^T),
+//     which reduce over all of D, into slices of GK = 64 columns.  Each
+//     slice's mma chain starts from zero and is added to the scores by
+//     f32 adds, as the f32 score groups of D = 256 are.
+// Every column group therefore computes the same scores, so the same m
+// and l (or p), and only group 0 writes the row statistics (lse; K9's m
+// and l): still no atomics, and two runs are bit-equal.  The cost is the
+// recomputation: a group repeats the score products, so a wide launch
+// does ceil(D / DC) times their work (at D 512: K6 / K9 1.5x the
+// operations of one pass, K7 1.67x, K8 2.5x).
 //
-// The TPU kernel walks every key tile, so a row whose keys in this hop
-// are all hidden leaves with m' = max(m, -1e30): -1e30 where it came in
-// at -inf (the ring's first carry), with l and acc unchanged (corr =
-// exp(-inf - 0) = 0 multiplies zeros).  This kernel skips the tiles past
-// the causal edge, as K6 does, and writes max(m, -1e30) for a causal hop
-// instead, which gives the same m' for every row: a row that processed a
-// tile saw a score >= -1e30 there.  m_safe is finite in every processed
-// tile (each holds a key < Tk, visible or -1e30), so exp(m - m_safe) is
-// exp(-inf) = 0, never NaN, for a row that has seen nothing yet.
-// The outputs are separate buffers (the wrapper allocates them).
+// Nothing of D stays resident: per tile of the streamed side, the
+// kernel walks a sequence of items, first the ceil(D / 64) score slices
+// (64 columns of the owned rows' operands and of the tile's), then the
+// DC / 64 chunks of the second product's operand in its column group
+// (V for K6 / K9, K for K7, dO and Q for K8).  Items pass through a
+// two-slot ring of shared memory by `cp.async`, each issued one item
+// ahead; an f32 slot is 26 KB for K6 / K9 ((64 + 32) x 68 floats), 52
+// KB for K7 and K8.  The owned rows' slices are read again for
+// every tile (from L2), which is what keeps shared memory small enough
+// for two or more blocks an SM where the registers allow it.  The
+// accumulators of a column group take 128 registers a lane, so every
+// wide kernel runs at 250-255 registers, at most two blocks an SM
+// (chip_smoke.py's `ptxas` line lists each kernel's registers and
+// spills).
 // ---------------------------------------------------------------------------
 
-template <int DP>
-constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * DP * kLdT + kRows * DP + kRows * kLdT);
+constexpr int kGK = 64;  // columns of a score slice and of a chunk
+
+template <typename TI>
+struct WideTiles {
+  static constexpr bool kF32 = sizeof(TI) == 4;
+  static constexpr int ROWS = 64;                // rows a block owns
+  static constexpr int FWD_KEYS = kF32 ? 32 : 64;  // K6 / K9 key tile
+  static constexpr int DQ_KEYS = 32;             // K7's key tile
+  // K8's query tile: at f32, 16 queries spill no registers but ran K8
+  // at (8, 2048, 512) slower than 32, which spill 244 bytes (PERF.md)
+  static constexpr int DKV_QUERIES = 32;
+  static constexpr int FWD_COLS = 256;           // DC of O / acc
+  static constexpr int DQ_COLS = 256;            // DC of dQ
+  static constexpr int DKV_COLS = 128;           // DC of dK and dV
+  static constexpr int LD = kGK + Mma<TI>::LDP;  // a slot's row stride
+};
+
+template <typename TI>
+constexpr size_t wide_fwd_smem() {
+  using W = WideTiles<TI>;
+  return sizeof(TI) * 2 * (W::ROWS + W::FWD_KEYS) * W::LD;
+}
+template <typename TI>
+constexpr size_t wide_dq_smem() {
+  using W = WideTiles<TI>;
+  return sizeof(TI) * 2 * (2 * W::ROWS + 2 * W::DQ_KEYS) * W::LD;
+}
+template <typename TI>
+constexpr size_t wide_dkv_smem() {
+  using W = WideTiles<TI>;
+  return sizeof(TI) * 2 * (2 * W::ROWS + 2 * W::DKV_QUERIES) * W::LD;
 }
 
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_carry_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const float* __restrict__ m_in,
-                   const float* __restrict__ l_in,
-                   const float* __restrict__ acc_in,
-                   float* __restrict__ m_out, float* __restrict__ l_out,
-                   float* __restrict__ acc_out, int Tq, int Tk, int D,
-                   float scale, int q_off, int k_off, int causal) {
-  constexpr int TD = DP / 16;
-  extern __shared__ float4 smem4[];
-  float* qt = reinterpret_cast<float*>(smem4);  // [DP][kLdT] queries
-  float* kt = qt + DP * kLdT;                   // [DP][kLdT] keys
-  float* vs = kt + DP * kLdT;                   // [kRows][DP] values
-  float* pt = vs + kRows * DP;                  // [kRows][kLdT] P, key-major
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int64_t qhead = (int64_t)blockIdx.x * Tq * D;
-  const int64_t khead = (int64_t)blockIdx.x * Tk * D;
-  const int64_t row0 = (int64_t)blockIdx.x * Tq;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // longest first
+// The item ring: `issue(i)` starts item i's copies into slot i % 2 (no
+// copies past the last item, but always one commit group), and
+// `next(i)` returns the slot of item i once it has landed, after the
+// issue of item i + 1 into the slot that item i - 1 used.
+template <typename TI, typename Issue>
+struct ItemRing {
+  TI* base;
+  int slot;
+  Issue issue;
+  __device__ __forceinline__ const TI* next(int i) {
+    __syncthreads();  // every warp is done with item i - 1's slot
+    issue(i + 1);
+    cp_async_wait<1>();  // item i's group (all but the newest)
+    __syncthreads();
+    return base + (i & 1) * slot;
+  }
+};
+template <typename TI, typename Issue>
+__device__ __forceinline__ ItemRing<TI, Issue> item_ring(TI* base, int slot,
+                                                         Issue issue) {
+  return ItemRing<TI, Issue>{base, slot, issue};
+}
 
-  load_tile<T, kRows, DP>(q + qhead, q0, Tq, D, qt, kLdT, nullptr);
-  float m[8], l[8], acc[8][TD];
+template <int MT, int NT>
+__device__ __forceinline__ void zero_tiles(float (&x)[MT][NT][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    const bool in = r < Tq;
-    m[i] = in ? m_in[row0 + r] : kNeg;  // rows past Tq are never stored
-    l[i] = in ? l_in[row0 + r] : 0.f;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx * TD + j;
-      acc[i][j] = in && d < D ? acc_in[qhead + (int64_t)r * D + d] : 0.f;
-    }
-  }
-  const int q_end = min(Tq, q0 + kRows);
-  // causal: keys c with k_off + c > q_off + q_end - 1 are hidden from
-  // every row of the tile
-  const int kv_end = causal ? max(0, min(Tk, q_off + q_end - k_off)) : Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kRows) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T, kRows, DP>(k + khead, k0, Tk, D, kt, kLdT, nullptr);
-    load_tile<T, kRows, DP>(v + khead, k0, Tk, D, nullptr, 0, vs);
-    __syncthreads();
-    float s[8][4];
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_mma<DP, 8, 4>(qt + ty * 8, kLdT, kt + tx * 4, kLdT, s);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = q_off + q0 + ty * 8 + i;  // global positions
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        float x = s[i][j] * scale;
-        if (c >= Tk) x = -INFINITY;  // past the end: no contribution
-        else if (causal && r < k_off + c) x = kNeg;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+      for (int e = 0; e < 4; ++e) x[m][j][e] = 0.f;
+}
+
+// K6 / K9 at D > 256.  grid (BH, ceil(Tq / 64), ceil(D / 256)).
+template <typename TI, bool CARRY>
+__device__ __forceinline__ void fwd_wide_body(const FwdArgs& a) {
+  using M = Mma<TI>;
+  using W = WideTiles<TI>;
+  constexpr int LD = W::LD;
+  constexpr int BR = W::ROWS;      // query rows a block
+  constexpr int BC = W::FWD_KEYS;  // keys a tile
+  constexpr int NT = BC / 8;       // n-tiles of S
+  constexpr int DC = W::FWD_COLS;  // columns of O a block
+  constexpr int ND = DC / 8;       // n-tiles of O
+  constexpr int NCH = DC / kGK;    // chunks of V a tile, at most
+  constexpr int NC8 = kGK / 8;     // n-tiles of a chunk
+  extern __shared__ float4 smem4[];
+  const TI* q = static_cast<const TI*>(a.q);
+  const TI* k = static_cast<const TI*>(a.k);
+  const TI* v = static_cast<const TI*>(a.v);
+  const int D = a.D, vec = a.vec;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3, rw = warp * 16;
+  const int64_t row0 = (int64_t)blockIdx.x * a.Tq;
+  const int64_t qhead = row0 * D;
+  const int Tk = CARRY ? a.Tk : a.Tq;
+  const int q_off = CARRY ? a.q_off : 0, k_off = CARRY ? a.k_off : 0;
+  const int64_t khead = (int64_t)blockIdx.x * Tk * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest first
+  const int c0 = blockIdx.z * DC;
+  const int n_tiles =
+      key_tiles(a.causal, Tk, q_off, k_off, min(a.Tq, q0 + BR), BC);
+  const int n_s = (D + kGK - 1) / kGK;                       // score slices
+  const int n_v = min(NCH, (D - c0 + kGK - 1) / kGK);        // V chunks
+  const int per_tile = n_s + n_v, total = n_tiles * per_tile;
+  const int rq = q0 + rw + (lane >> 2);
+
+  // item j < n_s of tile it: Q [BR][kGK] then K [BC][kGK], columns
+  // j kGK; item n_s + c: V [BC][kGK], columns c0 + c kGK
+  auto ring = item_ring(reinterpret_cast<TI*>(smem4), (BR + BC) * LD,
+                        [&](int i) {
+    if (i < total) {
+      const int it = i / per_tile, j = i % per_tile;
+      TI* s = reinterpret_cast<TI*>(smem4) + (i & 1) * (BR + BC) * LD;
+      if (j < n_s) {
+        load_block<TI, BR, kGK, LD>(s, q + qhead, q0, a.Tq, D, j * kGK, vec);
+        load_block<TI, BC, kGK, LD>(s + BR * LD, k + khead, it * BC, Tk, D,
+                                    j * kGK, vec);
+      } else {
+        load_block<TI, BC, kGK, LD>(s, v + khead, it * BC, Tk, D,
+                                    c0 + (j - n_s) * kGK, vec);
       }
-      mx = row_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = m_new <= kNeg * 0.5f ? 0.f : m_new;
-      float sum = 0.f;
+    }
+    cp_async_commit();
+  });
+
+  float m[1][2], l[1][2], acc[1][ND][4];
+  fwd_start<CARRY>(a, row0, rq, c0, t, m, l, acc);
+  ring.issue(0);
+  int i = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    // S = Q K^T, slice by slice
+    float s[1][NT][4];
+    zero_tiles(s);
+    for (int j = 0; j < n_s; ++j) {
+      const TI* sl = ring.next(i++);
+      float ps[1][NT][4];
+      zero_tiles(ps);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_safe);
-        sum += s[i][j];
+      for (int kk = 0; kk < kGK; kk += M::KS) {
+        typename M::AS af;
+        M::frag_a(af, sl, LD, rw, kk, lane);
+#pragma unroll
+        for (int jn = 0; jn < NT; jn += 2) {
+          typename M::B b[2];
+          M::frag_bn2(b, sl + BR * LD, LD, 8 * jn, kk, lane);
+          M::mma(ps[0][jn], af, b[0]);
+          M::mma(ps[0][jn + 1], af, b[1]);
+        }
       }
-      sum = row_sum(sum);
-      const float corr = expf(m[i] - m_safe);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < TD; ++j) acc[i][j] *= corr;
+      add_group(s, ps, false);
     }
-    store_t<4>(pt, ty * 8, tx * 4, s);
-    __syncthreads();
-    tile_mma<kRows, 8, TD>(pt + ty * 8, kLdT, vs + tx * TD, DP, acc);
-  }
+    online_softmax(a, Tk, q_off, k_off, rq, it * BC, t, s, m, l, acc);
+    // O[:, group] += P V[tile, group], chunk by chunk
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + ty * 8 + i;
-    if (r >= Tq) continue;
+    for (int c = 0; c < NCH; ++c) {
+      if (c >= n_v) break;
+      const TI* vt = ring.next(i++);
 #pragma unroll
-    for (int j = 0; j < TD; ++j) {
-      const int d = tx * TD + j;
-      if (d < D) acc_out[qhead + (int64_t)r * D + d] = acc[i][j];
-    }
-    if (tx == 0) {
-      m_out[row0 + r] = causal ? fmaxf(m[i], kNeg) : m[i];
-      l_out[row0 + r] = l[i];
+      for (int jj = 0; jj < BC / M::KS; ++jj) {
+        typename M::AR ar;
+        M::a_from_c(ar, s[0], jj);
+#pragma unroll
+        for (int n = 0; n < NC8; n += 2) {
+          typename M::B b[2];
+          M::frag_bt2(b, vt, LD, jj * M::KS, 8 * n, lane);
+          M::mma(acc[0][c * NC8 + n], ar, b[0]);
+          M::mma(acc[0][c * NC8 + n + 1], ar, b[1]);
+        }
+      }
     }
   }
+  cp_async_wait<0>();
+  fwd_finish<CARRY, TI>(a, row0, rq, c0, blockIdx.z == 0, t, m, l, acc);
+}
+
+template <typename TI>
+__global__ void __launch_bounds__(kThreads) flash_fwd_wide_kernel(FwdArgs a) {
+  fwd_wide_body<TI, false>(a);
+}
+
+template <typename TI>
+__global__ void __launch_bounds__(kThreads)
+flash_carry_wide_kernel(FwdArgs a) {
+  fwd_wide_body<TI, true>(a);
+}
+
+// K7 at D > 256.  grid (BH, ceil(T / 64), ceil(D / 256)); a block owns 64
+// query rows and 256 columns of dQ.  Per key tile: score slices of (Q,
+// dO, K, V), then dS in registers, then the K chunks of its columns.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_wide_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                         const TI* __restrict__ v,
+                         const TI* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, TO* __restrict__ dq,
+                         int Tn, int D, float scale, int causal, int vec) {
+  using M = Mma<TI>;
+  using W = WideTiles<TI>;
+  constexpr int LD = W::LD;
+  constexpr int BR = W::ROWS;     // query rows a block
+  constexpr int BC = W::DQ_KEYS;  // keys a tile
+  constexpr int NT = BC / 8;      // n-tiles of S
+  constexpr int DC = W::DQ_COLS;  // columns of dQ a block
+  constexpr int ND = DC / 8;
+  constexpr int NCH = DC / kGK;
+  constexpr int NC8 = kGK / 8;
+  constexpr int SLOT = (2 * BR + 2 * BC) * LD;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16;
+  const int64_t head = (int64_t)blockIdx.x * Tn * D;
+  const int64_t row0 = (int64_t)blockIdx.x * Tn;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;  // longest first
+  const int c0 = blockIdx.z * DC;
+  const int q_end = min(Tn, q0 + BR);
+  const int n_tiles = ((causal ? q_end : Tn) + BC - 1) / BC;
+  const int n_s = (D + kGK - 1) / kGK;
+  const int n_c = min(NCH, (D - c0 + kGK - 1) / kGK);
+  const int per_tile = n_s + n_c, total = n_tiles * per_tile;
+
+  // item j < n_s: Q, dO [BR][kGK], K, V [BC][kGK] at columns j kGK;
+  // item n_s + c: K [BC][kGK] at columns c0 + c kGK
+  auto ring = item_ring(reinterpret_cast<TI*>(smem4), SLOT, [&](int i) {
+    if (i < total) {
+      const int it = i / per_tile, j = i % per_tile;
+      TI* s = reinterpret_cast<TI*>(smem4) + (i & 1) * SLOT;
+      if (j < n_s) {
+        const int cj = j * kGK;
+        load_block<TI, BR, kGK, LD>(s, q + head, q0, Tn, D, cj, vec);
+        load_block<TI, BR, kGK, LD>(s + BR * LD, dout + head, q0, Tn, D, cj,
+                                    vec);
+        load_block<TI, BC, kGK, LD>(s + 2 * BR * LD, k + head, it * BC, Tn,
+                                    D, cj, vec);
+        load_block<TI, BC, kGK, LD>(s + (2 * BR + BC) * LD, v + head,
+                                    it * BC, Tn, D, cj, vec);
+      } else {
+        load_block<TI, BC, kGK, LD>(s, k + head, it * BC, Tn, D,
+                                    c0 + (j - n_s) * kGK, vec);
+      }
+    }
+    cp_async_commit();
+  });
+
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + rw + g + 8 * h;
+    lr[h] = r < Tn ? lse[row0 + r] : 0.f;
+    dr[h] = r < Tn ? delta[row0 + r] : 0.f;
+  }
+  float acc[1][ND][4];
+  zero_tiles(acc);
+  ring.issue(0);
+  int i = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BC;
+    float s[1][NT][4], dp[1][NT][4];
+    zero_tiles(s);
+    zero_tiles(dp);
+    for (int j = 0; j < n_s; ++j) {
+      const TI* sl = ring.next(i++);
+      float ps[1][NT][4], pdp[1][NT][4];
+      zero_tiles(ps);
+      zero_tiles(pdp);
+#pragma unroll
+      for (int kk = 0; kk < kGK; kk += M::KS) {
+        typename M::AS aq, ado;
+        M::load_a(aq, sl, LD, rw, kk, g, t);
+        M::load_a(ado, sl + BR * LD, LD, rw, kk, g, t);
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) {
+          typename M::B bk, bv;
+          M::load_bn(bk, sl + 2 * BR * LD, LD, 8 * jn, kk, g, t);
+          M::load_bn(bv, sl + (2 * BR + BC) * LD, LD, 8 * jn, kk, g, t);
+          M::mma(ps[0][jn], aq, bk);
+          M::mma(pdp[0][jn], ado, bv);
+        }
+      }
+      add_group(s, ps, false);
+      add_group(dp, pdp, false);
+    }
+    // p = exp(s scale - lse), dS = p (dP - delta) scale, into s
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = q0 + rw + g + 8 * (e >> 1);
+        const int c = k0 + 8 * jn + 2 * t + (e & 1);
+        float x = s[0][jn][e] * scale;
+        if (causal && r < c) x = kNeg;
+        const float p = c < Tn ? expf(x - lr[e >> 1]) : 0.f;
+        s[0][jn][e] = p * (dp[0][jn][e] - dr[e >> 1]) * scale;
+      }
+    // dQ[:, group] += dS K[tile, group], chunk by chunk
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (c >= n_c) break;
+      const TI* kt = ring.next(i++);
+#pragma unroll
+      for (int jj = 0; jj < BC / M::KS; ++jj) {
+        typename M::AR ar;
+        M::a_from_c(ar, s[0], jj);
+#pragma unroll
+        for (int n = 0; n < NC8; ++n) {
+          typename M::B b;
+          M::load_bt(b, kt, LD, jj * M::KS, 8 * n, g, t);
+          M::mma(acc[0][c * NC8 + n], ar, b);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = q0 + rw + g + 8 * (e >> 1);
+      const int d = c0 + 8 * n + 2 * t + (e & 1);
+      if (r < Tn && d < D) store(dq + head + (int64_t)r * D + d, acc[0][n][e]);
+    }
+}
+
+// K8 at D > 256.  grid (BH, ceil(T / 64), ceil(D / 128)); a block owns 64
+// key rows and 128 columns of dK and dV.  Per query tile: score slices
+// of (K, V, Q, dO) into S^T and dP^T, then P^T and dS^T in registers
+// (lse and delta read from global memory), then the (dO, Q) chunks of its
+// columns.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_wide_kernel(const TI* __restrict__ q, const TI* __restrict__ k,
+                          const TI* __restrict__ v,
+                          const TI* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          TO* __restrict__ dk, TO* __restrict__ dv, int Tn,
+                          int D, float scale, int causal, int vec) {
+  using M = Mma<TI>;
+  using W = WideTiles<TI>;
+  constexpr int LD = W::LD;
+  constexpr int BK = W::ROWS;         // key rows a block
+  constexpr int BQ = W::DKV_QUERIES;  // queries a tile
+  constexpr int NT = BQ / 8;          // n-tiles of S^T
+  constexpr int DC = W::DKV_COLS;     // columns of dK, dV a block
+  constexpr int ND = DC / 8;
+  constexpr int NCH = DC / kGK;
+  constexpr int NC8 = kGK / 8;
+  constexpr int SLOT = (2 * BK + 2 * BQ) * LD;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, rw = warp * 16;
+  const int64_t head = (int64_t)blockIdx.x * Tn * D;
+  const int64_t row0 = (int64_t)blockIdx.x * Tn;
+  const int k0 = blockIdx.y * BK;       // causal: the first keys see most
+  const int c0 = blockIdx.z * DC;
+  const int q_begin = causal ? k0 : 0;  // earlier queries see none of them
+  const int n_tiles = (Tn - q_begin + BQ - 1) / BQ;
+  const int n_s = (D + kGK - 1) / kGK;
+  const int n_c = min(NCH, (D - c0 + kGK - 1) / kGK);
+  const int per_tile = n_s + n_c, total = n_tiles * per_tile;
+
+  // item j < n_s: K, V [BK][kGK], Q, dO [BQ][kGK] at columns j kGK;
+  // item n_s + c: dO, Q [BQ][kGK] at columns c0 + c kGK
+  auto ring = item_ring(reinterpret_cast<TI*>(smem4), SLOT, [&](int i) {
+    if (i < total) {
+      const int it = i / per_tile, j = i % per_tile;
+      const int q0 = q_begin + it * BQ;
+      TI* s = reinterpret_cast<TI*>(smem4) + (i & 1) * SLOT;
+      if (j < n_s) {
+        const int cj = j * kGK;
+        load_block<TI, BK, kGK, LD>(s, k + head, k0, Tn, D, cj, vec);
+        load_block<TI, BK, kGK, LD>(s + BK * LD, v + head, k0, Tn, D, cj,
+                                    vec);
+        load_block<TI, BQ, kGK, LD>(s + 2 * BK * LD, q + head, q0, Tn, D, cj,
+                                    vec);
+        load_block<TI, BQ, kGK, LD>(s + (2 * BK + BQ) * LD, dout + head, q0,
+                                    Tn, D, cj, vec);
+      } else {
+        const int cc = c0 + (j - n_s) * kGK;
+        load_block<TI, BQ, kGK, LD>(s, dout + head, q0, Tn, D, cc, vec);
+        load_block<TI, BQ, kGK, LD>(s + BQ * LD, q + head, q0, Tn, D, cc,
+                                    vec);
+      }
+    }
+    cp_async_commit();
+  });
+
+  float gk[1][ND][4], gv[1][ND][4];
+  zero_tiles(gk);
+  zero_tiles(gv);
+  ring.issue(0);
+  int i = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ;
+    float st[1][NT][4], dpt[1][NT][4];  // [key][query]
+    zero_tiles(st);
+    zero_tiles(dpt);
+    for (int j = 0; j < n_s; ++j) {
+      const TI* sl = ring.next(i++);
+      float ps[1][NT][4], pdp[1][NT][4];
+      zero_tiles(ps);
+      zero_tiles(pdp);
+#pragma unroll
+      for (int kk = 0; kk < kGK; kk += M::KS) {
+        typename M::AS ak, av;
+        M::load_a(ak, sl, LD, rw, kk, g, t);
+        M::load_a(av, sl + BK * LD, LD, rw, kk, g, t);
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) {
+          typename M::B bq, bdo;
+          M::load_bn(bq, sl + 2 * BK * LD, LD, 8 * jn, kk, g, t);
+          M::load_bn(bdo, sl + (2 * BK + BQ) * LD, LD, 8 * jn, kk, g, t);
+          M::mma(ps[0][jn], ak, bq);
+          M::mma(pdp[0][jn], av, bdo);
+        }
+      }
+      add_group(st, ps, false);
+      add_group(dpt, pdp, false);
+    }
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + rw + g + 8 * (e >> 1);
+        const int r = q0 + 8 * jn + 2 * t + (e & 1);
+        float x = st[0][jn][e] * scale;
+        if (causal && r < c) x = kNeg;
+        const bool in = r < Tn;
+        const float p = in ? expf(x - lse[row0 + r]) : 0.f;
+        st[0][jn][e] = p;
+        dpt[0][jn][e] =
+            p * (dpt[0][jn][e] - (in ? delta[row0 + r] : 0.f)) * scale;
+      }
+    // dV[:, group] += P^T dO[tile, group], dK[:, group] += dS^T Q[tile, group]
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      if (c >= n_c) break;
+      const TI* sl = ring.next(i++);
+#pragma unroll
+      for (int jj = 0; jj < BQ / M::KS; ++jj) {
+        typename M::AR ap, ads;
+        M::a_from_c(ap, st[0], jj);
+        M::a_from_c(ads, dpt[0], jj);
+#pragma unroll
+        for (int n = 0; n < NC8; ++n) {
+          typename M::B bdo, bq;
+          M::load_bt(bdo, sl, LD, jj * M::KS, 8 * n, g, t);
+          M::load_bt(bq, sl + BQ * LD, LD, jj * M::KS, 8 * n, g, t);
+          M::mma(gv[0][c * NC8 + n], ap, bdo);
+          M::mma(gk[0][c * NC8 + n], ads, bq);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = k0 + rw + g + 8 * (e >> 1);
+      const int d = c0 + 8 * n + 2 * t + (e & 1);
+      if (c < Tn && d < D) {
+        store(dk + head + (int64_t)c * D + d, gk[0][n][e]);
+        store(dv + head + (int64_t)c * D + d, gv[0][n][e]);
+      }
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1235,8 +1637,9 @@ int prepare(Kern kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-dim3 grid_for(int BH, int Tn, int rows = kRows) {
-  return dim3(BH, (Tn + rows - 1) / rows);
+// grid (BH, row blocks, column groups)
+dim3 grid_for(int BH, int Tn, int rows, int D = 1, int cols = 1) {
+  return dim3(BH, (Tn + rows - 1) / rows, (D + cols - 1) / cols);
 }
 
 // 16-byte copies need rows of whole 16-byte chunks and aligned bases
@@ -1249,18 +1652,26 @@ int vec_ok(int D, const void* q, const void* k, const void* v,
   return 1;
 }
 
-template <typename T, int DP>
-int fwd_launch(const void* q, const void* k, const void* v, void* o,
-               float* lse, int BH, int Tn, int D, float scale, int causal,
-               cudaStream_t s) {
-  auto kern = flash_fwd_kernel<T, DP>;
-  constexpr size_t smem = fwd_mma_smem<T, DP>();
+// DP: the padded width, or 0 for the wide kernels
+template <typename T, int DP, bool CARRY>
+int fwd_launch(FwdArgs a, int BH, cudaStream_t s) {
+  a.vec = vec_ok<T>(a.D, a.q, a.k, a.v, a.q);
+  void (*kern)(FwdArgs);
+  size_t smem;
+  dim3 grid;
+  if constexpr (DP == 0) {
+    kern = CARRY ? flash_carry_wide_kernel<T> : flash_fwd_wide_kernel<T>;
+    smem = wide_fwd_smem<T>();
+    grid = grid_for(BH, a.Tq, WideTiles<T>::ROWS, a.D,
+                    WideTiles<T>::FWD_COLS);
+  } else {
+    kern = CARRY ? flash_carry_kernel<T, DP> : flash_fwd_kernel<T, DP>;
+    smem = fwd_mma_smem<T, DP>();
+    grid = grid_for(BH, a.Tq, FwdTiles<T, DP>::ROWS);
+  }
   int err = prepare(kern, smem);
   if (err) return err;
-  kern<<<grid_for(BH, Tn, FwdTiles<T, DP>::ROWS), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, Tn, D, scale,
-      causal, vec_ok<T>(D, q, k, v, q));
+  kern<<<grid, kThreads, smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1268,11 +1679,24 @@ template <typename TI, typename TO, int DP>
 int dq_launch(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dq, int BH, int Tn,
               int D, float scale, int causal, cudaStream_t s) {
-  auto kern = flash_bwd_dq_kernel<TI, TO, DP>;
-  constexpr size_t smem = dq_smem<TI, DP>();
+  using Fn = void (*)(const TI*, const TI*, const TI*, const TI*,
+                      const float*, const float*, TO*, int, int, float, int,
+                      int);
+  Fn kern;
+  size_t smem;
+  dim3 grid;
+  if constexpr (DP == 0) {
+    kern = flash_bwd_dq_wide_kernel<TI, TO>;
+    smem = wide_dq_smem<TI>();
+    grid = grid_for(BH, Tn, WideTiles<TI>::ROWS, D, WideTiles<TI>::DQ_COLS);
+  } else {
+    kern = flash_bwd_dq_kernel<TI, TO, DP>;
+    smem = dq_smem<TI, DP>();
+    grid = grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS);
+  }
   int err = prepare(kern, smem);
   if (err) return err;
-  kern<<<grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS), kThreads, smem, s>>>(
+  kern<<<grid, kThreads, smem, s>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<const TI*>(dout), lse, delta,
       static_cast<TO*>(dq), Tn, D, scale, causal,
@@ -1285,12 +1709,24 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv,
                int BH, int Tn, int D, float scale, int causal,
                cudaStream_t s) {
-  auto kern = flash_bwd_dkv_kernel<TI, TO, DP>;
-  constexpr size_t smem = dkv_smem<TI, DP>();
+  using Fn = void (*)(const TI*, const TI*, const TI*, const TI*,
+                      const float*, const float*, TO*, TO*, int, int, float,
+                      int, int);
+  Fn kern;
+  size_t smem;
+  dim3 grid;
+  if constexpr (DP == 0) {
+    kern = flash_bwd_dkv_wide_kernel<TI, TO>;
+    smem = wide_dkv_smem<TI>();
+    grid = grid_for(BH, Tn, WideTiles<TI>::ROWS, D, WideTiles<TI>::DKV_COLS);
+  } else {
+    kern = flash_bwd_dkv_kernel<TI, TO, DP>;
+    smem = dkv_smem<TI, DP>();
+    grid = grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS);
+    grid.z = BwdTiles<TI, DP>::DKV_SPLIT;
+  }
   int err = prepare(kern, smem);
   if (err) return err;
-  dim3 grid = grid_for(BH, Tn, BwdTiles<TI, DP>::ROWS);
-  grid.z = BwdTiles<TI, DP>::DKV_SPLIT;
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const TI*>(q), static_cast<const TI*>(k),
       static_cast<const TI*>(v), static_cast<const TI*>(dout), lse, delta,
@@ -1299,45 +1735,38 @@ int dkv_launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DP>
-int carry_launch(const void* q, const void* k, const void* v,
-                 const float* m_in, const float* l_in, const float* acc_in,
-                 float* m_out, float* l_out, float* acc_out, int BH, int Tq,
-                 int Tk, int D, float scale, int q_off, int k_off,
-                 int causal, cudaStream_t s) {
-  auto kern = flash_carry_kernel<T, DP>;
-  constexpr size_t smem = fwd_smem<DP>();
-  int err = prepare(kern, smem);
-  if (err) return err;
-  kern<<<grid_for(BH, Tq), kThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), m_in, l_in, acc_in, m_out, l_out, acc_out,
-      Tq, Tk, D, scale, q_off, k_off, causal);
-  return (int)cudaGetLastError();
-}
-
+// The padded-width entry points take D <= 256 ...
 int check_args(int BH, int Tn, int D) {
   if (BH <= 0 || Tn <= 0 || D <= 0 || D > 256 ||
-      (Tn + kRows - 1) / kRows > 65535)
+      (Tn + kMinRows - 1) / kMinRows > 65535)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// D -> the padded width the kernels are compiled for
+// ... the wide ones any D whose column groups fit grid.z
+int check_wide_args(int BH, int Tn, int D, int cols) {
+  if (BH <= 0 || Tn <= 0 || D <= 0 ||
+      (Tn + kMinRows - 1) / kMinRows > 65535 || (D + cols - 1) / cols > 65535)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// D -> the padded width the kernels are compiled for; `wide` -> 0
 template <template <int> class Fn, typename... Args>
-int by_width(int D, Args... args) {
+int by_width(bool wide, int D, Args... args) {
+  if (wide) return Fn<0>::run(args...);
   if (D <= 32) return Fn<32>::run(args...);
   if (D <= 64) return Fn<64>::run(args...);
   if (D <= 128) return Fn<128>::run(args...);
   return Fn<256>::run(args...);
 }
 
-template <typename T>
+template <typename T, bool CARRY>
 struct Fwd {
   template <int DP>
   struct W {
     template <typename... A>
-    static int run(A... a) { return fwd_launch<T, DP>(a...); }
+    static int run(A... a) { return fwd_launch<T, DP, CARRY>(a...); }
   };
 };
 
@@ -1359,20 +1788,73 @@ struct Dkv {
   };
 };
 
-template <typename T>
-struct Carry {
-  template <int DP>
-  struct W {
-    template <typename... A>
-    static int run(A... a) { return carry_launch<T, DP>(a...); }
-  };
-};
+template <bool CARRY>
+int fwd_entry(const FwdArgs& a, int BH, int dtype, bool wide,
+              cudaStream_t s) {
+  if (dtype == 0) return by_width<Fwd<float, CARRY>::template W>(
+      wide, a.D, a, BH, s);
+  if (dtype == 1) return by_width<Fwd<__nv_bfloat16, CARRY>::template W>(
+      wide, a.D, a, BH, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+FwdArgs k6_args(const void* q, const void* k, const void* v, void* o,
+                float* lse, int Tn, int D, float scale, int causal) {
+  FwdArgs a{};
+  a.q = q, a.k = k, a.v = v, a.o = o, a.lse = lse;
+  a.Tq = a.Tk = Tn, a.D = D, a.scale = scale, a.causal = causal;
+  return a;
+}
+
+FwdArgs k9_args(const void* q, const void* k, const void* v,
+                const float* m_in, const float* l_in, const float* acc_in,
+                float* m_out, float* l_out, float* acc_out, int Tq, int Tk,
+                int D, float scale, int q_off, int k_off, int causal) {
+  FwdArgs a{};
+  a.q = q, a.k = k, a.v = v, a.m_in = m_in, a.l_in = l_in;
+  a.acc_in = acc_in, a.m_out = m_out, a.l_out = l_out, a.acc_out = acc_out;
+  a.Tq = Tq, a.Tk = Tk, a.D = D, a.scale = scale;
+  a.q_off = q_off, a.k_off = k_off, a.causal = causal;
+  return a;
+}
+
+int dq_entry(bool wide, const void* q, const void* k, const void* v,
+             const void* dout, const float* lse, const float* delta,
+             void* dq, int BH, int Tn, int D, float scale, int causal,
+             int in_dtype, int out_dtype, cudaStream_t s) {
+#define COS_DQ(TI, TO)                                                    \
+  return by_width<Dq<TI, TO>::W>(wide, D, q, k, v, dout, lse, delta, dq,  \
+                                 BH, Tn, D, scale, causal, s)
+  if (in_dtype == 0 && out_dtype == 0) COS_DQ(float, float);
+  if (in_dtype == 0 && out_dtype == 1) COS_DQ(float, __nv_bfloat16);
+  if (in_dtype == 1 && out_dtype == 0) COS_DQ(__nv_bfloat16, float);
+  if (in_dtype == 1 && out_dtype == 1) COS_DQ(__nv_bfloat16, __nv_bfloat16);
+#undef COS_DQ
+  return (int)cudaErrorInvalidValue;
+}
+
+int dkv_entry(bool wide, const void* q, const void* k, const void* v,
+              const void* dout, const float* lse, const float* delta,
+              void* dk, void* dv, int BH, int Tn, int D, float scale,
+              int causal, int in_dtype, int out_dtype, cudaStream_t s) {
+#define COS_DKV(TI, TO)                                                    \
+  return by_width<Dkv<TI, TO>::W>(wide, D, q, k, v, dout, lse, delta, dk,  \
+                                  dv, BH, Tn, D, scale, causal, s)
+  if (in_dtype == 0 && out_dtype == 0) COS_DKV(float, float);
+  if (in_dtype == 0 && out_dtype == 1) COS_DKV(float, __nv_bfloat16);
+  if (in_dtype == 1 && out_dtype == 0) COS_DKV(__nv_bfloat16, float);
+  if (in_dtype == 1 && out_dtype == 1) COS_DKV(__nv_bfloat16, __nv_bfloat16);
+#undef COS_DKV
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Each entry point returns
 // cudaGetLastError() of its launch (0 on success), or
-// cudaErrorInvalidValue for refused arguments.
+// cudaErrorInvalidValue for refused arguments.  Each kernel has two with
+// the same arguments: the padded widths (D <= 256, refused above) and
+// `_wide` (any D; the wrappers send it D > 256).
 
 // K6: o (BH, T, D) in the input dtype, lse (BH, T) f32.
 extern "C" int cos_flash_fwd(const void* q, const void* k, const void* v,
@@ -1381,14 +1863,20 @@ extern "C" int cos_flash_fwd(const void* q, const void* k, const void* v,
                              void* stream) {
   int err = check_args(BH, Tn, D);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_width<Fwd<float>::W>(D, q, k, v, o, lse, BH, Tn, D, scale,
-                                   causal, s);
-  if (dtype == 1)
-    return by_width<Fwd<__nv_bfloat16>::W>(D, q, k, v, o, lse, BH, Tn, D,
-                                           scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  return fwd_entry<false>(k6_args(q, k, v, o, lse, Tn, D, scale, causal),
+                          BH, dtype, false,
+                          static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cos_flash_fwd_wide(const void* q, const void* k,
+                                  const void* v, void* o, float* lse, int BH,
+                                  int Tn, int D, float scale, int causal,
+                                  int dtype, void* stream) {
+  int err = check_wide_args(BH, Tn, D, WideTiles<float>::FWD_COLS);
+  if (err) return err;
+  return fwd_entry<false>(k6_args(q, k, v, o, lse, Tn, D, scale, causal),
+                          BH, dtype, true,
+                          static_cast<cudaStream_t>(stream));
 }
 
 // K7: dq (BH, T, D) in out_dtype, from q, k, v, dO (in_dtype), lse, delta.
@@ -1399,16 +1887,22 @@ extern "C" int cos_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int out_dtype, void* stream) {
   int err = check_args(BH, Tn, D);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define COS_DQ(TI, TO)                                                    \
-  return by_width<Dq<TI, TO>::W>(D, q, k, v, dout, lse, delta, dq, BH, Tn, \
-                                 D, scale, causal, s)
-  if (in_dtype == 0 && out_dtype == 0) COS_DQ(float, float);
-  if (in_dtype == 0 && out_dtype == 1) COS_DQ(float, __nv_bfloat16);
-  if (in_dtype == 1 && out_dtype == 0) COS_DQ(__nv_bfloat16, float);
-  if (in_dtype == 1 && out_dtype == 1) COS_DQ(__nv_bfloat16, __nv_bfloat16);
-#undef COS_DQ
-  return (int)cudaErrorInvalidValue;
+  return dq_entry(false, q, k, v, dout, lse, delta, dq, BH, Tn, D, scale,
+                  causal, in_dtype, out_dtype,
+                  static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cos_flash_bwd_dq_wide(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dq, int BH, int Tn, int D,
+                                     float scale, int causal, int in_dtype,
+                                     int out_dtype, void* stream) {
+  int err = check_wide_args(BH, Tn, D, WideTiles<float>::DQ_COLS);
+  if (err) return err;
+  return dq_entry(true, q, k, v, dout, lse, delta, dq, BH, Tn, D, scale,
+                  causal, in_dtype, out_dtype,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // K8: dk, dv (BH, T, D) in out_dtype.
@@ -1420,16 +1914,23 @@ extern "C" int cos_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  void* stream) {
   int err = check_args(BH, Tn, D);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define COS_DKV(TI, TO)                                                   \
-  return by_width<Dkv<TI, TO>::W>(D, q, k, v, dout, lse, delta, dk, dv,   \
-                                  BH, Tn, D, scale, causal, s)
-  if (in_dtype == 0 && out_dtype == 0) COS_DKV(float, float);
-  if (in_dtype == 0 && out_dtype == 1) COS_DKV(float, __nv_bfloat16);
-  if (in_dtype == 1 && out_dtype == 0) COS_DKV(__nv_bfloat16, float);
-  if (in_dtype == 1 && out_dtype == 1) COS_DKV(__nv_bfloat16, __nv_bfloat16);
-#undef COS_DKV
-  return (int)cudaErrorInvalidValue;
+  return dkv_entry(false, q, k, v, dout, lse, delta, dk, dv, BH, Tn, D,
+                   scale, causal, in_dtype, out_dtype,
+                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cos_flash_bwd_dkv_wide(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const float* lse, const float* delta,
+                                      void* dk, void* dv, int BH, int Tn,
+                                      int D, float scale, int causal,
+                                      int in_dtype, int out_dtype,
+                                      void* stream) {
+  int err = check_wide_args(BH, Tn, D, WideTiles<float>::DKV_COLS);
+  if (err) return err;
+  return dkv_entry(true, q, k, v, dout, lse, delta, dk, dv, BH, Tn, D,
+                   scale, causal, in_dtype, out_dtype,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // K9: (m_out, l_out, acc_out) = the (m_in, l_in, acc_in) carry of q (BH, Tq,
@@ -1446,15 +1947,22 @@ extern "C" int cos_flash_block_update(const void* q, const void* k,
   int err = check_args(BH, Tq, D);
   if (!err) err = check_args(BH, Tk, D);
   if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_width<Carry<float>::W>(D, q, k, v, m_in, l_in, acc_in, m_out,
-                                     l_out, acc_out, BH, Tq, Tk, D, scale,
-                                     q_off, k_off, causal, s);
-  if (dtype == 1)
-    return by_width<Carry<__nv_bfloat16>::W>(D, q, k, v, m_in, l_in, acc_in,
-                                             m_out, l_out, acc_out, BH, Tq,
-                                             Tk, D, scale, q_off, k_off,
-                                             causal, s);
-  return (int)cudaErrorInvalidValue;
+  return fwd_entry<true>(k9_args(q, k, v, m_in, l_in, acc_in, m_out, l_out,
+                                 acc_out, Tq, Tk, D, scale, q_off, k_off,
+                                 causal),
+                         BH, dtype, false, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int cos_flash_block_update_wide(
+    const void* q, const void* k, const void* v, const float* m_in,
+    const float* l_in, const float* acc_in, float* m_out, float* l_out,
+    float* acc_out, int BH, int Tq, int Tk, int D, float scale, int q_off,
+    int k_off, int causal, int dtype, void* stream) {
+  int err = check_wide_args(BH, Tq, D, WideTiles<float>::FWD_COLS);
+  if (!err) err = check_wide_args(BH, Tk, D, WideTiles<float>::FWD_COLS);
+  if (err) return err;
+  return fwd_entry<true>(k9_args(q, k, v, m_in, l_in, acc_in, m_out, l_out,
+                                 acc_out, Tq, Tk, D, scale, q_off, k_off,
+                                 causal),
+                         BH, dtype, true, static_cast<cudaStream_t>(stream));
 }

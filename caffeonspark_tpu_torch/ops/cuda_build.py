@@ -2,8 +2,9 @@
 
 Each source is compiled by `nvcc` for `sm_90a` into its own shared
 library with a plain C interface and loaded with ctypes: no PyTorch
-headers, so a build takes seconds.  All sources compile in parallel
-(one `nvcc` each, started together).  Libraries land in
+headers, so a build takes seconds to a minute.  All sources compile in
+parallel (one `nvcc` each, started together, each splitting its
+device-code optimization over the machine's cores).  Libraries land in
 `build/torch_kernels/` at the repository root, named by the hash of
 their source and flags, so a later process of the same checkout loads
 an earlier one's build instead of compiling again.
@@ -29,6 +30,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 SOURCES = ("lrn", "int8_matmul", "flash_attn")
+# nvcc's device-code optimizer runs on this many threads a source
+# (flash_attn.cu instantiates some 60 kernels; one thread takes minutes)
+SPLIT = max(1, os.cpu_count() or 1)
 
 # the process's loaded libraries: one load per process, shared by every
 # wrapper (a loaded CUDA library is a process-wide resource)
@@ -72,8 +76,8 @@ def build_all(verbose: bool = False) -> Dict[str, object]:
         for name, out in todo.items():
             tmp = out.with_suffix(f".tmp{os.getpid()}.so")
             cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
+                   "-Xcompiler", "-fPIC", f"-split-compile={SPLIT}",
+                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
             if verbose:
                 cmd.insert(1, "-Xptxas=-v")
             procs[name] = (subprocess.Popen(
@@ -126,15 +130,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cos_int8_matmul.argtypes = [P, P, P, I, I, I, P]
         lib.cos_int8_matmul.restype = I
     elif name == "flash_attn":
-        lib.cos_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, F, I, I, P]
-        lib.cos_flash_fwd.restype = I
-        lib.cos_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I,
-                                         I, I, P]
-        lib.cos_flash_bwd_dq.restype = I
-        lib.cos_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F,
-                                          I, I, I, P]
-        lib.cos_flash_bwd_dkv.restype = I
-        lib.cos_flash_block_update.argtypes = [P, P, P, P, P, P, P, P, P, I,
-                                               I, I, I, F, I, I, I, I, P]
-        lib.cos_flash_block_update.restype = I
+        # each kernel's padded-width entry point and its `_wide` twin
+        # take the same arguments
+        for suffix in ("", "_wide"):
+            fwd = getattr(lib, "cos_flash_fwd" + suffix)
+            fwd.argtypes = [P, P, P, P, P, I, I, I, F, I, I, P]
+            dq = getattr(lib, "cos_flash_bwd_dq" + suffix)
+            dq.argtypes = [P, P, P, P, P, P, P, I, I, I, F, I, I, I, P]
+            dkv = getattr(lib, "cos_flash_bwd_dkv" + suffix)
+            dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, F, I, I, I, P]
+            hop = getattr(lib, "cos_flash_block_update" + suffix)
+            hop.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, F, I, I,
+                            I, I, P]
+            for fn in (fwd, dq, dkv, hop):
+                fn.restype = I
     return lib

@@ -21,7 +21,12 @@ transformer's attention:
     together are `flash_bwd_block`);
   * `flash_block_update`             K9, `cos_flash_block_update` (one
     ring-attention hop: a K/V block folded into the online-softmax
-    carry, masked with global offsets).
+    carry, masked with global offsets; K6's forward body in its carry
+    mode).
+
+K6-K9 take any head width D: up to FLASH_MAX_D (256) their padded-width
+kernels (`_check_flash`), above it their wide kernels, the `_wide` entry
+points (`_check_flash_wide`: the same operand rules, no D limit).
 
 `LRNAcrossChannels` and `BiasReluLRNAcrossChannels` are the autograd
 Functions that pair K1 with K2 and K3 with K4; the net's LRN layer
@@ -494,19 +499,17 @@ def flash_bwd_block_plain(qf, kf, vf, dof, lse, delta, *, causal: bool,
             torch.matmul(p.transpose(-1, -2), do).to(out_dtype or vf.dtype))
 
 
-def _check_flash(name: str, qf: torch.Tensor, *others: torch.Tensor,
-                 stats: Tuple[torch.Tensor, ...] = ()) -> None:
-    """(B·H, T, D) operands of one dtype, device and shape, contiguous,
-    D <= FLASH_MAX_D; the row statistics (B·H, T) f32 contiguous."""
+def _check_flash_wide(name: str, qf: torch.Tensor, *others: torch.Tensor,
+                      stats: Tuple[torch.Tensor, ...] = ()) -> None:
+    """The launch check of the wide kernels (the `cos_flash_*_wide` entry
+    points): (B·H, T, D) operands of one dtype, device and shape,
+    contiguous, any D; the row statistics (B·H, T) f32 contiguous."""
     if qf.dim() != 3 or qf.numel() == 0:
         raise ValueError(f"{name}: expected a non-empty (B*H, T, D), got "
                          f"{tuple(qf.shape)}")
     if qf.dtype not in _LRN_DTYPES:
         raise ValueError(f"{name}: dtype {qf.dtype} not in "
                          f"{list(_LRN_DTYPES)}")
-    if qf.shape[-1] > FLASH_MAX_D:
-        raise ValueError(f"{name}: head dim {qf.shape[-1]} > "
-                         f"{FLASH_MAX_D}")
     for x in (qf,) + others:
         if x.shape != qf.shape or x.dtype != qf.dtype \
                 or x.device != qf.device:
@@ -523,6 +526,25 @@ def _check_flash(name: str, qf: torch.Tensor, *others: torch.Tensor,
                              f"got {tuple(x.shape)} {x.dtype} on {x.device}")
 
 
+def _check_flash(name: str, qf: torch.Tensor, *others: torch.Tensor,
+                 stats: Tuple[torch.Tensor, ...] = ()) -> None:
+    """The launch check of the padded-width kernels (the `cos_flash_*`
+    entry points): the wide check's operand rules and D <= FLASH_MAX_D."""
+    if qf.dim() == 3 and qf.shape[-1] > FLASH_MAX_D:
+        raise ValueError(f"{name}: head dim {qf.shape[-1]} > "
+                         f"{FLASH_MAX_D}")
+    _check_flash_wide(name, qf, *others, stats=stats)
+
+
+def _flash_route(qf: torch.Tensor, entry: str):
+    """The entry point's name for q's head width (the padded-width
+    kernels up to FLASH_MAX_D, the wide ones above) and its launch
+    check."""
+    if qf.dim() == 3 and qf.shape[-1] > FLASH_MAX_D:
+        return entry + "_wide", _check_flash_wide
+    return entry, _check_flash
+
+
 def _flash_out_dtype(name: str, qf: torch.Tensor, out_dtype) -> torch.dtype:
     dt = out_dtype or qf.dtype
     if dt not in _LRN_DTYPES:
@@ -535,17 +557,17 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor,
                         vf: torch.Tensor, causal: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 on (B·H, T, D): (O in q's dtype, lse (B·H, T) f32), any T >= 1,
-    D <= 256, f32 or bf16."""
+    any D (the wide kernel above FLASH_MAX_D), f32 or bf16."""
     name = "flash_attention_fwd"
     if not _route(qf, name):
         return flash_attention_plain(qf, kf, vf, causal)
-    _check_flash(name, qf, kf, vf)
+    entry, check = _flash_route(qf, "cos_flash_fwd")
+    check(name, qf, kf, vf)
     bh, t, d = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, t), dtype=torch.float32, device=qf.device)
-    lib = cuda_build.library("flash_attn")
     with torch.cuda.device(qf.device):
-        status = lib.cos_flash_fwd(
+        status = getattr(cuda_build.library("flash_attn"), entry)(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bh, t, d, 1.0 / math.sqrt(d), int(bool(causal)),
             _LRN_DTYPES[qf.dtype],
@@ -564,13 +586,13 @@ def flash_attention_bwd_dq(qf, kf, vf, dof, lse, delta,
     if not _route(qf, name):
         return flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, causal,
                                   out_dtype)
-    _check_flash(name, qf, kf, vf, dof, stats=(lse, delta))
+    entry, check = _flash_route(qf, "cos_flash_bwd_dq")
+    check(name, qf, kf, vf, dof, stats=(lse, delta))
     dt = _flash_out_dtype(name, qf, out_dtype)
     bh, t, d = qf.shape
     dq = torch.empty((bh, t, d), dtype=dt, device=qf.device)
-    lib = cuda_build.library("flash_attn")
     with torch.cuda.device(qf.device):
-        status = lib.cos_flash_bwd_dq(
+        status = getattr(cuda_build.library("flash_attn"), entry)(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, t, d,
             1.0 / math.sqrt(d), int(bool(causal)), _LRN_DTYPES[qf.dtype],
@@ -588,14 +610,14 @@ def flash_attention_bwd_dkv(qf, kf, vf, dof, lse, delta,
     if not _route(qf, name):
         return flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, causal,
                                    out_dtype)
-    _check_flash(name, qf, kf, vf, dof, stats=(lse, delta))
+    entry, check = _flash_route(qf, "cos_flash_bwd_dkv")
+    check(name, qf, kf, vf, dof, stats=(lse, delta))
     dt = _flash_out_dtype(name, qf, out_dtype)
     bh, t, d = qf.shape
     dk = torch.empty((bh, t, d), dtype=dt, device=qf.device)
     dv = torch.empty_like(dk)
-    lib = cuda_build.library("flash_attn")
     with torch.cuda.device(qf.device):
-        status = lib.cos_flash_bwd_dkv(
+        status = getattr(cuda_build.library("flash_attn"), entry)(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, t, d, 1.0 / math.sqrt(d), int(bool(causal)),
@@ -697,7 +719,8 @@ def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
     online-softmax carry of the fixed queries q (BH, Tq, D), returning
     the new (m, l, acc).  q_off and k_off are the blocks' global time
     offsets (host integers: no hop synchronizes the device), used for
-    the causal mask.  Any Tq, Tk >= 1 and D <= 256; q, k_blk, v_blk f32
+    the causal mask.  Any Tq, Tk >= 1 and any D (the wide kernel above
+    FLASH_MAX_D); q, k_blk, v_blk f32
     or bf16 of one dtype; the carry is always f32, as the ring passes
     it, and any other carry dtype is refused."""
     name = "flash_block_update"
@@ -708,8 +731,9 @@ def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
     if not _route(q, name):
         return flash_block_update_plain(q, k_blk, v_blk, m, l, acc, q_off,
                                         k_off, causal)
-    _check_flash(name, q, stats=(m, l))
-    _check_flash(name, k_blk, v_blk)
+    entry, check = _flash_route(q, "cos_flash_block_update")
+    check(name, q, stats=(m, l))
+    check(name, k_blk, v_blk)
     bh, t_q, d = q.shape
     t_k = k_blk.shape[1]
     if k_blk.shape[0] != bh or k_blk.shape[2] != d \
@@ -725,9 +749,8 @@ def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
     m_out = torch.empty_like(m)
     l_out = torch.empty_like(l)
     acc_out = torch.empty_like(acc)
-    lib = cuda_build.library("flash_attn")
     with torch.cuda.device(q.device):
-        status = lib.cos_flash_block_update(
+        status = getattr(cuda_build.library("flash_attn"), entry)(
             q.data_ptr(), k_blk.data_ptr(), v_blk.data_ptr(), m.data_ptr(),
             l.data_ptr(), acc.data_ptr(), m_out.data_ptr(), l_out.data_ptr(),
             acc_out.data_ptr(), bh, t_q, t_k, d, 1.0 / math.sqrt(d),

@@ -10,7 +10,8 @@ It exits non-zero, printing no result, when no CUDA device is visible
 or the package is not importable, and when any phase fails.  Phases:
 
   1. the card's name and power limit (nvidia-smi);
-  2. build every CUDA kernel from csrc/ (nvcc, all sources at once);
+  2. build every CUDA kernel from csrc/ (nvcc, all sources at once), with
+     each flash kernel's registers and spills from `-Xptxas -v`;
   3. each kernel against its plain PyTorch version on the card: the
      forward kernels at the serving path's B=64 shapes (f32, and bf16
      for the LRN kernels) and at the training path's B=256 shapes, the
@@ -20,22 +21,24 @@ or the package is not importable, and when any phase fails.  Phases:
      dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and not,
      f32 and bf16, at (64, 2048, 128) f32 causal, at the sp ring's
      backward call (64, 512, 64) bf16 in, f32 gradients out, causal and
-     not, at head_dim 256 (16, 2048, 256), f32 and bf16, causal and not
-     (with each output's error against float64 beside the plain
-     version's), and at ragged (3, 200, 48), (4, 384, 32) and (4, 384,
-     200), with kernel / plain / library / bound times (the bound on
-     the kernels' tensor-core route, 3xTF32 or bf16, beside the f32 SIMT
-     figure), K6 run twice for bit-equal O and lse and K7/K8 twice for
-     bit-equal gradients; K5 twice per shape and once more after its
-     timed calls, exact each time; K9 (the ring hop) at
-     the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512, 512, 64), f32
-     and bf16: the diagonal causal hop (q_off = k_off = 512), a fully
-     visible causal hop (q_off 1536, k_off 0) and a non-causal hop, each
-     from the ring's first carry (timed: kernel / plain / bound) and
-     from a mid-ring carry, then the ragged (3, 200, 328, 48) at q_off
-     100, k_off 150, whose first rows see no key, causal and not, and at
-     head_dim 256 (16, 512, 512, 256) on a diagonal and a full causal
-     hop (timed) and at a ragged (3, 200, 328, 200);
+     not, at head_dim 256 (16, 2048, 256) and head_dim 512 (8, 2048,
+     512; the wide kernels), f32 and bf16, causal and not (with each
+     output's error against float64 beside the plain version's), and at
+     ragged (3, 200, 48), (4, 384, 32), (4, 384, 200), (3, 200, 257),
+     (2, 130, 320) and (2, 96, 1024), with kernel / plain / library /
+     bound times (the bound on the kernels' tensor-core route, 3xTF32
+     or bf16, beside the f32 SIMT figure), each kernel run twice
+     (bit-equal results, two launches counted); K5 twice per shape and
+     once more after its timed calls, exact each time; K9 (the ring hop)
+     at the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512, 512, 64),
+     f32 and bf16: the diagonal causal hop (q_off = k_off = 512), a
+     fully visible causal hop (q_off 1536, k_off 0) and a non-causal
+     hop, each from the ring's first carry (timed: kernel / plain /
+     bound) and from a mid-ring carry, then the ragged (3, 200, 328, 48)
+     at q_off 100, k_off 150, whose first rows see no key, causal and
+     not, at head_dim 256 (16, 512, 512, 256) and 512 (8, 512, 512, 512)
+     on a diagonal and a full causal hop (timed), and at ragged D 200,
+     257, 320 and 1024, each hop run twice (bit-equal);
   4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
      written with the port's own save_caffemodel and seeded fillers;
   5. that model served through the CLI's start_server (-serve path),
@@ -89,10 +92,13 @@ or the package is not importable, and when any phase fails.  Phases:
      256, 16 launches each; one step against the all-plain step (loss
      1e-5, gradients LM_STEP_GRAD_TOL) and the step with only K6 plain
      (STEP_GRAD_TOL); 5 synchronized direct steps; one profiled step;
- 16. a `kernels` JSON line: launches on the serving, image-net training,
-     LM training, sp LM training and head_dim-256 LM training paths and
-     the numbers of phase 3; then the card line again;
- 17. the device line, last: {"ok": true, "device": {...}}.
+ 16. the same at 2 heads of 512 (the zoo's transformer_lm at heads 2):
+     K6, K7 and K8 through their wide kernels, 16 launches each;
+ 17. a `kernels` JSON line: launches on the serving, image-net training,
+     LM training, sp LM training and head_dim-256 and -512 LM training
+     paths and the numbers of phase 3; a `ptxas` line; then the card
+     line again;
+ 18. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -150,6 +156,9 @@ LM = dict(vocab=1000, d_model=1024, heads=16, layers=2, seq=2048, batch=4)
 # the same LM with 4 heads of 256 (the zoo's transformer_lm at d_model
 # 1024, heads 4; the head width of published LMs such as Gemma 7B)
 LM256 = dict(LM, heads=4)
+# and with 2 heads of 512 (heads past the padded-width kernels' 256: the
+# wide kernels)
+LM512 = dict(LM, heads=2)
 LM_ROWS = 64
 
 PALLAS = "caffeonspark_tpu/ops/pallas_kernels.py"
@@ -511,6 +520,7 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
         f"flash{shape}{dtype}{causal}".encode()))
     q, k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype)
                    for _ in range(4))
+    before = dict(K.launch_counts)
     o, lse = K.flash_attention_fwd(q, k, v, causal)
     o2, lse2 = K.flash_attention_fwd(q, k, v, causal)
     torch.cuda.synchronize()
@@ -536,6 +546,13 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
     dq, dk, dv = bwd()
     again = bwd()
     torch.cuda.synchronize()
+    # every call launched its kernel (at D > 256 the wide ones): no call
+    # went to a plain version
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        check(K.launch_counts[name] - before[name] == 2,
+              f"{name} {shape}: {K.launch_counts[name] - before[name]} "
+              "launches for 2 calls")
     deterministic = all(torch.equal(x, y) for x, y in zip((dq, dk, dv),
                                                           again))
     check(deterministic, f"flash backward {tag}: two runs on the same "
@@ -583,7 +600,8 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
             f"{nm} {e[0]:.3g} / {e[1]:.3g}" for nm, e in errs.items()))
     del o, lse, dq, dk, dv, dq_p, dk_p, dv_p
     if timed:
-        b4 = bh // 16
+        heads = 16 if bh % 16 == 0 else bh   # SDPA's (B, H, T, D)
+        b4 = bh // heads
         esz = q.element_size()
         gsz = torch.empty((), dtype=gdt).element_size()
         pairs = bh * flash_pairs(t, causal)
@@ -614,16 +632,16 @@ def check_flash(K, torch, shape, dtype, causal, results, timed=True,
         }
         # the library yardstick: one SDPA call, and one autograd backward
         # of it (dq, dk, dv together) on a retained graph
-        lib_sets = [tuple(x.reshape(b4, 16, t, d) for x in st[:3])
+        lib_sets = [tuple(x.reshape(b4, heads, t, d) for x in st[:3])
                     for st in sets]
         lib_fwd, _ = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal), lib_sets)
         graphs = []
         for st in sets:
-            xs = [x.reshape(b4, 16, t, d).detach().requires_grad_(True)
+            xs = [x.reshape(b4, heads, t, d).detach().requires_grad_(True)
                   for x in st[:3]]
             graphs.append((F.scaled_dot_product_attention(
-                *xs, is_causal=causal), xs, st[3].reshape(b4, 16, t, d)))
+                *xs, is_causal=causal), xs, st[3].reshape(b4, heads, t, d)))
         lib_bwd, _ = time_ms(lambda y, xs, dy: torch.autograd.grad(
             y, xs, dy, retain_graph=True), graphs)
         del graphs
@@ -673,10 +691,12 @@ def check_block_update(K, torch, shape, dtype, causal, q_off, k_off, first,
                        results, timed=True):
     """K9 against its plain version on the same q, block (k, v) and carry:
     the ring's first carry (-inf, 0, 0) or a mid-ring one (the carry after
-    an earlier hop over the block before k).  m, l and acc are
-    held to FLASH_FWD_TOL relative and FLASH_FWD_TOL of their largest
-    finite element (acc is an unnormalized sum of signed terms); a row
-    the plain version leaves at -1e30 must not come back -inf."""
+    an earlier hop over the block before k), run twice (bit-equal, two
+    launches).  m, l and acc are held to FLASH_FWD_TOL relative and
+    FLASH_FWD_TOL of their largest finite element (acc is an unnormalized
+    sum of signed terms); a row the plain version leaves at -1e30 must
+    not come back -inf.  Timed, the bound is on K9's tensor-core route
+    (`mma_bound`)."""
     bh, t_q, t_k, d = shape
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
         f"carry{shape}{dtype}{causal}{q_off}{k_off}{first}".encode()))
@@ -695,8 +715,14 @@ def check_block_update(K, torch, shape, dtype, causal, q_off, k_off, first,
             torch.zeros((bh, t_q), device="cuda"),
             torch.zeros((bh, t_q, d), device="cuda"), q_off,
             k_off - t_k, causal)
+    before = K.launch_counts["flash_block_update"]
     got = K.flash_block_update(q, k, v, *carry, q_off, k_off, causal)
+    again = K.flash_block_update(q, k, v, *carry, q_off, k_off, causal)
     torch.cuda.synchronize()
+    check(K.launch_counts["flash_block_update"] - before == 2,
+          f"flash_block_update {shape}: 2 calls did not launch twice")
+    deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
     want = K.flash_block_update_plain(q, k, v, *carry, q_off, k_off, causal)
     tag = (f"({bh}, {t_q}, {t_k}, {d}) {str(dtype).replace('torch.', '')} "
            f"causal={causal} q_off={q_off} k_off={k_off} "
@@ -714,14 +740,16 @@ def check_block_update(K, torch, shape, dtype, causal, q_off, k_off, first,
             max_err = max(max_err, float(err.max()))
     check(torch.equal(got[0] <= FLASH_NEG_HALF, want[0] <= FLASH_NEG_HALF),
           f"flash_block_update {tag}: rows that saw no key differ")
+    check(deterministic, f"flash_block_update {tag}: two runs on the same "
+          "inputs differ")
     rec = dict(shape=[bh, t_q, t_k, d],
                dtype=str(dtype).replace("torch.", ""), causal=causal,
                q_off=q_off, k_off=k_off, carry="first" if first else "mid",
-               max_abs_err=max_err, rows_unseen=unseen)
+               max_abs_err=max_err, rows_unseen=unseen,
+               deterministic=deterministic)
     if timed:
         esz = q.element_size()
         pairs = carry_pairs(bh, t_q, t_k, q_off, k_off, causal)
-        peak = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
         # q, k, v read; m, l, acc read and written (f32)
         nbytes = (t_q + 2 * t_k) * bh * d * esz + 2 * 4 * bh * t_q * (d + 2)
         sets = [tuple(x.clone() for x in (q, k, v) + tuple(carry))
@@ -733,18 +761,22 @@ def check_block_update(K, torch, shape, dtype, causal, q_off, k_off, first,
         ms, host_us = time_ms(run, sets)
         plain_ms, _ = time_ms(plain, sets, iters=5)
         del sets
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 4 * d * pairs / peak
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops, route, simt = mma_bound(4 * d * pairs, dtype)
         rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
                    library_ms=None, bound_ms=1e3 * max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   gflop=4 * d * pairs / 1e9)
+                   gflop=4 * d * pairs / 1e9, bound_route=route,
+                   f32_simt_bound_ms=1e3 * max(t_bytes, simt))
     results.setdefault("flash_block_update", []).append(rec)
     times = ("" if "ms" not in rec else
              f" kernel {rec['ms']:.4f} ms (launch path {rec['host_us']:.1f}"
              f" us) plain {rec['plain_ms']:.4f} ms bound "
-             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+             f"{rec['bound_route']}; f32 SIMT "
+             f"{rec['f32_simt_bound_ms']:.4f} ms)")
     log(f"  flash_block_update {tag}: max_abs_err (l, acc) {max_err:.3g}, "
-        f"{unseen} rows saw no key{times}")
+        f"{unseen} rows saw no key, deterministic {deterministic}{times}")
 
 
 def kernel_phase(K, torch) -> dict:
@@ -832,7 +864,13 @@ def flash_phase(K, torch, res):
         for causal in (True, False):
             check_flash(K, torch, (FLASH_BH // 4, FLASH_T, 256), dtype,
                         causal, res)
-    for shape in ((3, 200, 48), (4, 384, 32), (4, 384, 200)):
+    # head_dim 512, the wide kernels (the LM at 2 heads)
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            check_flash(K, torch, (FLASH_BH // 8, FLASH_T, 512), dtype,
+                        causal, res)
+    for shape in ((3, 200, 48), (4, 384, 32), (4, 384, 200), (3, 200, 257),
+                  (2, 130, 320), (2, 96, 1024)):
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 check_flash(K, torch, shape, dtype, causal, res,
@@ -858,6 +896,17 @@ def flash_phase(K, torch, res):
                                True, q_off, k_off, True, res)
         check_block_update(K, torch, (3, 200, 328, 200), dtype, True, 100,
                            150, False, res, timed=False)
+        # head_dim 512 (the wide kernel): a diagonal and a full causal hop;
+        # ragged wide hops whose first rows see no key
+        for q_off, k_off in ((t, t), (3 * t, 0)):
+            check_block_update(K, torch, (FLASH_BH // 8, t, t, 512), dtype,
+                               True, q_off, k_off, True, res)
+        for d in (257, 320, 1024):
+            for first in (True, False):
+                check_block_update(K, torch, (2, 200, 136, d), dtype, True,
+                                   100, 150, first, res, timed=False)
+        check_block_update(K, torch, (2, 100, 37, 320), dtype, False, 10,
+                           60, False, res, timed=False)
 
 
 # ---------------------------------------------------------------------------
@@ -1471,6 +1520,78 @@ def profile_train_step(torch, label, solver, params, state, host,
     return summarize_profile(prof, wall_us, label, what)
 
 
+def wide_lm_phase(K, torch, workdir, key, lm):
+    """The LM at fewer, wider heads (`lm`) through the CLI for TRAIN_ITERS
+    steps (counts zeroed before, read after: K6, K7, K8 each layers x
+    TRAIN_ITERS launches), one step against the all-plain step and the
+    step with only K6 plain, 5 synchronized direct steps and one
+    profiled step."""
+    hd = lm["d_model"] // lm["heads"]
+    name = f"TransformerLM{key}"
+    label = f"TransformerLM {key} train"
+    log(f"the LM at {lm['heads']} heads x {hd} through the CLI (-train, "
+        f"DataFrameSource, {TRAIN_ITERS} Adam steps; counts zeroed "
+        "before):")
+    solver_path = write_lm_config(workdir, lm, name=name)
+    train, _ = train_phase(
+        K, label, solver_path, {},
+        os.path.join(workdir, f"transformerlm_{key}_out"),
+        ("flash_attention_fwd", "flash_attention_bwd_dq",
+         "flash_attention_bwd_dkv"),
+        per_step=lm["batch"] * lm["seq"], unit="tokens",
+        launches_each=lm["layers"] * TRAIN_ITERS)
+    log(f"one head_dim-{hd} LM step with the kernels against the plain "
+        "step and the step with only K6 plain:")
+    step, (solver, params, state, host) = step_vs_plain(
+        K, torch, label, solver_path, {}, grad_tol=LM_STEP_GRAD_TOL,
+        plain_forwards=("flash_attention_fwd",))
+    step["direct_step_ms"] = direct_steps(torch, solver, params, state, host)
+    log(f"  {label}: {len(step['direct_step_ms'])} steps called directly "
+        "on the main thread, each synchronized: "
+        + ", ".join(f"{x:.1f}" for x in step["direct_step_ms"])
+        + f" ms (median {median(step['direct_step_ms']):.1f})")
+    log(f"profile of one head_dim-{hd} LM training step:")
+    profile = profile_train_step(
+        torch, label, solver, params, state, host,
+        what=f"one B={lm['batch']} T={lm['seq']} {lm['heads']}x{hd} LM "
+             "training step")
+    return dict(train=train, launches=dict(train["launches"]), step=step,
+                profile=profile)
+
+
+def ptxas_report(text: str) -> list:
+    """Registers and spills of each flash kernel instantiation, from the
+    `-Xptxas -v` output of nvcc (names demangled by c++filt where the
+    machine has it)."""
+    import re
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            if "flash_" in cur["kernel"]:
+                out.append(cur)
+            cur = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["kernel"] for r in out), capture_output=True, text=True,
+            timeout=30).stdout.splitlines()
+        if len(names) == len(out):
+            for r, n in zip(out, names):
+                r["kernel"] = n.replace("(anonymous namespace)::", "")
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return out
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1499,8 +1620,13 @@ def main(argv) -> int:
     report = cuda_build.build_all(verbose=True)
     log(f"build: {report['seconds']:.2f} s (built {report['built']})")
     for name, text in report["nvcc"].items():
-        if text.strip():
+        if text.strip() and name != "flash_attn":
             log(f"--- nvcc {name}.cu ---\n{text.strip()}")
+    ptxas = ptxas_report(report["nvcc"].get("flash_attn", ""))
+    for r in ptxas:
+        log(f"  ptxas {r['kernel'][:90]}: {r['registers']} registers, "
+            f"spill stores {r.get('spill_stores')} loads "
+            f"{r.get('spill_loads')}")
 
     log("kernels against their plain versions (B=64 serving and B=256 "
         "training shapes; flash attention at the LM's shapes):")
@@ -1653,36 +1779,11 @@ def main(argv) -> int:
         step=sp_train_step)
     del solver, params, state, host, sp_train_step
 
-    hd = LM256["d_model"] // LM256["heads"]
-    log(f"the LM at {LM256['heads']} heads x {hd} through the CLI (-train, "
-        f"DataFrameSource, {TRAIN_ITERS} Adam steps; counts zeroed "
-        "before):")
-    gc.collect()
-    torch.cuda.empty_cache()
-    h256_solver = write_lm_config(workdir, LM256, name="TransformerLMh256")
-    h256_train, _ = train_phase(
-        K, "TransformerLM h256 train", h256_solver, {},
-        os.path.join(workdir, "transformerlm_h256_out"), lm_kernels,
-        per_step=LM256["batch"] * LM256["seq"], unit="tokens",
-        launches_each=LM256["layers"] * TRAIN_ITERS)
-    h256_launches = dict(h256_train["launches"])
-    log(f"one head_dim-{hd} LM step with the kernels against the plain "
-        "step and the step with only K6 plain:")
-    h256_step, (solver, params, state, host) = step_vs_plain(
-        K, torch, "TransformerLM h256 train", h256_solver, {},
-        grad_tol=LM_STEP_GRAD_TOL, plain_forwards=("flash_attention_fwd",))
-    h256_step["direct_step_ms"] = direct_steps(torch, solver, params, state,
-                                               host)
-    log(f"  TransformerLM h256 train: {len(h256_step['direct_step_ms'])} "
-        "steps called directly on the main thread, each synchronized: "
-        + ", ".join(f"{x:.1f}" for x in h256_step["direct_step_ms"])
-        + f" ms (median {median(h256_step['direct_step_ms']):.1f})")
-    log(f"profile of one head_dim-{hd} LM training step:")
-    h256_profile = profile_train_step(
-        torch, "TransformerLM h256 train", solver, params, state, host,
-        what=f"one B={LM256['batch']} T={LM256['seq']} {LM256['heads']}x{hd}"
-             " LM training step")
-    del solver, params, state, host
+    wide_lms = {}
+    for key, lm in (("h256", LM256), ("h512", LM512)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        wide_lms[key] = wide_lm_phase(K, torch, workdir, key, lm)
 
     lines = []
     for name, meta in KERNELS.items():
@@ -1691,7 +1792,8 @@ def main(argv) -> int:
                    "train": train_launches.get(name, 0),
                    "train_lm": lm_launches.get(name, 0),
                    "train_lm_sp": sp_launches.get(name, 0),
-                   "train_lm_h256": h256_launches.get(name, 0)}
+                   **{f"train_lm_{key}": w["launches"].get(name, 0)
+                      for key, w in wide_lms.items()}}
         lines.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
@@ -1717,9 +1819,11 @@ def main(argv) -> int:
     log(json.dumps({"training_lm_sp": sp_train,
                     "lm_sp_step_vs_plain": sp_step,
                     "lm_sp_train_profile": sp_profile}))
-    log(json.dumps({"training_lm_h256": h256_train,
-                    "lm_h256_step_vs_plain": h256_step,
-                    "lm_h256_train_profile": h256_profile}))
+    for key, w in wide_lms.items():
+        log(json.dumps({f"training_lm_{key}": w["train"],
+                        f"lm_{key}_step_vs_plain": w["step"],
+                        f"lm_{key}_train_profile": w["profile"]}))
+    log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))
     log(card)

@@ -195,8 +195,9 @@ def test_flash_bf16_inputs():
 
 
 def test_flash_wrappers_validate_what_the_kernels_take():
-    """The checks a CUDA launch runs first (shapes, dtypes, contiguity,
-    D <= 256, f32 row statistics) refuse what the kernels do not take."""
+    """The padded-width kernels' launch check (`_check_flash`: shapes,
+    dtypes, contiguity, D <= 256, f32 row statistics) refuses what those
+    kernels do not take (D > 256 goes to the wide kernels' check)."""
     x = torch.zeros(2, 8, 16)
     stats = torch.zeros(2, 8)
     K._check_flash("f", x, x, x, x, stats=(stats, stats))

@@ -223,7 +223,8 @@ def test_flash_backward_is_deterministic_on_card(cuda_card, dtype,
 def test_flash_function_launches_kernels_on_card(cuda_card):
     """FlashAttention routes a CUDA tensor to K6 and its backward to K7
     and K8 (one launch each), with the plain versions' gradients; a
-    non-contiguous or over-wide operand is refused, not run plain."""
+    non-contiguous operand is refused, not run plain, and one wider than
+    256 launches the wide kernel."""
     q, k, v, do = _flash_inputs((2, 3, 150, 40), 4, cuda_card,
                                 torch.float32)
     K.reset_launch_counts()
@@ -244,15 +245,19 @@ def test_flash_function_launches_kernels_on_card(cuda_card):
         K.flash_attention_fwd(flat[0].transpose(1, 2).contiguous()
                               .transpose(1, 2), flat[1], flat[2])
     wide = torch.zeros(1, 8, 257, device=cuda_card)
-    with pytest.raises(ValueError, match="head dim"):
-        K.flash_attention_fwd(wide, wide, wide)
+    before = K.launch_counts["flash_attention_fwd"]
+    K.flash_attention_fwd(wide, wide, wide)
+    assert K.launch_counts["flash_attention_fwd"] == before + 1
 
 
 # (BH, Tq, Tk, D, q_off, k_off): whole and ragged tiles, Tq != Tk, hops
 # whose causal edge leaves some rows with no visible key, every width
 K9_SHAPES = [(2, 64, 64, 16, 64, 64), (2, 64, 64, 16, 128, 0),
              (3, 200, 328, 48, 100, 150), (1, 65, 130, 64, 0, 40),
-             (2, 100, 37, 128, 10, 60), (1, 1, 1, 8, 0, 0)]
+             (2, 100, 37, 128, 10, 60), (1, 1, 1, 8, 0, 0),
+             # the sp ring's per-rank blocks (T 2048 over 4): a diagonal
+             # and a fully visible hop
+             (16, 512, 512, 64, 512, 512), (16, 512, 512, 64, 1536, 0)]
 
 
 def _k9_carry(bh, tq, d, seed, first, device):
@@ -372,18 +377,100 @@ def test_flash_kernels_take_head_dim_256_on_card(cuda_card, dtype):
 
 
 @pytest.mark.cuda
-def test_flash_wrappers_refuse_head_dim_257_on_card(cuda_card):
-    """D = 257 is past the kernels' widest tiles: every flash wrapper
-    refuses it by name on a CUDA tensor (no plain fallback)."""
-    x = torch.zeros(1, 8, 257, device=cuda_card)
-    st = torch.zeros(1, 8, device=cuda_card)
-    calls = [lambda: K.flash_attention_fwd(x, x, x),
-             lambda: K.flash_attention_bwd_dq(x, x, x, x, st, st),
-             lambda: K.flash_attention_bwd_dkv(x, x, x, x, st, st),
-             lambda: K.flash_block_update(x, x, x, st, st, x, 0, 0)]
-    for call in calls:
-        with pytest.raises(ValueError, match="head dim 257 > 256"):
-            call()
+def test_flash_wrappers_take_head_dim_257_on_card(cuda_card):
+    """D = 257 is past the padded-width kernels' widest tiles: every flash
+    wrapper launches its wide kernel for it on a CUDA tensor (one launch
+    each, no plain fallback) and agrees with its plain version."""
+    q, k, v, do = _flash_inputs((1, 40, 257), 30, cuda_card, torch.float32)
+    st = torch.zeros(1, 40, device=cuda_card)
+    m = torch.full((1, 40), -float("inf"), device=cuda_card)
+    calls = [
+        ("flash_attention_fwd", lambda: K.flash_attention_fwd(q, k, v),
+         lambda: K.flash_attention_plain(q, k, v)),
+        ("flash_attention_bwd_dq",
+         lambda: K.flash_attention_bwd_dq(q, k, v, do, st, st),
+         lambda: K.flash_bwd_dq_plain(q, k, v, do, st, st)),
+        ("flash_attention_bwd_dkv",
+         lambda: K.flash_attention_bwd_dkv(q, k, v, do, st, st),
+         lambda: K.flash_bwd_dkv_plain(q, k, v, do, st, st)),
+        ("flash_block_update",
+         lambda: K.flash_block_update(q, k, v, m, st, torch.zeros_like(q),
+                                      0, 0, True),
+         lambda: K.flash_block_update_plain(q, k, v, m, st,
+                                            torch.zeros_like(q), 0, 0,
+                                            True))]
+    for name, call, plain in calls:
+        before = K.launch_counts[name]
+        got, want = call(), plain()
+        assert K.launch_counts[name] == before + 1, name
+        if not isinstance(got, tuple):
+            got, want = (got,), (want,)
+        for g, w in zip(got, want):
+            real = w[w.abs() < 1e29]
+            scale = float(real.abs().max()) if real.numel() else 0.
+            _close(g.cpu(), w.cpu(), FLASH_RTOL, FLASH_ATOL * (scale + 1.0))
+
+
+# head widths of the wide kernels: ragged, one column group and a part,
+# two whole groups (the LM at 2 heads)
+HEAD_DIMS_WIDE = [257, 320, 512]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", HEAD_DIMS_WIDE)
+def test_flash_kernels_take_wide_heads_on_card(cuda_card, d, dtype):
+    """K6, K7, K8 and K9 at D 257, 320 and 512 (their wide kernels)
+    against their plain versions, causal and not, K9 from a first-hop and
+    a mid-ring carry on a hop whose first rows see no key."""
+    dt = getattr(torch, dtype)
+    extra = BF16_ULP if dt == torch.bfloat16 else 0.0
+    shape = (2, 200, d)
+    q, k, v, do = _flash_inputs(shape, d, cuda_card, dt)
+    for causal in (False, True):
+        o, lse = K.flash_attention_fwd(q, k, v, causal)
+        o_p, lse_p = K.flash_attention_plain(q, k, v, causal)
+        _close(o.float().cpu(), o_p.float().cpu(), FLASH_FWD_TOL + extra,
+               FLASH_FWD_TOL)
+        _close(lse.cpu(), lse_p.cpu(), FLASH_FWD_TOL, FLASH_FWD_TOL)
+        delta = (do.float() * o_p.float()).sum(-1)
+        got = K.flash_bwd_block(q, k, v, do, lse_p, delta, causal=causal)
+        want = K.flash_bwd_block_plain(q, k, v, do, lse_p, delta,
+                                       causal=causal)
+        for g, w in zip(got, want):
+            _close(g.float().cpu(), w.float().cpu(), FLASH_RTOL + extra,
+                   FLASH_ATOL)
+        for first in (True, False):
+            carry = _k9_carry(2, 200, d, d, first, cuda_card)
+            # q_off 100 < k_off 150: the first 50 rows see no key
+            got = K.flash_block_update(q, k[:, :137].contiguous(),
+                                       v[:, :137].contiguous(), *carry, 100,
+                                       150, causal)
+            want = K.flash_block_update_plain(q, k[:, :137], v[:, :137],
+                                              *carry, 100, 150, causal)
+            for g, w in zip(got, want):
+                real = w[w.abs() < 1e29]
+                scale = float(real.abs().max()) if real.numel() else 0.
+                _close(g.cpu(), w.cpu(), FLASH_FWD_TOL + extra,
+                       FLASH_FWD_TOL * (scale + 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_forward_and_hop_are_deterministic_on_card(cuda_card, dtype):
+    """K6 and K9 at D 512 (the wide kernels' column groups compute the
+    same scores; only group 0 writes the row statistics): two runs on the
+    same inputs give bit-equal O and lse, and bit-equal (m, l, acc)."""
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _flash_inputs((2, 300, 512), 12, cuda_card, dt)
+    carry = _k9_carry(2, 300, 512, 5, False, cuda_card)
+    for causal in (False, True):
+        a = K.flash_attention_fwd(q, k, v, causal)
+        b = K.flash_attention_fwd(q, k, v, causal)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        a = K.flash_block_update(q, k, v, *carry, 300, 0, causal)
+        b = K.flash_block_update(q, k, v, *carry, 300, 0, causal)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.cuda

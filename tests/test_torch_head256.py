@@ -108,8 +108,10 @@ def test_flash_bwd_block_plain_matches_pallas_wide_heads(causal, d):
 
 
 def test_flash_wrappers_take_head_dim_256_and_refuse_257():
-    """The launch checks take D up to 256 (the kernels' widest padded
-    width) and refuse 257 by name, in every flash wrapper."""
+    """The padded-width kernels' launch check (`_check_flash`) takes D up
+    to 256 (their widest padded width) and refuses 257 by name, for every
+    flash wrapper; the wrappers send D > 256 to the wide kernels and
+    their own check (tests/test_torch_wide_heads.py)."""
     x = torch.zeros(2, 8, 256)
     stats = torch.zeros(2, 8)
     K._check_flash("f", x, x, x, x, stats=(stats, stats))
