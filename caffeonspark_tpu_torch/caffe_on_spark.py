@@ -1,21 +1,30 @@
 """CLI entry point: `python -m caffeonspark_tpu_torch.caffe_on_spark`.
 
-The `-train` and `-serve` modes of the JAX package's command line, on
-PyTorch, on the card unless `-device cpu`:
+The `-train`, `-test`, `-features` and `-serve` modes of the JAX
+package's command line, on PyTorch, on the card unless `-device cpu`:
 
     python -m caffeonspark_tpu_torch.caffe_on_spark -conf solver.prototxt \\
-        -train -output out/ [-weights init.caffemodel | -snapshot x.solverstate]
+        -train [-test | -features fc8 -label label] -output out/ \\
+        [-weights init.caffemodel | -snapshot x.solverstate] \\
+        [-outputFormat json|parquet]
 
-parses the prototxts, opens the TRAIN data layer's LMDB, streams its
-records (a seeded shuffle per epoch) through the bounded feed queue into
-the TRAIN-phase transformer, and runs Caffe's solver for max_iter steps
-(`CaffeOnSpark.train` -> `CaffeProcessor`).  Snapshots land at the
-`snapshot` interval and after training; the final model goes to
-`-model` (default `<output>/model.caffemodel`), which -serve loads.
+-train parses the prototxts, opens the TRAIN data layer's LMDB, streams
+its records (a seeded shuffle per epoch) through the bounded feed queue
+into the TRAIN-phase transformer, and runs Caffe's solver for max_iter
+steps (`CaffeOnSpark.train` -> `CaffeProcessor`).  A solver with
+test_interval and test_iter over a net with a TEST data layer trains
+with interleaved validation (`trainWithValidation`): every test_interval
+steps a round of test_iter TEST batches, whose per-output means land in
+`<output>/validation.<fmt>`.  Snapshots land at the `snapshot` interval
+and after training; the final model goes to `-model` (default
+`<output>/model.caffemodel`).  Then -test writes the per-output means
+over the TEST data layer's records to `<output>/test_result` (and
+stdout), and -features writes one SampleID row a record with the named
+blobs (and the -label blob) to `<output>/features.<fmt>`; after -train
+they use the just-trained weights, otherwise -model or -weights.
 `-mesh 1,1,4` trains on a mesh with an sp axis of 4 ranks (the JAX
 CLI's grammar dp,tp,sp): every MultiHeadAttention runs as a ring over
 time blocks, the ranks all on `-device`'s card (parallel/sp.py).
-
 
     python -m caffeonspark_tpu_torch.caffe_on_spark -conf solver.prototxt \\
         -serve -model m.caffemodel -features fc8
@@ -25,17 +34,17 @@ bucket, starts the micro-batcher and the HTTP front end, and prints one
 boot line of JSON (`{"serving": true, "port": N, "model_version": V,
 "buckets": [...]}`) on stdout.  SIGINT or SIGTERM drains accepted work
 and exits 0; COS_SERVE_METRICS=path dumps the serving metrics there at
-shutdown.  Interleaved validation (trainWithValidation), -test and
--features come with later slices.
+shutdown.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import signal
 import sys
-from typing import Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -43,6 +52,54 @@ from .config import Config
 from .data.source import DataSource, get_source
 from .processor import CaffeProcessor
 from .serving import InferenceService, ServingHTTPServer
+
+
+class DataFrame:
+    """A minimal columnar result (Spark's DataFrame in local mode): rows
+    of dicts and their columns, written as JSON lines or parquet."""
+
+    def __init__(self, rows: List[Dict[str, Any]],
+                 columns: Optional[Sequence[str]] = None):
+        self.rows = rows
+        self.columns = (list(columns) if columns is not None
+                        else (list(rows[0]) if rows else []))
+
+    def __len__(self):
+        return len(self.rows)
+
+    def select(self, *cols) -> "DataFrame":
+        return DataFrame([{c: r[c] for c in cols} for r in self.rows], cols)
+
+    def collect(self) -> List[Dict[str, Any]]:
+        return self.rows
+
+    def write(self, path: str, fmt: str = "json") -> None:
+        if fmt not in ("json", "parquet"):
+            raise ValueError(f"outputFormat {fmt!r}")
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        if fmt == "json":
+            with open(path, "w") as f:
+                for r in self.rows:
+                    f.write(json.dumps(r) + "\n")
+        elif fmt == "parquet":
+            try:
+                import pyarrow as pa
+                import pyarrow.parquet as pq
+            except ImportError as e:
+                raise ImportError(
+                    f"{path!r}: -outputFormat parquet needs pyarrow, which "
+                    "is not installed (use -outputFormat json)") from e
+            pq.write_table(pa.table({c: [r.get(c) for r in self.rows]
+                                     for c in self.columns}), path)
+
+
+def vector_mean(df: DataFrame, column: str) -> List[float]:
+    """Element-wise mean of a float-array column (the VectorMean UDAF of
+    the reference, used by test())."""
+    arrs = [np.asarray(r[column], np.float64) for r in df.rows]
+    if not arrs:
+        return []
+    return [float(x) for x in np.mean(np.stack(arrs), axis=0)]
 
 
 def _serve_signals_drain() -> None:
@@ -112,6 +169,73 @@ class CaffeOnSpark:
             proc.queues[0].offer(None)
             proc.join()
 
+    def trainWithValidation(self, source_train: DataSource,
+                            source_validation: DataSource,
+                            conf: Config) -> DataFrame:
+        """Interleaved training and validation (:239-358): feed
+        test_interval x batch training records, then exactly test_iter x
+        batch validation records, in lockstep with the solver's rounds
+        (more would block queue 1 for good, fewer would stall the round),
+        topping the training feed up for batches the processor dropped.
+        One row of per-output means a round."""
+        sp = conf.solverParameter
+        test_interval = sp.test_interval
+        test_iter = sp.test_iter[0] if sp.test_iter else 0
+        if not test_interval or not test_iter:
+            raise ValueError("trainWithValidation needs test_interval "
+                             "and test_iter in the solver prototxt")
+        proc = CaffeProcessor.instance(conf)
+        proc.interleave_validation = True
+        proc.start()
+        try:
+            train_bs = source_train.batch_size
+            val_bs = source_validation.batch_size
+            train_gen = _record_loop(source_train,
+                                     persistent=conf.isPersistent)
+            val_gen = _record_loop(source_validation,
+                                   persistent=conf.isPersistent)
+            fed = drops_seen = 0
+            while fed < sp.max_iter and proc._thread.is_alive():
+                extra = proc.dropped_batches - drops_seen
+                drops_seen = proc.dropped_batches
+                for rec in itertools.islice(
+                        train_gen, (test_interval + extra) * train_bs):
+                    if not proc.feed_queue(0, rec):
+                        break
+                fed += test_interval
+                for rec in itertools.islice(val_gen, test_iter * val_bs):
+                    if not proc.feed_queue(1, rec):
+                        break
+        finally:
+            proc.queues[0].offer(None)
+            proc.join()
+        report = proc.validation
+        return DataFrame(report.rounds if report else [],
+                         report.names if report else [])
+
+    def test(self, source: DataSource,
+             conf: Config) -> Dict[str, List[float]]:
+        """Forward over the test set: per-output mean vectors
+        (:396-418)."""
+        df = self.features2(source, conf)
+        return {n: vector_mean(df, n) for n in df.columns
+                if n != "SampleID"}
+
+    def features(self, source: DataSource, conf: Config) -> DataFrame:
+        """Feature extraction: DataFrame(SampleID, blobs...) (:427-438)."""
+        return self.features2(source, conf)
+
+    def features2(self, source: DataSource, conf: Config) -> DataFrame:
+        blob_names = ([b.strip() for b in conf.features.split(",")
+                       if b.strip()] if conf.features else None)
+        if blob_names and conf.label and conf.label not in blob_names:
+            blob_names.append(conf.label)
+        proc = CaffeProcessor.instance(conf)
+        if blob_names is None:
+            blob_names = proc.default_feature_blobs()
+        rows = proc.extract_features(source, blob_names)
+        return DataFrame(rows, ["SampleID"] + blob_names)
+
 
 def _record_loop(source: DataSource, persistent: bool = False
                  ) -> Iterator[tuple]:
@@ -145,30 +269,64 @@ def _record_loop(source: DataSource, persistent: bool = False
         epoch += 1
 
 
-def _wants_validation(conf: Config) -> bool:
-    """True when the config asks for interleaved validation (a TEST data
-    layer with test_interval and test_iter), as the JAX package's
-    `validation_source` decides."""
-    sp = conf.solverParameter
-    return (conf.test_data_layer() is not None and bool(sp.test_interval)
-            and bool(sp.test_iter and sp.test_iter[0]))
+def validation_source(conf: Config) -> Optional[DataSource]:
+    """The interleaved-validation source, or None when -train does not
+    interleave (`Config.validates`)."""
+    if not conf.validates():
+        return None
+    return get_source(conf.test_data_layer(), phase_train=False, rank=0,
+                      num_ranks=1, resize=conf.resize)
 
 
-def train_main(conf: Config) -> int:
-    """-train: the model file defaults to <output>/model.caffemodel."""
-    if _wants_validation(conf):
-        raise NotImplementedError(
-            "this solver asks for interleaved validation (test_interval "
-            "and test_iter with a TEST data layer): trainWithValidation "
-            "is a later slice of the PyTorch port; drop test_interval/"
-            "test_iter to train without it")
+def train_main(conf: Config) -> None:
+    """-train, with interleaved validation when the solver asks for it;
+    the model file defaults to <output>/model.caffemodel."""
     if not conf.modelPath:
         conf.modelPath = os.path.join(conf.outputPath or ".",
                                       "model.caffemodel")
+    cos = CaffeOnSpark()
     src = get_source(conf.train_data_layer(), phase_train=True, rank=0,
                      num_ranks=1, resize=conf.resize)
-    CaffeOnSpark().train(src, conf)
-    return 0
+    val_src = validation_source(conf)
+    if val_src is None:
+        cos.train(src, conf)
+        return
+    df = cos.trainWithValidation(src, val_src, conf)
+    if conf.outputPath:
+        df.write(os.path.join(conf.outputPath,
+                              "validation." + conf.outputFormat),
+                 conf.outputFormat)
+
+
+def eval_main(conf: Config) -> None:
+    """-test / -features over the TEST data layer's records (else the
+    TRAIN one's, at TEST).  After -train the just-trained model is the
+    weights, even over -weights; otherwise -model, else -weights."""
+    if conf.isTraining and conf.modelPath \
+            and os.path.exists(conf.modelPath):
+        conf.snapshotModelFile = conf.modelPath
+        conf.snapshotStateFile = ""
+    elif conf.modelPath and os.path.exists(conf.modelPath) \
+            and not conf.snapshotModelFile:
+        conf.snapshotModelFile = conf.modelPath
+    layer = conf.test_data_layer() or conf.train_data_layer()
+    src = get_source(layer, phase_train=False, rank=0, num_ranks=1,
+                     resize=conf.resize)
+    cos = CaffeOnSpark()
+    if conf.isTest:
+        out = json.dumps(cos.test(src, conf))
+        print(out, flush=True)
+        if conf.outputPath:
+            os.makedirs(conf.outputPath, exist_ok=True)
+            with open(os.path.join(conf.outputPath, "test_result"),
+                      "w") as f:
+                f.write(out + "\n")
+    else:
+        df = cos.features(src, conf)
+        if conf.outputPath:
+            df.write(os.path.join(conf.outputPath,
+                                  "features." + conf.outputFormat),
+                     conf.outputFormat)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -176,10 +334,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     conf.validate()
     if conf.serve:
         return serve_main(conf)
-    if conf.isTraining:
-        return train_main(conf)
-    raise SystemExit("the PyTorch port runs -train and -serve so far "
-                     "(-test and -features come later)")
+    try:
+        if conf.isTraining:
+            train_main(conf)
+        if conf.isTest or conf.features:
+            eval_main(conf)
+    finally:
+        proc = CaffeProcessor._instance
+        if proc is not None and proc.conf is conf:
+            proc.stop()
+    return 0
 
 
 if __name__ == "__main__":

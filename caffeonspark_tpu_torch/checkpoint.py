@@ -56,7 +56,10 @@ def params_to_net_param(net: Net, params: Params) -> NetParameter:
 
 
 def _write_atomic(path: str, data: bytes) -> None:
-    """tmp + fsync + rename: a reader never sees half a file."""
+    """tmp + fsync + rename: a reader never sees half a file.  The
+    directory is made when it does not exist yet (-output of a run that
+    writes no snapshot before its final model)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
         f.write(data)

@@ -3,8 +3,10 @@
 
 A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
 solver/net prototxt parsing, data-layer location by `include.phase`),
-cut to the flags this package acts on so far: training (`-train`,
-single process, `-mesh` with an sp axis) and serving.  `-device` picks
+cut to the flags this package acts on so far: training (`-train`, with
+interleaved validation when the solver asks for it; single process;
+`-mesh` with an sp axis), `-test`, `-features` / `-label`,
+`-outputFormat` and serving.  `-device` picks
 where the net runs: `cuda` (the default) or `cpu`; a mesh's ranks all
 sit on that device.
 
@@ -29,8 +31,6 @@ DATA_LAYER_TYPES = ("MemoryData", "CoSData", "Data", "HDF5Data", "ImageData")
 # "switch", the largest value a one-process run takes, or None for
 # "refused whenever given").  `validate` refuses each beyond that.
 LATER_FLAGS = {
-    "-test": ("isTest", "switch", None),
-    "-outputFormat": ("outputFormat", str, None),
     "-devices": ("devices", int, 1),
     "-async_snapshot": ("asyncSnapshot", "switch", None),
     "-connection": ("connection", str, None),
@@ -59,6 +59,8 @@ def build_argparser() -> argparse.ArgumentParser:
       help="solver configuration (prototxt)")
     a("-train", dest="isTraining", action="store_true",
       help="training mode")
+    a("-test", dest="isTest", action="store_true",
+      help="test mode: per-output means over the TEST data layer")
     a("-output", dest="outputPath", default="",
       help="output directory (snapshots, the default -model)")
     a("-snapshot", dest="snapshotStateFile", default="",
@@ -76,6 +78,8 @@ def build_argparser() -> argparse.ArgumentParser:
       help="comma-separated blob names for feature extraction/serving")
     a("-label", dest="label", default="",
       help="label blob name (feature extraction)")
+    a("-outputFormat", dest="outputFormat", default="json",
+      help="json | parquet (validation and features output)")
     a("-model", dest="modelPath", default="",
       help="model file path (in/out)")
     a("-weights", dest="snapshotModelFile", default="",
@@ -165,6 +169,15 @@ class Config:
         i = self.test_data_layer_id
         return self.netParam.layer[i] if i >= 0 else None
 
+    def validates(self) -> bool:
+        """Does -train interleave validation?  (A TEST data layer, and
+        test_interval and test_iter in the solver.)"""
+        sp = self.solverParameter
+        return bool(self.isTraining and sp is not None
+                    and self.test_data_layer() is not None
+                    and sp.test_interval and sp.test_iter
+                    and sp.test_iter[0])
+
     def validate(self) -> None:
         for flag, (dest, kind, most) in LATER_FLAGS.items():
             value = getattr(self, dest)
@@ -173,14 +186,11 @@ class Config:
                 continue
             shown = flag if kind == "switch" else f"{flag} {value}"
             raise ValueError(f"{shown}: a later slice of the PyTorch port "
-                             "(this package runs -train and -serve in one "
-                             "process so far)")
-        if self.features and not self.serve:
-            raise ValueError(
-                f"-features {self.features} without -serve: feature "
-                "extraction (alone or after -train) is a later slice of "
-                "the PyTorch port; -features here names the blobs -serve "
-                "returns")
+                             "(this package runs -train, -test, -features "
+                             "and -serve in one process so far)")
+        if self.outputFormat not in ("json", "parquet"):
+            raise ValueError(f"-outputFormat {self.outputFormat!r}: "
+                             "expected json or parquet")
         if self.device not in ("cuda", "cpu") \
                 and not str(self.device).startswith("cuda:"):
             raise ValueError(f"-device {self.device!r}: expected cuda, "
@@ -198,12 +208,26 @@ class Config:
                                  "prototxt")
             if self.serve:
                 raise ValueError("-train and -serve are separate runs")
+        if (self.isTest or self.features) and not self.serve \
+                and self.netParam is None:
+            raise ValueError("-test / -features need -conf (solver "
+                             "prototxt resolving a net)")
         if self.mesh:
             from .parallel.mesh import parse_mesh_spec
             parse_mesh_spec(self.mesh)   # the grammar; build_mesh refuses axes
             if self.serve:
                 raise ValueError("-mesh applies to -train (the serving "
                                  "mesh is a later slice)")
+            # the mesh layout of the TEST net's forward is a later slice
+            for flag, on in (("-test", self.isTest),
+                             ("-features", bool(self.features)),
+                             ("a validating solver (test_interval and "
+                              "test_iter with a TEST data layer)",
+                              self.validates())):
+                if on:
+                    raise ValueError(
+                        f"-mesh {self.mesh} with {flag}: evaluation on a "
+                        "mesh is a later slice of the PyTorch port")
         if self.serve:
             if self.netParam is None:
                 raise ValueError("-serve needs -conf (solver prototxt "

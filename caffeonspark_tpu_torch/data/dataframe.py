@@ -83,7 +83,10 @@ class DataFrameSource(DataSource):
             "DataFrame wait for the slice of the PyTorch port that decodes "
             "images")
 
-    def next_batch(self, rows: Sequence[Dict]) -> Dict[str, np.ndarray]:
+    def next_batch(self, rows: Sequence[Dict], draw=None
+                   ) -> Dict[str, np.ndarray]:
+        """Typed tops, no augmentation: `draw` is always None here
+        (make_draw_fn gives the pool none for this source)."""
         return {top.name: self._pack_top(top, [r.get(top.name)
                                                for r in rows])
                 for top in self.tops}

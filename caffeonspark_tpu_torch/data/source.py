@@ -4,7 +4,10 @@ The counterpart of `caffeonspark_tpu/data/source.py` (the DataSource SPI
 of the reference, `DataSource.scala:27-128`).  A record is the
 reference's 7-tuple `(id, label, C, H, W, encoded, payload)`;
 `DataSource.next_batch` packs raw-pixel records through the phase's
-transformer into the data layer's named blobs (numpy, on the host).
+transformer into the data layer's named blobs (numpy, on the host),
+or, with the device-side transform (`enable_device_transform`), into
+uint8 pixels and their crop/flip aux array whose float stage runs on
+the device (`apply_device_stage`, data/queue_runner.py).
 
 Read by the port: LMDB databases of Caffe `Datum` records, through a
 CaffeOnSpark `LMDB` source class or Caffe's own source-less `Data`
@@ -26,7 +29,7 @@ import numpy as np
 
 from ..proto.caffe import Datum, LayerParameter
 from .lmdb_io import LmdbReader
-from .transformer import Transformer
+from .transformer import DEVICE_AUX_SUFFIX, AugDraw, Transformer
 
 ImageRecord = Tuple[str, float, int, int, int, bool, object]
 
@@ -88,6 +91,8 @@ class DataSource:
             layer.transform_param if layer.has("transform_param") else None,
             phase_train=phase_train, seed=seed + rank,
             mean_dir=os.path.dirname(self.source_uri()) or None)
+        self._device_transform = False
+        self._device_fns: Dict = {}
 
     # -- config ------------------------------------------------------------
     def _batch_size(self) -> int:
@@ -114,15 +119,32 @@ class DataSource:
             f"{type(self).__name__}: reading this store waits for a later "
             "slice of the PyTorch port (it packs records only)")
 
-    def next_batch(self, records: Sequence[ImageRecord]
+    def next_batch(self, records: Sequence[ImageRecord],
+                   draw: Optional[AugDraw] = None
                    ) -> Dict[str, np.ndarray]:
         """Pack + transform records into the data layer's blobs.
         Payloads are raw pixels: a float ndarray of (C, H, W) values or
-        uint8 bytes."""
+        uint8 bytes.  `draw` replays a pre-drawn augmentation (the
+        transformer pool's ordered draws) instead of drawing here.  With
+        the device-side transform enabled the first top is the uint8
+        host stage and `<top>__devxf` its aux array."""
         c, h, w = self.image_dims()
         n = len(records)
         labels = np.asarray([r[1] for r in records], np.float32)
-        data = np.zeros((n, c, h, w), np.float32)
+        if self._device_transform:
+            # a float payload cannot be narrowed to uint8 without loss,
+            # and a per-batch fallback would emit another key set
+            bad = next((r for r in records
+                        if not r[5] and isinstance(r[6], np.ndarray)
+                        and r[6].dtype != np.uint8), None)
+            if bad is not None:
+                raise ValueError(
+                    f"COS_DEVICE_TRANSFORM=1 needs uint8/encoded pixel "
+                    f"payloads, but record {bad[0]!r} carries "
+                    f"{bad[6].dtype} data — unset COS_DEVICE_TRANSFORM "
+                    "for float-valued sources")
+        data = np.zeros((n, c, h, w),
+                        np.uint8 if self._device_transform else np.float32)
         for i, (rid, _label, rc, rh, rw, encoded, payload) in \
                 enumerate(records):
             if encoded:
@@ -138,14 +160,73 @@ class DataSource:
                 data[i] = np.frombuffer(payload, np.uint8).reshape(
                     rc, rh, rw)
         out_names = list(self.layer.top)
-        batch = {out_names[0]: self.transformer(data)}
+        if self._device_transform:
+            u8, aux = self.transformer.host_stage(data, draw=draw)
+            batch = {out_names[0]: u8,
+                     out_names[0] + DEVICE_AUX_SUFFIX: aux}
+        else:
+            batch = {out_names[0]: self.transformer(data, draw=draw)}
         if len(out_names) > 1:
             batch[out_names[1]] = labels
         return batch
 
-    # the packer's name on the training path (the JAX package's pool
-    # hands it a pre-drawn augmentation; here it draws inline)
-    pack_batch = next_batch
+    # -- transformer-pool protocol -----------------------------------------
+    def pack_batch(self, records: Sequence[ImageRecord],
+                   draw: Optional[AugDraw] = None
+                   ) -> Dict[str, np.ndarray]:
+        """What the pool's workers call: next_batch with an optional
+        pre-draw.  Sources that pack their own blobs (DataFrameSource)
+        never get one (make_draw_fn returns None for them)."""
+        return self.next_batch(records, draw=draw)
+
+    def _packs_images(self) -> bool:
+        return type(self).next_batch is DataSource.next_batch
+
+    def make_draw_fn(self):
+        """`fn(n) -> AugDraw` for the pool's dispatcher, which draws each
+        batch's augmentation in feed order on one thread, so that packing
+        on several reproduces the inline path's stream.  None for a
+        source that packs its own blobs or has no image geometry."""
+        if not self._packs_images():
+            return None
+        try:
+            _c, h, w = self.image_dims()
+        except (NotImplementedError, ValueError):
+            return None
+        t = self.transformer
+        return lambda n: t.draw(n, h, w)
+
+    def enable_device_transform(self, net_dtype=None):
+        """With COS_DEVICE_TRANSFORM=1, switch next_batch to the uint8 +
+        aux split and return `{top: fn(u8, aux)}`, the device stage
+        (Transformer.device_stage_fn; cast to `net_dtype` unless it is
+        float32).  None, leaving the host path, for a source that packs
+        its own blobs, has no image geometry or a mean of another
+        shape."""
+        if os.environ.get("COS_DEVICE_TRANSFORM") != "1":
+            return None
+        if not self._packs_images():
+            return None
+        try:
+            _c, h, w = self.image_dims()
+        except (NotImplementedError, ValueError):
+            return None
+        if not self.transformer.device_eligible(h, w):
+            return None
+        import torch
+        out_dtype = None if net_dtype in (None, torch.float32) else net_dtype
+        self._device_transform = True
+        self._device_fns = {self.layer.top[0]:
+                            self.transformer.device_stage_fn(out_dtype)}
+        return dict(self._device_fns)
+
+    def apply_device_stage(self, batch: Dict[str, np.ndarray], device):
+        """A packed host batch -> tensors on `device`, finishing the
+        split where it is on: for consumers that call next_batch
+        themselves (validation rounds, feature extraction) rather than
+        feeding through device_prefetch."""
+        from .queue_runner import stage_batch
+        return stage_batch(batch, device, self._device_fns)
 
     # -- epochs ------------------------------------------------------------
     def epoch_seed(self, epoch: int) -> int:

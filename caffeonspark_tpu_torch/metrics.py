@@ -5,9 +5,12 @@ sample, summarized on demand.
 The serving path records its stages through it (latency / assemble /
 pack / fwd / exec_wait / time_to_first_flush series, queue_depth /
 batch_fill gauges, served_rows / flushes / flush_bucket_<n> counters),
-and the trainer its own (pack / queue_wait / step series, a feed_depth
-gauge, dropped_batches, and one `mark_step` per solver step for the
-steady steps/s), so both dump in the JAX package's JSON format.
+and the trainer its own, under the JAX package's names: pack (on the
+transformer pool's workers, or inline), stage (the host-to-device
+stager), queue_wait and step series; feed_depth and stage_depth gauges;
+dropped_batches, dropped_val_batches and ragged_tail_records counters;
+and one `mark_step` per solver step for the steady steps/s.  Both dump
+in the JAX package's JSON format.
 """
 
 from __future__ import annotations

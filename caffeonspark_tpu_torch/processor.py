@@ -1,25 +1,33 @@
-"""CaffeProcessor: the per-process training engine.
+"""CaffeProcessor: the per-process training and inference engine.
 
 The counterpart of `caffeonspark_tpu/processor.py` (and of
-`CaffeProcessor.scala`), cut to what one process training on one device
-needs: a singleton (`instance()`) that owns the Solver (and, with
-`-mesh`, the mesh whose attention route its steps run under), two
-bounded feed queues with the STOP_MARK protocol (0 train, 1
-validation), and a solver thread (`_run_train`) that packs records from
-queue 0 into batches, copies each to the device, takes the solver step,
-snapshots at the `snapshot` cadence and after training, and finally
-writes the model to `-model`.  Bad records drop their batch (the
-reference's per-iteration failure tolerance) until DROP_LIMIT_DEFAULT
-consecutive batches fail.
+`CaffeProcessor.scala`), cut to one process on one device: a singleton
+(`instance()`) that owns the Solver (and, with `-mesh`, the mesh whose
+attention route its steps run under), two bounded feed queues with the
+STOP_MARK protocol (0 train, 1 validation), and a solver thread
+(`_run_train`).  The thread takes packed batches from queue 0 through
+the ordered transformer pool (COS_TRANSFORM_THREADS workers, default
+2; 0 packs inline on the solver thread), stages them on the device
+(`device_prefetch`: on a card a stager thread on a side stream, with
+the device-side transform's float stage when COS_DEVICE_TRANSFORM=1),
+takes the solver step, runs a validation round every test_interval
+steps when `interleave_validation` is set (queue 1, its own one-worker
+pool; a round that waits VALIDATION_STALL_TIMEOUT seconds for a batch
+fails loudly), snapshots at the `snapshot` cadence and after training,
+and finally writes the model to `-model`.  Bad records drop their batch
+(the reference's per-iteration failure tolerance) until
+DROP_LIMIT_DEFAULT consecutive batches of one phase fail; train and
+validation keep separate counters.  `extract_features` / `extract_rows`
+run the TEST net over a record stream for -test and -features, through
+serving/forward.py's forward and row extraction.
 An error on the solver thread surfaces on `join()` / `stop()`.
 The training log keeps each step's loss as a device scalar only until
 the next `display` or `snapshot` boundary (at most LOSS_FOLD_MAX
 steps): there it is folded to host floats with one sync.  An HDF5
 solver is refused before the first step.
 
-Interleaved validation, the threaded transformer pool, the device-side
-transform, the fused multi-step loop, the chaos injectors and the
-observability server wait for later slices.
+The fused multi-step loop, the chaos injectors and the observability
+server wait for later slices.
 """
 
 from __future__ import annotations
@@ -30,15 +38,17 @@ import os
 import queue
 import threading
 import time
-from typing import Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import checkpoint
 from .config import Config
-from .data.queue_runner import (DROP_LIMIT_DEFAULT, FeedQueue,
-                                combine_batches, to_device)
+from .data.queue_runner import (DROP_LIMIT_DEFAULT, DROPPED, FeedQueue,
+                                TransformerPool, combine_batches,
+                                device_prefetch, stage_background,
+                                stage_depth, transform_threads)
 from .data.source import STOP_MARK, DataSource, get_source
 from .metrics import PipelineMetrics
 from .ops.layers import flash_mesh
@@ -51,6 +61,28 @@ _LOG = logging.getLogger(__name__)
 # the most steps whose losses stay device scalars when neither display
 # nor snapshot sets a boundary sooner
 LOSS_FOLD_MAX = 1000
+
+
+class ValidationReport:
+    """Per-output means over the test_iter batches of each round
+    (updateValidationReport).  A batch's means stay device scalars until
+    its round ends: one sync a round."""
+
+    def __init__(self, names: Sequence[str]):
+        self.names = list(names)
+        self.rounds: List[Dict[str, float]] = []
+        self._acc: List[torch.Tensor] = []
+
+    def add_batch(self, outputs: Dict[str, torch.Tensor]):
+        self._acc.append(torch.stack([
+            outputs[n].detach().float().mean() for n in self.names]))
+
+    def finish_round(self):
+        if self._acc:
+            per = torch.stack(self._acc).double().cpu().numpy()
+            self.rounds.append({n: float(v) for n, v
+                                in zip(self.names, per.mean(axis=0))})
+        self._acc = []
 
 
 class CaffeProcessor:
@@ -96,7 +128,17 @@ class CaffeProcessor:
         self.metrics = PipelineMetrics()
         self.params = None
         self.opt_state = None
+        self.validation: Optional[ValidationReport] = None
+        # set by trainWithValidation: only then does anyone feed queue 1
+        self.interleave_validation = False
+        self.dropped_batches = 0      # the feeder tops up for these
+        self.dropped_val_batches = 0  # a round counts them, no top-up
         self._consecutive_drops = 0
+        self._consecutive_val_drops = 0
+        # pool workers and the solver thread share the drop accounting
+        self._drop_lock = threading.Lock()
+        self._train_pool: Optional[TransformerPool] = None
+        self._val_pool: Optional[TransformerPool] = None
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._stopped = False
@@ -108,12 +150,18 @@ class CaffeProcessor:
         self._folded = 0
         seed = int(conf.solverParameter.random_seed) \
             if conf.solverParameter.random_seed >= 0 else 0
+        self._source_kw = dict(rank=rank, num_ranks=max(1, conf.clusterSize),
+                               seed=seed, resize=conf.resize)
         tl = conf.train_data_layer()
         self.train_source: Optional[DataSource] = (
-            get_source(tl, phase_train=True, rank=rank,
-                       num_ranks=max(1, conf.clusterSize), seed=seed,
-                       resize=conf.resize)
+            get_source(tl, phase_train=True, **self._source_kw)
             if tl is not None and conf.isTraining else None)
+        vl = conf.test_data_layer()
+        self.val_source: Optional[DataSource] = (
+            get_source(vl, phase_train=False, **self._source_kw)
+            if vl is not None else None)
+        self._feature_src: Optional[DataSource] = None
+        self._blob_forward = None
 
     # -- queue API (feedQueue backpressure, :192-198) --------------------
     def feed_queue(self, idx: int, sample) -> bool:
@@ -124,6 +172,7 @@ class CaffeProcessor:
         self._init_params()
         for q in self.queues:
             q.reset()
+        self._train_pool = self._val_pool = None
         self._stopped = False
         self._metrics_dumped = False
         self._thread = threading.Thread(target=self._run_train,
@@ -180,6 +229,8 @@ class CaffeProcessor:
 
     # -- batches ---------------------------------------------------------
     def _train_batches(self) -> Iterator[Dict[str, np.ndarray]]:
+        """The inline path (COS_TRANSFORM_THREADS=0): pack on the solver
+        thread."""
         src = self.train_source
         buf: List = []
         while not self._stopped:
@@ -199,48 +250,111 @@ class CaffeProcessor:
                     yield batch
                 buf = []
 
-    def _pack_or_drop(self, src: DataSource, buf):
+    def _note_pack_ok(self, *, val: bool = False):
+        with self._drop_lock:
+            if val:
+                self._consecutive_val_drops = 0
+            else:
+                self._consecutive_drops = 0
+
+    def _note_pack_drop(self, e: Exception, *, val: bool = False):
+        """A batch dropped after a record error.  Train and validation
+        keep separate consecutive counters (a healthy feed of one must
+        not reset the other's streak) and separate totals (only train
+        drops make the feeder top up, since a dropped validation batch
+        still counts in its round); DROP_LIMIT_DEFAULT consecutive drops
+        of one phase raise."""
+        with self._drop_lock:
+            if val:
+                self._consecutive_val_drops += 1
+                consecutive = self._consecutive_val_drops
+                self.dropped_val_batches += 1
+            else:
+                self._consecutive_drops += 1
+                consecutive = self._consecutive_drops
+                self.dropped_batches += 1
+        self.metrics.incr("dropped_val_batches" if val
+                          else "dropped_batches")
+        _LOG.warning("dropping batch after record error: %s", e)
+        if consecutive >= DROP_LIMIT_DEFAULT:
+            raise RuntimeError(
+                f"{consecutive} consecutive batch failures — systematic "
+                f"data/config error; last: {e}") from e
+
+    def _pack_or_drop(self, src: DataSource, buf, *, val: bool = False):
+        """Inline pack with the drop policy."""
         t0 = time.perf_counter()
         try:
-            batch = src.pack_batch(buf)
+            batch = src.next_batch(buf)
         except Exception as e:            # noqa: BLE001 — a bad record
-            self._consecutive_drops += 1
-            self.metrics.incr("dropped_batches")
-            _LOG.warning("dropping batch after record error: %s", e)
-            if self._consecutive_drops >= DROP_LIMIT_DEFAULT:
-                raise RuntimeError(
-                    f"{self._consecutive_drops} consecutive batch failures "
-                    f"— systematic data/config error; last: {e}") from e
+            self._note_pack_drop(e, val=val)   # raises at the limit
             return None
-        self._consecutive_drops = 0
         self.metrics.add("pack", time.perf_counter() - t0)
+        self._note_pack_ok(val=val)
         return batch
+
+    def _pool(self, idx: int, src: DataSource, threads: int,
+              val: bool) -> TransformerPool:
+        return TransformerPool(
+            self.queues[idx], src.batch_size, pack=src.pack_batch,
+            draw_fn=src.make_draw_fn(), num_threads=threads,
+            on_pack_ok=lambda: self._note_pack_ok(val=val),
+            on_pack_error=lambda e: self._note_pack_drop(e, val=val),
+            metrics=self.metrics,
+            should_stop=lambda: self._stopped).start()
 
     # -- training loop (doTrain, :413-471) -------------------------------
     def _run_train(self):
+        gen = None
         try:
             solver = self.solver
             sp = solver.param
             snap = sp.snapshot or 0
             display = sp.display or 0
+            test_interval = sp.test_interval
+            test_iter = sp.test_iter[0] if sp.test_iter else 0
             params, st = self.params, self.opt_state
             m = self.metrics
             if self.mesh is not None:
                 m.set_info("mesh", self.mesh.describe())
+            validate = bool(self.interleave_validation and test_interval
+                            and test_iter and solver.test_net is not None
+                            and self.val_source is not None)
+            eval_fwd = solver.eval_step_fn() if validate else None
+            if validate:
+                self.validation = ValidationReport(
+                    solver.test_net.output_blobs)
+                self.val_source.enable_device_transform(
+                    solver.test_net.dtype)
+            src = self.train_source
+            dxf = src.enable_device_transform(solver.train_net.dtype)
+            nthreads = transform_threads()
+            if nthreads > 0:
+                self._train_pool = self._pool(0, src, nthreads, val=False)
+                batches = iter(self._train_pool)
+                if validate:
+                    # one worker: a round packs ahead between rounds,
+                    # off the step's path
+                    self._val_pool = self._pool(1, self.val_source, 1,
+                                                val=True)
+            else:
+                batches = self._train_batches()
             tmajor = frozenset(
                 n for n, _, kind in solver.train_net.input_specs
                 if kind.endswith(":T"))
-            batches = combine_batches(self._train_batches(),
-                                      max(1, sp.iter_size), tmajor)
+            gen = device_prefetch(
+                combine_batches(batches, max(1, sp.iter_size), tmajor),
+                solver.device, depth=stage_depth(), device_transforms=dxf,
+                background=nthreads > 0 and stage_background(solver.device),
+                metrics=m)
             while st.iter < sp.max_iter:
                 t_wait = time.perf_counter()
-                batch = next(batches, None)
-                if batch is None:
+                inputs = next(gen, None)
+                if inputs is None:
                     break
                 m.add("queue_wait", time.perf_counter() - t_wait)
                 m.gauge("feed_depth", len(self.queues[0]))
                 t_step = time.perf_counter()
-                inputs = to_device(batch, solver.device)
                 if self.mesh is None:
                     loss, out = solver.train_step(params, st, inputs)
                 else:
@@ -260,6 +374,8 @@ class CaffeProcessor:
                     _LOG.info("Iteration %d, loss = %.6g, lr = %.6g",
                               st.iter, self.train_log[-1][1],
                               float(out["lr"]))
+                if validate and st.iter % test_interval == 0:
+                    self._run_validation(eval_fwd, params, test_iter)
                 if snapped:
                     self._snapshot(params, st)
             if sp.snapshot_after_train:
@@ -271,8 +387,69 @@ class CaffeProcessor:
         except BaseException as e:     # surfaced on stop()/join()
             self._error = e
         finally:
-            for q in self.queues:      # unblock feeders in offer()
+            # in dependency order: the stager first, then the pools,
+            # then the feeders blocked in offer()
+            if gen is not None:
+                gen.close()
+            for pool in (self._train_pool, self._val_pool):
+                if pool is not None:
+                    pool.stop(join_timeout=2.0)
+            for q in self.queues:
                 q.stop()
+
+    # -- validation rounds (updateValidationReport, :388-411) -----------
+    VALIDATION_STALL_TIMEOUT = 30.0
+
+    def _stalled(self, done: int, test_iter: int) -> RuntimeError:
+        # a stalled feeder must not silently shrink the round
+        return RuntimeError(
+            f"validation feed stalled: {done}/{test_iter} batches after "
+            f"{self.VALIDATION_STALL_TIMEOUT:.0f}s — feeder dead or test "
+            "source exhausted (check test_iter x batch_size vs dataset "
+            "size)")
+
+    def _take_val_inline(self, timeout: float):
+        """One validation batch packed on the solver thread (no pool):
+        DROPPED when its pack failed, None once the processor stops."""
+        src = self.val_source
+        buf: List = []
+        while len(buf) < src.batch_size:
+            item = self.queues[1].take(timeout=timeout)  # may raise Empty
+            if item is STOP_MARK or item is None:
+                if self._stopped:
+                    return None
+                continue
+            buf.append(item)
+        batch = self._pack_or_drop(src, buf, val=True)
+        return DROPPED if batch is None else batch
+
+    def _run_validation(self, eval_fwd, params, test_iter: int):
+        """One round of test_iter batches, from queue 1's pool or packed
+        inline, in feed order; a DROPPED batch still counts (its records
+        are spent)."""
+        src = self.val_source
+        done = 0
+        while done < test_iter and not self._stopped:
+            try:
+                if self._val_pool is not None:
+                    batch = self._val_pool.take(
+                        timeout=self.VALIDATION_STALL_TIMEOUT,
+                        skip_dropped=False)
+                else:
+                    batch = self._take_val_inline(
+                        self.VALIDATION_STALL_TIMEOUT)
+            except queue.Empty:
+                if self._stopped or self.queues[1].stopped:
+                    break          # an ordinary shutdown mid-round
+                raise self._stalled(done, test_iter)
+            if batch is None:
+                break              # the pool's end (stop / exhausted)
+            if batch is not DROPPED:
+                self.validation.add_batch(eval_fwd(
+                    params, src.apply_device_stage(batch,
+                                                   self.solver.device)))
+            done += 1
+        self.validation.finish_round()
 
     def _fold_losses(self) -> None:
         """The log's device-scalar losses to host floats (one sync)."""
@@ -304,3 +481,79 @@ class CaffeProcessor:
         checkpoint.snapshot(self.solver.train_net, params, st, prefix,
                             fmt=conf.solverParameter.snapshot_format,
                             solver_type=self.solver.solver_type)
+
+    # -- feature extraction (doFeatures, :473-523) ------------------------
+    def extract_features(self, source: DataSource,
+                         blob_names: Sequence[str]
+                         ) -> List[Dict[str, Any]]:
+        return self.extract_rows(source.records(), blob_names,
+                                 source=source)
+
+    def default_feature_blobs(self) -> List[str]:
+        net = self.solver.test_net or self.solver.train_net
+        names = list(net.output_blobs)
+        if self.conf.label and self.conf.label not in names:
+            names.append(self.conf.label)   # the -label column
+        return names
+
+    def feature_source(self) -> Optional[DataSource]:
+        """The record packer of feature extraction, always TEST-phase
+        (center crop, no mirror): the validation source when the net has
+        a TEST data layer, else one built at TEST from the data layer
+        there is; never the train source, whose random crop and mirror
+        would make the rows vary."""
+        src = self.val_source or self._feature_src
+        if src is None:
+            lp = self.conf.test_data_layer() or self.conf.train_data_layer()
+            if lp is not None:
+                src = self._feature_src = get_source(
+                    lp, phase_train=False, **self._source_kw)
+        return src
+
+    def _feature_fwd(self, blob_names: Tuple[str, ...]):
+        """predict(blobNames) of the TEST net, cached per blob set: the
+        serving path's forward (serving/forward.py), under
+        inference_mode on the solver's device."""
+        from .serving.forward import BlobForward
+        net = self.solver.test_net or self.solver.train_net
+        if self._blob_forward is None or self._blob_forward.net is not net:
+            self._blob_forward = BlobForward(net)
+        return self._blob_forward(blob_names)
+
+    def extract_rows(self, records, blob_names: Sequence[str],
+                     source: Optional[DataSource] = None
+                     ) -> List[Dict[str, Any]]:
+        """features() / test() over a record stream: one SampleID row a
+        record.  A ragged tail is padded to a whole batch with its last
+        record and the padding's rows are dropped."""
+        from .serving.forward import fetch_rows
+        self._init_params()
+        source = source or self.feature_source()
+        if source is None:
+            raise ValueError("no data layer to pack records with")
+        fwd = self._feature_fwd(tuple(blob_names))
+        device = self.solver.device
+        rows: List[Dict[str, Any]] = []
+        buf: List = []
+        ids: List[str] = []
+
+        def flush(real: int):
+            nonlocal buf, ids
+            out = fwd(self.params, source.apply_device_stage(
+                source.next_batch(buf), device))
+            rows.extend(fetch_rows(out, blob_names, ids, real, len(buf)))
+            buf, ids = [], []
+
+        for rec in records:
+            buf.append(rec)
+            ids.append(str(rec[0]) if isinstance(rec, tuple)
+                       else str(rec.get("id", len(ids))))
+            if len(buf) == source.batch_size:
+                flush(real=len(buf))
+        if buf:
+            real = len(buf)
+            pad = source.batch_size - real
+            buf += [buf[-1]] * pad
+            ids += [ids[-1]] * pad
+            flush(real=real)
+        return rows

@@ -55,11 +55,30 @@ or the package is not importable, and when any phase fails.  Phases:
      mean_value; the bvlc_reference_caffenet SGD solver cut to
      max_iter 8, snapshot 4);
   9. both trained through the CLI (`caffe_on_spark.main([... -train])`,
-     counts zeroed before each, read after): the first loss near ln 1000,
-     every loss finite, snapshots at 4 and 8 and the final model, K1+K2
-     (CaffeNet) and K3+K4 (AlexNet, COS_FUSE_BIAS_RELU_LRN=1) each
-     launched 2 x max_iter times; median step time and images/s over
-     steps 3-8;
+     the default ingest: a pool of 2 pack threads and a stager thread on
+     a side stream; counts zeroed before each, read after): the first
+     loss near ln 1000, every loss finite, snapshots at 4 and 8 and the
+     final model, K1+K2 (CaffeNet) and K3+K4 (AlexNet,
+     COS_FUSE_BIAS_RELU_LRN=1) each launched 2 x max_iter times; median
+     step time and images/s over steps 3-8; then the ingest runs:
+     CaffeNet for 32 steps without snapshots at COS_TRANSFORM_THREADS=0,
+     at the default 2 and at 2 with COS_DEVICE_TRANSFORM=1 (cuDNN
+     deterministic): the first 4 packed batches bit-equal between 0 and
+     2 threads, the device stage (run on the card) within 1e-5 of the
+     host transform, every step's loss within 1e-5 relative across the
+     three; for each the median step interval over steps 3-8 and the
+     steady step time over steps 9-32, images/s and p50 pack;
+     validating training: the stock train_val shape, a TEST data layer
+     of B=50 (center crop 227, mean_value) on a second LMDB of 100
+     seeded records, the solver cut to max_iter 8, test_interval 4,
+     test_iter 2, for CaffeNet and AlexNet (COS_FUSE_BIAS_RELU_LRN=1):
+     two validation.json rounds of finite accuracy and loss, K1 (K3)
+     launched 2 x 8 + 2 rounds x 2 batches x 2 LRN layers = 24 times,
+     K2 (K4) 16; then -test and -features fc8 of the trained CaffeNet
+     over the 100 TEST records through the CLI, K1 4 launches each, the
+     means and the fc8 rows within 1e-4 of the all-plain run's max, the
+     -test means within 1e-6 of the last validation round's (the same
+     records and weights);
  10. one solver step's loss and gradients with the kernels against the
      same step with every kernel swapped for its plain version (same
      params, batch and dropout seed; cuDNN deterministic);
@@ -95,8 +114,10 @@ or the package is not importable, and when any phase fails.  Phases:
  16. the same at 2 heads of 512 (the zoo's transformer_lm at heads 2):
      K6, K7 and K8 through their wide kernels, 16 launches each;
  17. a `kernels` JSON line: launches on the serving, image-net training,
-     LM training, sp LM training and head_dim-256 and -512 LM training
-     paths and the numbers of phase 3; a `ptxas` line; then the card
+     ingest, validating training, -test, -features, LM training, sp LM
+     training
+     and head_dim-256 and -512 LM training paths and the numbers of
+     phase 3; a `ptxas` line; then the card
      line again;
  18. the device line, last: {"ok": true, "device": {...}}.
 """
@@ -1197,41 +1218,58 @@ stepsize: 4
 momentum: 0.9
 weight_decay: 0.0005
 max_iter: {max_iter}
-snapshot: 4
+snapshot: {snapshot}
 snapshot_prefix: "{name}_train"
-snapshot_after_train: true
+snapshot_after_train: {after}
 random_seed: {seed}
-"""
+{extra}"""
+# the bvlc_reference_caffenet solver validates every 1000 steps over
+# test_iter 1000 batches of 50; cut to two rounds of two batches
+VAL_SOLVER = "test_interval: 4\ntest_iter: 2\n"
+VAL_B, VAL_RECORDS, VAL_ROUNDS, VAL_ITER = 50, 100, 2, 2
+INGEST_BATCHES = 4     # packed batches held equal across ingest settings
+# the ingest runs: steps 3-8 as the other image-net runs, and the steady
+# rate over steps 9-32, after the pool's window of batches packed ahead
+# of the first step is spent; no snapshot in the way
+INGEST_ITERS, STEADY_FROM = 32, 8
+MEAN_VALUE = [104.0, 117.0, 123.0]
 
 
-def write_train_data(workdir: str) -> str:
-    """512 seeded 3x256x256 uint8 Datum records (labels in [0, 1000)) in
+def write_train_data(workdir: str, name="train_lmdb", n=512,
+                     seed=7) -> str:
+    """`n` seeded 3x256x256 uint8 Datum records (labels in [0, 1000)) in
     an LMDB written with the port's own LmdbWriter."""
     import shutil
 
     import numpy as np
     from caffeonspark_tpu_torch.data import LmdbWriter
     from caffeonspark_tpu_torch.proto.caffe import Datum
-    path = os.path.join(workdir, "train_lmdb")
+    path = os.path.join(workdir, name)
     shutil.rmtree(path, ignore_errors=True)
-    rng = np.random.RandomState(7)
+    rng = np.random.RandomState(seed)
     t0 = time.monotonic()
     recs = [(b"%08d" % i, Datum(
         channels=3, height=256, width=256,
         data=rng.randint(0, 256, 3 * 256 * 256, dtype=np.uint8).tobytes(),
-        label=int(rng.randint(1000))).to_binary()) for i in range(512)]
+        label=int(rng.randint(1000))).to_binary()) for i in range(n)]
     LmdbWriter(path).write(recs)
-    log(f"  wrote {path}: 512 records of 3x256x256 "
+    log(f"  wrote {path}: {n} records of 3x256x256 "
         f"({time.monotonic() - t0:.2f} s)")
     return path
 
 
-def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int) -> str:
+def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int,
+                       test_lmdb: str = "", ingest: bool = False) -> str:
     """train_val-style prototxts: the zoo's full-width net on an LMDB
     MemoryData layer (B=256, random 227 crop, mirror, mean_value) and
-    the bvlc_reference_caffenet solver cut to max_iter 8."""
+    the bvlc_reference_caffenet solver cut to max_iter 8.  With
+    `test_lmdb`, the stock train_val shape: the data layer at TRAIN and
+    a TEST one on `test_lmdb` (B=50, center crop 227, mean_value), and
+    the solver validates (VAL_SOLVER); the net is renamed <name>Val.
+    With `ingest`, INGEST_ITERS steps and no snapshot (<name>Ingest)."""
     from caffeonspark_tpu_torch.net import Net
-    from caffeonspark_tpu_torch.proto import (NetParameter, NetState, Phase,
+    from caffeonspark_tpu_torch.proto import (NetParameter, NetState,
+                                              NetStateRule, Phase,
                                               TransformationParameter)
     npm = zoo_fn(batch_size=TRAIN_B)
     data = npm.layer[0]
@@ -1240,7 +1278,19 @@ def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int) -> str:
     data.memory_data_param.height = 256
     data.memory_data_param.width = 256
     data.transform_param = TransformationParameter(
-        crop_size=227, mirror=True, mean_value=[104.0, 117.0, 123.0])
+        crop_size=227, mirror=True, mean_value=MEAN_VALUE)
+    if ingest:
+        npm.name += "Ingest"
+    if test_lmdb:
+        npm.name += "Val"
+        test = data.clone()
+        data.include.append(NetStateRule(phase=Phase.TRAIN))
+        test.include.append(NetStateRule(phase=Phase.TEST))
+        test.memory_data_param.source = test_lmdb
+        test.memory_data_param.batch_size = VAL_B
+        test.transform_param = TransformationParameter(
+            crop_size=227, mean_value=MEAN_VALUE)
+        npm.layer.insert(1, test)
     name = npm.name.lower()
     net_path = os.path.join(workdir, f"{name}_train_val.prototxt")
     text = npm.to_text()
@@ -1253,8 +1303,11 @@ def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int) -> str:
         f.write(text)
     solver_path = os.path.join(workdir, f"{name}_train_solver.prototxt")
     with open(solver_path, "w") as f:
-        f.write(TRAIN_SOLVER.format(net=net_path, max_iter=TRAIN_ITERS,
-                                    name=name, seed=seed))
+        f.write(TRAIN_SOLVER.format(
+            net=net_path, max_iter=INGEST_ITERS if ingest else TRAIN_ITERS,
+            snapshot=0 if ingest else 4,
+            after="false" if ingest else "true", name=name, seed=seed,
+            extra=VAL_SOLVER if test_lmdb else ""))
     return solver_path
 
 
@@ -1315,14 +1368,45 @@ def write_lm_config(workdir: str, lm=None, name=None) -> str:
     return solver_path
 
 
+@contextlib.contextmanager
+def captured_batches(n):
+    """The first `n` host batches the solver thread takes, copied (the
+    processor's combine_batches wrapped for the run)."""
+    import numpy as np
+    from caffeonspark_tpu_torch import processor
+    real = processor.combine_batches
+    got = []
+
+    def spy(batches, k, time_major=frozenset()):
+        def tee():
+            for b in batches:
+                if len(got) < n:
+                    got.append({key: np.array(v, copy=True)
+                                for key, v in b.items()})
+                yield b
+        return real(tee(), k, time_major)
+
+    processor.combine_batches = spy
+    try:
+        yield got
+    finally:
+        processor.combine_batches = real
+
+
 def train_phase(K, label, solver_path, env, outdir, kernels,
                 device="cuda", per_step=TRAIN_B, unit="images",
-                launches_each=2 * TRAIN_ITERS, args=()):
+                launches_each=2 * TRAIN_ITERS, args=(), expect=None,
+                rounds=0, capture=0, iters=TRAIN_ITERS):
     """-train through caffe_on_spark.main (with the extra CLI `args`)
     with the counts zeroed just before and read just after; checks
     losses, snapshots and that each of `kernels` launched `launches_each`
-    times (and no other kernel).  `per_step` `unit`s (images, tokens)
-    make one step."""
+    times (or as `expect` maps them) and no other kernel; with `rounds`,
+    that validation.json holds that many rounds of finite accuracy and
+    loss.  `per_step` `unit`s (images, tokens) make one step.  With
+    `capture`, the record keeps that many of the first packed batches
+    under "batches".  `iters` other than TRAIN_ITERS: a run without
+    snapshots, whose record adds the steady step time over the steps
+    after STEADY_FROM."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark
     shutil.rmtree(outdir, ignore_errors=True)
@@ -1330,7 +1414,8 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     metrics_path = os.path.join(outdir, "metrics.json")
     K.reset_launch_counts()
     t0 = time.monotonic()
-    with env_set({**env, "COS_PIPELINE_METRICS": metrics_path}):
+    with env_set({**env, "COS_PIPELINE_METRICS": metrics_path}), \
+            captured_batches(capture) as batches:
         rc = caffe_on_spark.main(["-conf", solver_path, "-train",
                                   "-output", outdir, "-device", device,
                                   *args])
@@ -1341,23 +1426,35 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
         m = json.load(f)
     tr = m["info"]["train"]
     losses = tr["loss"]
-    check(tr["iter"] == list(range(1, TRAIN_ITERS + 1)),
+    check(tr["iter"] == list(range(1, iters + 1)),
           f"{label}: iterations {tr['iter']}")
     check(all(math.isfinite(x) for x in losses),
           f"{label}: non-finite loss in {losses}")
     check(6.0 <= losses[0] <= 8.0,
           f"{label}: first loss {losses[0]:.4f} not near ln 1000")
     name = os.path.basename(solver_path).split("_")[0]
-    for it in (4, TRAIN_ITERS):
+    for it in ((4, TRAIN_ITERS) if iters == TRAIN_ITERS else ()):
         for ext in ("caffemodel", "solverstate"):
             f = os.path.join(outdir, f"{name}_train_iter_{it}.{ext}")
             check(os.path.exists(f), f"{label}: no snapshot {f}")
     model = os.path.join(outdir, "model.caffemodel")
     check(os.path.exists(model), f"{label}: no final model {model}")
     want = {k: (launches_each if k in kernels else 0) for k in counts}
+    want.update(expect or {})
     check(counts == want, f"{label}: launches {counts}, expected {want}")
+    validation = None
+    if rounds:
+        with open(os.path.join(outdir, "validation.json")) as f:
+            validation = [json.loads(x) for x in f if x.strip()]
+        check(len(validation) == rounds and all(
+            sorted(r) == ["accuracy", "loss"]
+            and all(math.isfinite(v) for v in r.values())
+            for r in validation),
+            f"{label}: validation rounds {validation}, expected {rounds} "
+            "of finite accuracy and loss")
     t = tr["t"]
-    steps_ms = sorted(1e3 * (t[i] - t[i - 1]) for i in range(2, len(t)))
+    steps_ms = sorted(1e3 * (t[i] - t[i - 1])
+                      for i in range(2, min(len(t), TRAIN_ITERS)))
     med = steps_ms[len(steps_ms) // 2]
     st = m["stages"]
     res = dict(label=label, wall_s=wall_s, losses=losses, lr=tr["lr"],
@@ -1366,14 +1463,137 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
                pack_ms_p50=st["pack"]["p50_ms"],
                dispatch_ms_p50=st["step"]["p50_ms"],
                queue_wait_ms_p50=st["queue_wait"]["p50_ms"],
+               stage_ms_p50=st["stage"]["p50_ms"],
                launches=counts)
-    log(f"  {label}: -train of {TRAIN_ITERS} steps in {wall_s:.1f} s; "
+    if validation is not None:
+        res["validation"] = validation
+    if iters > TRAIN_ITERS:
+        steady = 1e3 * (t[-1] - t[STEADY_FROM - 1]) / (iters - STEADY_FROM)
+        res.update(steady_step_ms=steady,
+                   **{f"steady_{unit}_per_s": 1e3 * per_step / steady})
+    if capture:
+        check(len(batches) == capture,
+              f"{label}: {len(batches)} batches captured of {capture}")
+        res["batches"] = batches
+    log(f"  {label}: -train of {iters} steps in {wall_s:.1f} s; "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"steps 3-{TRAIN_ITERS}: "
         f"median {med:.1f} ms ({res[f'{unit}_per_s']:.0f} {unit}/s), "
         f"pack p50 {res['pack_ms_p50']:.1f} ms, step dispatch p50 "
-        f"{res['dispatch_ms_p50']:.1f} ms; launches {counts}")
+        f"{res['dispatch_ms_p50']:.1f} ms; launches {counts}"
+        + (f"; validation {validation}" if validation else "")
+        + (f"; steps {STEADY_FROM + 1}-{iters}: {res['steady_step_ms']:.1f}"
+           f" ms a step ({res[f'steady_{unit}_per_s']:.0f} {unit}/s)"
+           if iters > TRAIN_ITERS else ""))
     return res, model
+
+
+def eval_phase(K, label, solver_path, model, outdir, mode, kernels,
+               launches_each, device="cuda"):
+    """-test or -features fc8 (`mode`) of `model` through
+    caffe_on_spark.main over the TEST data layer, with the counts zeroed
+    just before and read just after (each of `kernels` launched
+    `launches_each` times, no other kernel), then again with every
+    kernel plain: the means (-test) or rows (-features) within
+    ROWS_F32_TOL of the plain run's largest |value|."""
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch import caffe_on_spark
+    args = ["-test"] if mode == "test" else ["-features", "fc8"]
+    out = {}
+    for run in ("kernels", "plain"):
+        d = os.path.join(outdir, run)
+        shutil.rmtree(d, ignore_errors=True)
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        with (plain_kernels(K) if run == "plain"
+              else contextlib.nullcontext()):
+            rc = caffe_on_spark.main(["-conf", solver_path, *args, "-model",
+                                      model, "-output", d, "-device",
+                                      device])
+        check(rc == 0, f"{label}: -{mode} returned {rc}")
+        if run == "kernels":
+            wall_s = time.monotonic() - t0
+            counts = dict(K.launch_counts)
+        if mode == "test":
+            with open(os.path.join(d, "test_result")) as f:
+                out[run] = json.load(f)
+        else:
+            with open(os.path.join(d, "features.json")) as f:
+                out[run] = [json.loads(x) for x in f if x.strip()]
+    want = {k: (launches_each if k in kernels else 0) for k in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    if mode == "test":
+        got, ref = out["kernels"], out["plain"]
+        check(sorted(got) == sorted(ref) == ["accuracy", "loss"],
+              f"{label}: test_result keys {sorted(got)}")
+        err = max(abs(got[k][0] - ref[k][0]) / max(abs(ref[k][0]), 1e-30)
+                  for k in ref if k == "loss")
+        check(all(math.isfinite(v[0]) for v in got.values()),
+              f"{label}: non-finite test_result {got}")
+        summary = dict(test_result=got, test_result_plain=ref)
+    else:
+        got, ref = out["kernels"], out["plain"]
+        check(len(got) == len(ref) == VAL_RECORDS and [r["SampleID"] for r
+              in got] == ["%08d" % i for i in range(VAL_RECORDS)],
+              f"{label}: {len(got)} rows, expected {VAL_RECORDS} in order")
+        g = np.asarray([r["fc8"] for r in got], np.float64)
+        r_ = np.asarray([r["fc8"] for r in ref], np.float64)
+        check(g.shape == (VAL_RECORDS, 1000) and np.isfinite(g).all(),
+              f"{label}: fc8 rows {g.shape}, finite {np.isfinite(g).all()}")
+        err = float(np.abs(g - r_).max() / np.abs(r_).max())
+        summary = dict(rows=len(got), max_abs_fc8=float(np.abs(r_).max()))
+    check(err <= ROWS_F32_TOL, f"{label}: -{mode} differs from the plain "
+          f"run by {err:.3g} (tol {ROWS_F32_TOL})")
+    log(f"  {label}: -{mode} in {wall_s:.1f} s, {err:.3g} of the plain "
+        f"run's max (tol {ROWS_F32_TOL}); launches {counts}")
+    return dict(label=label, mode=mode, wall_s=wall_s, rel_err=err,
+                launches=counts, **summary)
+
+
+def ingest_checks(torch, solver_path, runs, device="cuda"):
+    """The three ingest settings of CaffeNet -train against each other:
+    the first INGEST_BATCHES packed batches bit-equal between 0 and 2
+    pool threads; the device-side transform's uint8 + aux batches, run
+    through its device stage on the card, within 1e-5 of the host
+    transform's; every step's loss equal within STEP_LOSS_RTOL."""
+    import numpy as np
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.data.transformer import DEVICE_AUX_SUFFIX
+    inline, pooled, dx = runs
+    for a, b in zip(inline["batches"], pooled["batches"]):
+        check(sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a),
+            "ingest: a batch packed by the pool differs from the inline "
+            "path's")
+    conf = Config(["-conf", solver_path, "-train", "-device", device])
+    stage = get_source(conf.train_data_layer(), phase_train=True
+                       ).transformer.device_stage_fn()
+    err = 0.0
+    for a, b in zip(inline["batches"], dx["batches"]):
+        check(b["data"].dtype == np.uint8
+              and np.array_equal(a["label"], b["label"]),
+              "ingest: the device-transform batch is not uint8 + labels")
+        got = stage(torch.from_numpy(b["data"]).to(device),
+                    torch.from_numpy(b["data" + DEVICE_AUX_SUFFIX]
+                                     ).to(device))
+        err = max(err, float((got.cpu() - torch.from_numpy(a["data"])
+                              ).abs().max()))
+    check(err <= 1e-5, f"ingest: the device stage differs from the host "
+          f"transform by {err:.3g} (tol 1e-5)")
+    worst = 0.0
+    for r in (pooled, dx):
+        for x, y in zip(inline["losses"], r["losses"]):
+            worst = max(worst, abs(x - y) / abs(x))
+    check(worst <= STEP_LOSS_RTOL, f"ingest: step losses differ by "
+          f"{worst:.3g} relative (tol {STEP_LOSS_RTOL})")
+    log(f"  ingest: {INGEST_BATCHES} batches bit-equal (0 vs 2 threads); "
+        f"device stage within {err:.3g} of the host transform; losses "
+        f"within {worst:.3g}")
+    return dict(batches_equal=INGEST_BATCHES, device_stage_max_abs_err=err,
+                loss_worst_rel=worst)
 
 
 def _grad_diff(label, g_p, g_x, tol, what):
@@ -1674,7 +1894,8 @@ def main(argv) -> int:
          ("bias_relu_lrn_across_channels",
           "bias_relu_lrn_across_channels_bwd"))]
     log(f"training through the CLI (-train, B={TRAIN_B}, {TRAIN_ITERS} "
-        "steps; counts zeroed before each):")
+        "steps, the default COS_TRANSFORM_THREADS=2; counts zeroed before "
+        "each):")
     train, train_launches, trained = [], {}, {}
     for label, solver_path, env, kernels in train_configs:
         rec, model = train_phase(K, label, solver_path, env,
@@ -1684,6 +1905,74 @@ def main(argv) -> int:
         trained[label] = (solver_path, model)
         for k, v in rec["launches"].items():
             train_launches[k] = train_launches.get(k, 0) + v
+
+    log(f"ingest: CaffeNet -train for {INGEST_ITERS} steps at "
+        "COS_TRANSFORM_THREADS=0, at the default 2, and at 2 with "
+        "COS_DEVICE_TRANSFORM=1 (cuDNN deterministic, so that the three "
+        "runs' losses can be held equal; counts zeroed before each):")
+    ingest_solver = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
+                                       ingest=True)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ingest_runs = [train_phase(
+            K, f"CaffeNet ingest {what}", ingest_solver, env,
+            os.path.join(workdir, f"caffenet_ingest_{key}_out"),
+            train_configs[0][3], capture=INGEST_BATCHES,
+            iters=INGEST_ITERS, launches_each=2 * INGEST_ITERS)[0]
+            for key, what, env in (
+                ("t0", "threads 0", {"COS_TRANSFORM_THREADS": "0"}),
+                ("t2", "threads 2", {}),
+                ("dx", "threads 2 device transform",
+                 {"COS_DEVICE_TRANSFORM": "1"}))]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ingest = ingest_checks(torch, ingest_solver, ingest_runs)
+    ingest["runs"] = {r["label"]: {
+        k: r[k] for k in ("median_step_ms", "images_per_s",
+                          "steady_step_ms", "steady_images_per_s",
+                          "pack_ms_p50", "stage_ms_p50", "queue_wait_ms_p50",
+                          "dispatch_ms_p50", "wall_s")}
+        for r in ingest_runs}
+    for r in ingest_runs:
+        r.pop("batches")
+
+    log(f"validating training through the CLI (the stock train_val shape: "
+        f"a TEST layer of B={VAL_B} on {VAL_RECORDS} records, "
+        f"test_interval 4, test_iter {VAL_ITER}; counts zeroed before "
+        "each):")
+    test_lmdb = write_train_data(workdir, "test_lmdb", VAL_RECORDS, seed=11)
+    val_lrn = 2 * TRAIN_ITERS + VAL_ROUNDS * VAL_ITER * 2
+    validating, val_launches, val_models = [], {}, {}
+    for (label, _, env, kernels), zoo_fn, seed in zip(
+            train_configs, (zoo.caffenet, zoo.alexnet), (1, 2)):
+        label = label.replace(" train", " train+validate")
+        solver_path = write_train_config(workdir, zoo_fn, lmdb, seed,
+                                         test_lmdb=test_lmdb)
+        rec, model = train_phase(
+            K, label, solver_path, env,
+            os.path.join(workdir, label.split()[0].lower() + "val_out"),
+            kernels, expect={kernels[0]: val_lrn}, rounds=VAL_ROUNDS)
+        validating.append(rec)
+        val_models[label] = (solver_path, model)
+        for k, v in rec["launches"].items():
+            val_launches[k] = val_launches.get(k, 0) + v
+
+    log(f"-test and -features fc8 of the trained CaffeNet over the "
+        f"{VAL_RECORDS} TEST records, each against the all-plain run "
+        "(counts zeroed before each):")
+    val_solver, val_model = val_models["CaffeNet train+validate"]
+    evals = [eval_phase(K, f"CaffeNet {mode}", val_solver, val_model,
+                        os.path.join(workdir, f"caffenet_{mode}_out"), mode,
+                        ("lrn_across_channels",),
+                        2 * math.ceil(VAL_RECORDS / VAL_B))
+             for mode in ("test", "features")]
+    # the last round validated the final model on the same 100 records
+    last = validating[0]["validation"][-1]
+    got = evals[0]["test_result"]
+    check(all(abs(got[k][0] - last[k]) <= 1e-6 * max(abs(last[k]), 1.0)
+              for k in last),
+          f"-test {got} differs from the last validation round {last}")
 
     log("one solver step with the kernels against the plain step:")
     steps, reuse = [], []
@@ -1790,6 +2079,11 @@ def main(argv) -> int:
         main_rec = res[name][0]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train_launches.get(name, 0),
+                   "ingest": sum(r["launches"].get(name, 0)
+                                 for r in ingest_runs),
+                   "validate": val_launches.get(name, 0),
+                   **{e["mode"]: e["launches"].get(name, 0)
+                      for e in evals},
                    "train_lm": lm_launches.get(name, 0),
                    "train_lm_sp": sp_launches.get(name, 0),
                    **{f"train_lm_{key}": w["launches"].get(name, 0)
@@ -1814,6 +2108,8 @@ def main(argv) -> int:
     log(json.dumps({"training": train, "step_vs_plain": steps,
                     "trained_served": served_trained,
                     "train_profile": train_profiles}))
+    log(json.dumps({"validating": validating, "eval": evals,
+                    "ingest": ingest}))
     log(json.dumps({"training_lm": lm_train, "lm_step_vs_plain": lm_step,
                     "lm_train_profile": lm_profile}))
     log(json.dumps({"training_lm_sp": sp_train,

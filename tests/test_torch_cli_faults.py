@@ -2,9 +2,8 @@
 keep their training log bounded.
 
   * every JAX command-line flag the port does not act on yet is refused
-    by name (`Config.validate`), and so is `-features` outside -serve
-    (feature extraction after -train); flags no JAX version knows still
-    pass, as Spark passes its own;
+    by name (`Config.validate`); flags no JAX version knows still pass,
+    as Spark passes its own;
   * a solver with `snapshot_format: HDF5` is refused before the first
     step, so no step runs and no partial model is written;
   * the training log folds its device-scalar losses to host floats at
@@ -88,20 +87,6 @@ def test_cli_refuses_each_jax_flag_it_lacks(tmp_path, flag):
             caffe_on_spark.main(["-conf", solver, mode, "-output",
                                  str(tmp_path / "out"), "-device", "cpu",
                                  *args])
-    assert not (tmp_path / "out").exists()
-
-
-@pytest.mark.parametrize("args", [
-    ["-train", "-features", "fc8"], ["-features", "fc8"],
-    ["-train", "-features", "ip", "-label", "label"]])
-def test_cli_refuses_features_outside_serving(tmp_path, args):
-    """-features after -train (or alone: feature extraction) is refused
-    instead of training and exiting 0 without the features phase."""
-    solver = _setup(tmp_path, 2)
-    with pytest.raises(ValueError, match="^-features .*later slice"):
-        caffe_on_spark.main(["-conf", solver, "-output",
-                             str(tmp_path / "out"), "-device", "cpu",
-                             *args])
     assert not (tmp_path / "out").exists()
 
 

@@ -505,3 +505,61 @@ def test_int8_matmul_is_exact_over_repeated_calls_on_card(cuda_card):
     for _ in range(3):
         for xq, wq, want in ops:
             assert torch.equal(K.int8_matmul(xq, wq), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tp_text", [
+    "crop_size: 227 mirror: true mean_value: 104 mean_value: 117 "
+    "mean_value: 123",
+    "crop_size: 8 mirror: true scale: 0.5 mean_value: 100"])
+def test_device_stage_matches_host_transform_on_card(cuda_card, tp_text):
+    """The device-side transform's float stage on the card against the
+    host transform of the same draws, within 1e-5."""
+    from caffeonspark_tpu_torch.data.transformer import Transformer
+    from caffeonspark_tpu_torch.proto import TransformationParameter
+    tp = TransformationParameter.from_text(tp_text)
+    size = max(tp.crop_size + 29, 12)
+    x = np.random.RandomState(5).randint(0, 256, (16, 3, size, size)
+                                         ).astype(np.float32)
+    want = Transformer(tp, phase_train=True, seed=3)(x.copy())
+    t = Transformer(tp, phase_train=True, seed=3)
+    u8, aux = t.host_stage(x.copy())
+    got = t.device_stage_fn()(torch.from_numpy(u8).to(cuda_card),
+                              torch.from_numpy(aux).to(cuda_card))
+    assert got.device.type == "cuda"
+    np.testing.assert_allclose(got.cpu().numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_stager_batches_survive_a_slow_consumer_on_card(cuda_card):
+    """device_prefetch on its stager thread and side stream: the
+    consumer's stream is held by a sleep kernel before each batch is
+    read, while the stager stages the next ones and drops its own
+    references; every batch still reads as it was packed (the
+    consumer's stream waits on the batch's event, and its tensors are
+    recorded on that stream, so their memory is not handed out
+    again)."""
+    from caffeonspark_tpu_torch.data.queue_runner import device_prefetch
+    from caffeonspark_tpu_torch.data.transformer import (DEVICE_AUX_SUFFIX,
+                                                         Transformer)
+    from caffeonspark_tpu_torch.proto import TransformationParameter
+    t = Transformer(TransformationParameter(mean_value=[7.0], scale=0.5),
+                    phase_train=False)
+    rng = np.random.RandomState(0)
+    host = []
+    for _ in range(12):
+        u8, aux = t.host_stage(rng.randint(0, 256, (64, 3, 64, 64)
+                                           ).astype(np.uint8))
+        host.append({"data": u8, "data" + DEVICE_AUX_SUFFIX: aux})
+    sums = []
+    for staged in device_prefetch(iter(host), cuda_card, depth=3,
+                                  device_transforms={
+                                      "data": t.device_stage_fn()},
+                                  background=True):
+        torch.cuda._sleep(20_000_000)      # ~10 ms on the consumer stream
+        sums.append(staged["data"].double().sum())
+        del staged
+    assert len(sums) == 12
+    for s, h in zip(sums, host):
+        want = ((h["data"].astype(np.float64) - 7.0) * 0.5).sum()
+        assert abs(float(s) - want) <= 1e-6 * abs(want) + 1e-3

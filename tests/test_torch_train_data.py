@@ -363,8 +363,6 @@ def test_cli_resume_from_snapshot(tmp_path):
 
 def test_cli_refuses_what_waits_for_later_slices(tmp_path):
     solver = _cli_setup(tmp_path, extra="test_iter: 2\ntest_interval: 2\n")
-    with pytest.raises(NotImplementedError, match="trainWithValidation"):
-        caffe_on_spark.main(["-conf", solver, "-train", "-device", "cpu"])
     with pytest.raises(ValueError, match="clusterSize"):
         caffe_on_spark.main(["-conf", solver, "-train", "-clusterSize",
                              "2", "-device", "cpu"])
