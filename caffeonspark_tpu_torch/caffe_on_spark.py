@@ -270,11 +270,16 @@ def _record_loop(source: DataSource, persistent: bool = False
 
 
 def validation_source(conf: Config) -> Optional[DataSource]:
-    """The interleaved-validation source, or None when -train does not
-    interleave (`Config.validates`)."""
-    if not conf.validates():
+    """The interleaved-validation source, or None when the config does
+    not interleave: the reference's condition (a TEST data layer, and
+    test_interval and test_iter in the solver), whatever the run's mode
+    (the CLI asks only under -train, through `Config.validates`)."""
+    test_layer = conf.test_data_layer()
+    sp = conf.solverParameter
+    if test_layer is None or not sp.test_interval \
+            or not (sp.test_iter and sp.test_iter[0]):
         return None
-    return get_source(conf.test_data_layer(), phase_train=False, rank=0,
+    return get_source(test_layer, phase_train=False, rank=0,
                       num_ranks=1, resize=conf.resize)
 
 

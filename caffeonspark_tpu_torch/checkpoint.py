@@ -23,6 +23,7 @@ from .net import Net, Params
 from .proto.caffe import (BlobProto, BlobShape, LayerParameter,
                           NetParameter, SnapshotFormat, SolverState)
 from .solver import OptState
+from .utils.fsutils import write_atomic
 
 
 def _to_blobproto(arr: np.ndarray) -> BlobProto:
@@ -55,21 +56,8 @@ def params_to_net_param(net: Net, params: Params) -> NetParameter:
     return out
 
 
-def _write_atomic(path: str, data: bytes) -> None:
-    """tmp + fsync + rename: a reader never sees half a file.  The
-    directory is made when it does not exist yet (-output of a run that
-    writes no snapshot before its final model)."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    with open(tmp, "wb") as f:
-        f.write(data)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
 def save_caffemodel(path: str, net: Net, params: Params) -> None:
-    _write_atomic(path, params_to_net_param(net, params).to_binary())
+    write_atomic(path, params_to_net_param(net, params).to_binary())
 
 
 def load_caffemodel_blobs(path: str) -> Dict[str, List[np.ndarray]]:
@@ -228,7 +216,7 @@ def snapshot(net: Net, params: Params, opt_state: OptState, prefix: str,
     st.history.extend(
         _to_blobproto(b.detach().to("cpu", torch.float32).numpy())
         for b in _state_blob_seq(net, opt_state, solver_type))
-    _write_atomic(state_path, st.to_binary())
+    write_atomic(state_path, st.to_binary())
     return model_path, state_path
 
 

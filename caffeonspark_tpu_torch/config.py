@@ -13,12 +13,16 @@ sit on that device.
 The JAX command line's other flags are parsed too, and `validate`
 refuses each one by name when it is set (`LATER_FLAGS`): a run never
 drops a mode or an option without a word.  Flags no JAX version knows
-still pass through `parse_known_args`, as Spark passes its own.
+still pass through `parse_known_args`, as Spark passes its own.  The
+same holds for the environment: `check_env_knobs` (called by `validate`
+and by `mini_cluster`) refuses by name each JAX knob of `LATER_KNOBS`
+that would change a run's result, and names the others in a log line.
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 from typing import List, Optional
 
@@ -50,6 +54,156 @@ LATER_FLAGS = {
     "-server": ("server", str, None),
     "-rank": ("rank", int, 0),
 }
+
+# The JAX package's environment knobs that this package does not act on
+# yet (every `COS_*` name it reads, less the ones ported), each with its
+# class, read from its use there:
+#   "result" - changes what a one-process run computes or writes: refused
+#              by name when set to a value other than its default
+#              (KNOB_DEFAULTS, else "" and "0");
+#   "speed"  - changes only speed or memory (or a guard's checks);
+#   "ranks"  - acts only above one rank or one device;
+#   "entry"  - acts only under a flag, a knob or an entry point that the
+#              port refuses or lacks (-deploy, -serveReplicas, the
+#              autoscaler, the router, prodday, the Spark daemon).
+# The last three are named in one logged line when set.  The chaos
+# injectors (COS_FAULT_*, tools/chaos.py) are classed by where the JAX
+# package acts on them: only COS_FAULT_DIE_ONCE ends a one-process run;
+# the others delay it, or act in the sync modes, the NodeAgent, the
+# deploy loop or the fleet.
+LATER_KNOBS = {
+    "COS_AUTOTUNE": "result",        # per-layer dtype/layout variants
+    "COS_SYNC_MODE": "result",       # local_sgd / async on one rank too
+    "COS_RECORDER_DUMP": "result",   # the flight recorder's artifact
+    "COS_METRICS_PORT": "result",    # the live metrics server
+    "COS_TRACE_SAMPLE": "result",    # request spans and their spools
+    "COS_LANES": "result",           # admission control: 429 sheds
+    "COS_FAULT_DIE_ONCE": "result",  # kills the trainer at an iteration
+    "COS_FAULT_STEP_DELAY_MS": "speed",
+    "COS_FAULT_SLOW_RANK": "speed",
+    "COS_FAULT_REPLICA_SLOW": "speed",
+    "COS_FAULT_COMM_NS_PER_BYTE": "ranks",
+    "COS_FAULT_COMM_LAT_US": "ranks",
+    "COS_FAULT_COMM_HIDE_BYTES": "ranks",
+    "COS_FAULT_COMM_LOCAL": "ranks",
+    "COS_FAULT_COMM_INTRA_NS_PER_BYTE": "ranks",
+    "COS_FAULT_FLAKY_EXCHANGE": "ranks",
+    "COS_FAULT_FLAKY_STORAGE": "entry",
+    "COS_FAULT_HOST_KILL": "entry",
+    "COS_FAULT_CANARY_KILL": "entry",
+    "COS_FAULT_SNAPSHOT_TRUNCATE": "entry",
+    "COS_FAULT_RELOAD_FAIL_RANK": "entry",
+    "COS_FAULT_SEED": "entry",
+    "COS_AUTOTUNE_CACHE": "entry",
+    "COS_AUTOTUNE_FLOOR_GBS": "entry",
+    "COS_TRACE_DIR": "entry",
+    "COS_PROFILE_DIR": "entry",
+    "COS_RECORDER_EVENTS": "entry",
+    "COS_LANE_BATCH_DEPTH": "entry",
+    "COS_LANE_BATCH_WATERMARK": "entry",
+    "COS_LANE_INTERACTIVE_DEPTH": "entry",
+    "COS_LANE_RETRY_AFTER_CAP_S": "entry",
+    "COS_LANE_TENANT_QUOTA": "entry",
+    "COS_AS_ENABLE": "entry",
+    "COS_AS_DOWN_COOLDOWN_S": "entry",
+    "COS_AS_DOWN_INTERVALS": "entry",
+    "COS_AS_DOWN_MARGIN": "entry",
+    "COS_AS_INTERVAL_S": "entry",
+    "COS_AS_MAX": "entry",
+    "COS_AS_MIN": "entry",
+    "COS_AS_UP_BREACHES": "entry",
+    "COS_AS_UP_COOLDOWN_S": "entry",
+    "COS_AS_WINDOW_S": "entry",
+    "COS_SLO_P99_MS": "entry",
+    "COS_SLO_QDEPTH": "entry",
+    "COS_HEDGE_MAX_PCT": "entry",
+    "COS_HEDGE_MIN_MS": "entry",
+    "COS_HEDGE_PCT": "entry",
+    "COS_ROUTER_WEIGHT": "entry",
+    "COS_REPLICA_INDEX": "entry",
+    "COS_SERVE_REPLICAS": "entry",
+    "COS_SERVE_RETRY_BASE_MS": "entry",
+    "COS_SERVE_RETRY_CAP_MS": "entry",
+    "COS_SERVE_RETRY_MAX": "entry",
+    "COS_SERVE_PP_MB": "entry",
+    "COS_DEPLOY_ACC_TOL": "entry",
+    "COS_DEPLOY_CANARY_TIMEOUT_S": "entry",
+    "COS_DEPLOY_EVAL_N": "entry",
+    "COS_DEPLOY_MIN_NEW": "entry",
+    "COS_DEPLOY_P99_RATIO": "entry",
+    "COS_DEPLOY_P99_SLACK_MS": "entry",
+    "COS_DEPLOY_POLL_S": "entry",
+    "COS_DEPLOY_ROUNDS": "entry",
+    "COS_DEPLOY_STEPS": "entry",
+    "COS_PRODDAY_EXEMPLARS": "entry",
+    "COS_PRODDAY_INFLIGHT": "entry",
+    "COS_PRODDAY_RECOVERY_S": "entry",
+    "COS_PRODDAY_SCRAPE_S": "entry",
+    "COS_FEED_DIR": "entry",
+    "COS_FEED_STRICT_RANK": "entry",
+    "COS_AGENTS": "ranks",
+    "COS_GRAD_SYNC": "ranks",
+    "COS_GRAD_BUCKET_MB": "ranks",
+    "COS_GRAD_OVERLAP": "ranks",
+    "COS_GRAD_WIRE_DTYPE": "ranks",
+    "COS_ZERO": "ranks",
+    "COS_SYNC_ALPHA": "ranks",
+    "COS_SYNC_HEARTBEAT_TIMEOUT_S": "ranks",
+    "COS_SYNC_K": "ranks",
+    "COS_SYNC_ROUND_TIMEOUT_S": "ranks",
+    "COS_SYNC_STALENESS": "ranks",
+    "COS_SYNC_STORE": "ranks",
+    "COS_SYNC_WIRE_DTYPE": "ranks",
+    "COS_SERVE_MESH": "ranks",
+    "COS_SERVE_TP": "ranks",
+    "COS_STEPS_PER_LOOP": "speed",
+    "COS_REMAT": "speed",
+    "COS_CONV_LAYOUT": "speed",
+    "COS_CONV_S2D": "speed",
+    "COS_STAGE_COPY": "speed",
+    "COS_NATIVE": "speed",
+    "COS_DISABLE_FLASH": "speed",
+    "COS_DISABLE_PALLAS": "speed",
+    "COS_FLASH_INTERPRET": "speed",
+    "COS_RECOMPILE_GUARD": "speed",
+    "COS_DONATION_POISON": "speed",
+    "COS_AOT_CACHE_DIR": "speed",
+    "COS_SERVE_HBM_BUDGET_MB": "speed",
+    "COS_CACHE_CAP": "speed",
+    "COS_CACHE_TTL_S": "speed",
+}
+# the default values of the "result" knobs, where not "" and "0"
+KNOB_DEFAULTS = {"COS_SYNC_MODE": ("", "lockstep"),
+                 "COS_METRICS_PORT": ("",),
+                 "COS_RECORDER_DUMP": ("",),
+                 "COS_TRACE_SAMPLE": ("", "0", "0.0")}
+
+_LOG = logging.getLogger(__name__)
+
+
+def check_env_knobs(environ=None) -> List[str]:
+    """Read the environment now (never at import): raise on a knob of
+    the "result" class set to another value than its default, naming
+    it; log one line naming the other knobs of LATER_KNOBS that are set,
+    and return their names."""
+    env = os.environ if environ is None else environ
+    for name in sorted(env):
+        value = env[name].strip()
+        if LATER_KNOBS.get(name) == "result" and \
+                value.lower() not in KNOB_DEFAULTS.get(name, ("", "0")):
+            raise ValueError(
+                f"{name}={value}: the PyTorch port does not act on this "
+                "knob yet, and it changes what a run computes or writes "
+                "(unset it)")
+    ignored = sorted(n for n, cls in LATER_KNOBS.items()
+                     if cls != "result" and env.get(n, "") != "")
+    if ignored:
+        _LOG.warning("knobs the PyTorch port does not act on yet (speed, "
+                     "memory, more ranks or an entry point it lacks), "
+                     "ignored: %s", ", ".join(
+                         f"{n}={env[n]} ({LATER_KNOBS[n]})"
+                         for n in ignored))
+    return ignored
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -179,6 +333,7 @@ class Config:
                     and sp.test_iter[0])
 
     def validate(self) -> None:
+        check_env_knobs()
         for flag, (dest, kind, most) in LATER_FLAGS.items():
             value = getattr(self, dest)
             if value in (None, False) or (most is not None

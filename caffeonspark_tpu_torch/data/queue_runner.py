@@ -8,14 +8,18 @@ The counterpart of `caffeonspark_tpu/data/queue_runner.py`:
     solver thread): one dispatcher groups records into batches and
     draws each batch's augmentation in feed order, the workers pack,
     and the output comes back in feed order;
+  * `PipelinedFeed`: a reader thread streaming a source's records into a
+    FeedQueue for a TransformerPool, for generator-based callers
+    (mini_cluster);
   * `combine_batches` for `iter_size`;
   * `device_prefetch`, the host-to-device stage, with the device-side
     transform's float stage behind the copy; on a card it runs by
     default on a stager thread and a side CUDA stream (COS_STAGE_BG,
     COS_STAGE_DEPTH batches ahead), and the consumer's stream waits on
     each batch's event.
-The fused multi-step loop (steps_per_loop, chunked_feed) waits for a
-later slice.
+The fused multi-step loop (steps_per_loop, chunked_feed) and
+`tune_decode_threads` (it tunes the native decoder, not ported yet) wait
+for later slices.
 """
 
 from __future__ import annotations
@@ -388,6 +392,74 @@ class TransformerPool:
             if batch is None:
                 return
             yield batch
+
+
+class PipelinedFeed:
+    """records -> FeedQueue -> TransformerPool for generator-based callers
+    (mini_cluster): a reader thread streams `src` records into a bounded
+    feed queue (shuffled at TRAIN, as DataSource.batches does), the pool
+    packs them off-thread.  Iterate for ordered batches; close() tears
+    the threads down."""
+
+    def __init__(self, src, *, loop: bool = True,
+                 shuffle: Optional[bool] = None, num_threads: int = 2,
+                 metrics=None,
+                 should_stop: Optional[Callable[[], bool]] = None,
+                 capacity: int = SOURCE_QUEUE_CAPACITY):
+        self._closed = False
+        ext = should_stop or (lambda: False)
+        self.feed = FeedQueue(capacity)
+        self._reader_error: dict = {}
+        do_shuffle = src.phase_train if shuffle is None else shuffle
+
+        def read():
+            # mirrors DataSource.batches()'s record loop (shuffle, empty
+            # source, epoch count, a looping epoch's tail carried into
+            # the next); with loop=False the ragged tail is dropped, as
+            # the pool packs only whole batches
+            epoch = 0
+            try:
+                while not self._closed and not ext():
+                    got_any = False
+                    records = (src.shuffled_records(epoch) if do_shuffle
+                               else src.records())
+                    for rec in records:
+                        got_any = True
+                        if not self.feed.offer(rec):
+                            return
+                    if not got_any:
+                        return
+                    if not loop:
+                        self.feed.mark_epoch_end()
+                        return
+                    epoch += 1
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                self._reader_error["e"] = e
+            finally:
+                self.feed.offer(None)   # terminal sentinel
+                self.feed.stop()
+
+        self.pool = TransformerPool(
+            self.feed, src.batch_size, pack=src.pack_batch,
+            draw_fn=src.make_draw_fn(), num_threads=num_threads,
+            metrics=metrics, should_stop=lambda: self._closed or ext())
+        self.pool.start()
+        self._reader = threading.Thread(target=read, daemon=True,
+                                        name="cos-feed-reader")
+        self._reader.start()
+
+    def __iter__(self):
+        for batch in self.pool:
+            yield batch
+        err = self._reader_error.get("e")
+        if err is not None:
+            raise err
+
+    def close(self, join_timeout: Optional[float] = 2.0):
+        self._closed = True
+        self.feed.stop()
+        self.pool.stop(join_timeout=join_timeout)
+        self._reader.join(timeout=join_timeout)
 
 
 def combine_batches(batches: Iterator[Dict[str, np.ndarray]], k: int,

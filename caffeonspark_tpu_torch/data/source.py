@@ -252,6 +252,35 @@ class DataSource:
         yield from buf
 
 
+    def batches(self, *, loop: bool = True,
+                shuffle: Optional[bool] = None
+                ) -> Iterator[Dict[str, np.ndarray]]:
+        """Records -> packed batches, epoch-looping (a looping epoch's
+        tail carries into the next); shuffled at TRAIN by default.  With
+        loop=False the ragged tail comes as a short batch."""
+        if shuffle is None:
+            shuffle = self.phase_train
+        buf: List[ImageRecord] = []
+        epoch = 0
+        while True:
+            got_any = False
+            records = (self.shuffled_records(epoch) if shuffle
+                       else self.records())
+            for rec in records:
+                got_any = True
+                buf.append(rec)
+                if len(buf) == self.batch_size:
+                    yield self.next_batch(buf)
+                    buf = []
+            if not got_any:
+                return
+            if not loop:
+                if buf:
+                    yield self.next_batch(buf)
+                return
+            epoch += 1
+
+
 class LMDB(DataSource):
     """LMDB of Caffe Datum records (source_class com.yahoo.ml.caffe.LMDB),
     read rank-sharded by key range."""

@@ -10,17 +10,25 @@ transformer pool's workers, or inline), stage (the host-to-device
 stager), queue_wait and step series; feed_depth and stage_depth gauges;
 dropped_batches, dropped_val_batches and ragged_tail_records counters;
 and one `mark_step` per solver step for the steady steps/s.  Both dump
-in the JAX package's JSON format.
+in the JAX package's JSON format.  With COS_METRICS_FLUSH_S > 0 a
+`MetricsFlusher` thread rewrites the summary to `<output>/metrics.json`
+every that many seconds (atomically), so a killed run keeps telemetry no
+older than one interval.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import os
 import threading
 import time
 from typing import Dict, List, Optional
 
+from .utils.fsutils import write_atomic
+
 _DEFAULT_CAPACITY = 8192
+_LOG = logging.getLogger(__name__)
 
 
 class _Series:
@@ -185,3 +193,81 @@ class PipelineMetrics:
             json.dump(self.summary(), f, indent=2, sort_keys=True)
             f.write("\n")
         return path
+
+    def dump_atomic(self, path: str) -> str:
+        """The summary through a temporary file, fsynced and renamed into
+        place: a reader (or a post-mortem after SIGKILL) only ever sees a
+        complete document."""
+        write_atomic(path, (json.dumps(self.summary(), indent=2,
+                                       sort_keys=True) + "\n").encode())
+        return path
+
+
+def metrics_flush_s() -> float:
+    """COS_METRICS_FLUSH_S: the background flush interval of the summary
+    artifact in seconds; 0 or unset keeps the dump-at-stop behaviour (a
+    value that is not a number is ignored with a warning)."""
+    v = os.environ.get("COS_METRICS_FLUSH_S", "")
+    if not v:
+        return 0.0
+    try:
+        return max(0.0, float(v))
+    except ValueError:
+        _LOG.warning("ignoring non-numeric COS_METRICS_FLUSH_S=%r", v)
+        return 0.0
+
+
+class MetricsFlusher:
+    """A thread that writes a PipelineMetrics summary to `path` every
+    `interval_s` (atomically); `stop()` lands one final flush."""
+
+    def __init__(self, metrics: PipelineMetrics, path: str,
+                 interval_s: float):
+        self.metrics = metrics
+        self.path = path
+        self.interval_s = max(0.05, float(interval_s))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.flushes = 0
+        self.errors = 0
+
+    def _flush_once(self) -> None:
+        try:
+            self.metrics.dump_atomic(self.path)
+            self.flushes += 1
+        except OSError:
+            # a bad path or a full disk never takes the run down
+            self.errors += 1
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self._flush_once()
+
+    def start(self) -> "MetricsFlusher":
+        if self._thread is not None:
+            raise RuntimeError("flusher already started")
+        self._thread = threading.Thread(target=self._loop,
+                                        name="cos-metrics-flush",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        self._flush_once()
+
+
+def maybe_start_flusher(metrics: PipelineMetrics,
+                        output_dir: Optional[str],
+                        filename: str = "metrics.json"
+                        ) -> Optional[MetricsFlusher]:
+    """Start the flusher when COS_METRICS_FLUSH_S > 0 and there is an
+    output directory for `<output>/metrics.json`."""
+    interval = metrics_flush_s()
+    if interval <= 0 or not output_dir:
+        return None
+    return MetricsFlusher(metrics, os.path.join(output_dir, filename),
+                          interval).start()

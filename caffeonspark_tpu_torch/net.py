@@ -11,6 +11,16 @@ running the layers on "meta" tensors (no memory, no compute).  Then:
   * ``Net.loss(params, inputs)``    -> (weighted loss, blobs), the
     scalar the solver differentiates with autograd
 
+Mixed precision (`compute_dtype`, JAX net.py:272-284, :699-750): params
+stay in `dtype` while each layer casts its floating params and bottoms
+to `compute_dtype`, so the gradients come back in `dtype` through
+autograd of the cast.  One departure from the reference: a bottom that
+a layer reads as an index (`LayerOp.index_bottoms`: Embed's ids, the
+losses' and Accuracy's labels) is never cast, since bf16 rounds integers
+above 256 (the JAX package sends id 257 to row 256); `index_inputs`
+names the net inputs that reach such a bottom, which a caller feeding
+bf16 batches keeps in their own dtype.
+
 Parameters live outside the module, keyed `{layer: {blob: tensor}}` as
 in the JAX package, so a serving registry can swap versions under one
 net and the solver can update them in place.
@@ -217,12 +227,14 @@ class Net(nn.Module):
 
     def __init__(self, net_param: NetParameter,
                  state: Optional[NetState] = None,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, device="cuda", compute_dtype=None):
         super().__init__()
         self.net_param = net_param
         self.state = state or NetState(phase=Phase.TRAIN)
         self.name = net_param.name
         self.dtype = dtype
+        # params stay `dtype`; each layer computes in `compute_dtype`
+        self.compute_dtype = compute_dtype or dtype
         self.device = torch.device(device)
         self.layers: List[LayerParameter] = [
             lp for lp in net_param.layer if layer_included(lp, self.state)]
@@ -313,6 +325,26 @@ class Net(nn.Module):
                     w = 1.0 if op.is_loss else 0.0
                 if w:
                     self.loss_weights[t] = w
+        self.index_inputs = self._index_inputs()
+
+    def _index_inputs(self) -> frozenset:
+        """Net inputs that reach a layer's index bottom, directly or
+        through Split / Flatten."""
+        passthrough = {t: lp.bottom[0] for lp in self.compute_layers
+                       if lp.type in ("Split", "Flatten")
+                       for t in lp.top}
+        inputs = {n for n, _, _ in self.input_specs}
+        out = set()
+        for lp in self.compute_layers:
+            for i in L.get_op(lp.type).index_bottoms:
+                if i >= len(lp.bottom):
+                    continue
+                b = lp.bottom[i]
+                while b not in inputs and b in passthrough:
+                    b = passthrough[b]
+                if b in inputs:
+                    out.add(b)
+        return frozenset(out)
 
     # ------------------------------------------------------------------
     def _fuse_relu_lrn(self, layers: List[LayerParameter], fused: set
@@ -403,6 +435,7 @@ class Net(nn.Module):
         InnerProduct kernel consumes without dequantizing."""
         blobs: Dict[str, torch.Tensor] = dict(inputs)
         ctx = self._ctx(qscales, train, generator)
+        cast = self.compute_dtype != self.dtype
         for lp in self.compute_layers:
             op = L.get_op(lp.type)
             ctx.layer_name = lp.name
@@ -414,7 +447,18 @@ class Net(nn.Module):
             if lp.name in self.fused_bias_lrn:
                 lparams = [params[self.fused_bias_lrn[lp.name]]["bias"]] \
                     + lparams
-            tops = op.apply(ctx, lp, lparams, [blobs[b] for b in lp.bottom])
+            bottoms = [blobs[b] for b in lp.bottom]
+            if cast:
+                # stat layers keep the net's dtype (JAX net.py:708-748);
+                # int8 serving weights and index bottoms pass untouched
+                target = self.dtype if op.f32_stats else self.compute_dtype
+                lparams = [p.to(target) if p.is_floating_point() else p
+                           for p in lparams]
+                bottoms = [b.to(target)
+                           if b.is_floating_point() and b.dtype != target
+                           and i not in op.index_bottoms else b
+                           for i, b in enumerate(bottoms)]
+            tops = op.apply(ctx, lp, lparams, bottoms)
             for name, val in zip(lp.top, tops):
                 blobs[name] = val
         return blobs
@@ -424,7 +468,8 @@ class Net(nn.Module):
              generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total weighted loss, every blob): each loss top summed in f32
-        and weighted, as the JAX package's `Net.loss`."""
+        and weighted, as the JAX package's `Net.loss` (the loss blobs keep
+        the compute dtype)."""
         blobs = self.forward(params, inputs, train=train,
                              generator=generator)
         total = torch.zeros((), dtype=torch.float32, device=self.device)

@@ -41,8 +41,9 @@ shape-only "meta" tensor during Net construction) takes the plain
 version; a CUDA tensor launches the kernel or raises.  There is no
 fallback from a kernel to its plain version.
 
-Each wrapper adds one to `launch_counts[name]` per kernel launch, so a
-run can show that its main path went through the kernels.
+Each wrapper adds one to `launch_counts[name]` per kernel launch (and
+to `launch_counts_by_dtype[(name, dtype)]`), so a run can show that its
+main path went through the kernels, and in which mode.
 """
 
 from __future__ import annotations
@@ -65,6 +66,9 @@ launch_counts: Dict[str, int] = {"lrn_across_channels": 0,
                                  "flash_attention_bwd_dq": 0,
                                  "flash_attention_bwd_dkv": 0,
                                  "flash_block_update": 0}
+# the same launches by (kernel, dtype of its main operand), e.g.
+# ("flash_attention_fwd", "bfloat16"): which modes a path ran
+launch_counts_by_dtype: Dict[Tuple[str, str], int] = {}
 _count_lock = threading.Lock()
 
 _LRN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,11 +79,14 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for k in launch_counts:
             launch_counts[k] = 0
+        launch_counts_by_dtype.clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, dtype: torch.dtype) -> None:
+    key = (name, str(dtype).replace("torch.", ""))
     with _count_lock:
         launch_counts[name] += 1
+        launch_counts_by_dtype[key] = launch_counts_by_dtype.get(key, 0) + 1
 
 
 def _check_status(name: str, status: int) -> None:
@@ -168,7 +175,7 @@ def lrn_across_channels(x: torch.Tensor, local_size: int = 5,
             _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, x.dtype)
     return y
 
 
@@ -196,7 +203,7 @@ def bias_relu_lrn_across_channels(x: torch.Tensor, bias: torch.Tensor,
             _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, x.dtype)
     return y
 
 
@@ -270,7 +277,7 @@ def lrn_across_channels_bwd(x: torch.Tensor, dy: torch.Tensor,
             _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, x.dtype)
     return dx
 
 
@@ -302,7 +309,7 @@ def bias_relu_lrn_across_channels_bwd(x: torch.Tensor, bias: torch.Tensor,
             2.0 * alpha * beta / local_size, _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, x.dtype)
     return dx
 
 
@@ -383,7 +390,7 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
             xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, kk,
             torch.cuda.current_stream(xq.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, xq.dtype)
     return out
 
 
@@ -573,7 +580,7 @@ def flash_attention_fwd(qf: torch.Tensor, kf: torch.Tensor,
             _LRN_DTYPES[qf.dtype],
             torch.cuda.current_stream(qf.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, qf.dtype)
     return out, lse
 
 
@@ -598,7 +605,7 @@ def flash_attention_bwd_dq(qf, kf, vf, dof, lse, delta,
             1.0 / math.sqrt(d), int(bool(causal)), _LRN_DTYPES[qf.dtype],
             _LRN_DTYPES[dt], torch.cuda.current_stream(qf.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, qf.dtype)
     return dq
 
 
@@ -624,7 +631,7 @@ def flash_attention_bwd_dkv(qf, kf, vf, dof, lse, delta,
             _LRN_DTYPES[qf.dtype], _LRN_DTYPES[dt],
             torch.cuda.current_stream(qf.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, qf.dtype)
     return dk, dv
 
 
@@ -757,5 +764,5 @@ def flash_block_update(q: torch.Tensor, k_blk: torch.Tensor,
             int(q_off), int(k_off), int(bool(causal)), _LRN_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     _check_status(name, status)
-    _count(name)
+    _count(name, q.dtype)
     return m_out, l_out, acc_out

@@ -28,6 +28,7 @@ Caffe's TRAIN semantics (Dropout draws its keep-mask from
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 import zlib
@@ -68,6 +69,16 @@ class Ctx:
         return self.qscales.get(self.layer_name, {}).get(bname)
 
 
+@functools.lru_cache(maxsize=256)
+def weak_scalar(v: float, dtype: torch.dtype) -> float:
+    """A Python float as JAX's weak typing makes it beside a tensor of
+    `dtype`: rounded to that dtype (0.7 beside bf16 is 0.69921875).
+    PyTorch computes with a Python scalar at its op math's precision
+    instead, so a layer that mirrors JAX rounds the scalar first; in
+    f32 this changes nothing."""
+    return float(torch.tensor(float(v), dtype=dtype))
+
+
 def stable_hash(name: str) -> int:
     """Process-independent name hash (per-layer filler seeds)."""
     return zlib.crc32(name.encode("utf-8"))
@@ -80,15 +91,26 @@ class LayerOp:
     param_specs: Callable = field(default=lambda lp, shapes: [])
     is_loss: bool = False
     is_data: bool = False
+    # the layer keeps running statistics and computes in the net's dtype
+    # whatever its compute dtype (the JAX package's BatchNorm; no ported
+    # layer type has it yet)
+    f32_stats: bool = False
+    # bottoms the layer reads as integer indices (token ids, labels):
+    # never cast to the compute dtype, whose 8-bit mantissa holds
+    # integers exactly only up to 256
+    index_bottoms: tuple = ()
 
 
 _REGISTRY: Dict[str, LayerOp] = {}
 
 
-def register(name: str, *, params=None, is_loss=False, is_data=False):
+def register(name: str, *, params=None, is_loss=False, is_data=False,
+             f32_stats=False, index_bottoms=()):
     def deco(fn):
         _REGISTRY[name] = LayerOp(name, fn, params or (lambda lp, s: []),
-                                  is_loss=is_loss, is_data=is_data)
+                                  is_loss=is_loss, is_data=is_data,
+                                  f32_stats=f32_stats,
+                                  index_bottoms=tuple(index_bottoms))
         return fn
     return deco
 
@@ -221,7 +243,7 @@ def _embed_params(lp, shapes):
     return specs
 
 
-@register("Embed", params=_embed_params)
+@register("Embed", params=_embed_params, index_bottoms=(0,))
 def _embed(ctx, lp, params, bottoms):
     """Rows of the (input_dim, num_output) table at the bottom's values,
     cast to integers (float token ids from the data layer)."""
@@ -305,7 +327,7 @@ def _relu(ctx, lp, params, bottoms):
     slope = lp.relu_param.negative_slope
     x = bottoms[0]
     if slope:
-        return [torch.where(x > 0, x, slope * x)]
+        return [torch.where(x > 0, x, weak_scalar(slope, x.dtype) * x)]
     return [torch.relu(x)]
 
 
@@ -321,7 +343,7 @@ def _dropout(ctx, lp, params, bottoms):
     keep = 1.0 - ratio
     mask = torch.rand(x.shape, generator=ctx.generator,
                       device=x.device) < keep
-    return [torch.where(mask, x / keep, 0.0)]
+    return [torch.where(mask, x / weak_scalar(keep, x.dtype), 0.0)]
 
 
 @register("Eltwise")
@@ -338,9 +360,9 @@ def _eltwise(ctx, lp, params, bottoms):
             raise ValueError(
                 f"Eltwise SUM: {len(coeffs)} coeffs for "
                 f"{len(bottoms)} bottoms (must match)")
-        y = coeffs[0] * bottoms[0]
+        y = weak_scalar(coeffs[0], bottoms[0].dtype) * bottoms[0]
         for c, b in zip(coeffs[1:], bottoms[1:]):
-            y = y + c * b
+            y = y + weak_scalar(c, b.dtype) * b
     else:  # MAX
         y = bottoms[0]
         for b in bottoms[1:]:
@@ -506,7 +528,7 @@ def _loss_normalizer(norm_mode, valid_count, batch, full):
         if torch.is_tensor(valid_count) else max(valid_count, 1.0)
 
 
-@register("SoftmaxWithLoss", is_loss=True)
+@register("SoftmaxWithLoss", is_loss=True, index_bottoms=(1,))
 def _softmax_loss(ctx, lp, params, bottoms):
     axis = lp.softmax_param.axis if lp.has("softmax_param") else 1
     scores, labels = bottoms[0], bottoms[1]
@@ -540,7 +562,7 @@ def _softmax_loss(ctx, lp, params, bottoms):
     return [torch.sum(nll) / denom]
 
 
-@register("Accuracy")
+@register("Accuracy", index_bottoms=(1,))
 def _accuracy(ctx, lp, params, bottoms):
     p = lp.accuracy_param
     axis = p.axis

@@ -26,8 +26,10 @@ the next `display` or `snapshot` boundary (at most LOSS_FOLD_MAX
 steps): there it is folded to host floats with one sync.  An HDF5
 solver is refused before the first step.
 
-The fused multi-step loop, the chaos injectors and the observability
-server wait for later slices.
+With COS_METRICS_FLUSH_S > 0 the metrics summary is also flushed to
+`<output>/metrics.json` every that many seconds while the processor
+runs.  The fused multi-step loop, the chaos injectors and the
+observability server wait for later slices.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ from .data.queue_runner import (DROP_LIMIT_DEFAULT, DROPPED, FeedQueue,
                                 device_prefetch, stage_background,
                                 stage_depth, transform_threads)
 from .data.source import STOP_MARK, DataSource, get_source
-from .metrics import PipelineMetrics
+from .metrics import PipelineMetrics, maybe_start_flusher
 from .ops.layers import flash_mesh
 from .parallel.mesh import Mesh, build_mesh, parse_mesh_spec
 from .proto.caffe import SnapshotFormat
@@ -85,6 +87,23 @@ class ValidationReport:
         self._acc = []
 
 
+def run_mesh(spec: str, solver: Solver) -> Mesh:
+    """The mesh of `-mesh spec`, its ranks all on the solver's device (the
+    counterpart of the JAX package's virtual devices); an sp axis that
+    does not divide a time-major input's steps is refused here."""
+    dims = parse_mesh_spec(spec)
+    n = math.prod(dims.values())
+    mesh = build_mesh(devices=[solver.device] * n, **dims)
+    n_sp = mesh.shape["sp"]
+    for name, shape, kind in solver.train_net.input_specs:
+        if kind.endswith(":T") and shape[0] % n_sp:
+            raise ValueError(
+                f"-mesh {spec}: the time-major input {name!r} has "
+                f"{shape[0]} steps, which the sp axis ({n_sp} ranks) does "
+                "not divide")
+    return mesh
+
+
 class CaffeProcessor:
     _instance: Optional["CaffeProcessor"] = None
 
@@ -112,18 +131,8 @@ class CaffeProcessor:
                              device=conf.device)
         # -mesh: the mesh's ranks all sit on -device's card, several to a
         # card (the counterpart of the JAX package's virtual devices)
-        self.mesh: Optional[Mesh] = None
-        if conf.mesh:
-            dims = parse_mesh_spec(conf.mesh)
-            n = math.prod(dims.values())
-            self.mesh = build_mesh(devices=[self.solver.device] * n, **dims)
-            n_sp = self.mesh.shape["sp"]
-            for name, shape, kind in self.solver.train_net.input_specs:
-                if kind.endswith(":T") and shape[0] % n_sp:
-                    raise ValueError(
-                        f"-mesh {conf.mesh}: the time-major input {name!r} "
-                        f"has {shape[0]} steps, which the sp axis ({n_sp} "
-                        "ranks) does not divide")
+        self.mesh: Optional[Mesh] = (run_mesh(conf.mesh, self.solver)
+                                     if conf.mesh else None)
         self.queues = [FeedQueue(), FeedQueue()]   # 0 train, 1 validation
         self.metrics = PipelineMetrics()
         self.params = None
@@ -143,6 +152,7 @@ class CaffeProcessor:
         self._error: Optional[BaseException] = None
         self._stopped = False
         self._metrics_dumped = False
+        self._flusher = None          # COS_METRICS_FLUSH_S (start())
         # per step: (iter after the step, loss, lr, host time when the
         # step was dispatched); the loss is a device scalar in the entries
         # from _folded on, a host float before
@@ -175,6 +185,11 @@ class CaffeProcessor:
         self._train_pool = self._val_pool = None
         self._stopped = False
         self._metrics_dumped = False
+        # the periodic summary flush to <output>/metrics.json
+        # (COS_METRICS_FLUSH_S: a killed run keeps its telemetry)
+        if self._flusher is None and self.rank == 0:
+            self._flusher = maybe_start_flusher(self.metrics,
+                                                self.conf.outputPath)
         self._thread = threading.Thread(target=self._run_train,
                                         daemon=True)
         self._thread.start()
@@ -221,7 +236,10 @@ class CaffeProcessor:
         """COS_PIPELINE_METRICS=path: the step timeline and the training
         log (info.train) as one JSON document, once per run (a later
         stop() of a joined processor must not overwrite another run's
-        file)."""
+        file).  The flusher, when one runs, lands its final flush here."""
+        if self._flusher is not None:
+            self._flusher.stop()
+            self._flusher = None
         path = os.environ.get("COS_PIPELINE_METRICS")
         if path and not self._metrics_dumped and self.metrics.has_samples():
             self.metrics.dump(path)

@@ -21,10 +21,13 @@ from ..net import Net
 def pin_f32_precision() -> None:
     """f32 serving computes in f32: cuBLAS matmuls already do by default
     (`allow_tf32` False), but cuDNN convolutions default to TF32, which
-    keeps about three decimal digits.  Both are pinned off here; this is
-    process-wide PyTorch state."""
+    keeps about three decimal digits.  Both are pinned off here, and bf16
+    GEMMs accumulate in f32 (reduced-precision reduction off), as the
+    TPU's MXU does; this is process-wide PyTorch state."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
 
 
 def make_forward_fn(net: Net, blob_names: Tuple[str, ...]):

@@ -23,20 +23,42 @@ for operation as the JAX package computes them:
     generator seeded random_seed + rank (CaffeNet.cpp:614-618).
 
 `torch.optim` is not used: Caffe's momentum history holds the update,
-not the gradient.  The history of each blob has the blob's dtype.
+not the gradient.  The history of each blob has the blob's dtype, or
+the state dtype (`COS_STATE_DTYPE`, read once in `__init__`: bfloat16
+stores SGD / Nesterov momentum in bf16; ignored with a warning for the
+second-moment solvers, as in JAX solver.py:99-119).
+
+Precision (`dtype`, `compute_dtype`: JAX solver.py:89-119): params,
+gradients and histories keep their dtypes, and the update mirrors the
+JAX package's type promotion op by op.  There the learning rate (and
+Adam's correction) is a *strong* f32 0-dim array, so `lr * g` on a bf16
+gradient computes in f32, while the Python floats (momentum, weight
+decay, delta, the decay rates) are *weak*: they take the tensor's dtype
+(0.9 becomes bf16's 0.8984375) and keep bf16 arithmetic.  PyTorch never
+promotes a bf16 tensor for a 0-dim f32 tensor and computes with a
+Python scalar at f32, so `_lr_mul`, `_bin` and `_w` make the rules
+explicit (no-ops in f32).
 """
 
 from __future__ import annotations
 
+import logging
+import operator
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from .net import Net, Params
+from .ops.layers import weak_scalar
 from .proto.caffe import NetParameter, NetState, Phase, SolverParameter
 
 SOLVER_TYPES = ("SGD", "NESTEROV", "ADAGRAD", "RMSPROP", "ADADELTA", "ADAM")
+# the COS_STATE_DTYPE values (numpy dtype names, as JAX parses them)
+STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                "float16": torch.float16}
+_LOG = logging.getLogger(__name__)
 
 
 @dataclass
@@ -80,9 +102,49 @@ def learning_rate(sp: SolverParameter, it: int) -> torch.Tensor:
     raise ValueError(f"unknown lr_policy {policy!r}")
 
 
-def _zeros_like(params: Params) -> Params:
-    return {ln: {bn: torch.zeros_like(t) for bn, t in bl.items()}
+def _zeros_like(params: Params, dtype=None) -> Params:
+    return {ln: {bn: torch.zeros_like(t, dtype=dtype or t.dtype)
+                 for bn, t in bl.items()}
             for ln, bl in params.items()}
+
+
+def _lr_mul(lr: float, x: torch.Tensor) -> torch.Tensor:
+    """`lr * x` with the learning rate a strong f32 operand, as in JAX:
+    a bf16 `x` computes in f32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32)) * lr
+
+
+def _w(v: float, x: torch.Tensor) -> float:
+    """The Python float `v` as JAX's weak type makes it beside `x`:
+    rounded to x's dtype."""
+    return weak_scalar(v, x.dtype)
+
+
+def _bin(op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`op(a, b)` of two tensors in their promoted dtype (JAX's rule for
+    two strong operands: bf16 with f32 computes in f32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return op(a.to(dt), b.to(dt))
+
+
+def state_dtype_from_env(solver_type: str):
+    """COS_STATE_DTYPE as a torch dtype, or None (each history in its
+    blob's dtype).  A dtype narrower than 4 bytes is ignored with a
+    warning for the second-moment solvers: their accumulators change by
+    about 1e-3 relative a step, below a bf16 ulp."""
+    env = os.environ.get("COS_STATE_DTYPE", "")
+    if not env:
+        return None
+    if env not in STATE_DTYPES:
+        raise ValueError(f"COS_STATE_DTYPE={env!r}: expected one of "
+                         f"{sorted(STATE_DTYPES)}")
+    dt = STATE_DTYPES[env]
+    if dt.itemsize < 4 and solver_type not in ("SGD", "NESTEROV"):
+        _LOG.warning("COS_STATE_DTYPE=%s ignored for solver type %s "
+                     "(second-moment accumulators need >=f32)", env,
+                     solver_type)
+        return None
+    return dt
 
 
 class Solver:
@@ -91,27 +153,37 @@ class Solver:
 
     def __init__(self, solver_param: SolverParameter,
                  net_param: NetParameter, *, rank: int = 0,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, compute_dtype=None,
+                 state_dtype=None, device="cuda"):
         from .serving.forward import pin_f32_precision
         self.param = solver_param
         self.device = torch.device(device)
-        # f32 training computes in f32: no TF32 in cuDNN or cuBLAS
+        # f32 training computes in f32: no TF32 in cuDNN or cuBLAS; bf16
+        # GEMMs accumulate in f32
         pin_f32_precision()
+        self.solver_type = (solver_param.type or "SGD").upper()
+        if self.solver_type not in SOLVER_TYPES:
+            raise ValueError(f"unknown solver type {self.solver_type!r} "
+                             f"(have {list(SOLVER_TYPES)})")
+        if state_dtype is None:
+            state_dtype = state_dtype_from_env(self.solver_type)
+        self.state_dtype = state_dtype
 
         train_state = NetState(phase=Phase.TRAIN)
         if solver_param.has("train_state"):
             train_state = solver_param.train_state.clone()
             train_state.phase = Phase.TRAIN
         self.train_net = Net(net_param, train_state, dtype=dtype,
-                             device=self.device)
+                             device=self.device,
+                             compute_dtype=compute_dtype)
         test_state = NetState(phase=Phase.TEST)
         if solver_param.test_state:
             test_state = solver_param.test_state[0].clone()
             test_state.phase = Phase.TEST
         try:
-            self.test_net: Optional[Net] = Net(net_param, test_state,
-                                               dtype=dtype,
-                                               device=self.device)
+            self.test_net: Optional[Net] = Net(
+                net_param, test_state, dtype=dtype, device=self.device,
+                compute_dtype=compute_dtype)
             if not self.test_net.compute_layers:
                 self.test_net = None
         except (ValueError, NotImplementedError):
@@ -125,10 +197,6 @@ class Solver:
         self.init_seed = int(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed) + rank)
-        self.solver_type = (solver_param.type or "SGD").upper()
-        if self.solver_type not in SOLVER_TYPES:
-            raise ValueError(f"unknown solver type {self.solver_type!r} "
-                             f"(have {list(SOLVER_TYPES)})")
         self._lr_mults, self._decay_mults = self._collect_mults()
 
     # ------------------------------------------------------------------
@@ -159,8 +227,9 @@ class Solver:
         return params, self.init_state(params)
 
     def init_state(self, params: Params) -> OptState:
-        return OptState(iter=0, history=_zeros_like(params),
-                        history2=_zeros_like(params))
+        return OptState(iter=0,
+                        history=_zeros_like(params, self.state_dtype),
+                        history2=_zeros_like(params, self.state_dtype))
 
     # ------------------------------------------------------------------
     def loss_and_grads(self, params: Params,
@@ -242,47 +311,66 @@ class Solver:
             leaves = [grads[ln][bn] for ln in sorted(grads)
                       for bn in sorted(grads[ln])]
             gnorm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
-            scale = torch.where(gnorm > thresh, thresh / gnorm, 1.0)
+            scale = torch.where(gnorm > thresh,
+                                _w(thresh, gnorm) / gnorm, 1.0)
             grads = {ln: {bn: g * scale for bn, g in bl.items()}
                      for ln, bl in grads.items()}
 
+        add, sub, div = operator.add, operator.sub, operator.truediv
         for ln, bl in params.items():
             for bn, w in bl.items():
                 g = grads[ln][bn]
                 dm = self._decay_mults[ln][bn]
                 if wd != 0.0 and dm != 0.0:
-                    g = g + wd * dm * (torch.sign(w) if l1 else w)
+                    r = torch.sign(w) if l1 else w
+                    g = g + _w(wd * dm, r) * r
                 h = state.history[ln][bn]
                 h2 = state.history2[ln][bn]
+                # f32, as JAX's lr * mult; held as its exact float
                 local_lr = float(lr * self._lr_mults[ln][bn])
                 if t == "SGD":
-                    upd = local_lr * g + momentum * h
-                    w2, h_n, h2_n = w - upd, upd, None
+                    upd = _bin(add, _lr_mul(local_lr, g),
+                               _w(momentum, h) * h)
+                    w2, h_n, h2_n = _bin(sub, w, upd), upd, None
                 elif t == "NESTEROV":
-                    h_n = local_lr * g + momentum * h
-                    upd = (1 + momentum) * h_n - momentum * h
-                    w2, h2_n = w - upd, None
+                    h_n = _bin(add, _lr_mul(local_lr, g),
+                               _w(momentum, h) * h)
+                    upd = _bin(sub, _w(1 + momentum, h_n) * h_n,
+                               _w(momentum, h) * h)
+                    w2, h2_n = _bin(sub, w, upd), None
                 elif t == "ADAGRAD":
-                    h_n = h + g * g
-                    w2 = w - local_lr * g / (torch.sqrt(h_n) + sp.delta)
+                    h_n = _bin(add, h, g * g)
+                    w2 = _bin(sub, w, _bin(div, _lr_mul(local_lr, g),
+                                           torch.sqrt(h_n)
+                                           + _w(sp.delta, h_n)))
                     h2_n = None
                 elif t == "RMSPROP":
-                    h_n = sp.rms_decay * h + (1 - sp.rms_decay) * g * g
-                    w2 = w - local_lr * g / (torch.sqrt(h_n) + sp.delta)
+                    h_n = _bin(add, _w(sp.rms_decay, h) * h,
+                               _w(1 - sp.rms_decay, g) * g * g)
+                    w2 = _bin(sub, w, _bin(div, _lr_mul(local_lr, g),
+                                           torch.sqrt(h_n)
+                                           + _w(sp.delta, h_n)))
                     h2_n = None
                 elif t == "ADADELTA":
-                    h_n = momentum * h + (1 - momentum) * g * g
-                    upd = g * torch.sqrt((h2 + sp.delta) / (h_n + sp.delta))
-                    h2_n = momentum * h2 + (1 - momentum) * upd * upd
-                    w2 = w - local_lr * upd
+                    h_n = _bin(add, _w(momentum, h) * h,
+                               _w(1 - momentum, g) * g * g)
+                    upd = _bin(operator.mul, g, torch.sqrt(_bin(
+                        div, h2 + _w(sp.delta, h2),
+                        h_n + _w(sp.delta, h_n))))
+                    h2_n = _bin(add, _w(momentum, h2) * h2,
+                                _w(1 - momentum, upd) * upd * upd)
+                    w2 = _bin(sub, w, _lr_mul(local_lr, upd))
                 else:  # ADAM
                     b1, b2 = momentum, sp.momentum2
-                    h_n = b1 * h + (1 - b1) * g
-                    h2_n = b2 * h2 + (1 - b2) * g * g
+                    h_n = _bin(add, _w(b1, h) * h, _w(1 - b1, g) * g)
+                    h2_n = _bin(add, _w(b2, h2) * h2,
+                                _w(1 - b2, g) * g * g)
                     corr = (torch.sqrt(1.0 - torch.pow(_f32(b2), it1))
                             / (1.0 - torch.pow(_f32(b1), it1)))
                     lr_corr = float(_f32(local_lr) * corr)   # f32 product
-                    w2 = w - lr_corr * h_n / (torch.sqrt(h2_n) + sp.delta)
+                    w2 = _bin(sub, w, _bin(div, _lr_mul(lr_corr, h_n),
+                                           torch.sqrt(h2_n)
+                                           + _w(sp.delta, h2_n)))
                 # in place; each blob and history keeps its own dtype
                 w.copy_(w2)
                 h.copy_(h_n)

@@ -113,13 +113,33 @@ or the package is not importable, and when any phase fails.  Phases:
      (STEP_GRAD_TOL); 5 synchronized direct steps; one profiled step;
  16. the same at 2 heads of 512 (the zoo's transformer_lm at heads 2):
      K6, K7 and K8 through their wide kernels, 16 launches each;
- 17. a `kernels` JSON line: launches on the serving, image-net training,
+ 17. the standalone trainer, `mini_cluster.main` (counts zeroed before
+     each run, read after): CaffeNet at B=256 with -dtype float32 and
+     mixed, AlexNet (COS_FUSE_BIAS_RELU_LRN=1) mixed, 8 steps each with
+     -metrics every step, a snapshot at 4 and the final model; every
+     loss finite, the first near ln 1000; K1 / K2 (K3 / K4) 16 launches
+     each, all in bf16 under mixed (counted by dtype); the mixed first
+     loss within MIXED_VS_F32_LOSS_RTOL of the f32 one; each mixed net's step
+     against the same step with every kernel plain (loss
+     MIXED_STEP_LOSS_RTOL, gradients MIXED_STEP_GRAD_TOL);
+ 18. COS_STATE_DTYPE=bfloat16 on the CaffeNet SGD solver through
+     mini_cluster: 4 steps, snapshot, resume from the step-4 solverstate
+     to 6; the momentum in bf16 after both, the params f32;
+ 19. the LM through mini_cluster in float32, mixed and bfloat16 (8 Adam
+     steps each, K6-K8 16 launches each, in bf16 under mixed and
+     bfloat16), their first losses against the float32 run's; per dtype 5
+     synchronized direct steps and one step under torch.profiler (busy
+     time, idle share, the GEMMs' and flash's shares, the host's CUDA
+     runtime calls); the mixed step against the step with K6-K8 plain;
+     -mesh 1,1,4 -dtype mixed for
+     MC_ITERS_SP steps (K9, K7, K8 in bf16) and one sp mixed step
+     against the single-device mixed step and the all-plain step;
+ 20. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
-     training
-     and head_dim-256 and -512 LM training paths and the numbers of
-     phase 3; a `ptxas` line; then the card
-     line again;
- 18. the device line, last: {"ok": true, "device": {...}}.
+     training, head_dim-256 and -512 LM training and mini_cluster paths
+     (those by dtype), and the numbers of phase 3; a `ptxas` line; then
+     the card line again;
+ 21. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -181,6 +201,21 @@ LM256 = dict(LM, heads=4)
 # wide kernels)
 LM512 = dict(LM, heads=2)
 LM_ROWS = 64
+# mini_cluster's -dtype mixed / bfloat16 against float32 or against the
+# same step with the kernels plain.  The kernel and its plain version
+# round the same f32 math to bf16 once each, so they part only where a
+# value sits at a rounding tie; a bf16 loss blob moves by whole ulps, so
+# the loss is held to one ulp (2^-7 relative at most) and the gradients,
+# which pass such a difference on through the bf16 backward and the
+# ReLUs, to MIXED_STEP_GRAD_TOL of their largest element.  The mixed run
+# against the f32 run from the same weights, batches and dropout draws:
+# the first step's loss to 2^-5 relative (two ulps of a bf16 loss near
+# ln 1000); later steps part as the trajectories do, and are recorded.
+MIXED_STEP_LOSS_RTOL = 2.0 ** -7
+MIXED_STEP_GRAD_TOL = 5e-2
+MIXED_VS_F32_LOSS_RTOL = 2.0 ** -5
+MC_ITERS_SP = 2          # mini_cluster's sp4 mixed run: steps
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 
 PALLAS = "caffeonspark_tpu/ops/pallas_kernels.py"
 KERNELS = {  # `library`: the one PyTorch call timed as library_ms
@@ -1163,8 +1198,13 @@ def summarize_profile(prof, wall_us, label, what):
     of the profiled window, the copy time, and the kernels that took most
     of it; None, said so, when the profiler recorded no device kernels."""
     kernels, copies = [], 0.0
+    runtime: dict = {}   # host-side CUDA runtime calls: [count, us]
     for e in prof.events():
         if not str(e.device_type).endswith("CUDA"):
+            if e.name.startswith("cuda"):
+                r = runtime.setdefault(e.name, [0, 0.0])
+                r[0] += 1
+                r[1] += e.time_range.end - e.time_range.start
             continue
         span = (e.time_range.start, e.time_range.end)
         if "memcpy" in e.name.lower() or "memset" in e.name.lower():
@@ -1190,19 +1230,32 @@ def summarize_profile(prof, wall_us, label, what):
     # the port's flash kernels (flash_{fwd,bwd_dq,bwd_dkv,carry}_kernel)
     flash_us = sum(us for name, us in by_name.items() if "flash_" in name)
     carry_us = sum(us for name, us in by_name.items() if "flash_carry" in name)
+    # cuBLAS's GEMMs (Hopper names them nvjet_* or sm90_xmma_gemm_*)
+    gemm_us = sum(us for name, us in by_name.items()
+                  if any(t in name.lower() for t in GEMM_NAMES))
     res = dict(label=label, what=what, wall_us=wall_us, device_busy_us=busy,
                copy_us=copies, idle_share=1.0 - busy / wall_us,
                kernels=len(kernels), flash_us=flash_us,
                flash_share_of_busy=flash_us / busy, k9_us=carry_us,
-               k9_share_of_busy=carry_us / busy,
-               top=[[name[:60], us] for name, us in top])
+               k9_share_of_busy=carry_us / busy, gemm_us=gemm_us,
+               gemm_share_of_busy=gemm_us / busy,
+               top=[[name[:60], us] for name, us in top],
+               runtime={k: v for k, v in sorted(
+                   runtime.items(), key=lambda kv: -kv[1][1])[:6]},
+               cpu_top=[[a.key[:50], a.count, a.self_cpu_time_total]
+                        for a in sorted(prof.key_averages(),
+                                        key=lambda a: -a.self_cpu_time_total)
+                        [:8]])
     log(f"  {label}: {what}: wall {wall_us:.0f} us, device busy "
         f"{busy:.0f} us in {len(kernels)} kernels (idle share "
         f"{res['idle_share']:.3f}), copies {copies:.0f} us, flash kernels "
         f"{flash_us:.0f} us ({res['flash_share_of_busy']:.3f} of busy; K9 "
-        f"{carry_us:.0f} us, {res['k9_share_of_busy']:.3f}); "
+        f"{carry_us:.0f} us, {res['k9_share_of_busy']:.3f}), GEMMs "
+        f"{gemm_us:.0f} us ({res['gemm_share_of_busy']:.3f}); "
         "top: " +
-        "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top))
+        "; ".join(f"{n[:40]} {us:.0f} us" for n, us in top)
+        + "; host runtime calls: " + "; ".join(
+            f"{k} x{c} {us:.0f} us" for k, (c, us) in res["runtime"].items()))
     return res
 
 
@@ -1610,8 +1663,26 @@ def _grad_diff(label, g_p, g_x, tol, what):
     return worst, worst_at
 
 
+def make_solver(torch, solver_path, env, device="cuda", dtype="float32"):
+    """The Solver of a -train config at mini_cluster's -dtype `dtype`,
+    and its first packed batch (source seed 1) on the host."""
+    import itertools
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.solver import Solver
+    with env_set(env):
+        conf = Config(["-conf", solver_path, "-train", "-device", device])
+        solver = Solver(conf.solverParameter, conf.netParam,
+                        device=device, **solver_dtypes(torch, dtype))
+    src = get_source(conf.train_data_layer(), phase_train=True, seed=1)
+    host = src.next_batch(list(itertools.islice(src.records(),
+                                                src.batch_size)))
+    return solver, host
+
+
 def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
-                  grad_tol=STEP_GRAD_TOL, plain_forwards=(), mesh=None):
+                  grad_tol=STEP_GRAD_TOL, plain_forwards=(), mesh=None,
+                  dtype="float32", loss_rtol=STEP_LOSS_RTOL):
     """One solver step's loss and gradients with the kernels against the
     same step with every kernel swapped for its plain version: the same
     params, batch and dropout seed, cuDNN deterministic.  With
@@ -1620,24 +1691,16 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
     STEP_GRAD_TOL: the backward kernels alone, in the net.  With a
     `mesh`, every step runs under its attention route (the sp ring), and
     the kernel step is also held against the same step without the mesh
-    (loss STEP_LOSS_RTOL, gradients `grad_tol`).  Returns the record and
-    what the profile phase reuses."""
-    import itertools
-    from caffeonspark_tpu_torch.config import Config
+    (loss `loss_rtol`, gradients `grad_tol`).  `dtype` is mini_cluster's
+    -dtype (the batch cast as it casts it).  Returns the record and what
+    the profile phase reuses."""
     from caffeonspark_tpu_torch.data.queue_runner import to_device
-    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.mini_cluster import cast_inputs
     from caffeonspark_tpu_torch.ops.layers import flash_mesh
-    from caffeonspark_tpu_torch.solver import Solver
     route = ((lambda: flash_mesh(mesh)) if mesh is not None
              else contextlib.nullcontext)
-    with env_set(env):
-        conf = Config(["-conf", solver_path, "-train", "-device", device])
-        solver = Solver(conf.solverParameter, conf.netParam,
-                        device=device)
-    src = get_source(conf.train_data_layer(), phase_train=True, seed=1)
-    host = src.next_batch(list(itertools.islice(src.records(),
-                                                src.batch_size)))
-    batch = to_device(host, solver.device)
+    solver, host = make_solver(torch, solver_path, env, device, dtype)
+    batch = cast_inputs(solver.train_net, to_device(host, solver.device))
     params, state = solver.init()
     prev = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
@@ -1660,27 +1723,28 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
         torch.backends.cudnn.deterministic = prev
     lk, lp = float(loss_k), float(loss_p)
     loss_rel = abs(lk - lp) / abs(lp)
-    check(loss_rel <= STEP_LOSS_RTOL, f"{label}: loss {lk} with kernels, "
-          f"{lp} plain (rel {loss_rel:.3g})")
+    check(loss_rel <= loss_rtol, f"{label}: loss {lk} with kernels, "
+          f"{lp} plain (rel {loss_rel:.3g}, tol {loss_rtol:.3g})")
     worst, worst_at = _grad_diff(label, g_p, g_k, grad_tol, "")
     log(f"  {label}: loss {lk:.6f} with kernels, {lp:.6f} plain (rel "
         f"{loss_rel:.3g}); worst gradient {worst:.3g} of max |grad| at "
         f"{worst_at} (tol {grad_tol})")
-    rec = dict(label=label, loss_kernel=lk, loss_plain=lp,
-               loss_rel=loss_rel, worst_grad_rel=worst,
+    rec = dict(label=label, dtype=dtype, loss_kernel=lk, loss_plain=lp,
+               loss_rel=loss_rel, loss_rtol=loss_rtol, worst_grad_rel=worst,
                worst_grad_at=worst_at, grad_tol=grad_tol)
     if g_b is not None:
-        wb, wb_at = _grad_diff(label, g_p, g_b, STEP_GRAD_TOL,
+        bwd_tol = STEP_GRAD_TOL if dtype == "float32" else grad_tol
+        wb, wb_at = _grad_diff(label, g_p, g_b, bwd_tol,
                                "with plain forwards")
         log(f"  {label}: with {', '.join(plain_forwards)} plain and the "
             f"backward kernels: worst gradient {wb:.3g} of max |grad| at "
-            f"{wb_at} (tol {STEP_GRAD_TOL})")
+            f"{wb_at} (tol {bwd_tol})")
         rec.update(bwd_kernels_worst_grad_rel=wb,
                    bwd_kernels_worst_grad_at=wb_at)
     if mesh is not None:
         ls = float(loss_s)
         rel = abs(lk - ls) / abs(ls)
-        check(rel <= STEP_LOSS_RTOL, f"{label}: loss {lk} on the mesh, {ls} "
+        check(rel <= loss_rtol, f"{label}: loss {lk} on the mesh, {ls} "
               f"without it (rel {rel:.3g})")
         ws, ws_at = _grad_diff(label, g_s, g_k, grad_tol,
                                "on the mesh against the single-device step")
@@ -1690,6 +1754,13 @@ def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
         rec.update(loss_single=ls, single_loss_rel=rel,
                    single_worst_grad_rel=ws, single_worst_grad_at=ws_at)
     return rec, (solver, params, state, host)
+
+
+def solver_dtypes(torch, dtype):
+    """Solver dtypes of mini_cluster's -dtype."""
+    return dict(dtype=torch.bfloat16 if dtype == "bfloat16"
+                else torch.float32,
+                compute_dtype=torch.bfloat16 if dtype == "mixed" else None)
 
 
 def median(xs):
@@ -1777,6 +1848,257 @@ def wide_lm_phase(K, torch, workdir, key, lm):
              "training step")
     return dict(train=train, launches=dict(train["launches"]), step=step,
                 profile=profile)
+
+
+# ---------------------------------------------------------------------------
+# phases 17-21: the standalone trainer (mini_cluster) and -dtype
+# ---------------------------------------------------------------------------
+
+def loss_vs_f32(net, run, f32):
+    """A -dtype run's losses against the float32 run's (the same seeded
+    weights, batches and dropout draws): the first step's, before the
+    trajectories part, to MIXED_VS_F32_LOSS_RTOL; every step's relative
+    difference recorded."""
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                f32["losses"])]
+    run["loss_rel_to_f32"] = rel
+    check(rel[0] <= MIXED_VS_F32_LOSS_RTOL,
+          f"{net} {run['dtype']}: first loss {run['losses'][0]} against "
+          f"f32 {f32['losses'][0]} (rel {rel[0]:.3g}, tol "
+          f"{MIXED_VS_F32_LOSS_RTOL:.3g})")
+    log(f"  {net} {run['dtype']} against float32: first loss rel "
+        f"{rel[0]:.3g} (tol {MIXED_VS_F32_LOSS_RTOL:.3g}), then "
+        + ", ".join(f"{x:.3g}" for x in rel[1:]))
+
+
+def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
+             env=None, args=(), iters=TRAIN_ITERS, device="cuda"):
+    """`python -m caffeonspark_tpu_torch.mini_cluster -dtype <dtype>` for
+    `iters` steps with -metrics every step and -pipeline_metrics, the
+    counts zeroed just before and read just after: every loss finite,
+    the first near ln 1000, the snapshot at 4 (when the run gets there)
+    and the final model, each of `kernels` launched `launches_each` times
+    and no other kernel, every launch in bf16 unless -dtype float32."""
+    import shutil
+    from caffeonspark_tpu_torch import mini_cluster
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    steps_path = os.path.join(outdir, "steps.jsonl")
+    pipe_path = os.path.join(outdir, "pipeline.json")
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with env_set(env or {}):
+        rc = mini_cluster.main(
+            ["-solver", solver_path, "-output", outdir, "-dtype", dtype,
+             "-metrics", steps_path, "-display_every", "1",
+             "-pipeline_metrics", pipe_path, "-iterations", str(iters),
+             "-device", device, *args])
+    wall_s = time.monotonic() - t0
+    counts = dict(K.launch_counts)
+    by_dtype = {f"{k}:{d}": v for (k, d), v
+                in sorted(K.launch_counts_by_dtype.items())}
+    check(rc == 0, f"{label}: mini_cluster returned {rc}")
+    with open(steps_path) as f:
+        steps = [json.loads(x) for x in f if x.strip()]
+    losses = [r["loss"] for r in steps]
+    check([r["iter"] for r in steps] == list(range(1, iters + 1)),
+          f"{label}: iterations {[r['iter'] for r in steps]}")
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss in {losses}")
+    check(6.0 <= losses[0] <= 8.0,
+          f"{label}: first loss {losses[0]:.4f} not near ln 1000")
+    name = os.path.basename(solver_path).split("_")[0]
+    want_files = [f"{name}_train_iter_{iters}.caffemodel"]
+    if iters >= 4:
+        want_files += [f"{name}_train_iter_4.{e}"
+                       for e in ("caffemodel", "solverstate")]
+    for fname in want_files:
+        check(os.path.exists(os.path.join(outdir, fname)),
+              f"{label}: no {fname}")
+    want = {k: (launches_each if k in kernels else 0) for k in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    mode = "float32" if dtype == "float32" else "bfloat16"
+    for k in kernels:
+        check(by_dtype.get(f"{k}:{mode}", 0) == counts[k],
+              f"{label}: {k} launches by dtype {by_dtype}, expected all "
+              f"{counts[k]} in {mode}")
+    with open(pipe_path) as f:
+        stages = json.load(f)["stages"]
+    res = dict(label=label, dtype=dtype, wall_s=wall_s, losses=losses,
+               launches=counts, launches_by_dtype=by_dtype,
+               dispatch_ms_p50=stages["step"]["p50_ms"],
+               queue_wait_ms_p50=stages["queue_wait"]["p50_ms"])
+    log(f"  {label}: mini_cluster -dtype {dtype}, {iters} steps in "
+        f"{wall_s:.1f} s; losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"step dispatch p50 {res['dispatch_ms_p50']:.1f} ms; launches "
+        f"{by_dtype}")
+    return res
+
+
+def state_dtype_phase(K, torch, solver_path, workdir, device="cuda"):
+    """COS_STATE_DTYPE=bfloat16 on the CaffeNet SGD solver through
+    mini_cluster: 4 steps (snapshot at 4) with f32 params and bf16
+    momentum, then a resume from the step-4 .solverstate for 2 more; the
+    history is bf16 after both, the params f32 and finite.  Counts
+    zeroed before the first run, read after the resume: K1 and K2
+    2 x (4 + 2) launches each, in f32."""
+    import shutil
+    from caffeonspark_tpu_torch import mini_cluster
+    out1 = os.path.join(workdir, "caffenet_state_out")
+    out2 = os.path.join(workdir, "caffenet_state_resumed")
+    for d in (out1, out2):
+        shutil.rmtree(d, ignore_errors=True)
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with env_set({"COS_STATE_DTYPE": "bfloat16"}):
+        mc = mini_cluster.MiniCluster(mini_cluster.build_argparser()
+                                      .parse_args(
+            ["-solver", solver_path, "-output", out1, "-iterations", "4",
+             "-device", device]))
+        check(mc.solver.state_dtype == torch.bfloat16,
+              f"COS_STATE_DTYPE: state dtype {mc.solver.state_dtype}")
+        mc.train()
+        state = os.path.join(out1, "caffenet_train_iter_4.solverstate")
+        check(os.path.exists(state), f"COS_STATE_DTYPE: no {state}")
+        first = mc.final_state
+        rs = mini_cluster.MiniCluster(mini_cluster.build_argparser()
+                                      .parse_args(
+            ["-solver", solver_path, "-output", out2, "-snapshot", state,
+             "-iterations", "6", "-device", device]))
+        rs.train()
+    counts = dict(K.launch_counts)
+    by_dtype = {f"{k}:{d}": v for (k, d), v
+                in sorted(K.launch_counts_by_dtype.items())}
+    for st, p, it in ((first, mc.final_params, 4),
+                      (rs.final_state, rs.final_params, 6)):
+        check(st.iter == it, f"COS_STATE_DTYPE: iter {st.iter}, not {it}")
+        dts = {str(h.dtype) for bl in st.history.values()
+               for h in bl.values()}
+        check(dts == {"torch.bfloat16"},
+              f"COS_STATE_DTYPE: history dtypes {dts} at iter {it}")
+        check(all(w.dtype == torch.float32 and bool(torch.isfinite(w).all())
+                  for bl in p.values() for w in bl.values()),
+              f"COS_STATE_DTYPE: params not finite f32 at iter {it}")
+    want = {k: (12 if k in ("lrn_across_channels",
+                            "lrn_across_channels_bwd") else 0)
+            for k in counts}
+    check(counts == want, f"COS_STATE_DTYPE: launches {counts}, "
+          f"expected {want}")
+    hist_bytes = sum(h.numel() * h.element_size()
+                     for bl in rs.final_state.history.values()
+                     for h in bl.values())
+    res = dict(label="CaffeNet COS_STATE_DTYPE=bfloat16",
+               wall_s=time.monotonic() - t0, launches=counts,
+               launches_by_dtype=by_dtype,
+               history_dtype="bfloat16", history_bytes=hist_bytes,
+               resumed_from=os.path.basename(state))
+    log(f"  COS_STATE_DTYPE=bfloat16: 4 steps, snapshot, resume to 6: "
+        f"history bf16 ({hist_bytes:,} bytes) after both; launches "
+        f"{counts}")
+    return res
+
+
+def image_mc_phase(K, torch, workdir, train_configs, device="cuda"):
+    """CaffeNet through mini_cluster in float32 and mixed (K1 / K2 16
+    launches each, bf16 under mixed), AlexNet with
+    COS_FUSE_BIAS_RELU_LRN=1 in mixed (K3 / K4, bf16), each mixed net's
+    step against the same step with every kernel plain, and the
+    COS_STATE_DTYPE run."""
+    runs, steps = [], []
+    for label, solver_path, env, kernels in train_configs:
+        net = label.split()[0]
+        for dtype in (("float32", "mixed") if net == "CaffeNet"
+                      else ("mixed",)):
+            runs.append(mc_phase(
+                K, f"{net} mini_cluster {dtype}", solver_path, dtype,
+                os.path.join(workdir, f"{net.lower()}_mc_{dtype}_out"),
+                kernels, 2 * TRAIN_ITERS, env=env, device=device))
+        f32 = [r for r in runs if r["label"] == f"{net} mini_cluster float32"]
+        if f32:
+            loss_vs_f32(net, runs[-1], f32[0])
+        rec, kept = step_vs_plain(
+            K, torch, f"{net} mixed", solver_path, env,
+            grad_tol=MIXED_STEP_GRAD_TOL, loss_rtol=MIXED_STEP_LOSS_RTOL,
+            dtype="mixed", device=device)
+        steps.append(rec)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    state = state_dtype_phase(K, torch, train_configs[0][1], workdir,
+                              device)
+    return dict(runs=runs, step_vs_plain=steps, state_dtype=state)
+
+
+def lm_dtype_phase(K, torch, workdir, lm_solver, mesh, device="cuda"):
+    """The LM through mini_cluster in float32, mixed and bfloat16 (8
+    steps each; K6-K8 16 launches each, in bf16 under mixed and
+    bfloat16), the mixed and bfloat16 losses against the float32 ones
+    (the same weights and batches), then per dtype 5 synchronized direct
+    steps and one step under torch.profiler, the mixed step against the
+    step with K6-K8 plain; then -mesh 1,1,4 -dtype mixed (MC_ITERS_SP
+    steps, K9
+    and K7/K8 in bf16) and one sp mixed step against the single-device
+    mixed step and the all-plain step."""
+    lm_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+    runs = {}
+    for dtype in ("float32", "mixed", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[dtype] = mc_phase(
+            K, f"TransformerLM mini_cluster {dtype}", lm_solver, dtype,
+            os.path.join(workdir, f"transformerlm_mc_{dtype}_out"),
+            lm_kernels, LM["layers"] * TRAIN_ITERS, device=device)
+    for dtype in ("mixed", "bfloat16"):
+        loss_vs_f32("TransformerLM", runs[dtype], runs["float32"])
+    direct, step_rec, profiles = {}, None, {}
+    from caffeonspark_tpu_torch.mini_cluster import cast_inputs
+    for dtype in ("float32", "mixed", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dtype == "mixed":
+            step_rec, (solver, params, state, host) = step_vs_plain(
+                K, torch, "TransformerLM mixed", lm_solver, {},
+                grad_tol=MIXED_STEP_GRAD_TOL,
+                loss_rtol=MIXED_STEP_LOSS_RTOL, dtype=dtype, device=device)
+        else:     # the f32 step against plain: phase 13
+            solver, host = make_solver(torch, lm_solver, {}, device, dtype)
+            params, state = solver.init()
+
+        def step(p, st, inputs, solver=solver):
+            return solver.train_step(p, st, cast_inputs(solver.train_net,
+                                                        inputs))
+
+        direct[dtype] = direct_steps(torch, solver, params, state, host,
+                                     step=step)
+        log(f"  TransformerLM {dtype}: 5 direct synchronized steps: "
+            + ", ".join(f"{x:.1f}" for x in direct[dtype])
+            + f" ms (median {median(direct[dtype]):.1f})")
+        profiles[dtype] = profile_train_step(
+            torch, f"TransformerLM {dtype}", solver, params, state, host,
+            what=f"one B={LM['batch']} T={LM['seq']} {dtype} LM step",
+            step=step)
+        del solver, params, state, host, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    hops = SP * (SP + 1) // 2
+    sp_run = mc_phase(
+        K, "TransformerLM mini_cluster sp4 mixed", lm_solver, "mixed",
+        os.path.join(workdir, "transformerlm_mc_sp_out"),
+        ("flash_block_update", "flash_attention_bwd_dq",
+         "flash_attention_bwd_dkv"), LM["layers"] * hops * MC_ITERS_SP,
+        args=("-mesh", f"1,1,{SP}"), iters=MC_ITERS_SP, device=device)
+    sp_step, kept = step_vs_plain(
+        K, torch, "TransformerLM sp4 mixed", lm_solver, {},
+        grad_tol=MIXED_STEP_GRAD_TOL, loss_rtol=MIXED_STEP_LOSS_RTOL,
+        plain_forwards=("flash_block_update",), mesh=mesh, dtype="mixed",
+        device=device)
+    del kept
+    return dict(runs=runs, sp_run=sp_run, direct_step_ms=direct,
+                direct_step_median_ms={k: median(v)
+                                       for k, v in direct.items()},
+                mixed_step_vs_plain=step_rec, sp_mixed_step=sp_step,
+                profiles=profiles)
 
 
 def ptxas_report(text: str) -> list:
@@ -2074,6 +2396,23 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         wide_lms[key] = wide_lm_phase(K, torch, workdir, key, lm)
 
+    log(f"the standalone trainer (mini_cluster, B={TRAIN_B}, "
+        f"{TRAIN_ITERS} steps, counts zeroed before each run): CaffeNet "
+        "-dtype float32 and mixed, AlexNet mixed (COS_FUSE_BIAS_RELU_LRN"
+        "=1), each mixed step against the plain step, COS_STATE_DTYPE:")
+    gc.collect()
+    torch.cuda.empty_cache()
+    image_mc = image_mc_phase(K, torch, workdir, train_configs)
+    log(f"the LM through mini_cluster (-dtype float32, mixed, bfloat16; "
+        f"-mesh 1,1,{SP} mixed; counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mc = lm_dtype_phase(K, torch, workdir, lm_solver, mesh)
+    mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
+                for r in image_mc["runs"] + list(lm_mc["runs"].values())}
+    mc_paths["mc_transformerlm_sp4_mixed"] = lm_mc["sp_run"]
+    mc_paths["mc_caffenet_state_dtype"] = image_mc["state_dtype"]
+
     lines = []
     for name, meta in KERNELS.items():
         main_rec = res[name][0]
@@ -2087,11 +2426,19 @@ def main(argv) -> int:
                    "train_lm": lm_launches.get(name, 0),
                    "train_lm_sp": sp_launches.get(name, 0),
                    **{f"train_lm_{key}": w["launches"].get(name, 0)
-                      for key, w in wide_lms.items()}}
+                      for key, w in wide_lms.items()},
+                   **{path: r["launches"].get(name, 0)
+                      for path, r in mc_paths.items()}}
+        by_dtype: dict = {}
+        for r in mc_paths.values():
+            for key, v in r.get("launches_by_dtype", {}).items():
+                k, dt = key.split(":")
+                if k == name:
+                    by_dtype[dt] = by_dtype.get(dt, 0) + v
         lines.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=sum(by_path.values()),
-            launches_by_path=by_path,
+            launches_by_path=by_path, mini_cluster_launches_by_dtype=by_dtype,
             max_abs_err=max(r["max_abs_err"] for r in res[name]
                             if r["dtype"] in ("float32", "int8")),
             ms=main_rec["ms"], plain_ms=main_rec["plain_ms"],
@@ -2104,6 +2451,10 @@ def main(argv) -> int:
     for line in lines:
         check(line["launches"] > 0,
               f"{line['name']} was never launched on a main path")
+        if line["name"] != "int8_matmul":
+            check(line["mini_cluster_launches_by_dtype"].get("bfloat16", 0)
+                  > 0, f"{line['name']} was never launched in bf16 on "
+                  "mini_cluster's paths")
     log(json.dumps({"serving": serve, "profile": profiles}))
     log(json.dumps({"training": train, "step_vs_plain": steps,
                     "trained_served": served_trained,
@@ -2119,6 +2470,8 @@ def main(argv) -> int:
         log(json.dumps({f"training_lm_{key}": w["train"],
                         f"lm_{key}_step_vs_plain": w["step"],
                         f"lm_{key}_train_profile": w["profile"]}))
+    log(json.dumps({"mini_cluster_image": image_mc}))
+    log(json.dumps({"mini_cluster_lm": lm_mc}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

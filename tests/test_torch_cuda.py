@@ -563,3 +563,56 @@ def test_stager_batches_survive_a_slow_consumer_on_card(cuda_card):
     for s, h in zip(sums, host):
         want = ((h["data"].astype(np.float64) - 7.0) * 0.5).sum()
         assert abs(float(s) - want) <= 1e-6 * abs(want) + 1e-3
+
+
+@pytest.mark.cuda
+def test_mixed_lm_step_launches_flash_kernels_in_bf16_on_card(cuda_card):
+    """One mixed-precision step (-dtype mixed) of a small transformer_lm
+    on the card: K6, K7 and K8 launch once per layer, every launch in
+    bf16, the loss finite and the gradients f32."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.proto import SolverParameter
+    from caffeonspark_tpu_torch.solver import Solver
+    npm = zoo.transformer_lm(vocab=64, d_model=64, heads=2, layers=2,
+                             seq=256, batch=2)
+    sp = SolverParameter.from_text('base_lr: 0.1 lr_policy: "fixed" '
+                                   'momentum: 0.9 random_seed: 1')
+    solver = Solver(sp, npm, device=cuda_card,
+                    compute_dtype=torch.bfloat16)
+    params, state = solver.init()
+    rng = np.random.RandomState(3)
+    toks = torch.from_numpy(rng.randint(0, 64, (257, 2)).astype(np.float32))
+    inputs = {"input_sentence": toks[:-1].to(cuda_card),
+              "target_sentence": toks[1:].to(cuda_card)}
+    K.reset_launch_counts()
+    loss, _, grads = solver.loss_and_grads(params, inputs)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert K.launch_counts[name] == 2, name
+        assert K.launch_counts_by_dtype[(name, "bfloat16")] == 2, name
+    assert bool(torch.isfinite(loss))
+    assert all(g.dtype == torch.float32 for bl in grads.values()
+               for g in bl.values())
+
+
+@pytest.mark.cuda
+def test_bf16_gemm_accumulates_in_f32_on_card(cuda_card):
+    """After a Solver pins the precision, cuBLAS's bf16 GEMMs reduce in
+    f32: a long dot product of bf16 values equals the f32 sum rounded
+    once (a bf16 reduction would drift by many ulps)."""
+    from caffeonspark_tpu_torch.serving.forward import pin_f32_precision
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    pin_f32_precision()
+    assert not \
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    k = 16384
+    rng = np.random.RandomState(4)
+    a = torch.from_numpy(rng.rand(64, k).astype(np.float32)).to(
+        cuda_card, torch.bfloat16)
+    b = torch.from_numpy(rng.rand(k, 64).astype(np.float32)).to(
+        cuda_card, torch.bfloat16)
+    got = (a @ b).float()
+    want = (a.double() @ b.double()).to(torch.bfloat16).float()
+    ulp = torch.abs(want) * 2.0 ** -7
+    assert bool(torch.all(torch.abs(got - want) <= ulp))
