@@ -156,12 +156,10 @@ LATER_KNOBS = {
     "COS_SYNC_WIRE_DTYPE": "ranks",
     "COS_SERVE_MESH": "ranks",
     "COS_SERVE_TP": "ranks",
-    "COS_STEPS_PER_LOOP": "speed",
     "COS_REMAT": "speed",
     "COS_CONV_LAYOUT": "speed",
     "COS_CONV_S2D": "speed",
     "COS_STAGE_COPY": "speed",
-    "COS_NATIVE": "speed",
     "COS_DISABLE_FLASH": "speed",
     "COS_DISABLE_PALLAS": "speed",
     "COS_FLASH_INTERPRET": "speed",

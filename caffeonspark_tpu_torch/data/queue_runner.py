@@ -16,10 +16,16 @@ The counterpart of `caffeonspark_tpu/data/queue_runner.py`:
     transform's float stage behind the copy; on a card it runs by
     default on a stager thread and a side CUDA stream (COS_STAGE_BG,
     COS_STAGE_DEPTH batches ahead), and the consumer's stream waits on
-    each batch's event.
-The fused multi-step loop (steps_per_loop, chunked_feed) and
-`tune_decode_threads` (it tunes the native decoder, not ported yet) wait
-for later slices.
+    each batch's event;
+  * the multi-step loop's feed (COS_STEPS_PER_LOOP=K, `steps_per_loop`):
+    `chunk_schedule` cuts the run into K-step chunks and single-step
+    remainders at the boundaries a train loop acts on, `stack_chunks`
+    stacks each chunk's batches into one (K, batch...) block and
+    `chunked_feed` ties the two together; `device_prefetch(chunked=True)`
+    stages the `(n, block)` pairs, the device-side transform running over
+    a block's K batches in one call;
+  * `tune_decode_threads`: under a pool of more than one worker the
+    native decoder runs on one thread a call.
 """
 
 from __future__ import annotations
@@ -62,6 +68,22 @@ def transform_threads(default: int = 2) -> int:
     """Transformer-pool width (COS_TRANSFORM_THREADS; 0 = pack inline
     on the solver thread)."""
     return _env_int("COS_TRANSFORM_THREADS", default, 0)
+
+
+def steps_per_loop(default: int = 1) -> int:
+    """Solver steps a chunk (COS_STEPS_PER_LOOP; 1 = one step at a
+    time): on a card K steps replay as one CUDA graph
+    (Solver.train_step_many)."""
+    return _env_int("COS_STEPS_PER_LOOP", default, 1)
+
+
+def tune_decode_threads(src, pool_width: int) -> None:
+    """Under a transformer pool of more than one worker the pool's own
+    parallelism replaces the decoder's threads (N workers each starting
+    one decode thread per core oversubscribe the host): pin the decode
+    to one thread unless the source's num_threads was set."""
+    if pool_width > 1 and getattr(src, "num_threads", None) == 0:
+        src.num_threads = 1
 
 
 def stage_depth(default: int = 2) -> int:
@@ -485,6 +507,86 @@ def combine_batches(batches: Iterator[Dict[str, np.ndarray]], k: int,
                   "short of an iter_size=%d group", len(buf), k)
 
 
+def chunk_schedule(start_iter: int, max_iter: int, k: int,
+                   boundaries=()) -> Iterator[int]:
+    """Steps of each chunk of the multi-step loop: `k` while the next k
+    iterations cross no boundary (`test_interval`, `snapshot`,
+    `display`; zeros are ignored) and stay within `max_iter`, else 1
+    until the boundary.  A chunk may end on a boundary, never span one,
+    so every action between chunks keeps its iteration.  A pure function
+    of (start_iter, configuration): a run resumed mid-schedule derives
+    the same chunks.  Entering a run of single steps logs once per
+    boundary."""
+    if k < 1:
+        raise ValueError(f"steps-per-loop k must be >= 1, got {k}")
+    bset = sorted({int(b) for b in boundaries if b and int(b) > 0})
+    it = int(start_iter)
+    in_single_run = False
+    while max_iter <= 0 or it < max_iter:
+        dist = min((b - it % b) for b in bset) if bset else k
+        if max_iter > 0:
+            dist = min(dist, max_iter - it)
+        if dist >= k:
+            in_single_run = False
+            yield k
+            it += k
+        else:
+            if k > 1 and not in_single_run:
+                _LOG.info("steps_per_loop: boundary at iter %d forces %d "
+                          "single-step remainder chunk(s) (configured "
+                          "chunk size %d)", it + dist, dist, k)
+                in_single_run = True
+            yield 1
+            it += 1
+
+
+def stack_chunks(batches: Iterator[Dict[str, np.ndarray]],
+                 schedule: Iterator[int], *, metrics=None
+                 ) -> Iterator[tuple]:
+    """Per-step batches -> `(n, block)` chunks following `schedule`:
+    n == 1 passes the batch through, n > 1 stacks n batches on a new
+    axis 0 (a fresh buffer; the "stack" series times it).  A stream that
+    ends mid-chunk flushes its leftovers as single steps."""
+    it = iter(batches)
+    for n in schedule:
+        if n <= 1:
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            yield 1, b
+            continue
+        buf = []
+        for _ in range(n):
+            try:
+                buf.append(next(it))
+            except StopIteration:
+                break
+        if len(buf) == n:
+            t0 = time.perf_counter()
+            block = {key: np.stack([b[key] for b in buf])
+                     for key in buf[0]}
+            if metrics is not None:
+                metrics.add("stack", time.perf_counter() - t0)
+            yield n, block
+        else:
+            for b in buf:
+                yield 1, b
+            return
+
+
+def chunked_feed(batches: Iterator[Dict[str, np.ndarray]], *,
+                 start_iter: int, max_iter: int, k: int,
+                 boundaries=(), metrics=None) -> Iterator[tuple]:
+    """The `(n, batch)` stream both train loops consume: chunk_schedule
+    and stack_chunks for K > 1, single steps for K == 1."""
+    if k > 1:
+        return stack_chunks(
+            batches, chunk_schedule(start_iter, max_iter, k, boundaries),
+            metrics=metrics)
+    return ((1, b) for b in batches)
+
+
 def to_device(batch: Dict[str, np.ndarray], device: torch.device
               ) -> Dict[str, torch.Tensor]:
     """Host batch -> tensors on `device`.  To a card the copy goes from
@@ -502,11 +604,14 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device
 
 
 def stage_batch(batch: Dict[str, np.ndarray], device,
-                fns: Optional[Dict[str, Callable]] = None
-                ) -> Dict[str, torch.Tensor]:
+                fns: Optional[Dict[str, Callable]] = None,
+                chunk: bool = False) -> Dict[str, torch.Tensor]:
     """to_device, then the device-side transform's float stage on every
     top that carries an aux array (`fns`: {top: fn(u8, aux)}, from
-    DataSource.enable_device_transform); the aux keys go."""
+    DataSource.enable_device_transform); the aux keys go.  With `chunk`
+    the arrays are (n, batch...) blocks: the stage runs once over the
+    n * batch samples (it is per sample) and the result takes the
+    block's leading axes again."""
     staged = to_device(batch, device)
     if not fns:
         return staged
@@ -516,14 +621,20 @@ def stage_batch(batch: Dict[str, np.ndarray], device,
             continue
         aux = staged.get(k + DEVICE_AUX_SUFFIX)
         fn = fns.get(k)
-        out[k] = fn(v, aux) if fn is not None and aux is not None else v
+        if fn is None or aux is None:
+            out[k] = v
+        elif chunk:
+            y = fn(v.flatten(0, 1), aux.flatten(0, 1))
+            out[k] = y.unflatten(0, v.shape[:2])
+        else:
+            out[k] = fn(v, aux)
     return out
 
 
-def device_prefetch(batches: Iterator[Dict[str, np.ndarray]], device, *,
+def device_prefetch(batches: Iterator, device, *,
                     depth: int = 2, device_transforms=None,
-                    background: bool = False, metrics=None
-                    ) -> Iterator[Dict[str, torch.Tensor]]:
+                    background: bool = False, metrics=None,
+                    chunked: bool = False) -> Iterator:
     """Host batches -> batches on `device` (stage_batch), the "stage"
     series timing each.  In the foreground each batch is staged on the
     consumer's thread and stream when it is asked for: on one stream a
@@ -536,16 +647,24 @@ def device_prefetch(batches: Iterator[Dict[str, np.ndarray]], device, *,
     stage overlap the step.  The consumer's current stream waits on each
     batch's event, and every tensor is recorded on that stream, so the
     caching allocator does not hand its memory back while a kernel still
-    reads it.  Closing the generator stops the stager."""
+    reads it.  Closing the generator stops the stager.
+
+    With `chunked=True` the input is `(n, batch)` pairs (chunked_feed)
+    and so is the output: an n > 1 block stages as one (n, batch...)
+    tensor per top, its device transform in one call over the block."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         # the stager thread selects the card by its index
         device = torch.device("cuda", torch.cuda.current_device())
     fns = device_transforms or {}
 
-    def timed_put(b):
+    def timed_put(item):
         t0 = time.perf_counter()
-        staged = stage_batch(b, device, fns)
+        if chunked:
+            n, b = item
+            staged = (n, stage_batch(b, device, fns, chunk=n > 1))
+        else:
+            staged = stage_batch(item, device, fns)
         if metrics is not None:
             metrics.add("stage", time.perf_counter() - t0)
         return staged
@@ -608,7 +727,9 @@ def _background_stage(batches, timed_put, depth, metrics, device):
                 if ready is not None:
                     consumer = torch.cuda.current_stream(device)
                     consumer.wait_event(ready)
-                    for v in staged.values():
+                    tensors = staged[1] if isinstance(staged, tuple) \
+                        else staged
+                    for v in tensors.values():
                         v.record_stream(consumer)
                 yield staged
         finally:

@@ -15,9 +15,17 @@ layer, and tables of typed columns through `DataFrameSource`
 (data/dataframe.py) for CoSData layers.  Serving uses a source only as
 its packer: requests carry their own pixels, so the SequenceFile and
 image DataFrame source classes pack records there, but reading their
-stores waits for a later slice, as do HDF5 and image-list layers,
-LevelDB and the decoding of encoded images.  Each of those raises and
-names itself.
+stores waits for a later slice, as do HDF5 and image-list layers and
+LevelDB.  Each of those raises and names itself.
+
+Encoded Datums (`convert_imageset --encoded`) are decoded by the native
+library's threaded libjpeg decoder (`native.decode_batch`, `num_threads`
+on the source, 0 meaning one thread per core), straight to uint8 planes
+under the device-side transform.  When a batch fails, its images are
+decoded one by one to name the bad record.  Under COS_NATIVE=0, or on a
+machine without libjpeg, each image goes through cv2 where cv2 imports,
+as in the JAX package; otherwise the record is refused, naming what is
+missing.
 """
 
 from __future__ import annotations
@@ -42,6 +50,68 @@ def _strip_scheme(uri: str) -> str:
         if uri.startswith(scheme):
             uri = uri[len(scheme):]
     return uri
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def decode_image(rid: str, data: bytes, *, channels: int,
+                 resize_hw: Tuple[int, int], dtype=np.float32) -> np.ndarray:
+    """One encoded image -> (C, H, W) in BGR order through cv2 (the JAX
+    package's per-image path, jcaffe Mat.decode), resized when its size
+    differs from `resize_hw`."""
+    cv2 = _cv2()
+    if cv2 is None:
+        from .. import native
+        why = ("COS_NATIVE=0 selects the cv2 decoder" if not native.enabled()
+               else "the native decoder needs libjpeg (jpeglib.h and "
+               "-ljpeg), which this machine lacks")
+        raise RuntimeError(f"record {rid!r} is an encoded image: {why}, "
+                           "and cv2 is not importable here")
+    flag = cv2.IMREAD_GRAYSCALE if channels == 1 else cv2.IMREAD_COLOR
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), flag)
+    if img is None:
+        raise ValueError(f"record {rid!r}: image decode failed")
+    if (img.shape[0], img.shape[1]) != tuple(resize_hw):
+        img = cv2.resize(img, (resize_hw[1], resize_hw[0]))
+    if img.ndim == 2:
+        img = img[:, :, None]
+    return img.transpose(2, 0, 1).astype(dtype)
+
+
+def decode_records(records: Sequence[ImageRecord], c: int, h: int, w: int,
+                   *, dtype=np.float32, num_threads: int = 0) -> np.ndarray:
+    """Encoded records -> (N, C, H, W) of `dtype` (float32, or uint8 for
+    the device-side transform): one native batch decode, or cv2 image
+    by image (COS_NATIVE=0, no libjpeg).  A failed batch is decoded
+    again image by image to name its first bad record."""
+    from .. import native
+    images = [r[6] for r in records]
+    if native.decode_available():
+        try:
+            return native.decode_batch(images, channels=c, out_h=h, out_w=w,
+                                       num_threads=num_threads,
+                                       out_dtype=dtype)
+        except ValueError:
+            for r in records:
+                try:
+                    native.decode_batch([r[6]], channels=c, out_h=h,
+                                        out_w=w, num_threads=1,
+                                        out_dtype=dtype)
+                except ValueError as e:
+                    raise ValueError(f"record {r[0]!r}: image decode "
+                                     "failed") from e
+            raise
+    out = np.zeros((len(records), c, h, w), dtype)
+    for i, r in enumerate(records):
+        out[i] = decode_image(r[0], r[6], channels=c, resize_hw=(h, w),
+                              dtype=dtype)
+    return out
 
 
 def datum_to_record(key: bytes, raw: bytes) -> ImageRecord:
@@ -79,13 +149,14 @@ class DataSource:
 
     def __init__(self, layer: LayerParameter, *, phase_train: bool = False,
                  rank: int = 0, num_ranks: int = 1, seed: int = 0,
-                 resize: bool = False):
+                 resize: bool = False, num_threads: int = 0):
         self.layer = layer
         self.phase_train = phase_train
         self.rank = rank
         self.num_ranks = num_ranks
         self.seed = seed
         self.resize = resize
+        self.num_threads = num_threads  # 0: the native decoder's default
         self.batch_size = self._batch_size()
         self.transformer = Transformer(
             layer.transform_param if layer.has("transform_param") else None,
@@ -143,14 +214,21 @@ class DataSource:
                     f"payloads, but record {bad[0]!r} carries "
                     f"{bad[6].dtype} data — unset COS_DEVICE_TRANSFORM "
                     "for float-valued sources")
-        data = np.zeros((n, c, h, w),
-                        np.uint8 if self._device_transform else np.float32)
-        for i, (rid, _label, rc, rh, rw, encoded, payload) in \
-                enumerate(records):
+        dtype = np.uint8 if self._device_transform else np.float32
+        encoded = [i for i, r in enumerate(records) if r[5]]
+        if encoded and len(encoded) == n:
+            data = decode_records(records, c, h, w, dtype=dtype,
+                                  num_threads=self.num_threads)
+        else:
+            data = np.zeros((n, c, h, w), dtype)
             if encoded:
-                raise NotImplementedError(
-                    f"record {rid}: encoded images are not decoded by the "
-                    "PyTorch port yet; send raw pixels")
+                data[encoded] = decode_records(
+                    [records[i] for i in encoded], c, h, w, dtype=dtype,
+                    num_threads=self.num_threads)
+        for i, (rid, _label, rc, rh, rw, enc, payload) in \
+                enumerate(records):
+            if enc:
+                continue
             if (rh, rw) != (h, w):
                 raise ValueError(
                     f"record {rid}: {rh}x{rw} != layer {h}x{w}")

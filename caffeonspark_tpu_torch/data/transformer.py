@@ -7,7 +7,8 @@ mean subtraction (mean_file or mean_value), scale.  `__call__` runs the
 whole transform on numpy batches on the host.  With the device-side
 transform (COS_DEVICE_TRANSFORM=1, see `DataSource.enable_device_transform`)
 the host keeps only the byte moves (`host_stage`: crop and mirror on
-uint8, with the crop offsets and flips as an (N, 3) aux array) and
+uint8 in the native library's threads, or numpy under COS_NATIVE=0,
+with the crop offsets and flips as an (N, 3) aux array) and
 `device_stage_fn` does the float work with plain torch ops on the
 batch's device, so the host-to-device copy carries 1 byte a pixel.
 
@@ -193,7 +194,9 @@ class Transformer:
     def host_stage(self, batch: np.ndarray,
                    draw: Optional[AugDraw] = None):
         """(N, C, H, W) integral pixels -> (uint8 batch cropped and
-        mirrored, aux int32 (N, 3) of [h_off, w_off, flip])."""
+        mirrored, aux int32 (N, 3) of [h_off, w_off, flip]).  The bytes
+        move in the native library's threaded `crop_mirror_u8` unless
+        COS_NATIVE=0 selects the numpy body; both give the same batch."""
         n, c, h, w = batch.shape
         crop = int(self.tp.crop_size)
         u8 = batch if batch.dtype == np.uint8 else batch.astype(np.uint8)
@@ -201,17 +204,24 @@ class Transformer:
             draw = self.draw(n, h, w)
         if draw.offs is not None:
             hs, ws = draw.offs
+        else:
+            hs = ws = np.zeros(n, np.int64)
+        flip = draw.flip
+        aux = np.stack([hs, ws, flip.astype(np.int64)],
+                       axis=1).astype(np.int32)
+        from .. import native
+        if native.available():
+            return native.crop_mirror_u8(
+                u8, hs, ws, flip,
+                crop=crop if draw.offs is not None else 0), aux
+        if draw.offs is not None:
             u8 = (np.stack([u8[i, :, hs[i]:hs[i] + crop,
                                ws[i]:ws[i] + crop] for i in range(n)])
                   if n else np.empty((0, c, crop, crop), np.uint8))
         else:
-            hs = ws = np.zeros(n, np.int64)
             u8 = u8.copy()
-        flip = draw.flip
         if flip.any():
             u8[flip] = u8[flip, :, :, ::-1]
-        aux = np.stack([hs, ws, flip.astype(np.int64)],
-                       axis=1).astype(np.int32)
         return np.ascontiguousarray(u8), aux
 
     def device_stage_fn(self, out_dtype=None):

@@ -7,7 +7,9 @@ pack / fwd / exec_wait / time_to_first_flush series, queue_depth /
 batch_fill gauges, served_rows / flushes / flush_bucket_<n> counters),
 and the trainer its own, under the JAX package's names: pack (on the
 transformer pool's workers, or inline), stage (the host-to-device
-stager), queue_wait and step series; feed_depth and stage_depth gauges;
+stager), queue_wait and step series, and with COS_STEPS_PER_LOOP > 1
+stack (a chunk's batches stacked on the host) and scan_step (one
+multi-step chunk; `add_chunk`); feed_depth and stage_depth gauges;
 dropped_batches, dropped_val_batches and ragged_tail_records counters;
 and one `mark_step` per solver step for the steady steps/s.  Both dump
 in the JAX package's JSON format.  With COS_METRICS_FLUSH_S > 0 a
@@ -132,15 +134,28 @@ class PipelineMetrics:
                 g = self._gauges[name] = _Gauge()
             g.observe(value)
 
-    def mark_step(self):
-        """Timestamp one completed solver step (throughput series)."""
+    def mark_step(self, n: int = 1):
+        """Timestamp `n` completed solver steps (throughput series); a
+        K-step chunk lands K marks at one instant, so a chunked run's
+        steps/s compares with a step-at-a-time run's."""
         with self._lock:
             now = time.monotonic()
-            if len(self._steps) < self._cap:
-                self._steps.append(now)
-            else:
-                self._steps[self._step_i] = now
-                self._step_i = (self._step_i + 1) % self._cap
+            for _ in range(max(1, n)):
+                if len(self._steps) < self._cap:
+                    self._steps.append(now)
+                else:
+                    self._steps[self._step_i] = now
+                    self._step_i = (self._step_i + 1) % self._cap
+
+    def add_chunk(self, n: int, seconds: float):
+        """One multi-step chunk: a `scan_step` sample for the chunk, its
+        time over n into the `step` series n times (per-step percentiles
+        stay comparable with K=1 runs), and n step marks."""
+        self.add("scan_step", seconds)
+        per = seconds / max(1, n)
+        for _ in range(max(1, n)):
+            self.add("step", per)
+        self.mark_step(n)
 
     def set_info(self, name: str, value) -> None:
         """Attach a static (JSON-serializable) fact to the summary."""

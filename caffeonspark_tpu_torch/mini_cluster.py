@@ -19,7 +19,9 @@ as the sp ring, its N ranks on the one device (`flash_mesh`).  Refused
 by name: `-devices` above 1, `-cluster` above 1, `-server`, `-rank`
 above 0, a mesh with dp (or tp, ep) above 1, validation on a mesh, and
 the knobs of `config.LATER_KNOBS` that change a run's result.
-COS_STEPS_PER_LOOP (the fused loop) is named in the log, not acted on.
+COS_STEPS_PER_LOOP=K > 1 takes K steps a chunk (one CUDA graph replay on
+a card, `Solver.train_step_many`), with single steps before each
+display, validation, snapshot and max_iter boundary.
 
 Signals (`caffe_mini_cluster.cpp:55-60`): SIGINT and SIGTERM stop after
 the current step with a snapshot and print the resume line; SIGHUP
@@ -210,9 +212,10 @@ class MiniCluster:
         import contextlib
 
         from . import checkpoint
-        from .data.queue_runner import (PipelinedFeed, combine_batches,
-                                        device_prefetch, stage_background,
-                                        stage_depth, transform_threads)
+        from .data.queue_runner import (PipelinedFeed, chunked_feed,
+                                        combine_batches, device_prefetch,
+                                        stage_background, stage_depth,
+                                        steps_per_loop, transform_threads)
         from .data.source import get_source
         from .metrics import PipelineMetrics, maybe_start_flusher
         from .ops.layers import flash_mesh
@@ -279,11 +282,21 @@ class MiniCluster:
                     yield b
 
             raw_batches = _timed_batches()
+        # COS_STEPS_PER_LOOP=K > 1: K-step chunks (one CUDA graph replay
+        # each on a card), single steps before every boundary this loop
+        # acts on: display, validation, snapshot and max_iter (JAX
+        # mini_cluster.py:397-425)
+        k_loop = steps_per_loop()
+        many = solver.train_step_many(k_loop) if k_loop > 1 else None
         gen = device_prefetch(
-            combine_batches(raw_batches, max(1, sp.iter_size), tmajor),
+            chunked_feed(
+                combine_batches(raw_batches, max(1, sp.iter_size), tmajor),
+                start_iter=it, max_iter=max_iter, k=k_loop,
+                boundaries=(display, test_interval if interleave else 0,
+                            snap_every), metrics=pmetrics),
             device, depth=stage_depth(), device_transforms=dxf,
             background=nthreads > 0 and stage_background(device),
-            metrics=pmetrics)
+            metrics=pmetrics, chunked=True)
         if self.mesh is not None:
             pmetrics.set_info("mesh", self.mesh.describe())
         route = ((lambda: flash_mesh(self.mesh)) if self.mesh is not None
@@ -296,18 +309,29 @@ class MiniCluster:
             with profile_trace(args.profile):
                 while it < max_iter and not self._stop:
                     t_wait = time.perf_counter()
-                    batch = next(gen, None)
-                    if batch is None:
+                    item = next(gen, None)
+                    if item is None:
                         break
+                    n, batch = item
                     pmetrics.add("queue_wait", time.perf_counter() - t_wait)
                     t_step = time.perf_counter()
                     with route():
-                        loss, out = solver.train_step(
-                            params, st, cast_inputs(net, batch))
+                        if n == 1:
+                            loss, out = solver.train_step(
+                                params, st, cast_inputs(net, batch))
+                        else:
+                            # chunks end on display boundaries: the last
+                            # step's values are this iteration's
+                            loss, out = many(params, st,
+                                             cast_inputs(net, batch))
+                            loss, out["lr"] = loss[-1], out["lr"][-1]
                     it = st.iter
-                    pmetrics.add("step", time.perf_counter() - t_step)
-                    pmetrics.mark_step()
-                    timer.tick(1)
+                    if n == 1:
+                        pmetrics.add("step", time.perf_counter() - t_step)
+                        pmetrics.mark_step()
+                    else:
+                        pmetrics.add_chunk(n, time.perf_counter() - t_step)
+                    timer.tick(n)
                     if display and it % display == 0:
                         loss_f = float(loss)
                         lr_now = float(out["lr"])

@@ -43,14 +43,18 @@ fallback from a kernel to its plain version.
 
 Each wrapper adds one to `launch_counts[name]` per kernel launch (and
 to `launch_counts_by_dtype[(name, dtype)]`), so a run can show that its
-main path went through the kernels, and in which mode.
+main path went through the kernels, and in which mode.  Under CUDA graph
+capture a wrapper runs in Python once while nothing launches; the
+capture's counts are taken out of the totals (`captured_launches`) and
+added back once per replay (`count_replays`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +91,41 @@ def _count(name: str, dtype: torch.dtype) -> None:
     with _count_lock:
         launch_counts[name] += 1
         launch_counts_by_dtype[key] = launch_counts_by_dtype.get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[dict]:
+    """Around a CUDA graph capture: yields a dict that holds, on exit,
+    the launches the capture recorded (`counts`, `by_dtype`), and puts
+    the totals back as they were before it (a capture runs nothing)."""
+    with _count_lock:
+        before = dict(launch_counts)
+        before_dt = dict(launch_counts_by_dtype)
+    rec: dict = {}
+    try:
+        yield rec
+    finally:
+        with _count_lock:
+            rec["counts"] = {k: v - before[k]
+                             for k, v in launch_counts.items()
+                             if v != before[k]}
+            rec["by_dtype"] = {k: v - before_dt.get(k, 0)
+                               for k, v in launch_counts_by_dtype.items()
+                               if v != before_dt.get(k, 0)}
+            launch_counts.update(before)
+            launch_counts_by_dtype.clear()
+            launch_counts_by_dtype.update(before_dt)
+
+
+def count_replays(rec: dict, times: int = 1) -> None:
+    """Add a captured graph's launches (`captured_launches`) `times`
+    times: one per replay."""
+    with _count_lock:
+        for k, v in rec.get("counts", {}).items():
+            launch_counts[k] += v * times
+        for k, v in rec.get("by_dtype", {}).items():
+            launch_counts_by_dtype[k] = (launch_counts_by_dtype.get(k, 0)
+                                         + v * times)
 
 
 def _check_status(name: str, status: int) -> None:

@@ -28,12 +28,16 @@ solver is refused before the first step.
 
 With COS_METRICS_FLUSH_S > 0 the metrics summary is also flushed to
 `<output>/metrics.json` every that many seconds while the processor
-runs.  The fused multi-step loop, the chaos injectors and the
+runs.  With COS_STEPS_PER_LOOP=K > 1 the solver thread takes K steps a
+chunk (`chunked_feed`, `Solver.train_step_many`: one CUDA graph replay
+on a card), with single steps up to each validation and snapshot
+boundary, so both keep their iterations.  The chaos injectors and the
 observability server wait for later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -48,9 +52,11 @@ import torch
 from . import checkpoint
 from .config import Config
 from .data.queue_runner import (DROP_LIMIT_DEFAULT, DROPPED, FeedQueue,
-                                TransformerPool, combine_batches,
-                                device_prefetch, stage_background,
-                                stage_depth, transform_threads)
+                                TransformerPool, chunked_feed,
+                                combine_batches, device_prefetch,
+                                stage_background, stage_depth,
+                                steps_per_loop, transform_threads,
+                                tune_decode_threads)
 from .data.source import STOP_MARK, DataSource, get_source
 from .metrics import PipelineMetrics, maybe_start_flusher
 from .ops.layers import flash_mesh
@@ -348,6 +354,7 @@ class CaffeProcessor:
             dxf = src.enable_device_transform(solver.train_net.dtype)
             nthreads = transform_threads()
             if nthreads > 0:
+                tune_decode_threads(src, nthreads)
                 self._train_pool = self._pool(0, src, nthreads, val=False)
                 batches = iter(self._train_pool)
                 if validate:
@@ -360,38 +367,63 @@ class CaffeProcessor:
             tmajor = frozenset(
                 n for n, _, kind in solver.train_net.input_specs
                 if kind.endswith(":T"))
-            gen = device_prefetch(
+            # COS_STEPS_PER_LOOP=K > 1: chunks of K steps, one CUDA graph
+            # replay each on a card (Solver.train_step_many), cut into
+            # single steps before each boundary this loop acts on: the
+            # validation interval and the snapshot cadence (JAX
+            # processor.py:426-447).  Display lines need no boundary:
+            # each step's loss is in the chunk's output
+            k_loop = steps_per_loop()
+            many = solver.train_step_many(k_loop) if k_loop > 1 else None
+            feed = chunked_feed(
                 combine_batches(batches, max(1, sp.iter_size), tmajor),
-                solver.device, depth=stage_depth(), device_transforms=dxf,
+                start_iter=st.iter, max_iter=sp.max_iter, k=k_loop,
+                boundaries=(test_interval if validate else 0, snap),
+                metrics=m)
+            gen = device_prefetch(
+                feed, solver.device, depth=stage_depth(),
+                device_transforms=dxf, chunked=True,
                 background=nthreads > 0 and stage_background(solver.device),
                 metrics=m)
+            route = ((lambda: flash_mesh(self.mesh)) if self.mesh is not None
+                     else contextlib.nullcontext)
             while st.iter < sp.max_iter:
                 t_wait = time.perf_counter()
-                inputs = next(gen, None)
-                if inputs is None:
+                item = next(gen, None)
+                if item is None:
                     break
+                n, inputs = item
                 m.add("queue_wait", time.perf_counter() - t_wait)
                 m.gauge("feed_depth", len(self.queues[0]))
                 t_step = time.perf_counter()
-                if self.mesh is None:
-                    loss, out = solver.train_step(params, st, inputs)
-                else:
-                    with flash_mesh(self.mesh):
+                with route():
+                    if n == 1:
                         loss, out = solver.train_step(params, st, inputs)
+                        losses, lrs = [loss], [float(out["lr"])]
+                    else:
+                        loss_k, out = many(params, st, inputs)
+                        losses, lrs = list(loss_k.unbind()), \
+                            out["lr"].tolist()
                 now = time.perf_counter()
-                m.add("step", now - t_step)
-                m.mark_step()
-                self.train_log.append((st.iter, loss, float(out["lr"]),
-                                       now))
-                shown = display and st.iter % display == 0
+                if n == 1:
+                    m.add("step", now - t_step)
+                    m.mark_step()
+                else:
+                    m.add_chunk(n, now - t_step)
+                first = st.iter - n + 1
+                for i in range(n):
+                    self.train_log.append((first + i, losses[i], lrs[i],
+                                           now))
+                shown = [it for it in range(first, st.iter + 1)
+                         if display and it % display == 0]
                 snapped = snap and st.iter % snap == 0
                 if shown or snapped or \
                         len(self.train_log) - self._folded >= LOSS_FOLD_MAX:
                     self._fold_losses()
-                if shown:
-                    _LOG.info("Iteration %d, loss = %.6g, lr = %.6g",
-                              st.iter, self.train_log[-1][1],
-                              float(out["lr"]))
+                for it in shown:
+                    _, loss_f, lr_f, _ = self.train_log[it - st.iter - 1]
+                    _LOG.info("Iteration %d, loss = %.6g, lr = %.6g", it,
+                              loss_f, lr_f)
                 if validate and st.iter % test_interval == 0:
                     self._run_validation(eval_fwd, params, test_iter)
                 if snapped:

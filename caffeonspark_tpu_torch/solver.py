@@ -42,11 +42,12 @@ explicit (no-ops in f32).
 
 from __future__ import annotations
 
+import functools
 import logging
 import operator
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -198,6 +199,10 @@ class Solver:
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed) + rank)
         self._lr_mults, self._decay_mults = self._collect_mults()
+        # the distinct lr_mult values: one update factor each a step
+        self._mult_values = sorted({m for bl in self._lr_mults.values()
+                                    for m in bl.values()})
+        self._many: Dict[int, object] = {}
 
     # ------------------------------------------------------------------
     def _collect_mults(self) -> Tuple[Dict, Dict]:
@@ -292,18 +297,42 @@ class Solver:
         return loss_sum, osum, grads_p
 
     # ------------------------------------------------------------------
+    def update_scalars(self, lr: torch.Tensor, it: int) -> List[float]:
+        """The factor of each distinct lr_mult's update in the step from
+        iteration `it` to it + 1, as exact f32 values: lr x lr_mult (f32,
+        as JAX's lr * mult), and under Adam that times the bias
+        correction sqrt(1 - b2^(it+1)) / (1 - b1^(it+1)), computed in f32
+        as the JAX package computes it."""
+        out = []
+        it1 = _f32(float(it + 1))
+        for mult in self._mult_values:
+            local = float(lr * mult)
+            if self.solver_type == "ADAM":
+                b1, b2 = self.param.momentum, self.param.momentum2
+                corr = (torch.sqrt(1.0 - torch.pow(_f32(b2), it1))
+                        / (1.0 - torch.pow(_f32(b1), it1)))
+                local = float(_f32(local) * corr)      # f32 product
+            out.append(local)
+        return out
+
     @torch.no_grad()
     def apply_update(self, params: Params, grads: Params, state: OptState,
-                     lr: torch.Tensor) -> None:
+                     lr: torch.Tensor, scalars=None) -> None:
         """Caffe's ApplyUpdate, in place on params and state: clip, then
         regularize, then the solver type's rule (JAX solver.py:222-303,
-        in the same operation order)."""
+        in the same operation order).  `scalars` (update_scalars' values,
+        one per distinct lr_mult) may be given instead of being computed
+        from `lr` and state.iter: a CUDA graph passes a device row of
+        them, filled before each replay, since a Python float would be
+        frozen into the graph at its capture value."""
         sp = self.param
         momentum = sp.momentum
         wd = sp.weight_decay
         l1 = sp.regularization_type == "L1"
         t = self.solver_type
-        it1 = _f32(float(state.iter + 1))
+        if scalars is None:
+            scalars = self.update_scalars(lr, state.iter)
+        slot = {m: i for i, m in enumerate(self._mult_values)}
 
         if sp.clip_gradients > 0:
             thresh = sp.clip_gradients / max(1, int(sp.iter_size))
@@ -326,8 +355,8 @@ class Solver:
                     g = g + _w(wd * dm, r) * r
                 h = state.history[ln][bn]
                 h2 = state.history2[ln][bn]
-                # f32, as JAX's lr * mult; held as its exact float
-                local_lr = float(lr * self._lr_mults[ln][bn])
+                # f32, as JAX's lr * mult (times Adam's correction)
+                local_lr = scalars[slot[self._lr_mults[ln][bn]]]
                 if t == "SGD":
                     upd = _bin(add, _lr_mul(local_lr, g),
                                _w(momentum, h) * h)
@@ -365,10 +394,7 @@ class Solver:
                     h_n = _bin(add, _w(b1, h) * h, _w(1 - b1, g) * g)
                     h2_n = _bin(add, _w(b2, h2) * h2,
                                 _w(1 - b2, g) * g * g)
-                    corr = (torch.sqrt(1.0 - torch.pow(_f32(b2), it1))
-                            / (1.0 - torch.pow(_f32(b1), it1)))
-                    lr_corr = float(_f32(local_lr) * corr)   # f32 product
-                    w2 = _bin(sub, w, _bin(div, _lr_mul(lr_corr, h_n),
+                    w2 = _bin(sub, w, _bin(div, _lr_mul(local_lr, h_n),
                                            torch.sqrt(h2_n)
                                            + _w(sp.delta, h2_n)))
                 # in place; each blob and history keeps its own dtype
@@ -391,6 +417,39 @@ class Solver:
         outputs["lr"] = lr
         return loss, outputs
 
+    def train_step_many(self, k: int):
+        """`fn(params, state, stacked) -> (losses, outputs)`: k solver
+        steps over a stacked (k, batch...) block (axis 0 the chunk axis;
+        time-major inputs become (k, T, B, ...)), in place on params and
+        state, like k `train_step` calls; `losses` and every output come
+        back stacked (k, ...), `outputs["lr"][i]` being step i's learning
+        rate (JAX solver.py:433-485, `build_train_step_many`).
+
+        On a card the k steps are one CUDA graph (`GraphedSteps`):
+        forward, gradients, clipping, iter_size accumulation and the
+        update, replayed once a block.  On the CPU they are k eager
+        `train_step` calls, the plain version.  Cached per k."""
+        if k < 1:
+            raise ValueError(f"steps-per-loop k must be >= 1, got {k}")
+        fn = self._many.get(k)
+        if fn is None:
+            fn = self._many[k] = (GraphedSteps(self, k)
+                                  if self.device.type == "cuda"
+                                  else functools.partial(self._eager_many,
+                                                         k))
+        return fn
+
+    def _eager_many(self, k: int, params: Params, state: OptState,
+                    stacked: Dict[str, torch.Tensor]):
+        losses, outs = [], []
+        for i in range(k):
+            loss, out = self.train_step(params, state,
+                                        {n: v[i] for n, v in stacked.items()})
+            losses.append(loss)
+            outs.append(out)
+        return torch.stack(losses), {n: torch.stack([o[n] for o in outs])
+                                     for n in outs[0]}
+
     def eval_step_fn(self):
         """Validation forward, made by the serving path's
         `make_forward_fn` (serving/forward.py), as in the JAX package."""
@@ -399,3 +458,136 @@ class Solver:
         from .serving.forward import make_forward_fn
         return make_forward_fn(self.test_net,
                                tuple(self.test_net.output_blobs))
+
+
+class GraphedSteps:
+    """k solver steps as one CUDA graph: `Solver.train_step_many` on a
+    card.
+
+    The first block of each input signature (shapes, dtypes and the
+    attention's mesh) runs as k eager steps on the graph's stream: the
+    warm-up that builds the kernels, picks cuDNN's algorithms and
+    allocates the cuBLAS workspace before any capture, and a real chunk
+    of the run.  The next block captures the k steps (a capture runs
+    nothing, so params, state and the dropout generator do not move)
+    and replays the graph; each later block is copied into the graph's
+    static (k, ...) inputs and replayed.
+
+    What a graph would freeze at its capture values is read from device
+    buffers filled on the host before each replay: each step's update
+    factors (`Solver.update_scalars`, the eager step's exact f32 values,
+    so `x * factor` on the card gives the eager product).  The dropout
+    generator is registered with the graph, which then advances its
+    offset by k steps' draws a replay, so the replays draw what k eager
+    steps draw.  The kernels' launches recorded at capture count once a
+    replay (`kernels.count_replays`).  The capture restricts this thread
+    alone (`capture_error_mode="thread_local"`): the feeder, the pack
+    pool and the stager keep running.  A failed capture raises: nothing
+    runs eagerly in its place.  A graph is bound to the params and state
+    tensors it was captured on; a block given other tensors is captured
+    anew."""
+
+    def __init__(self, solver: "Solver", k: int):
+        self.solver = solver
+        self.k = k
+        self.stream = torch.cuda.Stream(solver.device)
+        self._warm: set = set()
+        self._graphs: Dict[tuple, dict] = {}
+        self.captures = 0
+        self.replays = 0
+
+    @staticmethod
+    def _key(stacked: Dict[str, torch.Tensor]) -> tuple:
+        from .ops.layers import _mesh_stack
+        return (tuple((n, tuple(v.shape), v.dtype)
+                      for n, v in sorted(stacked.items())),
+                tuple(id(m) for m in _mesh_stack()))
+
+    @staticmethod
+    def _ptrs(params: Params, state: OptState) -> tuple:
+        return tuple(t.data_ptr() for tree in (params, state.history,
+                                               state.history2)
+                     for bl in tree.values() for t in bl.values())
+
+    def __call__(self, params: Params, state: OptState,
+                 stacked: Dict[str, torch.Tensor]):
+        key = self._key(stacked)
+        if key not in self._warm:
+            cur = torch.cuda.current_stream(self.solver.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
+                losses, out = self.solver._eager_many(self.k, params, state,
+                                                      stacked)
+            cur.wait_stream(self.stream)
+            for t in (losses, *out.values()):
+                if t.is_cuda:
+                    t.record_stream(cur)
+            self._warm.add(key)
+            return losses, out
+        ptrs = self._ptrs(params, state)
+        g = self._graphs.get(key)
+        if g is None or g["ptrs"] != ptrs:
+            g = self._graphs[key] = self._capture(params, state, stacked,
+                                                  ptrs)
+        return self._replay(g, state, stacked)
+
+    def _capture(self, params: Params, state: OptState,
+                 stacked: Dict[str, torch.Tensor], ptrs: tuple) -> dict:
+        from .ops import kernels as K
+        s = self.solver
+        static_in = {n: torch.empty_like(v) for n, v in stacked.items()}
+        scalars = torch.zeros((self.k, len(s._mult_values)),
+                              dtype=torch.float32, device=s.device)
+        graph = torch.cuda.CUDAGraph()
+        if any(lp.type == "Dropout" for lp in s.train_net.compute_layers):
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    "COS_STEPS_PER_LOOP > 1 with Dropout needs "
+                    "torch.cuda.CUDAGraph.register_generator_state (the "
+                    f"dropout generator in the graph); torch "
+                    f"{torch.__version__} has none")
+            graph.register_generator_state(s.generator)
+        it0 = state.iter
+        try:
+            # thread_local: the capture forbids unsafe CUDA calls on
+            # this thread only; the ingest threads go on pinning host
+            # memory and staging batches on their own streams meanwhile
+            with K.captured_launches() as launches, \
+                    torch.cuda.graph(graph, stream=self.stream,
+                                     capture_error_mode="thread_local"):
+                losses, outs = [], []
+                for i in range(self.k):
+                    loss, out, grads = s.loss_and_grads(
+                        params, {n: v[i] for n, v in static_in.items()})
+                    s.apply_update(params, grads, state, None,
+                                   scalars=scalars[i])
+                    losses.append(loss)
+                    outs.append(out)
+                loss_out = torch.stack(losses)
+                outputs = {n: torch.stack([o[n] for o in outs])
+                           for n in outs[0]}
+        finally:
+            state.iter = it0          # the capture ran no step
+        self.captures += 1
+        return dict(graph=graph, inputs=static_in, scalars=scalars,
+                    loss=loss_out, outputs=outputs, launches=launches,
+                    ptrs=ptrs)
+
+    def _replay(self, g: dict, state: OptState,
+                stacked: Dict[str, torch.Tensor]):
+        from .ops import kernels as K
+        s = self.solver
+        for n, v in stacked.items():
+            g["inputs"][n].copy_(v)
+        lrs = [learning_rate(s.param, state.iter + i) for i in range(self.k)]
+        host = torch.tensor([s.update_scalars(lr, state.iter + i)
+                             for i, lr in enumerate(lrs)],
+                            dtype=torch.float32).pin_memory()
+        g["scalars"].copy_(host, non_blocking=True)
+        g["graph"].replay()
+        K.count_replays(g["launches"])
+        self.replays += 1
+        state.iter += self.k
+        outputs = {n: v.clone() for n, v in g["outputs"].items()}
+        outputs["lr"] = torch.stack(lrs)
+        return g["loss"].clone(), outputs

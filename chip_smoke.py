@@ -11,7 +11,10 @@ or the package is not importable, and when any phase fails.  Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (nvcc, all sources at once), with
-     each flash kernel's registers and spills from `-Xptxas -v`;
+     each flash kernel's registers and spills from `-Xptxas -v`, and
+     beside it the native ingest library from native/ (g++: the byte
+     moves, and the libjpeg decoders where the machine has libjpeg); a
+     line says whether libjpeg, cv2 and PIL are there;
   3. each kernel against its plain PyTorch version on the card: the
      forward kernels at the serving path's B=64 shapes (f32, and bf16
      for the LRN kernels) and at the training path's B=256 shapes, the
@@ -62,12 +65,19 @@ or the package is not importable, and when any phase fails.  Phases:
      COS_FUSE_BIAS_RELU_LRN=1) each launched 2 x max_iter times; median
      step time and images/s over steps 3-8; then the ingest runs:
      CaffeNet for 32 steps without snapshots at COS_TRANSFORM_THREADS=0,
-     at the default 2 and at 2 with COS_DEVICE_TRANSFORM=1 (cuDNN
+     at the default 2, at 2 with COS_DEVICE_TRANSFORM=1 (the native
+     crop/mirror) and at 2 with COS_DEVICE_TRANSFORM=1 COS_NATIVE=0 (the
+     numpy crop) and at 2 with COS_DEVICE_TRANSFORM=1
+     COS_STEPS_PER_LOOP=4 (CUDA graphs of 4 steps) (cuDNN
      deterministic): the first 4 packed batches bit-equal between 0 and
-     2 threads, the device stage (run on the card) within 1e-5 of the
-     host transform, every step's loss within 1e-5 relative across the
-     three; for each the median step interval over steps 3-8 and the
-     steady step time over steps 9-32, images/s and p50 pack;
+     2 threads and across the device-transform runs, the device stage
+     (run on the card) within 1e-5 of the host transform, every step's
+     loss within 1e-5 relative across the five;
+     for each the median step interval over steps 3-8 and the steady
+     step time over steps 9-32, images/s and p50 pack; the native
+     crop/mirror at (256, 3, 256, 256), crop 227, bit-equal to the numpy
+     host stage, both timed; the feeder's rate (LMDB read and Datum
+     parse on one thread);
      validating training: the stock train_val shape, a TEST data layer
      of B=50 (center crop 227, mean_value) on a second LMDB of 100
      seeded records, the solver cut to max_iter 8, test_interval 4,
@@ -134,12 +144,33 @@ or the package is not importable, and when any phase fails.  Phases:
      -mesh 1,1,4 -dtype mixed for
      MC_ITERS_SP steps (K9, K7, K8 in bf16) and one sp mixed step
      against the single-device mixed step and the all-plain step;
- 20. a `kernels` JSON line: launches on the serving, image-net training,
+ 20. encoded records: an LMDB of 512 seeded 3x256x256 images encoded as
+     JPEG with the machine's encoder (cv2, else PIL); CaffeNet -train on
+     it for 8 steps (first loss near ln 1000, every loss finite, K1 / K2
+     16 launches each), one batch's decode timed, the uint8 decode equal
+     to the float decode cast; without libjpeg the native decoder's
+     refusal naming it (the records then go through cv2); without an
+     encoder, the refusal of an encoded record naming what is missing;
+ 21. COS_STEPS_PER_LOOP=4: the LM through mini_cluster in float32, mixed
+     and bfloat16 for 8 steps (display 4: an eager warm-up chunk, then
+     the captured CUDA graph's replay; K6-K8 16 launches each, replays
+     counted), each final model bit-equal to phase 19's K=1 run; per
+     dtype 5 synchronized direct chunks (a step = chunk / 4) and one
+     replayed chunk under torch.profiler; sp4 mixed at K=2 for 4 steps
+     against the same run at K=1 (final models bit-equal);
+ 22. validating CaffeNet through the CLI at COS_STEPS_PER_LOOP=4 and 1,
+     16 steps, test_interval 8, snapshot 6 (the chunks 4, 1, 1, 1, 1, 4,
+     4), cuDNN deterministic: losses, validation rounds and launches
+     equal, the snapshots at 6 and 12 and the final model byte-equal;
+     then 5 synchronized direct CaffeNet steps (f32, B=256) against 5
+     synchronized graphed chunks of 4;
+ 23. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
-     training, head_dim-256 and -512 LM training and mini_cluster paths
-     (those by dtype), and the numbers of phase 3; a `ptxas` line; then
-     the card line again;
- 21. the device line, last: {"ok": true, "device": {...}}.
+     training, head_dim-256 and -512 LM training, mini_cluster (those by
+     dtype; graphed runs included), encoded and graphed CaffeNet paths,
+     and the numbers of phase 3; a `ptxas` line; then the card line
+     again;
+ 24. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1283,7 +1314,8 @@ VAL_B, VAL_RECORDS, VAL_ROUNDS, VAL_ITER = 50, 100, 2, 2
 INGEST_BATCHES = 4     # packed batches held equal across ingest settings
 # the ingest runs: steps 3-8 as the other image-net runs, and the steady
 # rate over steps 9-32, after the pool's window of batches packed ahead
-# of the first step is spent; no snapshot in the way
+# of the first step is spent, between the loss log's syncs at 8 and 32
+# (a display every 8 steps); no snapshot in the way
 INGEST_ITERS, STEADY_FROM = 32, 8
 MEAN_VALUE = [104.0, 117.0, 123.0]
 
@@ -1312,14 +1344,17 @@ def write_train_data(workdir: str, name="train_lmdb", n=512,
 
 
 def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int,
-                       test_lmdb: str = "", ingest: bool = False) -> str:
+                       test_lmdb: str = "", ingest: bool = False,
+                       suffix: str = "") -> str:
     """train_val-style prototxts: the zoo's full-width net on an LMDB
     MemoryData layer (B=256, random 227 crop, mirror, mean_value) and
     the bvlc_reference_caffenet solver cut to max_iter 8.  With
     `test_lmdb`, the stock train_val shape: the data layer at TRAIN and
     a TEST one on `test_lmdb` (B=50, center crop 227, mean_value), and
     the solver validates (VAL_SOLVER); the net is renamed <name>Val.
-    With `ingest`, INGEST_ITERS steps and no snapshot (<name>Ingest)."""
+    With `ingest`, INGEST_ITERS steps, no snapshot and a display every
+    STEADY_FROM steps, where the loss log syncs (<name>Ingest);
+    `suffix` renames the net (and its files) <name><suffix>."""
     from caffeonspark_tpu_torch.net import Net
     from caffeonspark_tpu_torch.proto import (NetParameter, NetState,
                                               NetStateRule, Phase,
@@ -1334,6 +1369,7 @@ def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int,
         crop_size=227, mirror=True, mean_value=MEAN_VALUE)
     if ingest:
         npm.name += "Ingest"
+    npm.name += suffix
     if test_lmdb:
         npm.name += "Val"
         test = data.clone()
@@ -1360,7 +1396,8 @@ def write_train_config(workdir: str, zoo_fn, lmdb: str, seed: int,
             net=net_path, max_iter=INGEST_ITERS if ingest else TRAIN_ITERS,
             snapshot=0 if ingest else 4,
             after="false" if ingest else "true", name=name, seed=seed,
-            extra=VAL_SOLVER if test_lmdb else ""))
+            extra=(VAL_SOLVER if test_lmdb else "")
+            + (f"display: {STEADY_FROM}\n" if ingest else "")))
     return solver_path
 
 
@@ -1446,10 +1483,30 @@ def captured_batches(n):
         processor.combine_batches = real
 
 
+@contextlib.contextmanager
+def synced_folds():
+    """(steps logged, host time) just after each fold of the processor's
+    loss log, which synchronizes with the card: there the device has
+    finished every step logged."""
+    from caffeonspark_tpu_torch.processor import CaffeProcessor
+    real = CaffeProcessor._fold_losses
+    marks = []
+
+    def fold(self):
+        real(self)
+        marks.append((len(self.train_log), time.perf_counter()))
+
+    CaffeProcessor._fold_losses = fold
+    try:
+        yield marks
+    finally:
+        CaffeProcessor._fold_losses = real
+
+
 def train_phase(K, label, solver_path, env, outdir, kernels,
                 device="cuda", per_step=TRAIN_B, unit="images",
                 launches_each=2 * TRAIN_ITERS, args=(), expect=None,
-                rounds=0, capture=0, iters=TRAIN_ITERS):
+                rounds=0, capture=0, iters=TRAIN_ITERS, steady=False):
     """-train through caffe_on_spark.main (with the extra CLI `args`)
     with the counts zeroed just before and read just after; checks
     losses, snapshots and that each of `kernels` launched `launches_each`
@@ -1457,9 +1514,9 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     that validation.json holds that many rounds of finite accuracy and
     loss.  `per_step` `unit`s (images, tokens) make one step.  With
     `capture`, the record keeps that many of the first packed batches
-    under "batches".  `iters` other than TRAIN_ITERS: a run without
-    snapshots, whose record adds the steady step time over the steps
-    after STEADY_FROM."""
+    under "batches".  `iters` other than TRAIN_ITERS: a run without the
+    snapshot checks; with `steady`, the record adds the steady step time
+    over the steps after STEADY_FROM, between the loss log's syncs."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark
     shutil.rmtree(outdir, ignore_errors=True)
@@ -1468,7 +1525,7 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     K.reset_launch_counts()
     t0 = time.monotonic()
     with env_set({**env, "COS_PIPELINE_METRICS": metrics_path}), \
-            captured_batches(capture) as batches:
+            captured_batches(capture) as batches, synced_folds() as folds:
         rc = caffe_on_spark.main(["-conf", solver_path, "-train",
                                   "-output", outdir, "-device", device,
                                   *args])
@@ -1510,9 +1567,12 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
                       for i in range(2, min(len(t), TRAIN_ITERS)))
     med = steps_ms[len(steps_ms) // 2]
     st = m["stages"]
+    # the steps of a COS_STEPS_PER_LOOP chunk share one timestamp: a
+    # median interval of 0 reads no rate
     res = dict(label=label, wall_s=wall_s, losses=losses, lr=tr["lr"],
                step_interval_ms=steps_ms, median_step_ms=med,
-               **{f"{unit}_per_s": 1e3 * per_step / med},
+               **{f"{unit}_per_s": 1e3 * per_step / med if med > 0
+                  else None},
                pack_ms_p50=st["pack"]["p50_ms"],
                dispatch_ms_p50=st["step"]["p50_ms"],
                queue_wait_ms_p50=st["queue_wait"]["p50_ms"],
@@ -1520,10 +1580,16 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
                launches=counts)
     if validation is not None:
         res["validation"] = validation
-    if iters > TRAIN_ITERS:
-        steady = 1e3 * (t[-1] - t[STEADY_FROM - 1]) / (iters - STEADY_FROM)
-        res.update(steady_step_ms=steady,
-                   **{f"steady_{unit}_per_s": 1e3 * per_step / steady})
+    if steady:
+        # from the sync after step STEADY_FROM to the sync after the last
+        # step (a display every STEADY_FROM steps): device-finished steps
+        at = {n: ts for n, ts in folds}
+        check(STEADY_FROM in at and iters in at,
+              f"{label}: no synchronized fold at steps {STEADY_FROM} and "
+              f"{iters} ({sorted(at)})")
+        ms = 1e3 * (at[iters] - at[STEADY_FROM]) / (iters - STEADY_FROM)
+        res.update(steady_step_ms=ms,
+                   **{f"steady_{unit}_per_s": 1e3 * per_step / ms})
     if capture:
         check(len(batches) == capture,
               f"{label}: {len(batches)} batches captured of {capture}")
@@ -1531,13 +1597,13 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     log(f"  {label}: -train of {iters} steps in {wall_s:.1f} s; "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"steps 3-{TRAIN_ITERS}: "
-        f"median {med:.1f} ms ({res[f'{unit}_per_s']:.0f} {unit}/s), "
+        f"median {med:.1f} ms ({res[f'{unit}_per_s'] or 0:.0f} {unit}/s), "
         f"pack p50 {res['pack_ms_p50']:.1f} ms, step dispatch p50 "
         f"{res['dispatch_ms_p50']:.1f} ms; launches {counts}"
         + (f"; validation {validation}" if validation else "")
         + (f"; steps {STEADY_FROM + 1}-{iters}: {res['steady_step_ms']:.1f}"
            f" ms a step ({res[f'steady_{unit}_per_s']:.0f} {unit}/s)"
-           if iters > TRAIN_ITERS else ""))
+           if steady else ""))
     return res, model
 
 
@@ -1606,21 +1672,26 @@ def eval_phase(K, label, solver_path, model, outdir, mode, kernels,
 
 
 def ingest_checks(torch, solver_path, runs, device="cuda"):
-    """The three ingest settings of CaffeNet -train against each other:
+    """The five ingest settings of CaffeNet -train against each other:
     the first INGEST_BATCHES packed batches bit-equal between 0 and 2
-    pool threads; the device-side transform's uint8 + aux batches, run
+    pool threads, and between the device-side transform's native crop,
+    its numpy crop (COS_NATIVE=0) and its run at COS_STEPS_PER_LOOP=
+    GRAPH_K; its uint8 + aux batches, run
     through its device stage on the card, within 1e-5 of the host
     transform's; every step's loss equal within STEP_LOSS_RTOL."""
     import numpy as np
     from caffeonspark_tpu_torch.config import Config
     from caffeonspark_tpu_torch.data.source import get_source
     from caffeonspark_tpu_torch.data.transformer import DEVICE_AUX_SUFFIX
-    inline, pooled, dx = runs
-    for a, b in zip(inline["batches"], pooled["batches"]):
-        check(sorted(a) == sorted(b) and all(
-            np.array_equal(a[k], b[k]) for k in a),
-            "ingest: a batch packed by the pool differs from the inline "
-            "path's")
+    inline, pooled, dx, dx_numpy, dx_graph = runs
+    for x, y, what in ((inline, pooled, "the pool's and the inline "
+                        "path's"), (dx, dx_numpy, "the native and the "
+                        "numpy (COS_NATIVE=0) crop's"),
+                       (dx, dx_graph, "K=1's and the graphed run's")):
+        for a, b in zip(x["batches"], y["batches"]):
+            check(sorted(a) == sorted(b) and all(
+                np.array_equal(a[k], b[k]) for k in a),
+                f"ingest: packed batches differ: {what}")
     conf = Config(["-conf", solver_path, "-train", "-device", device])
     stage = get_source(conf.train_data_layer(), phase_train=True
                        ).transformer.device_stage_fn()
@@ -1637,12 +1708,13 @@ def ingest_checks(torch, solver_path, runs, device="cuda"):
     check(err <= 1e-5, f"ingest: the device stage differs from the host "
           f"transform by {err:.3g} (tol 1e-5)")
     worst = 0.0
-    for r in (pooled, dx):
+    for r in (pooled, dx, dx_numpy, dx_graph):
         for x, y in zip(inline["losses"], r["losses"]):
             worst = max(worst, abs(x - y) / abs(x))
     check(worst <= STEP_LOSS_RTOL, f"ingest: step losses differ by "
           f"{worst:.3g} relative (tol {STEP_LOSS_RTOL})")
-    log(f"  ingest: {INGEST_BATCHES} batches bit-equal (0 vs 2 threads); "
+    log(f"  ingest: {INGEST_BATCHES} batches bit-equal (0 vs 2 threads; "
+        "native vs numpy crop); "
         f"device stage within {err:.3g} of the host transform; losses "
         f"within {worst:.3g}")
     return dict(batches_equal=INGEST_BATCHES, device_stage_max_abs_err=err,
@@ -1872,9 +1944,11 @@ def loss_vs_f32(net, run, f32):
 
 
 def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
-             env=None, args=(), iters=TRAIN_ITERS, device="cuda"):
+             env=None, args=(), iters=TRAIN_ITERS, device="cuda",
+             display=1):
     """`python -m caffeonspark_tpu_torch.mini_cluster -dtype <dtype>` for
-    `iters` steps with -metrics every step and -pipeline_metrics, the
+    `iters` steps with -metrics every `display` steps (each display step
+    cuts the chunks of COS_STEPS_PER_LOOP) and -pipeline_metrics, the
     counts zeroed just before and read just after: every loss finite,
     the first near ln 1000, the snapshot at 4 (when the run gets there)
     and the final model, each of `kernels` launched `launches_each` times
@@ -1890,7 +1964,7 @@ def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
     with env_set(env or {}):
         rc = mini_cluster.main(
             ["-solver", solver_path, "-output", outdir, "-dtype", dtype,
-             "-metrics", steps_path, "-display_every", "1",
+             "-metrics", steps_path, "-display_every", str(display),
              "-pipeline_metrics", pipe_path, "-iterations", str(iters),
              "-device", device, *args])
     wall_s = time.monotonic() - t0
@@ -1901,11 +1975,12 @@ def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
     with open(steps_path) as f:
         steps = [json.loads(x) for x in f if x.strip()]
     losses = [r["loss"] for r in steps]
-    check([r["iter"] for r in steps] == list(range(1, iters + 1)),
+    check([r["iter"] for r in steps]
+          == list(range(display, iters + 1, display)),
           f"{label}: iterations {[r['iter'] for r in steps]}")
     check(all(math.isfinite(x) for x in losses),
           f"{label}: non-finite loss in {losses}")
-    check(6.0 <= losses[0] <= 8.0,
+    check(display > 1 or 6.0 <= losses[0] <= 8.0,
           f"{label}: first loss {losses[0]:.4f} not near ln 1000")
     name = os.path.basename(solver_path).split("_")[0]
     want_files = [f"{name}_train_iter_{iters}.caffemodel"]
@@ -1927,7 +2002,11 @@ def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
     res = dict(label=label, dtype=dtype, wall_s=wall_s, losses=losses,
                launches=counts, launches_by_dtype=by_dtype,
                dispatch_ms_p50=stages["step"]["p50_ms"],
-               queue_wait_ms_p50=stages["queue_wait"]["p50_ms"])
+               queue_wait_ms_p50=stages["queue_wait"]["p50_ms"],
+               final_model=os.path.join(outdir, want_files[0]))
+    if "scan_step" in stages:
+        res["chunk_ms_p50"] = stages["scan_step"]["p50_ms"]
+        res["chunks"] = stages["scan_step"]["count"]
     log(f"  {label}: mini_cluster -dtype {dtype}, {iters} steps in "
         f"{wall_s:.1f} s; losses {', '.join(f'{x:.4f}' for x in losses)}; "
         f"step dispatch p50 {res['dispatch_ms_p50']:.1f} ms; launches "
@@ -2101,6 +2180,391 @@ def lm_dtype_phase(K, torch, workdir, lm_solver, mesh, device="cuda"):
                 profiles=profiles)
 
 
+# ---------------------------------------------------------------------------
+# phases 20-23: the native ingest library and COS_STEPS_PER_LOOP
+# ---------------------------------------------------------------------------
+
+GRAPH_K = 4              # COS_STEPS_PER_LOOP of the graphed runs
+GRAPH_SP_K = 2           # ... of the sp4 mixed run (4 steps)
+ENCODED_RECORDS = 512
+
+
+def host_libraries() -> dict:
+    """What the machine offers the ingest path: libjpeg (the native
+    decoder builds), cv2 and PIL (with their versions)."""
+    from caffeonspark_tpu_torch import native
+    have = {"libjpeg": native.decode_available()}
+    for mod in ("cv2", "PIL"):
+        try:
+            m = __import__(mod)
+            have[mod] = getattr(m, "__version__", "present")
+        except ImportError:
+            have[mod] = None
+    return have
+
+
+def native_phase(torch, solver_path, ingest_runs):
+    """The native crop/mirror at the training batch's shape, (256, 3,
+    256, 256) uint8, crop 227 and mirror, against the numpy host_stage
+    (COS_NATIVE=0): bit-equal, both timed (median of 5 calls); the
+    feeder's own rate (LMDB read and Datum parse of 512 records on one
+    thread); one uint8 pack (`next_batch` under the device-side
+    transform) timed alone on this thread, native and numpy; and the two
+    device-transform ingest runs (native crop, numpy crop): steady
+    step, images/s and pack p50 of each."""
+    import numpy as np
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.data.transformer import Transformer
+    from caffeonspark_tpu_torch.proto import TransformationParameter
+    tp = TransformationParameter(crop_size=227, mirror=True,
+                                 mean_value=MEAN_VALUE)
+    x = np.random.RandomState(5).randint(0, 256, (TRAIN_B, 3, 256, 256)
+                                         ).astype(np.uint8)
+    out, ms = {}, {}
+    for key, env in (("native", {}), ("numpy", {"COS_NATIVE": "0"})):
+        t = Transformer(tp, phase_train=True, seed=3)
+        times = []
+        with env_set(env):
+            for i in range(6):
+                draw = t.draw(TRAIN_B, 256, 256)
+                t0 = time.perf_counter()
+                u8, aux = t.host_stage(x, draw)
+                times.append(1e3 * (time.perf_counter() - t0))
+                if i == 0:
+                    out[key] = (u8, aux)
+        ms[key] = median(times[1:])
+    check(np.array_equal(out["native"][0], out["numpy"][0])
+          and np.array_equal(out["native"][1], out["numpy"][1]),
+          "native crop_mirror_u8 differs from the numpy host_stage")
+    conf = Config(["-conf", solver_path, "-train", "-device", "cpu"])
+    src = get_source(conf.train_data_layer(), phase_train=True, seed=1)
+    t0 = time.perf_counter()
+    records = list(src.records())
+    feed_s = time.perf_counter() - t0
+    n = len(records)
+    alone = {}     # one uint8 pack (next_batch) with no other thread
+    for key, env in (("native", {}), ("numpy", {"COS_NATIVE": "0"})):
+        with env_set({**env, "COS_DEVICE_TRANSFORM": "1"}):
+            src.enable_device_transform()
+            times = []
+            for i in range(4):
+                t0 = time.perf_counter()
+                src.next_batch(records[i * 64:i * 64 + TRAIN_B]
+                               if i * 64 + TRAIN_B <= n
+                               else records[:TRAIN_B])
+                times.append(1e3 * (time.perf_counter() - t0))
+        alone[key] = median(times[1:])
+    del records
+    runs = {r["label"]: {k: r[k] for k in ("steady_step_ms",
+                                           "steady_images_per_s",
+                                           "pack_ms_p50", "stage_ms_p50")}
+            for r in ingest_runs if "device transform" in r["label"]}
+    res = dict(shape=[TRAIN_B, 3, 256, 256], crop=227, bit_equal=True,
+               native_ms=ms["native"], numpy_ms=ms["numpy"],
+               threads=os.cpu_count(), feeder_records=n,
+               pack_alone_ms=alone,
+               feeder_records_per_s=n / feed_s,
+               feeder_batches_per_s=n / feed_s / TRAIN_B, runs=runs)
+    log(f"  native crop/mirror (256,3,256,256) crop 227: bit-equal to "
+        f"numpy; {ms['native']:.2f} ms against {ms['numpy']:.2f} ms "
+        f"({os.cpu_count()} cores); feeder (LMDB read + Datum parse, one "
+        f"thread): {res['feeder_records_per_s']:.0f} records/s "
+        f"({res['feeder_batches_per_s']:.1f} batches of {TRAIN_B}/s); "
+        f"one uint8 pack alone: {alone['native']:.1f} ms native, "
+        f"{alone['numpy']:.1f} ms numpy; "
+        + "; ".join(f"{k}: {v['steady_step_ms']:.1f} ms a step, pack p50 "
+                    f"{v['pack_ms_p50']:.1f} ms" for k, v in runs.items()))
+    return res
+
+
+def write_encoded_data(workdir: str, have: dict) -> str:
+    """ENCODED_RECORDS seeded 3x256x256 images encoded as JPEG (quality
+    90) with the machine's encoder (cv2, else PIL) in Datums flagged
+    encoded, written with the port's LmdbWriter; None without an
+    encoder."""
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch.data import LmdbWriter
+    from caffeonspark_tpu_torch.proto.caffe import Datum
+    if have["cv2"]:
+        import cv2
+
+        def encode(img):
+            ok, buf = cv2.imencode(".jpg", img,
+                                   [cv2.IMWRITE_JPEG_QUALITY, 90])
+            check(ok, "cv2 could not encode a JPEG")
+            return bytes(buf)
+    elif have["PIL"]:
+        import io
+
+        from PIL import Image
+
+        def encode(img):
+            buf = io.BytesIO()
+            Image.fromarray(img[:, :, ::-1]).save(buf, "JPEG", quality=90)
+            return buf.getvalue()
+    else:
+        return None
+    path = os.path.join(workdir, "encoded_lmdb")
+    shutil.rmtree(path, ignore_errors=True)
+    rng = np.random.RandomState(23)
+    t0 = time.monotonic()
+    recs = []
+    for i in range(ENCODED_RECORDS):
+        img = rng.randint(0, 256, (256, 256, 3), dtype=np.uint8)
+        recs.append((b"%08d" % i, Datum(
+            channels=3, height=256, width=256, encoded=True,
+            data=encode(img), label=int(rng.randint(1000))).to_binary()))
+    LmdbWriter(path).write(recs)
+    size = sum(len(v) for _, v in recs)
+    log(f"  wrote {path}: {ENCODED_RECORDS} JPEG Datums of 3x256x256 "
+        f"({size / 2**20:.1f} MiB, {time.monotonic() - t0:.2f} s)")
+    return path
+
+
+def encoded_phase(K, torch, workdir, have, kernels):
+    """An LMDB of encoded Datums: CaffeNet -train for TRAIN_ITERS steps on
+    it (first loss near ln 1000, every loss finite, K1 / K2 2 x
+    TRAIN_ITERS launches each; counts zeroed before, read after); the
+    decode of one batch timed; uint8 decoding equal to the float decode
+    cast.  Without libjpeg the native decoder must refuse by name (the
+    records then go through cv2); without any encoder, the port must
+    refuse an encoded record by name."""
+    import numpy as np
+    from caffeonspark_tpu_torch import native
+    from caffeonspark_tpu_torch.data.source import (datum_to_record,
+                                                    decode_records)
+    from caffeonspark_tpu_torch.data.lmdb_io import LmdbReader
+    path = write_encoded_data(workdir, have)
+    if path is None:
+        rec = ("r0", 1.0, 3, 8, 8, True, b"\xff\xd8\xff")
+        try:
+            decode_records([rec], 3, 8, 8)
+        except RuntimeError as e:
+            check("libjpeg" in str(e) and "cv2" in str(e),
+                  f"encoded records: refusal {e} names neither libjpeg nor "
+                  "cv2")
+            log(f"  no JPEG encoder here: an encoded record is refused: {e}")
+            return dict(encoder=None, refused=str(e))
+        check(False, "an encoded record was decoded with no decoder")
+    decoder = "native libjpeg" if have["libjpeg"] else "cv2"
+    if not have["libjpeg"]:
+        try:
+            native.decode_batch([b"x"], channels=3, out_h=8, out_w=8)
+            check(False, "native.decode_batch ran without libjpeg")
+        except native.LibjpegMissing as e:
+            check("libjpeg" in str(e), f"refusal {e} does not name libjpeg")
+            log(f"  no libjpeg here: the native decoder refuses by name "
+                f"({str(e)[:80]}...); the records go through cv2")
+    with LmdbReader(path) as r:
+        recs = [datum_to_record(k, v) for k, v in r.items(None, None)]
+    batch = recs[:TRAIN_B]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        f32 = decode_records(batch, 3, 256, 256, dtype=np.float32,
+                             num_threads=0)
+        times.append(1e3 * (time.perf_counter() - t0))
+    u8 = decode_records(batch, 3, 256, 256, dtype=np.uint8, num_threads=0)
+    check(np.array_equal(u8, f32.astype(np.uint8)),
+          "the uint8 decode differs from the float decode cast")
+    from caffeonspark_tpu_torch.models import zoo
+    solver = write_train_config(workdir, zoo.caffenet, path, seed=1,
+                                suffix="Encoded")
+    train, _ = train_phase(
+        K, f"CaffeNet encoded ({decoder})", solver, {},
+        os.path.join(workdir, "caffenet_encoded_out"), kernels)
+    res = dict(encoder="cv2" if have["cv2"] else "PIL", decoder=decoder,
+               decode_batch_ms=median(times), decode_batch=TRAIN_B,
+               u8_equals_float_cast=True, train=train)
+    log(f"  encoded: {decoder} decodes {TRAIN_B} JPEGs of 256x256 in "
+        f"{res['decode_batch_ms']:.1f} ms (median of 3; uint8 = float "
+        "cast)")
+    return res
+
+
+def chunk_block(torch, host, k, device):
+    """A packed host batch stacked k times: the (k, batch...) block of a
+    chunk, on `device`."""
+    import numpy as np
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    return to_device({key: np.stack([v] * k) for key, v in host.items()},
+                     device)
+
+
+def graph_lm_phase(K, torch, workdir, lm_solver, lm_mc, device="cuda"):
+    """The LM through mini_cluster at COS_STEPS_PER_LOOP=GRAPH_K in
+    float32, mixed and bfloat16 (8 steps, display 4: an eager warm-up
+    chunk, then the captured graph's replay; K6-K8 16 launches each,
+    replays counted), final params bit-equal to the K=1 run of the same
+    dtype (phase 19); per dtype 5 synchronized direct chunks (per step =
+    chunk / GRAPH_K) and one replayed chunk under torch.profiler.  Then
+    -mesh 1,1,4 -dtype mixed at COS_STEPS_PER_LOOP=GRAPH_SP_K against
+    the same run at K=1 (4 steps each), final params bit-equal."""
+    from caffeonspark_tpu_torch.mini_cluster import cast_inputs
+    lm_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+    runs, equal, chunks, profiles = {}, {}, {}, {}
+    for dtype in ("float32", "mixed", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = mc_phase(
+            K, f"TransformerLM mini_cluster {dtype} K={GRAPH_K}", lm_solver,
+            dtype, os.path.join(workdir, f"transformerlm_mc_{dtype}_k_out"),
+            lm_kernels, LM["layers"] * TRAIN_ITERS, device=device,
+            env={"COS_STEPS_PER_LOOP": str(GRAPH_K)}, display=GRAPH_K)
+        check(run.get("chunks") == TRAIN_ITERS // GRAPH_K,
+              f"{run['label']}: {run.get('chunks')} chunks")
+        with open(run["final_model"], "rb") as a, \
+                open(lm_mc["runs"][dtype]["final_model"], "rb") as b:
+            equal[dtype] = a.read() == b.read()
+        check(equal[dtype], f"{run['label']}: the final model differs from "
+              "the K=1 run's")
+        runs[dtype] = run
+        solver, host = make_solver(torch, lm_solver, {}, device, dtype)
+        params, state = solver.init()
+        many = solver.train_step_many(GRAPH_K)
+        block = chunk_block(torch, host, GRAPH_K, device)
+
+        def chunk(p, st, inputs, many=many, net=solver.train_net):
+            return many(p, st, cast_inputs(net, inputs))
+
+        for _ in range(2):        # the eager warm-up, the capture
+            chunk(params, state, block)
+        ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chunk(params, state, block)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        check(many.captures == 1 and many.replays == 6,
+              f"graphed {dtype} chunks: {many.captures} captures, "
+              f"{many.replays} replays")
+        chunks[dtype] = dict(chunk_ms=ms, step_ms=median(ms) / GRAPH_K)
+        log(f"  TransformerLM {dtype} K={GRAPH_K}: 5 synchronized graphed "
+            "chunks: " + ", ".join(f"{x:.1f}" for x in ms)
+            + f" ms ({chunks[dtype]['step_ms']:.2f} ms a step; K=1 "
+            f"{lm_mc['direct_step_median_ms'][dtype]:.2f})")
+        profiles[dtype] = profile_train_step(
+            torch, f"TransformerLM {dtype} K={GRAPH_K}", solver, params,
+            state, {k: v.cpu().numpy() for k, v in block.items()},
+            what=f"one graphed chunk of {GRAPH_K} {dtype} LM steps",
+            step=chunk)
+        del solver, params, state, host, block, many, chunk
+    gc.collect()
+    torch.cuda.empty_cache()
+    hops = SP * (SP + 1) // 2
+    sp = {}
+    for k in (GRAPH_SP_K, 1):
+        sp[k] = mc_phase(
+            K, f"TransformerLM mini_cluster sp4 mixed K={k}", lm_solver,
+            "mixed", os.path.join(workdir, f"transformerlm_mc_sp_k{k}_out"),
+            ("flash_block_update", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv"), LM["layers"] * hops * 4,
+            args=("-mesh", f"1,1,{SP}"), iters=4, device=device,
+            env={"COS_STEPS_PER_LOOP": str(k)}, display=GRAPH_SP_K)
+    with open(sp[GRAPH_SP_K]["final_model"], "rb") as a, \
+            open(sp[1]["final_model"], "rb") as b:
+        sp_equal = a.read() == b.read()
+    check(sp_equal, "sp4 mixed: the graphed run's final model differs from "
+          "the K=1 run's")
+    log(f"  sp4 mixed K={GRAPH_SP_K}: final model bit-equal to K=1")
+    return dict(runs=runs, final_params_equal_k1=equal, chunks=chunks,
+                profiles=profiles, sp_run=sp[GRAPH_SP_K], sp_run_k1=sp[1],
+                sp_final_params_equal_k1=sp_equal)
+
+
+GRAPH_SOLVER_CUTS = dict(max_iter=16, test_interval=8, snapshot=6)
+
+
+def graph_caffenet_phase(K, torch, workdir, lmdb, test_lmdb, kernels,
+                         train_solver):
+    """Validating CaffeNet through the CLI at COS_STEPS_PER_LOOP=GRAPH_K
+    and at 1, 16 steps, test_interval 8 (test_iter 2), snapshot 6: the
+    schedule 4, 1, 1, 1, 1, 4, 4 (an eager warm-up chunk, single-step
+    remainders before the snapshot at 6 and the round at 8, then the
+    graph captured and replayed).  cuDNN deterministic: every loss
+    equal, validation.json and the snapshots at 6 and 12 and the final
+    model byte-equal, the same launches (replays counted).  Then on
+    `train_solver`'s CaffeNet (f32, B=256) 5 synchronized direct steps
+    against 5 synchronized direct graphed chunks."""
+    from caffeonspark_tpu_torch.models import zoo
+    base = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
+                              test_lmdb=test_lmdb)
+    with open(base) as f:
+        text = f.read()
+    for key, v in GRAPH_SOLVER_CUTS.items():
+        text = "\n".join(f"{key}: {v}" if line.startswith(f"{key}:")
+                         else line for line in text.splitlines()) + "\n"
+    solver = base.replace("_solver.prototxt", "_graph_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(text)
+    iters = GRAPH_SOLVER_CUTS["max_iter"]
+    val_lrn = 2 * iters + 2 * VAL_ITER * 2
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for k in (GRAPH_K, 1):
+            runs[k], _ = train_phase(
+                K, f"CaffeNet validating K={k}", solver,
+                {"COS_STEPS_PER_LOOP": str(k)},
+                os.path.join(workdir, f"caffenet_graph_k{k}_out"), kernels,
+                expect={kernels[0]: val_lrn, kernels[1]: 2 * iters},
+                rounds=2, iters=iters)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    g, e = runs[GRAPH_K], runs[1]
+    check(g["losses"] == e["losses"], f"graphed CaffeNet losses "
+          f"{g['losses']} differ from K=1's {e['losses']}")
+    check(g["validation"] == e["validation"],
+          "graphed CaffeNet validation.json differs from K=1's")
+    check(g["launches"] == e["launches"], f"graphed CaffeNet launches "
+          f"{g['launches']} differ from K=1's {e['launches']}")
+    name = "caffenetval"
+    files = [f"{name}_train_iter_{i}.{x}" for i in (6, 12)
+             for x in ("caffemodel", "solverstate")] + ["model.caffemodel"]
+    for fname in files:
+        paths = [os.path.join(workdir, f"caffenet_graph_k{k}_out", fname)
+                 for k in (GRAPH_K, 1)]
+        check(all(os.path.exists(p) for p in paths), f"no {fname}")
+        with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+            check(a.read() == b.read(), f"graphed CaffeNet {fname} differs "
+                  "from K=1's")
+    log(f"  CaffeNet K={GRAPH_K} against K=1: losses, validation rounds, "
+        f"launches and {', '.join(files)} equal")
+    gc.collect()
+    torch.cuda.empty_cache()
+    solver_t, host = make_solver(torch, train_solver, {})
+    params, state = solver_t.init()
+    k1 = direct_steps(torch, solver_t, params, state, host)
+    many = solver_t.train_step_many(GRAPH_K)
+    block = chunk_block(torch, host, GRAPH_K, solver_t.device)
+    for _ in range(2):            # the eager warm-up, the capture
+        many(params, state, block)
+    chunk_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        many(params, state, block)
+        torch.cuda.synchronize()
+        chunk_ms.append(1e3 * (time.perf_counter() - t0))
+    direct = dict(k1_step_ms=k1, chunk_ms=chunk_ms,
+                  step_ms=median(chunk_ms) / GRAPH_K)
+    log(f"  CaffeNet B={TRAIN_B} f32: 5 synchronized steps "
+        + ", ".join(f"{x:.1f}" for x in k1) + " ms; 5 synchronized graphed "
+        f"chunks of {GRAPH_K}: " + ", ".join(f"{x:.1f}" for x in chunk_ms)
+        + f" ms ({direct['step_ms']:.2f} ms a step against "
+        f"{median(k1):.2f})")
+    del solver_t, params, state, host, many, block
+    return dict(runs={str(k): v for k, v in runs.items()},
+                schedule=[4, 1, 1, 1, 1, 4, 4], equal_to_k1=True,
+                files_equal=files, direct=direct)
+
+
 def ptxas_report(text: str) -> list:
     """Registers and spills of each flash kernel instantiation, from the
     `-Xptxas -v` output of nvcc (names demangled by c++filt where the
@@ -2159,8 +2623,28 @@ def main(argv) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
+    import threading
+    from caffeonspark_tpu_torch import native
+    built: dict = {}
+
+    def build_native():
+        try:
+            built["report"] = native.build()
+        except Exception as e:       # noqa: BLE001 — checked below
+            built["error"] = e
+
+    g_plus = threading.Thread(target=build_native)
+    g_plus.start()               # g++ beside nvcc
     report = cuda_build.build_all(verbose=True)
     log(f"build: {report['seconds']:.2f} s (built {report['built']})")
+    g_plus.join()
+    check("error" not in built, f"native build failed: {built.get('error')}")
+    check(native.available(), "the native byte moves did not load")
+    have = host_libraries()
+    log(f"native ingest library: built {built['report']['built']} in "
+        f"{built['report']['seconds']:.2f} s; host libraries: libjpeg "
+        f"{'yes' if have['libjpeg'] else 'no'}, cv2 {have['cv2'] or 'no'}, "
+        f"PIL {have['PIL'] or 'no'}")
     for name, text in report["nvcc"].items():
         if text.strip() and name != "flash_attn":
             log(f"--- nvcc {name}.cu ---\n{text.strip()}")
@@ -2230,7 +2714,8 @@ def main(argv) -> int:
 
     log(f"ingest: CaffeNet -train for {INGEST_ITERS} steps at "
         "COS_TRANSFORM_THREADS=0, at the default 2, and at 2 with "
-        "COS_DEVICE_TRANSFORM=1 (cuDNN deterministic, so that the three "
+        "COS_DEVICE_TRANSFORM=1 (native crop; COS_NATIVE=0; "
+        f"COS_STEPS_PER_LOOP={GRAPH_K}) (cuDNN deterministic, so that the "
         "runs' losses can be held equal; counts zeroed before each):")
     ingest_solver = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
                                        ingest=True)
@@ -2241,15 +2726,24 @@ def main(argv) -> int:
             K, f"CaffeNet ingest {what}", ingest_solver, env,
             os.path.join(workdir, f"caffenet_ingest_{key}_out"),
             train_configs[0][3], capture=INGEST_BATCHES,
-            iters=INGEST_ITERS, launches_each=2 * INGEST_ITERS)[0]
+            iters=INGEST_ITERS, launches_each=2 * INGEST_ITERS,
+            steady=True)[0]
             for key, what, env in (
                 ("t0", "threads 0", {"COS_TRANSFORM_THREADS": "0"}),
                 ("t2", "threads 2", {}),
                 ("dx", "threads 2 device transform",
-                 {"COS_DEVICE_TRANSFORM": "1"}))]
+                 {"COS_DEVICE_TRANSFORM": "1"}),
+                ("dxn", "threads 2 device transform COS_NATIVE=0",
+                 {"COS_DEVICE_TRANSFORM": "1", "COS_NATIVE": "0"}),
+                ("dxg", f"threads 2 device transform K={GRAPH_K}",
+                 {"COS_DEVICE_TRANSFORM": "1",
+                  "COS_STEPS_PER_LOOP": str(GRAPH_K)}))]
     finally:
         torch.backends.cudnn.deterministic = deterministic
     ingest = ingest_checks(torch, ingest_solver, ingest_runs)
+    log("native ingest: crop/mirror against numpy at the training batch, "
+        "the feeder's rate:")
+    native_res = native_phase(torch, ingest_solver, ingest_runs)
     ingest["runs"] = {r["label"]: {
         k: r[k] for k in ("median_step_ms", "images_per_s",
                           "steady_step_ms", "steady_images_per_s",
@@ -2408,10 +2902,32 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_mc = lm_dtype_phase(K, torch, workdir, lm_solver, mesh)
+    log(f"encoded records: an LMDB of {ENCODED_RECORDS} JPEG Datums, "
+        "CaffeNet -train on it (counts zeroed before):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoded = encoded_phase(K, torch, workdir, have, train_configs[0][3])
+    log(f"COS_STEPS_PER_LOOP={GRAPH_K}: the LM through mini_cluster as CUDA "
+        "graphs of K steps against K=1 (float32, mixed, bfloat16; sp4 "
+        f"mixed at K={GRAPH_SP_K}), direct and profiled chunks:")
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_lm = graph_lm_phase(K, torch, workdir, lm_solver, lm_mc)
+    log(f"COS_STEPS_PER_LOOP={GRAPH_K}: validating CaffeNet through the CLI "
+        "with single-step remainders, against K=1 (counts zeroed before "
+        "each):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph_cn = graph_caffenet_phase(K, torch, workdir, lmdb, test_lmdb,
+                                    train_configs[0][3], train_configs[0][1])
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_sp4_mixed"] = lm_mc["sp_run"]
     mc_paths["mc_caffenet_state_dtype"] = image_mc["state_dtype"]
+    for dtype, r in graph_lm["runs"].items():
+        mc_paths[f"mc_transformerlm_{dtype}_k{GRAPH_K}"] = r
+    mc_paths[f"mc_transformerlm_sp4_mixed_k{GRAPH_SP_K}"] = graph_lm["sp_run"]
+    mc_paths["mc_transformerlm_sp4_mixed_k1_4steps"] = graph_lm["sp_run_k1"]
 
     lines = []
     for name, meta in KERNELS.items():
@@ -2428,7 +2944,11 @@ def main(argv) -> int:
                    **{f"train_lm_{key}": w["launches"].get(name, 0)
                       for key, w in wide_lms.items()},
                    **{path: r["launches"].get(name, 0)
-                      for path, r in mc_paths.items()}}
+                      for path, r in mc_paths.items()},
+                   **({"encoded": encoded["train"]["launches"].get(name, 0)}
+                      if "train" in encoded else {}),
+                   **{f"graph_caffenet_k{k}": r["launches"].get(name, 0)
+                      for k, r in graph_cn["runs"].items()}}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -2472,6 +2992,9 @@ def main(argv) -> int:
                         f"lm_{key}_train_profile": w["profile"]}))
     log(json.dumps({"mini_cluster_image": image_mc}))
     log(json.dumps({"mini_cluster_lm": lm_mc}))
+    log(json.dumps({"native": native_res, "host_libraries": have,
+                    "encoded": encoded}))
+    log(json.dumps({"graphs": {"lm": graph_lm, "caffenet": graph_cn}}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

@@ -616,3 +616,142 @@ def test_bf16_gemm_accumulates_in_f32_on_card(cuda_card):
     want = (a.double() @ b.double()).to(torch.bfloat16).float()
     ulp = torch.abs(want) * 2.0 ** -7
     assert bool(torch.all(torch.abs(got - want) <= ulp))
+
+
+# ---------------------------------------------------------------------------
+# COS_STEPS_PER_LOOP: k solver steps as one CUDA graph
+# ---------------------------------------------------------------------------
+
+NARROW_CAFFENET = {"conv1": 8, "conv2": 16, "conv3": 16, "conv4": 16,
+                   "conv5": 8, "fc6": 32, "fc7": 32, "fc8": 10}
+
+
+def _graph_case(name, device):
+    """(solver, params, state, blocks of 4 steps' stacked inputs, mesh):
+    a narrow crop-67 CaffeNet (LRN, Dropout; SGD with clip_gradients and
+    iter_size 2) or a small causal transformer_lm (Adam, K6-K8; with
+    `sp` the ring on 4 ranks of the one card: K9, K7, K8)."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.parallel.mesh import build_mesh
+    from caffeonspark_tpu_torch.proto import SolverParameter
+    from caffeonspark_tpu_torch.solver import Solver
+    rng = np.random.RandomState(7)
+    mesh = None
+    if name.startswith("caffenet"):
+        npm = zoo.caffenet(batch_size=4, num_classes=10, crop=67)
+        for lp in npm.layer:
+            if lp.name in NARROW_CAFFENET:
+                p = (lp.convolution_param if lp.type == "Convolution"
+                     else lp.inner_product_param)
+                p.num_output = NARROW_CAFFENET[lp.name]
+        sp = SolverParameter.from_text(
+            'base_lr: 0.01 lr_policy: "step" gamma: 0.5 stepsize: 3 '
+            'momentum: 0.9 weight_decay: 0.0005 clip_gradients: 5 '
+            'iter_size: 2 random_seed: 3')
+        solver = Solver(sp, npm, device=device)
+        blocks = [{"data": torch.from_numpy(
+                       rng.randn(4, 8, 3, 67, 67).astype(np.float32) * 40),
+                   "label": torch.from_numpy(
+                       rng.randint(0, 10, (4, 8)).astype(np.float32))}
+                  for _ in range(3)]
+    else:
+        npm = zoo.transformer_lm(vocab=64, d_model=64, heads=2, layers=2,
+                                 seq=256, batch=2)
+        sp = SolverParameter.from_text(
+            'type: "ADAM" base_lr: 0.001 lr_policy: "inv" gamma: 0.1 '
+            'power: 0.75 momentum: 0.9 momentum2: 0.999 random_seed: 1')
+        dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        compute = torch.bfloat16 if name.endswith("mixed") else None
+        solver = Solver(sp, npm, device=device, dtype=dtype,
+                        compute_dtype=compute)
+        toks = rng.randint(0, 64, (3, 4, 257, 2)).astype(np.float32)
+        blocks = [{"input_sentence": torch.from_numpy(t[:, :-1]),
+                   "target_sentence": torch.from_numpy(t[:, 1:])}
+                  for t in toks]
+        if "sp" in name:
+            mesh = build_mesh(sp=4, devices=[device] * 4)
+    params, state = solver.init()
+    blocks = [{k: v.to(device) for k, v in b.items()} for b in blocks]
+    return solver, params, state, blocks, mesh
+
+
+def _route(mesh):
+    import contextlib
+    from caffeonspark_tpu_torch.ops.layers import flash_mesh
+    return flash_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["caffenet", "lm", "lm_mixed", "lm_bf16",
+                                  "lm_sp_mixed"])
+def test_graphed_steps_equal_eager_steps_on_card(cuda_card, name):
+    """Three blocks of 4 steps through train_step_many(4) (an eager
+    warm-up, a capture and its replay, a replay) against 12 train_step
+    calls from the same init: params, histories, losses and learning
+    rates bit-equal (the dropout draws, clip and iter_size 2, the
+    learning-rate schedule and Adam's correction read from the device
+    buffers), cuDNN deterministic."""
+    torch.backends.cudnn.deterministic = True
+    solver, pa, sa, blocks, mesh = _graph_case(name, cuda_card)
+    want = []
+    with _route(mesh):
+        for b in blocks:
+            for i in range(4):
+                loss, out = solver.train_step(pa, sa,
+                                              {k: v[i] for k, v in b.items()})
+                want.append((loss.item(), float(out["lr"])))
+    solver2, pb, sb, _, _ = _graph_case(name, cuda_card)
+    many = solver2.train_step_many(4)
+    got = []
+    with _route(mesh):
+        for b in blocks:
+            losses, out = many(pb, sb, b)
+            got += list(zip(losses.tolist(), out["lr"].tolist()))
+    assert many.captures == 1 and many.replays == 2
+    assert sa.iter == sb.iter == 12
+    assert got == want
+    for tree_a, tree_b in ((pa, pb), (sa.history, sb.history),
+                           (sa.history2, sb.history2)):
+        for ln in tree_a:
+            for bn in tree_a[ln]:
+                assert torch.equal(tree_a[ln][bn], tree_b[ln][bn]), (ln, bn)
+
+
+@pytest.mark.cuda
+def test_graph_replays_count_their_launches_on_card(cuda_card):
+    """The launches of a graphed chunk count once a replay: 3 blocks of
+    4 steps of the CaffeNet (two LRN layers; iter_size 2) launch K1 and
+    K2 2 x 2 x 12 times each, as 12 eager steps do, and the capture
+    itself adds nothing."""
+    solver, params, state, blocks, _ = _graph_case("caffenet", cuda_card)
+    many = solver.train_step_many(4)
+    K.reset_launch_counts()
+    many(params, state, blocks[0])             # the eager warm-up
+    assert K.launch_counts["lrn_across_channels"] == 16
+    many(params, state, blocks[1])             # capture + one replay
+    assert K.launch_counts["lrn_across_channels"] == 32
+    many(params, state, blocks[2])
+    torch.cuda.synchronize()
+    for name in ("lrn_across_channels", "lrn_across_channels_bwd"):
+        assert K.launch_counts[name] == 48, name
+        assert K.launch_counts_by_dtype[(name, "float32")] == 48, name
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises_on_card(cuda_card, monkeypatch):
+    """A step that syncs with the host cannot be captured: the capture
+    raises, and nothing runs eagerly in its place."""
+    solver, params, state, blocks, _ = _graph_case("caffenet", cuda_card)
+    many = solver.train_step_many(4)
+    many(params, state, blocks[0])
+    real = solver.loss_and_grads
+
+    def syncing(p, inputs):
+        loss, out, grads = real(p, inputs)
+        float(loss)                  # a device-to-host copy
+        return loss, out, grads
+
+    monkeypatch.setattr(solver, "loss_and_grads", syncing)
+    with pytest.raises(RuntimeError):
+        many(params, state, blocks[1])
+    assert state.iter == 4 and many.replays == 0

@@ -83,7 +83,8 @@ def test_table_covers_every_jax_knob():
     (COS_SERVE_ / COS_SYNC_ / COS_DEPLOY_ / COS_FAULT_ are prefixes the
     JAX code scans for; their members are listed one by one)."""
     ported = _port_knobs()
-    assert {"COS_STATE_DTYPE", "COS_METRICS_FLUSH_S"} <= ported
+    assert {"COS_STATE_DTYPE", "COS_METRICS_FLUSH_S", "COS_STEPS_PER_LOOP",
+            "COS_NATIVE"} <= ported
     for name in sorted(_jax_knobs()):
         if name.endswith("_"):
             continue
@@ -92,7 +93,7 @@ def test_table_covers_every_jax_knob():
                                                 "entry"}
     assert {"COS_AUTOTUNE", "COS_SYNC_MODE", "COS_RECORDER_DUMP",
             "COS_METRICS_PORT", "COS_FAULT_DIE_ONCE"} <= set(RESULT)
-    for name in ("COS_STEPS_PER_LOOP", "COS_REMAT", "COS_CONV_LAYOUT",
+    for name in ("COS_CONV_S2D", "COS_REMAT", "COS_CONV_LAYOUT",
                  "COS_STAGE_COPY", "COS_GRAD_SYNC", "COS_ZERO",
                  "COS_FAULT_STEP_DELAY_MS", "COS_FAULT_HOST_KILL"):
         assert name in LOGGED
@@ -126,19 +127,19 @@ def test_result_knob_default_passes(knob, value, monkeypatch):
 
 
 def test_other_knobs_named_in_one_logged_line(caplog):
-    env = {"COS_STEPS_PER_LOOP": "8", "COS_GRAD_SYNC": "bucket",
+    env = {"COS_CONV_S2D": "8", "COS_GRAD_SYNC": "bucket",
            "COS_AS_MAX": "4", "COS_REMAT": "1", "COS_SYNC_MODE": "lockstep",
            "PATH": "/bin"}
     with caplog.at_level(logging.WARNING,
                          logger="caffeonspark_tpu_torch.config"):
         names = config.check_env_knobs(env)
-    assert names == ["COS_AS_MAX", "COS_GRAD_SYNC", "COS_REMAT",
-                     "COS_STEPS_PER_LOOP"]
+    assert names == ["COS_AS_MAX", "COS_CONV_S2D", "COS_GRAD_SYNC",
+                     "COS_REMAT"]
     lines = [r.getMessage() for r in caplog.records]
     assert len(lines) == 1
     for n in names:
         assert n in lines[0]
-    assert "COS_STEPS_PER_LOOP=8 (speed)" in lines[0]
+    assert "COS_CONV_S2D=8 (speed)" in lines[0]
     assert "COS_GRAD_SYNC=bucket (ranks)" in lines[0]
 
 
