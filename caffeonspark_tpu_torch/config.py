@@ -5,10 +5,10 @@ A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
 solver/net prototxt parsing, data-layer location by `include.phase`),
 cut to the flags this package acts on so far: training (`-train`, with
 interleaved validation when the solver asks for it; single process;
-`-mesh` with an sp axis), `-test`, `-features` / `-label`,
-`-outputFormat` and serving.  `-device` picks
-where the net runs: `cuda` (the default) or `cpu`; a mesh's ranks all
-sit on that device.
+`-mesh` with an sp axis; `-async_snapshot`), `-test`, `-features` /
+`-label`, `-outputFormat` and serving.  `-device` picks where the net
+runs: `cuda` (the default) or `cpu`; a mesh's ranks all sit on that
+device.
 
 The JAX command line's other flags are parsed too, and `validate`
 refuses each one by name when it is set (`LATER_FLAGS`): a run never
@@ -36,7 +36,6 @@ DATA_LAYER_TYPES = ("MemoryData", "CoSData", "Data", "HDF5Data", "ImageData")
 # "refused whenever given").  `validate` refuses each beyond that.
 LATER_FLAGS = {
     "-devices": ("devices", int, 1),
-    "-async_snapshot": ("asyncSnapshot", "switch", None),
     "-connection": ("connection", str, None),
     "-lmdb_partitions": ("lmdb_partitions", int, None),
     "-imageRoot": ("imageRoot", str, None),
@@ -218,6 +217,9 @@ def build_argparser() -> argparse.ArgumentParser:
     a("-snapshot", dest="snapshotStateFile", default="",
       help="solverstate to resume from (its model: -weights, else the "
            "learned_net file next to it)")
+    a("-async_snapshot", dest="asyncSnapshot", action="store_true",
+      help="write snapshots on a background thread (write-behind): the "
+           "train loop stalls only for the host copy, not the file I/O")
     a("-persistent", dest="isPersistent", action="store_true",
       help="cache decoded source records in memory after epoch 0 "
            "(sourceRDD.persist analog)")

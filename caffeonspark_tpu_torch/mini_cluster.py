@@ -23,6 +23,10 @@ COS_STEPS_PER_LOOP=K > 1 takes K steps a chunk (one CUDA graph replay on
 a card, `Solver.train_step_many`), with single steps before each
 display, validation, snapshot and max_iter boundary.
 
+Snapshots follow the solver's `snapshot_format` (HDF5 writes
+`.caffemodel.h5` / `.solverstate.h5`, and `-snapshot` resumes from
+either kind); `-model x.caffemodel.h5` writes the final model as HDF5.
+
 Signals (`caffe_mini_cluster.cpp:55-60`): SIGINT and SIGTERM stop after
 the current step with a snapshot and print the resume line; SIGHUP
 snapshots and goes on.  The previous handlers come back when `train`
@@ -144,8 +148,9 @@ class MiniCluster:
                                "visible (pass -device cpu to train on the "
                                "CPU)")
         self.sp = read_solver(args.solver)
-        if self.sp.snapshot_format == SnapshotFormat.HDF5:
-            raise NotImplementedError(checkpoint.HDF5_REFUSAL)
+        if (self.sp.snapshot_format == SnapshotFormat.HDF5
+                or (args.model or "").endswith(".h5")):
+            checkpoint.require_h5py()   # refused by name, before step 1
         self.net_param = read_net(
             resolve_net_path(args.solver, args.net or self.sp.net))
         if args.train or args.test:
@@ -220,6 +225,7 @@ class MiniCluster:
         from .metrics import PipelineMetrics, maybe_start_flusher
         from .ops.layers import flash_mesh
         from .processor import ValidationReport
+        from .proto.caffe import SnapshotFormat
         from .utils import StepTimer, profile_trace
 
         solver, args, sp = self.solver, self.args, self.sp
@@ -401,14 +407,15 @@ class MiniCluster:
             print(f"validation rounds → {vpath}")
 
         model_path = args.model or checkpoint.snapshot_filename(
-            self.prefix, it, is_state=False)
+            self.prefix, it, is_state=False,
+            h5=sp.snapshot_format == SnapshotFormat.HDF5)
         if self._stop:
             # interrupted: model + state, so that -snapshot resumes
             _, s = checkpoint.snapshot(net, params, st, self.prefix,
                                        fmt=sp.snapshot_format,
                                        solver_type=solver.solver_type)
             print(f"stopped at iter {it}; resume with -snapshot {s}")
-        checkpoint.save_caffemodel(model_path, net, params)
+        checkpoint.save_model(model_path, net, params)   # .h5: HDF5
         print(f"final model → {model_path}")
         self.final_params = params
         self.final_state = st

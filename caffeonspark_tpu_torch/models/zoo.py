@@ -1,7 +1,8 @@
 """Model zoo: programmatic NetParameters for the nets this package trains
 and serves (a copy of `caffeonspark_tpu/models/zoo.py`'s LeNet,
-CaffeNet, AlexNet and transformer LM definitions, so both packages
-build the same graphs)."""
+CaffeNet, AlexNet, VGG-16, ResNet-50, GoogLeNet and transformer LM
+definitions, letter for letter, so both packages build the same graphs
+and `copy_layers` matches published caffemodels' layer names)."""
 
 from __future__ import annotations
 
@@ -154,6 +155,134 @@ def lenet(batch_size: int = 64) -> NetParameter:
     return npm
 
 
+def vgg16(batch_size: int = 32, num_classes: int = 1000,
+          image_size: int = 224) -> NetParameter:
+    """VGG-16 (Simonyan & Zisserman): 13 conv3x3 + 3 fc."""
+    t = f"""
+name: "VGG16"
+layer {{ name: "data" type: "MemoryData" top: "data" top: "label"
+  memory_data_param {{ batch_size: {batch_size} channels: 3
+    height: {image_size} width: {image_size} }} }}
+"""
+    cfg = [(64, 2), (128, 2), (256, 3), (512, 3), (512, 3)]
+    bottom = "data"
+    for block, (n, reps) in enumerate(cfg, 1):
+        for r in range(1, reps + 1):
+            name = f"conv{block}_{r}"
+            t += _CONV.format(name=name, bottom=bottom, n=n, k=3,
+                              extra="pad: 1", std=0.01, bias=0)
+            bottom = name
+        t += f"""
+layer {{ name: "pool{block}" type: "Pooling" bottom: "{bottom}"
+  top: "pool{block}" pooling_param {{ pool: MAX kernel_size: 2
+  stride: 2 }} }}
+"""
+        bottom = f"pool{block}"
+    for i, n in ((6, 4096), (7, 4096)):
+        t += _FC.format(name=f"fc{i}", bottom=bottom, n=n, std=0.005,
+                        bias=1)
+        t += f"""
+layer {{ name: "relu{i}" type: "ReLU" bottom: "fc{i}" top: "fc{i}" }}
+layer {{ name: "drop{i}" type: "Dropout" bottom: "fc{i}" top: "fc{i}"
+  dropout_param {{ dropout_ratio: 0.5 }} }}
+"""
+        bottom = f"fc{i}"
+    t += _FC.format(name="fc8", bottom=bottom, n=num_classes, std=0.01,
+                    bias=0)
+    t += """
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "fc8"
+  bottom: "label" top: "loss" }
+layer { name: "accuracy" type: "Accuracy" bottom: "fc8" bottom: "label"
+  top: "accuracy" include { phase: TEST } }
+"""
+    return parse_net_prototxt(t)
+
+
+_CONV_BN = """
+layer {{ name: "{name}" type: "Convolution" bottom: "{bottom}" top: "{name}"
+  param {{ lr_mult: 1 decay_mult: 1 }}
+  convolution_param {{ num_output: {n} kernel_size: {k} {extra}
+    bias_term: false weight_filler {{ type: "msra" }} }} }}
+layer {{ name: "bn_{name}" type: "BatchNorm" bottom: "{name}" top: "{name}" }}
+layer {{ name: "scale_{name}" type: "Scale" bottom: "{name}" top: "{name}"
+  scale_param {{ bias_term: true }} }}
+"""
+
+
+def _res_block(t: str, name: str, bottom: str, mid: int, out: int,
+               stride: int, project: bool) -> str:
+    """ResNet bottleneck: 1x1(mid) → 3x3(mid) → 1x1(out) + identity/
+    projection shortcut, Eltwise SUM, ReLU."""
+    t += _CONV_BN.format(name=f"{name}_branch2a", bottom=bottom, n=mid,
+                         k=1, extra=f"stride: {stride}")
+    t += (f'\nlayer {{ name: "{name}_branch2a_relu" type: "ReLU" '
+          f'bottom: "{name}_branch2a" top: "{name}_branch2a" }}\n')
+    t += _CONV_BN.format(name=f"{name}_branch2b",
+                         bottom=f"{name}_branch2a", n=mid, k=3,
+                         extra="pad: 1")
+    t += (f'\nlayer {{ name: "{name}_branch2b_relu" type: "ReLU" '
+          f'bottom: "{name}_branch2b" top: "{name}_branch2b" }}\n')
+    t += _CONV_BN.format(name=f"{name}_branch2c",
+                         bottom=f"{name}_branch2b", n=out, k=1, extra="")
+    if project:
+        t += _CONV_BN.format(name=f"{name}_branch1", bottom=bottom,
+                             n=out, k=1, extra=f"stride: {stride}")
+        shortcut = f"{name}_branch1"
+    else:
+        shortcut = bottom
+    t += f"""
+layer {{ name: "{name}" type: "Eltwise" bottom: "{shortcut}"
+  bottom: "{name}_branch2c" top: "{name}" }}
+layer {{ name: "{name}_relu" type: "ReLU" bottom: "{name}"
+  top: "{name}" }}
+"""
+    return t
+
+
+def resnet50(batch_size: int = 32, num_classes: int = 1000
+             ) -> NetParameter:
+    """ResNet-50 (He et al.): bottleneck residual stacks with
+    BatchNorm+Scale, Eltwise shortcuts — the post-AlexNet ImageNet
+    workhorse, exercising BN/Scale/Eltwise at scale."""
+    t = f"""
+name: "ResNet50"
+layer {{ name: "data" type: "MemoryData" top: "data" top: "label"
+  memory_data_param {{ batch_size: {batch_size} channels: 3
+    height: 224 width: 224 }} }}
+"""
+    t += _CONV_BN.format(name="conv1", bottom="data", n=64, k=7,
+                         extra="pad: 3 stride: 2")
+    t += """
+layer { name: "conv1_relu" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+"""
+    cfg = [("res2", 64, 256, 3, 1), ("res3", 128, 512, 4, 2),
+           ("res4", 256, 1024, 6, 2), ("res5", 512, 2048, 3, 2)]
+    bottom = "pool1"
+    for stage, mid, out, blocks, stride in cfg:
+        for b in range(blocks):
+            name = f"{stage}{chr(ord('a') + b)}"
+            t = _res_block(t, name, bottom, mid, out,
+                           stride if b == 0 else 1, project=(b == 0))
+            bottom = name
+    t += f"""
+layer {{ name: "pool5" type: "Pooling" bottom: "{bottom}" top: "pool5"
+  pooling_param {{ pool: AVE global_pooling: true }} }}
+layer {{ name: "fc1000" type: "InnerProduct" bottom: "pool5"
+  top: "fc1000"
+  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}
+  inner_product_param {{ num_output: {num_classes}
+    weight_filler {{ type: "xavier" }}
+    bias_filler {{ type: "constant" }} }} }}
+layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "fc1000"
+  bottom: "label" top: "loss" }}
+layer {{ name: "accuracy" type: "Accuracy" bottom: "fc1000"
+  bottom: "label" top: "accuracy" include {{ phase: TEST }} }}
+"""
+    return parse_net_prototxt(t)
+
+
 def transformer_lm(vocab: int = 1000, d_model: int = 128, heads: int = 4,
                    layers: int = 2, seq: int = 32, batch: int = 8
                    ) -> NetParameter:
@@ -201,5 +330,153 @@ layer {{ name: "logits" type: "InnerProduct" bottom: "{bottom}"
 layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "logits"
   bottom: "target_sentence" top: "loss"
   loss_param {{ ignore_label: -1 }} softmax_param {{ axis: 2 }} }}
+"""
+    return parse_net_prototxt(t)
+
+
+def _inception(t: str, name: str, bottom: str, c1, c3r, c3, c5r, c5,
+               pp) -> str:
+    """One GoogLeNet inception module: 1x1 / 3x3 / 5x5 / pool-proj
+    branches concatenated on channels."""
+    t += _CONV.format(name=f"{name}/1x1", bottom=bottom, n=c1, k=1,
+                      extra="", std=0.03, bias=0.2)
+    t += _CONV.format(name=f"{name}/3x3_reduce", bottom=bottom, n=c3r,
+                      k=1, extra="", std=0.09, bias=0.2)
+    t += _CONV.format(name=f"{name}/3x3", bottom=f"{name}/3x3_reduce",
+                      n=c3, k=3, extra="pad: 1", std=0.03, bias=0.2)
+    t += _CONV.format(name=f"{name}/5x5_reduce", bottom=bottom, n=c5r,
+                      k=1, extra="", std=0.2, bias=0.2)
+    t += _CONV.format(name=f"{name}/5x5", bottom=f"{name}/5x5_reduce",
+                      n=c5, k=5, extra="pad: 2", std=0.03, bias=0.2)
+    t += f"""
+layer {{ name: "{name}/pool" type: "Pooling" bottom: "{bottom}"
+  top: "{name}/pool" pooling_param {{ pool: MAX kernel_size: 3 stride: 1
+  pad: 1 }} }}
+"""
+    t += _CONV.format(name=f"{name}/pool_proj", bottom=f"{name}/pool",
+                      n=pp, k=1, extra="", std=0.1, bias=0.2)
+    t += f"""
+layer {{ name: "{name}/output" type: "Concat"
+  bottom: "{name}/1x1" bottom: "{name}/3x3" bottom: "{name}/5x5"
+  bottom: "{name}/pool_proj" top: "{name}/output" }}
+"""
+    return t
+
+
+def _googlenet_aux_head(idx: int, bottom: str, num_classes: int) -> str:
+    """bvlc_googlenet auxiliary classifier (train_val.prototxt loss1/
+    loss2 towers): AVE pool 5x5/3 -> 1x1 conv 128 -> fc 1024 ->
+    dropout 0.7 -> fc classes, SoftmaxWithLoss weight 0.3, TRAIN only."""
+    p = f"loss{idx}"
+    return f"""
+layer {{ name: "{p}/ave_pool" type: "Pooling" bottom: "{bottom}"
+  top: "{p}/ave_pool" include {{ phase: TRAIN }}
+  pooling_param {{ pool: AVE kernel_size: 5 stride: 3 }} }}
+layer {{ name: "{p}/conv" type: "Convolution" bottom: "{p}/ave_pool"
+  top: "{p}/conv" include {{ phase: TRAIN }}
+  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}
+  convolution_param {{ num_output: 128 kernel_size: 1
+    weight_filler {{ type: "xavier" }}
+    bias_filler {{ type: "constant" value: 0.2 }} }} }}
+layer {{ name: "{p}/relu_conv" type: "ReLU" bottom: "{p}/conv"
+  top: "{p}/conv" include {{ phase: TRAIN }} }}
+layer {{ name: "{p}/fc" type: "InnerProduct" bottom: "{p}/conv"
+  top: "{p}/fc" include {{ phase: TRAIN }}
+  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}
+  inner_product_param {{ num_output: 1024
+    weight_filler {{ type: "xavier" }}
+    bias_filler {{ type: "constant" value: 0.2 }} }} }}
+layer {{ name: "{p}/relu_fc" type: "ReLU" bottom: "{p}/fc"
+  top: "{p}/fc" include {{ phase: TRAIN }} }}
+layer {{ name: "{p}/drop_fc" type: "Dropout" bottom: "{p}/fc"
+  top: "{p}/fc" include {{ phase: TRAIN }}
+  dropout_param {{ dropout_ratio: 0.7 }} }}
+layer {{ name: "{p}/classifier" type: "InnerProduct" bottom: "{p}/fc"
+  top: "{p}/classifier" include {{ phase: TRAIN }}
+  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}
+  inner_product_param {{ num_output: {num_classes}
+    weight_filler {{ type: "xavier" }}
+    bias_filler {{ type: "constant" }} }} }}
+layer {{ name: "{p}/loss" type: "SoftmaxWithLoss"
+  bottom: "{p}/classifier" bottom: "label" top: "{p}/loss"
+  loss_weight: 0.3 include {{ phase: TRAIN }} }}
+"""
+
+
+def googlenet(batch_size: int = 32, num_classes: int = 1000,
+              image_size: int = 224, aux_heads: bool = True
+              ) -> NetParameter:
+    """GoogLeNet / Inception-v1 (bvlc_googlenet topology incl. the two
+    TRAIN-phase auxiliary classifier towers, weight 0.3)."""
+    t = f"""
+name: "GoogLeNet"
+layer {{ name: "data" type: "MemoryData" top: "data" top: "label"
+  memory_data_param {{ batch_size: {batch_size} channels: 3
+    height: {image_size} width: {image_size} }} }}
+"""
+    t += _CONV.format(name="conv1/7x7_s2", bottom="data", n=64, k=7,
+                      extra="pad: 3 stride: 2", std=0.01, bias=0.2)
+    t += """
+layer { name: "pool1_3x3_s2" type: "Pooling" bottom: "conv1/7x7_s2"
+  top: "pool1" pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "pool1_norm1" type: "LRN" bottom: "pool1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+"""
+    t += _CONV.format(name="conv2/3x3_reduce", bottom="norm1", n=64, k=1,
+                      extra="", std=0.09, bias=0.2)
+    t += _CONV.format(name="conv2/3x3", bottom="conv2/3x3_reduce",
+                      n=192, k=3, extra="pad: 1", std=0.03, bias=0.2)
+    t += """
+layer { name: "conv2_norm2" type: "LRN" bottom: "conv2/3x3" top: "norm2"
+  lrn_param { local_size: 5 alpha: 0.0001 beta: 0.75 } }
+layer { name: "pool2_3x3_s2" type: "Pooling" bottom: "norm2"
+  top: "pool2" pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+"""
+    t = _inception(t, "inception_3a", "pool2", 64, 96, 128, 16, 32, 32)
+    t = _inception(t, "inception_3b", "inception_3a/output",
+                   128, 128, 192, 32, 96, 64)
+    t += """
+layer { name: "pool3_3x3_s2" type: "Pooling"
+  bottom: "inception_3b/output" top: "pool3"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+"""
+    t = _inception(t, "inception_4a", "pool3", 192, 96, 208, 16, 48, 64)
+    if aux_heads:
+        t += _googlenet_aux_head(1, "inception_4a/output", num_classes)
+    t = _inception(t, "inception_4b", "inception_4a/output",
+                   160, 112, 224, 24, 64, 64)
+    t = _inception(t, "inception_4c", "inception_4b/output",
+                   128, 128, 256, 24, 64, 64)
+    t = _inception(t, "inception_4d", "inception_4c/output",
+                   112, 144, 288, 32, 64, 64)
+    if aux_heads:
+        t += _googlenet_aux_head(2, "inception_4d/output", num_classes)
+    t = _inception(t, "inception_4e", "inception_4d/output",
+                   256, 160, 320, 32, 128, 128)
+    t += """
+layer { name: "pool4_3x3_s2" type: "Pooling"
+  bottom: "inception_4e/output" top: "pool4"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+"""
+    t = _inception(t, "inception_5a", "pool4", 256, 160, 320, 32, 128,
+                   128)
+    t = _inception(t, "inception_5b", "inception_5a/output",
+                   384, 192, 384, 48, 128, 128)
+    t += f"""
+layer {{ name: "pool5_7x7_s1" type: "Pooling"
+  bottom: "inception_5b/output" top: "pool5"
+  pooling_param {{ pool: AVE global_pooling: true }} }}
+layer {{ name: "pool5_drop" type: "Dropout" bottom: "pool5" top: "pool5"
+  dropout_param {{ dropout_ratio: 0.4 }} }}
+layer {{ name: "loss3/classifier" type: "InnerProduct" bottom: "pool5"
+  top: "loss3/classifier"
+  param {{ lr_mult: 1 decay_mult: 1 }} param {{ lr_mult: 2 decay_mult: 0 }}
+  inner_product_param {{ num_output: {num_classes}
+    weight_filler {{ type: "xavier" }}
+    bias_filler {{ type: "constant" }} }} }}
+layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "loss3/classifier"
+  bottom: "label" top: "loss" }}
+layer {{ name: "accuracy" type: "Accuracy" bottom: "loss3/classifier"
+  bottom: "label" top: "accuracy" include {{ phase: TEST }} }}
 """
     return parse_net_prototxt(t)

@@ -11,6 +11,10 @@ running the layers on "meta" tensors (no memory, no compute).  Then:
   * ``Net.loss(params, inputs)``    -> (weighted loss, blobs), the
     scalar the solver differentiates with autograd
 
+Both take a `state_out` dict that collects the forward state: the new
+running statistics of each BatchNorm at TRAIN, which
+`merge_forward_state` copies into the params in place.
+
 Mixed precision (`compute_dtype`, JAX net.py:272-284, :699-750): params
 stay in `dtype` while each layer casts its floating params and bottoms
 to `compute_dtype`, so the gradients come back in `dtype` through
@@ -425,16 +429,21 @@ class Net(nn.Module):
     # ------------------------------------------------------------------
     def forward(self, params: Params, inputs: Dict[str, torch.Tensor], *,
                 qscales: Optional[Dict] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                state_out: Optional[Dict] = None
                 ) -> Dict[str, torch.Tensor]:
         """Forward pass; returns every blob.  Caffe's TEST-phase layer
         semantics unless `train`, whatever the net's phase; at TRAIN,
         Dropout draws from `generator` (on the net's device).  `qscales`
         ({layer: {blob: f32 0-dim tensor}}) carries the publish-time
         scales of int8 serving weights (serving/quant.py), which the int8
-        InnerProduct kernel consumes without dequantizing."""
+        InnerProduct kernel consumes without dequantizing.  `state_out`,
+        when given, receives the forward state ({layer: [tensors]}, see
+        `merge_forward_state`)."""
         blobs: Dict[str, torch.Tensor] = dict(inputs)
         ctx = self._ctx(qscales, train, generator)
+        if state_out is not None:
+            ctx.state_out = state_out
         cast = self.compute_dtype != self.dtype
         for lp in self.compute_layers:
             op = L.get_op(lp.type)
@@ -465,20 +474,35 @@ class Net(nn.Module):
 
     def loss(self, params: Params, inputs: Dict[str, torch.Tensor], *,
              train: bool = True,
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None,
+             state_out: Optional[Dict] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total weighted loss, every blob): each loss top summed in f32
         and weighted, as the JAX package's `Net.loss` (the loss blobs keep
-        the compute dtype)."""
+        the compute dtype).  `state_out` as in `forward`."""
         blobs = self.forward(params, inputs, train=train,
-                             generator=generator)
+                             generator=generator, state_out=state_out)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for name, w in self.loss_weights.items():
             total = total + w * torch.sum(blobs[name], dtype=torch.float32)
         return total, blobs
 
+    @torch.no_grad()
+    def merge_forward_state(self, params: Params,
+                            forward_state: Dict[str, List[torch.Tensor]]
+                            ) -> None:
+        """Copy the forward state (BatchNorm's new running statistics)
+        into the param tensors in place, in each blob's dtype: params
+        are the static buffers of a CUDA graph (solver.GraphedSteps), so
+        they are written, never rebound (JAX net.py:783-794 returns new
+        params instead)."""
+        for lname, values in forward_state.items():
+            for (bname, _, _), v in zip(self.param_layout.get(lname, ()),
+                                        values):
+                params[lname][bname].copy_(v)
+
     def stat_param_layers(self) -> List[str]:
         """Layers whose param blobs are running statistics, updated by
-        the forward pass and never by the solver (BatchNorm); none of
-        the port's layer types is one yet."""
-        return []
+        the forward pass and never by the solver (BatchNorm)."""
+        return [lp.name for lp in self.compute_layers
+                if L.get_op(lp.type).f32_stats]

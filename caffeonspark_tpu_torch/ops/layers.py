@@ -13,6 +13,10 @@ output sizing with tail-window clipping, the AVE divisor = window ∩
 padded region, LRN ACROSS_CHANNELS with alpha/local_size,
 SoftmaxWithLoss VALID normalization + ignore_label.
 
+BatchNorm writes its running statistics to `Ctx.state_out` at TRAIN
+(Caffe's batch_norm_layer.cpp moving averages), which the net merges
+into its params after the step.
+
 The across-channel LRN (plain, relu-fused, bias+relu-fused) goes
 through the autograd Functions of `ops.kernels` (K1/K2, K3/K4), the
 int8 InnerProduct to K5 and MultiHeadAttention's attention to the flash
@@ -50,6 +54,11 @@ class Ctx:
     # draws come from (on the net's device)
     train: bool = False
     generator: Optional[torch.Generator] = None
+    # forward state: {layer: [tensors]} written by a layer whose params
+    # the forward itself updates (BatchNorm's running statistics, in
+    # its param blob order), detached from the graph; the caller merges
+    # them (Net.merge_forward_state)
+    state_out: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
     layer_name: str = ""
     # LRN layer names whose op applies relu in-kernel (net.py's
     # COS_FUSE_RELU_LRN peephole)
@@ -91,9 +100,9 @@ class LayerOp:
     param_specs: Callable = field(default=lambda lp, shapes: [])
     is_loss: bool = False
     is_data: bool = False
-    # the layer keeps running statistics and computes in the net's dtype
-    # whatever its compute dtype (the JAX package's BatchNorm; no ported
-    # layer type has it yet)
+    # the layer keeps running statistics (its params, updated by the
+    # forward and never by the solver) and computes in the net's dtype
+    # whatever its compute dtype (BatchNorm)
     f32_stats: bool = False
     # bottoms the layer reads as integer indices (token ids, labels):
     # never cast to the compute dtype, whose 8-bit mantissa holds
@@ -264,12 +273,16 @@ def pool_output_dim(size: int, kernel: int, stride: int, pad: int) -> int:
     return out
 
 
-def _ave_divisor(size: int, kernel: int, stride: int, pad: int,
-                 out: int) -> List[float]:
+def _ave_divisor(size: int, kernel: int, stride: int, pad: int, out: int,
+                 like: torch.Tensor) -> torch.Tensor:
     """Per-output-position count of window elements inside the
-    symmetric padded region [0, size + 2*pad) (Caffe's AVE divisor)."""
-    return [float(min(o * stride + kernel, size + 2 * pad) - o * stride)
-            for o in range(out)]
+    symmetric padded region [0, size + 2*pad) (Caffe's AVE divisor), in
+    `like`'s dtype on its device.  Computed there from an arange: a host
+    list copied to the card would be a host-to-device copy, which a CUDA
+    graph capture refuses."""
+    start = torch.arange(out, device=like.device) * stride
+    return (torch.clamp(start + kernel, max=size + 2 * pad)
+            - start).to(like.dtype)
 
 
 @register("Pooling")
@@ -307,10 +320,8 @@ def _pooling(ctx, lp, params, bottoms):
     elif pp.pool == PoolMethod.AVE:
         xp = F.pad(x, (pw, ew, ph, eh))
         s = F.avg_pool2d(xp, (kh, kw), (sh, sw), divisor_override=1)
-        div_h = torch.tensor(_ave_divisor(h, kh, sh, ph, oh),
-                             dtype=x.dtype, device=x.device)
-        div_w = torch.tensor(_ave_divisor(w, kw, sw, pw, ow),
-                             dtype=x.dtype, device=x.device)
+        div_h = _ave_divisor(h, kh, sh, ph, oh, x)
+        div_w = _ave_divisor(w, kw, sw, pw, ow, x)
         out = s / (div_h.reshape(1, 1, -1, 1) * div_w.reshape(1, 1, 1, -1))
     else:
         raise NotImplementedError(
@@ -399,6 +410,90 @@ def _lrn(ctx, lp, params, bottoms):
     return [x / torch.pow(scale, beta)]
 
 
+def _bn_params(lp, shapes):
+    c = shapes[0][1]
+    zero = FillerParameter(type="constant", value=0.0)
+    return [("mean", (c,), zero), ("variance", (c,), zero),
+            ("count", (1,), zero)]
+
+
+@register("BatchNorm", params=_bn_params, f32_stats=True)
+def _batch_norm(ctx, lp, params, bottoms):
+    """Caffe's BatchNorm: normalize by the batch's statistics over N and
+    the spatial axes (TRAIN), or by the stored ones scaled by 1/count
+    (`use_global_stats`, TEST by default).  In the batch mode the moving
+    sums stored * maf + batch mean, stored * maf + batch variance *
+    m/(m-1) (Caffe keeps the unbiased variance; m = N*H*W) and
+    count * maf + 1 go to `ctx.state_out`.
+    Python scalars round to the blob's dtype first, as JAX's weak types
+    make them."""
+    p = lp.batch_norm_param
+    x = bottoms[0]
+    use_global = (p.use_global_stats if p.has("use_global_stats")
+                  else not ctx.train)
+    mean_b, var_b, count = params
+    dt = x.dtype
+    if use_global:
+        scale = torch.where(count[0] == 0, 1.0, 1.0 / count[0])
+        mean = mean_b * scale
+        var = var_b * scale
+    else:
+        axes = (0,) + tuple(range(2, x.dim()))
+        mean = torch.mean(x, dim=axes)
+        var = torch.mean(torch.square(x), dim=axes) - torch.square(mean)
+        maf = p.moving_average_fraction
+        m = x.shape[0] * math.prod(x.shape[2:])
+        bias_corr = m / (m - 1.0) if m > 1 else 1.0
+        with torch.no_grad():
+            ctx.state_out[ctx.layer_name] = [
+                mean_b * weak_scalar(maf, mean_b.dtype) + mean,
+                var_b * weak_scalar(maf, var_b.dtype)
+                + var * weak_scalar(bias_corr, var.dtype),
+                count * weak_scalar(maf, count.dtype) + 1.0]
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return [(x - mean.reshape(shape))
+            / torch.sqrt(var.reshape(shape) + weak_scalar(p.eps, dt))]
+
+
+def _scale_params(lp, shapes):
+    p = lp.scale_param
+    bf = (p.bias_filler if p.has("bias_filler")
+          else FillerParameter(type="constant", value=0.0))
+    if len(shapes) > 1:
+        # two bottoms: the multiplier is bottom[1]; only the optional
+        # bias is learned (shaped like bottom[1])
+        return [("bias", tuple(shapes[1]), bf)] if p.bias_term else []
+    axis = p.axis if p.axis >= 0 else len(shapes[0]) + p.axis
+    shape = (shapes[0][axis:] if p.num_axes == -1
+             else shapes[0][axis:axis + p.num_axes])
+    f = p.filler if p.has("filler") else FillerParameter(type="constant",
+                                                        value=1.0)
+    specs = [("scale", tuple(shape), f)]
+    if p.bias_term:
+        specs.append(("bias", tuple(shape), bf))
+    return specs
+
+
+@register("Scale", params=_scale_params)
+def _scale(ctx, lp, params, bottoms):
+    """y = x * scale (+ bias), the scale broadcast from `axis` over its
+    `num_axes` axes; with two bottoms the scale is bottom[1]."""
+    p = lp.scale_param
+    x = bottoms[0]
+    g = bottoms[1] if len(bottoms) > 1 else params[0]
+    bias = None
+    if p.bias_term:
+        bias = params[0] if len(bottoms) > 1 else params[1]
+    axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+    shape = [1] * x.dim()
+    for i, d in enumerate(g.shape):
+        shape[axis + i] = d
+    y = x * g.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
+    return [y]
+
+
 # ---------------------------------------------------------------------------
 # shape ops
 # ---------------------------------------------------------------------------
@@ -416,6 +511,16 @@ def _flatten(ctx, lp, params, bottoms):
 @register("Split")
 def _split(ctx, lp, params, bottoms):
     return [bottoms[0] for _ in lp.top]
+
+
+@register("Concat")
+def _concat(ctx, lp, params, bottoms):
+    """Bottoms joined along `axis`, or the legacy `concat_dim` when only
+    that is set."""
+    p = lp.concat_param
+    axis = p.axis if p.has("axis") or not p.has("concat_dim") \
+        else int(p.concat_dim)
+    return [torch.cat(bottoms, dim=axis)]
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,12 @@ serving/forward.py's forward and row extraction.
 An error on the solver thread surfaces on `join()` / `stop()`.
 The training log keeps each step's loss as a device scalar only until
 the next `display` or `snapshot` boundary (at most LOSS_FOLD_MAX
-steps): there it is folded to host floats with one sync.  An HDF5
-solver is refused before the first step.
+steps): there it is folded to host floats with one sync.  Snapshots
+are binaryproto or HDF5 (`snapshot_format`; without h5py an HDF5
+solver is refused by name before the first step); with
+-async_snapshot a snapshot is a host copy on the solver thread and its
+files are written behind it (`checkpoint.AsyncSnapshotter`): the final
+snapshot is waited for, and `stop()` / `join()` wait for the last one.
 
 With COS_METRICS_FLUSH_S > 0 the metrics summary is also flushed to
 `<output>/metrics.json` every that many seconds while the processor
@@ -130,7 +134,7 @@ class CaffeProcessor:
     def __init__(self, conf: Config, rank: int = 0):
         if conf.solverParameter.snapshot_format == SnapshotFormat.HDF5:
             # refused here, before any step, not at the first snapshot
-            raise NotImplementedError(checkpoint.HDF5_REFUSAL)
+            checkpoint.require_h5py()
         self.conf = conf
         self.rank = rank
         self.solver = Solver(conf.solverParameter, conf.netParam, rank=rank,
@@ -157,6 +161,9 @@ class CaffeProcessor:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._stopped = False
+        # -async_snapshot's write-behind worker (made at the first
+        # snapshot)
+        self._snapshotter: Optional[checkpoint.AsyncSnapshotter] = None
         self._metrics_dumped = False
         self._flusher = None          # COS_METRICS_FLUSH_S (start())
         # per step: (iter after the step, loss, lr, host time when the
@@ -222,21 +229,42 @@ class CaffeProcessor:
         if self._thread is not None:
             self._thread.join(timeout=600)
             self._thread = None
+        snap_err = self._finish_snapshots()
         self._dump_metrics()
         if CaffeProcessor._instance is self:
             CaffeProcessor._instance = None
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if snap_err is not None:
+            raise snap_err
 
     def join(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        snap_err = self._finish_snapshots()
         self._dump_metrics()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if snap_err is not None:
+            raise snap_err
+
+    def _finish_snapshots(self) -> Optional[BaseException]:
+        """Wait for the write-behind snapshot in flight and stop its
+        worker; returns its error, which must not mask the training
+        thread's."""
+        snap, self._snapshotter = self._snapshotter, None
+        if snap is None:
+            return None
+        try:
+            snap.wait(timeout=600)
+        except (RuntimeError, TimeoutError) as e:
+            return e
+        finally:
+            snap.close()
+        return None
 
     def _dump_metrics(self):
         """COS_PIPELINE_METRICS=path: the step timeline and the training
@@ -429,7 +457,7 @@ class CaffeProcessor:
                 if snapped:
                     self._snapshot(params, st)
             if sp.snapshot_after_train:
-                self._snapshot(params, st)
+                self._snapshot(params, st, final=True)
             if self.conf.modelPath:
                 checkpoint.save_caffemodel(self.conf.modelPath,
                                            solver.train_net, params)
@@ -523,14 +551,25 @@ class CaffeProcessor:
                           if self.train_source is not None else 0),
                 "device": str(self.solver.device)}
 
-    def _snapshot(self, params, st):
+    def _snapshot(self, params, st, final: bool = False):
         conf = self.conf
         prefix = os.path.join(conf.outputPath or ".",
                               conf.solverParameter.snapshot_prefix
                               or "model")
-        checkpoint.snapshot(self.solver.train_net, params, st, prefix,
-                            fmt=conf.solverParameter.snapshot_format,
-                            solver_type=self.solver.solver_type)
+        kw = dict(fmt=conf.solverParameter.snapshot_format,
+                  solver_type=self.solver.solver_type)
+        if not conf.asyncSnapshot:
+            checkpoint.snapshot(self.solver.train_net, params, st, prefix,
+                                **kw)
+            return
+        # JAX processor.py:600-617: hand the write to the worker; the
+        # final snapshot is waited for
+        if self._snapshotter is None:
+            self._snapshotter = checkpoint.AsyncSnapshotter()
+        self._snapshotter.submit(self.solver.train_net, params, st, prefix,
+                                 **kw)
+        if final:
+            self._snapshotter.wait()
 
     # -- feature extraction (doFeatures, :473-523) ------------------------
     def extract_features(self, source: DataSource,

@@ -303,7 +303,38 @@ class Message(metaclass=_MessageMeta):
     # -- binary wire format --------------------------------------------------
 
     def to_binary(self) -> bytes:
-        out = io.BytesIO()
+        out: List[Any] = []
+        self._encode_into(out)
+        return b"".join(out)
+
+    def write_to(self, f) -> int:
+        """Write the wire encoding to the binary file `f`, a packed float
+        field's array straight from its buffer (no copy: the write call
+        releases the interpreter lock while it runs, so a snapshot
+        written on a worker thread leaves the solver thread free);
+        returns the byte count.  The bytes are `to_binary()`'s."""
+        out: List[Any] = []
+        n = self._encode_into(out)
+        for chunk in out:
+            f.write(chunk)
+        return n
+
+    def _encode_into(self, out: List[Any]) -> int:
+        """Append the wire encoding to `out` as buffers: small fields as
+        bytes, each packed float/double array as a memoryview of its
+        data; returns the byte count.  A nested message's length prefix
+        is its own count."""
+        total = 0
+        buf = io.BytesIO()
+
+        def flush() -> None:
+            nonlocal buf, total
+            b = buf.getvalue()
+            if b:
+                out.append(b)
+                total += len(b)
+                buf = io.BytesIO()
+
         for f in self.FIELDS:
             if not self.has(f.name):
                 continue
@@ -315,43 +346,51 @@ class Message(metaclass=_MessageMeta):
                     # numpy fast path: 60M-param caffemodels would take
                     # minutes through per-float struct.pack
                     import numpy as _np
-                    b = _np.asarray(
-                        vals, "<f4" if f.ftype == FLOAT else "<f8"
-                    ).tobytes()
+                    arr = _np.ascontiguousarray(
+                        vals, "<f4" if f.ftype == FLOAT else "<f8")
+                    _write_key(buf, f.num, _WT_LEN)
+                    _write_varint(buf, arr.nbytes)
+                    flush()
+                    out.append(memoryview(arr.reshape(-1)).cast("B"))
+                    total += arr.nbytes
                 else:
                     payload = io.BytesIO()
                     for v in vals:
                         _write_scalar(payload, f, v)
                     b = payload.getvalue()
-                _write_key(out, f.num, _WT_LEN)
-                _write_varint(out, len(b))
-                out.write(b)
+                    _write_key(buf, f.num, _WT_LEN)
+                    _write_varint(buf, len(b))
+                    buf.write(b)
                 continue
             for v in vals:
                 if f.ftype == MESSAGE:
-                    b = v.to_binary()
-                    _write_key(out, f.num, _WT_LEN)
-                    _write_varint(out, len(b))
-                    out.write(b)
+                    sub: List[Any] = []
+                    n = v._encode_into(sub)
+                    _write_key(buf, f.num, _WT_LEN)
+                    _write_varint(buf, n)
+                    flush()
+                    out.extend(sub)
+                    total += n
                 elif f.ftype == STRING:
                     b = v.encode("utf-8")
-                    _write_key(out, f.num, _WT_LEN)
-                    _write_varint(out, len(b))
-                    out.write(b)
+                    _write_key(buf, f.num, _WT_LEN)
+                    _write_varint(buf, len(b))
+                    buf.write(b)
                 elif f.ftype == BYTES:
-                    _write_key(out, f.num, _WT_LEN)
-                    _write_varint(out, len(v))
-                    out.write(v)
+                    _write_key(buf, f.num, _WT_LEN)
+                    _write_varint(buf, len(v))
+                    buf.write(v)
                 elif f.ftype == FLOAT:
-                    _write_key(out, f.num, _WT_FIXED32)
-                    out.write(struct.pack("<f", v))
+                    _write_key(buf, f.num, _WT_FIXED32)
+                    buf.write(struct.pack("<f", v))
                 elif f.ftype == DOUBLE:
-                    _write_key(out, f.num, _WT_FIXED64)
-                    out.write(struct.pack("<d", v))
+                    _write_key(buf, f.num, _WT_FIXED64)
+                    buf.write(struct.pack("<d", v))
                 else:
-                    _write_key(out, f.num, _WT_VARINT)
-                    _write_scalar(out, f, v)
-        return out.getvalue()
+                    _write_key(buf, f.num, _WT_VARINT)
+                    _write_scalar(buf, f, v)
+        flush()
+        return total
 
     @classmethod
     def from_binary(cls, data: bytes) -> "Message":

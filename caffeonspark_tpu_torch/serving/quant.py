@@ -26,6 +26,7 @@ from typing import Dict
 import torch
 
 from ..ops.kernels import quantize_int8
+from ..ops.layers import get_op
 from ..proto import Phase
 
 _LOG = logging.getLogger(__name__)
@@ -72,9 +73,11 @@ def serve_quant_tol(default: float = 0.05) -> float:
 
 def quant_spec(net, weight_dtype: str) -> Dict[str, Dict[str, str]]:
     """{layer: {blob: kind}} for the blobs that leave f32 under
-    `weight_dtype`.  Rules:
+    `weight_dtype`.  Rules (JAX serving/quant.py:98-125):
 
-      * blobs under MIN_QUANT_ELEMS and 1-D blobs (biases) stay f32;
+      * the blobs of a stat layer (BatchNorm's running statistics,
+        `f32_stats`), blobs under MIN_QUANT_ELEMS and 1-D blobs
+        (biases) stay f32;
       * int8 mode: a TEST-phase InnerProduct 2-D "weight" is INT8_IP
         (consumed as-is by the int8 kernel); every other eligible blob
         is INT8 (dequantized at forward entry);
@@ -87,7 +90,7 @@ def quant_spec(net, weight_dtype: str) -> Dict[str, Dict[str, str]]:
     types = {lp.name: lp.type for lp in net.compute_layers}
     for lname, specs in net.param_layout.items():
         t = types.get(lname)
-        if t is None:
+        if t is None or get_op(t).f32_stats:
             continue
         for bname, shape, _ in specs:
             if len(shape) < 2 or math.prod(shape) < MIN_QUANT_ELEMS:

@@ -10,7 +10,12 @@ weights compress once at publish.  Each publish is gated by the
 measured output drift against the model's own f32 forward
 (COS_SERVE_QUANT_TOL, default 0.05; COS_SERVE_QUANT_CHECK=0 skips the
 gate); a model that drifts past it is stored f32, with a log line.
-Named models, HBM paging and mesh layouts wait for later slices.
+`export_quant_sidecar` writes the compressed version beside its model as
+`<model>.quant`; a later `load` of that model under the same weight
+dtype takes the sidecar directly, skipping the f32 load, the
+quantization and the drift gate (they ran when it was written).  A
+sidecar of another weight dtype is ignored with a warning.  Named
+models, HBM paging and mesh layouts wait for later slices.
 """
 
 from __future__ import annotations
@@ -90,11 +95,71 @@ class ModelRegistry:
 
     # -- publish / load -------------------------------------------------
     def load(self, model_path: str) -> ModelVersion:
-        """Load a snapshot (.caffemodel, or a .solverstate whose
-        learned_net resolves) and publish it as the current version.
+        """Load a snapshot (.caffemodel[.h5], or a .solverstate whose
+        learned_net resolves) and publish it as the current version;
+        under a compressed weight dtype a `<model_path>.quant` sidecar
+        is taken instead when there is one (JAX registry.py:419-440).
         In-flight flushes keep serving the version they snapshotted."""
+        if self.weight_dtype != "f32":
+            sidecar = model_path + checkpoint.QUANT_SIDECAR_SUFFIX
+            if os.path.exists(sidecar):
+                return self._publish_sidecar(sidecar, model_path)
         params = checkpoint.load_serving_params(self.net, model_path)
         return self.publish(params, model_path)
+
+    def _publish_sidecar(self, sidecar: str, path: str) -> ModelVersion:
+        """Install a quant sidecar's blobs as they are stored."""
+        blobs, host_scales, wd = checkpoint.load_quant_sidecar(sidecar)
+        if wd != self.weight_dtype:
+            _LOG.warning("%s: sidecar weight_dtype %s != requested %s "
+                         "— ignoring sidecar", sidecar, wd,
+                         self.weight_dtype)
+            return self.publish(
+                checkpoint.load_serving_params(self.net, path), path)
+        spec = quant.quant_spec(self.net, wd)
+        want = {quant.INT8: torch.int8, quant.INT8_IP: torch.int8,
+                quant.BF16: torch.bfloat16}
+        params: Params = {}
+        scales: Dict[str, Dict[str, torch.Tensor]] = {}
+        dev = self.net.device
+        for lname, specs in self.net.param_layout.items():
+            params[lname] = {}
+            for bname, shape, _ in specs:
+                t = blobs.get(lname, {}).get(bname)
+                kind = spec.get(lname, {}).get(bname, quant.F32)
+                dt = want.get(kind, torch.float32)
+                if t is None or tuple(t.shape) != tuple(shape) \
+                        or t.dtype != dt:
+                    raise ValueError(
+                        f"{sidecar}: {lname}/{bname} is "
+                        f"{None if t is None else (tuple(t.shape), t.dtype)}"
+                        f", the net wants {(tuple(shape), dt)}")
+                params[lname][bname] = t.to(dev)
+                if kind in (quant.INT8, quant.INT8_IP):
+                    scales.setdefault(lname, {})[bname] = torch.tensor(
+                        host_scales[lname][bname], dtype=torch.float32,
+                        device=dev)
+        self.quant_fallback = None
+        return self._install(params, path, scales or None, wd,
+                             quant.spec_nbytes(self.net, spec))
+
+    def export_quant_sidecar(self, model_path: str) -> str:
+        """Write `<model_path>.quant`: the current version's compressed
+        blobs and scales (`checkpoint.save_quant_sidecar`), so that the
+        next `load` of `model_path` under the same weight dtype skips
+        the f32 load, the quantization and the drift gate.  A version
+        resident in f32 has nothing to export and is refused (JAX
+        registry.py:970-1002)."""
+        mv = self.current()
+        if mv.weight_dtype == "f32":
+            raise ValueError(
+                "the current model is resident in f32 — nothing to "
+                "export (set COS_SERVE_WEIGHT_DTYPE and republish)")
+        scales = {ln: {bn: float(t) for bn, t in bl.items()}
+                  for ln, bl in (mv.scales or {}).items()}
+        return checkpoint.save_quant_sidecar(
+            model_path + checkpoint.QUANT_SIDECAR_SUFFIX, mv.params,
+            scales, mv.weight_dtype)
 
     def publish(self, params: Params, path: str = "<in-memory>"
                 ) -> ModelVersion:
@@ -123,7 +188,11 @@ class ModelRegistry:
                               drift, self.quant_tol)
         if not spec:
             wd = "f32"
-        nbytes = quant.spec_nbytes(self.net, spec)
+        return self._install(params, path, scales, wd,
+                             quant.spec_nbytes(self.net, spec))
+
+    def _install(self, params: Params, path: str, scales: Optional[Dict],
+                 wd: str, nbytes: int) -> ModelVersion:
         with self._lock:
             self._version += 1
             mv = ModelVersion(self._version, path, params, scales, wd,

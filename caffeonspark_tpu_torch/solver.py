@@ -241,10 +241,24 @@ class Solver:
                        inputs: Dict[str, torch.Tensor]
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                   Params]:
-        """(loss, output blobs, grads) of one solver step's batch: with
-        iter_size > 1 the batch splits into iter_size sub-batches whose
-        gradients are summed and divided by iter_size (loss and outputs
-        are the sub-batch means)."""
+        """(loss, output blobs, grads) of one solver step's batch; params
+        are left as they are (`loss_grads_and_state`)."""
+        return self.loss_grads_and_state(params, inputs)[:3]
+
+    def loss_grads_and_state(self, params: Params,
+                             inputs: Dict[str, torch.Tensor]
+                             ) -> Tuple[torch.Tensor,
+                                        Dict[str, torch.Tensor], Params,
+                                        Dict[str, List[torch.Tensor]]]:
+        """(loss, output blobs, grads, forward state) of one solver
+        step's batch: with iter_size > 1 the batch splits into iter_size
+        sub-batches whose gradients are summed and divided by iter_size
+        (loss and outputs are the sub-batch means).  Each sub-batch's
+        forward reads the running statistics (BatchNorm) that the one
+        before it wrote, as Caffe updates them on every forward (JAX
+        solver.py threads them through its scan); the last forward's are
+        returned, for the step to merge into `params` after the update
+        (`Net.merge_forward_state`).  `params` are not written."""
         net = self.train_net
         iter_size = max(1, int(self.param.iter_size))
         names = [(ln, bn) for ln, bl in params.items() for bn in bl]
@@ -269,15 +283,24 @@ class Solver:
         gsum = None
         loss_sum = None
         osum: Dict[str, torch.Tensor] = {}
+        cur = params
+        fwd_state: Dict[str, List[torch.Tensor]] = {}
         for sub in subs:
             leaves = {ln: {bn: t.detach().requires_grad_(True)
                            for bn, t in bl.items()}
-                      for ln, bl in params.items()}
+                      for ln, bl in cur.items()}
+            fwd_state = {}
             loss, blobs = net.loss(leaves, sub, train=True,
-                                   generator=self.generator)
+                                   generator=self.generator,
+                                   state_out=fwd_state)
             grads = torch.autograd.grad(
                 loss, [leaves[ln][bn] for ln, bn in names],
                 allow_unused=True)
+            if fwd_state:       # the next sub-batch reads these statistics
+                cur = {ln: dict(bl) for ln, bl in cur.items()}
+                for ln, values in fwd_state.items():
+                    for (bn, _, _), v in zip(net.param_layout[ln], values):
+                        cur[ln][bn] = v.to(params[ln][bn].dtype)
             grads = [torch.zeros_like(params[ln][bn]) if g is None else g
                      for (ln, bn), g in zip(names, grads)]
             gsum = grads if gsum is None else [a + b for a, b in
@@ -294,7 +317,7 @@ class Solver:
         grads_p: Params = {}
         for (ln, bn), g in zip(names, gsum):
             grads_p.setdefault(ln, {})[bn] = g
-        return loss_sum, osum, grads_p
+        return loss_sum, osum, grads_p, fwd_state
 
     # ------------------------------------------------------------------
     def update_scalars(self, lr: torch.Tensor, it: int) -> List[float]:
@@ -412,8 +435,12 @@ class Solver:
         the loss (a device scalar, not synchronized) and the output
         blobs with `lr` added."""
         lr = learning_rate(self.param, state.iter)
-        loss, outputs, grads = self.loss_and_grads(params, inputs)
+        loss, outputs, grads, fwd_state = self.loss_grads_and_state(
+            params, inputs)
         self.apply_update(params, grads, state, lr)
+        # the statistics' lr_mult and decay_mult are 0: the update left
+        # them as they were, and the forward's new ones land now
+        self.train_net.merge_forward_state(params, fwd_state)
         outputs["lr"] = lr
         return loss, outputs
 
@@ -557,10 +584,11 @@ class GraphedSteps:
                                      capture_error_mode="thread_local"):
                 losses, outs = [], []
                 for i in range(self.k):
-                    loss, out, grads = s.loss_and_grads(
+                    loss, out, grads, fwd_state = s.loss_grads_and_state(
                         params, {n: v[i] for n, v in static_in.items()})
                     s.apply_update(params, grads, state, None,
                                    scalars=scalars[i])
+                    s.train_net.merge_forward_state(params, fwd_state)
                     losses.append(loss)
                     outs.append(out)
                 loss_out = torch.stack(losses)

@@ -164,13 +164,53 @@ or the package is not importable, and when any phase fails.  Phases:
      equal, the snapshots at 6 and 12 and the final model byte-equal;
      then 5 synchronized direct CaffeNet steps (f32, B=256) against 5
      synchronized graphed chunks of 4;
- 23. a `kernels` JSON line: launches on the serving, image-net training,
+ 23. GoogLeNet (bvlc_googlenet with its two TRAIN-only auxiliary
+     towers; the published xavier conv fillers) at B=32, random 224
+     crop of the 256x256 records, mirror, mean_value, the quick_solver
+     (SGD 0.01, poly 0.5, momentum 0.9, weight_decay 2e-4) cut to 8
+     steps, snapshot 4, through the CLI: K1 + K2 on norm1 (32,64,56,56)
+     and norm2 (32,192,56,56), 16 launches each; then with
+     COS_FUSE_BIAS_RELU_LRN=1, where the peephole folds conv2/3x3's bias
+     and relu into norm2: K1 + K2 and K3 + K4, 8 launches each; each
+     step against the all-plain step; K1-K4 timed at these shapes;
+ 24. ResNet-50 at the same data shape, SGD 0.1, momentum 0.9,
+     weight_decay 1e-4, 8 steps through the CLI: the 53 BatchNorm
+     layers' running statistics finite and moved, the step against the
+     plain step, -test of the trained model (global statistics) over
+     the 100 TEST records against the CPU's -test of the same model;
+     the same for a model trained at lr 1e-4, whose statistics fit its
+     weights, with its TEST loss in the first-loss band; mini_cluster f32 at
+     COS_STEPS_PER_LOOP=1 and 4 (cuDNN deterministic; the final model
+     and the step-4 snapshot byte-equal) and 2 steps -dtype mixed
+     against 2 steps f32 (first loss within MIXED_VS_F32_LOSS_RTOL),
+     every BatchNorm of the mixed net fed and computing in f32; 5
+     synchronized direct steps of each of the three nets;
+ 25. write-behind snapshots: VGG-16 (B=32, SGD 0.01, momentum 0.9,
+     weight_decay 5e-4) and the LM of phase 13, each 8 steps with
+     snapshots at 4 and 8 through the CLI synchronously and with
+     -async_snapshot (cuDNN deterministic): snapshots and final model
+     byte-equal, losses equal; the wall time of each snapshot call on
+     the solver thread and the host interval holding the step-4
+     snapshot against the others;
+ 26. HDF5: CaffeNet 2 steps with snapshot_format HDF5 and BINARYPROTO,
+     each resumed with -snapshot from its step-2 state to 4: the two
+     final models equal (cuDNN deterministic); where h5py is missing,
+     the refusal naming it before any step;
+ 27. the quant sidecar: AlexNet (COS_FUSE_BIAS_RELU_LRN=1,
+     COS_SERVE_WEIGHT_DTYPE=int8) loaded from its f32 model (parse,
+     quantization, drift gate; timed), `<model>.quant` exported, a
+     second registry loaded from the sidecar (timed) with equal resident
+     blobs and rows, then served through start_server from the sidecar
+     (counts zeroed before, read after: K5 on fc6-fc8), rows against the
+     plain path;
+ 28. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
-     dtype; graphed runs included), encoded and graphed CaffeNet paths,
-     and the numbers of phase 3; a `ptxas` line; then the card line
-     again;
- 24. the device line, last: {"ok": true, "device": {...}}.
+     dtype; graphed runs included), encoded and graphed CaffeNet,
+     GoogLeNet, ResNet-50, snapshot, HDF5 and sidecar paths, and the
+     numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
+     `kernel_records` line); a `ptxas` line; then the card line again;
+ 29. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1506,7 +1546,8 @@ def synced_folds():
 def train_phase(K, label, solver_path, env, outdir, kernels,
                 device="cuda", per_step=TRAIN_B, unit="images",
                 launches_each=2 * TRAIN_ITERS, args=(), expect=None,
-                rounds=0, capture=0, iters=TRAIN_ITERS, steady=False):
+                rounds=0, capture=0, iters=TRAIN_ITERS, steady=False,
+                first_loss=(6.0, 8.0)):
     """-train through caffe_on_spark.main (with the extra CLI `args`)
     with the counts zeroed just before and read just after; checks
     losses, snapshots and that each of `kernels` launched `launches_each`
@@ -1516,7 +1557,9 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     `capture`, the record keeps that many of the first packed batches
     under "batches".  `iters` other than TRAIN_ITERS: a run without the
     snapshot checks; with `steady`, the record adds the steady step time
-    over the steps after STEADY_FROM, between the loss log's syncs."""
+    over the steps after STEADY_FROM, between the loss log's syncs.
+    `first_loss` bounds the first step's loss (a net with auxiliary
+    losses weighs more than ln 1000)."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark
     shutil.rmtree(outdir, ignore_errors=True)
@@ -1540,8 +1583,8 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
           f"{label}: iterations {tr['iter']}")
     check(all(math.isfinite(x) for x in losses),
           f"{label}: non-finite loss in {losses}")
-    check(6.0 <= losses[0] <= 8.0,
-          f"{label}: first loss {losses[0]:.4f} not near ln 1000")
+    check(first_loss[0] <= losses[0] <= first_loss[1],
+          f"{label}: first loss {losses[0]:.4f} outside {first_loss}")
     name = os.path.basename(solver_path).split("_")[0]
     for it in ((4, TRAIN_ITERS) if iters == TRAIN_ITERS else ()):
         for ext in ("caffemodel", "solverstate"):
@@ -1571,6 +1614,7 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     # median interval of 0 reads no rate
     res = dict(label=label, wall_s=wall_s, losses=losses, lr=tr["lr"],
                step_interval_ms=steps_ms, median_step_ms=med,
+               step_t=t,
                **{f"{unit}_per_s": 1e3 * per_step / med if med > 0
                   else None},
                pack_ms_p50=st["pack"]["p50_ms"],
@@ -1945,7 +1989,7 @@ def loss_vs_f32(net, run, f32):
 
 def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
              env=None, args=(), iters=TRAIN_ITERS, device="cuda",
-             display=1):
+             display=1, first_loss=(6.0, 8.0)):
     """`python -m caffeonspark_tpu_torch.mini_cluster -dtype <dtype>` for
     `iters` steps with -metrics every `display` steps (each display step
     cuts the chunks of COS_STEPS_PER_LOOP) and -pipeline_metrics, the
@@ -1980,8 +2024,8 @@ def mc_phase(K, label, solver_path, dtype, outdir, kernels, launches_each,
           f"{label}: iterations {[r['iter'] for r in steps]}")
     check(all(math.isfinite(x) for x in losses),
           f"{label}: non-finite loss in {losses}")
-    check(display > 1 or 6.0 <= losses[0] <= 8.0,
-          f"{label}: first loss {losses[0]:.4f} not near ln 1000")
+    check(display > 1 or first_loss[0] <= losses[0] <= first_loss[1],
+          f"{label}: first loss {losses[0]:.4f} outside {first_loss}")
     name = os.path.basename(solver_path).split("_")[0]
     want_files = [f"{name}_train_iter_{iters}.caffemodel"]
     if iters >= 4:
@@ -2565,6 +2609,590 @@ def graph_caffenet_phase(K, torch, workdir, lmdb, test_lmdb, kernels,
                 files_equal=files, direct=direct)
 
 
+# ---------------------------------------------------------------------------
+# phases 23-27: the wider zoo, write-behind and HDF5 snapshots, the quant
+# sidecar
+# ---------------------------------------------------------------------------
+
+ZOO_B, ZOO_CROP = 32, 224     # the published ImageNet train_val batch/crop
+# bvlc_googlenet quick_solver.prototxt (max_iter 2,400,000, snapshot
+# 40,000 cut to 8 and 4)
+GOOGLENET_SOLVER = ('base_lr: 0.01\nlr_policy: "poly"\npower: 0.5\n'
+                    'momentum: 0.9\nweight_decay: 0.0002\n')
+# He et al. 2016 section 3.4; Simonyan & Zisserman 2015 section 3.1
+RESNET_SOLVER = ('base_lr: 0.1\nlr_policy: "fixed"\nmomentum: 0.9\n'
+                 'weight_decay: 0.0001\n')
+VGG_SOLVER = ('base_lr: 0.01\nlr_policy: "fixed"\nmomentum: 0.9\n'
+              'weight_decay: 0.0005\n')
+# the -test model's solver: the published lr cut 1000 times, so that its
+# TRAIN_ITERS forwards gather the running statistics at nearly the
+# weights it ends with and its TEST loss is that of a net whose
+# statistics fit (the lr 0.1 model's statistics were gathered at weights
+# it has left: its TEST loss was 1.4e12 on the H100)
+RESNET_FIT_SOLVER = RESNET_SOLVER.replace("base_lr: 0.1\n",
+                                          "base_lr: 0.0001\n")
+# -test on the card against the CPU port's -test of the same model and
+# records (the CPU TEST forward is held to the JAX package's by
+# tests/test_torch_batchnorm.py): the loss relative, the accuracy within
+# one record
+TEST_VS_CPU_RTOL = 1e-3
+# the weighted sum of the main loss and two auxiliary losses of weight
+# 0.3: 1.6 ln 1000 = 11.05 at zero logits; with the published xavier
+# fillers on raw mean-subtracted pixels the towers start higher (18.3 at
+# B=4 on the CPU, the main loss 7.3)
+GOOGLENET_FIRST_LOSS = (10.0, 30.0)
+# ResNet-50's residual sums grow the logits past ln 1000's zero-logit
+# loss (8.1-9.0 at B=2, crop 64 on the CPU)
+RESNET_FIRST_LOSS = (6.0, 12.0)
+# VGG-16's fc6/fc7 biases of 1 and the dropout's 2x scale spread the
+# logits (9.46 at B=2, crop 64 on the CPU)
+VGG_FIRST_LOSS = (6.0, 12.0)
+ZOO_PARAMS = {"GoogLeNet": (6_500_000, 14_000_000),
+              "ResNet50": (25_500_000, 25_700_000),
+              "VGG16": (138_357_544, 138_357_544)}
+
+
+def write_zoo_config(workdir, zoo_fn, lmdb, solver_lines, seed,
+                     name=None, test_lmdb="", extra="", max_iter=TRAIN_ITERS,
+                     snapshot=4, xavier_convs=False):
+    """The zoo net at its published width on the LMDB MemoryData layer
+    (B=ZOO_B, random ZOO_CROP crop of the 256x256 records, mirror,
+    mean_value 104/117/123: bvlc_googlenet's train_val data shape), with
+    a TEST layer on `test_lmdb` when given (B=VAL_B, center crop; the
+    solver does not validate, so -test reads it), and a solver of
+    `solver_lines` cut to `max_iter` and `snapshot`.  `xavier_convs`
+    gives every convolution the published bvlc_googlenet's xavier weight
+    filler: the zoo draws gaussian weights at the published std values,
+    from which GoogLeNet's first loss is near 49 on raw pixels and the
+    quick_solver diverges within two steps (measured on the CPU)."""
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import (NetState, NetStateRule, Phase,
+                                              TransformationParameter)
+    from caffeonspark_tpu_torch.proto import FillerParameter
+    npm = zoo_fn(batch_size=ZOO_B)
+    if name:
+        npm.name = name
+    if xavier_convs:
+        for lp in npm.layer:
+            if lp.type == "Convolution":
+                lp.convolution_param.weight_filler = FillerParameter(
+                    type="xavier")
+    data = npm.layer[0]
+    data.source_class = "com.yahoo.ml.caffe.LMDB"
+    data.memory_data_param.source = lmdb
+    data.memory_data_param.height = 256
+    data.memory_data_param.width = 256
+    data.transform_param = TransformationParameter(
+        crop_size=ZOO_CROP, mirror=True, mean_value=MEAN_VALUE)
+    if test_lmdb:
+        test = data.clone()
+        data.include.append(NetStateRule(phase=Phase.TRAIN))
+        test.include.append(NetStateRule(phase=Phase.TEST))
+        test.memory_data_param.source = test_lmdb
+        test.memory_data_param.batch_size = VAL_B
+        test.transform_param = TransformationParameter(
+            crop_size=ZOO_CROP, mean_value=MEAN_VALUE)
+        npm.layer.insert(1, test)
+    lname = npm.name.lower()
+    net = Net(npm, NetState(phase=Phase.TRAIN), device="meta")
+    stats = set(net.stat_param_layers())
+    weights = sum(math.prod(s) for ln, specs in net.param_layout.items()
+                  if ln not in stats for _, s, _ in specs)
+    lo, hi = ZOO_PARAMS[zoo_fn(batch_size=1).name]
+    check(lo <= weights <= hi, f"{npm.name}: {weights:,} weights outside "
+          f"[{lo:,}, {hi:,}]")
+    net_path = os.path.join(workdir, f"{lname}_train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, f"{lname}_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{net_path}"\n{solver_lines}max_iter: {max_iter}\n'
+                f'snapshot: {snapshot}\nsnapshot_prefix: "{lname}_train"\n'
+                f'snapshot_after_train: true\nrandom_seed: {seed}\n{extra}')
+    return solver_path, weights, len(stats)
+
+
+@contextlib.contextmanager
+def timed_snapshots():
+    """The wall time of each snapshot call on the solver thread (the
+    processor's `_snapshot`: the whole write, or under -async_snapshot
+    the host copy and the wait for the write before it)."""
+    from caffeonspark_tpu_torch.processor import CaffeProcessor
+    real = CaffeProcessor._snapshot
+    calls = []
+
+    def timed(self, params, st, final=False):
+        t0 = time.perf_counter()
+        real(self, params, st, final=final)
+        calls.append(dict(iter=st.iter, final=final,
+                          ms=1e3 * (time.perf_counter() - t0)))
+
+    CaffeProcessor._snapshot = timed
+    try:
+        yield calls
+    finally:
+        CaffeProcessor._snapshot = real
+
+
+def files_equal(label, dir_a, dir_b, names):
+    for fname in names:
+        paths = [os.path.join(d, fname) for d in (dir_a, dir_b)]
+        check(all(os.path.exists(p) for p in paths), f"{label}: no {fname}")
+        with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+            check(a.read() == b.read(), f"{label}: {fname} differs")
+
+
+def zoo_direct_steps(torch, label, solver_path, kept=None, device="cuda"):
+    """The net's step without the CLI's threads: one warm-up step, then
+    5 synchronized direct steps (`direct_steps`); `kept` is a
+    step_vs_plain's (solver, params, state, host), else a fresh solver
+    at its seed's init."""
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    if kept is None:
+        solver, host = make_solver(torch, solver_path, {}, device)
+        params, state = solver.init()
+    else:
+        solver, params, state, host = kept
+    solver.train_step(params, state, to_device(host, solver.device))
+    ms = direct_steps(torch, solver, params, state, host)
+    log(f"  {label}: 5 synchronized direct steps "
+        + ", ".join(f"{x:.1f}" for x in ms) + f" ms (median {median(ms):.1f})")
+    return ms
+
+
+def googlenet_phase(K, torch, workdir, lmdb, res, device="cuda"):
+    """GoogLeNet (bvlc_googlenet, aux towers included) at B=ZOO_B, crop
+    ZOO_CROP through the CLI for TRAIN_ITERS steps: K1 + K2 on norm1
+    (32,64,56,56) and norm2 (32,192,56,56), 16 launches each; then with
+    COS_FUSE_BIAS_RELU_LRN=1, where the peephole folds conv2/3x3's bias
+    and relu into norm2 (K3 + K4) and norm1 stays K1 + K2 (8 each);
+    each net's step against the all-plain step (STEP_LOSS_RTOL,
+    STEP_GRAD_TOL); K1-K4 timed at these shapes into `res`."""
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.net import Net
+    solver, weights, _ = write_zoo_config(workdir, zoo.googlenet, lmdb,
+                                          GOOGLENET_SOLVER, seed=3,
+                                          xavier_convs=True)
+    with env_set({"COS_FUSE_BIAS_RELU_LRN": "1"}):
+        conf = Config(["-conf", solver, "-train", "-device", "cpu"])
+        fused = Net(conf.netParam, device="meta").fused_bias_lrn
+    check(fused == {"conv2_norm2": "conv2/3x3"},
+          f"GoogLeNet: the bias peephole matched {fused}")
+    lrn = ("lrn_across_channels", "lrn_across_channels_bwd")
+    blrn = ("bias_relu_lrn_across_channels",
+            "bias_relu_lrn_across_channels_bwd")
+    runs, steps = {}, []
+    for key, env, kernels, expect in (
+            ("plain_lrn", {}, lrn, None),
+            ("bias_relu_lrn", {"COS_FUSE_BIAS_RELU_LRN": "1"}, lrn + blrn,
+             {k: TRAIN_ITERS for k in lrn + blrn})):
+        label = f"GoogLeNet train {key.replace('_', ' ')}"
+        runs[key], _ = train_phase(
+            K, label, solver, env,
+            os.path.join(workdir, f"googlenet_{key}_out"), kernels,
+            per_step=ZOO_B, expect=expect, first_loss=GOOGLENET_FIRST_LOSS,
+            device=device)
+        rec, kept = step_vs_plain(K, torch, label, solver, env,
+                                  device=device)
+        with env_set(env):
+            rec["direct_step_ms"] = zoo_direct_steps(torch, label, solver,
+                                                     kept, device)
+        steps.append(rec)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("  K1-K4 at GoogLeNet's norm shapes (B=32, f32; timed):")
+    for name, shape, bias in (
+            ("lrn_across_channels", (ZOO_B, 64, 56, 56), False),
+            ("lrn_across_channels", (ZOO_B, 192, 56, 56), False),
+            ("bias_relu_lrn_across_channels", (ZOO_B, 192, 56, 56), True)):
+        check_lrn(K, torch, name, shape, torch.float32, False, bias, res)
+        check_lrn_bwd(K, torch, name + "_bwd", shape, torch.float32, False,
+                      bias, res)
+    return dict(weights=weights, runs=runs, step_vs_plain=steps,
+                fused_bias_lrn=fused)
+
+
+def stats_moved(label, model):
+    """Every BatchNorm's statistics in a trained .caffemodel: finite,
+    count > 0, variance > 0 somewhere."""
+    import numpy as np
+    from caffeonspark_tpu_torch import checkpoint
+    blobs = checkpoint.load_caffemodel_blobs(model)
+    bns = [ln for ln in blobs if ln.startswith("bn_")]
+    check(len(bns) == 53, f"{label}: {len(bns)} BatchNorm layers in {model}")
+    for ln in bns:
+        mean, var, count = blobs[ln]
+        check(all(np.isfinite(b).all() for b in blobs[ln])
+              and count[0] > 0 and var.max() > 0 and np.abs(mean).max() > 0,
+              f"{label}: {ln} statistics did not move (count {count})")
+    return dict(bn_layers=len(bns),
+                count=float(blobs[bns[0]][2][0]),
+                var_max=max(float(blobs[ln][1].max()) for ln in bns))
+
+
+def test_vs_cpu(label, solver_path, model, card, outdir):
+    """-test of `model` on the CPU through caffe_on_spark.main, the
+    witness for the card's `card` test_result: loss within
+    TEST_VS_CPU_RTOL, accuracy within one of VAL_RECORDS records."""
+    import shutil
+    from caffeonspark_tpu_torch import caffe_on_spark
+    d = os.path.join(outdir, "cpu")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.monotonic()
+    rc = caffe_on_spark.main(["-conf", solver_path, "-test", "-model",
+                              model, "-output", d, "-device", "cpu"])
+    wall_s = time.monotonic() - t0
+    check(rc == 0, f"{label}: -test on the CPU returned {rc}")
+    with open(os.path.join(d, "test_result")) as f:
+        cpu = json.load(f)
+    loss_rel = abs(card["loss"][0] - cpu["loss"][0]) / abs(cpu["loss"][0])
+    acc_diff = abs(card["accuracy"][0] - cpu["accuracy"][0])
+    check(math.isfinite(cpu["loss"][0]) and loss_rel <= TEST_VS_CPU_RTOL
+          and acc_diff <= 1.0 / VAL_RECORDS + 1e-6,
+          f"{label}: -test on the card {card} against the CPU's {cpu} "
+          f"(loss rel {loss_rel:.3g}, tol {TEST_VS_CPU_RTOL})")
+    log(f"  {label}: -test on the card {card}, on the CPU {cpu} in "
+        f"{wall_s:.1f} s: loss rel {loss_rel:.3g} (tol {TEST_VS_CPU_RTOL})"
+        f", accuracy {acc_diff:.3g} apart")
+    return dict(cpu_result=cpu, loss_rel=loss_rel, accuracy_diff=acc_diff,
+                cpu_wall_s=wall_s)
+
+
+def resnet_phase(K, torch, workdir, lmdb, test_lmdb, device="cuda"):
+    """ResNet-50 at B=ZOO_B, crop ZOO_CROP: TRAIN_ITERS steps through the
+    CLI (no custom kernel on the path: BatchNorm, Scale and Eltwise are
+    plain PyTorch, as they were XLA's), the running statistics finite
+    and moved, the step against the all-plain step, -test of the trained
+    model (its TEST net normalizes with the stored statistics) against
+    the CPU's -test of the same model (`test_vs_cpu`), then the same for
+    a model trained at lr 1e-4, whose statistics fit its weights, with
+    its TEST loss in the first-loss band; mini_cluster f32 at COS_STEPS_PER_LOOP=1 and
+    GRAPH_K (cuDNN deterministic; final models, statistics included,
+    byte-equal) and 2 steps of -dtype mixed, whose BatchNorm input and
+    statistics stay f32 and whose first loss is within
+    MIXED_VS_F32_LOSS_RTOL of 2 f32 steps'."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.ops import layers as L
+    solver, weights, n_bn = write_zoo_config(
+        workdir, zoo.resnet50, lmdb, RESNET_SOLVER, seed=4,
+        test_lmdb=test_lmdb)
+    train, model = train_phase(
+        K, "ResNet50 train", solver, {},
+        os.path.join(workdir, "resnet50_out"), (), per_step=ZOO_B,
+        device=device, first_loss=RESNET_FIRST_LOSS)
+    stats = stats_moved("ResNet50 train", model)
+    step, kept = step_vs_plain(K, torch, "ResNet50 train", solver, {},
+                               device=device)
+    step["direct_step_ms"] = zoo_direct_steps(torch, "ResNet50 train",
+                                              solver, kept, device)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    test = eval_phase(K, "ResNet50", solver, model,
+                      os.path.join(workdir, "resnet50_test_out"), "test",
+                      (), 0, device=device)
+    test.update(test_vs_cpu("ResNet50", solver, model, test["test_result"],
+                            os.path.join(workdir, "resnet50_test_out")))
+    # a model whose statistics fit its weights: its TEST loss is a
+    # classifier's (in the first-loss band), and the CPU's agrees
+    fit_solver, _, _ = write_zoo_config(
+        workdir, zoo.resnet50, lmdb, RESNET_FIT_SOLVER, seed=4,
+        name="ResNet50Fit", test_lmdb=test_lmdb)
+    fit_train, fit_model = train_phase(
+        K, "ResNet50 lr 1e-4 train", fit_solver, {},
+        os.path.join(workdir, "resnet50fit_out"), (), per_step=ZOO_B,
+        device=device, first_loss=RESNET_FIRST_LOSS)
+    fit_test = eval_phase(K, "ResNet50 lr 1e-4", fit_solver, fit_model,
+                          os.path.join(workdir, "resnet50fit_test_out"),
+                          "test", (), 0, device=device)
+    fit_loss = fit_test["test_result"]["loss"][0]
+    check(RESNET_FIRST_LOSS[0] <= fit_loss <= RESNET_FIRST_LOSS[1],
+          f"ResNet50 lr 1e-4: -test loss {fit_loss:.4f} outside "
+          f"{RESNET_FIRST_LOSS}: the statistics do not fit the weights")
+    fit_test.update(test_vs_cpu(
+        "ResNet50 lr 1e-4", fit_solver, fit_model, fit_test["test_result"],
+        os.path.join(workdir, "resnet50fit_test_out")))
+    fit_test["train_losses"] = fit_train["losses"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    mc = {}
+    try:
+        for k in (1, GRAPH_K):
+            mc[k] = mc_phase(K, f"ResNet50 mini_cluster float32 K={k}",
+                             solver, "float32",
+                             os.path.join(workdir, f"resnet50_mc_k{k}_out"),
+                             (), 0, env={"COS_STEPS_PER_LOOP": str(k)},
+                             display=GRAPH_K, device=device)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    name = os.path.basename(mc[1]["final_model"])
+    files_equal(f"ResNet50 K={GRAPH_K} against K=1",
+                os.path.dirname(mc[1]["final_model"]),
+                os.path.dirname(mc[GRAPH_K]["final_model"]),
+                [name, "resnet50_train_iter_4.caffemodel",
+                 "resnet50_train_iter_4.solverstate"])
+    mc_stats = stats_moved("ResNet50 graphed", mc[GRAPH_K]["final_model"])
+    mixed = mc_phase(K, "ResNet50 mini_cluster mixed", solver, "mixed",
+                     os.path.join(workdir, "resnet50_mc_mixed_out"), (), 0,
+                     iters=2, device=device, first_loss=RESNET_FIRST_LOSS)
+    f32_first = mc_phase(K, "ResNet50 mini_cluster float32 2 steps", solver,
+                         "float32",
+                         os.path.join(workdir, "resnet50_mc_f32_out"), (), 0,
+                         iters=2, device=device,
+                         first_loss=RESNET_FIRST_LOSS)
+    loss_vs_f32("ResNet50", mixed, f32_first)
+    # the mixed net's BatchNorm layers: f32 input, params and output
+    gc.collect()
+    torch.cuda.empty_cache()
+    msolver, host = make_solver(torch, solver, {}, dtype="mixed",
+                                device=device)
+    seen = []
+    op = L.get_op("BatchNorm")
+    real = op.apply
+
+    def spy(ctx, lp, params, bottoms):
+        tops = real(ctx, lp, params, bottoms)
+        seen.append({str(t.dtype) for t in bottoms + params + tops})
+        return tops
+
+    op.apply = spy
+    try:
+        from caffeonspark_tpu_torch.data.queue_runner import to_device
+        from caffeonspark_tpu_torch.mini_cluster import cast_inputs
+        params, _ = msolver.init()
+        msolver.loss_and_grads(params, cast_inputs(
+            msolver.train_net, to_device(host, msolver.device)))
+    finally:
+        op.apply = real
+    check(len(seen) == n_bn and all(s == {"torch.float32"} for s in seen),
+          f"ResNet50 mixed: BatchNorm dtypes {seen[:3]}...")
+    log(f"  ResNet50 mixed: {len(seen)} BatchNorm layers took f32 input and "
+        "statistics and gave f32 output")
+    del msolver, params, host
+    return dict(weights=weights, bn_layers=n_bn, train=train, stats=stats,
+                step_vs_plain=step, test=test, fit_test=fit_test,
+                mc={f"k{k}": v for k, v in mc.items()},
+                mc_graphed_stats=mc_stats, mc_equal_k1=True, mixed=mixed,
+                f32_2_steps=f32_first, mixed_bn_f32=True)
+
+
+def snapshot_phase(K, label, solver, outdir, kernels, launches_each,
+                   per_step, unit, device="cuda", first_loss=(6.0, 8.0)):
+    """The same TRAIN_ITERS-step run through the CLI synchronously and
+    with -async_snapshot (cuDNN deterministic), snapshots at 4 and 8 (not
+    after training too, which would write step 8 twice): every snapshot
+    and the final model byte-equal; the wall time of each snapshot call
+    on the solver thread, and the host interval of the step after each
+    snapshot (it holds the snapshot) against the other steps'."""
+    import torch
+    with open(solver) as f:
+        text = f.read()
+    check("snapshot_after_train: true" in text, f"{solver}: no "
+          "snapshot_after_train")
+    solver = solver.replace("_solver.prototxt", "_snap_solver.prototxt")
+    with open(solver, "w") as f:
+        f.write(text.replace("snapshot_after_train: true",
+                             "snapshot_after_train: false"))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for key, args in (("sync", ()), ("async", ("-async_snapshot",))):
+            with timed_snapshots() as calls:
+                runs[key], _ = train_phase(
+                    K, f"{label} {key}", solver, {}, f"{outdir}_{key}",
+                    kernels, per_step=per_step, unit=unit,
+                    launches_each=launches_each, args=args, device=device,
+                    first_loss=first_loss)
+            t = runs[key]["step_t"]
+            iv = [1e3 * (t[i] - t[i - 1]) for i in range(1, len(t))]
+            runs[key].update(
+                snapshot_calls=calls,
+                # t[i] is step i+1's dispatch: the snapshot after step 4
+                # sits in t[4] - t[3]
+                snapshot_interval_ms=iv[3],
+                other_intervals_ms=[x for i, x in enumerate(iv)
+                                    if i not in (0, 3)])
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    name = os.path.basename(solver).split("_")[0]
+    names = [f"{name}_train_iter_{i}.{x}" for i in (4, TRAIN_ITERS)
+             for x in ("caffemodel", "solverstate")] + ["model.caffemodel"]
+    files_equal(f"{label} async against sync", f"{outdir}_sync",
+                f"{outdir}_async", names)
+    check(runs["sync"]["losses"] == runs["async"]["losses"],
+          f"{label}: async losses differ from sync")
+    nbytes = sum(os.path.getsize(os.path.join(f"{outdir}_sync", n))
+                 for n in names[:2])
+    for key, r in runs.items():
+        c = r["snapshot_calls"]
+        log(f"  {label} {key}: snapshot calls "
+            + ", ".join(f"iter {x['iter']}{' (final)' if x['final'] else ''}"
+                        f" {x['ms']:.1f} ms" for x in c)
+            + f"; the interval holding the step-4 snapshot "
+            f"{r['snapshot_interval_ms']:.1f} ms, other intervals median "
+            f"{median(r['other_intervals_ms']):.1f} ms")
+    log(f"  {label}: snapshot of {nbytes:,} bytes (model + state); async "
+        "files byte-equal to sync")
+    return dict(runs=runs, snapshot_bytes=nbytes, files_equal=names)
+
+
+def hdf5_phase(K, torch, workdir, lmdb, kernels, device="cuda"):
+    """CaffeNet (B=TRAIN_B) with snapshot_format HDF5 and BINARYPROTO
+    (cuDNN deterministic): 2 steps with a snapshot at 2, then -snapshot
+    from that state to 4; the two resumed final models equal.  Without
+    h5py on this machine, the refusal of the HDF5 solver naming it,
+    before any step."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch import caffe_on_spark, checkpoint
+    from caffeonspark_tpu_torch.models import zoo
+    base = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
+                              suffix="H")
+    with open(base) as f:
+        text = f.read()
+    solvers = {}
+    for fmt in ("BINARYPROTO", "HDF5"):
+        for n in (2, 4):
+            lines = [ln for ln in text.splitlines()
+                     if not ln.startswith(("max_iter:", "snapshot:"))]
+            p = base.replace("_solver.prototxt", f"_{fmt}_{n}.prototxt")
+            with open(p, "w") as f:
+                f.write("\n".join(lines) + f"\nmax_iter: {n}\nsnapshot: 2\n"
+                        f"snapshot_format: {fmt}\n")
+            solvers[fmt, n] = p
+    have = importlib.util.find_spec("h5py") is not None
+    if not have:
+        K.reset_launch_counts()
+        try:
+            caffe_on_spark.main(["-conf", solvers["HDF5", 2], "-train",
+                                 "-output", os.path.join(workdir, "h5_out"),
+                                 "-device", device])
+        except RuntimeError as e:
+            check("h5py" in str(e), f"HDF5 refusal does not name h5py: {e}")
+            check(sum(K.launch_counts.values()) == 0,
+                  "HDF5 refusal came after a step")
+            log(f"  HDF5: h5py is missing on this machine; refused by "
+                f"name before any step: {e}")
+            return dict(h5py=False, refused=str(e), launches={})
+        check(False, "an HDF5 solver ran without h5py")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    finals, counts = {}, {}
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        for fmt in ("BINARYPROTO", "HDF5"):
+            ext = ".h5" if fmt == "HDF5" else ""
+            out = os.path.join(workdir, f"caffenet_{fmt.lower()}_out")
+            out2 = out + "_resumed"
+            for d in (out, out2):
+                shutil.rmtree(d, ignore_errors=True)
+            check(caffe_on_spark.main(["-conf", solvers[fmt, 2], "-train",
+                                       "-output", out, "-device", device])
+                  == 0, f"HDF5 phase: {fmt} run")
+            state = os.path.join(out, f"caffeneth_train_iter_2.solverstate"
+                                      f"{ext}")
+            check(os.path.exists(state) and os.path.exists(
+                state.replace("solverstate", "caffemodel")),
+                f"HDF5 phase: no {state} or its model")
+            check(caffe_on_spark.main(["-conf", solvers[fmt, 4], "-train",
+                                       "-snapshot", state, "-output", out2,
+                                       "-device", device]) == 0,
+                  f"HDF5 phase: {fmt} resume")
+            check(os.path.exists(os.path.join(
+                out2, f"caffeneth_train_iter_4.caffemodel{ext}")),
+                f"HDF5 phase: no {fmt} snapshot at 4")
+            finals[fmt] = checkpoint.load_caffemodel_blobs(
+                os.path.join(out2, "model.caffemodel"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    counts = dict(K.launch_counts)
+    for k in kernels:
+        check(counts.get(k, 0) == 2 * 8, f"HDF5 phase: {k} launched "
+              f"{counts.get(k, 0)} times, expected 16")
+    a, b = finals["BINARYPROTO"], finals["HDF5"]
+    check(a.keys() == b.keys() and all(
+        np.array_equal(x, y) for ln in a for x, y in zip(a[ln], b[ln])),
+        "HDF5 phase: the resumed final models differ")
+    log(f"  HDF5: 2 steps + resume to 4 in HDF5 and in binaryproto "
+        f"({time.monotonic() - t0:.1f} s): resumed final models equal; "
+        f"launches {counts}")
+    return dict(h5py=True, finals_equal=True, launches=counts)
+
+
+def sidecar_phase(K, torch, solver_path, model, device="cuda"):
+    """AlexNet served in int8 (COS_FUSE_BIAS_RELU_LRN=1,
+    COS_SERVE_WEIGHT_DTYPE=int8): the registry's load of the f32 model
+    (parse, quantization, drift gate) timed; `<model>.quant` exported;
+    a second registry loads the sidecar (timed) into the same resident
+    blobs; then the CLI's server restarts from the sidecar (counts zeroed
+    before, read after: K5 on fc6-fc8, 3 launches a flush) with every
+    row within ROWS_INT8_TOL of the plain path, and the rows of one
+    batch through both registries equal."""
+    from caffeonspark_tpu_torch import checkpoint
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.serving.registry import ModelRegistry
+    env = {"COS_FUSE_BIAS_RELU_LRN": "1", "COS_SERVE_WEIGHT_DTYPE": "int8"}
+    sidecar = model + checkpoint.QUANT_SIDECAR_SUFFIX
+    if os.path.exists(sidecar):
+        os.remove(sidecar)
+    loads = {}
+    regs = {}
+    for key in ("f32_then_quantize", "sidecar"):
+        with env_set(env):
+            conf = Config(["-conf", solver_path, "-serve", "-model", model,
+                           "-device", device])
+            regs[key] = reg = ModelRegistry.from_conf(conf)
+        sync = (torch.cuda.synchronize if device == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        mv = reg.load(model)
+        sync()
+        loads[key] = 1e3 * (time.perf_counter() - t0)
+        check(mv.weight_dtype == "int8", f"sidecar phase: {key} load is "
+              f"{mv.weight_dtype}")
+        if key == "f32_then_quantize":
+            reg.export_quant_sidecar(model)
+            check(os.path.exists(sidecar), "no quant sidecar written")
+    a, b = (regs[k].current() for k in ("f32_then_quantize", "sidecar"))
+    check(all(torch.equal(a.params[ln][bn], b.params[ln][bn])
+              for ln in a.params for bn in a.params[ln])
+          and all(torch.equal(a.scales[ln][bn], b.scales[ln][bn])
+                  for ln in a.scales for bn in a.scales[ln]),
+          "sidecar phase: resident blobs differ from the quantized load")
+    net = regs["sidecar"].net
+    g = torch.Generator(device=device).manual_seed(5)
+    batch = {n: (torch.rand(s, device=device, generator=g) * 255
+                 if kind == "data" else torch.zeros(s, device=device))
+             for n, s, kind in net.input_specs}
+    rows = [regs[k].forward(("fc8",), weight_dtype="int8")(
+        regs[k].current().params, regs[k].current().scales, batch)["fc8"]
+        for k in regs]
+    check(torch.equal(rows[0], rows[1]), "sidecar phase: rows differ")
+    del regs, a, b, rows
+    log(f"  AlexNet int8: load of the f32 model + quantization + drift gate "
+        f"{loads['f32_then_quantize']:.1f} ms; load of the sidecar "
+        f"{loads['sidecar']:.1f} ms ({os.path.getsize(sidecar):,} bytes); "
+        "resident blobs and rows equal")
+    K.reset_launch_counts()
+    served = serve_phase(K, torch, solver_path, model, env, ROWS_INT8_TOL,
+                         "AlexNet int8 from its quant sidecar",
+                         sizes=(4, 4, B), device=device)
+    counts = dict(K.launch_counts)
+    check(counts["int8_matmul"] > 0, "sidecar phase: K5 never launched")
+    return dict(load_ms=loads, sidecar_bytes=os.path.getsize(sidecar),
+                served=served, launches=counts)
+
+
 def ptxas_report(text: str) -> list:
     """Registers and spills of each flash kernel instantiation, from the
     `-Xptxas -v` output of nvcc (names demangled by c++filt where the
@@ -2920,6 +3548,46 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     graph_cn = graph_caffenet_phase(K, torch, workdir, lmdb, test_lmdb,
                                     train_configs[0][3], train_configs[0][1])
+    log(f"the wider zoo: GoogLeNet at B={ZOO_B}, crop {ZOO_CROP} through the "
+        "CLI with K1 + K2, then with COS_FUSE_BIAS_RELU_LRN=1 (K3 + K4 on "
+        "norm2), each step against the plain step (counts zeroed before "
+        "each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    googlenet = googlenet_phase(K, torch, workdir, lmdb, res)
+    log(f"ResNet-50 at B={ZOO_B}: -train, the running statistics, the step "
+        f"against the plain step, -test, mini_cluster K=1 / K={GRAPH_K} and "
+        "mixed (counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet = resnet_phase(K, torch, workdir, lmdb, test_lmdb)
+    log(f"write-behind snapshots: VGG-16 at B={ZOO_B} and the LM, "
+        f"{TRAIN_ITERS} steps with a snapshot at 4, synchronous and "
+        "-async_snapshot (counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vgg_solver, vgg_weights, _ = write_zoo_config(workdir, zoo.vgg16, lmdb,
+                                                  VGG_SOLVER, seed=6)
+    vgg = snapshot_phase(K, "VGG16 train", vgg_solver,
+                         os.path.join(workdir, "vgg16_out"), (), 0, ZOO_B,
+                         "images", first_loss=VGG_FIRST_LOSS)
+    vgg["weights"] = vgg_weights
+    vgg["direct_step_ms"] = zoo_direct_steps(torch, "VGG16 train",
+                                             vgg_solver)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_snap = snapshot_phase(K, "TransformerLM train", lm_solver,
+                             os.path.join(workdir, "transformerlm_snap"),
+                             lm_kernels, LM["layers"] * TRAIN_ITERS,
+                             LM["batch"] * LM["seq"], "tokens")
+    log("HDF5 snapshots: CaffeNet 2 steps and a resume to 4, in HDF5 and in "
+        "binaryproto (counts zeroed before):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    hdf5 = hdf5_phase(K, torch, workdir, lmdb, train_configs[0][3])
+    log("the quant sidecar: AlexNet in int8, exported and served from its "
+        "sidecar (counts zeroed before the server):")
+    sidecar = sidecar_phase(K, torch, *alexnet)
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_sp4_mixed"] = lm_mc["sp_run"]
@@ -2928,6 +3596,10 @@ def main(argv) -> int:
         mc_paths[f"mc_transformerlm_{dtype}_k{GRAPH_K}"] = r
     mc_paths[f"mc_transformerlm_sp4_mixed_k{GRAPH_SP_K}"] = graph_lm["sp_run"]
     mc_paths["mc_transformerlm_sp4_mixed_k1_4steps"] = graph_lm["sp_run_k1"]
+    for key in ("k1", f"k{GRAPH_K}"):
+        mc_paths[f"mc_resnet50_float32_{key}"] = resnet["mc"][key]
+    mc_paths["mc_resnet50_mixed"] = resnet["mixed"]
+    mc_paths["mc_resnet50_float32"] = resnet["f32_2_steps"]
 
     lines = []
     for name, meta in KERNELS.items():
@@ -2948,7 +3620,17 @@ def main(argv) -> int:
                    **({"encoded": encoded["train"]["launches"].get(name, 0)}
                       if "train" in encoded else {}),
                    **{f"graph_caffenet_k{k}": r["launches"].get(name, 0)
-                      for k, r in graph_cn["runs"].items()}}
+                      for k, r in graph_cn["runs"].items()},
+                   **{f"train_googlenet_{k}": r["launches"].get(name, 0)
+                      for k, r in googlenet["runs"].items()},
+                   "train_resnet50": resnet["train"]["launches"].get(name, 0),
+                   "test_resnet50": resnet["test"]["launches"].get(name, 0),
+                   **{f"train_{net}_{k}": r["launches"].get(name, 0)
+                      for net, rec in (("vgg16", vgg), ("lm_snapshots",
+                                                        lm_snap))
+                      for k, r in rec["runs"].items()},
+                   "hdf5_caffenet": hdf5["launches"].get(name, 0),
+                   "serve_quant_sidecar": sidecar["launches"].get(name, 0)}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -2995,6 +3677,10 @@ def main(argv) -> int:
     log(json.dumps({"native": native_res, "host_libraries": have,
                     "encoded": encoded}))
     log(json.dumps({"graphs": {"lm": graph_lm, "caffenet": graph_cn}}))
+    log(json.dumps({"zoo": {"googlenet": googlenet, "resnet50": resnet}}))
+    log(json.dumps({"snapshots": {"vgg16": vgg, "lm": lm_snap,
+                                  "hdf5": hdf5},
+                    "quant_sidecar": sidecar}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

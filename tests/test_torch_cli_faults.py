@@ -4,8 +4,6 @@ keep their training log bounded.
   * every JAX command-line flag the port does not act on yet is refused
     by name (`Config.validate`); flags no JAX version knows still pass,
     as Spark passes its own;
-  * a solver with `snapshot_format: HDF5` is refused before the first
-    step, so no step runs and no partial model is written;
   * the training log folds its device-scalar losses to host floats at
     every display / snapshot boundary (at most LOSS_FOLD_MAX steps), and
     `info.train` is what the unfolded log gave, key for key.
@@ -99,27 +97,6 @@ def test_cli_takes_one_process_values_and_unknown_flags(tmp_path, args):
     passes, and so do flags no JAX version knows (Spark's own)."""
     solver = _setup(tmp_path, 2)
     Config(["-conf", solver, "-train", "-device", "cpu", *args]).validate()
-
-
-@pytest.mark.parametrize("after_train", [True, False])
-def test_hdf5_solver_is_refused_before_the_first_step(tmp_path, monkeypatch,
-                                                      after_train):
-    """snapshot: 0 with snapshot_after_train and snapshot_format HDF5 used
-    to train every step and then raise before the -model save; now it
-    is refused before step 1, and no model or snapshot file is left."""
-    solver = _setup(tmp_path, 4, "snapshot: 0\nsnapshot_format: HDF5\n"
-                    f"snapshot_after_train: {str(after_train).lower()}\n")
-    steps = []
-    real = Solver.train_step
-    monkeypatch.setattr(Solver, "train_step",
-                        lambda self, *a: steps.append(1) or real(self, *a))
-    out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="HDF5 snapshots wait for "
-                                                  "a later slice"):
-        caffe_on_spark.main(["-conf", solver, "-train", "-output", str(out),
-                             "-device", "cpu"])
-    assert steps == []
-    assert not out.exists() or os.listdir(out) == []
 
 
 def _recording_run(tmp_path, monkeypatch, max_iter, extra):

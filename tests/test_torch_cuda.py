@@ -622,6 +622,30 @@ def test_bf16_gemm_accumulates_in_f32_on_card(cuda_card):
 # COS_STEPS_PER_LOOP: k solver steps as one CUDA graph
 # ---------------------------------------------------------------------------
 
+def _resnet_text(batch=2, px=32):
+    """The zoo's ResNet stem, a projecting and an identity bottleneck
+    block at narrow widths (tests/test_torch_batchnorm.py's net)."""
+    from caffeonspark_tpu_torch.models import zoo
+    t = (f'name: "ResNetReduced"\nlayer {{ name: "data" type: "MemoryData" '
+         f'top: "data" top: "label" memory_data_param {{ batch_size: {batch} '
+         f'channels: 3 height: {px} width: {px} }} }}\n')
+    t += zoo._CONV_BN.format(name="conv1", bottom="data", n=8, k=7,
+                             extra="pad: 3 stride: 2")
+    t += ('layer { name: "conv1_relu" type: "ReLU" bottom: "conv1" '
+          'top: "conv1" }\nlayer { name: "pool1" type: "Pooling" '
+          'bottom: "conv1" top: "pool1" pooling_param { pool: MAX '
+          'kernel_size: 3 stride: 2 } }\n')
+    t = zoo._res_block(t, "res2a", "pool1", 4, 16, 1, project=True)
+    t = zoo._res_block(t, "res2b", "res2a", 4, 16, 1, project=False)
+    t += ('layer { name: "pool5" type: "Pooling" bottom: "res2b" '
+          'top: "pool5" pooling_param { pool: AVE global_pooling: true } }'
+          '\nlayer { name: "fc" type: "InnerProduct" bottom: "pool5" '
+          'top: "fc" inner_product_param { num_output: 10 weight_filler '
+          '{ type: "xavier" } } }\nlayer { name: "loss" type: '
+          '"SoftmaxWithLoss" bottom: "fc" bottom: "label" top: "loss" }\n')
+    return t
+
+
 NARROW_CAFFENET = {"conv1": 8, "conv2": 16, "conv3": 16, "conv4": 16,
                    "conv5": 8, "fc6": 32, "fc7": 32, "fc8": 10}
 
@@ -629,11 +653,13 @@ NARROW_CAFFENET = {"conv1": 8, "conv2": 16, "conv3": 16, "conv4": 16,
 def _graph_case(name, device):
     """(solver, params, state, blocks of 4 steps' stacked inputs, mesh):
     a narrow crop-67 CaffeNet (LRN, Dropout; SGD with clip_gradients and
+    iter_size 2), a narrow ResNet of the zoo's bottleneck blocks
+    (BatchNorm's statistics written in place by every forward; SGD with
     iter_size 2) or a small causal transformer_lm (Adam, K6-K8; with
     `sp` the ring on 4 ranks of the one card: K9, K7, K8)."""
     from caffeonspark_tpu_torch.models import zoo
     from caffeonspark_tpu_torch.parallel.mesh import build_mesh
-    from caffeonspark_tpu_torch.proto import SolverParameter
+    from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
     from caffeonspark_tpu_torch.solver import Solver
     rng = np.random.RandomState(7)
     mesh = None
@@ -653,6 +679,17 @@ def _graph_case(name, device):
                        rng.randn(4, 8, 3, 67, 67).astype(np.float32) * 40),
                    "label": torch.from_numpy(
                        rng.randint(0, 10, (4, 8)).astype(np.float32))}
+                  for _ in range(3)]
+    elif name == "resnet":
+        npm = NetParameter.from_text(_resnet_text(batch=4))
+        sp = SolverParameter.from_text(
+            'base_lr: 0.1 momentum: 0.9 weight_decay: 0.0001 '
+            'iter_size: 2 random_seed: 3')
+        solver = Solver(sp, npm, device=device)
+        blocks = [{"data": torch.from_numpy(
+                       rng.randn(4, 4, 3, 32, 32).astype(np.float32)),
+                   "label": torch.from_numpy(
+                       rng.randint(0, 10, (4, 4)).astype(np.float32))}
                   for _ in range(3)]
     else:
         npm = zoo.transformer_lm(vocab=64, d_model=64, heads=2, layers=2,
@@ -683,7 +720,7 @@ def _route(mesh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["caffenet", "lm", "lm_mixed", "lm_bf16",
-                                  "lm_sp_mixed"])
+                                  "lm_sp_mixed", "resnet"])
 def test_graphed_steps_equal_eager_steps_on_card(cuda_card, name):
     """Three blocks of 4 steps through train_step_many(4) (an eager
     warm-up, a capture and its replay, a replay) against 12 train_step
@@ -744,14 +781,94 @@ def test_graph_capture_failure_raises_on_card(cuda_card, monkeypatch):
     solver, params, state, blocks, _ = _graph_case("caffenet", cuda_card)
     many = solver.train_step_many(4)
     many(params, state, blocks[0])
-    real = solver.loss_and_grads
+    real = solver.loss_grads_and_state
 
     def syncing(p, inputs):
-        loss, out, grads = real(p, inputs)
+        loss, out, grads, fwd_state = real(p, inputs)
         float(loss)                  # a device-to-host copy
-        return loss, out, grads
+        return loss, out, grads, fwd_state
 
-    monkeypatch.setattr(solver, "loss_and_grads", syncing)
+    monkeypatch.setattr(solver, "loss_grads_and_state", syncing)
     with pytest.raises(RuntimeError):
         many(params, state, blocks[1])
     assert state.iter == 4 and many.replays == 0
+
+
+BN_CASES = {
+    "bn-train": ('layer { name: "l" type: "BatchNorm" bottom: "x" '
+                 'top: "y" }', True, [(8, 16, 9, 9)]),
+    "bn-global": ('layer { name: "l" type: "BatchNorm" bottom: "x" '
+                  'top: "y" }', False, [(8, 16, 9, 9)]),
+    "scale": ('layer { name: "l" type: "Scale" bottom: "x" top: "y" '
+              'scale_param { bias_term: true filler { type: "gaussian" } '
+              'bias_filler { type: "gaussian" } } }', True,
+              [(8, 16, 9, 9)]),
+    "concat": ('layer { name: "l" type: "Concat" bottom: "x" bottom: "x1" '
+               'top: "y" }', True, [(8, 16, 9, 9), (8, 24, 9, 9)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BN_CASES))
+def test_batchnorm_scale_concat_match_cpu_on_card(cuda_card, case):
+    """BatchNorm (batch and global statistics, with the new running
+    statistics), Scale and Concat on the card against the CPU: tops and
+    input gradients rtol 1e-5 / atol 1e-6 (cuDNN-free reductions that
+    sum in another order)."""
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetParameter
+    layer, train, shapes = BN_CASES[case]
+    names = ["x", "x1"][:len(shapes)]
+    text = "".join(
+        f'layer {{ name: "{n}" type: "Input" top: "{n}" input_param {{ '
+        f'shape {{ {" ".join(f"dim: {d}" for d in s)} }} }} }}\n'
+        for n, s in zip(names, shapes)) + layer
+    outs = []
+    for dev in ("cpu", cuda_card):
+        net = Net(NetParameter.from_text(text), device=dev)
+        params = net.init(4)
+        if "l" in params and "variance" in params["l"]:
+            params["l"]["mean"].fill_(0.5)
+            params["l"]["variance"].fill_(6.0)
+            params["l"]["count"].fill_(3.0)
+        xs = {n: torch.from_numpy(_x(s, 20 + i)).to(dev).requires_grad_()
+              for i, (n, s) in enumerate(zip(names, shapes))}
+        state = {}
+        y = net(params, xs, train=train, state_out=state)["y"]
+        g = torch.autograd.grad((y * y).sum(), list(xs.values()))
+        outs.append([y.detach().cpu(), *[t.cpu() for t in g],
+                     *[t.cpu() for v in state.values() for t in v]])
+    assert len(outs[0]) == len(outs[1])
+    for a, b in zip(*outs):
+        _close(b, a, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_async_snapshot_of_card_tensors_equals_sync_on_card(cuda_card,
+                                                             tmp_path):
+    """AsyncSnapshotter with params and history on the card (pinned host
+    copies, a stream synchronize): the files equal the synchronous
+    snapshot's, and a step right after the submit does not reach
+    them."""
+    import filecmp
+    import os
+    from caffeonspark_tpu_torch import checkpoint
+    solver, params, state, blocks, _ = _graph_case("resnet", cuda_card)
+    solver.train_step(params, state, {k: v[0] for k, v in
+                                      blocks[0].items()})
+    checkpoint.snapshot(solver.train_net, params, state,
+                        str(tmp_path / "sync" / "m"))
+    snap = checkpoint.AsyncSnapshotter()
+    try:
+        snap.submit(solver.train_net, params, state,
+                    str(tmp_path / "async" / "m"))
+        solver.train_step(params, state, {k: v[1] for k, v in
+                                          blocks[0].items()})
+        snap.wait(timeout=120)
+    finally:
+        snap.close()
+    names = sorted(os.listdir(tmp_path / "sync"))
+    assert names == sorted(os.listdir(tmp_path / "async"))
+    for n in names:
+        assert filecmp.cmp(tmp_path / "sync" / n, tmp_path / "async" / n,
+                           shallow=False), n

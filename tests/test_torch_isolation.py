@@ -1,8 +1,11 @@
 """The PyTorch port stands alone: `caffeonspark_tpu_torch` and
-chip_smoke.py import neither jax nor anything of `caffeonspark_tpu`.
+chip_smoke.py import neither jax, ml_dtypes (the card's machine has
+neither) nor anything of `caffeonspark_tpu`, and h5py only where HDF5 is
+asked for.
 
 Two checks: every module of the port imports in a fresh interpreter in
-which importing jax fails, and afterwards no module named
+which importing jax or ml_dtypes fails, and afterwards h5py is not
+loaded and no module named
 `caffeonspark_tpu` or `caffeonspark_tpu.*` is loaded (the prefix also
 matches `caffeonspark_tpu_torch`, which is of course loaded); and an AST
 scan of the port's sources and chip_smoke.py finds no such import.
@@ -21,13 +24,15 @@ PORT = os.path.join(REPO, "caffeonspark_tpu_torch")
 PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises
+sys.modules["ml_dtypes"] = None
 import caffeonspark_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                 pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m == "caffeonspark_tpu" or m.startswith("caffeonspark_tpu."))
+                if m in ("caffeonspark_tpu", "h5py")
+                or m.startswith("caffeonspark_tpu."))
 print(len(names), ",".join(leaked))
 """
 
@@ -67,5 +72,6 @@ def test_no_source_imports_jax_or_the_jax_package(path):
         tree = ast.parse(f.read(), path)
     for name in _imported(tree):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "caffeonspark_tpu"), \
+        assert top not in ("jax", "jaxlib", "ml_dtypes",
+                           "caffeonspark_tpu"), \
             f"{os.path.relpath(path, REPO)} imports {name}"
