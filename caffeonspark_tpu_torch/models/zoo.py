@@ -1,8 +1,8 @@
 """Model zoo: programmatic NetParameters for the nets this package trains
 and serves (a copy of `caffeonspark_tpu/models/zoo.py`'s LeNet,
-CaffeNet, AlexNet, VGG-16, ResNet-50, GoogLeNet and transformer LM
-definitions, letter for letter, so both packages build the same graphs
-and `copy_layers` matches published caffemodels' layer names)."""
+CaffeNet, AlexNet, VGG-16, ResNet-50, GoogLeNet, transformer LM and
+LSTM LM definitions, letter for letter, so both packages build the same
+graphs and `copy_layers` matches published caffemodels' layer names)."""
 
 from __future__ import annotations
 
@@ -328,6 +328,45 @@ layer {{ name: "logits" type: "InnerProduct" bottom: "{bottom}"
   top: "logits" inner_product_param {{ num_output: {vocab} axis: 2
     weight_filler {{ type: "xavier" }} }} }}
 layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "logits"
+  bottom: "target_sentence" top: "loss"
+  loss_param {{ ignore_label: -1 }} softmax_param {{ axis: 2 }} }}
+"""
+    return parse_net_prototxt(t)
+
+
+def lstm_lm(vocab: int = 8801, d_model: int = 1000, seq: int = 20,
+            batch_size: int = 32) -> NetParameter:
+    """LRCN-shaped recurrent language model: Embed -> cont-gated LSTM
+    -> per-step logits (the recurrent half of the reference's COCO
+    captioning workload, `lrcn_cos.prototxt`'s 8801-word vocab and
+    1000-wide embedding/LSTM; SURVEY §5.7) with the caption tops the
+    LRCN pipeline feeds.  The benchmark recurrent family next to the
+    CNN zoo (BENCH_MODEL=lstm)."""
+    b = batch_size
+    t = f"""
+name: "LSTMLM"
+layer {{ name: "data" type: "CoSData" top: "input_sentence"
+  top: "cont_sentence" top: "target_sentence"
+  cos_data_param {{ batch_size: {b}
+    top {{ name: "input_sentence" type: INT_ARRAY channels: {seq}
+          sample_num_axes: 1 transpose: true }}
+    top {{ name: "cont_sentence" type: INT_ARRAY channels: {seq}
+          sample_num_axes: 1 transpose: true }}
+    top {{ name: "target_sentence" type: INT_ARRAY channels: {seq}
+          sample_num_axes: 1 transpose: true }} }} }}
+layer {{ name: "embedding" type: "Embed" bottom: "input_sentence"
+  top: "embedded_input_sentence"
+  embed_param {{ input_dim: {vocab} num_output: {d_model}
+    bias_term: false
+    weight_filler {{ type: "uniform" min: -0.08 max: 0.08 }} }} }}
+layer {{ name: "lstm1" type: "LSTM" bottom: "embedded_input_sentence"
+  bottom: "cont_sentence" top: "lstm1"
+  recurrent_param {{ num_output: {d_model}
+    weight_filler {{ type: "uniform" min: -0.08 max: 0.08 }} }} }}
+layer {{ name: "predict" type: "InnerProduct" bottom: "lstm1"
+  top: "predict" inner_product_param {{ num_output: {vocab} axis: 2
+    weight_filler {{ type: "uniform" min: -0.08 max: 0.08 }} }} }}
+layer {{ name: "loss" type: "SoftmaxWithLoss" bottom: "predict"
   bottom: "target_sentence" top: "loss"
   loss_param {{ ignore_label: -1 }} softmax_param {{ axis: 2 }} }}
 """

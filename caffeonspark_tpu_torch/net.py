@@ -274,6 +274,14 @@ class Net(nn.Module):
                 self.fused_bias_lrn = self._fuse_conv_bias()
         self._bias_lrn_set = frozenset(self.fused_bias_lrn)
         self._defer_bias = frozenset(self.fused_bias_lrn.values())
+        # constants read once here, never inside a step (LayerOp.setup)
+        self.layer_consts: Dict[str, List[torch.Tensor]] = {}
+        for lp in self.compute_layers:
+            setup = L.get_op(lp.type).setup
+            if setup is not None:
+                consts = setup(lp, self.device)
+                if consts:
+                    self.layer_consts[lp.name] = consts
 
         # --- shape inference on meta tensors + param layout ---------------
         blob_shapes: Dict[str, Tuple[int, ...]] = {
@@ -398,7 +406,8 @@ class Net(nn.Module):
         return L.Ctx(train=train, generator=generator,
                      fused_relu_lrn=self.fused_relu_lrn,
                      defer_bias=self._defer_bias,
-                     bias_lrn=self._bias_lrn_set, qscales=qscales)
+                     bias_lrn=self._bias_lrn_set, qscales=qscales,
+                     consts=self.layer_consts)
 
     # ------------------------------------------------------------------
     def init(self, seed: int = 0,

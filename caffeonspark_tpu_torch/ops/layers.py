@@ -15,7 +15,10 @@ SoftmaxWithLoss VALID normalization + ignore_label.
 
 BatchNorm writes its running statistics to `Ctx.state_out` at TRAIN
 (Caffe's batch_norm_layer.cpp moving averages), which the net merges
-into its params after the step.
+into its params after the step.  The recurrent layers (LSTM, RNN) are
+time-major and cont-gated, a Python loop over the time steps whose
+products go to cuBLAS through `torch.matmul`, as the JAX package's
+`lax.scan` leaves them to XLA.
 
 The across-channel LRN (plain, relu-fused, bias+relu-fused) goes
 through the autograd Functions of `ops.kernels` (K1/K2, K3/K4), the
@@ -25,8 +28,9 @@ sp (`flash_mesh`), to the ring (K9, backward K7/K8).  Convolutions go
 to cuDNN through `torch.nn.functional.conv2d` and the attention
 projections to `torch.matmul`, as the JAX package left them to XLA.
 Every other op is differentiable through autograd.  `Ctx.train` picks
-Caffe's TRAIN semantics (Dropout draws its keep-mask from
-`Ctx.generator`) or TEST semantics (Dropout is the identity).
+Caffe's TRAIN semantics (Dropout draws its keep-mask, STOCHASTIC
+pooling its picks, from `Ctx.generator`) or TEST semantics (Dropout is
+the identity, STOCHASTIC pooling the activation-weighted mean).
 """
 
 from __future__ import annotations
@@ -42,8 +46,9 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
-from ..proto.caffe import (EltwiseOp, FillerParameter, NormalizationMode,
-                           NormRegion, PoolMethod)
+from ..proto.caffe import (BlobProto, EltwiseOp, FillerParameter,
+                           LayerParameter, NormalizationMode, NormRegion,
+                           PoolMethod)
 from . import kernels as K
 
 
@@ -71,6 +76,10 @@ class Ctx:
     # per-blob dequant scales of quantized-resident serving weights
     # ({layer: {blob: f32 0-dim tensor}}, serving/quant.py)
     qscales: Optional[Dict] = None
+    # constants a layer reads, made once where the net is built
+    # ({layer: [tensors]}, `LayerOp.setup`): never a host-to-device copy
+    # inside a step
+    consts: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
 
     def qscale(self, bname: str):
         if not self.qscales:
@@ -108,18 +117,22 @@ class LayerOp:
     # never cast to the compute dtype, whose 8-bit mantissa holds
     # integers exactly only up to 256
     index_bottoms: tuple = ()
+    # setup(lp, device) -> [tensors]: constants read once where the net
+    # is built (InfogainLoss's matrix), handed back in `Ctx.consts`
+    setup: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, LayerOp] = {}
 
 
 def register(name: str, *, params=None, is_loss=False, is_data=False,
-             f32_stats=False, index_bottoms=()):
+             f32_stats=False, index_bottoms=(), setup=None):
     def deco(fn):
         _REGISTRY[name] = LayerOp(name, fn, params or (lambda lp, s: []),
                                   is_loss=is_loss, is_data=is_data,
                                   f32_stats=f32_stats,
-                                  index_bottoms=tuple(index_bottoms))
+                                  index_bottoms=tuple(index_bottoms),
+                                  setup=setup)
         return fn
     return deco
 
@@ -204,6 +217,38 @@ def _conv(ctx, lp, params, bottoms):
     if cp.bias_term and ctx.layer_name not in ctx.defer_bias:
         # defer_bias: the bias add (and relu+LRN) runs in the consuming
         # LRN layer's fused epilogue (net.py stem peephole)
+        out = out + params[1].reshape(1, -1, 1, 1)
+    return [out]
+
+
+def _deconv_params(lp, shapes):
+    cp = lp.convolution_param
+    (kh, kw), _, _, _ = _conv_geometry(cp)
+    c_in = shapes[0][1]
+    group = max(1, cp.group)
+    # Caffe's Deconvolution weight blob: (C_in, N/group, kh, kw)
+    specs = [("weight", (c_in, cp.num_output // group, kh, kw),
+              _filler(cp.weight_filler if cp.has("weight_filler")
+                      else None))]
+    if cp.bias_term:
+        specs.append(("bias", (cp.num_output,),
+                      _filler(cp.bias_filler if cp.has("bias_filler")
+                              else None)))
+    return specs
+
+
+@register("Deconvolution", params=_deconv_params)
+def _deconv(ctx, lp, params, bottoms):
+    """Caffe's deconvolution, the gradient of a convolution with respect
+    to its input: output size s·(i−1) + d·(k−1) + 1 − 2p.  Caffe's
+    weight blob (C_in, C_out/g, kh, kw) is `conv_transpose2d`'s own
+    layout, so the blob goes to cuDNN as it is."""
+    cp = lp.convolution_param
+    _, stride, pad, dilation = _conv_geometry(cp)
+    out = F.conv_transpose2d(bottoms[0], params[0], stride=stride,
+                             padding=pad, dilation=dilation,
+                             groups=max(1, cp.group))
+    if cp.bias_term:
         out = out + params[1].reshape(1, -1, 1, 1)
     return [out]
 
@@ -323,10 +368,49 @@ def _pooling(ctx, lp, params, bottoms):
         div_h = _ave_divisor(h, kh, sh, ph, oh, x)
         div_w = _ave_divisor(w, kw, sw, pw, ow, x)
         out = s / (div_h.reshape(1, 1, -1, 1) * div_w.reshape(1, 1, 1, -1))
+    elif pp.pool == PoolMethod.STOCHASTIC:
+        out = _stochastic_pool(ctx, x, (kh, kw), (sh, sw), (ph, eh, pw, ew),
+                               (oh, ow))
     else:
-        raise NotImplementedError(
-            f"pooling method {pp.pool} not in the PyTorch port")
+        raise NotImplementedError(f"pooling method {pp.pool}")
     return [out]
+
+
+def _stochastic_pool(ctx, x, kernel, stride, pads, out_hw):
+    """Caffe's PoolForward{Train,Test} (pooling_layer.cu) for
+    non-negative (post-ReLU) activations.  TRAIN picks one element of
+    each window with probability value / Σ window, drawn from
+    `ctx.generator` (so a CUDA graph that registers the generator
+    replays fresh draws), the gradient going to the picked element;
+    TEST is the activation-weighted mean Σa² / Σa (0 for a window
+    summing to 0).  The zero padding of the ceil-mode tail is never
+    picked unless the whole window is zero.  The pick's arithmetic is
+    f32, as the JAX package's: in bf16 a running sum can round below
+    u·Σ and bias the draw toward the window's first element."""
+    n, c = x.shape[0], x.shape[1]
+    (kh, kw), (sh, sw), (ph, eh, pw, ew), (oh, ow) = (kernel, stride, pads,
+                                                      out_hw)
+    xp = F.pad(x, (pw, ew, ph, eh))
+    if ctx.train:
+        if ctx.generator is None:
+            raise ValueError(f"STOCHASTIC pooling {ctx.layer_name!r} at "
+                             "TRAIN needs a generator (Ctx.generator)")
+        p = F.unfold(xp, (kh, kw), stride=(sh, sw)).reshape(
+            n, c, kh * kw, oh, ow)
+        cum = torch.cumsum(p.to(torch.float32), dim=2)
+        total = cum[:, :, -1]
+        u = torch.rand(total.shape, generator=ctx.generator,
+                       device=x.device) * (1.0 - 1e-7) + 1e-7
+        # the first window index whose running sum reaches u·Σ
+        idx = (cum >= (u * total).unsqueeze(2)).to(torch.int32).argmax(
+            dim=2, keepdim=True)
+        return torch.gather(p, 2, idx).squeeze(2)
+    xf = xp.to(torch.float32)
+    total = F.avg_pool2d(xf, (kh, kw), (sh, sw), divisor_override=1)
+    sq = F.avg_pool2d(xf * xf, (kh, kw), (sh, sw), divisor_override=1)
+    return torch.where(total > 0,
+                       sq / torch.where(total > 0, total, 1.0),
+                       0.0).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -340,6 +424,89 @@ def _relu(ctx, lp, params, bottoms):
     if slope:
         return [torch.where(x > 0, x, weak_scalar(slope, x.dtype) * x)]
     return [torch.relu(x)]
+
+
+def _prelu_params(lp, shapes):
+    n = 1 if lp.prelu_param.channel_shared else shapes[0][1]
+    f = (lp.prelu_param.filler if lp.prelu_param.has("filler")
+         else FillerParameter(type="constant", value=0.25))
+    return [("slope", (n,), f)]
+
+
+@register("PReLU", params=_prelu_params)
+def _prelu(ctx, lp, params, bottoms):
+    x = bottoms[0]
+    a = params[0].reshape((1, -1) + (1,) * (x.dim() - 2))
+    return [torch.where(x > 0, x, a * x)]
+
+
+@register("ELU")
+def _elu(ctx, lp, params, bottoms):
+    x = bottoms[0]
+    a = weak_scalar(lp.elu_param.alpha, x.dtype)
+    return [torch.where(x > 0, x, a * (torch.exp(x) - 1.0))]
+
+
+@register("Sigmoid")
+def _sigmoid(ctx, lp, params, bottoms):
+    return [torch.sigmoid(bottoms[0])]
+
+
+@register("TanH")
+def _tanh(ctx, lp, params, bottoms):
+    return [torch.tanh(bottoms[0])]
+
+
+@register("AbsVal")
+def _absval(ctx, lp, params, bottoms):
+    return [torch.abs(bottoms[0])]
+
+
+@register("BNLL")
+def _bnll(ctx, lp, params, bottoms):
+    x = bottoms[0]
+    return [torch.where(x > 0, x + torch.log1p(torch.exp(-x)),
+                        torch.log1p(torch.exp(x)))]
+
+
+def _affine(p, x):
+    """shift + scale · x, the Python scalars rounded to x's dtype."""
+    return (weak_scalar(p.shift, x.dtype)
+            + weak_scalar(p.scale, x.dtype) * x)
+
+
+@register("Power")
+def _power(ctx, lp, params, bottoms):
+    p = lp.power_param
+    y = _affine(p, bottoms[0])
+    if p.power != 1.0:
+        y = torch.pow(y, weak_scalar(p.power, y.dtype))
+    return [y]
+
+
+@register("Exp")
+def _exp(ctx, lp, params, bottoms):
+    p = lp.exp_param
+    x = _affine(p, bottoms[0])
+    if p.base > 0:
+        return [torch.pow(weak_scalar(p.base, x.dtype), x)]
+    return [torch.exp(x)]
+
+
+@register("Log")
+def _log(ctx, lp, params, bottoms):
+    p = lp.log_param
+    y = torch.log(_affine(p, bottoms[0]))
+    if p.base > 0:
+        y = y / weak_scalar(math.log(p.base), y.dtype)
+    return [y]
+
+
+@register("Threshold")
+def _threshold(ctx, lp, params, bottoms):
+    x = bottoms[0]
+    t = weak_scalar(lp.threshold_param.threshold, x.dtype)
+    return [(x > t).to(x.dtype)]
 
 
 @register("Dropout")
@@ -408,6 +575,18 @@ def _lrn(ctx, lp, params, bottoms):
                      divisor_override=1)
     scale = k + (alpha / (n * n)) * s
     return [x / torch.pow(scale, beta)]
+
+
+@register("MVN")
+def _mvn(ctx, lp, params, bottoms):
+    p = lp.mvn_param
+    x = bottoms[0]
+    axes = (1, 2, 3) if p.across_channels else (2, 3)
+    y = x - torch.mean(x, dim=axes, keepdim=True)
+    if p.normalize_variance:
+        var = torch.mean(y * y, dim=axes, keepdim=True)
+        y = y / (torch.sqrt(var) + weak_scalar(p.eps, y.dtype))
+    return [y]
 
 
 def _bn_params(lp, shapes):
@@ -485,13 +664,86 @@ def _scale(ctx, lp, params, bottoms):
     if p.bias_term:
         bias = params[0] if len(bottoms) > 1 else params[1]
     axis = p.axis if p.axis >= 0 else x.dim() + p.axis
-    shape = [1] * x.dim()
-    for i, d in enumerate(g.shape):
-        shape[axis + i] = d
-    y = x * g.reshape(shape)
+    y = x * _broadcast_at(g, axis, x.dim())
     if bias is not None:
-        y = y + bias.reshape(shape)
+        y = y + _broadcast_at(bias, axis, x.dim())
     return [y]
+
+
+def _broadcast_at(v, axis, ndim):
+    """`v` reshaped to broadcast over an ndim tensor from `axis` on."""
+    shape = [1] * ndim
+    for i, d in enumerate(v.shape):
+        shape[axis + i] = d
+    return v.reshape(shape)
+
+
+def _bias_params(lp, shapes):
+    p = lp.bias_param
+    axis = p.axis if p.axis >= 0 else len(shapes[0]) + p.axis
+    shape = (shapes[0][axis:] if p.num_axes == -1
+             else shapes[0][axis:axis + p.num_axes])
+    f = p.filler if p.has("filler") else FillerParameter(type="constant")
+    return [("bias", tuple(shape), f)]
+
+
+@register("Bias", params=_bias_params)
+def _bias(ctx, lp, params, bottoms):
+    """y = x + b, b broadcast from `axis`; with two bottoms b is
+    bottom[1] (the blob is then not used)."""
+    p = lp.bias_param
+    x = bottoms[0]
+    b = bottoms[1] if len(bottoms) > 1 else params[0]
+    axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+    return [x + _broadcast_at(b, axis, x.dim())]
+
+
+def _parameter_params(lp, shapes):
+    shape = tuple(int(d) for d in lp.parameter_param.shape.dim)
+    return [("param", shape, FillerParameter(type="constant"))]
+
+
+@register("Parameter", params=_parameter_params)
+def _parameter(ctx, lp, params, bottoms):
+    """parameter_layer.hpp: the top is a learnable blob of the given
+    shape."""
+    return [params[0]]
+
+
+@register("BatchReindex", index_bottoms=(1,))
+def _batch_reindex(ctx, lp, params, bottoms):
+    """batch_reindex_layer.cpp: top = bottom[0][bottom[1]] along axis 0
+    (the gradient scatter-adds back into the first bottom)."""
+    x, idx = bottoms
+    return [torch.index_select(x, 0, idx.to(torch.int64).reshape(-1))]
+
+
+@register("SPP")
+def _spp(ctx, lp, params, bottoms):
+    """Spatial pyramid pooling (spp_layer.cpp): level i pools into 2^i x
+    2^i bins with kernel = stride = ceil(dim / bins) and Caffe's
+    symmetric pad (kernel·bins − dim + 1) / 2, through the Pooling layer
+    itself; the flattened levels are joined on the channel axis."""
+    p = lp.spp_param
+    x = bottoms[0]
+    n, _, h, w = x.shape
+    if not p.has("pyramid_height") or p.pyramid_height < 1:
+        raise ValueError("spp_param.pyramid_height must be >= 1")
+    if p.pool not in (PoolMethod.MAX, PoolMethod.AVE):
+        raise NotImplementedError("SPP: MAX and AVE pooling only")
+    outs = []
+    for i in range(int(p.pyramid_height)):
+        bins = 2 ** i
+        kh, kw = -(-h // bins), -(-w // bins)
+        pool_lp = LayerParameter(name=f"{lp.name}_level{i}", type="Pooling")
+        pp = pool_lp.pooling_param
+        pp.pool = p.pool
+        pp.kernel_h, pp.kernel_w = kh, kw
+        pp.stride_h, pp.stride_w = kh, kw
+        pp.pad_h = (kh * bins - h + 1) // 2
+        pp.pad_w = (kw * bins - w + 1) // 2
+        outs.append(_pooling(ctx, pool_lp, [], [x])[0].reshape(n, -1))
+    return [torch.cat(outs, dim=1)]
 
 
 # ---------------------------------------------------------------------------
@@ -521,6 +773,106 @@ def _concat(ctx, lp, params, bottoms):
     axis = p.axis if p.has("axis") or not p.has("concat_dim") \
         else int(p.concat_dim)
     return [torch.cat(bottoms, dim=axis)]
+
+
+@register("Reshape")
+def _reshape(ctx, lp, params, bottoms):
+    """Caffe's Reshape: `shape` replaces the axes [axis, axis +
+    num_axes), a 0 copying the bottom's extent and a -1 inferred."""
+    p = lp.reshape_param
+    x = bottoms[0]
+    axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+    end = x.dim() if p.num_axes == -1 else axis + p.num_axes
+    mid = [x.shape[axis + i] if d == 0 else int(d)
+           for i, d in enumerate(p.shape.dim)]
+    return [x.reshape(list(x.shape[:axis]) + mid + list(x.shape[end:]))]
+
+
+@register("Slice")
+def _slice(ctx, lp, params, bottoms):
+    p = lp.slice_param
+    x = bottoms[0]
+    axis = p.axis
+    n_top = len(lp.top)
+    if p.slice_point:
+        points = [0] + [int(q) for q in p.slice_point] + [x.shape[axis]]
+    else:
+        if x.shape[axis] % n_top != 0:
+            raise ValueError(
+                f"Slice: axis size {x.shape[axis]} not divisible by "
+                f"{n_top} tops (set slice_point explicitly)")
+        step = x.shape[axis] // n_top
+        points = [i * step for i in range(n_top + 1)]
+    return [x.narrow(axis, points[i], points[i + 1] - points[i])
+            for i in range(n_top)]
+
+
+@register("Tile")
+def _tile(ctx, lp, params, bottoms):
+    p = lp.tile_param
+    x = bottoms[0]
+    reps = [1] * x.dim()
+    reps[p.axis] = int(p.tiles)
+    return [x.repeat(reps)]
+
+
+@register("Reduction")
+def _reduction(ctx, lp, params, bottoms):
+    """SUM (1), ASUM (2), SUMSQ (3) or MEAN (4) over the axes from
+    `axis` on, times `coeff`."""
+    p = lp.reduction_param
+    x = bottoms[0]
+    axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+    flat = x.reshape(tuple(x.shape[:axis]) + (-1,))
+    op = p.operation
+    if op == 1:
+        y = torch.sum(flat, dim=-1)
+    elif op == 2:
+        y = torch.sum(torch.abs(flat), dim=-1)
+    elif op == 3:
+        y = torch.sum(flat * flat, dim=-1)
+    else:
+        y = torch.mean(flat, dim=-1)
+    return [weak_scalar(p.coeff, y.dtype) * y]
+
+
+@register("Crop")
+def _crop(ctx, lp, params, bottoms):
+    """bottom[0] cut to bottom[1]'s extent on the axes from `axis` on,
+    each starting at its offset (the last offset repeats)."""
+    p = lp.crop_param
+    x, ref = bottoms
+    axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+    offsets = list(p.offset) or [0]
+    for i in range(axis, x.dim()):
+        off = offsets[i - axis] if i - axis < len(offsets) else offsets[-1]
+        x = x.narrow(i, int(off), ref.shape[i])
+    return [x]
+
+
+@register("Silence")
+def _silence(ctx, lp, params, bottoms):
+    return []
+
+
+@register("ArgMax")
+def _argmax(ctx, lp, params, bottoms):
+    """The top_k indices (as f32) along `axis`, or their values with
+    `out_max_val`; without `axis`, over each item, with `out_max_val`
+    the (N, 2, k) pairs of indices and values."""
+    p = lp.argmax_param
+    x = bottoms[0]
+    k = int(p.top_k)
+    if p.has("axis"):
+        axis = p.axis if p.axis >= 0 else x.dim() + p.axis
+        vals, idxs = torch.topk(torch.movedim(x, axis, -1), k, dim=-1)
+        out = vals if p.out_max_val else idxs.to(torch.float32)
+        return [torch.movedim(out, -1, axis)]
+    vals, idxs = torch.topk(x.reshape(x.shape[0], -1), k, dim=-1)
+    if p.out_max_val:
+        return [torch.stack([idxs.to(torch.float32),
+                             vals.to(torch.float32)], dim=1)]
+    return [idxs.to(torch.float32).reshape(x.shape[0], 1, k)]
 
 
 # ---------------------------------------------------------------------------
@@ -667,6 +1019,102 @@ def _softmax_loss(ctx, lp, params, bottoms):
     return [torch.sum(nll) / denom]
 
 
+@register("EuclideanLoss", is_loss=True)
+def _euclidean_loss(ctx, lp, params, bottoms):
+    a, b = bottoms
+    diff = a - b
+    return [torch.sum(diff * diff) / (2.0 * a.shape[0])]
+
+
+@register("SigmoidCrossEntropyLoss", is_loss=True)
+def _sce_loss(ctx, lp, params, bottoms):
+    x, t = bottoms
+    # stable: max(x, 0) - x·t + log(1 + exp(-|x|))
+    loss = (torch.clamp_min(x, 0) - x * t
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    return [torch.sum(loss) / x.shape[0]]
+
+
+@register("ContrastiveLoss", is_loss=True)
+def _contrastive_loss(ctx, lp, params, bottoms):
+    """contrastive_loss_layer.cpp: 1/(2N) Σ [y·d² + (1−y)·max(margin −
+    d, 0)²], d = ‖a − b‖ over each item's features, y = 1 for a similar
+    pair; legacy_version takes max(margin − d², 0) instead."""
+    p = lp.contrastive_loss_param
+    a, b, y = bottoms
+    n = a.shape[0]
+    y = y.reshape(n).to(a.dtype)
+    diff = (a - b).reshape(n, -1)
+    dist_sq = torch.sum(diff * diff, dim=1)
+    margin = weak_scalar(p.margin, a.dtype)
+    if p.legacy_version:
+        mismatch = torch.clamp_min(margin - dist_sq, 0.0)
+    else:
+        d = torch.sqrt(torch.clamp_min(dist_sq, 1e-12))
+        m = torch.clamp_min(margin - d, 0.0)
+        mismatch = m * m
+    return [torch.sum(y * dist_sq + (1.0 - y) * mismatch) / (2.0 * n)]
+
+
+@register("HingeLoss", is_loss=True, index_bottoms=(1,))
+def _hinge_loss(ctx, lp, params, bottoms):
+    """Σ max(0, 1 + s·x) / N with s = −1 at each item's label and +1
+    elsewhere; squared under norm L2."""
+    x, y = bottoms
+    n, c = x.shape[0], x.shape[1]
+    onehot = F.one_hot(y.to(torch.int64).reshape(n), c).to(x.dtype)
+    sign = 1.0 - 2.0 * onehot.reshape((n, c) + (1,) * (x.dim() - 2))
+    margin = torch.clamp_min(1.0 + sign * x, 0.0)
+    if lp.hinge_loss_param.norm == 2:
+        return [torch.sum(margin * margin) / n]
+    return [torch.sum(margin) / n]
+
+
+@register("MultinomialLogisticLoss", is_loss=True, index_bottoms=(1,))
+def _mll_loss(ctx, lp, params, bottoms):
+    """−log p[label] on an already softmaxed bottom."""
+    probs, labels = bottoms
+    n = probs.shape[0]
+    lbl = labels.to(torch.int64).reshape(n, 1)
+    p = torch.gather(probs.reshape(n, -1), 1, lbl)
+    return [-torch.sum(torch.log(torch.clamp_min(p, 1e-20))) / n]
+
+
+def _infogain_setup(lp, device):
+    """The infogain matrix of `infogain_loss_param.source` (a BINARYPROTO
+    blob), read once on the net's device, f32 as the JAX package keeps
+    it; none when the layer takes it as bottom[2] or has no source."""
+    if not (lp.has("infogain_loss_param")
+            and lp.infogain_loss_param.source) or len(lp.bottom) > 2:
+        return []
+    with open(lp.infogain_loss_param.source, "rb") as f:
+        bp = BlobProto.from_binary(f.read())
+    return [torch.tensor(list(bp.data), dtype=torch.float32, device=device)]
+
+
+@register("InfogainLoss", is_loss=True, index_bottoms=(1,),
+          setup=_infogain_setup)
+def _infogain_loss(ctx, lp, params, bottoms):
+    """−(1/N) Σ_n Σ_k H[label_n, k] · log p_nk.  H is bottom[2], else the
+    `source` matrix read where the net was built (`Ctx.consts`), else
+    the identity (MultinomialLogisticLoss)."""
+    probs, labels = bottoms[0], bottoms[1]
+    n = probs.shape[0]
+    k = probs.reshape(n, -1).shape[1]
+    # read here only when the layer runs outside a Net
+    consts = ctx.consts.get(ctx.layer_name) or _infogain_setup(
+        lp, probs.device)
+    if len(bottoms) > 2:
+        h = bottoms[2].reshape(k, k)
+    elif consts:
+        h = consts[0].to(probs.device).reshape(k, k)
+    else:
+        h = torch.eye(k, dtype=probs.dtype, device=probs.device)
+    lbl = labels.to(torch.int64).reshape(n)
+    logp = torch.log(torch.clamp_min(probs.reshape(n, k), 1e-20))
+    return [-torch.sum(h[lbl] * logp) / n]
+
+
 @register("Accuracy", index_bottoms=(1,))
 def _accuracy(ctx, lp, params, bottoms):
     p = lp.accuracy_param
@@ -689,3 +1137,111 @@ def _accuracy(ctx, lp, params, bottoms):
         return [torch.sum(correct * mask)
                 / torch.clamp_min(torch.sum(mask), 1.0)]
     return [torch.mean(correct)]
+
+
+# ---------------------------------------------------------------------------
+# recurrent layers (time-major (T, B, ·), cont-gated: Caffe's
+# RecurrentLayer)
+# ---------------------------------------------------------------------------
+
+def _lstm_params(lp, shapes):
+    rp = lp.recurrent_param
+    n = int(rp.num_output)
+    d = math.prod(shapes[0][2:]) if len(shapes[0]) > 2 else 1
+    wf = _filler(rp.weight_filler if rp.has("weight_filler") else None)
+    bf = _filler(rp.bias_filler if rp.has("bias_filler") else None)
+    specs = [("W_xc", (4 * n, d), wf), ("b_c", (4 * n,), bf),
+             ("W_hc", (4 * n, n), wf)]
+    # bottoms: x, cont[, x_static][, h_0, c_0 (expose_hidden)]
+    n_state = 2 if rp.expose_hidden else 0
+    if len(shapes) - n_state > 2:
+        ds = math.prod(shapes[2][1:])
+        specs.append(("W_xc_static", (4 * n, ds), wf))
+    return specs
+
+
+def _recurrent_start(x, cont, bottoms, si, n, expose):
+    """(x as (T, B, D), cont as (T, B, 1) in x's dtype, h_0, c_0): the
+    exposed states from bottoms[si], [si + 1], else zeros made on the
+    device (no host-to-device copy, so a CUDA graph captures the
+    layer)."""
+    t_steps, batch = x.shape[0], x.shape[1]
+    xf = x.reshape(t_steps, batch, -1)
+    cont_f = cont.reshape(t_steps, batch, 1).to(xf.dtype)
+    if expose:
+        return (xf, cont_f, bottoms[si].reshape(batch, n).to(xf.dtype),
+                bottoms[si + 1].reshape(batch, n).to(xf.dtype))
+    zero = xf.new_zeros((batch, n))
+    return xf, cont_f, zero, zero
+
+
+@register("LSTM", params=_lstm_params)
+def _lstm(ctx, lp, params, bottoms):
+    """Caffe's LSTMLayer: x (T, B, D), cont (T, B) in {0, 1} (an
+    integer cont is cast to x's dtype); cont gates both h_{t-1} and
+    c_{t-1} (a sequence restart zeroes the state); gate order i, f, o,
+    g.  The input projection of all T steps is one (T·B, D) x (D, 4N)
+    product (plus the static input's (B, Ds) x (Ds, 4N), broadcast over
+    T); each step then does one (B, N) x (N, 4N) product, sigmoid on
+    i, f, o and tanh on g in one call each, c = f·c + i·g, h = o·tanh(c).
+    The carry is in the compute dtype, as the JAX scan's.
+
+    expose_hidden: the bottoms gain h_0, c_0 ((1, B, N) or (B, N))
+    after any static input, the tops h_T, c_T as (1, B, N), for
+    chunked sequences and O(T) incremental decoding."""
+    rp = lp.recurrent_param
+    n = int(rp.num_output)
+    expose = bool(rp.expose_hidden)
+    has_static = len(params) > 3
+    xf, cont_f, h, c = _recurrent_start(
+        bottoms[0], bottoms[1], bottoms, 3 if has_static else 2, n, expose)
+    t_steps, batch = xf.shape[0], xf.shape[1]
+    w_xc, b_c, w_hc = params[0], params[1], params[2]
+    xproj = torch.matmul(xf.reshape(t_steps * batch, -1), w_xc.T).reshape(
+        t_steps, batch, 4 * n) + b_c
+    if has_static:
+        xproj = xproj + torch.matmul(bottoms[2].reshape(batch, -1),
+                                     params[3].T)
+    w_hc_t = w_hc.T
+    hs = []
+    for t in range(t_steps):
+        gates = xproj[t] + torch.matmul(h * cont_f[t], w_hc_t)
+        ifo = torch.sigmoid(gates[:, :3 * n])
+        g = torch.tanh(gates[:, 3 * n:])
+        c = ifo[:, n:2 * n] * (c * cont_f[t]) + ifo[:, :n] * g
+        h = ifo[:, 2 * n:] * torch.tanh(c)
+        hs.append(h)
+    out = torch.stack(hs)
+    if expose:
+        return [out, h.reshape(1, batch, n), c.reshape(1, batch, n)]
+    return [out]
+
+
+def _rnn_params(lp, shapes):
+    rp = lp.recurrent_param
+    n = int(rp.num_output)
+    d = math.prod(shapes[0][2:]) if len(shapes[0]) > 2 else 1
+    wf = _filler(rp.weight_filler if rp.has("weight_filler") else None)
+    bf = _filler(rp.bias_filler if rp.has("bias_filler") else None)
+    return [("W_xh", (n, d), wf), ("b_h", (n,), bf), ("W_hh", (n, n), wf),
+            ("W_ho", (n, n), wf), ("b_o", (n,), bf)]
+
+
+@register("RNN", params=_rnn_params)
+def _rnn(ctx, lp, params, bottoms):
+    """Caffe's RNNLayer: h_t = tanh(W_hh (cont_t·h_{t-1}) + W_xh x_t +
+    b_h), o_t = tanh(W_ho h_t + b_o); the input projection of all T
+    steps in one product."""
+    n = int(lp.recurrent_param.num_output)
+    xf, cont_f, h, _ = _recurrent_start(bottoms[0], bottoms[1], bottoms, 2,
+                                        n, False)
+    t_steps, batch = xf.shape[0], xf.shape[1]
+    w_xh, b_h, w_hh, w_ho, b_o = params
+    xproj = torch.matmul(xf.reshape(t_steps * batch, -1), w_xh.T).reshape(
+        t_steps, batch, n) + b_h
+    w_hh_t, w_ho_t = w_hh.T, w_ho.T
+    outs = []
+    for t in range(t_steps):
+        h = torch.tanh(xproj[t] + torch.matmul(h * cont_f[t], w_hh_t))
+        outs.append(torch.tanh(torch.matmul(h, w_ho_t) + b_o))
+    return [torch.stack(outs)]

@@ -203,14 +203,46 @@ or the package is not importable, and when any phase fails.  Phases:
      blobs and rows, then served through start_server from the sidecar
      (counts zeroed before, read after: K5 on fc6-fc8), rows against the
      plain path;
- 28. a `kernels` JSON line: launches on the serving, image-net training,
+ 28. the zoo's lstm_lm at lrcn_cos.prototxt's widths (vocab 8801,
+     embedding and LSTM 1000, T 20, B 32; 25,614,801 params) on 256 JSON
+     rows that the port's image_caption_to_embedding builds from seeded
+     synthetic captions (8-20 words of 9,000 word forms; the Vocab built
+     to 8801), trained through the CLI for 8 steps under LRCN's solver
+     (SGD 0.01, momentum 0.9, step 0.5 / 20,000, clip_gradients 10;
+     counts zeroed before, read after: no kernel): the first loss near
+     ln 8801, every loss finite, snapshots at 4 and 8; the card's first
+     step against the CPU port's on the same params and batch (loss
+     LSTM_CPU_LOSS_RTOL, gradients LSTM_CPU_GRAD_TOL); mini_cluster in
+     float32, mixed and bfloat16 (mixed and bfloat16's first loss
+     within MIXED_VS_F32_LOSS_RTOL of f32's), each again at
+     COS_STEPS_PER_LOOP=4 with its final model byte-equal to K=1's; per
+     dtype 5 synchronized direct steps, 5 synchronized graphed chunks,
+     one profiled step and one profiled chunk;
+ 29. captions: CaffeNet -features fc8 of 32 seeded 3x256x256 records
+     (the validated CaffeNet; counts zeroed before, read after: K1 on
+     norm1 and norm2, 2 launches); the rows feed the captioner of
+     tests/test_lrcn.py at lrcn_cos widths (vocab 8801, embedding and
+     LSTM 1000, fc8 as the LSTM's static input), trained 8 steps through
+     the CLI; the 32 images decoded with greedy_caption,
+     incremental_greedy_caption and beam_caption (beam 3), each timed;
+     greedy against incremental equal wherever both steps' top-1 /
+     top-2 margins exceed NEAR_TIE; the stepper's first step on the card
+     against the CPU's (STEPPER_CPU_TOL);
+ 30. every new stateless layer type forward and backward on the card
+     against the CPU port (the activations and MVN at (32, 256, 28, 28),
+     the losses at (256, 1000), FCN-32s's Deconvolution + Crop head,
+     SPP of pyramid 3 at (32, 256, 13, 13), STOCHASTIC pooling's TEST
+     mean; LAYER_TOP_TOL / LAYER_GRAD_TOL) and STOCHASTIC pooling's
+     TRAIN pick frequencies over 512k windows (STOCHASTIC_FREQ_TOL);
+ 31. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
      dtype; graphed runs included), encoded and graphed CaffeNet,
-     GoogLeNet, ResNet-50, snapshot, HDF5 and sidecar paths, and the
-     numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
-     `kernel_records` line); a `ptxas` line; then the card line again;
- 29. the device line, last: {"ok": true, "device": {...}}.
+     GoogLeNet, ResNet-50, snapshot, HDF5, sidecar, lstm_lm, caption
+     (features, captioner, decode) and layer paths, and the numbers of
+     phase 3 (K1-K4 also at GoogLeNet's shapes in the `kernel_records`
+     line); a `ptxas` line; then the card line again;
+ 32. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -3193,6 +3225,686 @@ def sidecar_phase(K, torch, solver_path, model, device="cuda"):
                 served=served, launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# phases 28-31: the recurrent family, the caption pipeline, the stateless
+# layer types
+# ---------------------------------------------------------------------------
+
+# the zoo's lstm_lm at its defaults: lrcn_cos.prototxt's widths (vocab
+# 8801, embedding and LSTM 1000, 20 steps, batch 32)
+LSTM_LM = dict(vocab=8801, d_model=1000, seq=20, batch_size=32)
+LSTM_ROWS = 256
+LSTM_WORD_FORMS = 9000
+# Caffe's examples/coco_caption/lrcn_solver.prototxt, max_iter 110,000
+# cut to TRAIN_ITERS, snapshot at 4
+LRCN_SOLVER = """net: "{net}"
+base_lr: 0.01
+lr_policy: "step"
+gamma: 0.5
+stepsize: 20000
+momentum: 0.9
+weight_decay: 0
+clip_gradients: 10
+max_iter: {max_iter}
+snapshot: 4
+snapshot_prefix: "{name}_train"
+snapshot_after_train: true
+random_seed: 1
+"""
+# ln 8801 = 9.08 per counted position (the captioner weighs its loss by
+# its 20 steps, as lrcn_cos.prototxt's loss_weight does)
+LSTM_FIRST_LOSS = (8.6, 9.6)
+CAPTIONER_FIRST_LOSS = (20 * 8.6, 20 * 9.6)
+# the card's f32 step against the CPU port's on the same params and
+# batch (TF32 off): the GEMMs sum in other orders
+LSTM_CPU_LOSS_RTOL = 1e-5
+LSTM_CPU_GRAD_TOL = 1e-4
+STEPPER_CPU_TOL = 1e-4     # first decode step's probabilities, of the max
+CAPTION_IMAGES = 32
+NEAR_TIE = 1e-4            # top-1 minus top-2 probability below: a near-tie
+LAYER_TOP_TOL = 1e-5       # the layer phase, card against CPU, of the max
+LAYER_GRAD_TOL = 1e-4
+STOCHASTIC_FREQ_TOL = 5e-3  # ~10 standard deviations over 512k windows
+
+
+def synthetic_captions(n, seed):
+    """`n` seeded captions of 8-20 words drawn from LSTM_WORD_FORMS word
+    forms with a Zipf-like frequency, so that Vocab.build keeps the
+    frequent ones."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    forms = [f"w{i}" for i in range(LSTM_WORD_FORMS)]
+    p = 1.0 / np.arange(1, LSTM_WORD_FORMS + 1)
+    p /= p.sum()
+    return [" ".join(forms[j] for j in rng.choice(
+        LSTM_WORD_FORMS, rng.randint(8, 21), p=p)) for _ in range(n)]
+
+
+def write_lstm_config(workdir: str):
+    """LSTM_ROWS JSON rows built by the port's image_caption_to_embedding
+    from seeded synthetic captions (the Vocab built to 8801 words), the
+    zoo's lstm_lm on a DataFrameSource over them and LRCN's solver."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetState, Phase
+    from caffeonspark_tpu_torch.tools import Vocab, image_caption_to_embedding
+    from caffeonspark_tpu_torch.tools.conversions import write_rows
+    t0 = time.monotonic()
+    caps = synthetic_captions(LSTM_ROWS, seed=23)
+    vocab = Vocab.build(caps, LSTM_LM["vocab"])
+    check(len(vocab) <= LSTM_LM["vocab"], f"vocab of {len(vocab)} words")
+    rows = os.path.join(workdir, "lstm_rows.json")
+    write_rows(image_caption_to_embedding(
+        [{"id": str(i), "caption": c} for i, c in enumerate(caps)], vocab,
+        caption_length=LSTM_LM["seq"] - 1), rows)
+    vocab.save(os.path.join(workdir, "lstm_vocab"))
+    npm = zoo.lstm_lm(**LSTM_LM)
+    data = npm.layer[0]
+    data.source_class = "com.yahoo.ml.caffe.DataFrameSource"
+    data.cos_data_param.source = rows
+    data.cos_data_param.dataframe_format = "json"
+    n_params = Net(npm, NetState(phase=Phase.TRAIN), device="meta"
+                   ).num_params()
+    name = npm.name.lower()
+    net_path = os.path.join(workdir, f"{name}_train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, f"{name}_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(LRCN_SOLVER.format(net=net_path, max_iter=TRAIN_ITERS,
+                                   name=name))
+    log(f"  wrote {rows}: {LSTM_ROWS} caption rows ({len(vocab)} ids) in "
+        f"{time.monotonic() - t0:.2f} s; {npm.name} {LSTM_LM}: "
+        f"{n_params:,} parameters")
+    return solver_path, vocab, n_params
+
+
+def step_vs_cpu(torch, label, solver_path, loss_rtol, grad_tol,
+                device="cuda"):
+    """One solver step's loss and gradients on the card against the CPU
+    port's on the same params (made on the card, copied) and batch."""
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    from caffeonspark_tpu_torch.serving.forward import pin_f32_precision
+    pin_f32_precision()
+    card, host = make_solver(torch, solver_path, {}, device)
+    cpu, _ = make_solver(torch, solver_path, {}, "cpu")
+    params, _ = card.init()
+    params_cpu = {ln: {bn: t.cpu() for bn, t in bl.items()}
+                  for ln, bl in params.items()}
+    loss_c, _, g_c = card.loss_and_grads(params, to_device(host, device))
+    loss_h, _, g_h = cpu.loss_and_grads(params_cpu, to_device(host, "cpu"))
+    lc, lh = float(loss_c), float(loss_h)
+    rel = abs(lc - lh) / abs(lh)
+    check(rel <= loss_rtol, f"{label}: loss {lc} on the card, {lh} on the "
+          f"CPU (rel {rel:.3g}, tol {loss_rtol:.3g})")
+    worst, at = _grad_diff(label, g_h, {ln: {bn: g.cpu() for bn, g in
+                                             bl.items()}
+                                        for ln, bl in g_c.items()},
+                           grad_tol, "on the card against the CPU")
+    log(f"  {label}: loss {lc:.6f} on the card, {lh:.6f} on the CPU (rel "
+        f"{rel:.3g}); worst gradient {worst:.3g} of max |grad| at {at} "
+        f"(tol {grad_tol})")
+    return dict(label=label, loss_card=lc, loss_cpu=lh, loss_rel=rel,
+                loss_rtol=loss_rtol, worst_grad_rel=worst,
+                worst_grad_at=at, grad_tol=grad_tol)
+
+
+def lstm_lm_phase(K, torch, workdir, device="cuda"):
+    """(a) lstm_lm at lrcn_cos widths trained through the CLI under
+    LRCN's solver (counts zeroed before, read after: no kernel), the
+    card's first step against the CPU's; (b) mini_cluster in float32,
+    mixed and bfloat16 (mixed and bfloat16's first loss against f32's),
+    each again at COS_STEPS_PER_LOOP=GRAPH_K (final model byte-equal to
+    K=1); per dtype 5 synchronized direct steps and 5 graphed chunks, one
+    profiled step and one profiled chunk."""
+    from caffeonspark_tpu_torch.mini_cluster import cast_inputs
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    solver_path, vocab, n_params = write_lstm_config(workdir)
+    tokens = LSTM_LM["batch_size"] * LSTM_LM["seq"]
+    train, _ = train_phase(
+        K, "LSTMLM train", solver_path, {},
+        os.path.join(workdir, "lstmlm_out"), (), device=device,
+        per_step=tokens, unit="tokens", launches_each=0,
+        first_loss=LSTM_FIRST_LOSS)
+    log("one lstm_lm step on the card against the CPU port's:")
+    vs_cpu = step_vs_cpu(torch, "LSTMLM train", solver_path,
+                         LSTM_CPU_LOSS_RTOL, LSTM_CPU_GRAD_TOL, device)
+    runs, graphed, direct, chunks, profiles = {}, {}, {}, {}, {}
+    for dtype in ("float32", "mixed", "bfloat16"):
+        runs[dtype] = mc_phase(
+            K, f"LSTMLM mini_cluster {dtype}", solver_path, dtype,
+            os.path.join(workdir, f"lstmlm_mc_{dtype}_out"), (), 0,
+            device=device, first_loss=LSTM_FIRST_LOSS)
+    for dtype in ("mixed", "bfloat16"):
+        loss_vs_f32("LSTMLM", runs[dtype], runs["float32"])
+    for dtype in ("float32", "mixed", "bfloat16"):
+        run = mc_phase(
+            K, f"LSTMLM mini_cluster {dtype} K={GRAPH_K}", solver_path,
+            dtype, os.path.join(workdir, f"lstmlm_mc_{dtype}_k_out"), (), 0,
+            device=device, env={"COS_STEPS_PER_LOOP": str(GRAPH_K)},
+            display=GRAPH_K)
+        check(run.get("chunks") == TRAIN_ITERS // GRAPH_K,
+              f"{run['label']}: {run.get('chunks')} chunks")
+        with open(run["final_model"], "rb") as a, \
+                open(runs[dtype]["final_model"], "rb") as b:
+            run["final_model_equal_k1"] = a.read() == b.read()
+        check(run["final_model_equal_k1"], f"{run['label']}: the final "
+              "model differs from the K=1 run's")
+        graphed[dtype] = run
+        gc.collect()
+        solver, host = make_solver(torch, solver_path, {}, device, dtype)
+        params, state = solver.init()
+
+        def step(p, st, inputs, solver=solver):
+            return solver.train_step(p, st, cast_inputs(solver.train_net,
+                                                        inputs))
+
+        direct[dtype] = direct_steps(torch, solver, params, state, host,
+                                     step=step)
+        prof_step = profile_train_step(
+            torch, f"LSTMLM {dtype}", solver, params, state, host,
+            what=f"one B={LSTM_LM['batch_size']} T={LSTM_LM['seq']} "
+                 f"{dtype} lstm_lm step", step=step)
+        many = solver.train_step_many(GRAPH_K)
+        block = chunk_block(torch, host, GRAPH_K, device)
+
+        def chunk(p, st, inputs, many=many, net=solver.train_net):
+            return many(p, st, cast_inputs(net, inputs))
+
+        for _ in range(2):        # the eager warm-up, the capture
+            chunk(params, state, block)
+        ms = []
+        for _ in range(5):
+            sync()
+            t0 = time.perf_counter()
+            chunk(params, state, block)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        if device == "cuda":
+            check(many.captures == 1 and many.replays == 6,
+                  f"graphed lstm_lm {dtype} chunks: {many.captures} "
+                  f"captures, {many.replays} replays")
+        chunks[dtype] = dict(chunk_ms=ms, step_ms=median(ms) / GRAPH_K)
+        prof_chunk = profile_train_step(
+            torch, f"LSTMLM {dtype} K={GRAPH_K}", solver, params, state,
+            {k: v.cpu().numpy() for k, v in block.items()},
+            what=f"one graphed chunk of {GRAPH_K} {dtype} lstm_lm steps",
+            step=chunk)
+        profiles[dtype] = dict(step=prof_step, chunk=prof_chunk)
+        log(f"  LSTMLM {dtype}: 5 direct synchronized steps "
+            + ", ".join(f"{x:.2f}" for x in direct[dtype])
+            + f" ms (median {median(direct[dtype]):.2f}); graphed K="
+            f"{GRAPH_K}: chunks " + ", ".join(f"{x:.2f}" for x in ms)
+            + f" ms ({chunks[dtype]['step_ms']:.2f} ms a step)")
+        del solver, params, state, host, block, many, chunk, step
+    return dict(params=n_params, train=train, step_vs_cpu=vs_cpu,
+                runs=runs, graphed=graphed, direct_step_ms=direct,
+                direct_step_median_ms={k: median(v)
+                                       for k, v in direct.items()},
+                chunks=chunks, profiles=profiles), vocab
+
+
+def captioner_text(batch, t_steps, feat, vocab_n, width, deploy=False):
+    """tests/test_lrcn.py's captioner at the given widths: Embed, an LSTM
+    with the image features as its static input, the per-step
+    classifier; the loss weighted by the T steps (lrcn_cos.prototxt), or
+    for `deploy` the Softmax `probs` in its place."""
+    uni = 'weight_filler { type: "uniform" min: -0.08 max: 0.08 }'
+    text = f"""name: "LRCNCaptioner"
+layer {{ name: "data" type: "CoSData"
+  top: "image_features" top: "cont_sentence" top: "input_sentence"
+  top: "target_sentence"
+  cos_data_param {{ batch_size: {batch}
+    top {{ name: "image_features" type: FLOAT_ARRAY channels: {feat}
+          sample_num_axes: 1 }}
+    top {{ name: "cont_sentence" type: INT_ARRAY channels: {t_steps}
+          sample_num_axes: 1 transpose: true }}
+    top {{ name: "input_sentence" type: INT_ARRAY channels: {t_steps}
+          sample_num_axes: 1 transpose: true }}
+    top {{ name: "target_sentence" type: INT_ARRAY channels: {t_steps}
+          sample_num_axes: 1 transpose: true }} }} }}
+layer {{ name: "embedding" type: "Embed" bottom: "input_sentence"
+  top: "embedded_input_sentence"
+  embed_param {{ input_dim: {vocab_n} num_output: {width} bias_term: false
+    {uni} }} }}
+layer {{ name: "lstm1" type: "LSTM" bottom: "embedded_input_sentence"
+  bottom: "cont_sentence" bottom: "image_features" top: "lstm1"
+  recurrent_param {{ num_output: {width} {uni}
+    bias_filler {{ type: "constant" }} }} }}
+layer {{ name: "predict" type: "InnerProduct" bottom: "lstm1"
+  top: "predict" inner_product_param {{ num_output: {vocab_n} axis: 2
+    {uni} }} }}
+"""
+    if deploy:
+        return text + """layer { name: "probs" type: "Softmax"
+  bottom: "predict" top: "probs" softmax_param { axis: 2 } }
+"""
+    return text + f"""layer {{ name: "cross_entropy_loss"
+  type: "SoftmaxWithLoss" bottom: "predict" bottom: "target_sentence" top: "cross_entropy_loss"
+  loss_weight: {t_steps}.0 loss_param {{ ignore_label: -1 }}
+  softmax_param {{ axis: 2 }} }}
+"""
+
+
+def decode_margins(rows):
+    """Per step (B,) top-1 minus top-2 probability."""
+    import numpy as np
+    return [np.diff(np.sort(r, axis=-1)[:, -2:], axis=-1)[:, 0]
+            for r in rows]
+
+
+def compare_decodes(a_ids, a_rows, b_ids, b_rows):
+    """Greedy against incremental: for each image the tokens of both up
+    to its END, equal wherever both steps' margins exceed NEAR_TIE; an
+    image is compared whole unless a near-tie comes first (after which
+    the two may rightly part).  Returns (captions compared whole,
+    tokens compared, near-ties met)."""
+    ma, mb = decode_margins(a_rows), decode_margins(b_rows)
+    whole = tokens = ties = 0
+    for i, (sa, sb) in enumerate(zip(a_ids, b_ids)):
+        ta, tb = list(sa) + [0], list(sb) + [0]
+        tie = False
+        for t in range(max(len(ta), len(tb))):
+            if t >= len(ma) or t >= len(mb):
+                break                 # max_length reached without END
+            if min(ma[t][i], mb[t][i]) <= NEAR_TIE:
+                tie = True
+                break
+            check(t < len(ta) and t < len(tb) and ta[t] == tb[t],
+                  f"image {i}: greedy {sa} and incremental {sb} part at "
+                  f"step {t + 1} with margins {ma[t][i]:.3g}, "
+                  f"{mb[t][i]:.3g}")
+            tokens += 1
+            if ta[t] == 0:
+                break
+        ties += tie
+        whole += not tie
+    return whole, tokens, ties
+
+
+def caption_phase(K, torch, workdir, vocab, caffenet_model, device="cuda"):
+    """(c) CaffeNet -features fc8 of CAPTION_IMAGES seeded 3x256x256
+    records (counts zeroed before, read after: K1 on norm1 and norm2);
+    the rows feed the LRCN captioner at lrcn_cos widths (vocab 8801,
+    embedding and LSTM 1000, the 1000-wide fc8 as its static input),
+    trained TRAIN_ITERS steps through the CLI; the images decoded with
+    greedy_caption, incremental_greedy_caption and beam_caption (beam
+    3), each timed; greedy against incremental away from near-ties; the
+    stepper's first step on the card against the CPU port's."""
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch import caffe_on_spark, checkpoint
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetParameter, NetState, Phase
+    from caffeonspark_tpu_torch.tools import image_caption as ic
+    from caffeonspark_tpu_torch.tools import image_caption_to_embedding
+    from caffeonspark_tpu_torch.tools.conversions import write_rows
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    lmdb = write_train_data(workdir, "caption_lmdb", CAPTION_IMAGES,
+                            seed=29)
+    feat_solver = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
+                                     test_lmdb=lmdb, suffix="Caption")
+    outdir = os.path.join(workdir, "caption_features_out")
+    shutil.rmtree(outdir, ignore_errors=True)
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    rc = caffe_on_spark.main(["-conf", feat_solver, "-features", "fc8",
+                              "-model", caffenet_model, "-output", outdir,
+                              "-device", device])
+    feat_s = time.monotonic() - t0
+    feat_launches = dict(K.launch_counts)
+    check(rc == 0, f"caption features: -features returned {rc}")
+    # norm1 and norm2 a batch (the plain versions on the CPU: no launch)
+    k1 = 2 * math.ceil(CAPTION_IMAGES / VAL_B) if device == "cuda" else 0
+    want = {k: (k1 if k == "lrn_across_channels" else 0)
+            for k in feat_launches}
+    check(feat_launches == want, f"caption features: launches "
+          f"{feat_launches}, expected {want}")
+    with open(os.path.join(outdir, "features.json")) as f:
+        feat_rows = [json.loads(x) for x in f if x.strip()]
+    feats = np.asarray([r["fc8"] for r in feat_rows], np.float32)
+    check(feats.shape == (CAPTION_IMAGES, 1000) and np.isfinite(feats).all(),
+          f"caption features: fc8 rows {feats.shape}")
+    log(f"  -features fc8 of {CAPTION_IMAGES} images in {feat_s:.1f} s; "
+        f"launches {feat_launches}")
+
+    t_steps, width, vocab_n = LSTM_LM["seq"], LSTM_LM["d_model"], \
+        LSTM_LM["vocab"]
+    caps = synthetic_captions(CAPTION_IMAGES, seed=31)
+    emb = image_caption_to_embedding(
+        [{"id": r["SampleID"], "caption": c, "image_features": f}
+         for r, c, f in zip(feat_rows, caps, feats.tolist())], vocab,
+        caption_length=t_steps - 1)
+    rows_path = os.path.join(workdir, "caption_rows.json")
+    write_rows(emb, rows_path)
+    npm = NetParameter.from_text(captioner_text(
+        CAPTION_IMAGES, t_steps, 1000, vocab_n, width))
+    data = npm.layer[0]
+    data.source_class = "com.yahoo.ml.caffe.DataFrameSource"
+    data.cos_data_param.source = rows_path
+    data.cos_data_param.dataframe_format = "json"
+    name = npm.name.lower()
+    net_path = os.path.join(workdir, f"{name}_train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, f"{name}_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(LRCN_SOLVER.format(net=net_path, max_iter=TRAIN_ITERS,
+                                   name=name))
+    train, model = train_phase(
+        K, "LRCNCaptioner train", solver_path, {},
+        os.path.join(workdir, "captioner_out"), (), device=device,
+        per_step=CAPTION_IMAGES * t_steps, unit="tokens", launches_each=0,
+        first_loss=CAPTIONER_FIRST_LOSS)
+    # the step alone, without the CLI's feed (32 rows: every batch an
+    # epoch of the DataFrameSource)
+    solver, host = make_solver(torch, solver_path, {}, device)
+    params, state = solver.init()
+    train["direct_step_ms"] = direct_steps(torch, solver, params, state,
+                                           host)
+    log("  LRCNCaptioner: 5 direct synchronized steps "
+        + ", ".join(f"{x:.2f}" for x in train["direct_step_ms"]) + " ms")
+    del solver, params, state, host
+
+    deploy_text = captioner_text(CAPTION_IMAGES, t_steps, 1000, vocab_n,
+                                 width, deploy=True)
+    deploy = Net(NetParameter.from_text(deploy_text),
+                 NetState(phase=Phase.TEST), device=device)
+    params = checkpoint.copy_layers(deploy, deploy.init(0), model,
+                                    strict=True)
+    extra = {"image_features": feats}
+    K.reset_launch_counts()
+    times, out = {}, {}
+    for key in ("greedy", "incremental", "beam3"):
+        rows = []
+        sync()
+        t0 = time.perf_counter()
+        if key == "greedy":
+            ids = ic.greedy_caption(deploy, params, feats,
+                                    max_length=t_steps, step_probs=rows)
+        elif key == "incremental":
+            ids = ic.incremental_greedy_caption(
+                NetParameter.from_text(deploy_text), params, extra,
+                batch=CAPTION_IMAGES, max_length=t_steps, device=device,
+                step_probs=rows)
+        else:
+            ids = ic.beam_caption(
+                NetParameter.from_text(deploy_text), params, extra,
+                batch=CAPTION_IMAGES, beam=3, max_length=t_steps,
+                device=device)
+        sync()
+        times[key] = 1e3 * (time.perf_counter() - t0)
+        check(len(ids) == CAPTION_IMAGES and all(
+            0 < w < vocab_n for s in ids for w in s),
+            f"{key} decode: ids {ids[:2]}...")
+        out[key] = (ids, rows)
+    decode_launches = dict(K.launch_counts)
+    check(not any(decode_launches.values()),
+          f"decode: launches {decode_launches}")
+    whole, tokens, ties = compare_decodes(*out["greedy"],
+                                          *out["incremental"])
+    check(whole + ties == CAPTION_IMAGES, "greedy against incremental: "
+          f"{whole} + {ties} of {CAPTION_IMAGES} images")
+    log(f"  decode of {CAPTION_IMAGES} images (max_length {t_steps}): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in times.items())
+        + f"; greedy against incremental: {whole} captions compared whole, "
+        f"{tokens} tokens, {ties} stopped at a near-tie (margin <= "
+        f"{NEAR_TIE})")
+
+    # the stepper's first step on the card against the CPU port's
+    first = {}
+    for dev in (device, "cpu"):
+        p = {ln: {bn: t.to(dev) for bn, t in bl.items()}
+             for ln, bl in params.items()}
+        names, states, forward = ic._make_stepper(
+            NetParameter.from_text(deploy_text), CAPTION_IMAGES, "probs",
+            dev)
+        probs, _ = forward(p, {
+            **ic._step_inputs(np.zeros(CAPTION_IMAGES), 1, "input_sentence",
+                              "cont_sentence", torch.device(dev)),
+            "image_features": torch.from_numpy(feats).to(dev), **states})
+        first[dev] = probs[0].double().cpu().numpy()
+    err = float(np.abs(first[device] - first["cpu"]).max()
+                / np.abs(first["cpu"]).max())
+    check(err <= STEPPER_CPU_TOL, f"the stepper's first step on the card "
+          f"differs from the CPU's by {err:.3g} of the max (tol "
+          f"{STEPPER_CPU_TOL})")
+    log(f"  the stepper's first step on the card against the CPU: {err:.3g} "
+        f"of the max probability (tol {STEPPER_CPU_TOL})")
+    texts = ic.captions_to_text(out["beam3"][0][:2], vocab)
+    return dict(features=dict(wall_s=feat_s, launches=feat_launches,
+                              rows=len(feat_rows)),
+                train=train, decode_ms=times,
+                decode_launches=decode_launches,
+                greedy_vs_incremental=dict(
+                    captions_compared_whole=whole, tokens_compared=tokens,
+                    stopped_at_near_tie=ties, near_tie=NEAR_TIE),
+                beam_equals_greedy=out["beam3"][0] == out["greedy"][0],
+                stepper_vs_cpu=err, stepper_tol=STEPPER_CPU_TOL,
+                sample_beam_captions=texts)
+
+
+def _layer_input(name, *dims):
+    return (f'layer {{ name: "{name}" type: "Input" top: "{name}" '
+            f'input_param {{ shape {{ {" ".join(f"dim: {d}" for d in dims)}'
+            ' } } }\n')
+
+
+def _layer_case(typ, bottoms, extra="", tops=("y",)):
+    bots = " ".join(f'bottom: "{b}"' for b in bottoms)
+    tps = " ".join(f'top: "{t}"' for t in tops)
+    return f'layer {{ name: "l" type: "{typ}" {bots} {tps} {extra} }}\n'
+
+
+def layer_cases():
+    """{case: (prototxt, input kinds)} of the layer phase at working
+    widths: the activations and MVN at (32, 256, 28, 28), the losses at
+    (256, 1000), FCN-32s's upsampling head (Long et al.: `upscore`
+    Deconvolution num_output 21, kernel 64, stride 32, no bias, then the
+    `score` Crop at offset 19 to a 500x500 image), SPP of pyramid 3 at
+    (32, 256, 13, 13), STOCHASTIC pooling (TEST) at AlexNet's pool
+    shape, and the shape ops."""
+    act = (32, 256, 28, 28)
+    g = 'filler { type: "gaussian" std: 0.5 }'
+
+    def one(typ, extra="", shape=act):
+        return _layer_input("x", *shape) + _layer_case(typ, ["x"], extra)
+
+    def loss(typ, shapes, extra=""):
+        names = ["a", "b", "c"][:len(shapes)]
+        return ("".join(_layer_input(n, *s) for n, s in zip(names, shapes))
+                + _layer_case(typ, names, extra))
+
+    lw = (256, 1000)
+    return {
+        "PReLU": (one("PReLU", f"prelu_param {{ {g} }}"), {}),
+        "ELU": (one("ELU", "elu_param { alpha: 0.5 }"), {}),
+        "Sigmoid": (one("Sigmoid"), {}),
+        "TanH": (one("TanH"), {}),
+        "AbsVal": (one("AbsVal"), {}),
+        "BNLL": (one("BNLL"), {}),
+        "Power": (one("Power", "power_param { power: 2 scale: 0.5 "
+                               "shift: 1 }"), {}),
+        "Exp": (one("Exp", "exp_param { base: 2 scale: 0.7 }"), {}),
+        "Log": (one("Log", "log_param { scale: 1.5 shift: 0.2 }"),
+                {"x": "pos"}),
+        "Threshold": (one("Threshold", "threshold_param { threshold: 0.3 }"),
+                      {}),
+        "MVN": (one("MVN"), {}),
+        "Bias": (one("Bias", f"bias_param {{ {g} }}"), {}),
+        "Parameter": ('layer { name: "l" type: "Parameter" top: "y" '
+                      'parameter_param { shape { dim: 256 dim: 1000 } } }\n',
+                      {}),
+        "BatchReindex": (_layer_input("x", 256, 1000) + _layer_input("i", 512)
+                         + _layer_case("BatchReindex", ["x", "i"]),
+                         {"i": "idx256"}),
+        "SPP": (one("SPP", "spp_param { pyramid_height: 3 }",
+                    (32, 256, 13, 13)), {}),
+        "Deconvolution+Crop": (
+            _layer_input("score_fr", 1, 21, 16, 16)
+            + _layer_input("data", 1, 3, 500, 500)
+            + 'layer { name: "upscore" type: "Deconvolution" '
+              'bottom: "score_fr" top: "upscore" convolution_param { '
+              'num_output: 21 bias_term: false kernel_size: 64 stride: 32 '
+              'weight_filler { type: "gaussian" std: 0.01 } } }\n'
+            + 'layer { name: "score" type: "Crop" bottom: "upscore" '
+              'bottom: "data" top: "score" crop_param { axis: 2 '
+              'offset: 19 } }\n', {}),
+        "Reshape": (one("Reshape", "reshape_param { shape { dim: 0 dim: -1 } "
+                                   "}"), {}),
+        "Slice": (_layer_input("x", *act)
+                  + _layer_case("Slice", ["x"], "slice_param { axis: 1 "
+                                "slice_point: 96 }", ("y0", "y1")), {}),
+        "Tile": (one("Tile", "tile_param { axis: 1 tiles: 2 }",
+                     (32, 256, 13, 13)), {}),
+        "Reduction": (one("Reduction", "reduction_param { operation: SUMSQ "
+                                       "axis: 1 coeff: 0.5 }"), {}),
+        "Silence": (_layer_input("x", *act) + _layer_input("z", 64)
+                    + 'layer { name: "s" type: "Silence" bottom: "z" }\n'
+                    + _layer_case("TanH", ["x"]), {}),
+        "ArgMax": (one("ArgMax", "argmax_param { axis: 1 top_k: 5 "
+                                 "out_max_val: true }"), {}),
+        "EuclideanLoss": (loss("EuclideanLoss", [lw, lw]), {}),
+        "SigmoidCrossEntropyLoss": (loss("SigmoidCrossEntropyLoss",
+                                         [lw, lw]), {"b": "unit"}),
+        "ContrastiveLoss": (loss("ContrastiveLoss", [lw, lw, (256,)],
+                                 "contrastive_loss_param { margin: 40 }"),
+                            {"c": "pair"}),
+        "HingeLoss": (loss("HingeLoss", [lw, (256,)],
+                           "hinge_loss_param { norm: L2 }"),
+                      {"b": "label"}),
+        "MultinomialLogisticLoss": (loss("MultinomialLogisticLoss",
+                                         [lw, (256,)]),
+                                    {"a": "prob", "b": "label"}),
+        "InfogainLoss": (loss("InfogainLoss", [lw, (256,), (1000, 1000)]),
+                         {"a": "prob", "b": "label", "c": "pos"}),
+        "Pooling STOCHASTIC": (one("Pooling", "pooling_param { pool: "
+                                              "STOCHASTIC kernel_size: 3 "
+                                              "stride: 2 }",
+                                   (32, 96, 55, 55)), {"x": "pos"}),
+    }
+
+
+def _layer_draw(np, kind, shape, rng):
+    if kind == "pos":
+        return (rng.rand(*shape) * 2 + 0.1).astype(np.float32)
+    if kind == "unit":
+        return rng.rand(*shape).astype(np.float32)
+    if kind == "pair":
+        return rng.randint(0, 2, shape).astype(np.float32)
+    if kind == "idx256":
+        return rng.randint(0, 256, shape).astype(np.float32)
+    if kind == "label":
+        return rng.randint(0, 1000, shape).astype(np.float32)
+    if kind == "prob":
+        z = np.exp(rng.randn(*shape))
+        return (z / z.sum(axis=-1, keepdims=True)).astype(np.float32)
+    return (rng.randn(*shape) * 2 + 0.5).astype(np.float32)
+
+
+def layer_phase(K, torch, device="cuda"):
+    """Each new stateless layer type forward and backward on the card
+    against the CPU port on the same params and inputs (counts zeroed
+    before, read after: no kernel): tops within LAYER_TOP_TOL and the
+    gradients of a weighted sum of the tops within LAYER_GRAD_TOL of
+    their largest element; STOCHASTIC pooling's TRAIN draw on the card:
+    each value of a [1, 3, 2, 4] window picked with frequency value / 10
+    over 512k windows, within STOCHASTIC_FREQ_TOL."""
+    import numpy as np
+    from caffeonspark_tpu_torch import convert
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.ops import layers as L
+    from caffeonspark_tpu_torch.proto import (LayerParameter, NetParameter,
+                                              NetState, Phase)
+    from caffeonspark_tpu_torch.serving.forward import pin_f32_precision
+    pin_f32_precision()
+    K.reset_launch_counts()
+    res = {}
+    for case, (text, kinds) in layer_cases().items():
+        rng = np.random.RandomState(13)
+        nets = {dev: Net(NetParameter.from_text(text),
+                         NetState(phase=Phase.TEST), device=dev)
+                for dev in (device, "cpu")}
+        ref = nets["cpu"]
+        inputs = {n: _layer_draw(np, kinds.get(n), s, rng)
+                  for n, s, _ in ref.input_specs}
+        arrays = {ln: {bn: (rng.randn(*s) * 0.5).astype(np.float32)
+                       for bn, s, _ in specs}
+                  for ln, specs in ref.param_layout.items()}
+        weights = {t: np.asarray(rng.randn(*ref.blob_shapes[t]), np.float32)
+                   for t in ref.output_blobs if t not in inputs}
+        out = {}
+        for dev, net in nets.items():
+            tp = {ln: {bn: t.requires_grad_(True) for bn, t in bl.items()}
+                  for ln, bl in convert.params_from_numpy(net,
+                                                          arrays).items()}
+            tx = {n: torch.from_numpy(a).to(dev).requires_grad_(True)
+                  for n, a in inputs.items()}
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blobs = net(tp, tx)
+            total = sum(torch.sum(blobs[t] * torch.from_numpy(w).to(dev))
+                        for t, w in weights.items())
+            leaves = [t for bl in tp.values() for t in bl.values()] + list(
+                tx.values())
+            grads = (torch.autograd.grad(total, leaves, allow_unused=True)
+                     if total.requires_grad else [None] * len(leaves))
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            out[dev] = ({t: blobs[t].detach().double().cpu()
+                         for t in weights},
+                        [None if g is None else g.double().cpu()
+                         for g in grads], ms)
+        top_err = grad_err = 0.0
+        for t in weights:
+            want = out["cpu"][0][t]
+            top_err = max(top_err, float((out[device][0][t] - want).abs()
+                                         .max() / want.abs().max()))
+        for g, want in zip(out[device][1], out["cpu"][1]):
+            check((g is None) == (want is None), f"{case}: a gradient on "
+                  "one device only")
+            if want is not None and float(want.abs().max()) > 0:
+                grad_err = max(grad_err, float((g - want).abs().max()
+                                               / want.abs().max()))
+        check(top_err <= LAYER_TOP_TOL, f"{case}: tops on the card differ "
+              f"from the CPU's by {top_err:.3g} of the max")
+        check(grad_err <= LAYER_GRAD_TOL, f"{case}: gradients on the card "
+              f"differ from the CPU's by {grad_err:.3g} of the max")
+        res[case] = dict(top_err=top_err, grad_err=grad_err,
+                         card_ms=out[device][2], cpu_ms=out["cpu"][2],
+                         shapes={n: list(s) for n, s, _ in ref.input_specs})
+        log(f"  {case}: tops {top_err:.3g}, gradients {grad_err:.3g} of the "
+            f"max against the CPU; forward + backward {out[device][2]:.2f} "
+            f"ms on the card (first call), {out['cpu'][2]:.1f} ms on the CPU")
+        del nets, out
+    lp = LayerParameter.from_text(
+        'name: "p" type: "Pooling" bottom: "x" top: "y" pooling_param { '
+        'pool: STOCHASTIC kernel_size: 2 stride: 2 }')
+    win = torch.tensor([[1.0, 3.0], [2.0, 4.0]], device=device)
+    x = win.repeat(512, 1024).reshape(1, 1, 1024, 2048)
+    g = torch.Generator(device=device).manual_seed(3)
+    y = L.get_op("Pooling").apply(L.Ctx(train=True, generator=g,
+                                        layer_name="p"), lp, [], [x])[0]
+    picks = y.ravel()
+    freq = {v: float((picks == v).float().mean()) for v in (1, 2, 3, 4)}
+    check(float((picks > 0).float().mean()) == 1.0 and all(
+        abs(f - v / 10) <= STOCHASTIC_FREQ_TOL for v, f in freq.items()),
+        f"STOCHASTIC TRAIN on the card: pick frequencies {freq}")
+    res["Pooling STOCHASTIC TRAIN"] = dict(windows=int(picks.numel()),
+                                           frequencies=freq,
+                                           tol=STOCHASTIC_FREQ_TOL)
+    log(f"  STOCHASTIC TRAIN on the card: over {picks.numel():,} windows "
+        f"[1, 3, 2, 4] picked with frequencies {freq} (tol "
+        f"{STOCHASTIC_FREQ_TOL})")
+    launches = dict(K.launch_counts)
+    check(not any(launches.values()), f"layer phase: launches {launches}")
+    return dict(cases=res, launches=launches)
+
+
 def ptxas_report(text: str) -> list:
     """Registers and spills of each flash kernel instantiation, from the
     `-Xptxas -v` output of nvcc (names demangled by c++filt where the
@@ -3588,6 +4300,25 @@ def main(argv) -> int:
     log("the quant sidecar: AlexNet in int8, exported and served from its "
         "sidecar (counts zeroed before the server):")
     sidecar = sidecar_phase(K, torch, *alexnet)
+    log(f"lstm_lm {LSTM_LM} through the CLI (-train, LRCN's solver, "
+        f"{TRAIN_ITERS} steps) and mini_cluster (float32, mixed, bfloat16; "
+        f"K=1 and COS_STEPS_PER_LOOP={GRAPH_K}), direct and profiled steps "
+        "and chunks (counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lstm, lstm_vocab = lstm_lm_phase(K, torch, workdir)
+    log(f"captions: CaffeNet -features fc8 of {CAPTION_IMAGES} images, the "
+        "LRCN captioner at lrcn_cos widths trained on them through the CLI, "
+        "greedy / incremental / beam decode (counts zeroed before each):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    caption = caption_phase(K, torch, workdir, lstm_vocab,
+                            val_models["CaffeNet train+validate"][1])
+    log("the stateless layer types on the card against the CPU port "
+        "(counts zeroed before):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = layer_phase(K, torch)
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_sp4_mixed"] = lm_mc["sp_run"]
@@ -3600,6 +4331,9 @@ def main(argv) -> int:
         mc_paths[f"mc_resnet50_float32_{key}"] = resnet["mc"][key]
     mc_paths["mc_resnet50_mixed"] = resnet["mixed"]
     mc_paths["mc_resnet50_float32"] = resnet["f32_2_steps"]
+    for dtype in ("float32", "mixed", "bfloat16"):
+        mc_paths[f"mc_lstmlm_{dtype}"] = lstm["runs"][dtype]
+        mc_paths[f"mc_lstmlm_{dtype}_k{GRAPH_K}"] = lstm["graphed"][dtype]
 
     lines = []
     for name, meta in KERNELS.items():
@@ -3630,7 +4364,15 @@ def main(argv) -> int:
                                                         lm_snap))
                       for k, r in rec["runs"].items()},
                    "hdf5_caffenet": hdf5["launches"].get(name, 0),
-                   "serve_quant_sidecar": sidecar["launches"].get(name, 0)}
+                   "serve_quant_sidecar": sidecar["launches"].get(name, 0),
+                   "train_lstm_lm": lstm["train"]["launches"].get(name, 0),
+                   "caption_features":
+                       caption["features"]["launches"].get(name, 0),
+                   "train_captioner":
+                       caption["train"]["launches"].get(name, 0),
+                   "caption_decode":
+                       caption["decode_launches"].get(name, 0),
+                   "layers": layers["launches"].get(name, 0)}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -3681,6 +4423,8 @@ def main(argv) -> int:
     log(json.dumps({"snapshots": {"vgg16": vgg, "lm": lm_snap,
                                   "hdf5": hdf5},
                     "quant_sidecar": sidecar}))
+    log(json.dumps({"lstm_lm": lstm, "caption": caption,
+                    "layers": layers}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

@@ -656,7 +656,9 @@ def _graph_case(name, device):
     iter_size 2), a narrow ResNet of the zoo's bottleneck blocks
     (BatchNorm's statistics written in place by every forward; SGD with
     iter_size 2) or a small causal transformer_lm (Adam, K6-K8; with
-    `sp` the ring on 4 ranks of the one card: K9, K7, K8)."""
+    `sp` the ring on 4 ranks of the one card: K9, K7, K8) or the zoo's
+    lstm_lm (SGD with clip_gradients; the recurrence's Python loop, cont
+    fed in the compute dtype as mini_cluster casts it)."""
     from caffeonspark_tpu_torch.models import zoo
     from caffeonspark_tpu_torch.parallel.mesh import build_mesh
     from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
@@ -691,6 +693,25 @@ def _graph_case(name, device):
                    "label": torch.from_numpy(
                        rng.randint(0, 10, (4, 4)).astype(np.float32))}
                   for _ in range(3)]
+    elif name.startswith("lstm"):
+        npm = zoo.lstm_lm(vocab=64, d_model=32, seq=10, batch_size=4)
+        sp = SolverParameter.from_text(
+            'base_lr: 0.01 lr_policy: "step" gamma: 0.5 stepsize: 3 '
+            'momentum: 0.9 clip_gradients: 10 random_seed: 1')
+        dtype = torch.bfloat16 if name.endswith("bf16") else torch.float32
+        compute = torch.bfloat16 if name.endswith("mixed") else None
+        solver = Solver(sp, npm, device=device, dtype=dtype,
+                        compute_dtype=compute)
+        cont = (rng.rand(3, 4, 10, 4) > 0.2).astype(np.float32)
+        cont[:, :, 0] = 0.0
+        blocks = [{"input_sentence": torch.from_numpy(
+                       rng.randint(0, 64, (4, 10, 4)).astype(np.float32)),
+                   "cont_sentence": torch.from_numpy(c).to(
+                       torch.bfloat16 if dtype == torch.bfloat16 or compute
+                       else torch.float32),
+                   "target_sentence": torch.from_numpy(
+                       rng.randint(-1, 64, (4, 10, 4)).astype(np.float32))}
+                  for c in cont]
     else:
         npm = zoo.transformer_lm(vocab=64, d_model=64, heads=2, layers=2,
                                  seq=256, batch=2)
@@ -720,7 +741,8 @@ def _route(mesh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["caffenet", "lm", "lm_mixed", "lm_bf16",
-                                  "lm_sp_mixed", "resnet"])
+                                  "lm_sp_mixed", "resnet", "lstm",
+                                  "lstm_mixed", "lstm_bf16"])
 def test_graphed_steps_equal_eager_steps_on_card(cuda_card, name):
     """Three blocks of 4 steps through train_step_many(4) (an eager
     warm-up, a capture and its replay, a replay) against 12 train_step
@@ -872,3 +894,85 @@ def test_async_snapshot_of_card_tensors_equals_sync_on_card(cuda_card,
     for n in names:
         assert filecmp.cmp(tmp_path / "sync" / n, tmp_path / "async" / n,
                            shallow=False), n
+
+
+NEW_LAYER_CASES = {
+    "prelu": ('layer { name: "l" type: "PReLU" bottom: "x" top: "y" '
+              'prelu_param { filler { type: "gaussian" } } }', [(4, 8, 9, 9)]),
+    "elu": ('layer { name: "l" type: "ELU" bottom: "x" top: "y" }',
+            [(4, 8, 9, 9)]),
+    "bnll": ('layer { name: "l" type: "BNLL" bottom: "x" top: "y" }',
+             [(4, 8, 9, 9)]),
+    "power": ('layer { name: "l" type: "Power" bottom: "x" top: "y" '
+              'power_param { power: 2 scale: 0.5 shift: 1 } }',
+              [(4, 8, 9, 9)]),
+    "exp": ('layer { name: "l" type: "Exp" bottom: "x" top: "y" '
+            'exp_param { base: 2 scale: 0.3 } }', [(4, 8, 9, 9)]),
+    "mvn": ('layer { name: "l" type: "MVN" bottom: "x" top: "y" }',
+            [(4, 8, 9, 9)]),
+    "spp": ('layer { name: "l" type: "SPP" bottom: "x" top: "y" '
+            'spp_param { pyramid_height: 3 } }', [(4, 8, 13, 11)]),
+    "deconv": ('layer { name: "l" type: "Deconvolution" bottom: "x" '
+               'top: "y" convolution_param { num_output: 6 kernel_size: 8 '
+               'stride: 4 pad: 2 weight_filler { type: "gaussian" '
+               'std: 0.1 } } }', [(2, 8, 9, 9)]),
+    "crop": ('layer { name: "l" type: "Crop" bottom: "x" bottom: "x1" '
+             'top: "y" crop_param { axis: 2 offset: 3 } }',
+             [(2, 8, 13, 13), (2, 8, 7, 7)]),
+    "batch_reindex": ('layer { name: "l" type: "BatchReindex" bottom: "x" '
+                      'bottom: "x1" top: "y" }', [(6, 5), (9,)]),
+    "euclidean": ('layer { name: "l" type: "EuclideanLoss" bottom: "x" '
+                  'bottom: "x1" top: "y" }', [(16, 10), (16, 10)]),
+    "sigmoid_ce": ('layer { name: "l" type: "SigmoidCrossEntropyLoss" '
+                   'bottom: "x" bottom: "x1" top: "y" }',
+                   [(16, 10), (16, 10)]),
+    "hinge": ('layer { name: "l" type: "HingeLoss" bottom: "x" '
+              'bottom: "x1" top: "y" hinge_loss_param { norm: L2 } }',
+              [(16, 10), (16,)]),
+    "stochastic": ('layer { name: "l" type: "Pooling" bottom: "x" top: "y" '
+                   'pooling_param { pool: STOCHASTIC kernel_size: 3 '
+                   'stride: 2 } }', [(4, 8, 9, 9)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(NEW_LAYER_CASES))
+def test_new_layer_types_match_cpu_on_card(cuda_card, case):
+    """The stateless types of PR 14 on the card against the CPU (tops and
+    the gradients of every param and float input, rtol 1e-5 / atol 1e-5;
+    cuDNN's deconvolution with TF32 off).  Second bottoms of the index
+    kinds (labels, BatchReindex's indices) are integers in range;
+    STOCHASTIC pooling runs its TEST mean on non-negative input."""
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetParameter
+    from caffeonspark_tpu_torch.serving.forward import pin_f32_precision
+    pin_f32_precision()
+    layer, shapes = NEW_LAYER_CASES[case]
+    names = ["x", "x1"][:len(shapes)]
+    text = "".join(
+        f'layer {{ name: "{n}" type: "Input" top: "{n}" input_param {{ '
+        f'shape {{ {" ".join(f"dim: {d}" for d in s)} }} }} }}\n'
+        for n, s in zip(names, shapes)) + layer
+    arrays = [_x(s, 30 + i, 1.0) for i, s in enumerate(shapes)]
+    if case in ("hinge", "batch_reindex"):
+        hi = shapes[0][1] if case == "hinge" else shapes[0][0]
+        arrays[1] = np.random.RandomState(3).randint(
+            0, hi, shapes[1]).astype(np.float32)
+    if case == "stochastic":
+        arrays[0] = np.abs(arrays[0])
+    if case == "sigmoid_ce":
+        arrays[1] = np.random.RandomState(4).rand(*shapes[1]).astype(
+            np.float32)
+    outs = []
+    for dev in ("cpu", cuda_card):
+        net = Net(NetParameter.from_text(text), device=dev)
+        params = net.init(4)
+        leaves = [t.requires_grad_() for bl in params.values()
+                  for t in bl.values()]
+        xs = {n: torch.from_numpy(a).to(dev) for n, a in zip(names, arrays)}
+        xs["x"].requires_grad_()
+        y = net(params, xs)["y"]
+        g = torch.autograd.grad((y * y).sum(), [xs["x"]] + leaves)
+        outs.append([y.detach().cpu(), *[t.cpu() for t in g]])
+    for a, b in zip(*outs):
+        _close(b, a, rtol=1e-5, atol=1e-5)
