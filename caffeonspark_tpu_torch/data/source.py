@@ -9,23 +9,34 @@ or, with the device-side transform (`enable_device_transform`), into
 uint8 pixels and their crop/flip aux array whose float stage runs on
 the device (`apply_device_stage`, data/queue_runner.py).
 
-Read by the port: LMDB databases of Caffe `Datum` records, through a
-CaffeOnSpark `LMDB` source class or Caffe's own source-less `Data`
-layer, and tables of typed columns through `DataFrameSource`
-(data/dataframe.py) for CoSData layers.  Serving uses a source only as
-its packer: requests carry their own pixels, so the SequenceFile and
-image DataFrame source classes pack records there, but reading their
-stores waits for a later slice, as do HDF5 and image-list layers and
-LevelDB.  Each of those raises and names itself.
+Stores, by `source_class` (or by layer type where Caffe has no
+CaffeOnSpark source class):
+  * `LMDB`: an LMDB of Caffe `Datum` records, read rank-sharded by key
+    range (data/lmdb_io.py);
+  * `SeqImageDataSource`: a SequenceFile of (id, Datum) records, or a
+    directory of part files taken round-robin by rank
+    (data/sequencefile.py; `tools/converters.py binary2sequence` writes
+    them);
+  * `ImageDataFrame`: a parquet table of images (needs pyarrow, refused
+    by name without it);
+  * `DataFrameSource`: a table of typed columns for CoSData layers
+    (data/dataframe.py);
+  * `StreamingDir`: a growing directory of LMDB / SequenceFile parts
+    (data/streaming.py);
+  * `module:Class`: a user's DataSource subclass, imported by name;
+  * a source-less `Data` layer: Caffe's own LMDB or LevelDB database
+    (data/leveldb_io.py);
+  * `ImageData`: Caffe's image list (`ImageListSource`);
+  * `HDF5Data`: Caffe's list of HDF5 files (data/hdf5.py; needs h5py).
 
-Encoded Datums (`convert_imageset --encoded`) are decoded by the native
-library's threaded libjpeg decoder (`native.decode_batch`, `num_threads`
-on the source, 0 meaning one thread per core), straight to uint8 planes
-under the device-side transform.  When a batch fails, its images are
-decoded one by one to name the bad record.  Under COS_NATIVE=0, or on a
-machine without libjpeg, each image goes through cv2 where cv2 imports,
-as in the JAX package; otherwise the record is refused, naming what is
-missing.
+Encoded Datums and image files (`convert_imageset --encoded`) are
+decoded by the native library's threaded libjpeg decoder
+(`native.decode_batch`, `num_threads` on the source, 0 meaning one
+thread per core), straight to uint8 planes under the device-side
+transform.  When a batch fails, its images are decoded one by one to
+name the bad record.  Under COS_NATIVE=0, or on a machine without
+libjpeg, each image goes through cv2 where cv2 imports, as in the JAX
+package; otherwise the record is refused, naming what is missing.
 """
 
 from __future__ import annotations
@@ -88,8 +99,10 @@ def decode_records(records: Sequence[ImageRecord], c: int, h: int, w: int,
                    *, dtype=np.float32, num_threads: int = 0) -> np.ndarray:
     """Encoded records -> (N, C, H, W) of `dtype` (float32, or uint8 for
     the device-side transform): one native batch decode, or cv2 image
-    by image (COS_NATIVE=0, no libjpeg).  A failed batch is decoded
-    again image by image to name its first bad record."""
+    by image (COS_NATIVE=0, no libjpeg).  A batch the native decoder
+    fails (a PNG, a corrupt file) goes through cv2 image by image, as in
+    the JAX package, which names a bad record; without cv2 it is decoded
+    natively again image by image to name its first bad record."""
     from .. import native
     images = [r[6] for r in records]
     if native.decode_available():
@@ -98,6 +111,8 @@ def decode_records(records: Sequence[ImageRecord], c: int, h: int, w: int,
                                        num_threads=num_threads,
                                        out_dtype=dtype)
         except ValueError:
+            if _cv2() is not None:
+                return _decode_cv2(records, c, h, w, dtype)
             for r in records:
                 try:
                     native.decode_batch([r[6]], channels=c, out_h=h,
@@ -107,6 +122,10 @@ def decode_records(records: Sequence[ImageRecord], c: int, h: int, w: int,
                     raise ValueError(f"record {r[0]!r}: image decode "
                                      "failed") from e
             raise
+    return _decode_cv2(records, c, h, w, dtype)
+
+
+def _decode_cv2(records, c, h, w, dtype) -> np.ndarray:
     out = np.zeros((len(records), c, h, w), dtype)
     for i, r in enumerate(records):
         out[i] = decode_image(r[0], r[6], channels=c, resize_hw=(h, w),
@@ -133,7 +152,7 @@ def datum_to_record(key: bytes, raw: bytes) -> ImageRecord:
             d.data)
 
 
-def first_datum_dims(reader: LmdbReader) -> Optional[Tuple[int, int, int]]:
+def first_datum_dims(reader) -> Optional[Tuple[int, int, int]]:
     """(C, H, W) of the database's first Datum; None when it is empty."""
     for _k, v in reader.items(None, None):
         d = Datum.from_binary(v)
@@ -187,8 +206,7 @@ class DataSource:
     # -- SPI ---------------------------------------------------------------
     def records(self) -> Iterator[ImageRecord]:
         raise NotImplementedError(
-            f"{type(self).__name__}: reading this store waits for a later "
-            "slice of the PyTorch port (it packs records only)")
+            f"{type(self).__name__} implements no records()")
 
     def next_batch(self, records: Sequence[ImageRecord],
                    draw: Optional[AugDraw] = None
@@ -329,7 +347,6 @@ class DataSource:
         rng.shuffle(buf)
         yield from buf
 
-
     def batches(self, *, loop: bool = True,
                 shuffle: Optional[bool] = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
@@ -375,9 +392,10 @@ class LMDB(DataSource):
 
 
 class CaffeDataSource(LMDB):
-    """Caffe's own `Data` layer (`data_param { source backend }`) over an
-    LMDB; geometry comes from the first record, as Caffe's DataLayer
-    sizes its tops."""
+    """Caffe's own `Data` layer (`data_param { source backend }`): LMDB or
+    LevelDB databases of serialized Datum records (db_lmdb.cpp /
+    db_leveldb.cpp); geometry comes from the first record, as Caffe's
+    DataLayer sizes its tops."""
 
     def _batch_size(self) -> int:
         return int(self.layer.data_param.batch_size)
@@ -385,13 +403,8 @@ class CaffeDataSource(LMDB):
     def source_uri(self) -> str:
         return _strip_scheme(self.layer.data_param.source)
 
-    def _reader(self) -> LmdbReader:
-        from ..proto.caffe import DBBackend
-        if self.layer.data_param.backend == DBBackend.LEVELDB:
-            raise NotImplementedError(
-                f"Data layer {self.layer.name!r}: LevelDB databases wait "
-                "for a later slice of the PyTorch port (use LMDB)")
-        return LmdbReader(self.source_uri())
+    def _reader(self):
+        return open_db(self.source_uri(), self.layer.data_param.backend)
 
     def image_dims(self) -> Tuple[int, int, int]:
         dims = getattr(self, "_dims", None)
@@ -404,14 +417,139 @@ class CaffeDataSource(LMDB):
         return dims
 
 
+def open_db(path: str, backend: int):
+    """A reader of a `Data` layer's database: LevelDB for `backend:
+    LEVELDB`, else LMDB."""
+    from ..proto.caffe import DBBackend
+    if backend == DBBackend.LEVELDB:
+        from .leveldb_io import LevelDBReader
+        return LevelDBReader(path)
+    return LmdbReader(path)
+
+
 class SeqImageDataSource(DataSource):
-    """SequenceFile of (id, Datum) records: packs records; reading the
-    SequenceFile waits for a later slice."""
+    """SequenceFile of (id, Datum) records (source_class
+    com.yahoo.ml.caffe.SeqImageDataSource): one file, or a directory of
+    part files (names starting with "." or "_" skipped) taken
+    round-robin by rank when there are several."""
+
+    def records(self) -> Iterator[ImageRecord]:
+        from .sequencefile import SequenceFileReader
+        path = self.source_uri()
+        files = sorted(
+            os.path.join(path, f) for f in os.listdir(path)
+            if not f.startswith((".", "_"))) if os.path.isdir(path) \
+            else [path]
+        for i, f in enumerate(files):
+            if i % self.num_ranks != self.rank and len(files) > 1:
+                continue
+            for key, val in SequenceFileReader(f):
+                yield datum_to_record(key.encode("latin-1"), val)
+
+
+def need_pyarrow(path: str, what: str, hint: str = ""):
+    """`pyarrow.parquet`, or an ImportError naming pyarrow and `what`."""
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError(f"{path!r}: {what} needs pyarrow, which is not "
+                          f"installed{hint}") from e
+    return pq
 
 
 class ImageDataFrame(DataSource):
-    """Parquet DataFrame of images: packs records; reading the DataFrame
-    waits for a later slice."""
+    """Parquet DataFrame of images (source_class
+    com.yahoo.ml.caffe.ImageDataFrame): optional columns id / label /
+    channels / height / width / encoded and the data column
+    (ImageDataFrame.scala:31-73); each rank reads a contiguous share of
+    the rows.  Needs pyarrow."""
+
+    def records(self) -> Iterator[ImageRecord]:
+        pq = need_pyarrow(self.source_uri(), "an ImageDataFrame")
+        c, h, w = self.image_dims()
+        encoded_default = self.layer.memory_data_param.image_encoded
+        table = pq.read_table(self.source_uri())
+        cols = set(table.column_names)
+        n = table.num_rows
+        lo = self.rank * n // self.num_ranks
+        hi = (self.rank + 1) * n // self.num_ranks
+        tbl = table.slice(lo, hi - lo).to_pydict()
+        for i in range(hi - lo):
+            def col(name, default):
+                return tbl[name][i] if name in cols else default
+            data = col("data", b"") or b""
+            if isinstance(data, list):
+                data = bytes(data)
+            yield (str(col("id", i)), float(col("label", 0.0) or 0.0),
+                   int(col("channels", c)), int(col("height", h)),
+                   int(col("width", w)),
+                   bool(col("encoded", encoded_default)), data)
+
+
+class ImageListSource(DataSource):
+    """Caffe's ImageData layer (image_data_layer.cpp): a text list of
+    `<path> <label>` lines, images read from disk (under root_folder)
+    and resized to new_height x new_width.  `shuffle` draws a fresh
+    permutation every epoch from a rank-independent seed, so that rank
+    striping (line i to rank i % ranks) stays a partition; `rand_skip`
+    rotates the list once, at epoch 0.  The epoch counts the calls of
+    records(), as in the JAX package."""
+
+    def __init__(self, layer: LayerParameter, **kw):
+        kw["resize"] = True       # Caffe's ImageData always resizes
+        super().__init__(layer, **kw)
+        self._epoch = 0
+
+    def _batch_size(self) -> int:
+        return int(self.layer.image_data_param.batch_size)
+
+    def source_uri(self) -> str:
+        return _strip_scheme(self.layer.image_data_param.source)
+
+    def image_dims(self) -> Tuple[int, int, int]:
+        p = self.layer.image_data_param
+        c = 3 if p.is_color else 1
+        h, w = int(p.new_height), int(p.new_width)
+        if not h or not w:
+            cs = int(self.layer.transform_param.crop_size or 0)
+            h = h or cs
+            w = w or cs
+        return c, h, w
+
+    def _entries(self) -> List[Tuple[str, float]]:
+        root = self.layer.image_data_param.root_folder or ""
+        out = []
+        with open(self.source_uri()) as f:
+            for ln in f:
+                ln = ln.strip()
+                if not ln:
+                    continue
+                path, _, lbl = ln.rpartition(" ")
+                if not path:      # no label column
+                    path, lbl = lbl, "0"
+                out.append((os.path.join(root, path), float(lbl)))
+        return out
+
+    def records(self) -> Iterator[ImageRecord]:
+        """image_data_layer.cpp's order: shuffle first (ShuffleImages()
+        at every wrap), then rand_skip once at startup only."""
+        c, h, w = self.image_dims()
+        p = self.layer.image_data_param
+        entries = self._entries()
+        epoch, self._epoch = self._epoch, self._epoch + 1
+        if p.shuffle:
+            seed = (self.seed + epoch * 131071) & 0x7FFFFFFF
+            np.random.RandomState(seed).shuffle(entries)
+        if int(p.rand_skip) and epoch == 0:
+            skip = np.random.RandomState(self.seed).randint(
+                0, int(p.rand_skip))
+            entries = entries[skip:] + entries[:skip]
+        for i, (path, lbl) in enumerate(entries):
+            if i % self.num_ranks != self.rank:
+                continue
+            with open(path, "rb") as f:
+                yield (os.path.basename(path), lbl, c, h, w, True,
+                       f.read())
 
 
 _CLASS_MAP = {
@@ -422,27 +560,38 @@ _CLASS_MAP = {
     "SeqImageDataSource": SeqImageDataSource,
     "ImageDataFrame": ImageDataFrame,
 }
-SOURCE_CLASSES = tuple(_CLASS_MAP)
-
-_LATER = {"HDF5Data": "HDF5 data layers", "ImageData": "image-list layers"}
 
 
 def get_source(layer: LayerParameter, **kw) -> DataSource:
     """Factory keyed on the prototxt `source_class`
-    (DataSource.scala:130-167); `kw` as for DataSource."""
-    if layer.type in _LATER:
-        raise NotImplementedError(f"{_LATER[layer.type]} ({layer.name!r}) "
-                                  "wait for a later slice of the PyTorch "
-                                  "port")
+    (DataSource.scala:130-167); `kw` as for DataSource.  HDF5Data,
+    ImageData and a source-less Data layer are Caffe layer types with no
+    CaffeOnSpark source class and route by type."""
+    if layer.type == "HDF5Data":
+        from .hdf5 import HDF5Source
+        return HDF5Source(layer, **kw)
+    if layer.type == "ImageData":
+        return ImageListSource(layer, **kw)
     if layer.type == "Data" and not layer.source_class:
         return CaffeDataSource(layer, **kw)
     cls_name = layer.source_class
     if not cls_name:
         raise ValueError(f"data layer {layer.name!r} has no source_class")
+    if cls_name in _CLASS_MAP:
+        return _CLASS_MAP[cls_name](layer, **kw)
     if cls_name.endswith("DataFrameSource"):
         from .dataframe import DataFrameSource
         return DataFrameSource(layer, **kw)
-    if cls_name not in _CLASS_MAP:
-        raise ValueError(f"source_class {cls_name!r} is not in the "
-                         f"PyTorch port (have {list(SOURCE_CLASSES)})")
-    return _CLASS_MAP[cls_name](layer, **kw)
+    if cls_name in ("StreamingDir", "com.yahoo.ml.caffe.StreamingDir"):
+        from .streaming import StreamingDirSource
+        return StreamingDirSource(layer, **kw)
+    if ":" in cls_name:             # a user's "module:Class"
+        import importlib
+        mod, cls = cls_name.rsplit(":", 1)
+        return getattr(importlib.import_module(mod), cls)(layer, **kw)
+    raise ValueError(f"unknown source_class {cls_name!r}")
+
+
+def register_source(name: str, cls) -> None:
+    """Make `cls` the source of `source_class: "<name>"`."""
+    _CLASS_MAP[name] = cls

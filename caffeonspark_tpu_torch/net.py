@@ -13,7 +13,9 @@ running the layers on "meta" tensors (no memory, no compute).  Then:
 
 Both take a `state_out` dict that collects the forward state: the new
 running statistics of each BatchNorm at TRAIN, which
-`merge_forward_state` copies into the params in place.
+`merge_forward_state` copies into the params in place, and the bottoms
+of each HDF5Output under "hdf5_output:<layer>" (data/hdf5.py
+`collect_hdf5_outputs`), which it skips.
 
 Mixed precision (`compute_dtype`, JAX net.py:272-284, :699-750): params
 stay in `dtype` while each layer casts its floating params and bottoms
@@ -72,16 +74,13 @@ def layer_included(lp: LayerParameter, state: NetState) -> bool:
 
 
 def _peek_db_dims(lp: LayerParameter) -> Tuple[int, int, int]:
-    """First-record (C, H, W) of a Data layer's LMDB; (3, 0, 0) when the
-    database is not readable at graph-build time (a deploy net parsed
-    away from its data), as in the JAX package."""
-    from .proto.caffe import DBBackend
-    if lp.data_param.backend == DBBackend.LEVELDB:
-        return 3, 0, 0             # LevelDB is not read by the port yet
-    from .data.lmdb_io import LmdbReader
-    from .data.source import _strip_scheme, first_datum_dims
+    """First-record (C, H, W) of a Data layer's LMDB or LevelDB database;
+    (3, 0, 0) when the database is not readable at graph-build time (a
+    deploy net parsed away from its data), as in the JAX package."""
+    from .data.source import _strip_scheme, first_datum_dims, open_db
     try:
-        with LmdbReader(_strip_scheme(lp.data_param.source)) as r:
+        with open_db(_strip_scheme(lp.data_param.source),
+                     lp.data_param.backend) as r:
             dims = first_datum_dims(r)
     except (OSError, ValueError):
         dims = None
@@ -157,6 +156,50 @@ def data_layer_input_specs(lp: LayerParameter
         if len(lp.top) > 1:
             specs.append((lp.top[1], (b,), "label"))
         return specs
+    if t == "HDF5Data":
+        # hdf5_data_layer.cpp sizes the tops from the first listed file:
+        # probed when the list is readable, else shapeless
+        p = lp.hdf5_data_param
+        if p.source and os.path.exists(p.source):
+            from .data.hdf5 import hdf5_top_shapes
+            shapes = hdf5_top_shapes(p.source, list(lp.top),
+                                     int(p.batch_size))
+            return [(name, shapes[name],
+                     "label" if name == "label" else "data")
+                    for name in lp.top]
+        return [(name, (), "data") for name in lp.top]
+    if t == "ImageData":
+        # image_data_layer.cpp: a (path label) list; the tops' shapes
+        # need new_height / new_width or a crop
+        p = lp.image_data_param
+        b = int(p.batch_size)
+        c = 3 if p.is_color else 1
+        cs = int(lp.transform_param.crop_size or 0)
+        h = cs or int(p.new_height)
+        w = cs or int(p.new_width)
+        if not h or not w:
+            raise ValueError(
+                f"ImageData layer {lp.name!r}: set new_height/new_width "
+                "(or transform_param.crop_size): static shapes required")
+        specs = [(lp.top[0], (b, c, h, w), "data")]
+        if len(lp.top) > 1:
+            specs.append((lp.top[1], (b,), "label"))
+        return specs
+    if t == "DummyData":
+        # a shape only: the caller supplies the inputs, as in the JAX
+        # package (no filler)
+        p = lp.dummy_data_param
+        out = []
+        for i, name in enumerate(lp.top):
+            if p.shape:
+                shp = p.shape[min(i, len(p.shape) - 1)]
+                out.append((name, tuple(int(d) for d in shp.dim), "data"))
+            else:
+                idx = min(i, len(p.num) - 1) if p.num else 0
+                out.append((name, (int(p.num[idx]), int(p.channels[idx]),
+                                   int(p.height[idx]), int(p.width[idx])),
+                            "data"))
+        return out
     raise NotImplementedError(f"data layer {t} not in the PyTorch port")
 
 
@@ -506,8 +549,9 @@ class Net(nn.Module):
         they are written, never rebound (JAX net.py:783-794 returns new
         params instead)."""
         for lname, values in forward_state.items():
-            for (bname, _, _), v in zip(self.param_layout.get(lname, ()),
-                                        values):
+            if lname not in self.param_layout:
+                continue    # side-channel keys (HDF5Output's bottoms)
+            for (bname, _, _), v in zip(self.param_layout[lname], values):
                 params[lname][bname].copy_(v)
 
     def stat_param_layers(self) -> List[str]:

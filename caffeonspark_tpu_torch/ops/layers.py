@@ -158,8 +158,20 @@ def _data_layer(ctx, lp, params, bottoms):
     raise RuntimeError("data layers are net inputs; never applied")
 
 
-for _t in ("MemoryData", "CoSData", "Input", "Data"):
+for _t in ("MemoryData", "CoSData", "Input", "Data", "HDF5Data",
+           "DummyData", "ImageData"):
     register(_t, is_data=True)(_data_layer)
+
+
+@register("HDF5Output")
+def _hdf5_output(ctx, lp, params, bottoms):
+    """hdf5_output_layer.cpp: an output sink.  A forward writes no file
+    (a CUDA graph could not replay it): the bottoms, detached, go to
+    `ctx.state_out["hdf5_output:<name>"]`, and the caller writes them
+    (data/hdf5.py `collect_hdf5_outputs`, `write_hdf5_outputs`)."""
+    ctx.state_out["hdf5_output:" + ctx.layer_name] = [
+        b.detach() for b in bottoms]
+    return []
 
 
 # ---------------------------------------------------------------------------

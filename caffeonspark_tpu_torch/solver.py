@@ -43,6 +43,7 @@ explicit (no-ops in f32).
 from __future__ import annotations
 
 import functools
+import gc
 import logging
 import operator
 import os
@@ -299,7 +300,9 @@ class Solver:
             if fwd_state:       # the next sub-batch reads these statistics
                 cur = {ln: dict(bl) for ln, bl in cur.items()}
                 for ln, values in fwd_state.items():
-                    for (bn, _, _), v in zip(net.param_layout[ln], values):
+                    # side-channel keys (HDF5Output) hold no params
+                    for (bn, _, _), v in zip(net.param_layout.get(ln, ()),
+                                             values):
                         cur[ln][bn] = v.to(params[ln][bn].dtype)
             grads = [torch.zeros_like(params[ln][bn]) if g is None else g
                      for (ln, bn), g in zip(names, grads)]
@@ -575,6 +578,12 @@ class GraphedSteps:
                     f"{torch.__version__} has none")
             graph.register_generator_state(s.generator)
         it0 = state.iter
+        # a CUDA graph that dies in a reference cycle is destroyed when
+        # the cyclic collector runs, and a graph destroyed during this
+        # capture invalidates it: collect now, and not during the capture
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
         try:
             # thread_local: the capture forbids unsafe CUDA calls on
             # this thread only; the ingest threads go on pinning host
@@ -595,6 +604,8 @@ class GraphedSteps:
                 outputs = {n: torch.stack([o[n] for o in outs])
                            for n in outs[0]}
         finally:
+            if gc_on:
+                gc.enable()
             state.iter = it0          # the capture ran no step
         self.captures += 1
         return dict(graph=graph, inputs=static_in, scalars=scalars,

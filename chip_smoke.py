@@ -146,8 +146,9 @@ or the package is not importable, and when any phase fails.  Phases:
      against the single-device mixed step and the all-plain step;
  20. encoded records: an LMDB of 512 seeded 3x256x256 images encoded as
      JPEG with the machine's encoder (cv2, else PIL); CaffeNet -train on
-     it for 8 steps (first loss near ln 1000, every loss finite, K1 / K2
-     16 launches each), one batch's decode timed, the uint8 decode equal
+     it for 8 steps under cuDNN deterministic (first loss near ln 1000,
+     every loss finite, K1 / K2 16 launches each), one batch's decode
+     timed, the uint8 decode equal
      to the float decode cast; without libjpeg the native decoder's
      refusal naming it (the records then go through cv2); without an
      encoder, the refusal of an encoded record naming what is missing;
@@ -234,15 +235,36 @@ or the package is not importable, and when any phase fails.  Phases:
      SPP of pyramid 3 at (32, 256, 13, 13), STOCHASTIC pooling's TEST
      mean; LAYER_TOP_TOL / LAYER_GRAD_TOL) and STOCHASTIC pooling's
      TRAIN pick frequencies over 512k windows (STOCHASTIC_FREQ_TOL);
- 31. a `kernels` JSON line: launches on the serving, image-net training,
+ 31. the rest of the data path: phase 20's 512 JPEG Datums (its run,
+     under cuDNN deterministic, is the reference) in the LMDB's key
+     order through every other store into full-width CaffeNet, each
+     through the CLI (counts zeroed before, read after): (a) image files
+     converted by the converters CLI's binary2sequence into a part
+     directory, SeqImageDataSource, -train for 8 steps with a TEST layer
+     on a SequenceFile (lmdb2sequence of the 100 TEST records; K1 24, K2
+     16), then -test (K1 4); (b) a LevelDB with snappy blocks written by
+     the port's LevelDBWriter, a source-less Data layer with backend
+     LEVELDB, -train (K1 / K2 16); (a) and (b) under cuDNN deterministic,
+     their first packed batches bit-equal and final models byte-equal to
+     the reference's; (c) finetune_flickr_style (ImageData of B 50 over
+     the image files, labels mod 20, fc8_flickr) with -weights of (a)'s
+     model, every layer but fc8_flickr copied before step 1, first loss
+     near ln 20 (K1 24, K2 16); (d) a JSON-lines DataFrame of base64
+     images (binary2dataframe) through a CoSData ENCODED_IMAGE top, inline
+     packing, its first packed batch equal to the CPU port's; (e)
+     HDF5Data, ImageDataFrame and binary2dataframe to .parquet refused by
+     name where h5py / pyarrow are missing (run where present); each
+     reader alone in records a second, and each run's median step
+     interval, pack p50 and wall beside the reference's;
+ 32. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
      dtype; graphed runs included), encoded and graphed CaffeNet,
      GoogLeNet, ResNet-50, snapshot, HDF5, sidecar, lstm_lm, caption
-     (features, captioner, decode) and layer paths, and the numbers of
-     phase 3 (K1-K4 also at GoogLeNet's shapes in the `kernel_records`
-     line); a `ptxas` line; then the card line again;
- 32. the device line, last: {"ok": true, "device": {...}}.
+     (features, captioner, decode), layer and data-path paths, and the
+     numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
+     `kernel_records` line); a `ptxas` line; then the card line again;
+ 33. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2402,8 +2424,10 @@ def write_encoded_data(workdir: str, have: dict) -> str:
 
 def encoded_phase(K, torch, workdir, have, kernels):
     """An LMDB of encoded Datums: CaffeNet -train for TRAIN_ITERS steps on
-    it (first loss near ln 1000, every loss finite, K1 / K2 2 x
-    TRAIN_ITERS launches each; counts zeroed before, read after); the
+    it under cuDNN deterministic (first loss near ln 1000, every loss
+    finite, K1 / K2 2 x TRAIN_ITERS launches each; counts zeroed before,
+    read after; its LMDB, final model and first packed batch are phase
+    31's reference, under "reference", which main pops); the
     decode of one batch timed; uint8 decoding equal to the float decode
     cast.  Without libjpeg the native decoder must refuse by name (the
     records then go through cv2); without any encoder, the port must
@@ -2449,12 +2473,21 @@ def encoded_phase(K, torch, workdir, have, kernels):
     from caffeonspark_tpu_torch.models import zoo
     solver = write_train_config(workdir, zoo.caffenet, path, seed=1,
                                 suffix="Encoded")
-    train, _ = train_phase(
-        K, f"CaffeNet encoded ({decoder})", solver, {},
-        os.path.join(workdir, "caffenet_encoded_out"), kernels)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # phase 31's reference
+    try:
+        train, model = train_phase(
+            K, f"CaffeNet encoded ({decoder})", solver, {},
+            os.path.join(workdir, "caffenet_encoded_out"), kernels,
+            capture=1)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref = dict(lmdb=path, model=model, batch=train.pop("batches")[0],
+               **{k: train[k] for k in ("median_step_ms", "pack_ms_p50",
+                                         "wall_s")})
     res = dict(encoder="cv2" if have["cv2"] else "PIL", decoder=decoder,
                decode_batch_ms=median(times), decode_batch=TRAIN_B,
-               u8_equals_float_cast=True, train=train)
+               u8_equals_float_cast=True, train=train, reference=ref)
     log(f"  encoded: {decoder} decodes {TRAIN_B} JPEGs of 256x256 in "
         f"{res['decode_batch_ms']:.1f} ms (median of 3; uint8 = float "
         "cast)")
@@ -3905,6 +3938,416 @@ def layer_phase(K, torch, device="cuda"):
     return dict(cases=res, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the rest of the data path feeding CaffeNet
+# ---------------------------------------------------------------------------
+
+# CaffeNet's net name in every run whose final model is held byte for
+# byte against the encoded-LMDB run of phase 20 (a .caffemodel carries it)
+DP_NET = "CaffeNetEncoded"
+DP_MEAN = " ".join(f"mean_value: {v:g}" for v in MEAN_VALUE)
+DP_TRAIN_XF = f"transform_param {{ crop_size: 227 mirror: true {DP_MEAN} }}"
+DP_TEST_XF = f"transform_param {{ crop_size: 227 {DP_MEAN} }}"
+# Caffe's models/finetune_flickr_style: ImageData of B 50 (256 x 256, crop
+# 227, mirror), fc8_flickr of 20 classes at lr_mult 10 / 20, its solver
+# (base_lr 0.001, step 0.1 every 20,000, momentum 0.9, weight_decay 5e-4;
+# max_iter 100,000 cut to 8, test_interval / test_iter as VAL_SOLVER)
+FLICKR_B, FLICKR_CLASSES = 50, 20
+FLICKR_SOLVER = ('base_lr: 0.001\nlr_policy: "step"\ngamma: 0.1\n'
+                 'stepsize: 20000\nmomentum: 0.9\nweight_decay: 0.0005\n'
+                 'max_iter: 8\nsnapshot: 4\nsnapshot_prefix: "dpflickr_train"'
+                 '\nrandom_seed: 1\n' + VAL_SOLVER)
+FLICKR_FIRST_LOSS = (2.0, 4.5)     # ln 20 = 3.00 (fc8_flickr's std 0.01)
+
+
+def _dp_layer(text: str):
+    from caffeonspark_tpu_torch.proto.caffe import LayerParameter
+    return LayerParameter.from_text(text)
+
+
+def write_datapath_config(workdir: str, key: str, train, test=None) -> str:
+    """The zoo's full-width CaffeNet (named DP_NET) with `train` (and a
+    TEST layer `test`, validating as VAL_SOLVER) as its data layers, and
+    TRAIN_SOLVER cut to TRAIN_ITERS steps, seed 1 as the encoded run's;
+    files `<key>_train_val.prototxt`, `<key>_train_solver.prototxt`."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.proto import NetStateRule, Phase
+    npm = zoo.caffenet(batch_size=TRAIN_B)
+    npm.name = DP_NET
+    npm.layer[0] = train
+    if test is not None:
+        train.include.append(NetStateRule(phase=Phase.TRAIN))
+        test.include.append(NetStateRule(phase=Phase.TEST))
+        npm.layer.insert(1, test)
+    net_path = os.path.join(workdir, f"{key}_train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, f"{key}_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(TRAIN_SOLVER.format(
+            net=net_path, max_iter=TRAIN_ITERS, snapshot=4, after="true",
+            name=key, seed=1, extra=VAL_SOLVER if test is not None else ""))
+    return solver_path
+
+
+def write_flickr_config(workdir: str, image_list: str) -> str:
+    """finetune_flickr_style's train_val on CaffeNet: ImageData at TRAIN
+    and TEST over `image_list`, fc8 renamed fc8_flickr (20 outputs,
+    lr_mult 10 / 20), and its solver cut to 8 steps."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.proto import NetStateRule, Phase
+    npm = zoo.caffenet(batch_size=FLICKR_B, num_classes=FLICKR_CLASSES)
+    npm.name = "FlickrStyleCaffeNet"
+    layers = []
+    for phase, xf in ((Phase.TRAIN, DP_TRAIN_XF), (Phase.TEST, DP_TEST_XF)):
+        lp = _dp_layer(
+            'name: "data" type: "ImageData" top: "data" top: "label" '
+            f'{xf} image_data_param {{ source: "{image_list}" '
+            f'batch_size: {FLICKR_B} new_height: 256 new_width: 256 }}')
+        lp.include.append(NetStateRule(phase=phase))
+        layers.append(lp)
+    npm.layer[0:1] = layers
+    for lp in npm.layer:
+        if lp.name == "fc8":
+            lp.name = "fc8_flickr"
+            lp.top[0] = "fc8_flickr"
+            lp.param[0].lr_mult, lp.param[1].lr_mult = 10.0, 20.0
+        lp.bottom[:] = ["fc8_flickr" if b == "fc8" else b
+                        for b in lp.bottom]
+    net_path = os.path.join(workdir, "dpflickr_train_val.prototxt")
+    with open(net_path, "w") as f:
+        f.write(npm.to_text())
+    solver_path = os.path.join(workdir, "dpflickr_train_solver.prototxt")
+    with open(solver_path, "w") as f:
+        f.write(f'net: "{net_path}"\n{FLICKR_SOLVER}')
+    return solver_path
+
+
+@contextlib.contextmanager
+def initial_params():
+    """The processor's params just after its _init_params (the -weights
+    copy, before step 1), kept on the host."""
+    from caffeonspark_tpu_torch.processor import CaffeProcessor
+    real = CaffeProcessor._init_params
+    got = {}
+
+    def spy(self):
+        first = self.params is None
+        real(self)
+        if first and not got:
+            got.update({ln: {bn: t.detach().cpu().numpy().copy()
+                             for bn, t in bl.items()}
+                        for ln, bl in self.params.items()})
+
+    CaffeProcessor._init_params = spy
+    try:
+        yield got
+    finally:
+        CaffeProcessor._init_params = real
+
+
+def reader_rate(label: str, src) -> dict:
+    """Records a second of `src.records()` alone on this thread (the read
+    and the parse, no decode)."""
+    t0 = time.perf_counter()
+    n = sum(1 for _ in src.records())
+    s = time.perf_counter() - t0
+    log(f"  reader {label}: {n} records in {s:.3f} s "
+        f"({n / s:.1f} records/s)")
+    return dict(records=n, seconds=s, records_per_s=n / s)
+
+
+def datapath_refusals(workdir: str) -> dict:
+    """HDF5Data, an ImageDataFrame and binary2dataframe to .parquet:
+    refused by name where h5py / pyarrow are missing, else run."""
+    import importlib.util
+
+    import numpy as np
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.tools import converters
+    out = {}
+    h5list = os.path.join(workdir, "dp_h5_list.txt")
+    with open(h5list, "w") as f:
+        f.write("dp.h5\n")
+    h5 = _dp_layer('name: "d" type: "HDF5Data" top: "data" top: "label" '
+                   f'hdf5_data_param {{ source: "{h5list}" batch_size: 2 }}')
+    if importlib.util.find_spec("h5py") is None:
+        try:
+            list(get_source(h5).records())
+            check(False, "HDF5Data read with no h5py")
+        except ImportError as e:
+            check("h5py" in str(e), f"HDF5Data refusal names no h5py: {e}")
+            out["HDF5Data"] = str(e)
+    else:
+        import h5py
+        with h5py.File(os.path.join(workdir, "dp.h5"), "w") as f:
+            f["data"] = np.zeros((4, 3), np.float32)
+            f["label"] = np.zeros(4, np.float32)
+        out["HDF5Data"] = len(list(get_source(h5).records()))
+    have_pa = importlib.util.find_spec("pyarrow") is not None
+    idf = _dp_layer(
+        'name: "d" type: "MemoryData" top: "data" top: "label" '
+        'source_class: "com.yahoo.ml.caffe.ImageDataFrame" '
+        f'memory_data_param {{ source: "{workdir}/dp_images.parquet" '
+        'batch_size: 2 channels: 3 height: 256 width: 256 }')
+    img_dir = os.path.join(workdir, "dp_refusal_images")
+    os.makedirs(img_dir, exist_ok=True)
+    with open(os.path.join(img_dir, "a.jpg"), "wb") as f:
+        f.write(b"\xff\xd8\xff")
+    parquet = os.path.join(workdir, "dp_images.parquet")
+    for what, fn in (
+            ("binary2dataframe .parquet", lambda: converters.main(
+                ["binary2dataframe", "-imageRoot", img_dir, "-output",
+                 parquet])),
+            ("ImageDataFrame", lambda: list(get_source(idf).records()))):
+        if have_pa:
+            fn()
+            out[what] = "ran (pyarrow present)"
+            continue
+        try:
+            fn()
+            check(False, f"{what} ran with no pyarrow")
+        except ImportError as e:
+            check("pyarrow" in str(e), f"{what} refusal names no pyarrow: "
+                  f"{e}")
+            out[what] = str(e)
+    for k, v in out.items():
+        log(f"  refusal {k}: {v}")
+    return out
+
+
+def datapath_phase(K, torch, workdir, ref, test_lmdb, kernels,
+                   device="cuda"):
+    """The same 512 JPEG Datums as phase 20's encoded LMDB (`ref`: its
+    path, final model and first packed batch), in LMDB key order, fed to
+    full-width CaffeNet through every other store, each run through the
+    CLI with the counts zeroed before and read after:
+      (a) written as image files and converted by the converters CLI's
+          binary2sequence into a part directory: SeqImageDataSource,
+          -train for TRAIN_ITERS steps with a TEST layer on a SequenceFile
+          (lmdb2sequence of the 100 TEST records), then -test;
+      (b) a LevelDB of the same Datums written by the port's
+          LevelDBWriter with snappy blocks, read by a source-less Data
+          layer with backend LEVELDB: -train;
+      (c) an ImageData list of the image files (labels mod 20):
+          finetune_flickr_style from (a)'s model with -weights (every
+          layer but fc8_flickr copied, checked before step 1);
+      (d) a JSON-lines DataFrame (binary2dataframe to .json, base64
+          images) through a CoSData ENCODED_IMAGE top with its own
+          transform_param, inline packing (COS_TRANSFORM_THREADS=0: the
+          top's draws are taken in the pack): -train; its first packed
+          batch against the CPU port's;
+      (e) HDF5Data, ImageDataFrame and parquet output refused by name
+          where h5py / pyarrow are missing.
+    (a) and (b) run under cuDNN deterministic as the reference did: their
+    first packed batches bit-equal and their final models byte-equal to
+    the encoded LMDB run's.  Each reader alone in records a second; each
+    CLI run's median step interval, pack p50 and wall beside the
+    reference's."""
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch import caffe_on_spark
+    from caffeonspark_tpu_torch.data.leveldb_io import LevelDBWriter
+    from caffeonspark_tpu_torch.data.lmdb_io import LmdbReader
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.proto.caffe import Datum
+    from caffeonspark_tpu_torch.tools import converters
+    res, runs = {}, {}
+    t_phase = time.monotonic()
+    with LmdbReader(ref["lmdb"]) as r:
+        kv = list(r.items(None, None))
+    datums = [Datum.from_binary(v) for _, v in kv]
+    img_dir = os.path.join(workdir, "dp_images")
+    shutil.rmtree(img_dir, ignore_errors=True)
+    os.makedirs(img_dir)
+    labels = os.path.join(workdir, "dp_labels.txt")
+    flickr_list = os.path.join(workdir, "dp_flickr_list.txt")
+    with open(labels, "w") as lf, open(flickr_list, "w") as fl:
+        for (k, _), d in zip(kv, datums):
+            name = k.decode() + ".jpg"
+            with open(os.path.join(img_dir, name), "wb") as f:
+                f.write(d.data)
+            lf.write(f"{name} {d.label}\n")
+            fl.write(f"{img_dir}/{name} {d.label % FLICKR_CLASSES}\n")
+
+    def run(key, label, solver, env=None, **kw):
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            rec, model = train_phase(
+                K, label, solver, env or {},
+                os.path.join(workdir, f"{key}_out"), kernels,
+                device=device, **kw)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        runs[key] = rec
+        return rec, model
+
+    def held_to_ref(key, rec, model):
+        batch = rec.pop("batches")[0]
+        same_batch = all(np.array_equal(batch[k], ref["batch"][k])
+                         for k in ("data", "label"))
+        check(same_batch, f"{key}: first packed batch differs from the "
+              "encoded LMDB run's")
+        with open(model, "rb") as f, open(ref["model"], "rb") as g:
+            same = f.read() == g.read()
+        check(same, f"{key}: final model differs from the encoded LMDB "
+              "run's (same records, order and draws)")
+        rec.update(first_batch_equal=True, model_byte_equal=True)
+
+    # (a) SequenceFile through binary2sequence
+    seq_dir = os.path.join(workdir, "dp_seq")
+    shutil.rmtree(seq_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    check(converters.main(["binary2sequence", "-imageRoot", img_dir,
+                           "-labelFile", labels, "-output",
+                           os.path.join(seq_dir, "part-00000")]) == 0,
+          "binary2sequence failed")
+    seq_test = os.path.join(workdir, "dp_test.seq")
+    check(converters.main(["lmdb2sequence", "-lmdb", test_lmdb, "-output",
+                           seq_test]) == 0, "lmdb2sequence failed")
+    res["convert_seq_s"] = time.monotonic() - t0
+
+    def seq_layer(xf, src, b):
+        return _dp_layer(
+            'name: "data" type: "MemoryData" top: "data" top: "label" '
+            'source_class: "com.yahoo.ml.caffe.SeqImageDataSource" '
+            f'{xf} memory_data_param {{ source: "{src}" batch_size: {b} '
+            'channels: 3 height: 256 width: 256 }')
+
+    train = seq_layer(DP_TRAIN_XF, seq_dir, TRAIN_B)
+    test = seq_layer(DP_TEST_XF, seq_test, VAL_B)
+    solver = write_datapath_config(workdir, "dpseq", train, test)
+    val_lrn = 2 * TRAIN_ITERS + VAL_ROUNDS * VAL_ITER * 2
+    rec, seq_model = run("dpseq", "CaffeNet SequenceFile train+validate",
+                         solver, capture=1, rounds=VAL_ROUNDS,
+                         expect={kernels[0]: val_lrn})
+    held_to_ref("dpseq", rec, seq_model)
+    K.reset_launch_counts()
+    out = os.path.join(workdir, "dpseq_test_out")
+    shutil.rmtree(out, ignore_errors=True)
+    check(caffe_on_spark.main(["-conf", solver, "-test", "-model",
+                               seq_model, "-output", out, "-device",
+                               device]) == 0,
+          "SequenceFile -test failed")
+    counts = dict(K.launch_counts)
+    n_test = 2 * math.ceil(VAL_RECORDS / VAL_B)
+    check(counts == {k: (n_test if k == kernels[0] else 0) for k in counts},
+          f"SequenceFile -test: launches {counts}")
+    with open(os.path.join(out, "test_result")) as f:
+        test_result = json.load(f)
+    check(all(math.isfinite(v[0]) for v in test_result.values()),
+          f"SequenceFile -test: {test_result}")
+    runs["dpseq_test"] = dict(test_result=test_result, launches=counts)
+    log(f"  SequenceFile -test over {VAL_RECORDS} records: {test_result}; "
+        f"launches {counts}")
+
+    # (b) LevelDB, snappy blocks
+    ldb = os.path.join(workdir, "dp_leveldb")
+    shutil.rmtree(ldb, ignore_errors=True)
+    t0 = time.monotonic()
+    LevelDBWriter(ldb, snappy=True).write(kv)
+    res["leveldb_write_s"] = time.monotonic() - t0
+    res["leveldb_bytes"] = sum(os.path.getsize(os.path.join(ldb, f))
+                               for f in os.listdir(ldb))
+    log(f"  wrote {ldb}: {len(kv)} Datums, snappy blocks, "
+        f"{res['leveldb_bytes'] / 2**20:.1f} MiB in "
+        f"{res['leveldb_write_s']:.1f} s")
+    ldb_layer = _dp_layer(
+        'name: "data" type: "Data" top: "data" top: "label" '
+        f'{DP_TRAIN_XF} data_param {{ source: "{ldb}" batch_size: {TRAIN_B} '
+        'backend: LEVELDB }')
+    solver = write_datapath_config(workdir, "dpleveldb", ldb_layer)
+    rec, model = run("dpleveldb", "CaffeNet LevelDB train", solver,
+                     capture=1)
+    held_to_ref("dpleveldb", rec, model)
+
+    # (c) ImageData: finetune_flickr_style from (a)'s model
+    solver = write_flickr_config(workdir, flickr_list)
+    with initial_params() as init:
+        rec, _ = run("dpflickr", "FlickrStyle ImageData finetune", solver,
+                     per_step=FLICKR_B, rounds=VAL_ROUNDS,
+                     expect={kernels[0]: val_lrn},
+                     args=("-weights", seq_model),
+                     first_loss=FLICKR_FIRST_LOSS)
+    from caffeonspark_tpu_torch import checkpoint
+    weights = checkpoint.load_caffemodel_blobs(seq_model)
+    copied = sorted(ln for ln in init if ln in weights)
+    check(copied == sorted(ln for ln in weights if ln != "fc8")
+          and "fc8_flickr" in init and all(
+              np.array_equal(init[ln][bn], w) for ln in copied
+              for bn, w in zip(init[ln], weights[ln])),
+          "flickr: the -weights layers were not copied before step 1 "
+          f"(copied {copied})")
+    rec["copied_layers"] = copied
+
+    # (d) a JSON DataFrame of base64 images through CoSData
+    frame = os.path.join(workdir, "dp_frame.json")
+    check(converters.main(["binary2dataframe", "-imageRoot", img_dir,
+                           "-labelFile", labels, "-output", frame]) == 0,
+          "binary2dataframe .json failed")
+    frame_layer = _dp_layer(
+        'name: "data" type: "CoSData" top: "data" top: "label" '
+        'source_class: "com.yahoo.ml.caffe.DataFrameSource" '
+        f'cos_data_param {{ source: "{frame}" dataframe_format: "json" '
+        f'batch_size: {TRAIN_B} top {{ name: "data" type: ENCODED_IMAGE '
+        f'channels: 3 height: 256 width: 256 {DP_TRAIN_XF} }} '
+        'top { name: "label" type: FLOAT sample_num_axes: 0 } }')
+    solver = write_datapath_config(workdir, "dpframe", frame_layer)
+    rec, _ = run("dpframe", "CaffeNet JSON DataFrame train", solver,
+                 env={"COS_TRANSFORM_THREADS": "0"}, capture=1)
+    batch = rec.pop("batches")[0]
+    # the CLI's feed shuffles with the driver's source (seed 0) and the
+    # processor's source (the solver's random_seed) packs and draws
+    rows = []
+    for row in get_source(frame_layer, phase_train=True).shuffled_records(0):
+        rows.append(row)
+        if len(rows) == TRAIN_B:
+            break
+    cpu = get_source(frame_layer, phase_train=True, seed=1).next_batch(rows)
+    check(all(np.array_equal(np.asarray(batch[k]).reshape(cpu[k].shape),
+                             cpu[k]) for k in ("data", "label")),
+          "DataFrame: the first packed batch differs from the CPU port's")
+    rec["first_batch_equals_cpu"] = True
+
+    # (e) refusals where the machine lacks h5py / pyarrow
+    res["refusals"] = datapath_refusals(workdir)
+
+    log("  each reader alone (one thread, read + parse, no decode):")
+    rates = {}
+    for key, layer in (
+            ("lmdb_encoded", _dp_layer(
+                'name: "data" type: "Data" top: "data" top: "label" '
+                f'data_param {{ source: "{ref["lmdb"]}" batch_size: 1 '
+                'backend: LMDB }')),
+            ("sequencefile", train), ("leveldb_snappy", ldb_layer),
+            ("image_list", _dp_layer(
+                'name: "data" type: "ImageData" top: "data" top: "label" '
+                f'image_data_param {{ source: "{flickr_list}" batch_size: 1 '
+                'new_height: 256 new_width: 256 }')),
+            ("json_dataframe", frame_layer)):
+        rates[key] = reader_rate(key, get_source(layer, phase_train=False))
+        check(rates[key]["records"] == len(kv),
+              f"reader {key}: {rates[key]['records']} records")
+    res["readers"] = rates
+    # 8 steps give no steady rate (the pool's window of batches packed
+    # ahead, validation rounds and the snapshot at 4 fall inside them):
+    # each run's median step interval, its pack p50 a batch and its wall
+    keys = ("median_step_ms", "pack_ms_p50", "wall_s")
+    res["cli"] = {"lmdb_encoded": {k: ref[k] for k in keys},
+                  **{name: {k: r[k] for k in keys}
+                     for name, r in runs.items() if "wall_s" in r}}
+    res["runs"] = runs
+    res["wall_s"] = time.monotonic() - t_phase
+    log("  CLI runs (median step interval over steps 3-8 / pack p50 a "
+        "batch / wall of the -train call): " + "; ".join(
+            f"{name} {v['median_step_ms']:.1f} ms / {v['pack_ms_p50']:.1f} "
+            f"ms / {v['wall_s']:.1f} s" for name, v in res["cli"].items())
+        + f"; phase {res['wall_s']:.1f} s")
+    return res
+
+
 def ptxas_report(text: str) -> list:
     """Registers and spills of each flash kernel instantiation, from the
     `-Xptxas -v` output of nvcc (names demangled by c++filt where the
@@ -4319,6 +4762,16 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     layers = layer_phase(K, torch)
+    check("reference" in encoded, "the data path phase needs phase 20's "
+          "JPEG Datums, and this machine has no JPEG encoder")
+    log("the rest of the data path: the same JPEG Datums through a "
+        "SequenceFile (binary2sequence), a LevelDB, an ImageData list "
+        "(finetune_flickr_style) and a JSON DataFrame into CaffeNet, each "
+        "through the CLI (counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    datapath = datapath_phase(K, torch, workdir, encoded.pop("reference"),
+                              test_lmdb, train_configs[0][3])
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_sp4_mixed"] = lm_mc["sp_run"]
@@ -4372,7 +4825,9 @@ def main(argv) -> int:
                        caption["train"]["launches"].get(name, 0),
                    "caption_decode":
                        caption["decode_launches"].get(name, 0),
-                   "layers": layers["launches"].get(name, 0)}
+                   "layers": layers["launches"].get(name, 0),
+                   **{f"datapath_{k[2:]}": r["launches"].get(name, 0)
+                      for k, r in datapath["runs"].items()}}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -4425,6 +4880,7 @@ def main(argv) -> int:
                     "quant_sidecar": sidecar}))
     log(json.dumps({"lstm_lm": lstm, "caption": caption,
                     "layers": layers}))
+    log(json.dumps({"datapath": datapath}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

@@ -976,3 +976,134 @@ def test_new_layer_types_match_cpu_on_card(cuda_card, case):
         outs.append([y.detach().cpu(), *[t.cpu() for t in g]])
     for a, b in zip(*outs):
         _close(b, a, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the data path: SequenceFile / LevelDB feeding CaffeNet, and
+# HDF5Output's side channel under a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _store_source(store, path, crop=67):
+    """A narrow CaffeNet's TRAIN source over 8 seeded 3x72x72 Datums in a
+    SequenceFile or a LevelDB (snappy blocks) at `path`, written by the
+    port's own writers."""
+    from caffeonspark_tpu_torch.data.leveldb_io import LevelDBWriter
+    from caffeonspark_tpu_torch.data.sequencefile import SequenceFileWriter
+    from caffeonspark_tpu_torch.data.source import get_source
+    from caffeonspark_tpu_torch.proto.caffe import Datum, LayerParameter
+    rng = np.random.RandomState(5)
+    recs = [(b"%08d" % i, Datum(
+        channels=3, height=72, width=72, label=int(rng.randint(10)),
+        data=rng.randint(0, 256, 3 * 72 * 72).astype(np.uint8).tobytes()
+    ).to_binary()) for i in range(8)]
+    xf = (f'transform_param {{ crop_size: {crop} mirror: true '
+          'mean_value: 104 mean_value: 117 mean_value: 123 }')
+    if store == "sequencefile":
+        with SequenceFileWriter(path) as w:
+            for k, v in recs:
+                w.append(k.decode(), v)
+        text = ('name: "data" type: "MemoryData" top: "data" top: "label" '
+                'source_class: "com.yahoo.ml.caffe.SeqImageDataSource" '
+                f'{xf} memory_data_param {{ source: "{path}" batch_size: 4 '
+                'channels: 3 height: 72 width: 72 }')
+    else:
+        LevelDBWriter(path, snappy=True).write(recs)
+        text = ('name: "data" type: "Data" top: "data" top: "label" '
+                f'{xf} data_param {{ source: "{path}" batch_size: 4 '
+                'backend: LEVELDB }')
+    return lambda: get_source(LayerParameter.from_text(text),
+                              phase_train=True, seed=3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store", ["sequencefile", "leveldb"])
+def test_store_feeds_a_caffenet_step_on_card(cuda_card, store, tmp_path,
+                                             monkeypatch):
+    """A SequenceFile / LevelDB source's first packed batch through the
+    device-side transform on the card equals the CPU's host transform
+    (1e-5), and a narrow CaffeNet step on it launches K1 and K2 twice
+    each with a finite loss."""
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.proto import SolverParameter
+    from caffeonspark_tpu_torch.solver import Solver
+    make = _store_source(store, str(tmp_path / store))
+    cpu = make()
+    recs = list(cpu.shuffled_records(0))[:4]
+    want = cpu.next_batch(recs)
+    monkeypatch.setenv("COS_DEVICE_TRANSFORM", "1")
+    card = make()
+    assert card.enable_device_transform() is not None
+    got = card.apply_device_stage(card.next_batch(recs), cuda_card)
+    assert got["data"].device.type == "cuda"
+    _close(got["data"].cpu(), want["data"], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got["label"].cpu(), torch.from_numpy(want["label"]))
+    npm = zoo.caffenet(batch_size=4, num_classes=10, crop=67)
+    for lp in npm.layer:
+        if lp.name in NARROW_CAFFENET:
+            p = (lp.convolution_param if lp.type == "Convolution"
+                 else lp.inner_product_param)
+            p.num_output = NARROW_CAFFENET[lp.name]
+    solver = Solver(SolverParameter.from_text(
+        'base_lr: 0.01 momentum: 0.9 random_seed: 3'), npm,
+        device=cuda_card)
+    params, state = solver.init()
+    K.reset_launch_counts()
+    loss, _ = solver.train_step(params, state, to_device(want, cuda_card))
+    assert np.isfinite(loss.item())
+    assert K.launch_counts["lrn_across_channels"] == 2
+    assert K.launch_counts["lrn_across_channels_bwd"] == 2
+
+
+HDF5_SINK_NET = """
+name: "sink"
+layer { name: "data" type: "Input" top: "data" top: "target"
+  input_param { shape { dim: 4 dim: 16 } shape { dim: 4 dim: 8 } } }
+layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip"
+  inner_product_param { num_output: 8 weight_filler { type: "xavier" } } }
+layer { name: "out" type: "HDF5Output" bottom: "ip" bottom: "target"
+  hdf5_output_param { file_name: "unused.h5" } }
+layer { name: "loss" type: "EuclideanLoss" bottom: "ip" bottom: "target"
+  top: "loss" }
+"""
+
+
+@pytest.mark.cuda
+def test_hdf5_output_side_channel_under_a_cuda_graph_on_card(cuda_card):
+    """A net with an HDF5Output captures as a CUDA graph of 4 steps
+    (COS_STEPS_PER_LOOP's path): its side channel stays out of the
+    params, and 2 blocks of 4 graphed steps equal 8 eager steps bit for
+    bit; an eager forward records the bottoms on the card."""
+    from caffeonspark_tpu_torch.data.hdf5 import collect_hdf5_outputs
+    from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
+    from caffeonspark_tpu_torch.solver import Solver
+    rng = np.random.RandomState(2)
+    blocks = [{"data": torch.from_numpy(rng.randn(4, 4, 16).astype(
+                   np.float32)).to(cuda_card),
+               "target": torch.from_numpy(rng.randn(4, 4, 8).astype(
+                   np.float32)).to(cuda_card)} for _ in range(2)]
+
+    def solver():
+        s = Solver(SolverParameter.from_text(
+            'base_lr: 0.01 momentum: 0.9 random_seed: 1'),
+            NetParameter.from_text(HDF5_SINK_NET), device=cuda_card)
+        return (s,) + s.init()
+
+    s1, p1, st1 = solver()
+    for b in blocks:
+        for i in range(4):
+            s1.train_step(p1, st1, {k: v[i] for k, v in b.items()})
+    s2, p2, st2 = solver()
+    many = s2.train_step_many(4)
+    for b in blocks:
+        many(p2, st2, b)
+    assert many.captures == 1 and many.replays == 1
+    assert set(p2) == {"ip"}
+    for bn in p1["ip"]:
+        assert torch.equal(p1["ip"][bn], p2["ip"][bn]), bn
+    state = {}
+    s2.train_net(p2, {k: v[0] for k, v in blocks[0].items()},
+                 state_out=state)
+    outs = collect_hdf5_outputs(state)
+    assert list(outs) == ["out"] and outs["out"][0].device.type == "cuda"
+    assert torch.equal(outs["out"][1], blocks[0]["target"][0])

@@ -1,11 +1,11 @@
 """The PyTorch port stands alone: `caffeonspark_tpu_torch` and
 chip_smoke.py import neither jax, ml_dtypes (the card's machine has
-neither) nor anything of `caffeonspark_tpu`, and h5py only where HDF5 is
-asked for.
+neither) nor anything of `caffeonspark_tpu`, and h5py and pyarrow (also
+missing there) only where HDF5 or parquet is asked for.
 
 Two checks: every module of the port imports in a fresh interpreter in
-which importing jax or ml_dtypes fails, and afterwards h5py is not
-loaded and no module named
+which importing jax or ml_dtypes fails, and afterwards neither h5py
+nor pyarrow is loaded and no module named
 `caffeonspark_tpu` or `caffeonspark_tpu.*` is loaded (the prefix also
 matches `caffeonspark_tpu_torch`, which is of course loaded); and an AST
 scan of the port's sources and chip_smoke.py finds no such import.
@@ -31,7 +31,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m in ("caffeonspark_tpu", "h5py")
+                if m in ("caffeonspark_tpu", "h5py", "pyarrow")
                 or m.startswith("caffeonspark_tpu."))
 print(len(names), ",".join(leaked))
 """

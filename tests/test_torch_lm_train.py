@@ -135,15 +135,27 @@ def test_dataframe_rank_shards_match_jax(tmp_path, ranks):
 
 
 def test_dataframe_refuses_what_waits(tmp_path, monkeypatch):
-    """Image tops raise naming themselves; parquet without pyarrow says
-    so; an unknown format is refused."""
+    """An image top, refused before the data-path slice, now decodes its
+    base64 JSON column (lossless PNGs) to the images encoded; parquet
+    without pyarrow says so; an unknown format is refused."""
+    import base64
+
+    import cv2
+    rng = np.random.RandomState(1)
+    imgs = rng.randint(0, 256, (3, 8, 8, 3), dtype=np.uint8)
+    jpegs = [bytes(cv2.imencode(".png", im)[1]) for im in imgs]
     path = str(tmp_path / "rows.json")
-    _write_rows(path, 3, 8, 50, seed=1)
+    with open(path, "w") as f:
+        for i, b in enumerate(jpegs):
+            f.write(json.dumps({"id": base64.b64encode(b).decode(),
+                                "label": float(i)}) + "\n")
     lp = NetParameter.from_text(TOPS % path).layer[0]
-    lp.cos_data_param.top[2].type = TopBlobType.ENCODED_IMAGE
+    top = lp.cos_data_param.top[2]
+    top.type = TopBlobType.ENCODED_IMAGE
+    top.channels, top.height, top.width = 3, 8, 8
     src = get_source(lp)
-    with pytest.raises(NotImplementedError, match="'id'.*ENCODED_IMAGE"):
-        src.next_batch(list(src.rows()))
+    got = src.next_batch(list(src.rows()))["id"]
+    np.testing.assert_array_equal(got, imgs.transpose(0, 3, 1, 2))
     lp.cos_data_param.dataframe_format = "parquet"
     monkeypatch.setitem(sys.modules, "pyarrow.parquet", None)
     with pytest.raises(ImportError, match="pyarrow"):

@@ -138,7 +138,8 @@ def test_source_records_shuffle_and_train_batches_equal_jax(tmp_path):
 def test_caffe_data_layer_reads_its_lmdb_as_jax(tmp_path):
     """Caffe's source-less `Data` layer over an LMDB: the same geometry
     (from the first record), records, shuffle and packed TRAIN batches
-    as the JAX package; a LevelDB backend is refused by name."""
+    as the JAX package; so does a LevelDB backend over the same records
+    (written by the JAX package's LevelDBWriter, snappy blocks)."""
     from caffeonspark_tpu.net import data_layer_input_specs as jax_specs
     from caffeonspark_tpu_torch.data.source import CaffeDataSource
     from caffeonspark_tpu_torch.net import data_layer_input_specs
@@ -163,9 +164,21 @@ def test_caffe_data_layer_reads_its_lmdb_as_jax(tmp_path):
         b_j = jsrc.next_batch(recs[4 * i:4 * i + 4])
         for k in ("data", "label"):
             np.testing.assert_array_equal(b_t[k], b_j[k])
-    tl.data_param.backend = DBBackend.LEVELDB
-    with pytest.raises(NotImplementedError, match="LevelDB"):
-        next(get_source(tl).records())
+    from caffeonspark_tpu.data.leveldb_io import LevelDBWriter
+    ldb = str(tmp_path / "ldb")
+    LevelDBWriter(ldb, snappy=True, block_size=512).write(
+        _records(12, 3, 10, 9, seed=6))
+    jl.data_param.source = tl.data_param.source = ldb
+    jl.data_param.backend = tl.data_param.backend = DBBackend.LEVELDB
+    tsrc = get_source(tl, phase_train=True, seed=3)
+    jsrc = jax_get_source(jl, phase_train=True, seed=3)
+    assert tsrc.image_dims() == jsrc.image_dims() == (3, 10, 9)
+    assert data_layer_input_specs(tl) == jax_specs(jl)
+    assert list(tsrc.shuffled_records(1)) == recs
+    b_t = tsrc.next_batch(recs[:4])
+    b_j = jsrc.next_batch(recs[:4])
+    for k in ("data", "label"):
+        np.testing.assert_array_equal(b_t[k], b_j[k])
 
 
 def test_feed_queue_and_combine_batches():
@@ -362,21 +375,48 @@ def test_cli_resume_from_snapshot(tmp_path):
 
 
 def test_cli_refuses_what_waits_for_later_slices(tmp_path):
+    """-clusterSize 2 is refused by name; a SequenceFile source and an
+    HDF5Data layer, refused before the data-path slice, now read the
+    records the JAX package reads."""
+    from caffeonspark_tpu.data.hdf5 import HDF5Source as JaxHDF5Source
+    from caffeonspark_tpu.data.sequencefile import SequenceFileWriter
+    from caffeonspark_tpu_torch.data.hdf5 import HDF5Source
+    from caffeonspark_tpu_torch.data.source import SeqImageDataSource
     solver = _cli_setup(tmp_path, extra="test_iter: 2\ntest_interval: 2\n")
     with pytest.raises(ValueError, match="clusterSize"):
         caffe_on_spark.main(["-conf", solver, "-train", "-clusterSize",
                              "2", "-device", "cpu"])
-    lp = NetParameter.from_text(
-        'layer { name: "d" type: "MemoryData" top: "data" '
-        'source_class: "com.yahoo.ml.caffe.SeqImageDataSource" '
-        'memory_data_param { batch_size: 2 channels: 1 height: 2 '
-        'width: 2 } }').layer[0]
-    with pytest.raises(NotImplementedError, match="SeqImageDataSource"):
-        next(get_source(lp, phase_train=True).records())
-    h5 = NetParameter.from_text(
-        'layer { name: "h" type: "HDF5Data" top: "data" }').layer[0]
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        get_source(h5)
+    seq = str(tmp_path / "recs.seq")
+    recs = _records(6, 1, 2, 2, seed=2)
+    with SequenceFileWriter(seq) as w:
+        for k, v in recs:
+            w.append(k.decode(), v)
+    text = ('layer { name: "d" type: "MemoryData" top: "data" '
+            'source_class: "com.yahoo.ml.caffe.SeqImageDataSource" '
+            f'memory_data_param {{ source: "{seq}" batch_size: 2 '
+            'channels: 1 height: 2 width: 2 } }')
+    src = get_source(NetParameter.from_text(text).layer[0],
+                     phase_train=True)
+    assert isinstance(src, SeqImageDataSource)
+    assert list(src.records()) == list(jax_get_source(
+        JaxNetParameter.from_text(text).layer[0],
+        phase_train=True).records())
+    h5py = pytest.importorskip("h5py")
+    with h5py.File(str(tmp_path / "a.h5"), "w") as f:
+        f.create_dataset("data", data=np.arange(12, dtype=np.float32
+                                                ).reshape(6, 2))
+    (tmp_path / "list.txt").write_text("a.h5\n")
+    text = ('layer { name: "h" type: "HDF5Data" top: "data" '
+            f'hdf5_data_param {{ source: "{tmp_path / "list.txt"}" '
+            'batch_size: 3 } }')
+    h5 = get_source(NetParameter.from_text(text).layer[0])
+    assert isinstance(h5, HDF5Source)
+    jh5 = JaxHDF5Source(JaxNetParameter.from_text(text).layer[0],
+                        phase_train=False)
+    got, want = list(h5.records()), list(jh5.records())
+    assert [r[0] for r in got] == [r[0] for r in want]
+    np.testing.assert_array_equal(h5.next_batch(got[:3])["data"],
+                                  jh5.next_batch(want[:3])["data"])
 
 
 def test_bad_records_drop_their_batch_then_fail_loudly(tmp_path,
