@@ -22,9 +22,13 @@ over the TEST data layer's records to `<output>/test_result` (and
 stdout), and -features writes one SampleID row a record with the named
 blobs (and the -label blob) to `<output>/features.<fmt>`; after -train
 they use the just-trained weights, otherwise -model or -weights.
-`-mesh 1,1,4` trains on a mesh with an sp axis of 4 ranks (the JAX
-CLI's grammar dp,tp,sp): every MultiHeadAttention runs as a ring over
-time blocks, the ranks all on `-device`'s card (parallel/sp.py).
+`-mesh dp[,tp[,sp]]` (the JAX CLI's grammar; a bare N is dp N) trains
+with `parallel.dp.ParallelSolver`, the ranks all on `-device`'s card:
+each batch split over dp (the prototxt batch is the global batch), the
+large matmuls split by column over tp, every MultiHeadAttention a ring
+over sp time blocks (parallel/sp.py), ZeRO-1 under COS_ZERO=1; with
+more than one rank, validation, -test and -features run on the same
+layout.  A batch that dp does not divide is refused naming its layer.
 
     python -m caffeonspark_tpu_torch.caffe_on_spark -conf solver.prototxt \\
         -serve -model m.caffemodel -features fc8

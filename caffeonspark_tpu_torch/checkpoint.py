@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .net import Net, Params
+from .parallel.comm import Shards
 from .proto.caffe import (BlobProto, BlobShape, LayerParameter,
                           NetParameter, SnapshotFormat, SolverState)
 from .solver import OptState
@@ -392,12 +393,25 @@ def _state_blob_seq(net: Net, opt_state: OptState, solver_type: str
                 yield hist[lname][bname]
 
 
+def whole_state(opt_state: OptState) -> OptState:
+    """The state with each ZeRO-1 blob's dp slices joined (an
+    all_gather), so that a snapshot from a mesh has dp 1's layout."""
+
+    def whole(tree):
+        return {ln: {bn: t.whole() if isinstance(t, Shards) else t
+                     for bn, t in bl.items()} for ln, bl in tree.items()}
+    return OptState(iter=opt_state.iter, history=whole(opt_state.history),
+                    history2=whole(opt_state.history2))
+
+
 def snapshot(net: Net, params: Params, opt_state: OptState, prefix: str,
              *, fmt: int = SnapshotFormat.BINARYPROTO,
              solver_type: str = "SGD") -> Tuple[str, str]:
     """Write `<prefix>_iter_<it>.caffemodel[.h5]`, then its
     `.solverstate[.h5]` (the commit point: a state file always has its
-    model); returns the two paths."""
+    model); returns the two paths.  A ZeRO-1 state is gathered first
+    (`whole_state`)."""
+    opt_state = whole_state(opt_state)
     it = int(opt_state.iter)
     h5 = fmt == SnapshotFormat.HDF5
     if h5:
@@ -551,6 +565,7 @@ class AsyncSnapshotter:
         if self._last_done is not None:
             self._last_done.wait()   # one write in flight, one host copy
             self.check()
+        opt_state = whole_state(opt_state)
         trees = {"p": params, "h": opt_state.history,
                  "h2": opt_state.history2}
         host = {k: {ln: {bn: self._host((k, ln, bn), t)

@@ -5,10 +5,10 @@ A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
 solver/net prototxt parsing, data-layer location by `include.phase`),
 cut to the flags this package acts on so far: training (`-train`, with
 interleaved validation when the solver asks for it; single process;
-`-mesh` with an sp axis; `-async_snapshot`), `-test`, `-features` /
-`-label`, `-outputFormat` and serving.  `-device` picks where the net
-runs: `cuda` (the default) or `cpu`; a mesh's ranks all sit on that
-device.
+`-mesh dp[,tp[,sp]]`; `-async_snapshot`), `-test`, `-features` /
+`-label` (on the mesh too), `-outputFormat` and serving.  `-device`
+picks where the net runs: `cuda` (the default) or `cpu`; a mesh's ranks
+all sit on that device.
 
 The JAX command line's other flags are parsed too, and `validate`
 refuses each one by name when it is set (`LATER_FLAGS`): a run never
@@ -57,8 +57,9 @@ LATER_FLAGS = {
 # The JAX package's environment knobs that this package does not act on
 # yet (every `COS_*` name it reads, less the ones ported), each with its
 # class, read from its use there:
-#   "result" - changes what a one-process run computes or writes: refused
-#              by name when set to a value other than its default
+#   "result" - changes what a one-process run computes or writes (the
+#              gradient exchange of its dp ranks among them): refused by
+#              name when set to a value other than its default
 #              (KNOB_DEFAULTS, else "" and "0");
 #   "speed"  - changes only speed or memory (or a guard's checks);
 #   "ranks"  - acts only above one rank or one device;
@@ -78,6 +79,11 @@ LATER_KNOBS = {
     "COS_TRACE_SAMPLE": "result",    # request spans and their spools
     "COS_LANES": "result",           # admission control: 429 sheds
     "COS_FAULT_DIE_ONCE": "result",  # kills the trainer at an iteration
+    # the dp ranks' gradient exchange (ROADMAP Queue 1 item 6b)
+    "COS_GRAD_SYNC": "result",
+    "COS_GRAD_BUCKET_MB": "result",
+    "COS_GRAD_OVERLAP": "result",
+    "COS_GRAD_WIRE_DTYPE": "result",
     "COS_FAULT_STEP_DELAY_MS": "speed",
     "COS_FAULT_SLOW_RANK": "speed",
     "COS_FAULT_REPLICA_SLOW": "speed",
@@ -141,11 +147,6 @@ LATER_KNOBS = {
     "COS_FEED_DIR": "entry",
     "COS_FEED_STRICT_RANK": "entry",
     "COS_AGENTS": "ranks",
-    "COS_GRAD_SYNC": "ranks",
-    "COS_GRAD_BUCKET_MB": "ranks",
-    "COS_GRAD_OVERLAP": "ranks",
-    "COS_GRAD_WIRE_DTYPE": "ranks",
-    "COS_ZERO": "ranks",
     "COS_SYNC_ALPHA": "ranks",
     "COS_SYNC_HEARTBEAT_TIMEOUT_S": "ranks",
     "COS_SYNC_K": "ranks",
@@ -171,6 +172,10 @@ LATER_KNOBS = {
 }
 # the default values of the "result" knobs, where not "" and "0"
 KNOB_DEFAULTS = {"COS_SYNC_MODE": ("", "lockstep"),
+                 "COS_GRAD_SYNC": ("", "default"),
+                 "COS_GRAD_OVERLAP": ("", "1"),
+                 "COS_GRAD_BUCKET_MB": ("",),
+                 "COS_GRAD_WIRE_DTYPE": ("",),
                  "COS_METRICS_PORT": ("",),
                  "COS_RECORDER_DUMP": ("",),
                  "COS_TRACE_SAMPLE": ("", "0", "0.0")}
@@ -352,8 +357,9 @@ class Config:
                              "cuda:<index> or cpu")
         if self.clusterSize != 1:
             raise ValueError(f"-clusterSize {self.clusterSize}: the PyTorch "
-                             "port trains in one process on one device so "
-                             "far (data parallelism is a later slice)")
+                             "port trains in one process so far (its dp "
+                             "ranks share -device under -mesh; more "
+                             "processes are ROADMAP Queue 1 item 6c)")
         if self.isTraining:
             if self.netParam is None:
                 raise ValueError("-train needs -conf (solver prototxt "
@@ -371,18 +377,9 @@ class Config:
             from .parallel.mesh import parse_mesh_spec
             parse_mesh_spec(self.mesh)   # the grammar; build_mesh refuses axes
             if self.serve:
-                raise ValueError("-mesh applies to -train (the serving "
-                                 "mesh is a later slice)")
-            # the mesh layout of the TEST net's forward is a later slice
-            for flag, on in (("-test", self.isTest),
-                             ("-features", bool(self.features)),
-                             ("a validating solver (test_interval and "
-                              "test_iter with a TEST data layer)",
-                              self.validates())):
-                if on:
-                    raise ValueError(
-                        f"-mesh {self.mesh} with {flag}: evaluation on a "
-                        "mesh is a later slice of the PyTorch port")
+                raise ValueError("-mesh applies to -train, -test and "
+                                 "-features (serving on a mesh is ROADMAP "
+                                 "Queue 1 item 7)")
         if self.serve:
             if self.netParam is None:
                 raise ValueError("-serve needs -conf (solver prototxt "

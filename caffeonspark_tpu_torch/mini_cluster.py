@@ -8,17 +8,20 @@ harness), in one process on one device:
         [-weights model.caffemodel] [-snapshot state.solverstate] \\
         [-iterations N] [-display_every N] [-model out.caffemodel] \\
         [-output DIR] [-metrics steps.jsonl] [-pipeline_metrics m.json] \\
-        [-profile DIR] [-dtype float32|bfloat16|mixed] [-mesh 1,1,N] \\
-        [-device cuda|cpu]
+        [-profile DIR] [-dtype float32|bfloat16|mixed] \\
+        [-mesh dp[,tp[,sp]]] [-device cuda|cpu]
 
 It parses every flag of the JAX command line.  `-dtype bfloat16` keeps
 params and compute in bf16, `mixed` f32 master weights with bf16
 compute (`Net.compute_dtype`); COS_STATE_DTYPE stores the momentum in
-another dtype (solver.py).  `-mesh 1,1,N` runs every MultiHeadAttention
-as the sp ring, its N ranks on the one device (`flash_mesh`).  Refused
-by name: `-devices` above 1, `-cluster` above 1, `-server`, `-rank`
-above 0, a mesh with dp (or tp, ep) above 1, validation on a mesh, and
-the knobs of `config.LATER_KNOBS` that change a run's result.
+another dtype (solver.py).  `-mesh dp[,tp[,sp]]` (a bare count N is dp
+N, as in the JAX package) trains with `parallel.dp.ParallelSolver`, its
+ranks all on the one device: the batch split over dp, large matmuls
+over tp, every MultiHeadAttention's time over sp (the ring), ZeRO-1
+under COS_ZERO=1; validation runs on the same layout.  Refused by name:
+`-devices` above 1, `-cluster` above 1, `-server`, `-rank` above 0, a
+mesh with ep or pp above 1, and the knobs of `config.LATER_KNOBS` that
+change a run's result.
 COS_STEPS_PER_LOOP=K > 1 takes K steps a chunk (one CUDA graph replay on
 a card, `Solver.train_step_many`), with single steps before each
 display, validation, snapshot and max_iter boundary.
@@ -70,10 +73,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-iterations", dest="iterations", type=int,
                    default=None, help="override max_iter")
     p.add_argument("-devices", dest="devices", default=None,
-                   help="device count (1: one process on one device so "
-                   "far) or mesh spec dp[,tp[,sp[,ep]]]")
+                   help="device count (1: one device so far) or mesh spec "
+                   "dp[,tp[,sp[,ep]]]")
     p.add_argument("-mesh", dest="mesh", default=None,
-                   help="mesh spec dp[,tp[,sp[,ep]]] (wins over -devices)")
+                   help="mesh spec dp[,tp[,sp[,ep]]], a bare N being dp N "
+                   "(wins over -devices); its ranks share -device")
     p.add_argument("-model", dest="model", default=None,
                    help="final model output path")
     p.add_argument("-output", dest="output", default=".",
@@ -110,8 +114,8 @@ def _refuse_more_ranks(args) -> Optional[str]:
     every flag that asks for more than one process or device."""
     if args.cluster is not None and args.cluster > 1:
         raise ValueError(f"-cluster {args.cluster}: the PyTorch port trains "
-                         "in one process so far (data parallelism is a "
-                         "later slice)")
+                         "in one process so far (more processes are "
+                         "ROADMAP Queue 1 item 6c)")
     if args.server:
         raise ValueError(f"-server {args.server}: the PyTorch port trains "
                          "in one process so far")
@@ -122,12 +126,14 @@ def _refuse_more_ranks(args) -> Optional[str]:
     if spec is None:
         return None
     spec = str(spec)
-    if "," not in spec:
-        if int(spec) > 1:
+    if "," not in spec and "=" not in spec:
+        if args.mesh is None and int(spec) > 1:
             raise ValueError(f"-devices {spec}: the PyTorch port trains on "
-                             "one device so far (data parallelism is a "
-                             "later slice)")
-        return None
+                             "one device so far (its dp ranks share it "
+                             "under -mesh N; more devices are ROADMAP "
+                             "Queue 1 item 6c)")
+        if int(spec) <= 1:
+            return None
     return spec
 
 
@@ -135,6 +141,7 @@ class MiniCluster:
     def __init__(self, args):
         from . import checkpoint
         from .config import check_env_knobs, resolve_net_path
+        from .parallel.dp import ParallelSolver
         from .processor import run_mesh
         from .proto import read_net, read_solver
         from .proto.caffe import SnapshotFormat
@@ -175,11 +182,12 @@ class MiniCluster:
         self.solver = Solver(self.sp, self.net_param, rank=0, dtype=dtype,
                              compute_dtype=compute, device=device)
         self.mesh = run_mesh(spec, self.solver) if spec else None
-        if self.mesh is not None and self._interleaves():
-            raise ValueError(f"-mesh {spec} with a validating solver "
-                             "(test_interval and test_iter with a TEST data "
-                             "layer): evaluation on a mesh is a later slice "
-                             "of the PyTorch port")
+        # the step's ranks (and the validation forward's layout)
+        self.psolver = (ParallelSolver(self.solver, self.mesh)
+                        if self.mesh is not None else None)
+        if self.psolver is not None and self.mesh.size > 1 \
+                and self._interleaves():
+            self.psolver.layout.check_batch(self.solver.test_net)
         self.args = args
         self.prefix = os.path.join(args.output,
                                    self.sp.snapshot_prefix or "model")
@@ -214,8 +222,6 @@ class MiniCluster:
 
     # ------------------------------------------------------------------
     def train(self) -> str:
-        import contextlib
-
         from . import checkpoint
         from .data.queue_runner import (PipelinedFeed, chunked_feed,
                                         combine_batches, device_prefetch,
@@ -223,12 +229,12 @@ class MiniCluster:
                                         steps_per_loop, transform_threads)
         from .data.source import get_source
         from .metrics import PipelineMetrics, maybe_start_flusher
-        from .ops.layers import flash_mesh
         from .processor import ValidationReport
         from .proto.caffe import SnapshotFormat
         from .utils import StepTimer, profile_trace
 
         solver, args, sp = self.solver, self.args, self.sp
+        stepper = self.psolver or solver
         net = solver.train_net
         params, st = solver.init()
         if args.snapshot:
@@ -238,6 +244,9 @@ class MiniCluster:
         elif args.weights:
             params = checkpoint.copy_layers(net, params, args.weights)
             print(f"finetuning from {args.weights}")
+        if self.psolver is not None:
+            params = self.psolver.shard_params(params)
+            st = self.psolver.shard_opt_state(st)
 
         layers = _data_layers(net)
         if not layers:
@@ -254,7 +263,9 @@ class MiniCluster:
         interleave = self._interleaves()
         if interleave:
             test_net = solver.test_net
-            eval_fwd = solver.eval_step_fn()
+            eval_fwd = (self.psolver.eval_step()
+                        if self.psolver is not None and self.mesh.size > 1
+                        else solver.eval_step_fn())
             val_report = ValidationReport(test_net.output_blobs)
             val_src = get_source(_data_layers(test_net)[0],
                                  phase_train=False, rank=0, num_ranks=1,
@@ -293,7 +304,7 @@ class MiniCluster:
         # acts on: display, validation, snapshot and max_iter (JAX
         # mini_cluster.py:397-425)
         k_loop = steps_per_loop()
-        many = solver.train_step_many(k_loop) if k_loop > 1 else None
+        many = stepper.train_step_many(k_loop) if k_loop > 1 else None
         gen = device_prefetch(
             chunked_feed(
                 combine_batches(raw_batches, max(1, sp.iter_size), tmajor),
@@ -303,10 +314,8 @@ class MiniCluster:
             device, depth=stage_depth(), device_transforms=dxf,
             background=nthreads > 0 and stage_background(device),
             metrics=pmetrics, chunked=True)
-        if self.mesh is not None:
-            pmetrics.set_info("mesh", self.mesh.describe())
-        route = ((lambda: flash_mesh(self.mesh)) if self.mesh is not None
-                 else contextlib.nullcontext)
+        if self.psolver is not None:
+            pmetrics.set_info("mesh", self.psolver.layout.describe())
         timer = StepTimer(batch_size=src.batch_size)
         timer.start()
         smoothed = None
@@ -321,16 +330,15 @@ class MiniCluster:
                     n, batch = item
                     pmetrics.add("queue_wait", time.perf_counter() - t_wait)
                     t_step = time.perf_counter()
-                    with route():
-                        if n == 1:
-                            loss, out = solver.train_step(
-                                params, st, cast_inputs(net, batch))
-                        else:
-                            # chunks end on display boundaries: the last
-                            # step's values are this iteration's
-                            loss, out = many(params, st,
-                                             cast_inputs(net, batch))
-                            loss, out["lr"] = loss[-1], out["lr"][-1]
+                    if n == 1:
+                        loss, out = stepper.train_step(
+                            params, st, cast_inputs(net, batch))
+                    else:
+                        # chunks end on display boundaries: the last
+                        # step's values are this iteration's
+                        loss, out = many(params, st,
+                                         cast_inputs(net, batch))
+                        loss, out["lr"] = loss[-1], out["lr"][-1]
                     it = st.iter
                     if n == 1:
                         pmetrics.add("step", time.perf_counter() - t_step)

@@ -10,6 +10,9 @@ running the layers on "meta" tensors (no memory, no compute).  Then:
     ``train=True`` with a generator gives Caffe's TRAIN semantics)
   * ``Net.loss(params, inputs)``    -> (weighted loss, blobs), the
     scalar the solver differentiates with autograd
+  * ``Net.forward_ranks`` / ``Net.loss_ranks`` -> the same for dp ranks,
+    each on its slice of the batch, layer by layer across the ranks
+    (parallel/dp.py), and ``Net.join_ranks`` -> their global blobs
 
 Both take a `state_out` dict that collects the forward state: the new
 running statistics of each BatchNorm at TRAIN, which
@@ -42,10 +45,18 @@ import torch
 from torch import nn
 
 from .ops import layers as L
+from .parallel.comm import Shards, all_gather
 from .proto.caffe import (LayerParameter, NetParameter, NetState,
                           NetStateRule, NormRegion, Phase, TopBlobType)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def _cast(p, dtype):
+    """A param blob (or its tp blocks) in `dtype`."""
+    if isinstance(p, Shards):
+        return p.map(lambda t: t.to(dtype))
+    return p.to(dtype)
 
 
 def state_meets_rule(rule: NetStateRule, state: NetState) -> bool:
@@ -327,38 +338,12 @@ class Net(nn.Module):
                     self.layer_consts[lp.name] = consts
 
         # --- shape inference on meta tensors + param layout ---------------
-        blob_shapes: Dict[str, Tuple[int, ...]] = {
-            name: tuple(shape) for name, shape, _ in self.input_specs}
         self.param_layout: Dict[str, List[Tuple[str, Tuple[int, ...],
                                                 object]]] = {}
-        for lp in self.compute_layers:
-            op = L.get_op(lp.type)
-            for b in lp.bottom:
-                if b not in blob_shapes:
-                    raise ValueError(
-                        f"layer {lp.name!r} ({lp.type}) consumes unknown "
-                        f"blob {b!r}; produced so far: "
-                        f"{sorted(blob_shapes)}")
-            bshapes = [blob_shapes[b] for b in lp.bottom]
-            specs = [(n, tuple(int(x) for x in s), f)
-                     for (n, s, f) in op.param_specs(lp, bshapes)]
-            if specs:
-                self.param_layout[lp.name] = specs
-            meta = [torch.empty(s, dtype=dtype, device="meta")
-                    for (_, s, _) in specs]
-            if lp.name in self.fused_bias_lrn:
-                conv = self.fused_bias_lrn[lp.name]
-                bshape = next(s for (n2, s, _) in self.param_layout[conv]
-                              if n2 == "bias")
-                meta = [torch.empty(bshape, dtype=dtype,
-                                    device="meta")] + meta
-            bottoms = [torch.empty(s, dtype=dtype, device="meta")
-                       for s in bshapes]
-            ctx = self._ctx()
-            ctx.layer_name = lp.name
-            for name, top in zip(lp.top, op.apply(ctx, lp, meta, bottoms)):
-                blob_shapes[name] = tuple(top.shape)
-        self.blob_shapes = blob_shapes
+        self.blob_shapes = self._infer_shapes(
+            {name: tuple(shape) for name, shape, _ in self.input_specs},
+            layout=self.param_layout)
+        self._batch_axes: Optional[Dict[str, Optional[int]]] = None
 
         # --- net outputs: tops never consumed ------------------------------
         consumed = {b for lp in self.compute_layers for b in lp.bottom}
@@ -381,6 +366,93 @@ class Net(nn.Module):
                 if w:
                     self.loss_weights[t] = w
         self.index_inputs = self._index_inputs()
+
+    def _infer_shapes(self, blob_shapes: Dict[str, Tuple[int, ...]],
+                      layout: Optional[Dict] = None
+                      ) -> Dict[str, Tuple[int, ...]]:
+        """Every blob's shape from the inputs' (`blob_shapes`, extended
+        in place), by running the layers on meta tensors; `layout`, when
+        given, receives the param layout."""
+        dtype = self.dtype
+        for lp in self.compute_layers:
+            op = L.get_op(lp.type)
+            for b in lp.bottom:
+                if b not in blob_shapes:
+                    raise ValueError(
+                        f"layer {lp.name!r} ({lp.type}) consumes unknown "
+                        f"blob {b!r}; produced so far: "
+                        f"{sorted(blob_shapes)}")
+            bshapes = [blob_shapes[b] for b in lp.bottom]
+            specs = [(n, tuple(int(x) for x in s), f)
+                     for (n, s, f) in op.param_specs(lp, bshapes)]
+            if specs and layout is not None:
+                layout[lp.name] = specs
+            meta = [torch.empty(s, dtype=dtype, device="meta")
+                    for (_, s, _) in specs]
+            if lp.name in self.fused_bias_lrn:
+                conv = self.fused_bias_lrn[lp.name]
+                bshape = next(s for (n2, s, _) in self.param_layout[conv]
+                              if n2 == "bias")
+                meta = [torch.empty(bshape, dtype=dtype,
+                                    device="meta")] + meta
+            bottoms = [torch.empty(s, dtype=dtype, device="meta")
+                       for s in bshapes]
+            ctx = self._ctx()
+            ctx.layer_name = lp.name
+            for name, top in zip(lp.top, op.apply(ctx, lp, meta, bottoms)):
+                blob_shapes[name] = tuple(top.shape)
+        return blob_shapes
+
+    def input_batch_axes(self) -> Dict[str, int]:
+        """The batch axis of each net input: 1 for a time-major (T, B, ·)
+        input, else 0.  The one rule of where dp splits an input."""
+        return {name: 1 if kind.endswith(":T") else 0
+                for name, _, kind in self.input_specs}
+
+    def batch_axes(self) -> Dict[str, Optional[int]]:
+        """The batch axis of every blob (None: the blob does not grow
+        with the batch, a loss or a parameter-like top), found once by a
+        second meta pass at twice the inputs' batch (axis 1 of a
+        time-major input).  A layer that reduces over the batch without
+        seeing every dp rank (`LayerOp.apply_ranks`) is refused here, by
+        name: its dp ranks would each reduce a slice."""
+        if self._batch_axes is not None:
+            return self._batch_axes
+        doubled = {}
+        in_axes = self.input_batch_axes()
+        for name, shape, _ in self.input_specs:
+            ax = in_axes[name]
+            shape = tuple(shape)
+            if len(shape) > ax:
+                shape = shape[:ax] + (2 * shape[ax],) + shape[ax + 1:]
+            doubled[name] = shape
+        try:
+            twice = self._infer_shapes(doubled)
+        except (RuntimeError, ValueError) as e:
+            raise ValueError(f"net {self.name!r}: its blobs' shapes do not "
+                             f"follow the batch, so dp cannot split it "
+                             f"({e})") from e
+        axes: Dict[str, Optional[int]] = {}
+        for name, one in self.blob_shapes.items():
+            two = twice.get(name, one)
+            diff = [i for i, (a, b) in enumerate(zip(one, two)) if a != b]
+            axes[name] = (diff[0] if len(one) == len(two) and len(diff) == 1
+                          and two[diff[0]] == 2 * one[diff[0]] else None)
+            if len(one) != len(two) or len(diff) > 1:
+                raise ValueError(f"net {self.name!r}: blob {name!r} is "
+                                 f"{one} at the batch and {two} at twice "
+                                 "it: dp cannot split it")
+        for lp in self.compute_layers:
+            op = L.get_op(lp.type)
+            if op.apply_ranks is not None or op.shares:
+                continue
+            if any(axes.get(b) is not None for b in lp.bottom) and \
+                    any(axes.get(t) is None for t in lp.top):
+                raise ValueError(
+                    f"layer {lp.name!r} ({lp.type}) reduces over the batch: "
+                    "the port splits no such layer over dp ranks")
+        self._batch_axes = axes
+        return axes
 
     def _index_inputs(self) -> frozenset:
         """Net inputs that reach a layer's index bottom, directly or
@@ -492,37 +564,97 @@ class Net(nn.Module):
         InnerProduct kernel consumes without dequantizing.  `state_out`,
         when given, receives the forward state ({layer: [tensors]}, see
         `merge_forward_state`)."""
-        blobs: Dict[str, torch.Tensor] = dict(inputs)
+        return self.forward_ranks([params], [inputs], qscales=qscales,
+                                  train=train, generator=generator,
+                                  state_out=state_out)[0]
+
+    def forward_ranks(self, rank_params: Sequence[Params],
+                      rank_inputs: Sequence[Dict[str, torch.Tensor]], *,
+                      qscales: Optional[Dict] = None, train: bool = False,
+                      generator: Optional[torch.Generator] = None,
+                      state_out: Optional[Dict] = None, mesh=None
+                      ) -> List[Dict[str, torch.Tensor]]:
+        """The forward of dp ranks, each on its slice of the batch with
+        params of its own (a rank's blob may be a tp-split
+        `parallel.comm.Shards`): every blob of every rank.  Layer by
+        layer, each layer runs for every rank before the next, so that
+        a layer whose result couples the batch sees all of them at once
+        (`LayerOp.apply_ranks`: BatchNorm's statistics, the losses'
+        normalizers, Accuracy), and a random draw is the whole batch's,
+        sliced (`Ctx.rand`); dp N then computes what dp 1 does on the
+        global batch.  `mesh` (its dp axis one rank per entry) carries
+        the reductions between ranks; one rank needs none."""
+        n = len(rank_inputs)
+        blobs = [dict(x) for x in rank_inputs]
         ctx = self._ctx(qscales, train, generator)
+        ctx.ranks = n
         if state_out is not None:
             ctx.state_out = state_out
+        axes: Dict[str, Optional[int]] = {}
+        if n > 1:
+            if mesh is None:
+                raise ValueError(f"{n} dp ranks need their mesh (the "
+                                 "reductions between them run over it)")
+            axes = self.batch_axes()
+            ctx.mesh = mesh
         cast = self.compute_dtype != self.dtype
         for lp in self.compute_layers:
             op = L.get_op(lp.type)
             ctx.layer_name = lp.name
-            lparams = []
-            if lp.name in self.param_layout:
-                pd = params[lp.name]
-                lparams = [pd[bname]
-                           for bname, _, _ in self.param_layout[lp.name]]
-            if lp.name in self.fused_bias_lrn:
-                lparams = [params[self.fused_bias_lrn[lp.name]]["bias"]] \
-                    + lparams
-            bottoms = [blobs[b] for b in lp.bottom]
+            ctx.bottom_axes = tuple(axes.get(b) for b in lp.bottom)
+            lparams = [self._layer_params(lp, p) for p in rank_params]
+            bottoms = [[b[x] for x in lp.bottom] for b in blobs]
             if cast:
                 # stat layers keep the net's dtype (JAX net.py:708-748);
                 # int8 serving weights and index bottoms pass untouched
                 target = self.dtype if op.f32_stats else self.compute_dtype
-                lparams = [p.to(target) if p.is_floating_point() else p
-                           for p in lparams]
-                bottoms = [b.to(target)
-                           if b.is_floating_point() and b.dtype != target
-                           and i not in op.index_bottoms else b
-                           for i, b in enumerate(bottoms)]
-            tops = op.apply(ctx, lp, lparams, bottoms)
-            for name, val in zip(lp.top, tops):
-                blobs[name] = val
+                lparams = [[_cast(p, target) if p.is_floating_point() else p
+                            for p in lps] for lps in lparams]
+                bottoms = [[b.to(target)
+                            if b.is_floating_point() and b.dtype != target
+                            and i not in op.index_bottoms else b
+                            for i, b in enumerate(bs)] for bs in bottoms]
+            tops = op.run(ctx, lp, lparams, bottoms)
+            for b, ts in zip(blobs, tops):
+                for name, val in zip(lp.top, ts):
+                    b[name] = val
         return blobs
+
+    def _layer_params(self, lp: LayerParameter, params: Params) -> list:
+        """The param blobs a layer's op takes, in its blob order (a
+        bias-fused LRN takes its conv's bias first)."""
+        lparams = []
+        if lp.name in self.param_layout:
+            pd = params[lp.name]
+            lparams = [pd[bname] for bname, _, _ in self.param_layout[lp.name]]
+        if lp.name in self.fused_bias_lrn:
+            lparams = [params[self.fused_bias_lrn[lp.name]]["bias"]] \
+                + lparams
+        return lparams
+
+    def join_ranks(self, rank_blobs: Sequence[Dict[str, torch.Tensor]],
+                   names: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """The global value of each named blob from the dp ranks': joined
+        on its batch axis (an all_gather), the sum of the ranks' shares
+        for a loss or an accuracy (`LayerOp.shares`), else rank 0's."""
+        if len(rank_blobs) == 1:
+            return {n: rank_blobs[0][n] for n in names}
+        axes = self.batch_axes()
+        shared = {t for lp in self.compute_layers
+                  if L.get_op(lp.type).shares for t in lp.top}
+        out = {}
+        for n in names:
+            vals = [b[n] for b in rank_blobs]
+            if axes.get(n) is not None:
+                out[n] = all_gather(vals, axes[n])
+            elif n in shared:
+                total = vals[0]
+                for v in vals[1:]:
+                    total = total + v.to(total.device)
+                out[n] = total
+            else:
+                out[n] = vals[0]
+        return out
 
     def loss(self, params: Params, inputs: Dict[str, torch.Tensor], *,
              train: bool = True,
@@ -532,11 +664,28 @@ class Net(nn.Module):
         """(total weighted loss, every blob): each loss top summed in f32
         and weighted, as the JAX package's `Net.loss` (the loss blobs keep
         the compute dtype).  `state_out` as in `forward`."""
-        blobs = self.forward(params, inputs, train=train,
-                             generator=generator, state_out=state_out)
+        total, blobs = self.loss_ranks([params], [inputs], train=train,
+                                       generator=generator,
+                                       state_out=state_out)
+        return total, blobs[0]
+
+    def loss_ranks(self, rank_params: Sequence[Params],
+                   rank_inputs: Sequence[Dict[str, torch.Tensor]], *,
+                   train: bool = True,
+                   generator: Optional[torch.Generator] = None,
+                   state_out: Optional[Dict] = None, mesh=None
+                   ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
+        """`loss` of dp ranks (`forward_ranks`): the ranks' loss tops are
+        shares of the global batch's loss, so their weighted sum is its
+        loss, on the net's device."""
+        blobs = self.forward_ranks(rank_params, rank_inputs, train=train,
+                                   generator=generator, state_out=state_out,
+                                   mesh=mesh)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
-        for name, w in self.loss_weights.items():
-            total = total + w * torch.sum(blobs[name], dtype=torch.float32)
+        for b in blobs:
+            for name, w in self.loss_weights.items():
+                total = total + w * torch.sum(
+                    b[name], dtype=torch.float32).to(self.device)
         return total, blobs
 
     @torch.no_grad()

@@ -46,6 +46,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import sp
+from ..parallel.comm import Shards, all_gather, all_reduce
 from ..proto.caffe import (BlobProto, EltwiseOp, FillerParameter,
                            LayerParameter, NormalizationMode, NormRegion,
                            PoolMethod)
@@ -80,11 +82,41 @@ class Ctx:
     # ({layer: [tensors]}, `LayerOp.setup`): never a host-to-device copy
     # inside a step
     consts: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
+    # data parallelism (Net.forward_ranks): the dp rank the layer runs
+    # for, of `ranks`, and the batch axis of each of its bottoms
+    rank: int = 0
+    ranks: int = 1
+    bottom_axes: tuple = ()
+    mesh: Optional[object] = None   # the ranks' Mesh (all_reduce)
+    # a layer's global draw, cut into the ranks' slices (`rand`)
+    _draws: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
 
     def qscale(self, bname: str):
         if not self.qscales:
             return None
         return self.qscales.get(self.layer_name, {}).get(bname)
+
+    def bottom_axis(self, i: int) -> Optional[int]:
+        """The batch axis of bottom i across dp ranks (None: one rank, or
+        a blob that does not follow the batch)."""
+        return self.bottom_axes[i] if i < len(self.bottom_axes) else None
+
+    def rand(self, shape, device) -> torch.Tensor:
+        """Uniform [0, 1) of `shape` from `generator`.  Across dp ranks,
+        rank 0 draws the whole batch's numbers once (the rank's shape
+        with its batch axis times `ranks`) and each rank takes its
+        slice: dp N draws what dp 1 draws on the same global batch."""
+        ax = self.bottom_axis(0)
+        if self.ranks == 1 or ax is None:
+            return torch.rand(shape, generator=self.generator,
+                              device=device)
+        if self.rank == 0:
+            full = list(shape)
+            full[ax] *= self.ranks
+            self._draws[self.layer_name] = list(torch.chunk(
+                torch.rand(full, generator=self.generator, device=device),
+                self.ranks, dim=ax))
+        return self._draws[self.layer_name][self.rank].to(device)
 
 
 @functools.lru_cache(maxsize=256)
@@ -120,21 +152,88 @@ class LayerOp:
     # setup(lp, device) -> [tensors]: constants read once where the net
     # is built (InfogainLoss's matrix), handed back in `Ctx.consts`
     setup: Optional[Callable] = None
+    # apply_ranks(ctx, lp, [params], [bottoms]) -> [tops] per dp rank: a
+    # layer whose result couples the batch (BatchNorm's statistics, the
+    # losses' normalizers, Accuracy) sees every rank at once
+    apply_ranks: Optional[Callable] = None
+    # the tops are each rank's share of one value (a loss, an accuracy):
+    # the global value is their sum
+    shares: bool = False
+
+    def run(self, ctx, lp, rank_params, rank_bottoms) -> list:
+        """Every dp rank's tops: one rank's through `apply`, several
+        through `apply_ranks` at once, else `apply` rank by rank."""
+        if len(rank_bottoms) == 1:
+            return [self.apply(ctx, lp, rank_params[0], rank_bottoms[0])]
+        if self.apply_ranks is not None:
+            return self.apply_ranks(ctx, lp, rank_params, rank_bottoms)
+        tops = []
+        for r, (prm, bots) in enumerate(zip(rank_params, rank_bottoms)):
+            ctx.rank = r
+            tops.append(self.apply(ctx, lp, prm, bots))
+        ctx.rank = 0
+        return tops
 
 
 _REGISTRY: Dict[str, LayerOp] = {}
 
 
 def register(name: str, *, params=None, is_loss=False, is_data=False,
-             f32_stats=False, index_bottoms=(), setup=None):
+             f32_stats=False, index_bottoms=(), setup=None, ranks=False,
+             batch_mean=False, shares=False):
+    """Register `fn` as the op of layer type `name`.  `ranks`: fn takes
+    every dp rank's params and bottoms at once (a list per rank) and
+    returns each rank's tops, for a layer whose result couples the
+    batch; one rank's call is fn on lists of one.  `batch_mean`: fn is a
+    loss averaged over its first bottom's leading extent, whose ranks'
+    shares are rescaled to the whole batch (`_mean_loss_ranks`)."""
     def deco(fn):
-        _REGISTRY[name] = LayerOp(name, fn, params or (lambda lp, s: []),
+        apply, apply_ranks = fn, None
+        if ranks:
+            apply_ranks = fn
+
+            def apply(ctx, lp, params, bottoms):
+                return fn(ctx, lp, [params], [bottoms])[0]
+        elif batch_mean:
+            apply_ranks = _mean_loss_ranks(fn)
+        _REGISTRY[name] = LayerOp(name, apply, params or (lambda lp, s: []),
                                   is_loss=is_loss, is_data=is_data,
                                   f32_stats=f32_stats,
                                   index_bottoms=tuple(index_bottoms),
-                                  setup=setup)
+                                  setup=setup, apply_ranks=apply_ranks,
+                                  shares=shares or batch_mean)
         return fn
     return deco
+
+
+def _mean_loss_ranks(fn):
+    """apply_ranks of a loss normalised by its first bottom's leading
+    extent N: a rank's loss times N_rank / N_global is its share of the
+    global batch's loss (1/dp when axis 0 is the batch axis)."""
+    def ranks(ctx, lp, params, bottoms):
+        ns = [b[0].shape[0] for b in bottoms]
+        total = sum(ns) if ctx.bottom_axis(0) == 0 else ns[0]
+        return [[fn(ctx, lp, prm, b)[0] * (n / total)]
+                for prm, b, n in zip(params, bottoms, ns)]
+    return ranks
+
+
+def _whole(t):
+    """A param blob whole: a tp-split one joined (all_gather)."""
+    return t.whole() if isinstance(t, Shards) else t
+
+
+def _tp_products(x: torch.Tensor, w, transpose: bool = False
+                 ) -> torch.Tensor:
+    """x @ w.T (x @ w when `transpose`).  A weight split over tp
+    (`parallel.comm.Shards`, from `MeshLayout`) gives each tp rank its
+    column block of the product, on its device; an all_gather joins the
+    blocks."""
+    if not isinstance(w, Shards):
+        return torch.matmul(x, w) if transpose else torch.matmul(x, w.T)
+    return all_gather([torch.matmul(x.to(wj.device), wj) if transpose
+                       else torch.matmul(x.to(wj.device), wj.T)
+                       for wj in w], dim=-1)
 
 
 def get_op(type_name: str) -> LayerOp:
@@ -163,15 +262,20 @@ for _t in ("MemoryData", "CoSData", "Input", "Data", "HDF5Data",
     register(_t, is_data=True)(_data_layer)
 
 
-@register("HDF5Output")
+@register("HDF5Output", ranks=True)
 def _hdf5_output(ctx, lp, params, bottoms):
     """hdf5_output_layer.cpp: an output sink.  A forward writes no file
-    (a CUDA graph could not replay it): the bottoms, detached, go to
-    `ctx.state_out["hdf5_output:<name>"]`, and the caller writes them
-    (data/hdf5.py `collect_hdf5_outputs`, `write_hdf5_outputs`)."""
-    ctx.state_out["hdf5_output:" + ctx.layer_name] = [
-        b.detach() for b in bottoms]
-    return []
+    (a CUDA graph could not replay it): the whole batch's bottoms, the
+    dp ranks' joined on their batch axes (`Ctx.bottom_axis`), detached,
+    go to `ctx.state_out["hdf5_output:<name>"]`, and the caller writes
+    them (data/hdf5.py `collect_hdf5_outputs`, `write_hdf5_outputs`)."""
+    out = []
+    for i in range(len(bottoms[0])):
+        vals = [b[i].detach() for b in bottoms]
+        ax = ctx.bottom_axis(i)
+        out.append(all_gather(vals, ax) if ax is not None else vals[0])
+    ctx.state_out["hdf5_output:" + ctx.layer_name] = out
+    return [[] for _ in bottoms]
 
 
 # ---------------------------------------------------------------------------
@@ -292,9 +396,9 @@ def _inner_product(ctx, lp, params, bottoms):
         y = K.int8_inner_product(x2, w, transpose=bool(ip.transpose),
                                  w_scale=ctx.qscale("weight"))
     else:
-        y = torch.matmul(x2, w) if ip.transpose else torch.matmul(x2, w.T)
+        y = _tp_products(x2, w, bool(ip.transpose))
     if ip.bias_term:
-        y = y + params[1]
+        y = y + _whole(params[1])
     return [y.reshape(lead + (ip.num_output,))]
 
 
@@ -312,8 +416,15 @@ def _embed_params(lp, shapes):
 @register("Embed", params=_embed_params, index_bottoms=(0,))
 def _embed(ctx, lp, params, bottoms):
     """Rows of the (input_dim, num_output) table at the bottom's values,
-    cast to integers (float token ids from the data layer)."""
-    out = F.embedding(bottoms[0].to(torch.int64), params[0])
+    cast to integers (float token ids from the data layer); a table
+    split over tp looks up each rank's columns."""
+    ids = bottoms[0].to(torch.int64)
+    w = params[0]
+    if isinstance(w, Shards):
+        out = all_gather([F.embedding(ids.to(wj.device), wj) for wj in w],
+                         dim=-1)
+    else:
+        out = F.embedding(ids, w)
     if lp.embed_param.bias_term:
         out = out + params[1]
     return [out]
@@ -411,8 +522,7 @@ def _stochastic_pool(ctx, x, kernel, stride, pads, out_hw):
             n, c, kh * kw, oh, ow)
         cum = torch.cumsum(p.to(torch.float32), dim=2)
         total = cum[:, :, -1]
-        u = torch.rand(total.shape, generator=ctx.generator,
-                       device=x.device) * (1.0 - 1e-7) + 1e-7
+        u = ctx.rand(total.shape, x.device) * (1.0 - 1e-7) + 1e-7
         # the first window index whose running sum reaches u·Σ
         idx = (cum >= (u * total).unsqueeze(2)).to(torch.int32).argmax(
             dim=2, keepdim=True)
@@ -531,8 +641,7 @@ def _dropout(ctx, lp, params, bottoms):
         raise ValueError(f"Dropout {ctx.layer_name!r} at TRAIN needs a "
                          "generator (Ctx.generator)")
     keep = 1.0 - ratio
-    mask = torch.rand(x.shape, generator=ctx.generator,
-                      device=x.device) < keep
+    mask = ctx.rand(x.shape, x.device) < keep
     return [torch.where(mask, x / weak_scalar(keep, x.dtype), 0.0)]
 
 
@@ -608,42 +717,70 @@ def _bn_params(lp, shapes):
             ("count", (1,), zero)]
 
 
-@register("BatchNorm", params=_bn_params, f32_stats=True)
+def _bn_use_global(p, train: bool) -> bool:
+    """The stored statistics: use_global_stats when given, else at
+    TEST."""
+    return p.use_global_stats if p.has("use_global_stats") else not train
+
+
+def _bn_normalize(p, x, mean, var):
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    return ((x - mean.reshape(shape))
+            / torch.sqrt(var.reshape(shape) + weak_scalar(p.eps, x.dtype)))
+
+
+def _bn_moving(ctx, p, params, mean, var, m):
+    """The moving sums the batch mode writes to `ctx.state_out`."""
+    mean_b, var_b, count = params
+    maf = p.moving_average_fraction
+    bias_corr = m / (m - 1.0) if m > 1 else 1.0
+    with torch.no_grad():
+        ctx.state_out[ctx.layer_name] = [
+            mean_b * weak_scalar(maf, mean_b.dtype) + mean,
+            var_b * weak_scalar(maf, var_b.dtype)
+            + var * weak_scalar(bias_corr, var.dtype),
+            count * weak_scalar(maf, count.dtype) + 1.0]
+
+
+def _rank_means(ctx, xs, axes):
+    """The whole batch's mean over `axes` from the dp ranks' slices
+    `xs`: each rank's mean weighted by its share of the count, then
+    all-reduced (one rank: its own mean)."""
+    counts = [x.shape[0] * math.prod(x.shape[2:]) for x in xs]
+    m = sum(counts)
+    parts = [torch.mean(x, dim=axes) * (c / m) if c != m
+             else torch.mean(x, dim=axes) for x, c in zip(xs, counts)]
+    return all_reduce(parts, ctx.mesh, "dp"), m
+
+
+@register("BatchNorm", params=_bn_params, f32_stats=True, ranks=True)
 def _batch_norm(ctx, lp, params, bottoms):
     """Caffe's BatchNorm: normalize by the batch's statistics over N and
     the spatial axes (TRAIN), or by the stored ones scaled by 1/count
-    (`use_global_stats`, TEST by default).  In the batch mode the moving
+    (`use_global_stats`, TEST by default).  In the batch mode the
+    statistics are the whole batch's across dp ranks, as the JAX package
+    computes them on the global batch (`_rank_means`), and the moving
     sums stored * maf + batch mean, stored * maf + batch variance *
     m/(m-1) (Caffe keeps the unbiased variance; m = N*H*W) and
-    count * maf + 1 go to `ctx.state_out`.
+    count * maf + 1 go to `ctx.state_out`, once.
     Python scalars round to the blob's dtype first, as JAX's weak types
     make them."""
     p = lp.batch_norm_param
-    x = bottoms[0]
-    use_global = (p.use_global_stats if p.has("use_global_stats")
-                  else not ctx.train)
-    mean_b, var_b, count = params
-    dt = x.dtype
-    if use_global:
-        scale = torch.where(count[0] == 0, 1.0, 1.0 / count[0])
-        mean = mean_b * scale
-        var = var_b * scale
-    else:
-        axes = (0,) + tuple(range(2, x.dim()))
-        mean = torch.mean(x, dim=axes)
-        var = torch.mean(torch.square(x), dim=axes) - torch.square(mean)
-        maf = p.moving_average_fraction
-        m = x.shape[0] * math.prod(x.shape[2:])
-        bias_corr = m / (m - 1.0) if m > 1 else 1.0
-        with torch.no_grad():
-            ctx.state_out[ctx.layer_name] = [
-                mean_b * weak_scalar(maf, mean_b.dtype) + mean,
-                var_b * weak_scalar(maf, var_b.dtype)
-                + var * weak_scalar(bias_corr, var.dtype),
-                count * weak_scalar(maf, count.dtype) + 1.0]
-    shape = (1, -1) + (1,) * (x.dim() - 2)
-    return [(x - mean.reshape(shape))
-            / torch.sqrt(var.reshape(shape) + weak_scalar(p.eps, dt))]
+    xs = [b[0] for b in bottoms]
+    if _bn_use_global(p, ctx.train):
+        out = []
+        for x, (mean_b, var_b, count) in zip(xs, params):
+            scale = torch.where(count[0] == 0, 1.0, 1.0 / count[0])
+            out.append([_bn_normalize(p, x, mean_b * scale,
+                                      var_b * scale)])
+        return out
+    axes = (0,) + tuple(range(2, xs[0].dim()))
+    means, m = _rank_means(ctx, xs, axes)
+    squares, _ = _rank_means(ctx, [torch.square(x) for x in xs], axes)
+    var_s = [sq - torch.square(mu) for sq, mu in zip(squares, means)]
+    _bn_moving(ctx, p, params[0], means[0], var_s[0], m)
+    return [[_bn_normalize(p, x, mu, v)]
+            for x, mu, v in zip(xs, means, var_s)]
 
 
 def _scale_params(lp, shapes):
@@ -929,27 +1066,43 @@ def flash_mesh(mesh):
         meshes.pop()
 
 
-def _attention_dispatch(q, k, v, *, causal: bool):
-    """Attention on (B, H, T, hd), the counterpart of the JAX dispatch:
-      * under `flash_mesh` with an sp axis: the fused ring,
+def _attention_dispatch(q, k, v, *, causal: bool, dp_rank: int = 0):
+    """Attention on (B, H, T, hd), the counterpart of the JAX dispatch.
+    Under `flash_mesh` the call runs on dp rank `dp_rank`'s rows of the
+    batch: its tp ranks take one block of H / tp heads each (the whole
+    head axis when tp does not divide it), and each block is
+      * with an sp axis: the fused ring over that rank's sp ranks,
         `parallel.sp.ring_attention(flash=True)` — K9 forward, K7/K8
         backward on the card, their plain versions on the CPU (T must
         divide over sp: the ring raises otherwise, and the processor
         refuses such a -mesh at startup);
-      * otherwise: `FlashAttention` on the whole tensor (K6, K7/K8).
-    The batch and head axes need no split of their own: attention is
-    independent over them, so the ring over the whole batch is the same
-    math as the JAX package's per-device blocks.  One deliberate
-    difference: the JAX route falls back to einsum attention when the
-    local extent T / sp does not suit the TPU kernels' blocks; here the
-    ring runs at any local T, so the card never runs O(T²) plain
-    attention."""
+      * otherwise: `FlashAttention` (K6, K7/K8);
+    so the kernels launch once per (B/dp, H/tp) block, as the JAX
+    package's shard_map runs them per device.  An all_gather joins the
+    head blocks.  Without a mesh: `FlashAttention` on the whole tensor.
+    One deliberate difference: the JAX route falls back to einsum
+    attention when T or the local extent T / sp does not suit the TPU
+    kernels' blocks; here the kernels run at any T, so the card never
+    runs O(T²) plain attention."""
     meshes = _mesh_stack()
-    if meshes and meshes[-1].shape["sp"] > 1:
-        from ..parallel import sp
-        return sp.ring_attention(q, k, v, meshes[-1], causal=causal,
-                                 flash=True)
-    return K.flash_attention(q, k, v, causal)
+    if not meshes:
+        return K.flash_attention(q, k, v, causal)
+    mesh = meshes[-1]
+    row = mesh.sub(dp=dp_rank) if mesh.shape["dp"] > 1 else mesh
+    tp = row.shape["tp"]
+    n_tp = tp if tp > 1 and q.shape[1] % tp == 0 else 1
+    h = q.shape[1] // n_tp
+    outs = []
+    for j in range(n_tp):
+        blk = row.sub(tp=j) if tp > 1 else row
+        dev = blk.devices.flat[0]
+        qj, kj, vj = (x[:, j * h:(j + 1) * h].to(dev) for x in (q, k, v))
+        if blk.shape["sp"] > 1:
+            outs.append(sp.ring_attention(qj, kj, vj, blk, causal=causal,
+                                          flash=True))
+        else:
+            outs.append(K.flash_attention(qj, kj, vj, causal))
+    return all_gather(outs, dim=1)
 
 
 @register("MultiHeadAttention", params=_mha_params)
@@ -970,7 +1123,8 @@ def _mha(ctx, lp, params, bottoms):
     # (B, H, T, hd)
     q, k, v = (torch.movedim(qkv[:, :, i], (0, 1, 2), (2, 0, 1))
                for i in range(3))
-    o = _attention_dispatch(q, k, v, causal=bool(ap.causal))
+    o = _attention_dispatch(q, k, v, causal=bool(ap.causal),
+                            dp_rank=ctx.rank)
     # back to (T, B, H*hd)
     o = torch.movedim(o, (0, 1, 2), (1, 2, 0)).reshape(t_steps, batch,
                                                        h * hd)
@@ -997,10 +1151,10 @@ def _loss_normalizer(norm_mode, valid_count, batch, full):
         if torch.is_tensor(valid_count) else max(valid_count, 1.0)
 
 
-@register("SoftmaxWithLoss", is_loss=True, index_bottoms=(1,))
-def _softmax_loss(ctx, lp, params, bottoms):
+def _softmax_loss_terms(lp, scores, labels):
+    """(Σ nll, valid count, normalization mode, scores.shape[0], label
+    count) of SoftmaxWithLoss: the loss is Σ nll over its normalizer."""
     axis = lp.softmax_param.axis if lp.has("softmax_param") else 1
-    scores, labels = bottoms[0], bottoms[1]
     logp = torch.log_softmax(scores, dim=axis)
     outer = tuple(scores.shape[:axis])
     inner = tuple(scores.shape[axis + 1:])
@@ -1011,12 +1165,13 @@ def _softmax_loss(ctx, lp, params, bottoms):
     safe_lbl = torch.where(lbl == ignore, torch.zeros_like(lbl), lbl) \
         if has_ignore else lbl
     nll = -torch.gather(logp, axis, safe_lbl.unsqueeze(axis)).squeeze(axis)
+    full = math.prod(outer + inner)
     if has_ignore:
         mask = (lbl != ignore).to(scores.dtype)
         nll = nll * mask
         valid = torch.sum(mask)
     else:
-        valid = float(math.prod(outer + inner))
+        valid = float(full)
     # legacy loss_param.normalize: true -> VALID, false -> BATCH_SIZE
     if lp.has("loss_param") and not lp_msg.has("normalization") \
             and lp_msg.has("normalize"):
@@ -1026,19 +1181,41 @@ def _softmax_loss(ctx, lp, params, bottoms):
         norm_mode = lp_msg.normalization
     else:
         norm_mode = NormalizationMode.VALID
-    denom = _loss_normalizer(norm_mode, valid, scores.shape[0],
-                             math.prod(outer + inner))
-    return [torch.sum(nll) / denom]
+    return torch.sum(nll), valid, norm_mode, scores.shape[0], full
 
 
-@register("EuclideanLoss", is_loss=True)
+def _global_count(values, mesh):
+    """A count summed over dp ranks: tensors all-reduced, floats added."""
+    if torch.is_tensor(values[0]):
+        return all_reduce(list(values), mesh, "dp")[0]
+    return float(sum(values))
+
+
+@register("SoftmaxWithLoss", is_loss=True, index_bottoms=(1,), ranks=True,
+          shares=True)
+def _softmax_loss(ctx, lp, params, bottoms):
+    """Each dp rank's Σ nll over the whole batch's normalizer (VALID:
+    the valid counts summed over the ranks), so the ranks' shares sum
+    to the loss of the global batch."""
+    terms = [_softmax_loss_terms(lp, b[0], b[1]) for b in bottoms]
+    norm_mode = terms[0][2]
+    valid = _global_count([t[1] for t in terms], ctx.mesh)
+    full = sum(t[4] for t in terms)
+    batch = (sum(t[3] for t in terms) if ctx.bottom_axis(0) == 0
+             else terms[0][3])
+    denom = _loss_normalizer(norm_mode, valid, batch, full)
+    return [[t[0] / (denom.to(t[0].device) if torch.is_tensor(denom)
+                     else denom)] for t in terms]
+
+
+@register("EuclideanLoss", is_loss=True, batch_mean=True)
 def _euclidean_loss(ctx, lp, params, bottoms):
     a, b = bottoms
     diff = a - b
     return [torch.sum(diff * diff) / (2.0 * a.shape[0])]
 
 
-@register("SigmoidCrossEntropyLoss", is_loss=True)
+@register("SigmoidCrossEntropyLoss", is_loss=True, batch_mean=True)
 def _sce_loss(ctx, lp, params, bottoms):
     x, t = bottoms
     # stable: max(x, 0) - x·t + log(1 + exp(-|x|))
@@ -1047,7 +1224,7 @@ def _sce_loss(ctx, lp, params, bottoms):
     return [torch.sum(loss) / x.shape[0]]
 
 
-@register("ContrastiveLoss", is_loss=True)
+@register("ContrastiveLoss", is_loss=True, batch_mean=True)
 def _contrastive_loss(ctx, lp, params, bottoms):
     """contrastive_loss_layer.cpp: 1/(2N) Σ [y·d² + (1−y)·max(margin −
     d, 0)²], d = ‖a − b‖ over each item's features, y = 1 for a similar
@@ -1068,7 +1245,7 @@ def _contrastive_loss(ctx, lp, params, bottoms):
     return [torch.sum(y * dist_sq + (1.0 - y) * mismatch) / (2.0 * n)]
 
 
-@register("HingeLoss", is_loss=True, index_bottoms=(1,))
+@register("HingeLoss", is_loss=True, index_bottoms=(1,), batch_mean=True)
 def _hinge_loss(ctx, lp, params, bottoms):
     """Σ max(0, 1 + s·x) / N with s = −1 at each item's label and +1
     elsewhere; squared under norm L2."""
@@ -1082,7 +1259,8 @@ def _hinge_loss(ctx, lp, params, bottoms):
     return [torch.sum(margin) / n]
 
 
-@register("MultinomialLogisticLoss", is_loss=True, index_bottoms=(1,))
+@register("MultinomialLogisticLoss", is_loss=True, index_bottoms=(1,),
+          batch_mean=True)
 def _mll_loss(ctx, lp, params, bottoms):
     """−log p[label] on an already softmaxed bottom."""
     probs, labels = bottoms
@@ -1105,7 +1283,7 @@ def _infogain_setup(lp, device):
 
 
 @register("InfogainLoss", is_loss=True, index_bottoms=(1,),
-          setup=_infogain_setup)
+          setup=_infogain_setup, batch_mean=True)
 def _infogain_loss(ctx, lp, params, bottoms):
     """−(1/N) Σ_n Σ_k H[label_n, k] · log p_nk.  H is bottom[2], else the
     `source` matrix read where the net was built (`Ctx.consts`), else
@@ -1127,12 +1305,11 @@ def _infogain_loss(ctx, lp, params, bottoms):
     return [-torch.sum(h[lbl] * logp) / n]
 
 
-@register("Accuracy", index_bottoms=(1,))
-def _accuracy(ctx, lp, params, bottoms):
+def _accuracy_terms(lp, scores, labels):
+    """(correct, mask or None) of Accuracy, in the scores' dtype."""
     p = lp.accuracy_param
     axis = p.axis
     k = int(p.top_k)
-    scores, labels = bottoms[0], bottoms[1]
     outer = tuple(scores.shape[:axis])
     inner = tuple(scores.shape[axis + 1:])
     lbl = labels.to(torch.int64).reshape(outer + inner)
@@ -1144,11 +1321,23 @@ def _accuracy(ctx, lp, params, bottoms):
         topi = torch.topk(moved, k, dim=-1).indices
         correct = torch.any(topi == lbl.unsqueeze(-1), dim=-1)
     correct = correct.to(scores.dtype)
-    if has_ignore:
-        mask = (lbl != p.ignore_label).to(scores.dtype)
-        return [torch.sum(correct * mask)
-                / torch.clamp_min(torch.sum(mask), 1.0)]
-    return [torch.mean(correct)]
+    mask = (lbl != p.ignore_label).to(scores.dtype) if has_ignore else None
+    return correct, mask
+
+
+@register("Accuracy", index_bottoms=(1,), ranks=True, shares=True)
+def _accuracy(ctx, lp, params, bottoms):
+    """Each dp rank's correct count over the whole batch's count (valid
+    labels under ignore_label), so the ranks' shares sum to the global
+    batch's accuracy."""
+    terms = [_accuracy_terms(lp, b[0], b[1]) for b in bottoms]
+    if terms[0][1] is None:
+        total = sum(c.numel() for c, _ in terms)
+        return [[torch.mean(c) * (c.numel() / total) if c.numel() != total
+                 else torch.mean(c)] for c, _ in terms]
+    count = torch.clamp_min(_global_count(
+        [torch.sum(m) for _, m in terms], ctx.mesh), 1.0)
+    return [[torch.sum(c * m) / count.to(c.device)] for c, m in terms]
 
 
 # ---------------------------------------------------------------------------
@@ -1209,11 +1398,11 @@ def _lstm(ctx, lp, params, bottoms):
         bottoms[0], bottoms[1], bottoms, 3 if has_static else 2, n, expose)
     t_steps, batch = xf.shape[0], xf.shape[1]
     w_xc, b_c, w_hc = params[0], params[1], params[2]
-    xproj = torch.matmul(xf.reshape(t_steps * batch, -1), w_xc.T).reshape(
+    xproj = _tp_products(xf.reshape(t_steps * batch, -1), w_xc).reshape(
         t_steps, batch, 4 * n) + b_c
     if has_static:
-        xproj = xproj + torch.matmul(bottoms[2].reshape(batch, -1),
-                                     params[3].T)
+        xproj = xproj + _tp_products(bottoms[2].reshape(batch, -1),
+                                     params[3])
     w_hc_t = w_hc.T
     hs = []
     for t in range(t_steps):
@@ -1249,7 +1438,7 @@ def _rnn(ctx, lp, params, bottoms):
                                         n, False)
     t_steps, batch = xf.shape[0], xf.shape[1]
     w_xh, b_h, w_hh, w_ho, b_o = params
-    xproj = torch.matmul(xf.reshape(t_steps * batch, -1), w_xh.T).reshape(
+    xproj = _tp_products(xf.reshape(t_steps * batch, -1), w_xh).reshape(
         t_steps, batch, n) + b_h
     w_hh_t, w_ho_t = w_hh.T, w_ho.T
     outs = []

@@ -2,8 +2,9 @@
 
 The counterpart of `caffeonspark_tpu/processor.py` (and of
 `CaffeProcessor.scala`), cut to one process on one device: a singleton
-(`instance()`) that owns the Solver (and, with `-mesh`, the mesh whose
-attention route its steps run under), two bounded feed queues with the
+(`instance()`) that owns the Solver (and, with `-mesh`, the
+`ParallelSolver` whose dp, tp and sp ranks share that device, the
+layout of the evaluation forward too), two bounded feed queues with the
 STOP_MARK protocol (0 train, 1 validation), and a solver thread
 (`_run_train`).  The thread takes packed batches from queue 0 through
 the ordered transformer pool (COS_TRANSFORM_THREADS workers, default
@@ -41,7 +42,6 @@ observability server wait for later slices.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import math
 import os
@@ -63,7 +63,7 @@ from .data.queue_runner import (DROP_LIMIT_DEFAULT, DROPPED, FeedQueue,
                                 tune_decode_threads)
 from .data.source import STOP_MARK, DataSource, get_source
 from .metrics import PipelineMetrics, maybe_start_flusher
-from .ops.layers import flash_mesh
+from .parallel.dp import ParallelSolver
 from .parallel.mesh import Mesh, build_mesh, parse_mesh_spec
 from .proto.caffe import SnapshotFormat
 from .solver import Solver
@@ -98,9 +98,10 @@ class ValidationReport:
 
 
 def run_mesh(spec: str, solver: Solver) -> Mesh:
-    """The mesh of `-mesh spec`, its ranks all on the solver's device (the
-    counterpart of the JAX package's virtual devices); an sp axis that
-    does not divide a time-major input's steps is refused here."""
+    """The mesh of `-mesh spec` (a bare count N is dp N), its ranks all
+    on the solver's device (the counterpart of the JAX package's virtual
+    devices); an sp axis that does not divide a time-major input's steps
+    is refused here."""
     dims = parse_mesh_spec(spec)
     n = math.prod(dims.values())
     mesh = build_mesh(devices=[solver.device] * n, **dims)
@@ -140,9 +141,17 @@ class CaffeProcessor:
         self.solver = Solver(conf.solverParameter, conf.netParam, rank=rank,
                              device=conf.device)
         # -mesh: the mesh's ranks all sit on -device's card, several to a
-        # card (the counterpart of the JAX package's virtual devices)
+        # card (the counterpart of the JAX package's virtual devices); a
+        # batch that its dp does not divide is refused here, by layer
         self.mesh: Optional[Mesh] = (run_mesh(conf.mesh, self.solver)
                                      if conf.mesh else None)
+        self.psolver: Optional[ParallelSolver] = (
+            ParallelSolver(self.solver, self.mesh)
+            if self.mesh is not None else None)
+        if self.mesh_eval and (conf.validates() or conf.isTest
+                               or conf.features):
+            net = self.solver.test_net or self.solver.train_net
+            self.psolver.layout.check_batch(net)
         self.queues = [FeedQueue(), FeedQueue()]   # 0 train, 1 validation
         self.metrics = PipelineMetrics()
         self.params = None
@@ -186,6 +195,13 @@ class CaffeProcessor:
         self._feature_src: Optional[DataSource] = None
         self._blob_forward = None
 
+    @property
+    def mesh_eval(self) -> bool:
+        """Does evaluation (validation, -test, -features) run on the
+        mesh?  Only under an explicit -mesh of more than one rank, as in
+        the JAX package (processor.py:660-680)."""
+        return self.mesh is not None and self.mesh.size > 1
+
     # -- queue API (feedQueue backpressure, :192-198) --------------------
     def feed_queue(self, idx: int, sample) -> bool:
         return self.queues[idx].offer(sample)
@@ -220,6 +236,10 @@ class CaffeProcessor:
         elif conf.snapshotModelFile:
             params = checkpoint.copy_layers(net, params,
                                             conf.snapshotModelFile)
+        if self.psolver is not None:
+            # a snapshot resumes onto the mesh by splitting again
+            params = self.psolver.shard_params(params)
+            st = self.psolver.shard_opt_state(st)
         self.params, self.opt_state = params, st
 
     def stop(self):
@@ -360,6 +380,7 @@ class CaffeProcessor:
         gen = None
         try:
             solver = self.solver
+            stepper = self.psolver or solver
             sp = solver.param
             snap = sp.snapshot or 0
             display = sp.display or 0
@@ -367,12 +388,15 @@ class CaffeProcessor:
             test_iter = sp.test_iter[0] if sp.test_iter else 0
             params, st = self.params, self.opt_state
             m = self.metrics
-            if self.mesh is not None:
-                m.set_info("mesh", self.mesh.describe())
+            if self.psolver is not None:
+                m.set_info("mesh", self.psolver.layout.describe())
             validate = bool(self.interleave_validation and test_interval
                             and test_iter and solver.test_net is not None
                             and self.val_source is not None)
-            eval_fwd = solver.eval_step_fn() if validate else None
+            eval_fwd = None
+            if validate:
+                eval_fwd = (self.psolver.eval_step() if self.mesh_eval
+                            else solver.eval_step_fn())
             if validate:
                 self.validation = ValidationReport(
                     solver.test_net.output_blobs)
@@ -402,7 +426,7 @@ class CaffeProcessor:
             # processor.py:426-447).  Display lines need no boundary:
             # each step's loss is in the chunk's output
             k_loop = steps_per_loop()
-            many = solver.train_step_many(k_loop) if k_loop > 1 else None
+            many = stepper.train_step_many(k_loop) if k_loop > 1 else None
             feed = chunked_feed(
                 combine_batches(batches, max(1, sp.iter_size), tmajor),
                 start_iter=st.iter, max_iter=sp.max_iter, k=k_loop,
@@ -413,8 +437,6 @@ class CaffeProcessor:
                 device_transforms=dxf, chunked=True,
                 background=nthreads > 0 and stage_background(solver.device),
                 metrics=m)
-            route = ((lambda: flash_mesh(self.mesh)) if self.mesh is not None
-                     else contextlib.nullcontext)
             while st.iter < sp.max_iter:
                 t_wait = time.perf_counter()
                 item = next(gen, None)
@@ -424,14 +446,12 @@ class CaffeProcessor:
                 m.add("queue_wait", time.perf_counter() - t_wait)
                 m.gauge("feed_depth", len(self.queues[0]))
                 t_step = time.perf_counter()
-                with route():
-                    if n == 1:
-                        loss, out = solver.train_step(params, st, inputs)
-                        losses, lrs = [loss], [float(out["lr"])]
-                    else:
-                        loss_k, out = many(params, st, inputs)
-                        losses, lrs = list(loss_k.unbind()), \
-                            out["lr"].tolist()
+                if n == 1:
+                    loss, out = stepper.train_step(params, st, inputs)
+                    losses, lrs = [loss], [float(out["lr"])]
+                else:
+                    loss_k, out = many(params, st, inputs)
+                    losses, lrs = list(loss_k.unbind()), out["lr"].tolist()
                 now = time.perf_counter()
                 if n == 1:
                     m.add("step", now - t_step)
@@ -602,12 +622,15 @@ class CaffeProcessor:
     def _feature_fwd(self, blob_names: Tuple[str, ...]):
         """predict(blobNames) of the TEST net, cached per blob set: the
         serving path's forward (serving/forward.py), under
-        inference_mode on the solver's device."""
+        inference_mode on the solver's device; with an explicit -mesh of
+        more than one rank, under the training step's layout."""
         from .serving.forward import BlobForward
         net = self.solver.test_net or self.solver.train_net
-        if self._blob_forward is None or self._blob_forward.net is not net:
-            self._blob_forward = BlobForward(net)
-        return self._blob_forward(blob_names)
+        layout = self.psolver.layout if self.mesh_eval else None
+        fwd = self._blob_forward
+        if fwd is None or fwd.net is not net or fwd.layout is not layout:
+            fwd = self._blob_forward = BlobForward(net, layout=layout)
+        return fwd(blob_names)
 
     def extract_rows(self, records, blob_names: Sequence[str],
                      source: Optional[DataSource] = None

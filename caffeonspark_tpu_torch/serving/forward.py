@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from ..net import Net
+from ..ops.layers import flash_mesh
+from ..parallel.dp import rank_params, shard_inputs
 
 
 def pin_f32_precision() -> None:
@@ -30,9 +32,23 @@ def pin_f32_precision() -> None:
         False
 
 
-def make_forward_fn(net: Net, blob_names: Tuple[str, ...]):
+def make_forward_fn(net: Net, blob_names: Tuple[str, ...], layout=None):
     """predict(blobNames) semantics (CaffeNet.cpp:677-697): forward,
-    then read ANY named blob, not just net outputs."""
+    then read ANY named blob, not just net outputs.  Under a `layout`
+    (parallel.mesh.MeshLayout) of more than one rank the batch splits
+    over its dp ranks, each runs the forward on its slice
+    (`Net.forward_ranks`, tp-split params, attention per (B/dp, H/tp)
+    block), and the named blobs are joined back in row order
+    (`Net.join_ranks`)."""
+    if layout is not None and layout.mesh.size > 1:
+        def fwd_mesh(params, inputs):
+            with torch.inference_mode(), flash_mesh(layout.mesh):
+                blobs = net.forward_ranks(
+                    rank_params(layout, params),
+                    shard_inputs(layout, inputs, net), mesh=layout.mesh)
+                return net.join_ranks(blobs, blob_names)
+        return fwd_mesh
+
     def fwd(params, inputs):
         with torch.inference_mode():
             blobs = net(params, inputs)
@@ -81,10 +97,14 @@ class BlobForward:
     """predict(blobNames) closures for one Net, cached per (blob set,
     storage dtype).  Closures are params-agnostic, so a model hot-swap
     reuses them.  On a CUDA net, constructing one pins f32 precision
-    (see pin_f32_precision)."""
+    (see pin_f32_precision).  `layout` (a MeshLayout, shared with the
+    ParallelSolver that trains the params) runs the f32 forward on the
+    mesh (`make_forward_fn`); a compressed storage dtype on a mesh is
+    serving's, a later slice."""
 
-    def __init__(self, net: Net):
+    def __init__(self, net: Net, layout=None):
         self.net = net
+        self.layout = layout
         self._cache: Dict[Tuple, Any] = {}
         if net.device.type == "cuda":
             pin_f32_precision()
@@ -94,7 +114,12 @@ class BlobForward:
         key = (tuple(blob_names), weight_dtype)
         if key not in self._cache:
             if weight_dtype == "f32":
-                fwd = make_forward_fn(self.net, tuple(blob_names))
+                fwd = make_forward_fn(self.net, tuple(blob_names),
+                                      self.layout)
+            elif self.layout is not None and self.layout.mesh.size > 1:
+                raise ValueError(f"weight dtype {weight_dtype!r} on a "
+                                 "mesh: serving on a mesh is a later "
+                                 "slice of the PyTorch port")
             else:
                 from .quant import quant_spec
                 fwd = make_quant_forward_fn(

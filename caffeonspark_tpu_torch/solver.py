@@ -247,7 +247,8 @@ class Solver:
         return self.loss_grads_and_state(params, inputs)[:3]
 
     def loss_grads_and_state(self, params: Params,
-                             inputs: Dict[str, torch.Tensor]
+                             inputs: Dict[str, torch.Tensor],
+                             sub_grads=None
                              ) -> Tuple[torch.Tensor,
                                         Dict[str, torch.Tensor], Params,
                                         Dict[str, List[torch.Tensor]]]:
@@ -259,8 +260,12 @@ class Solver:
         before it wrote, as Caffe updates them on every forward (JAX
         solver.py threads them through its scan); the last forward's are
         returned, for the step to merge into `params` after the update
-        (`Net.merge_forward_state`).  `params` are not written."""
+        (`Net.merge_forward_state`).  `params` are not written.
+        `sub_grads(params, sub, names)` -> (loss, outputs, [grad per
+        name], forward state) computes one sub-batch (`_sub_grads`; the
+        data-parallel step passes its own)."""
         net = self.train_net
+        sub_grads = sub_grads or self._sub_grads
         iter_size = max(1, int(self.param.iter_size))
         names = [(ln, bn) for ln, bl in params.items() for bn in bl]
         subs = [inputs]
@@ -287,16 +292,7 @@ class Solver:
         cur = params
         fwd_state: Dict[str, List[torch.Tensor]] = {}
         for sub in subs:
-            leaves = {ln: {bn: t.detach().requires_grad_(True)
-                           for bn, t in bl.items()}
-                      for ln, bl in cur.items()}
-            fwd_state = {}
-            loss, blobs = net.loss(leaves, sub, train=True,
-                                   generator=self.generator,
-                                   state_out=fwd_state)
-            grads = torch.autograd.grad(
-                loss, [leaves[ln][bn] for ln, bn in names],
-                allow_unused=True)
+            loss, outs, grads, fwd_state = sub_grads(cur, sub, names)
             if fwd_state:       # the next sub-batch reads these statistics
                 cur = {ln: dict(bl) for ln, bl in cur.items()}
                 for ln, values in fwd_state.items():
@@ -304,14 +300,10 @@ class Solver:
                     for (bn, _, _), v in zip(net.param_layout.get(ln, ()),
                                              values):
                         cur[ln][bn] = v.to(params[ln][bn].dtype)
-            grads = [torch.zeros_like(params[ln][bn]) if g is None else g
-                     for (ln, bn), g in zip(names, grads)]
             gsum = grads if gsum is None else [a + b for a, b in
                                                zip(gsum, grads)]
-            loss_sum = loss.detach() if loss_sum is None \
-                else loss_sum + loss.detach()
-            for n in net.output_blobs:
-                v = blobs[n].detach()
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            for n, v in outs.items():
                 osum[n] = v if n not in osum else osum[n] + v
         if iter_size > 1:
             gsum = [g / iter_size for g in gsum]
@@ -321,6 +313,27 @@ class Solver:
         for (ln, bn), g in zip(names, gsum):
             grads_p.setdefault(ln, {})[bn] = g
         return loss_sum, osum, grads_p, fwd_state
+
+    def _sub_grads(self, params: Params, sub: Dict[str, torch.Tensor],
+                   names: List[Tuple[str, str]]):
+        """One sub-batch's (loss, output blobs, gradients in `names`'
+        order, forward state): the net's loss on fresh leaves of
+        `params`, differentiated by autograd."""
+        net = self.train_net
+        leaves = {ln: {bn: t.detach().requires_grad_(True)
+                       for bn, t in bl.items()}
+                  for ln, bl in params.items()}
+        fwd_state: Dict[str, List[torch.Tensor]] = {}
+        loss, blobs = net.loss(leaves, sub, train=True,
+                               generator=self.generator,
+                               state_out=fwd_state)
+        grads = torch.autograd.grad(
+            loss, [leaves[ln][bn] for ln, bn in names], allow_unused=True)
+        grads = [torch.zeros_like(params[ln][bn]) if g is None else g
+                 for (ln, bn), g in zip(names, grads)]
+        return (loss.detach(), {n: blobs[n].detach()
+                                for n in net.output_blobs},
+                grads, fwd_state)
 
     # ------------------------------------------------------------------
     def update_scalars(self, lr: torch.Tensor, it: int) -> List[float]:
@@ -343,22 +356,23 @@ class Solver:
 
     @torch.no_grad()
     def apply_update(self, params: Params, grads: Params, state: OptState,
-                     lr: torch.Tensor, scalars=None) -> None:
+                     lr: torch.Tensor, scalars=None, blob_update=None
+                     ) -> None:
         """Caffe's ApplyUpdate, in place on params and state: clip, then
         regularize, then the solver type's rule (JAX solver.py:222-303,
         in the same operation order).  `scalars` (update_scalars' values,
         one per distinct lr_mult) may be given instead of being computed
         from `lr` and state.iter: a CUDA graph passes a device row of
         them, filled before each replay, since a Python float would be
-        frozen into the graph at its capture value."""
+        frozen into the graph at its capture value.  `blob_update(w, g,
+        h, h2, local_lr, decay_mult)` updates one blob in place
+        (`update_blob`; ZeRO-1 passes one that updates each dp rank's
+        slice)."""
         sp = self.param
-        momentum = sp.momentum
-        wd = sp.weight_decay
-        l1 = sp.regularization_type == "L1"
-        t = self.solver_type
         if scalars is None:
             scalars = self.update_scalars(lr, state.iter)
         slot = {m: i for i, m in enumerate(self._mult_values)}
+        blob_update = blob_update or self.update_blob
 
         if sp.clip_gradients > 0:
             thresh = sp.clip_gradients / max(1, int(sp.iter_size))
@@ -371,64 +385,73 @@ class Solver:
             grads = {ln: {bn: g * scale for bn, g in bl.items()}
                      for ln, bl in grads.items()}
 
-        add, sub, div = operator.add, operator.sub, operator.truediv
         for ln, bl in params.items():
             for bn, w in bl.items():
-                g = grads[ln][bn]
-                dm = self._decay_mults[ln][bn]
-                if wd != 0.0 and dm != 0.0:
-                    r = torch.sign(w) if l1 else w
-                    g = g + _w(wd * dm, r) * r
-                h = state.history[ln][bn]
-                h2 = state.history2[ln][bn]
                 # f32, as JAX's lr * mult (times Adam's correction)
-                local_lr = scalars[slot[self._lr_mults[ln][bn]]]
-                if t == "SGD":
-                    upd = _bin(add, _lr_mul(local_lr, g),
-                               _w(momentum, h) * h)
-                    w2, h_n, h2_n = _bin(sub, w, upd), upd, None
-                elif t == "NESTEROV":
-                    h_n = _bin(add, _lr_mul(local_lr, g),
-                               _w(momentum, h) * h)
-                    upd = _bin(sub, _w(1 + momentum, h_n) * h_n,
-                               _w(momentum, h) * h)
-                    w2, h2_n = _bin(sub, w, upd), None
-                elif t == "ADAGRAD":
-                    h_n = _bin(add, h, g * g)
-                    w2 = _bin(sub, w, _bin(div, _lr_mul(local_lr, g),
-                                           torch.sqrt(h_n)
-                                           + _w(sp.delta, h_n)))
-                    h2_n = None
-                elif t == "RMSPROP":
-                    h_n = _bin(add, _w(sp.rms_decay, h) * h,
-                               _w(1 - sp.rms_decay, g) * g * g)
-                    w2 = _bin(sub, w, _bin(div, _lr_mul(local_lr, g),
-                                           torch.sqrt(h_n)
-                                           + _w(sp.delta, h_n)))
-                    h2_n = None
-                elif t == "ADADELTA":
-                    h_n = _bin(add, _w(momentum, h) * h,
-                               _w(1 - momentum, g) * g * g)
-                    upd = _bin(operator.mul, g, torch.sqrt(_bin(
-                        div, h2 + _w(sp.delta, h2),
-                        h_n + _w(sp.delta, h_n))))
-                    h2_n = _bin(add, _w(momentum, h2) * h2,
-                                _w(1 - momentum, upd) * upd * upd)
-                    w2 = _bin(sub, w, _lr_mul(local_lr, upd))
-                else:  # ADAM
-                    b1, b2 = momentum, sp.momentum2
-                    h_n = _bin(add, _w(b1, h) * h, _w(1 - b1, g) * g)
-                    h2_n = _bin(add, _w(b2, h2) * h2,
-                                _w(1 - b2, g) * g * g)
-                    w2 = _bin(sub, w, _bin(div, _lr_mul(local_lr, h_n),
-                                           torch.sqrt(h2_n)
-                                           + _w(sp.delta, h2_n)))
-                # in place; each blob and history keeps its own dtype
-                w.copy_(w2)
-                h.copy_(h_n)
-                if h2_n is not None:
-                    h2.copy_(h2_n)
+                blob_update(w, grads[ln][bn], state.history[ln][bn],
+                            state.history2[ln][bn],
+                            scalars[slot[self._lr_mults[ln][bn]]],
+                            self._decay_mults[ln][bn])
         state.iter += 1
+
+    def update_blob(self, w: torch.Tensor, g: torch.Tensor,
+                    h: torch.Tensor, h2: torch.Tensor, local_lr,
+                    dm: float) -> None:
+        """One blob's update in place; each blob and history keeps its own
+        dtype."""
+        w2, h_n, h2_n = self.update_rule(w, g, h, h2, local_lr, dm)
+        w.copy_(w2)
+        h.copy_(h_n)
+        if h2_n is not None:
+            h2.copy_(h2_n)
+
+    def update_rule(self, w: torch.Tensor, g: torch.Tensor,
+                    h: torch.Tensor, h2: torch.Tensor, local_lr,
+                    dm: float):
+        """(new w, new history, new history2 or None) of one blob:
+        regularization, then the solver type's rule."""
+        sp = self.param
+        momentum = sp.momentum
+        wd = sp.weight_decay
+        t = self.solver_type
+        add, sub, div = operator.add, operator.sub, operator.truediv
+        if wd != 0.0 and dm != 0.0:
+            r = torch.sign(w) if sp.regularization_type == "L1" else w
+            g = g + _w(wd * dm, r) * r
+        if t == "SGD":
+            upd = _bin(add, _lr_mul(local_lr, g), _w(momentum, h) * h)
+            return _bin(sub, w, upd), upd, None
+        if t == "NESTEROV":
+            h_n = _bin(add, _lr_mul(local_lr, g), _w(momentum, h) * h)
+            upd = _bin(sub, _w(1 + momentum, h_n) * h_n,
+                       _w(momentum, h) * h)
+            return _bin(sub, w, upd), h_n, None
+        if t == "ADAGRAD":
+            h_n = _bin(add, h, g * g)
+            return (_bin(sub, w, _bin(div, _lr_mul(local_lr, g),
+                                      torch.sqrt(h_n) + _w(sp.delta, h_n))),
+                    h_n, None)
+        if t == "RMSPROP":
+            h_n = _bin(add, _w(sp.rms_decay, h) * h,
+                       _w(1 - sp.rms_decay, g) * g * g)
+            return (_bin(sub, w, _bin(div, _lr_mul(local_lr, g),
+                                      torch.sqrt(h_n) + _w(sp.delta, h_n))),
+                    h_n, None)
+        if t == "ADADELTA":
+            h_n = _bin(add, _w(momentum, h) * h,
+                       _w(1 - momentum, g) * g * g)
+            upd = _bin(operator.mul, g, torch.sqrt(_bin(
+                div, h2 + _w(sp.delta, h2), h_n + _w(sp.delta, h_n))))
+            h2_n = _bin(add, _w(momentum, h2) * h2,
+                        _w(1 - momentum, upd) * upd * upd)
+            return _bin(sub, w, _lr_mul(local_lr, upd)), h_n, h2_n
+        # ADAM
+        b1, b2 = momentum, sp.momentum2
+        h_n = _bin(add, _w(b1, h) * h, _w(1 - b1, g) * g)
+        h2_n = _bin(add, _w(b2, h2) * h2, _w(1 - b2, g) * g * g)
+        return (_bin(sub, w, _bin(div, _lr_mul(local_lr, h_n),
+                                  torch.sqrt(h2_n) + _w(sp.delta, h2_n))),
+                h_n, h2_n)
 
     # ------------------------------------------------------------------
     def train_step(self, params: Params, state: OptState,
@@ -437,15 +460,7 @@ class Solver:
         """One solver iteration, in place on params and state.  Returns
         the loss (a device scalar, not synchronized) and the output
         blobs with `lr` added."""
-        lr = learning_rate(self.param, state.iter)
-        loss, outputs, grads, fwd_state = self.loss_grads_and_state(
-            params, inputs)
-        self.apply_update(params, grads, state, lr)
-        # the statistics' lr_mult and decay_mult are 0: the update left
-        # them as they were, and the forward's new ones land now
-        self.train_net.merge_forward_state(params, fwd_state)
-        outputs["lr"] = lr
-        return loss, outputs
+        return take_step(self, params, state, inputs)
 
     def train_step_many(self, k: int):
         """`fn(params, state, stacked) -> (losses, outputs)`: k solver
@@ -459,26 +474,7 @@ class Solver:
         forward, gradients, clipping, iter_size accumulation and the
         update, replayed once a block.  On the CPU they are k eager
         `train_step` calls, the plain version.  Cached per k."""
-        if k < 1:
-            raise ValueError(f"steps-per-loop k must be >= 1, got {k}")
-        fn = self._many.get(k)
-        if fn is None:
-            fn = self._many[k] = (GraphedSteps(self, k)
-                                  if self.device.type == "cuda"
-                                  else functools.partial(self._eager_many,
-                                                         k))
-        return fn
-
-    def _eager_many(self, k: int, params: Params, state: OptState,
-                    stacked: Dict[str, torch.Tensor]):
-        losses, outs = [], []
-        for i in range(k):
-            loss, out = self.train_step(params, state,
-                                        {n: v[i] for n, v in stacked.items()})
-            losses.append(loss)
-            outs.append(out)
-        return torch.stack(losses), {n: torch.stack([o[n] for o in outs])
-                                     for n in outs[0]}
+        return steps_many(self, k)
 
     def eval_step_fn(self):
         """Validation forward, made by the serving path's
@@ -488,6 +484,50 @@ class Solver:
         from .serving.forward import make_forward_fn
         return make_forward_fn(self.test_net,
                                tuple(self.test_net.output_blobs))
+
+
+def take_step(stepper, params: Params, state: OptState,
+              inputs: Dict[str, torch.Tensor]
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One solver iteration of `stepper` (a Solver, or a ParallelSolver:
+    anything with `param`, `loss_grads_and_state`, `apply_update` and
+    `train_net`), in place on params and state."""
+    lr = learning_rate(stepper.param, state.iter)
+    loss, outputs, grads, fwd_state = stepper.loss_grads_and_state(
+        params, inputs)
+    stepper.apply_update(params, grads, state, lr)
+    # the statistics' lr_mult and decay_mult are 0: the update left them
+    # as they were, and the forward's new ones land now
+    stepper.train_net.merge_forward_state(params, fwd_state)
+    outputs["lr"] = lr
+    return loss, outputs
+
+
+def steps_many(stepper, k: int):
+    """`stepper.train_step_many(k)`, cached in `stepper._many`: a
+    `GraphedSteps` on a card, k eager steps on the CPU."""
+    if k < 1:
+        raise ValueError(f"steps-per-loop k must be >= 1, got {k}")
+    fn = stepper._many.get(k)
+    if fn is None:
+        fn = stepper._many[k] = (GraphedSteps(stepper, k)
+                                 if stepper.device.type == "cuda"
+                                 else functools.partial(eager_many,
+                                                        stepper, k))
+    return fn
+
+
+def eager_many(stepper, k: int, params: Params, state: OptState,
+               stacked: Dict[str, torch.Tensor]):
+    """k eager `train_step` calls over a stacked block."""
+    losses, outs = [], []
+    for i in range(k):
+        loss, out = stepper.train_step(params, state,
+                                       {n: v[i] for n, v in stacked.items()})
+        losses.append(loss)
+        outs.append(out)
+    return torch.stack(losses), {n: torch.stack([o[n] for o in outs])
+                                 for n in outs[0]}
 
 
 class GraphedSteps:
@@ -535,9 +575,11 @@ class GraphedSteps:
 
     @staticmethod
     def _ptrs(params: Params, state: OptState) -> tuple:
-        return tuple(t.data_ptr() for tree in (params, state.history,
+        # a ZeRO-1 state blob is a list of the dp ranks' slices
+        return tuple(x.data_ptr() for tree in (params, state.history,
                                                state.history2)
-                     for bl in tree.values() for t in bl.values())
+                     for bl in tree.values() for t in bl.values()
+                     for x in (t if isinstance(t, list) else (t,)))
 
     def __call__(self, params: Params, state: OptState,
                  stacked: Dict[str, torch.Tensor]):
@@ -546,8 +588,8 @@ class GraphedSteps:
             cur = torch.cuda.current_stream(self.solver.device)
             self.stream.wait_stream(cur)
             with torch.cuda.stream(self.stream):
-                losses, out = self.solver._eager_many(self.k, params, state,
-                                                      stacked)
+                losses, out = eager_many(self.solver, self.k, params, state,
+                                         stacked)
             cur.wait_stream(self.stream)
             for t in (losses, *out.values()):
                 if t.is_cuda:

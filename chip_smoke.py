@@ -256,15 +256,40 @@ or the package is not importable, and when any phase fails.  Phases:
      name where h5py / pyarrow are missing (run where present); each
      reader alone in records a second, and each run's median step
      interval, pack p50 and wall beside the reference's;
- 32. a `kernels` JSON line: launches on the serving, image-net training,
+ 32. dp and tp ranks sharing the card (`parallel.ParallelSolver`), under
+     cuDNN deterministic, counts zeroed before each run: CaffeNet at the
+     global B=256 through the CLI at -mesh 1 and 2 (the validating
+     config; validation rounds within ROWS_F32_TOL of the max of dp 1's)
+     and -mesh 4 (without validation: the TEST batch of 50 does not
+     divide over 4), K1 / K2 launched dp times dp 1's, every loss within
+     DP_LOSS_RTOL of dp 1's; AlexNet under COS_FUSE_BIAS_RELU_LRN=1 at
+     -mesh 1 and 2 (K3 / K4); -mesh 4 under COS_ZERO=1 (losses within
+     ZERO_LOSS_RTOL of plain dp 4's; each rank's optimizer-state bytes,
+     fc6 and fc7 at a quarter); -mesh 2 at COS_STEPS_PER_LOOP=4
+     (byte-equal to eager dp 2); these runs write no snapshot (the
+     card's disk counts every byte written); the first step's reduced
+     gradients at dp 2 and 4 no farther from the float64 step's than
+     twice dp 1's distance plus DP_GRAD_TOL of the max, and
+     synchronized direct steps by dp; -test and -features fc8 under
+     -mesh 2 within ROWS_F32_TOL of dp 1's; the LM through mini_cluster
+     -dtype mixed at -mesh 2,2 (K6 / K7 / K8 once per (B/2, H/2) block,
+     4 times dp 1's a step; losses within LM_STEP_GRAD_TOL) and -mesh
+     2,1,2 (K9 and K7 / K8: the sp 2 ring once per dp row); the f32
+     LM's first-step reduced gradients at -mesh 2,2 and 2,1,2 held as
+     CaffeNet's, and planted faults (rank 1's gradient dropped, tp
+     blocks joined in reverse) rejected; ep, pp, -serve -mesh and
+     -clusterSize 2 refused by name (phase 3 also checks K1-K4 at the
+     ranks' shapes, K6-K8 at (16, 2048, 64) bf16 and K9 at
+     (32, 1024, 1024, 64));
+ 33. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
      dtype; graphed runs included), encoded and graphed CaffeNet,
      GoogLeNet, ResNet-50, snapshot, HDF5, sidecar, lstm_lm, caption
-     (features, captioner, decode), layer and data-path paths, and the
+     (features, captioner, decode), layer, data-path and dp paths, and the
      numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
      `kernel_records` line); a `ptxas` line; then the card line again;
- 33. the device line, last: {"ok": true, "device": {...}}.
+ 34. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1016,6 +1041,20 @@ def kernel_phase(K, torch) -> dict:
                                       False, True)):
                 check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, res,
                               timed=False, ls=ls)
+    # the dp ranks' shapes (phase 32): CaffeNet's B=256 over dp 2 (dp 4's
+    # B=64 is the serving shape above), AlexNet's fused stem over dp 2
+    for b in (TRAIN_B // 2, TRAIN_B // 4):
+        for name, shape in (("lrn_across_channels", (b, 96, 27, 27)),
+                            ("lrn_across_channels", (b, 256, 13, 13))):
+            check_lrn(K, torch, name, shape, torch.float32, False, False,
+                      res, timed=False)
+            check_lrn_bwd(K, torch, name + "_bwd", shape, torch.float32,
+                          False, False, res, timed=False)
+    for shape in ((TRAIN_B // 2, 96, 55, 55), (TRAIN_B // 2, 256, 27, 27)):
+        check_lrn(K, torch, "bias_relu_lrn_across_channels", shape,
+                  torch.float32, False, True, res, timed=False)
+        check_lrn_bwd(K, torch, "bias_relu_lrn_across_channels_bwd", shape,
+                      torch.float32, False, True, res, timed=False)
     for m, n, kk in ((B, 4096, 9216), (B, 4096, 4096), (B, 1000, 4096)):
         check_int8(K, torch, m, n, kk, res)
     for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
@@ -1050,6 +1089,10 @@ def flash_phase(K, torch, res):
         for causal in (True, False):
             check_flash(K, torch, (FLASH_BH // 8, FLASH_T, 512), dtype,
                         causal, res)
+    # the LM's (B/dp * H/tp, T, D) block at dp 2 x tp 2 (phase 32), bf16
+    # under -dtype mixed
+    check_flash(K, torch, (FLASH_BH // 4, FLASH_T, FLASH_D), torch.bfloat16,
+                True, res, timed=False)
     for shape in ((3, 200, 48), (4, 384, 32), (4, 384, 200), (3, 200, 257),
                   (2, 130, 320), (2, 96, 1024)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1071,6 +1114,10 @@ def flash_phase(K, torch, res):
         for causal in (True, False):
             check_block_update(K, torch, (3, 200, 328, 48), dtype, causal,
                                100, 150, True, res, timed=False)
+        # a dp row's ring at dp 2 x sp 2 (phase 32): (B/2 * H, T/2, T/2, D)
+        th = FLASH_T // 2
+        check_block_update(K, torch, (FLASH_BH // 2, th, th, FLASH_D),
+                           dtype, True, th, th, True, res, timed=False)
         # head_dim 256: a diagonal and a full causal hop; a ragged D
         for q_off, k_off in ((t, t), (3 * t, 0)):
             check_block_update(K, torch, (FLASH_BH // 4, t, t, 256), dtype,
@@ -1601,7 +1648,7 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
                 device="cuda", per_step=TRAIN_B, unit="images",
                 launches_each=2 * TRAIN_ITERS, args=(), expect=None,
                 rounds=0, capture=0, iters=TRAIN_ITERS, steady=False,
-                first_loss=(6.0, 8.0)):
+                first_loss=(6.0, 8.0), snapshots=True):
     """-train through caffe_on_spark.main (with the extra CLI `args`)
     with the counts zeroed just before and read just after; checks
     losses, snapshots and that each of `kernels` launched `launches_each`
@@ -1613,7 +1660,8 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     snapshot checks; with `steady`, the record adds the steady step time
     over the steps after STEADY_FROM, between the loss log's syncs.
     `first_loss` bounds the first step's loss (a net with auxiliary
-    losses weighs more than ln 1000)."""
+    losses weighs more than ln 1000).  `snapshots=False`: a solver that
+    writes none (`no_snapshots`), whose files are not looked for."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark
     shutil.rmtree(outdir, ignore_errors=True)
@@ -1640,7 +1688,8 @@ def train_phase(K, label, solver_path, env, outdir, kernels,
     check(first_loss[0] <= losses[0] <= first_loss[1],
           f"{label}: first loss {losses[0]:.4f} outside {first_loss}")
     name = os.path.basename(solver_path).split("_")[0]
-    for it in ((4, TRAIN_ITERS) if iters == TRAIN_ITERS else ()):
+    for it in ((4, TRAIN_ITERS) if iters == TRAIN_ITERS and snapshots
+               else ()):
         for ext in ("caffemodel", "solverstate"):
             f = os.path.join(outdir, f"{name}_train_iter_{it}.{ext}")
             check(os.path.exists(f), f"{label}: no snapshot {f}")
@@ -4348,6 +4397,454 @@ def datapath_phase(K, torch, workdir, ref, test_lmdb, kernels,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 32: dp and tp ranks sharing the card (ParallelSolver, ZeRO-1) and
+# evaluation on a mesh
+# ---------------------------------------------------------------------------
+
+DP_MESHES = (1, 2, 4)      # CaffeNet's dp extents at the global B=256
+DP_LOSS_RTOL = 1e-3        # dp N's losses against dp 1's
+DP_GRAD_TOL = 1e-4         # reduced gradients: 2x dp 1's f64 distance + this
+ZERO_LOSS_RTOL = 1e-5      # ZeRO-1 dp 4 against plain dp 4
+DP_LM_ITERS = 3            # the LM's mesh runs through mini_cluster (no
+                           # snapshot before step 4)
+DP_DIRECT_STEPS = 5
+
+
+def _f64_grads(K, torch, solver, params, batch, env):
+    """The same first step in float64 with every kernel plain: the
+    reference both dp 1's and dp N's f32 gradients are held against."""
+    from caffeonspark_tpu_torch.solver import Solver
+    with env_set(env):
+        s64 = Solver(solver.param, solver.train_net.net_param,
+                     device=solver.device, dtype=torch.float64)
+    p64 = {ln: {bn: t.double() for bn, t in bl.items()}
+           for ln, bl in params.items()}
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    s64.generator.manual_seed(99)
+    with plain_kernels(K):
+        loss, _, g = s64.loss_and_grads(p64, b64)
+    return float(loss), g
+
+
+def _f64_errs(g, g64):
+    """Each blob's max |g - g64| / max |g64|."""
+    return {(ln, bn): float((g[ln][bn].double() - r).abs().max()
+                            / max(float(r.abs().max()), 1e-300))
+            for ln, bl in g64.items() for bn, r in bl.items()}
+
+
+def no_snapshots(solver_path: str) -> str:
+    """The solver of a -train config rewritten to write no snapshot (the
+    final model only): the card's disk counts every byte a run writes,
+    and phase 32's runs need their losses and final models only."""
+    with open(solver_path) as f:
+        text = f.read()
+    text = text.replace("snapshot: 4\n", "snapshot: 0\n").replace(
+        "snapshot_after_train: true", "snapshot_after_train: false")
+    check("snapshot: 0\n" in text and "after_train: false" in text,
+          f"{solver_path}: no snapshot cadence to turn off")
+    with open(solver_path, "w") as f:
+        f.write(text)
+    return solver_path
+
+
+def _mesh_spec(dims) -> str:
+    """The -mesh spelling of build_mesh kwargs ({"dp": 2, "sp": 2} ->
+    "2,1,2")."""
+    order = ("dp", "tp", "sp")
+    last = max(i for i, ax in enumerate(order) if dims.get(ax, 1) > 1)
+    return ",".join(str(dims.get(ax, 1)) for ax in order[:last + 1])
+
+
+@contextlib.contextmanager
+def _patched(module, name, fn):
+    """`module.name` replaced by `fn` for the context's duration."""
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def planted_faults():
+    """Faults a mesh's step must not hide, each a context that plants it:
+    the gradient exchange of parallel/dp.py keeping rank 0's gradient
+    and dropping the others'; the layers' joins of tp column blocks (and
+    head blocks) taken in reverse order."""
+    from caffeonspark_tpu_torch.ops import layers as L
+    from caffeonspark_tpu_torch.parallel import dp as dp_mod
+    real_gather = L.all_gather
+    return {
+        "rank 0's gradient only": lambda: _patched(
+            dp_mod, "all_reduce", lambda ts, mesh, axis: [ts[0]] * len(ts)),
+        "tp blocks joined in reverse": lambda: _patched(
+            L, "all_gather", lambda ts, dim: real_gather(ts[::-1], dim))}
+
+
+def dp_first_grads(K, torch, label, solver_path, env, meshes, device="cuda",
+                   fault=False):
+    """The first step's loss and reduced gradients of ParallelSolver on
+    each mesh of `meshes` (build_mesh kwargs) against the single-device
+    step (same params, batch and dropout seed, cuDNN deterministic),
+    both held against the same step in float64 with every kernel plain:
+    the mesh's loss within DP_LOSS_RTOL of dp 1's, and each of its
+    gradients no farther from the float64 gradient than twice dp 1's
+    distance plus DP_GRAD_TOL (of the float64 gradient's max; a change
+    of the reductions' order moves f32 gradients whose sums cancel,
+    conv1's and conv2's weights, by up to about 1e-2 of their max, at
+    dp 1 as at dp N); then DP_DIRECT_STEPS synchronized direct steps at
+    dp 1 and on each mesh.  `fault`: the first mesh's step again under
+    each of `planted_faults`, which the same limit must reject."""
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    from caffeonspark_tpu_torch.parallel import ParallelSolver, build_mesh
+    solver, host = make_solver(torch, solver_path, env, device)
+    batch = to_device(host, solver.device)
+    params, state = solver.init()
+    loss_64, g_64 = _f64_grads(K, torch, solver, params, batch, env)
+    solver.generator.manual_seed(99)
+    loss_1, _, g_1 = solver.loss_and_grads(params, batch)
+    e_1 = _f64_errs(g_1, g_64)
+    del g_64
+    rec = dict(label=label, loss_f64=loss_64, loss_dp1=float(loss_1),
+               dp1_worst_grad_vs_f64=max(e_1.values()), dp={})
+    step_ms = {"1": direct_steps(torch, solver, params, state, host,
+                                 n=DP_DIRECT_STEPS)}
+
+    def first_step(ps):
+        p0, st0 = solver.init()
+        solver.generator.manual_seed(99)
+        loss_n, _, g_n = ps.loss_and_grads(ps.shard_params(p0), batch)
+        _, g_64 = _f64_grads(K, torch, solver, p0, batch, env)
+        e_n = _f64_errs(g_n, g_64)
+        over = {k: e for k, e in e_n.items()
+                if e > 2 * e_1[k] + DP_GRAD_TOL}
+        return p0, st0, float(loss_n), g_n, e_n, over
+
+    for dims in meshes:
+        spec = _mesh_spec(dims)
+        gc.collect()
+        torch.cuda.empty_cache()
+        n = math.prod(dims.values())
+        ps = ParallelSolver(solver, build_mesh(
+            devices=[solver.device] * n, **dims))
+        p0, st0, loss_n, g_n, e_n, over = first_step(ps)
+        rel = abs(loss_n - float(loss_1)) / abs(float(loss_1))
+        check(rel <= DP_LOSS_RTOL, f"{label} -mesh {spec}: first loss "
+              f"{loss_n} against dp 1's {float(loss_1)} (rel {rel:.3g})")
+        for key, e in over.items():
+            check(False, f"{label} -mesh {spec}: {key[0]}/{key[1]} gradient"
+                  f" {e:.3g} of max from the float64 step, dp 1's "
+                  f"{e_1[key]:.3g}")
+        raw = {k: float((g_n[k[0]][k[1]] - g_1[k[0]][k[1]]).abs().max()
+                        / max(float(g_1[k[0]][k[1]].abs().max()), 1e-30))
+               for k in e_1}
+        at = max(raw, key=raw.get)
+        step_ms[spec] = direct_steps(torch, solver, p0, ps.shard_opt_state(
+            st0), host, n=DP_DIRECT_STEPS, step=ps.train_step)
+        rec["dp"][spec] = dict(
+            loss=loss_n, loss_rel=rel, worst_grad_vs_f64=max(e_n.values()),
+            worst_grad_vs_dp1=raw[at], worst_grad_vs_dp1_at="/".join(at))
+        del p0, st0, g_n
+        log(f"  {label} -mesh {spec}: first loss {loss_n:.6f} (rel "
+            f"{rel:.3g} of dp 1's); gradients at most {max(e_n.values()):.3g}"
+            f" of max from the float64 step (dp 1: {max(e_1.values()):.3g});"
+            f" against dp 1's at most {raw[at]:.3g} ({'/'.join(at)})")
+        for name, plant in (planted_faults().items()
+                            if fault and dims is meshes[0] else ()):
+            with plant():
+                *_, f_over = first_step(ps)
+            worst = max(f_over.items(), key=lambda kv: kv[1],
+                        default=(("", ""), 0.0))
+            check(len(f_over) > 0, f"{label} -mesh {spec}: the planted "
+                  f"fault ({name}) passed the limit")
+            rec["dp"][spec].setdefault("planted_faults", {})[name] = dict(
+                blobs_over_limit=len(f_over), of=len(e_1),
+                worst="/".join(worst[0]), worst_vs_f64=worst[1])
+            log(f"  {label} -mesh {spec}, planted fault ({name}): "
+                f"{len(f_over)} of {len(e_1)} blobs over the limit, worst "
+                f"{'/'.join(worst[0])} {worst[1]:.3g} of max")
+        del ps
+    rec["direct_step_ms"] = step_ms
+    rec["direct_step_median_ms"] = {k: median(v) for k, v in step_ms.items()}
+    log(f"  {label}: {DP_DIRECT_STEPS} synchronized direct steps at the "
+        "global batch, median ms by -mesh: "
+        + ", ".join(f"{k} {median(v):.1f}" for k, v in step_ms.items()))
+    return rec
+
+
+def zero_state_bytes(torch, solver_path, dp, device="cuda"):
+    """Optimizer-state bytes each rank holds under ZeRO-1 at `dp` against
+    dp 1's, fc6's and fc7's momentum at a quarter (no step is taken)."""
+    from caffeonspark_tpu_torch.parallel import ParallelSolver, build_mesh
+    from caffeonspark_tpu_torch.parallel.comm import Shards
+    solver, _ = make_solver(torch, solver_path, {}, device)
+    params, st = solver.init()
+    ps = ParallelSolver(solver, build_mesh(dp=dp,
+                                           devices=[solver.device] * dp),
+                        zero_dp=True)
+    zst = ps.shard_opt_state(st)
+    one = sum(t.numel() * t.element_size() for tree in (st.history,
+                                                         st.history2)
+              for bl in tree.values() for t in bl.values())
+    per_rank = ps.state_bytes(zst)
+    for ln in ("fc6", "fc7"):
+        h = zst.history[ln]["weight"]
+        check(isinstance(h, Shards) and len(h) == dp and all(
+            x.numel() * dp == params[ln]["weight"].numel() for x in h),
+            f"ZeRO-1 dp {dp}: {ln}'s momentum is not cut into {dp} "
+            "equal slices")
+    res = dict(dp=dp, dp1_bytes=one, per_rank_bytes=per_rank,
+               fc6_fc7_rank_fraction=1.0 / dp)
+    log(f"  ZeRO-1 dp {dp}: optimizer state {per_rank[0]:,} bytes a rank "
+        f"against {one:,} at dp 1 ({per_rank[0] / one:.3f}); fc6 and fc7 "
+        f"at 1/{dp}")
+    del solver, params, st, zst, ps
+    return res
+
+
+def dp_eval(K, torch, label, solver_path, model, outdir, mode, dp1_launches,
+            device="cuda"):
+    """-test or -features fc8 (`mode`) of `model` under -mesh 2 and
+    without it (counts zeroed before each): K1 launched twice as often
+    under dp 2, the means or rows within ROWS_F32_TOL of the max of dp
+    1's."""
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch import caffe_on_spark
+    args = ["-test"] if mode == "test" else ["-features", "fc8"]
+    out, counts = {}, {}
+    for key, mesh in (("dp2", ["-mesh", "2"]), ("dp1", [])):
+        d = os.path.join(outdir, key)
+        shutil.rmtree(d, ignore_errors=True)
+        K.reset_launch_counts()
+        rc = caffe_on_spark.main(["-conf", solver_path, *args, "-model",
+                                  model, "-output", d, "-device", device,
+                                  *mesh])
+        counts[key] = dict(K.launch_counts)
+        check(rc == 0, f"{label} {key}: -{mode} returned {rc}")
+        name = "test_result" if mode == "test" else "features.json"
+        with open(os.path.join(d, name)) as f:
+            out[key] = (json.load(f) if mode == "test"
+                        else [json.loads(x) for x in f if x.strip()])
+    for key, dp in (("dp1", 1), ("dp2", 2)):
+        want = {k: (dp * dp1_launches if k == "lrn_across_channels" else 0)
+                for k in counts[key]}
+        check(counts[key] == want, f"{label} {key}: launches "
+              f"{counts[key]}, expected {want}")
+    if mode == "test":
+        err = max(abs(out["dp2"][k][0] - out["dp1"][k][0])
+                  / max(abs(out["dp1"][k][0]), 1e-30) for k in out["dp1"])
+    else:
+        check([r["SampleID"] for r in out["dp2"]]
+              == [r["SampleID"] for r in out["dp1"]],
+              f"{label}: -features rows out of order under -mesh 2")
+        g = np.asarray([r["fc8"] for r in out["dp2"]], np.float64)
+        r_ = np.asarray([r["fc8"] for r in out["dp1"]], np.float64)
+        err = float(np.abs(g - r_).max() / np.abs(r_).max())
+    check(err <= ROWS_F32_TOL, f"{label}: -{mode} under -mesh 2 differs from "
+          f"dp 1's by {err:.3g} (tol {ROWS_F32_TOL})")
+    log(f"  {label}: -{mode} under -mesh 2 within {err:.3g} of dp 1's (tol "
+        f"{ROWS_F32_TOL}); launches {counts['dp2']}")
+    return dict(label=label, mode=mode, rel_err=err, launches=counts["dp2"],
+                launches_dp1=counts["dp1"])
+
+
+def dp_refusals(solver_path, lm_solver, model, device="cuda"):
+    """ep, pp, -serve -mesh and -clusterSize 2 refused by name before a
+    step runs (no output directory made)."""
+    import shutil
+    from caffeonspark_tpu_torch import caffe_on_spark
+    out = {}
+    for key, argv, match in (
+            ("ep", ["-conf", lm_solver, "-train", "-mesh", "1,1,1,2"],
+             "Queue 1 item 8"),
+            ("pp", ["-conf", lm_solver, "-train", "-mesh", "pp=2"],
+             "Queue 1 item 8"),
+            ("serve_mesh", ["-conf", solver_path, "-serve", "-model", model,
+                            "-mesh", "2"], "serving on a mesh"),
+            ("cluster_size", ["-conf", solver_path, "-train",
+                              "-clusterSize", "2"], "-clusterSize 2")):
+        d = os.path.join(os.path.dirname(model), f"refused_{key}")
+        shutil.rmtree(d, ignore_errors=True)
+        try:
+            caffe_on_spark.main([*argv, "-output", d, "-device", device])
+            msg = None
+        except ValueError as e:
+            msg = str(e)
+        check(msg is not None and match in msg and not os.path.exists(d),
+              f"dp refusal {key}: {msg!r}, expected a ValueError naming "
+              f"{match!r} before any output")
+        out[key] = msg
+    log("  refused by name: " + "; ".join(f"{k}: {v}"
+                                         for k, v in out.items()))
+    return out
+
+
+def dp_phase(K, torch, workdir, lmdb, test_lmdb, val_solver, val_model,
+             lm_solver, lm_mixed, device="cuda"):
+    """CaffeNet, AlexNet and the LM with dp and tp ranks sharing the card
+    (ParallelSolver; counts zeroed before each run, read after), at the
+    global batch, under cuDNN deterministic, writing no snapshot
+    (`no_snapshots`):
+      * CaffeNet -train -mesh 1 and 2 (the validating config: its
+        validation rounds within ROWS_F32_TOL of the max of dp 1's) and
+        -mesh 4 (the TEST batch of 50 does not divide over 4: the config
+        without validation): K1 / K2 dp times dp 1's, every loss within
+        DP_LOSS_RTOL of dp 1's; the first step's reduced gradients at dp
+        2 and 4 against dp 1's and the float64 step's (dp_first_grads),
+        and synchronized direct steps by dp;
+      * AlexNet COS_FUSE_BIAS_RELU_LRN=1 at -mesh 1 and 2: the same for
+        K3 / K4;
+      * CaffeNet -mesh 4 under COS_ZERO=1: losses within ZERO_LOSS_RTOL
+        of plain dp 4's, and the state bytes a rank;
+      * CaffeNet -mesh 2 at COS_STEPS_PER_LOOP=GRAPH_K: losses and final
+        model byte-equal to the eager dp 2 run's;
+      * -test and -features fc8 of `val_model` under -mesh 2 (dp_eval);
+      * the LM through mini_cluster -dtype mixed for DP_LM_ITERS steps
+        at -mesh 2,2 (K6 / K7 / K8 4 times dp 1's a step; losses within
+        LM_STEP_GRAD_TOL of the dp 1 mixed run's) and -mesh 2,1,2 (K9 and
+        K7 / K8: the sp 2 ring once per dp row); the f32 LM's first-step
+        reduced gradients at -mesh 2,2 and 2,1,2 against dp 1's and the
+        float64 step's (dp_first_grads), with planted faults (the
+        exchange dropping rank 1's gradient, tp blocks joined in reverse)
+        that the limit rejects;
+      * the refusals (dp_refusals)."""
+    from caffeonspark_tpu_torch.models import zoo
+    lrn = ("lrn_across_channels", "lrn_across_channels_bwd")
+    fused = ("bias_relu_lrn_across_channels",
+             "bias_relu_lrn_across_channels_bwd")
+    plain_solver = no_snapshots(write_train_config(
+        workdir, zoo.caffenet, lmdb, seed=1, suffix="Dp"))
+    alex_solver = no_snapshots(write_train_config(
+        workdir, zoo.alexnet, lmdb, seed=2, suffix="Dp"))
+    dp_val_solver = no_snapshots(write_train_config(
+        workdir, zoo.caffenet, lmdb, seed=1, test_lmdb=test_lmdb,
+        suffix="Dp"))
+    fuse = {"COS_FUSE_BIAS_RELU_LRN": "1"}
+    val_lrn = 2 * TRAIN_ITERS + VAL_ROUNDS * VAL_ITER * 2
+    runs, models = {}, {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.monotonic()
+    try:
+        for key, solver, env, dp, kernels, rounds in (
+                ("caffenet_dp1", dp_val_solver, {}, 1, lrn, VAL_ROUNDS),
+                ("caffenet_dp2", dp_val_solver, {}, 2, lrn, VAL_ROUNDS),
+                ("caffenet_dp2_k4", dp_val_solver,
+                 {"COS_STEPS_PER_LOOP": str(GRAPH_K)}, 2, lrn, VAL_ROUNDS),
+                ("caffenet_dp4", plain_solver, {}, 4, lrn, 0),
+                ("caffenet_dp4_zero", plain_solver, {"COS_ZERO": "1"}, 4,
+                 lrn, 0),
+                ("alexnet_dp1", alex_solver, fuse, 1, fused, 0),
+                ("alexnet_dp2", alex_solver, fuse, 2, fused, 0)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            expect = ({kernels[0]: dp * val_lrn} if rounds else None)
+            runs[key], models[key] = train_phase(
+                K, f"{key} -mesh {dp}", solver, env,
+                os.path.join(workdir, f"{key}_out"), kernels,
+                launches_each=dp * 2 * TRAIN_ITERS, args=("-mesh", str(dp)),
+                expect=expect, rounds=rounds, device=device,
+                snapshots=False)
+            runs[key]["dp"] = dp
+        grads = [dp_first_grads(K, torch, "CaffeNet", plain_solver, {},
+                                ({"dp": 2}, {"dp": 4}), device),
+                 dp_first_grads(K, torch, "AlexNet fused", alex_solver,
+                                fuse, ({"dp": 2},), device)]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    base = {"caffenet": runs["caffenet_dp1"]["losses"],
+            "alexnet": runs["alexnet_dp1"]["losses"]}
+    for key, r in runs.items():
+        ref = base[key.split("_")[0]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref))
+        r["loss_rel_to_dp1"] = rel
+        check(rel <= DP_LOSS_RTOL, f"{key}: losses {r['losses']} against "
+              f"dp 1's {ref} (worst rel {rel:.3g}, tol {DP_LOSS_RTOL})")
+    z, p4 = runs["caffenet_dp4_zero"], runs["caffenet_dp4"]
+    zrel = max(abs(a - b) / abs(b) for a, b in zip(z["losses"],
+                                                     p4["losses"]))
+    check(zrel <= ZERO_LOSS_RTOL, f"ZeRO-1 dp 4: losses against plain dp "
+          f"4's differ by {zrel:.3g} (tol {ZERO_LOSS_RTOL})")
+    g, e = runs["caffenet_dp2_k4"], runs["caffenet_dp2"]
+    with open(models["caffenet_dp2_k4"], "rb") as f1, \
+            open(models["caffenet_dp2"], "rb") as f2:
+        same = f1.read() == f2.read()
+    check(same and g["losses"] == e["losses"],
+          f"COS_STEPS_PER_LOOP={GRAPH_K} dp 2: final model byte-equal "
+          f"{same}, losses {g['losses']} against eager {e['losses']}")
+    v1, v2 = (runs["caffenet_dp1"]["validation"],
+              runs["caffenet_dp2"]["validation"])
+    verr = 0.0
+    for key in ("accuracy", "loss"):
+        top = max(max(abs(r[key]) for r in v1), 1e-30)
+        verr = max(verr, max(abs(a[key] - b[key]) for a, b in zip(v1, v2))
+                   / top)
+    check(verr <= ROWS_F32_TOL, f"validation under -mesh 2 {v2} against dp "
+          f"1's {v1}: {verr:.3g} of the max (tol {ROWS_F32_TOL})")
+    log(f"  CaffeNet: ZeRO-1 dp 4 losses within {zrel:.3g} of plain dp 4's;"
+        f" K={GRAPH_K} graphs at dp 2 byte-equal to eager; validation "
+        f"under -mesh 2 within {verr:.3g} of dp 1's")
+    zero = zero_state_bytes(torch, plain_solver, 4, device)
+    evals = [dp_eval(K, torch, f"CaffeNet {mode}", val_solver, val_model,
+                     os.path.join(workdir, f"dp_eval_{mode}"), mode,
+                     2 * math.ceil(VAL_RECORDS / VAL_B), device)
+             for mode in ("test", "features")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+    per_step_dp1 = lm_mixed["launches"]["flash_attention_fwd"] // TRAIN_ITERS
+    lm_tp = mc_phase(K, "TransformerLM mini_cluster -mesh 2,2 mixed",
+                     lm_solver, "mixed",
+                     os.path.join(workdir, "transformerlm_mc_dp2tp2_out"),
+                     lm_kernels, 4 * per_step_dp1 * DP_LM_ITERS,
+                     args=("-mesh", "2,2"), iters=DP_LM_ITERS,
+                     device=device)
+    lrel = max(abs(a - b) / abs(b) for a, b in
+               zip(lm_tp["losses"], lm_mixed["losses"]))
+    check(lrel <= LM_STEP_GRAD_TOL, f"LM -mesh 2,2 mixed: losses "
+          f"{lm_tp['losses']} against dp 1's {lm_mixed['losses']} (rel "
+          f"{lrel:.3g}, tol {LM_STEP_GRAD_TOL})")
+    lm_tp["loss_rel_to_dp1"] = lrel
+    gc.collect()
+    torch.cuda.empty_cache()
+    hops = 2 * 3     # two dp rows, each an sp 2 causal ring of 3 hops
+    lm_sp = mc_phase(K, "TransformerLM mini_cluster -mesh 2,1,2 mixed",
+                     lm_solver, "mixed",
+                     os.path.join(workdir, "transformerlm_mc_dp2sp2_out"),
+                     ("flash_block_update", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"),
+                     LM["layers"] * hops * DP_LM_ITERS,
+                     args=("-mesh", "2,1,2"), iters=DP_LM_ITERS,
+                     device=device)
+    srel = max(abs(a - b) / abs(b) for a, b in
+               zip(lm_sp["losses"], lm_mixed["losses"]))
+    check(srel <= LM_STEP_GRAD_TOL, f"LM -mesh 2,1,2 mixed: losses "
+          f"{lm_sp['losses']} against dp 1's (rel {srel:.3g})")
+    lm_sp["loss_rel_to_dp1"] = srel
+    log(f"  LM mixed: -mesh 2,2 losses within {lrel:.3g} and -mesh 2,1,2 "
+        f"within {srel:.3g} of dp 1's (tol {LM_STEP_GRAD_TOL})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    grads.append(dp_first_grads(
+        K, torch, "TransformerLM f32", lm_solver, {},
+        ({"dp": 2, "tp": 2}, {"dp": 2, "sp": 2}), device, fault=True))
+    refused = dp_refusals(val_solver, lm_solver, val_model, device)
+    wall = time.monotonic() - t_phase
+    log(f"  the dp phase: {wall:.1f} s")
+    for r in runs.values():
+        r.pop("step_t", None)
+    return dict(runs=runs, first_step=grads, zero_state=zero,
+                zero_loss_rel=zrel, graphed_byte_equal=same,
+                validation_rel_err=verr, eval=evals, lm_dp2_tp2=lm_tp,
+                lm_dp2_sp2=lm_sp, refused=refused, wall_s=wall)
+
+
 def ptxas_report(text: str) -> list:
     """Registers and spills of each flash kernel instantiation, from the
     `-Xptxas -v` output of nvcc (names demangled by c++filt where the
@@ -4772,8 +5269,21 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     datapath = datapath_phase(K, torch, workdir, encoded.pop("reference"),
                               test_lmdb, train_configs[0][3])
+    log("dp and tp ranks sharing the card (ParallelSolver; CaffeNet and "
+        f"AlexNet at the global B={TRAIN_B} over -mesh 1, 2 and 4, ZeRO-1, "
+        f"K={GRAPH_K} graphs, evaluation on the mesh, the LM at -mesh 2,2 "
+        "and 2,1,2 through mini_cluster; cuDNN deterministic; counts zeroed "
+        "before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = dp_phase(K, torch, workdir, lmdb, test_lmdb,
+                  val_models["CaffeNet train+validate"][0],
+                  val_models["CaffeNet train+validate"][1], lm_solver,
+                  lm_mc["runs"]["mixed"])
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
+    mc_paths["mc_transformerlm_dp2tp2_mixed"] = dp["lm_dp2_tp2"]
+    mc_paths["mc_transformerlm_dp2sp2_mixed"] = dp["lm_dp2_sp2"]
     mc_paths["mc_transformerlm_sp4_mixed"] = lm_mc["sp_run"]
     mc_paths["mc_caffenet_state_dtype"] = image_mc["state_dtype"]
     for dtype, r in graph_lm["runs"].items():
@@ -4827,7 +5337,11 @@ def main(argv) -> int:
                        caption["decode_launches"].get(name, 0),
                    "layers": layers["launches"].get(name, 0),
                    **{f"datapath_{k[2:]}": r["launches"].get(name, 0)
-                      for k, r in datapath["runs"].items()}}
+                      for k, r in datapath["runs"].items()},
+                   **{f"dp_{k}": r["launches"].get(name, 0)
+                      for k, r in dp["runs"].items()},
+                   **{f"dp_{e['mode']}_mesh2": e["launches"].get(name, 0)
+                      for e in dp["eval"]}}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -4881,6 +5395,7 @@ def main(argv) -> int:
     log(json.dumps({"lstm_lm": lstm, "caption": caption,
                     "layers": layers}))
     log(json.dumps({"datapath": datapath}))
+    log(json.dumps({"dp": dp}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

@@ -1107,3 +1107,119 @@ def test_hdf5_output_side_channel_under_a_cuda_graph_on_card(cuda_card):
     outs = collect_hdf5_outputs(state)
     assert list(outs) == ["out"] and outs["out"][0].device.type == "cuda"
     assert torch.equal(outs["out"][1], blocks[0]["target"][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True], ids=["lrn", "bias_relu_lrn"])
+def test_dp2_step_equals_dp1_on_card(cuda_card, fused, monkeypatch):
+    """ParallelSolver's dp 2 step on the card (two ranks sharing it) of
+    CaffeNet at its published conv and LRN widths (96 x 27 x 27 and
+    256 x 13 x 13 LRNs), or of AlexNet under COS_FUSE_BIAS_RELU_LRN=1
+    (the fused stem at 96 x 55 x 55 and 256 x 27 x 27), at B 8 and 10
+    classes, against the single-device step (the dropout mask drawn
+    once for the global batch), cuDNN deterministic: K1 / K2 (K3 / K4)
+    launched twice as often, the loss within 1e-5, and each reduced
+    gradient no farther from the same step in float64 on the CPU than
+    twice dp 1's distance plus 1e-4 of its max (f32 sums that cancel,
+    conv1's and conv2's weight gradients, move by up to 1e-2 of their
+    max with any change of the reductions' order, at dp 1 as at dp 2)."""
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.parallel import ParallelSolver, build_mesh
+    from caffeonspark_tpu_torch.proto import SolverParameter
+    from caffeonspark_tpu_torch.solver import Solver
+    if fused:
+        monkeypatch.setenv("COS_FUSE_BIAS_RELU_LRN", "1")
+    torch.backends.cudnn.deterministic = True
+    npm = (zoo.alexnet if fused else zoo.caffenet)(batch_size=8,
+                                                   num_classes=10)
+    sp = SolverParameter.from_text(
+        "base_lr: 0.01 momentum: 0.9 random_seed: 3")
+    solver = Solver(sp, npm, device=cuda_card)
+    rng = np.random.RandomState(2)
+    host = {"data": rng.randn(8, 3, 227, 227).astype(np.float32) * 40,
+            "label": rng.randint(0, 10, 8).astype(np.float32)}
+    batch = {k: torch.from_numpy(v).to(cuda_card) for k, v in host.items()}
+    params, _ = solver.init()
+    cpu64 = Solver(sp, npm, device="cpu", dtype=torch.float64)
+    cpu64.generator.manual_seed(5)
+    _, _, g64 = cpu64.loss_and_grads(
+        {ln: {bn: t.cpu().double() for bn, t in bl.items()}
+         for ln, bl in params.items()},
+        {k: torch.from_numpy(v).double() for k, v in host.items()})
+    names = (("bias_relu_lrn_across_channels",
+              "bias_relu_lrn_across_channels_bwd") if fused
+             else ("lrn_across_channels", "lrn_across_channels_bwd"))
+    counts, grads = [], []
+    for stepper in (solver, ParallelSolver(solver, build_mesh(
+            dp=2, devices=[cuda_card] * 2))):
+        solver.generator.manual_seed(5)
+        K.reset_launch_counts()
+        loss, _, g = stepper.loss_and_grads(params, batch)
+        torch.cuda.synchronize()
+        counts.append([K.launch_counts[n] for n in names])
+        grads.append((float(loss), g))
+    assert counts[0] == [2, 2] and counts[1] == [4, 4]
+    (l1, g1), (l2, g2) = grads
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    for ln, bl in g64.items():
+        for bn, r in bl.items():
+            top = max(float(r.abs().max()), 1e-300)
+            e1 = float((g1[ln][bn].cpu().double() - r).abs().max()) / top
+            e2 = float((g2[ln][bn].cpu().double() - r).abs().max()) / top
+            assert e2 <= 2 * e1 + 1e-4, (ln, bn, e1, e2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("zero", [False, True], ids=["dp2", "dp2_zero"])
+def test_graphed_dp2_steps_equal_eager_on_card(cuda_card, zero):
+    """ParallelSolver's dp 2 steps as CUDA graphs of 4
+    (train_step_many(4): the ranks' leaves, the all_reduce and, under
+    ZeRO-1, the ranks' state slices captured) against 12 eager dp 2
+    steps from the same init, on the narrow CaffeNet of the graph tests
+    (Dropout, clip_gradients, iter_size 2): params, histories, losses
+    and learning rates bit-equal, cuDNN deterministic."""
+    from caffeonspark_tpu_torch.parallel import (ParallelSolver, build_mesh,
+                                                 zero_state_specs)
+    from caffeonspark_tpu_torch.parallel.comm import Shards
+    torch.backends.cudnn.deterministic = True
+
+    def case():
+        solver, params, state, blocks, _ = _graph_case("caffenet",
+                                                       cuda_card)
+        ps = ParallelSolver(solver, build_mesh(dp=2,
+                                               devices=[cuda_card] * 2),
+                            zero_dp=zero)
+        if zero:
+            # the narrow net's blobs are under ZERO_MIN_NUMEL: split those
+            # of 256 elements and more
+            ps.state_specs = zero_state_specs(ps.param_specs,
+                                              ps.layout.shapes, 2,
+                                              min_numel=256)
+        return ps, ps.shard_params(params), ps.shard_opt_state(state), \
+            blocks
+
+    ps, pa, sa, blocks = case()
+    want = []
+    for b in blocks:
+        for i in range(4):
+            loss, out = ps.train_step(pa, sa, {k: v[i] for k, v in b.items()})
+            want.append((loss.item(), float(out["lr"])))
+    ps2, pb, sb, _ = case()
+    many = ps2.train_step_many(4)
+    got = []
+    for b in blocks:
+        losses, out = many(pb, sb, b)
+        got += list(zip(losses.tolist(), out["lr"].tolist()))
+    assert many.captures == 1 and many.replays == 2
+    assert got == want
+    split = 0
+    for tree_a, tree_b in ((pa, pb), (sa.history, sb.history),
+                           (sa.history2, sb.history2)):
+        for ln in tree_a:
+            for bn in tree_a[ln]:
+                a, b = tree_a[ln][bn], tree_b[ln][bn]
+                if isinstance(a, Shards):
+                    split += 1
+                    a, b = a.whole(), b.whole()
+                assert torch.equal(a, b), (ln, bn)
+    assert (split > 0) == zero

@@ -10,8 +10,8 @@ CLIs from one -weights file:
     within 1e-5, a ragged tail included, written as json and as parquet
     and read back;
   * `vector_mean` and `DataFrame.select` against the JAX package's;
-  * `-mesh` with a validating solver, -test or -features is refused by
-    name, and so is an unknown -outputFormat;
+  * `-mesh 2` with a validating solver, -test or -features writes what
+    the run without -mesh writes; an unknown -outputFormat is refused;
   * the digits gate: the port CLI trains LeNet on sklearn's bundled
     digits (`tools/datasets.py::build_digits`) past accuracy 0.8 and
     loss 0.5 in its last validation round.
@@ -257,15 +257,34 @@ def test_parquet_needs_pyarrow_and_formats_are_checked(tmp_path,
     (["-train", "-test"], "-test"),
     (["-features", "ip2"], "-features")])
 def test_mesh_with_evaluation_is_refused(tmp_path, args, what):
-    """Evaluation on a mesh is a later slice: -mesh with a validating
-    solver, -test or -features is refused by name before anything
-    runs."""
-    solver = write_config(tmp_path)
-    with pytest.raises(ValueError, match=f"^-mesh 1,1,4 with {what}"):
-        caffe_on_spark.main(["-conf", solver, *args, "-mesh", "1,1,4",
-                             "-output", str(tmp_path / "out"),
-                             "-device", "cpu"])
-    assert not (tmp_path / "out").exists()
+    """Evaluation runs on a mesh (it was refused before the data-parallel
+    slice): -mesh 2 with a validating solver, -test or -features splits
+    each batch over 2 dp ranks, and what it writes equals the run
+    without -mesh (validation rows and test_result within 1e-5, feature
+    rows within 1e-5)."""
+    solver = write_config(tmp_path, max_iter=10, test_interval=5,
+                          test_iter=2)
+    init = init_model(tmp_path, solver)
+    weights = ["-model" if what == "-features" else "-weights", init]
+    outs = {}
+    for key, mesh in (("mesh", ["-mesh", "2"]), ("one", [])):
+        outs[key] = tmp_path / key
+        assert caffe_on_spark.main(["-conf", solver, *args, *weights,
+                                    *mesh, "-output", str(outs[key]),
+                                    "-device", "cpu"]) == 0
+    name = {"a validating solver": "validation.json",
+            "-test": "test_result", "-features": "features.json"}[what]
+    got = read_json_rows(outs["mesh"] / name)
+    want = read_json_rows(outs["one"] / name)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for k in w:
+            if k == "SampleID":
+                assert g[k] == w[k]
+            else:
+                np.testing.assert_allclose(g[k], w[k], rtol=1e-5,
+                                           atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("threads", ["0", "2"])

@@ -28,6 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULT = sorted(n for n, c in config.LATER_KNOBS.items() if c == "result")
 LOGGED = sorted(n for n, c in config.LATER_KNOBS.items() if c != "result")
 NON_DEFAULT = {"COS_SYNC_MODE": "async", "COS_METRICS_PORT": "0",
+               "COS_GRAD_SYNC": "bucket", "COS_GRAD_OVERLAP": "0",
                "COS_RECORDER_DUMP": "/tmp/rec", "COS_TRACE_SAMPLE": "1.0",
                "COS_FAULT_DIE_ONCE": "0:3:/tmp/marker"}
 
@@ -84,17 +85,20 @@ def test_table_covers_every_jax_knob():
     JAX code scans for; their members are listed one by one)."""
     ported = _port_knobs()
     assert {"COS_STATE_DTYPE", "COS_METRICS_FLUSH_S", "COS_STEPS_PER_LOOP",
-            "COS_NATIVE"} <= ported
+            "COS_NATIVE", "COS_ZERO"} <= ported
     for name in sorted(_jax_knobs()):
         if name.endswith("_"):
             continue
         assert (name in config.LATER_KNOBS) != (name in ported), name
     assert set(config.LATER_KNOBS.values()) == {"result", "speed", "ranks",
                                                 "entry"}
+    # the dp ranks' gradient exchange changes what a step computes
     assert {"COS_AUTOTUNE", "COS_SYNC_MODE", "COS_RECORDER_DUMP",
-            "COS_METRICS_PORT", "COS_FAULT_DIE_ONCE"} <= set(RESULT)
+            "COS_METRICS_PORT", "COS_FAULT_DIE_ONCE", "COS_GRAD_SYNC",
+            "COS_GRAD_BUCKET_MB", "COS_GRAD_OVERLAP",
+            "COS_GRAD_WIRE_DTYPE"} <= set(RESULT)
     for name in ("COS_CONV_S2D", "COS_REMAT", "COS_CONV_LAYOUT",
-                 "COS_STAGE_COPY", "COS_GRAD_SYNC", "COS_ZERO",
+                 "COS_STAGE_COPY", "COS_SYNC_K",
                  "COS_FAULT_STEP_DELAY_MS", "COS_FAULT_HOST_KILL"):
         assert name in LOGGED
 
@@ -117,6 +121,7 @@ def test_result_knob_refused_by_name(knob, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("knob,value", [("COS_SYNC_MODE", "lockstep"),
+                                        ("COS_GRAD_SYNC", "default"),
                                         ("COS_AUTOTUNE", "0"),
                                         ("COS_LANES", "0"),
                                         ("COS_TRACE_SAMPLE", "0.0"),
@@ -127,32 +132,38 @@ def test_result_knob_default_passes(knob, value, monkeypatch):
 
 
 def test_other_knobs_named_in_one_logged_line(caplog):
-    env = {"COS_CONV_S2D": "8", "COS_GRAD_SYNC": "bucket",
+    env = {"COS_CONV_S2D": "8", "COS_SYNC_K": "4",
            "COS_AS_MAX": "4", "COS_REMAT": "1", "COS_SYNC_MODE": "lockstep",
            "PATH": "/bin"}
     with caplog.at_level(logging.WARNING,
                          logger="caffeonspark_tpu_torch.config"):
         names = config.check_env_knobs(env)
-    assert names == ["COS_AS_MAX", "COS_CONV_S2D", "COS_GRAD_SYNC",
-                     "COS_REMAT"]
+    assert names == ["COS_AS_MAX", "COS_CONV_S2D", "COS_REMAT",
+                     "COS_SYNC_K"]
     lines = [r.getMessage() for r in caplog.records]
     assert len(lines) == 1
     for n in names:
         assert n in lines[0]
     assert "COS_CONV_S2D=8 (speed)" in lines[0]
-    assert "COS_GRAD_SYNC=bucket (ranks)" in lines[0]
+    assert "COS_SYNC_K=4 (ranks)" in lines[0]
 
 
 @pytest.mark.parametrize("argv,name", [
     (["-devices", "2"], "-devices 2"), (["-cluster", "2"], "-cluster 2"),
     (["-server", "h:1"], "-server h:1"), (["-rank", "1"], "-rank 1"),
     (["-mesh", "2,1,1"], "dp"), (["-mesh", "1,2,1"], "tp"),
+    (["-mesh", "1,1,1,2"], "ep"), (["-mesh", "pp=2"], "pp"),
     (["-devices", "1", "-cluster", "1", "-rank", "0"], None)])
 def test_mini_cluster_refuses_more_ranks_by_name(argv, name, tmp_path):
+    """More processes or devices are refused by name, and so are ep and
+    pp; a mesh with dp or tp of 2 builds (its ranks share -device)."""
     args = mini_cluster.build_argparser().parse_args(
         ["-solver", _solver(tmp_path), "-device", "cpu"] + argv)
     if name is None:
         assert mini_cluster._refuse_more_ranks(args) is None
+        return
+    if name in ("dp", "tp"):
+        assert mini_cluster.MiniCluster(args).mesh.shape[name] == 2
         return
     with pytest.raises(ValueError, match=re.escape(name)):
         mini_cluster.MiniCluster(args)

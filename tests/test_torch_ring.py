@@ -304,10 +304,19 @@ def test_build_mesh_layout_and_refusals():
                                   ({"ep": 2}, 2), ({"pp": 2}, 2),
                                   ({"sp": 2}, 4)])
 def test_build_mesh_refuses_axes_but_sp(kw, n):
-    """Every axis but sp waits for the data-parallel slice, also a dp
-    that build_mesh infers from the devices left over (sp 2 on 4)."""
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        build_mesh(devices=[CPU] * n, **kw)
+    """ep and pp wait for MixtureOfExperts and the pipeline (ROADMAP
+    Queue 1 item 8) and are refused by name; dp and tp build, also a dp
+    that build_mesh infers from the devices left over (sp 2 on 4), with
+    the extents the JAX package's build_mesh gives."""
+    if "ep" in kw or "pp" in kw:
+        with pytest.raises(ValueError, match="Queue 1 item 8"):
+            build_mesh(devices=[CPU] * n, **kw)
+        return
+    mesh = build_mesh(devices=[CPU] * n, **kw)
+    jmesh = jax_build_mesh(devices=jax.devices()[:n], **kw)
+    assert mesh.shape == dict(jmesh.shape)
+    assert mesh.size == n and mesh.axis_devices("dp") == \
+        [CPU] * mesh.shape["dp"]
 
 
 def test_config_mesh_flag():
@@ -450,18 +459,33 @@ def _write_lm(tmp_path):
 
 
 @pytest.mark.parametrize("spec,match", [
-    ("2,1,4", "Queue 1 item 6"), ("1,2,4", "Queue 1 item 6"),
-    ("1,1,3", "does not divide")])
+    ("2,1,4", None), ("1,2,4", None), ("1,1,3", "does not divide"),
+    ("1,1,1,2", "Queue 1 item 8"), ("pp=2", "Queue 1 item 8")])
 def test_cli_mesh_refusals(tmp_path, spec, match):
-    """-train -mesh with an axis but sp > 1, or an sp that does not divide
-    the LM's 128 time steps, is refused when the processor builds its
-    mesh, before a step runs."""
+    """-train -mesh with an ep or pp axis (ROADMAP Queue 1 item 8), or an
+    sp that does not divide the LM's 128 time steps, is refused when the
+    processor builds its mesh, before a step runs.  dp 2 × sp 4 and
+    tp 2 × sp 4 train, to the final blobs of the run without -mesh
+    (within 1e-5)."""
     solver, _ = _write_lm(tmp_path)
-    with pytest.raises(ValueError, match=match):
-        caffe_on_spark.main(["-conf", solver, "-train", "-output",
-                             str(tmp_path / "out"), "-device", "cpu",
-                             "-mesh", spec])
-    assert not (tmp_path / "out").exists()
+    out = tmp_path / "out"
+    argv = ["-conf", solver, "-train", "-output", str(out), "-device",
+            "cpu", "-mesh", spec]
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            caffe_on_spark.main(argv)
+        assert not out.exists()
+        return
+    assert caffe_on_spark.main(argv) == 0
+    assert caffe_on_spark.main(argv[:4] + [str(tmp_path / "one")]
+                               + argv[5:-2]) == 0
+    got = checkpoint.load_caffemodel_blobs(str(out / "model.caffemodel"))
+    want = checkpoint.load_caffemodel_blobs(
+        str(tmp_path / "one" / "model.caffemodel"))
+    assert set(got) == set(want)
+    for ln in want:
+        for g, w in zip(got[ln], want[ln]):
+            _close(g, w, 1e-5, 1e-7, ln)
 
 
 def test_cli_train_mesh_matches_jax_cli(tmp_path, monkeypatch):
