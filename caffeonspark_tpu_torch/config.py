@@ -57,9 +57,8 @@ LATER_FLAGS = {
 # The JAX package's environment knobs that this package does not act on
 # yet (every `COS_*` name it reads, less the ones ported), each with its
 # class, read from its use there:
-#   "result" - changes what a one-process run computes or writes (the
-#              gradient exchange of its dp ranks among them): refused by
-#              name when set to a value other than its default
+#   "result" - changes what a one-process run computes or writes: refused
+#              by name when set to a value other than its default
 #              (KNOB_DEFAULTS, else "" and "0");
 #   "speed"  - changes only speed or memory (or a guard's checks);
 #   "ranks"  - acts only above one rank or one device;
@@ -79,11 +78,6 @@ LATER_KNOBS = {
     "COS_TRACE_SAMPLE": "result",    # request spans and their spools
     "COS_LANES": "result",           # admission control: 429 sheds
     "COS_FAULT_DIE_ONCE": "result",  # kills the trainer at an iteration
-    # the dp ranks' gradient exchange (ROADMAP Queue 1 item 6b)
-    "COS_GRAD_SYNC": "result",
-    "COS_GRAD_BUCKET_MB": "result",
-    "COS_GRAD_OVERLAP": "result",
-    "COS_GRAD_WIRE_DTYPE": "result",
     "COS_FAULT_STEP_DELAY_MS": "speed",
     "COS_FAULT_SLOW_RANK": "speed",
     "COS_FAULT_REPLICA_SLOW": "speed",
@@ -172,10 +166,6 @@ LATER_KNOBS = {
 }
 # the default values of the "result" knobs, where not "" and "0"
 KNOB_DEFAULTS = {"COS_SYNC_MODE": ("", "lockstep"),
-                 "COS_GRAD_SYNC": ("", "default"),
-                 "COS_GRAD_OVERLAP": ("", "1"),
-                 "COS_GRAD_BUCKET_MB": ("",),
-                 "COS_GRAD_WIRE_DTYPE": ("",),
                  "COS_METRICS_PORT": ("",),
                  "COS_RECORDER_DUMP": ("",),
                  "COS_TRACE_SAMPLE": ("", "0", "0.0")}
@@ -186,9 +176,14 @@ _LOG = logging.getLogger(__name__)
 def check_env_knobs(environ=None) -> List[str]:
     """Read the environment now (never at import): raise on a knob of
     the "result" class set to another value than its default, naming
-    it; log one line naming the other knobs of LATER_KNOBS that are set,
-    and return their names."""
+    it, and on a gradient-exchange knob (COS_GRAD_*) set to a value the
+    exchange does not take; log one line naming the other knobs of
+    LATER_KNOBS that are set, and return their names."""
+    from .parallel import gradsync
     env = os.environ if environ is None else environ
+    gradsync.env_mode(env)
+    gradsync.env_wire_dtype(env)
+    gradsync.env_bucket_mb(env)
     for name in sorted(env):
         value = env[name].strip()
         if LATER_KNOBS.get(name) == "result" and \

@@ -316,6 +316,7 @@ class MiniCluster:
             metrics=pmetrics, chunked=True)
         if self.psolver is not None:
             pmetrics.set_info("mesh", self.psolver.layout.describe())
+        pmetrics.set_info("comm", solver.grad_sync.plan.comm_info())
         timer = StepTimer(batch_size=src.batch_size)
         timer.start()
         smoothed = None

@@ -572,7 +572,8 @@ class Net(nn.Module):
                       rank_inputs: Sequence[Dict[str, torch.Tensor]], *,
                       qscales: Optional[Dict] = None, train: bool = False,
                       generator: Optional[torch.Generator] = None,
-                      state_out: Optional[Dict] = None, mesh=None
+                      state_out: Optional[Dict] = None, mesh=None,
+                      before_layer=None
                       ) -> List[Dict[str, torch.Tensor]]:
         """The forward of dp ranks, each on its slice of the batch with
         params of its own (a rank's blob may be a tp-split
@@ -583,7 +584,10 @@ class Net(nn.Module):
         normalizers, Accuracy), and a random draw is the whole batch's,
         sliced (`Ctx.rand`); dp N then computes what dp 1 does on the
         global batch.  `mesh` (its dp axis one rank per entry) carries
-        the reductions between ranks; one rank needs none."""
+        the reductions between ranks; one rank needs none.
+        `before_layer(name)`, when given, is called before each layer
+        reads its params from `rank_params` (the gradient exchange's
+        hooks: `parallel.gradsync.BucketHooks`)."""
         n = len(rank_inputs)
         blobs = [dict(x) for x in rank_inputs]
         ctx = self._ctx(qscales, train, generator)
@@ -602,6 +606,8 @@ class Net(nn.Module):
             op = L.get_op(lp.type)
             ctx.layer_name = lp.name
             ctx.bottom_axes = tuple(axes.get(b) for b in lp.bottom)
+            if before_layer is not None:
+                before_layer(lp.name)
             lparams = [self._layer_params(lp, p) for p in rank_params]
             bottoms = [[b[x] for x in lp.bottom] for b in blobs]
             if cast:
@@ -659,28 +665,31 @@ class Net(nn.Module):
     def loss(self, params: Params, inputs: Dict[str, torch.Tensor], *,
              train: bool = True,
              generator: Optional[torch.Generator] = None,
-             state_out: Optional[Dict] = None
+             state_out: Optional[Dict] = None, before_layer=None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total weighted loss, every blob): each loss top summed in f32
         and weighted, as the JAX package's `Net.loss` (the loss blobs keep
-        the compute dtype).  `state_out` as in `forward`."""
+        the compute dtype).  `state_out` as in `forward`, `before_layer`
+        as in `forward_ranks`."""
         total, blobs = self.loss_ranks([params], [inputs], train=train,
                                        generator=generator,
-                                       state_out=state_out)
+                                       state_out=state_out,
+                                       before_layer=before_layer)
         return total, blobs[0]
 
     def loss_ranks(self, rank_params: Sequence[Params],
                    rank_inputs: Sequence[Dict[str, torch.Tensor]], *,
                    train: bool = True,
                    generator: Optional[torch.Generator] = None,
-                   state_out: Optional[Dict] = None, mesh=None
+                   state_out: Optional[Dict] = None, mesh=None,
+                   before_layer=None
                    ) -> Tuple[torch.Tensor, List[Dict[str, torch.Tensor]]]:
         """`loss` of dp ranks (`forward_ranks`): the ranks' loss tops are
         shares of the global batch's loss, so their weighted sum is its
         loss, on the net's device."""
         blobs = self.forward_ranks(rank_params, rank_inputs, train=train,
                                    generator=generator, state_out=state_out,
-                                   mesh=mesh)
+                                   mesh=mesh, before_layer=before_layer)
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for b in blobs:
             for name, w in self.loss_weights.items():

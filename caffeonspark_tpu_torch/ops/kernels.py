@@ -433,16 +433,26 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_int8(x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-tensor int8 on a max-abs scale, round-to-nearest-
-    even — gradsync's `quantize_int8` without an rng.  Returns
-    (int8 tensor, f32 0-dim scale).  The scale divides as a tensor on
-    the input's device: PyTorch's CUDA division by a host scalar
-    multiplies by its reciprocal, which can round differently."""
+    even, or with `generator` stochastic rounding (floor(x/scale + u),
+    u uniform in [0, 1): gradsync's `quantize_int8` with an rng).
+    Returns (int8 tensor, f32 0-dim scale).  The scale divides as a
+    tensor on the input's device: PyTorch's CUDA division by a host
+    scalar multiplies by its reciprocal, which can round differently."""
     f = x.to(torch.float32)
     c127 = torch.full((), 127.0, dtype=torch.float32, device=x.device)
     scale = torch.clamp_min(f.abs().max(), 1e-30) / c127
-    q = torch.clamp(torch.round(f / scale), -127.0, 127.0)
+    y = f / scale
+    if generator is None:
+        y = torch.round(y)
+    else:
+        y = torch.floor(y + torch.rand(y.shape, generator=generator,
+                                       dtype=torch.float32,
+                                       device=y.device))
+    q = torch.clamp(y, -127.0, 127.0)
     return q.to(torch.int8), scale
 
 

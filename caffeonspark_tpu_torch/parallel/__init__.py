@@ -1,9 +1,10 @@
 """Parallelism of the PyTorch port (the counterpart of
 `caffeonspark_tpu/parallel/`): device meshes and their layouts
-(`mesh.py`), the transport between ranks (`comm.py`), the data- and
-tensor-parallel step with ZeRO-1 (`dp.py`) and the sequence-parallel
-ring attention (`sp.py`).  The JAX package's exports that the port has;
-its gradient exchange, pipeline and sync modes are later slices."""
+(`mesh.py`), the transport between ranks (`comm.py`), the gradient
+exchange (`gradsync.py`), the data- and tensor-parallel step with ZeRO-1
+(`dp.py`) and the sequence-parallel ring attention (`sp.py`).  The JAX
+package's exports that the port has; its pipeline and sync modes are
+later slices."""
 
 from .mesh import (MeshLayout, build_mesh, dp_data_rank, lockstep_steps,
                    parse_mesh_spec, tp_param_specs)

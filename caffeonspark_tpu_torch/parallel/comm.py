@@ -1,14 +1,15 @@
-"""The transport between ranks of a mesh: `all_reduce` and `all_gather`
-over one axis (the counterparts of `lax.psum` and `lax.all_gather`), and
-`Shards`, a tensor held as one block per rank.
+"""The transport between ranks of a mesh: `all_reduce`, `reduce_scatter`
+and `all_gather` over one axis (the counterparts of `lax.psum`,
+`lax.psum_scatter` and `lax.all_gather`), and `Shards`, a tensor held as
+one block per rank.
 
 Beside `parallel.sp.ppermute` these are the port's only transports.
 Each moves a rank's tensor to the receiving rank's device with `.to`,
 a no-op between ranks of one card, and sums or concatenates there, in
 rank order.  Every rank of a mesh on one card therefore shares one
-result.  A transport between cards or processes (a bucketed or
-quantised exchange, `torch.distributed`) replaces these functions and
-nothing else.
+result.  The gradient exchange (`gradsync.py`) reduces its buckets
+through them; a transport between cards or processes
+(`torch.distributed`) replaces these functions and nothing else.
 """
 
 from __future__ import annotations
@@ -69,6 +70,32 @@ def all_reduce(tensors: Sequence[torch.Tensor], mesh: Mesh,
     for t in tensors[1:]:
         total = total + t.to(total.device)
     return [total.to(d) for d in devs]
+
+
+def reduce_scatter(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                   axis_name: str) -> List[torch.Tensor]:
+    """The ranks' flats summed slice by slice (`lax.psum_scatter`,
+    tiled): each flat is padded with zeros to a multiple of the ranks,
+    cut into one slice per rank, and rank r holds the rank-order sum of
+    slice r on its device.  `all_gather(out, 0)[:numel]` is then
+    `all_reduce`'s sum, bit for bit."""
+    devs = mesh.axis_devices(axis_name)
+    n = len(devs)
+    if len(tensors) != n:
+        raise ValueError(f"reduce_scatter over {axis_name!r}: "
+                         f"{len(tensors)} tensors for {n} ranks")
+    flats = [t.reshape(-1) for t in tensors]
+    pad = (-flats[0].numel()) % n
+    if pad:
+        flats = [torch.cat([f, f.new_zeros(pad)]) for f in flats]
+    slices = [torch.chunk(f, n) for f in flats]
+    out = []
+    for r, d in enumerate(devs):
+        total = slices[0][r].to(d)
+        for s in slices[1:]:
+            total = total + s[r].to(d)
+        out.append(total)
+    return out
 
 
 def all_gather(tensors: Sequence[torch.Tensor], dim: int) -> torch.Tensor:

@@ -8,8 +8,9 @@ loss being a mean over the sharded batch.  The port writes that
 partition out.  Each dp rank runs the forward and the backward on its
 B/dp slice of the global batch, with parameter leaves of its own (views
 of the one storage when its ranks share a card), so each rank has
-gradients of its own; `parallel.comm.all_reduce` sums them over dp, the
-transport that a bucketed exchange or `torch.distributed` replaces.
+gradients of its own; `parallel.comm.all_reduce` sums them over dp, blob
+by blob, or the gradient exchange (`gradsync.py`, COS_GRAD_SYNC) sums
+them bucket by bucket.
 The forward goes layer by layer across the ranks (`Net.forward_ranks`),
 so every layer that couples the batch sees the global batch, as under
 GSPMD: BatchNorm's statistics, the losses' normalizers, Accuracy, and
@@ -44,6 +45,7 @@ from ..net import Params
 from ..ops.layers import flash_mesh
 from ..solver import OptState, Solver, steps_many, take_step
 from .comm import Shards, all_gather, all_reduce, split
+from .gradsync import RankGrads
 from .mesh import Mesh, MeshLayout, Spec, split_dim
 
 ZERO_MIN_NUMEL = 16384  # split only state blobs big enough to matter
@@ -145,6 +147,13 @@ class ParallelSolver:
                                              self.layout.shapes,
                                              mesh.shape["dp"])
                             if self.zero_on else self.param_specs)
+        # the gradient exchange (gradsync.py): the mesh resolves
+        # COS_GRAD_SYNC=auto and carries the reductions; the blobs split
+        # over tp keep the per-block path (JAX dp.py:123-133)
+        solver.grad_sync.bind_mesh(mesh, skip_blobs=frozenset(
+            (ln, bn) for ln, blobs in self.param_specs.items()
+            for bn, spec in blobs.items()
+            if any(ax is not None for ax in spec)))
         self._many: Dict[int, object] = {}
         self._eval = None
 
@@ -164,6 +173,10 @@ class ParallelSolver:
     @property
     def generator(self) -> torch.Generator:
         return self.solver.generator
+
+    @property
+    def grad_sync(self):
+        return self.solver.grad_sync
 
     @property
     def _mult_values(self):
@@ -223,16 +236,25 @@ class ParallelSolver:
                    names: List[Tuple[str, str]]):
         """One sub-batch of the dp step: each rank's forward and backward
         on its slice with leaves of its own, then the gradients summed
-        over dp (tp blocks first summed, then joined)."""
+        over dp (tp blocks first summed, then joined).  The blobs of the
+        gradient exchange's buckets are summed by its backward hooks,
+        whose result is taken as it is, or else handed on unreduced
+        (`RankGrads`) to its one exchange a step."""
         from ..ops.layers import flash_mesh
         net = self.train_net
+        gs = self.grad_sync
         leaves = rank_params(self.layout, params, leaf=True)
+        bucketed = gs.bucketed()
+        hooks = (gs.attach(leaves)
+                 if gs.use_hooks(max(1, int(self.param.iter_size))) else None)
         fwd_state: Dict[str, List[torch.Tensor]] = {}
         with flash_mesh(self.mesh):
             loss, blobs = net.loss_ranks(
-                leaves, self.shard_batch(sub), train=True,
-                generator=self.generator, state_out=fwd_state,
-                mesh=self.mesh)
+                hooks.params if hooks is not None else leaves,
+                self.shard_batch(sub), train=True, generator=self.generator,
+                state_out=fwd_state, mesh=self.mesh, before_layer=hooks)
+        if hooks is not None:
+            hooks.done()
         flat = []
         for lv in leaves:
             for ln, bn in names:
@@ -253,6 +275,12 @@ class ParallelSolver:
                 grads.append(all_gather(blocks, x.dim).to(
                     params[ln][bn].device))
                 i += len(x)
+            elif (ln, bn) in bucketed:
+                # reduced once: by the hook, or by the exchange
+                grads.append(ranks[0][i].to(params[ln][bn].device)
+                             if hooks is not None
+                             else RankGrads([g[i] for g in ranks]))
+                i += 1
             else:
                 grads.append(all_reduce([g[i] for g in ranks], self.mesh,
                                         "dp")[0].to(params[ln][bn].device))

@@ -390,6 +390,9 @@ class CaffeProcessor:
             m = self.metrics
             if self.psolver is not None:
                 m.set_info("mesh", self.psolver.layout.describe())
+            # the gradient exchange's plan (COS_GRAD_SYNC): wire bytes,
+            # buckets and wire dtype a step (JAX processor.py:336-342)
+            m.set_info("comm", solver.grad_sync.plan.comm_info())
             validate = bool(self.interleave_validation and test_interval
                             and test_iter and solver.test_net is not None
                             and self.val_source is not None)

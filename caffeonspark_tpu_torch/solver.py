@@ -199,6 +199,10 @@ class Solver:
         self.init_seed = int(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(
             int(seed) + rank)
+        # the gradient exchange (COS_GRAD_SYNC, parallel/gradsync.py):
+        # inert in `default` mode; ParallelSolver binds its mesh
+        from .parallel.gradsync import make_gradsync
+        self.grad_sync = make_gradsync(self.train_net, seed=int(seed) + rank)
         self._lr_mults, self._decay_mults = self._collect_mults()
         # the distinct lr_mult values: one update factor each a step
         self._mult_values = sorted({m for bl in self._lr_mults.values()
@@ -263,10 +267,14 @@ class Solver:
         (`Net.merge_forward_state`).  `params` are not written.
         `sub_grads(params, sub, names)` -> (loss, outputs, [grad per
         name], forward state) computes one sub-batch (`_sub_grads`; the
-        data-parallel step passes its own)."""
+        data-parallel step passes its own).  The gradient exchange
+        (`grad_sync`) runs once, on the accumulated gradients, unless its
+        backward hooks ran it inside `sub_grads` (JAX solver.py:329-336,
+        403-407)."""
         net = self.train_net
         sub_grads = sub_grads or self._sub_grads
         iter_size = max(1, int(self.param.iter_size))
+        gs = self.grad_sync
         names = [(ln, bn) for ln, bl in params.items() for bn in bl]
         subs = [inputs]
         if iter_size > 1:
@@ -312,21 +320,31 @@ class Solver:
         grads_p: Params = {}
         for (ln, bn), g in zip(names, gsum):
             grads_p.setdefault(ln, {})[bn] = g
+        if gs.enabled and not gs.use_hooks(iter_size):
+            # one exchange an optimizer step, after the accumulation
+            grads_p = gs.exchange(grads_p)
         return loss_sum, osum, grads_p, fwd_state
 
     def _sub_grads(self, params: Params, sub: Dict[str, torch.Tensor],
                    names: List[Tuple[str, str]]):
         """One sub-batch's (loss, output blobs, gradients in `names`'
         order, forward state): the net's loss on fresh leaves of
-        `params`, differentiated by autograd."""
+        `params`, differentiated by autograd (through the exchange's
+        backward hooks when they are on)."""
         net = self.train_net
         leaves = {ln: {bn: t.detach().requires_grad_(True)
                        for bn, t in bl.items()}
                   for ln, bl in params.items()}
+        hooks = None
+        if self.grad_sync.use_hooks(max(1, int(self.param.iter_size))):
+            hooks = self.grad_sync.attach([leaves])
         fwd_state: Dict[str, List[torch.Tensor]] = {}
-        loss, blobs = net.loss(leaves, sub, train=True,
-                               generator=self.generator,
-                               state_out=fwd_state)
+        loss, blobs = net.loss(
+            hooks.params[0] if hooks is not None else leaves, sub,
+            train=True, generator=self.generator, state_out=fwd_state,
+            before_layer=hooks)
+        if hooks is not None:
+            hooks.done()
         grads = torch.autograd.grad(
             loss, [leaves[ln][bn] for ln, bn in names], allow_unused=True)
         grads = [torch.zeros_like(params[ln][bn]) if g is None else g
@@ -547,8 +565,9 @@ class GraphedSteps:
     buffers filled on the host before each replay: each step's update
     factors (`Solver.update_scalars`, the eager step's exact f32 values,
     so `x * factor` on the card gives the eager product).  The dropout
-    generator is registered with the graph, which then advances its
-    offset by k steps' draws a replay, so the replays draw what k eager
+    generator, and the gradient exchange's under int8 stochastic
+    rounding, are registered with the graph, which then advances their
+    offsets by k steps' draws a replay, so the replays draw what k eager
     steps draw.  The kernels' launches recorded at capture count once a
     replay (`kernels.count_replays`).  The capture restricts this thread
     alone (`capture_error_mode="thread_local"`): the feeder, the pack
@@ -619,6 +638,9 @@ class GraphedSteps:
                     f"dropout generator in the graph); torch "
                     f"{torch.__version__} has none")
             graph.register_generator_state(s.generator)
+        if s.grad_sync.needs_rng:
+            # int8 stochastic rounding draws k steps' worth a replay
+            graph.register_generator_state(s.grad_sync.generator)
         it0 = state.iter
         # a CUDA graph that dies in a reference cycle is destroyed when
         # the cyclic collector runs, and a graph destroyed during this

@@ -281,15 +281,30 @@ or the package is not importable, and when any phase fails.  Phases:
      -clusterSize 2 refused by name (phase 3 also checks K1-K4 at the
      ranks' shapes, K6-K8 at (16, 2048, 64) bf16 and K9 at
      (32, 1024, 1024, 64));
- 33. a `kernels` JSON line: launches on the serving, image-net training,
+ 33. the gradient exchange (`parallel/gradsync.py`, COS_GRAD_SYNC) over
+     the dp ranks, direct steps under cuDNN deterministic: CaffeNet at
+     the global B=256, dp 2 and 4, under default, bucket, hier, quant
+     (bf16 wire) and quant with an int8 wire, 8 steps each: each plan's
+     comm_info (243,860,896 f32 bytes a rank), the first step's reduced
+     gradients (bucket / hier byte-equal to default's, bf16 the rounded
+     sum, int8 within one quantum), losses and final params (bucket /
+     hier byte-equal, quant within GS_LOSS_RTOL / GS_PARAM_TOL), K1 / K2
+     launches equal to default's, the median of 5 synchronized steps;
+     bucket at dp 4 under COS_ZERO=1 and bucket, quant and quant int8
+     at dp 2 as CUDA graphs of 4, byte-equal to their references; one
+     profiled bucket step (the first bucket's reduction issued before
+     conv1's backward); the f32 LM at -mesh 2,2 under bucket (its tp
+     blocks skipped) byte-equal to default, K6-K8 launches equal;
+ 34. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
      dtype; graphed runs included), encoded and graphed CaffeNet,
      GoogLeNet, ResNet-50, snapshot, HDF5, sidecar, lstm_lm, caption
-     (features, captioner, decode), layer, data-path and dp paths, and the
+     (features, captioner, decode), layer, data-path, dp and gradient
+     exchange paths, and the
      numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
      `kernel_records` line); a `ptxas` line; then the card line again;
- 34. the device line, last: {"ok": true, "device": {...}}.
+ 35. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1885,18 +1900,24 @@ def _grad_diff(label, g_p, g_x, tol, what):
 def make_solver(torch, solver_path, env, device="cuda", dtype="float32"):
     """The Solver of a -train config at mini_cluster's -dtype `dtype`,
     and its first packed batch (source seed 1) on the host."""
-    import itertools
     from caffeonspark_tpu_torch.config import Config
-    from caffeonspark_tpu_torch.data.source import get_source
     from caffeonspark_tpu_torch.solver import Solver
     with env_set(env):
         conf = Config(["-conf", solver_path, "-train", "-device", device])
         solver = Solver(conf.solverParameter, conf.netParam,
                         device=device, **solver_dtypes(torch, dtype))
+    return solver, host_batches(conf, 1)[0]
+
+
+def host_batches(conf, n):
+    """The first `n` packed host batches of a config's TRAIN source
+    (seed 1)."""
+    import itertools
+    from caffeonspark_tpu_torch.data.source import get_source
     src = get_source(conf.train_data_layer(), phase_train=True, seed=1)
-    host = src.next_batch(list(itertools.islice(src.records(),
-                                                src.batch_size)))
-    return solver, host
+    records = src.records()
+    return [src.next_batch(list(itertools.islice(records, src.batch_size)))
+            for _ in range(n)]
 
 
 def step_vs_plain(K, torch, label, solver_path, env, device="cuda",
@@ -4845,6 +4866,407 @@ def dp_phase(K, torch, workdir, lmdb, test_lmdb, val_solver, val_model,
                 lm_dp2_sp2=lm_sp, refused=refused, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the gradient exchange of the dp ranks (COS_GRAD_SYNC)
+# ---------------------------------------------------------------------------
+
+GS_STEPS = 8               # each configuration's steps (2 batches, cycled)
+GS_DP = (2, 4)
+GS_MODES = {               # the COS_GRAD_* knobs of each mode
+    "default": {},
+    "bucket": {"COS_GRAD_SYNC": "bucket"},
+    "hier": {"COS_GRAD_SYNC": "hier"},
+    "quant": {"COS_GRAD_SYNC": "quant"},
+    "quant_int8": {"COS_GRAD_SYNC": "quant", "COS_GRAD_WIRE_DTYPE": "int8"}}
+# quant's 8 losses against default's (worst rel) and the final params'
+# L2 distance from default's over default's own update's L2 norm (both
+# over the whole net).  Each limit sits between the readings of a sound
+# run (H100, dp 2 / 4: bf16 losses 4.2e-6 / 4.8e-6, params 0.0021 /
+# 0.0025; int8 3.1e-5 / 2.6e-5, 0.041 / 0.041) and those of the planted
+# fault of `gs_frozen_fault`, which the phase checks they reject.
+GS_LOSS_RTOL = {"quant": 1e-4, "quant_int8": 2e-4}
+GS_PARAM_TOL = {"quant": 0.01, "quant_int8": 0.2}
+CAFFENET_F32_WIRE = 243_860_896   # 60,965,224 params x 4 bytes
+
+
+def _flat_dist(a, b):
+    """sqrt of the sum over blobs of |a - b|^2, in float64."""
+    return math.sqrt(sum(float(((a[ln][bn].double() - b[ln][bn].double())
+                                ** 2).sum()) for ln in b for bn in b[ln]))
+
+
+def _params_equal(a, b):
+    import torch
+    return all(torch.equal(a[ln][bn], b[ln][bn]) for ln in b for bn in b[ln])
+
+
+def gs_run(K, torch, label, solver_path, env, dims, hosts, kernels, *,
+           zero=False, k=1, first=False, steps=GS_STEPS, device="cuda"):
+    """`steps` steps of ParallelSolver on the mesh `dims` (build_mesh
+    kwargs) under the knobs `env`, from the solver's seeded init, the
+    dropout generator at 99, over `hosts` cycled, each synchronized
+    (counts zeroed before, read after): losses, final params, launches
+    of `kernels`, ms a step (the median of the last 5; with K > 1, the
+    last chunk's over K: a replay), the plan; with `first`, the first
+    step's reduced gradients (from the init params, dropout at 99)
+    too."""
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    from caffeonspark_tpu_torch.parallel import ParallelSolver, build_mesh
+    from caffeonspark_tpu_torch.solver import Solver
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    n = math.prod(dims.values())
+    with env_set(env):
+        conf = Config(["-conf", solver_path, "-train", "-device", device])
+        solver = Solver(conf.solverParameter, conf.netParam, device=device)
+        ps = ParallelSolver(solver, build_mesh(
+            devices=[solver.device] * n, **dims), zero_dp=zero)
+    params, state = ps.init()
+    rec = dict(label=label, dims=dims, env=env, zero=zero, k=k,
+               comm=ps.grad_sync.plan.comm_info(),
+               skipped=len(ps.grad_sync.plan.skipped),
+               hooks=ps.grad_sync.use_hooks(1))
+    grads = None
+    if first:
+        solver.generator.manual_seed(99)
+        _, _, grads = ps.loss_and_grads(params, to_device(hosts[0],
+                                                          solver.device))
+    solver.generator.manual_seed(99)
+    sync = (torch.cuda.synchronize if device == "cuda" else (lambda: None))
+    K.reset_launch_counts()
+    losses, ms = [], []
+    if k == 1:
+        for i in range(steps):
+            batch = to_device(hosts[i % len(hosts)], solver.device)
+            sync()
+            t0 = time.perf_counter()
+            loss, _ = ps.train_step(params, state, batch)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss))
+    else:
+        many = ps.train_step_many(k)
+        for i in range(0, steps, k):
+            block = {name: torch.stack([
+                to_device(hosts[(i + j) % len(hosts)], solver.device)[name]
+                for j in range(k)]) for name in hosts[0]}
+            sync()
+            t0 = time.perf_counter()
+            out, _ = many(params, state, block)
+            sync()
+            ms.append(1e3 * (time.perf_counter() - t0) / k)
+            losses.extend(float(x) for x in out)
+    rec.update(losses=losses, step_ms=ms,
+               median_step_ms=median(ms[-5:] if k == 1 else ms[-1:]),
+               launches={name: K.launch_counts.get(name, 0)
+                         for name in kernels})
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: losses {losses} not finite")
+    return rec, params, grads, (ps, state, hosts)
+
+
+def gs_overlap(torch, ps, params, state, host):
+    """One warm bucket step under torch.profiler (host events): the
+    first bucket's reduction (the hook's backward, traced by a
+    record_function) is issued before the last convolution backward
+    (conv1's, the first layer: nothing is left behind it).  This reads
+    the host's issue order: every rank runs on the one stream, so no
+    reduction runs beside a kernel on the device."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from caffeonspark_tpu_torch.data.queue_runner import to_device
+    from caffeonspark_tpu_torch.parallel import gradsync
+    real = gradsync.GradSync._transform_bucket
+
+    def traced(self, bucket, ranks, generator):
+        with record_function(f"gradsync_bucket_{bucket.index}"):
+            return real(self, bucket, ranks, generator)
+
+    sync = (torch.cuda.synchronize if params["conv1"]["weight"].is_cuda
+            else (lambda: None))
+    with _patched(gradsync.GradSync, "_transform_bucket", traced):
+        ps.train_step(params, state, to_device(host, ps.device))
+        sync()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            ps.train_step(params, state, to_device(host, ps.device))
+            sync()
+    ev = [(e.time_range.start, e.name) for e in prof.events()]
+    buckets = sorted((t, name) for t, name in ev
+                     if name.startswith("gradsync_bucket_"))
+    convs = sorted(t for t, name in ev
+                   if name == "aten::convolution_backward")
+    check(buckets and convs, "overlap profile: no bucket reduction or no "
+          f"convolution backward among {len(ev)} events")
+    b0 = min(t for t, name in buckets if name == "gradsync_bucket_0")
+    after = sum(1 for t in convs if t > b0)
+    check(b0 < convs[-1], "the first bucket's reduction was issued after "
+          "the last convolution backward: no overlap")
+    rec = dict(bucket_order=[name for _, name in buckets],
+               conv_backwards=len(convs), conv_backwards_after_bucket0=after,
+               bucket0_before_last_conv_us=convs[-1] - b0)
+    log(f"  overlap under hooks: buckets issued in order "
+        f"{rec['bucket_order']}; bucket 0 issued {convs[-1] - b0:.0f} us "
+        f"before the last convolution backward (conv1's); {after} of "
+        f"{len(convs)} convolution backwards after it")
+    return rec
+
+
+def gradsync_phase(K, torch, workdir, lmdb, lm_solver, device="cuda"):
+    """The gradient exchange (`parallel/gradsync.py`, COS_GRAD_SYNC)
+    over the dp ranks sharing the card, under cuDNN deterministic, no
+    snapshot (direct steps, the same params, batches and dropout seed in
+    every run; counts zeroed before each):
+      * CaffeNet at the global B 256, dp 2 and dp 4, under default,
+        bucket, hier, quant (bf16 wire) and quant with an int8 wire,
+        GS_STEPS steps each: each plan's comm_info (the f32 exchange
+        243,860,896 bytes a rank); the first step's reduced gradients
+        (bucket and hier byte-equal to default's, quant bf16 equal to
+        default's rounded through bf16, int8 within one quantum of
+        default's and on the bucket's grid); losses and final params
+        (bucket and hier byte-equal to default's; quant within
+        GS_LOSS_RTOL and GS_PARAM_TOL); K1 / K2 launches equal to
+        default's; the median of 5 synchronized steps against default's;
+        at dp 2, a planted fault (the exchange zeroed after the first
+        step) which those limits must reject;
+      * bucket at dp 4 under COS_ZERO=1: byte-equal to bucket at dp 4;
+      * bucket, quant and quant int8 at dp 2 as CUDA graphs of
+        GRAPH_K steps, 3 chunks (eager warm-up, capture and replay,
+        replay): byte-equal to the eager run of the same mode;
+      * one profiled bucket step at dp 2: the first bucket's reduction
+        issued before conv1's backward (gs_overlap);
+      * the f32 LM at -mesh 2,2 under default and bucket: its tp blocks
+        skipped by the plan, losses and final params byte-equal, K6 /
+        K7 / K8 launches equal."""
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.models import zoo
+    lrn = ("lrn_across_channels", "lrn_across_channels_bwd")
+    solver = no_snapshots(write_train_config(workdir, zoo.caffenet, lmdb,
+                                             seed=1, suffix="Gs"))
+    hosts = host_batches(Config(["-conf", solver, "-train", "-device",
+                                 device]), 2)
+    runs, first, timing = {}, {}, {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.monotonic()
+    try:
+        for dp in GS_DP:
+            ref = ref_grads = p0 = None
+            for mode, env in GS_MODES.items():
+                key = f"dp{dp}_{mode}"
+                rec, params, grads, keep = gs_run(
+                    K, torch, f"CaffeNet dp {dp} {mode}", solver, env,
+                    {"dp": dp}, hosts, lrn, first=True, device=device)
+                plan = keep[0].grad_sync.plan
+                check(plan.total_bytes_grad == CAFFENET_F32_WIRE,
+                      f"{key}: {plan.total_bytes_grad} gradient bytes "
+                      f"exchanged, expected {CAFFENET_F32_WIRE}")
+                if mode == "default":
+                    ref, ref_grads, ref_rec = params, grads, rec
+                    p0 = keep[0].init()[0]
+                    rec["update_norm"] = _flat_dist(params, p0)
+                else:
+                    first[key] = gs_first_check(torch, key, mode, plan,
+                                                grads, ref_grads)
+                    gs_compare(key, mode, rec, params, ref_rec, ref)
+                if (dp, mode) == (2, "bucket"):
+                    rec["overlap"] = gs_overlap(torch, keep[0], params,
+                                                keep[1], hosts[0])
+                runs[key] = rec
+                log(f"  {key}: comm {json.dumps(rec['comm'])}; hooks "
+                    f"{rec['hooks']}; step {rec['median_step_ms']:.2f} ms "
+                    f"(default {ref_rec['median_step_ms']:.2f}); launches "
+                    f"{rec['launches']}")
+                timing[key] = rec["median_step_ms"]
+                del params, grads, keep
+                if mode == "bucket" and dp == 4:
+                    zrec, zp, _, zkeep = gs_run(
+                        K, torch, "CaffeNet dp 4 bucket ZeRO-1", solver,
+                        env, {"dp": 4}, hosts, lrn, zero=True,
+                        device=device)
+                    check(zkeep[0].zero_on and zrec["losses"] == ref_rec[
+                        "losses"] and _params_equal(zp, ref),
+                        "bucket dp 4 under COS_ZERO=1: not byte-equal to "
+                        "default dp 4")
+                    check(zrec["launches"] == ref_rec["launches"],
+                          f"ZeRO-1 bucket dp 4: launches {zrec['launches']}"
+                          f" against {ref_rec['launches']}")
+                    runs["dp4_bucket_zero"] = zrec
+                    timing["dp4_bucket_zero"] = zrec["median_step_ms"]
+                    log(f"  dp4_bucket_zero: byte-equal to default dp 4; "
+                        f"step {zrec['median_step_ms']:.2f} ms")
+                    del zp, zkeep
+                if (dp, mode) == (2, "quant_int8"):
+                    runs["dp2_quant_int8_frozen_fault"] = gs_frozen_fault(
+                        K, torch, solver, env, hosts, lrn, ref_rec, ref,
+                        device)
+            del ref, ref_grads, p0
+        for mode in ("bucket", "quant", "quant_int8"):
+            env = GS_MODES[mode]
+            eager, ep, _, _ = gs_run(K, torch, f"CaffeNet dp 2 {mode}",
+                                     solver, env, {"dp": 2}, hosts, lrn,
+                                     steps=3 * GRAPH_K, device=device)
+            graphed, gp, _, _ = gs_run(
+                K, torch, f"CaffeNet dp 2 {mode} K={GRAPH_K}", solver, env,
+                {"dp": 2}, hosts, lrn, k=GRAPH_K, steps=3 * GRAPH_K,
+                device=device)
+            same = _params_equal(gp, ep) and graphed["losses"] == \
+                eager["losses"]
+            check(same, f"{mode} dp 2 as graphs of {GRAPH_K}: losses "
+                  f"{graphed['losses']} against eager {eager['losses']}, "
+                  "or the final params differ")
+            check(graphed["launches"] == eager["launches"],
+                  f"{mode} dp 2 graphed: launches {graphed['launches']} "
+                  f"against eager {eager['launches']}")
+            key = f"dp2_{mode}_k{GRAPH_K}"
+            runs[key] = graphed
+            timing[key] = graphed["median_step_ms"]
+            log(f"  {key}: byte-equal to eager; a replayed chunk "
+                f"{graphed['median_step_ms']:.2f} ms a step (eager "
+                f"{eager['median_step_ms']:.2f})")
+            del ep, gp
+        lm_kernels = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv")
+        lm_hosts = host_batches(Config(["-conf", lm_solver, "-train",
+                                        "-device", device]), 2)
+        lm = {}
+        for mode in ("default", "bucket"):
+            rec, params, _, keep = gs_run(
+                K, torch, f"TransformerLM f32 -mesh 2,2 {mode}", lm_solver,
+                GS_MODES[mode], {"dp": 2, "tp": 2}, lm_hosts, lm_kernels,
+                device=device)
+            lm[mode] = (rec, params)
+            runs[f"lm_dp2tp2_{mode}"] = rec
+            timing[f"lm_dp2tp2_{mode}"] = rec["median_step_ms"]
+            log(f"  lm_dp2tp2_{mode}: comm {json.dumps(rec['comm'])}; "
+                f"{rec['skipped']} blobs skipped (tp blocks); step "
+                f"{rec['median_step_ms']:.2f} ms; launches "
+                f"{rec['launches']}")
+            del keep
+        (d, dparams), (b, bparams) = lm["default"], lm["bucket"]
+        check(b["skipped"] > 0 and b["comm"]["skipped_blobs"] > 0,
+              "LM -mesh 2,2 bucket: no tp block skipped by the plan")
+        check(b["losses"] == d["losses"] and _params_equal(bparams, dparams),
+              f"LM -mesh 2,2 bucket: losses {b['losses']} against default "
+              f"{d['losses']}, or the final params differ")
+        check(b["launches"] == d["launches"] and all(
+            v > 0 for v in d["launches"].values()),
+            f"LM -mesh 2,2: launches {b['launches']} against default "
+            f"{d['launches']}")
+        del lm, dparams, bparams
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    wall = time.monotonic() - t_phase
+    log("  synchronized step ms by mode: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in timing.items()))
+    log(f"  the gradient exchange phase: {wall:.1f} s")
+    for r in runs.values():
+        r.pop("step_ms", None)
+    return dict(runs=runs, first_step=first, step_ms=timing, wall_s=wall)
+
+
+def gs_first_check(torch, key, mode, plan, grads, ref):
+    """The first step's reduced gradients of `mode` against default's
+    (`ref`, the same sums): bucket and hier byte-equal; quant bf16 equal
+    to default's rounded through bf16; int8 within one quantum (the
+    bucket's max |g| / 127) of default's, on the bucket's grid."""
+    worst = 0.0
+    for bucket in plan.buckets:
+        flat = torch.cat([ref[ln][bn].reshape(-1)
+                          for ln, bn in bucket.entries])
+        scale = float(flat.abs().max()) / 127.0
+        for ln, bn in bucket.entries:
+            g, r = grads[ln][bn], ref[ln][bn]
+            if mode in ("bucket", "hier"):
+                ok = torch.equal(g, r)
+            elif mode == "quant":
+                ok = torch.equal(g, r.to(torch.bfloat16).to(r.dtype))
+            else:
+                err = float((g - r).abs().max())
+                q = g.double() / scale
+                ok = (err <= scale * (1 + 1e-5) and float(
+                    (q - q.round()).abs().max()) < 1e-3)
+                worst = max(worst, err / scale)
+            check(ok, f"{key}: first-step gradient of {ln}/{bn} is not "
+                  f"default's {'rounded ' if 'quant' in mode else ''}sum")
+    out = dict(buckets=plan.n_buckets, wire=plan.wire_dtype or "grad",
+               held="byte-equal" if mode in ("bucket", "hier") else
+               "bf16(default)" if mode == "quant" else "one quantum")
+    if mode == "quant_int8":
+        out["worst_err_of_quantum"] = worst
+    return out
+
+
+def _from_default(rec, params, ref_rec, ref):
+    """The worst relative loss difference from default's run, and the
+    final params' distance from default's over default's update; both
+    recorded in `rec`."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                  ref_rec["losses"]))
+    dist = _flat_dist(params, ref) / ref_rec["update_norm"]
+    rec.update(loss_rel_to_default=rel, param_dist_of_update=dist)
+    return rel, dist
+
+
+def gs_frozen_fault(K, torch, solver_path, env, hosts, kernels, ref_rec,
+                    ref, device="cuda"):
+    """The int8 run at dp 2 again with a planted fault: every exchanged
+    gradient after the first step is zero (the update runs on momentum
+    alone).  Both the loss and the param limit of every quant mode must
+    reject it."""
+    from caffeonspark_tpu_torch.parallel import gradsync
+    real = gradsync.GradSync._transform_flat
+    calls = [0]
+
+    def zeroed(self, flats, generator):
+        calls[0] += 1
+        flat = real(self, flats, generator)
+        return (flat if calls[0] <= self.plan.n_buckets
+                else torch.zeros_like(flat))
+
+    with _patched(gradsync.GradSync, "_transform_flat", zeroed):
+        rec, params, _, _ = gs_run(K, torch, "CaffeNet dp 2 int8, the "
+                                   "exchange zeroed after step 1",
+                                   solver_path, env, {"dp": 2}, hosts,
+                                   kernels, device=device)
+    rel, dist = _from_default(rec, params, ref_rec, ref)
+    check(calls[0] > 1, "planted fault: the exchange was never entered")
+    for mode in GS_LOSS_RTOL:
+        check(rel > GS_LOSS_RTOL[mode] and dist > GS_PARAM_TOL[mode],
+              f"planted fault (exchange zeroed after step 1): losses "
+              f"within {rel:.3g} of default's, params {dist:.3g} of its "
+              f"update away, which the {mode} limits "
+              f"({GS_LOSS_RTOL[mode]}, {GS_PARAM_TOL[mode]}) pass")
+    log(f"  planted fault (int8 dp 2, the exchange zeroed after step 1): "
+        f"losses {rel:.3g} of default's, params {dist:.3g} of its update "
+        "away: rejected by every quant limit")
+    return rec
+
+
+def gs_compare(key, mode, rec, params, ref_rec, ref):
+    """Losses, final params and launches of `mode` against default's."""
+    check(rec["launches"] == ref_rec["launches"] and all(
+        v > 0 for v in ref_rec["launches"].values()),
+        f"{key}: launches {rec['launches']} against default's "
+        f"{ref_rec['launches']}")
+    if mode in ("bucket", "hier"):
+        check(rec["losses"] == ref_rec["losses"] and
+              _params_equal(params, ref),
+              f"{key}: losses {rec['losses']} against default "
+              f"{ref_rec['losses']}, or the final params differ")
+        rec["byte_equal_to_default"] = True
+        return
+    rel, dist = _from_default(rec, params, ref_rec, ref)
+    check(rel <= GS_LOSS_RTOL[mode] and dist <= GS_PARAM_TOL[mode],
+          f"{key}: losses within {rel:.3g} of default's (tol "
+          f"{GS_LOSS_RTOL[mode]}), params {dist:.3g} of default's update "
+          f"from init (tol {GS_PARAM_TOL[mode]})")
+    check(not _params_equal(params, ref), f"{key}: params equal default's:"
+          " the wire rounded nothing")
+    log(f"  {key}: losses within {rel:.3g} of default's, params "
+        f"{dist:.3g} of default's update away")
+
+
 def ptxas_report(text: str) -> list:
     """Registers and spills of each flash kernel instantiation, from the
     `-Xptxas -v` output of nvcc (names demangled by c++filt where the
@@ -5280,6 +5702,14 @@ def main(argv) -> int:
                   val_models["CaffeNet train+validate"][0],
                   val_models["CaffeNet train+validate"][1], lm_solver,
                   lm_mc["runs"]["mixed"])
+    log("the gradient exchange (COS_GRAD_SYNC) over the dp ranks: CaffeNet "
+        f"at the global B={TRAIN_B}, dp 2 and 4, default / bucket / hier / "
+        f"quant / quant int8, {GS_STEPS} direct steps each, ZeRO-1, "
+        f"K={GRAPH_K} graphs, the overlap under hooks, the f32 LM at -mesh "
+        "2,2; cuDNN deterministic; counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gsync = gradsync_phase(K, torch, workdir, lmdb, lm_solver)
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_dp2tp2_mixed"] = dp["lm_dp2_tp2"]
@@ -5341,7 +5771,9 @@ def main(argv) -> int:
                    **{f"dp_{k}": r["launches"].get(name, 0)
                       for k, r in dp["runs"].items()},
                    **{f"dp_{e['mode']}_mesh2": e["launches"].get(name, 0)
-                      for e in dp["eval"]}}
+                      for e in dp["eval"]},
+                   **{f"gradsync_{k}": r["launches"].get(name, 0)
+                      for k, r in gsync["runs"].items()}}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -5396,6 +5828,7 @@ def main(argv) -> int:
                     "layers": layers}))
     log(json.dumps({"datapath": datapath}))
     log(json.dumps({"dp": dp}))
+    log(json.dumps({"gradsync": gsync}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

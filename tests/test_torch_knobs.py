@@ -28,7 +28,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULT = sorted(n for n, c in config.LATER_KNOBS.items() if c == "result")
 LOGGED = sorted(n for n, c in config.LATER_KNOBS.items() if c != "result")
 NON_DEFAULT = {"COS_SYNC_MODE": "async", "COS_METRICS_PORT": "0",
-               "COS_GRAD_SYNC": "bucket", "COS_GRAD_OVERLAP": "0",
                "COS_RECORDER_DUMP": "/tmp/rec", "COS_TRACE_SAMPLE": "1.0",
                "COS_FAULT_DIE_ONCE": "0:3:/tmp/marker"}
 
@@ -92,11 +91,8 @@ def test_table_covers_every_jax_knob():
         assert (name in config.LATER_KNOBS) != (name in ported), name
     assert set(config.LATER_KNOBS.values()) == {"result", "speed", "ranks",
                                                 "entry"}
-    # the dp ranks' gradient exchange changes what a step computes
     assert {"COS_AUTOTUNE", "COS_SYNC_MODE", "COS_RECORDER_DUMP",
-            "COS_METRICS_PORT", "COS_FAULT_DIE_ONCE", "COS_GRAD_SYNC",
-            "COS_GRAD_BUCKET_MB", "COS_GRAD_OVERLAP",
-            "COS_GRAD_WIRE_DTYPE"} <= set(RESULT)
+            "COS_METRICS_PORT", "COS_FAULT_DIE_ONCE"} <= set(RESULT)
     for name in ("COS_CONV_S2D", "COS_REMAT", "COS_CONV_LAYOUT",
                  "COS_STAGE_COPY", "COS_SYNC_K",
                  "COS_FAULT_STEP_DELAY_MS", "COS_FAULT_HOST_KILL"):
