@@ -59,6 +59,38 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _compile(jobs: Dict[str, Path], verbose: bool = False
+             ) -> Dict[str, str]:
+    """Compile each {source path: library path} job with the port's nvcc
+    flags, all at once (one nvcc process each); raises with every
+    failure's output.  Returns {source path: compiler output}."""
+    nvcc = find_nvcc()
+    procs = {}
+    for src, out in jobs.items():
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+               "-Xcompiler", "-fPIC", f"-split-compile={SPLIT}",
+               "-o", str(tmp), str(src)]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[src] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    outputs: Dict[str, str] = {}
+    errors = []
+    for src, (proc, tmp, out) in procs.items():
+        text, _ = proc.communicate()
+        outputs[src] = text
+        if proc.returncode != 0:
+            errors.append(f"nvcc {Path(src).name} failed ({proc.returncode}):"
+                          f"\n{text}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outputs
+
+
 def build_all(verbose: bool = False) -> Dict[str, object]:
     """Compile every source that has no up-to-date library, all at once
     (one nvcc process per source).  Returns a report: `libraries`
@@ -71,31 +103,29 @@ def build_all(verbose: bool = False) -> Dict[str, object]:
     t0 = time.monotonic()
     nvcc_out: Dict[str, str] = {}
     if todo:
-        nvcc = find_nvcc()
-        procs = {}
-        for name, out in todo.items():
-            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", f"-split-compile={SPLIT}",
-                   "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, out)
-        errors = []
-        for name, (proc, tmp, out) in procs.items():
-            text, _ = proc.communicate()
-            nvcc_out[name] = text
-            if proc.returncode != 0:
-                errors.append(f"nvcc {name}.cu failed ({proc.returncode}):"
-                              f"\n{text}")
-                continue
-            os.replace(tmp, out)
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        outputs = _compile({CSRC / f"{n}.cu": p for n, p in todo.items()},
+                           verbose)
+        nvcc_out = {n: outputs[CSRC / f"{n}.cu"] for n in todo}
     return {"libraries": targets, "built": sorted(todo),
             "seconds": time.monotonic() - t0, "nvcc": nvcc_out}
+
+
+def build_variants(name: str, sources: Dict[str, str],
+                   out_dir: Path) -> Dict[str, ctypes.CDLL]:
+    """Build and load edited copies of csrc/<name>.cu ({variant: source
+    text}) with the port's flags into `out_dir`, each declared as
+    <name>'s library: for timing a kernel's variants against each
+    other.  The port itself never loads them."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    libs = {v: out_dir / f"lib{name}_{v}.so" for v in sources}
+    jobs = {}
+    for variant, text in sources.items():
+        src = out_dir / f"{name}_{variant}.cu"
+        src.write_text(text)
+        jobs[src] = libs[variant]
+    _compile(jobs)
+    return {v: _declare(name, ctypes.CDLL(str(p))) for v, p in libs.items()}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -123,9 +153,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.cos_lrn_bwd.argtypes = [P, P, P, I, I, I, I, F, F, F, F, I, I,
                                     P]
         lib.cos_lrn_bwd.restype = I
-        lib.cos_bias_relu_lrn_bwd.argtypes = [P, P, P, P, I, I, I, I, F, F,
-                                              F, F, I, P]
+        lib.cos_bias_relu_lrn_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                              F, F, F, F, F, I, I, I, P]
         lib.cos_bias_relu_lrn_bwd.restype = I
+        lib.cos_bias_relu_lrn_bwd_occupancy.argtypes = [I, I, I]
+        lib.cos_bias_relu_lrn_bwd_occupancy.restype = I
     elif name == "int8_matmul":
         lib.cos_int8_matmul.argtypes = [P, P, P, I, I, I, P]
         lib.cos_int8_matmul.restype = I

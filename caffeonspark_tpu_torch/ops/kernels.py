@@ -11,7 +11,8 @@ transformer's attention:
   * `bias_relu_lrn_across_channels`  K3, csrc/lrn.cu `cos_bias_relu_lrn_fwd`
     (the conv-stem epilogue lrn(relu(x + bias)));
   * `bias_relu_lrn_across_channels_bwd`  K4, csrc/lrn.cu
-    `cos_bias_relu_lrn_bwd` (its dx; d_bias is the channel sum of dx);
+    `cos_bias_relu_lrn_bwd` (its dx and d_bias, the channel sum of dx,
+    in one pass; `k4_plan` is its launch plan);
   * `int8_matmul`                    K5, csrc/int8_matmul.cu
     (int8 x int8 -> int32, under `int8_inner_product`);
   * `flash_attention_fwd`            K6, csrc/flash_attn.cu
@@ -52,9 +53,10 @@ added back once per replay (`count_replays`).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -279,9 +281,14 @@ def lrn_bwd_plain(x: torch.Tensor, dy: torch.Tensor, local_size: int,
 def bias_relu_lrn_bwd_plain(x: torch.Tensor, bias: torch.Tensor,
                             dy: torch.Tensor, local_size: int = 5,
                             alpha: float = 1e-4, beta: float = 0.75,
-                            k: float = 1.0) -> torch.Tensor:
-    """Plain version of K4: dx of lrn(relu(x + bias)) (also d(x + bias))."""
-    return lrn_bwd_plain(x, dy, local_size, alpha, beta, k, bias=bias)
+                            k: float = 1.0
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K4: (dx, d_bias) of lrn(relu(x + bias)).  dx is
+    also d(x + bias), and d_bias is the f32 channel sum of dx as stored
+    (in bf16 the rounded values, as the JAX VJP sums it), in the bias's
+    dtype."""
+    dx = lrn_bwd_plain(x, dy, local_size, alpha, beta, k, bias=bias)
+    return dx, dx.float().sum(dim=(0, 2, 3)).to(bias.dtype)
 
 
 def _check_grad_input(name: str, x: torch.Tensor, dy: torch.Tensor) -> None:
@@ -320,14 +327,102 @@ def lrn_across_channels_bwd(x: torch.Tensor, dy: torch.Tensor,
     return dx
 
 
+# K4's launch plan.  A block of the kernel owns one sample, K4_TILE
+# spatial positions (csrc/lrn.cu k4::kTile) and a run of channels; a run
+# reads 2 * pad halo channels of x on each side, and its shortest
+# length is K4_MIN_RUN (or C).
+K4_TILE = 128
+K4_MIN_RUN = 8
+
+
+class K4Plan(NamedTuple):
+    tiles: int      # K4_TILE-wide tiles of a sample's H*W
+    run: int        # channels a block writes (the last run may be shorter)
+    runs: int       # runs of C
+    blocks: int     # N * tiles * runs
+    waves: float    # blocks over the card's resident blocks
+
+
+@functools.lru_cache(maxsize=256)
+def k4_plan(shape: Tuple[int, int, int, int], local_size: int, sms: int,
+            blocks_per_sm: int) -> K4Plan:
+    """The launch plan of K4 for an (N, C, H, W) input on a card of `sms`
+    SMs that holds `blocks_per_sm` of its blocks each.  The channel runs
+    are cut until N x tiles x runs fills at least one whole wave (where a
+    run of K4_MIN_RUN channels still can), and among those cuts the one
+    of least estimated time is kept: the steps of all blocks over the
+    blocks the card runs at once, plus the steps of one block (the last
+    blocks run alone).  A block takes run + 4 pad steps, so short runs
+    pay in halo and long ones in that tail.  Refuses a sample's C*H*W of
+    2^31 elements or more (the kernel's 32-bit offsets)."""
+    name = "bias_relu_lrn_across_channels_bwd"
+    n, c, h, w = (int(v) for v in shape)
+    if c * h * w >= 2**31:
+        raise ValueError(f"{name}: a sample's C*H*W is {c * h * w} elements; "
+                         "the kernel takes fewer than 2^31")
+    if min(n, c, h * w, local_size, sms, blocks_per_sm) < 1:
+        raise ValueError(f"{name}: no plan for {tuple(shape)}, local_size "
+                         f"{local_size}, {sms} SMs x {blocks_per_sm} blocks")
+    pad = local_size // 2
+    tiles = -(-h * w // K4_TILE)
+    wave = sms * blocks_per_sm
+    shortest = min(c, K4_MIN_RUN)
+    best = None
+    for cut in range(1, c // shortest + 1):
+        run = -(-c // cut)
+        runs = -(-c // run)
+        blocks = n * tiles * runs
+        steps = run + 4 * pad
+        key = (blocks < wave, blocks * steps / wave + steps, runs)
+        if best is None or key < best[0]:
+            best = (key, run, runs, blocks)
+    _, run, runs, blocks = best
+    if blocks > 2**31 - 1:
+        raise ValueError(f"{name}: {tuple(shape)} needs {blocks} blocks, "
+                         "more than 2^31 - 1")
+    return K4Plan(tiles, run, runs, blocks, blocks / wave)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _k4_blocks_per_sm(index: int, local_size: int, dtype_code: int) -> int:
+    with torch.cuda.device(index):
+        got = cuda_build.library("lrn").cos_bias_relu_lrn_bwd_occupancy(
+            local_size, dtype_code, 1)
+    if got <= 0:
+        raise RuntimeError("bias_relu_lrn_across_channels_bwd: occupancy "
+                           f"query failed (cudaError {-got})")
+    return got
+
+
+def _k4_card(device: torch.device, local_size: int,
+             dtype: torch.dtype) -> Tuple[int, int]:
+    """(SMs, K4 blocks an SM holds) of the card, each read once a device
+    and kernel variant (the register-ring kernels by pad up to 5, the
+    runtime-window kernel above) and kept."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return (_sm_count(idx),
+            _k4_blocks_per_sm(idx, min(local_size, 13), _LRN_DTYPES[dtype]))
+
+
 def bias_relu_lrn_across_channels_bwd(x: torch.Tensor, bias: torch.Tensor,
                                       dy: torch.Tensor, local_size: int = 5,
                                       alpha: float = 1e-4,
                                       beta: float = 0.75,
-                                      k: float = 1.0) -> torch.Tensor:
-    """dx of `bias_relu_lrn_across_channels(x, bias, ...)` (K4); it is
-    also the gradient with respect to x + bias, so d_bias is its
-    (N, H, W) sum."""
+                                      k: float = 1.0
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, d_bias) of `bias_relu_lrn_across_channels(x, bias, ...)` (K4):
+    dx, which is also the gradient with respect to x + bias, and its
+    (N, H, W) sum, in one pass of the kernel.  The kernel writes one f32
+    partial sum a (sample, tile, channel) to a scratch buffer, and a
+    second small kernel sums them in a fixed order: every call gives the
+    same bytes.  On the card x and dy must start on 16 bytes (the
+    kernel's copy unit); a view that does not is refused by name."""
     name = "bias_relu_lrn_across_channels_bwd"
     if not _route(x, name):
         return bias_relu_lrn_bwd_plain(x, bias, dy, local_size, alpha, beta,
@@ -338,18 +433,29 @@ def bias_relu_lrn_across_channels_bwd(x: torch.Tensor, bias: torch.Tensor,
     if bias.shape != (c,) or bias.device != x.device:
         raise ValueError(f"{name}: bias {tuple(bias.shape)} on "
                          f"{bias.device} for {c} channels on {x.device}")
+    for what, t in (("x", x), ("dy", dy)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} starts at {t.data_ptr():#x}, "
+                             "not on the 16 bytes the kernel copies from")
+    plan = k4_plan(tuple(x.shape), int(local_size),
+                   *_k4_card(x.device, local_size, x.dtype))
     b = bias.to(torch.float32).contiguous()
     dx = torch.empty_like(x)
+    partial = torch.empty((c, n * plan.tiles), dtype=torch.float32,
+                          device=x.device)
+    db = torch.empty(c, dtype=torch.float32, device=x.device)
     lib = cuda_build.library("lrn")
     with torch.cuda.device(x.device):
         status = lib.cos_bias_relu_lrn_bwd(
-            x.data_ptr(), b.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c,
-            h * w, int(local_size), alpha / local_size, beta, k,
-            2.0 * alpha * beta / local_size, _LRN_DTYPES[x.dtype],
+            x.data_ptr(), b.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), db.data_ptr(), n, c, h * w, int(local_size),
+            alpha / local_size, -beta, -beta - 1.0, k,
+            2.0 * alpha * beta / local_size, plan.tiles, plan.run,
+            _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
     _count(name, x.dtype)
-    return dx
+    return dx, db.to(bias.dtype)
 
 
 class LRNAcrossChannels(torch.autograd.Function):
@@ -370,9 +476,9 @@ class LRNAcrossChannels(torch.autograd.Function):
 
 
 class BiasReluLRNAcrossChannels(torch.autograd.Function):
-    """lrn(relu(x + bias)): forward K3, backward K4 plus d_bias, the
-    channel sum of dx in f32 (the TPU version sums it in XLA, outside
-    the kernel).  Saves the raw x and the bias."""
+    """lrn(relu(x + bias)): forward K3, backward K4, which gives dx and
+    d_bias (the f32 channel sum of dx) in one pass.  Saves the raw x and
+    the bias."""
 
     @staticmethod
     def forward(ctx, x, bias, local_size, alpha, beta, k):
@@ -384,9 +490,8 @@ class BiasReluLRNAcrossChannels(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, bias = ctx.saved_tensors
-        dx = bias_relu_lrn_across_channels_bwd(x, bias, dy.contiguous(),
-                                               *ctx.args)
-        db = dx.float().sum(dim=(0, 2, 3)).to(bias.dtype)
+        dx, db = bias_relu_lrn_across_channels_bwd(x, bias, dy.contiguous(),
+                                                   *ctx.args)
         return dx, db, None, None, None, None
 
 

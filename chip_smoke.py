@@ -11,37 +11,43 @@ or the package is not importable, and when any phase fails.  Phases:
 
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (nvcc, all sources at once), with
-     each flash kernel's registers and spills from `-Xptxas -v`, and
+     the registers and spills (`-Xptxas -v`) of each flash kernel and of
+     lrn.cu's backward kernels (K2's instantiations, K4's and its d_bias
+     sum), and
      beside it the native ingest library from native/ (g++: the byte
      moves, and the libjpeg decoders where the machine has libjpeg); a
      line says whether libjpeg, cv2 and PIL are there;
-  3. each kernel against its plain PyTorch version on the card: the
-     forward kernels at the serving path's B=64 shapes (f32, and bf16
-     for the LRN kernels) and at the training path's B=256 shapes, the
-     LRN backward kernels (K2, K4) at the B=256 shapes in f32 and bf16
-     and at a ragged shape, K1-K4 at local_size 13 and at N = 65,600
-     (untimed), the flash attention kernels (K6 forward, K7 dq, K8
-     dk/dv) at the LM's (B*H, T, D) = (64, 2048, 64), causal and not,
-     f32 and bf16, at (64, 2048, 128) f32 causal, at the sp ring's
-     backward call (64, 512, 64) bf16 in, f32 gradients out, causal and
-     not, at head_dim 256 (16, 2048, 256) and head_dim 512 (8, 2048,
-     512; the wide kernels), f32 and bf16, causal and not (with each
-     output's error against float64 beside the plain version's), and at
-     ragged (3, 200, 48), (4, 384, 32), (4, 384, 200), (3, 200, 257),
-     (2, 130, 320) and (2, 96, 1024), with kernel / plain / library /
-     bound times (the bound on the kernels' tensor-core route, 3xTF32
-     or bf16, beside the f32 SIMT figure), each kernel run twice
-     (bit-equal results, two launches counted); K5 twice per shape and
-     once more after its timed calls, exact each time; K9 (the ring hop)
-     at the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512, 512, 64),
-     f32 and bf16: the diagonal causal hop (q_off = k_off = 512), a
-     fully visible causal hop (q_off 1536, k_off 0) and a non-causal
-     hop, each from the ring's first carry (timed: kernel / plain /
-     bound) and from a mid-ring carry, then the ragged (3, 200, 328, 48)
-     at q_off 100, k_off 150, whose first rows see no key, causal and
-     not, at head_dim 256 (16, 512, 512, 256) and 512 (8, 512, 512, 512)
-     on a diagonal and a full causal hop (timed), and at ragged D 200,
-     257, 320 and 1024, each hop run twice (bit-equal);
+  3. each kernel against its plain PyTorch version on the card: the forward
+     kernels at the serving path's B=64 shapes (f32, and bf16 for the LRN
+     kernels) and at the training path's B=256 shapes, the LRN backward
+     kernels (K2, K4) at the B=256 shapes in f32 and bf16 (K4 also at
+     GoogLeNet's (32,192,56,56)) and at a ragged shape, K4's d_bias against
+     the exact sum of its dx and against the plain version's, K4 twice
+     (byte-equal) and in a CUDA graph (byte-equal to the eager call), its
+     share of the byte bound, and the fused backward through
+     BiasReluLRNAcrossChannels against K4's dx-only build followed by the
+     separate dx.float().sum((0, 2, 3)), K1-K4 at local_size 13 and at N = 65,600
+     (untimed), the flash attention kernels (K6 forward, K7 dq, K8 dk/dv)
+     at the LM's (B*H, T, D) = (64, 2048, 64), causal and not, f32 and
+     bf16, at (64, 2048, 128) f32 causal, at the sp ring's backward call
+     (64, 512, 64) bf16 in, f32 gradients out, causal and not, at head_dim
+     256 (16, 2048, 256) and head_dim 512 (8, 2048, 512; the wide kernels),
+     f32 and bf16, causal and not (with each output's error against float64
+     beside the plain version's), and at ragged (3, 200, 48), (4, 384, 32),
+     (4, 384, 200), (3, 200, 257), (2, 130, 320) and (2, 96, 1024), with
+     kernel / plain / library / bound times (the bound on the kernels'
+     tensor-core route, 3xTF32 or bf16, beside the f32 SIMT figure), each
+     kernel run twice (bit-equal results, two launches counted); K5 twice
+     per shape and once more after its timed calls, exact each time; K9
+     (the ring hop) at the sp ring's per-rank (B*H, Tq, Tk, D) = (64, 512,
+     512, 64), f32 and bf16: the diagonal causal hop (q_off = k_off = 512),
+     a fully visible causal hop (q_off 1536, k_off 0) and a non-causal hop,
+     each from the ring's first carry (timed: kernel / plain / bound) and
+     from a mid-ring carry, then the ragged (3, 200, 328, 48) at q_off 100,
+     k_off 150, whose first rows see no key, causal and not, at head_dim
+     256 (16, 512, 512, 256) and 512 (8, 512, 512, 512) on a diagonal and a
+     full causal hop (timed), and at ragged D 200, 257, 320 and 1024, each
+     hop run twice (bit-equal);
   4. a full-width CaffeNet .caffemodel (227x227, 60,965,224 params)
      written with the port's own save_caffemodel and seeded fillers;
   5. that model served through the CLI's start_server (-serve path),
@@ -173,7 +179,7 @@ or the package is not importable, and when any phase fails.  Phases:
      and norm2 (32,192,56,56), 16 launches each; then with
      COS_FUSE_BIAS_RELU_LRN=1, where the peephole folds conv2/3x3's bias
      and relu into norm2: K1 + K2 and K3 + K4, 8 launches each; each
-     step against the all-plain step; K1-K4 timed at these shapes;
+     step against the all-plain step; K1-K3 timed at these shapes;
  24. ResNet-50 at the same data shape, SGD 0.1, momentum 0.9,
      weight_decay 1e-4, 8 steps through the CLI: the 53 BatchNorm
      layers' running statistics finite and moved, the step against the
@@ -554,9 +560,9 @@ def lrn_bwd_ops_per_elem(local_size: int, relu: bool, bias: bool) -> int:
     return 3 * local_size + 10 + int(relu) + int(bias)
 
 
-def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
-                  timed=True, ls=5):
-    """K2 / K4 against lrn_bwd_plain on the same x, dy (and bias)."""
+def check_lrn_bwd(K, torch, name, shape, dtype, relu, results, timed=True,
+                  ls=5):
+    """K2 against lrn_bwd_plain on the same x and dy."""
     import torch.nn.functional as F
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
         f"{name}{shape}{dtype}{relu}{ls}".encode()))
@@ -564,16 +570,10 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
     dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
     b = torch.randn(shape[1], device="cuda", generator=g)
     alpha, beta, k = 1e-4, 0.75, 1.0
-    if bias:
-        run = lambda x, dy, b: K.bias_relu_lrn_across_channels_bwd(  # noqa: E731
-            x, b, dy, ls, alpha, beta, k)
-        plain = lambda x, dy, b: K.bias_relu_lrn_bwd_plain(  # noqa: E731
-            x, b, dy, ls, alpha, beta, k)
-    else:
-        run = lambda x, dy, b: K.lrn_across_channels_bwd(  # noqa: E731
-            x, dy, ls, alpha, beta, k, relu)
-        plain = lambda x, dy, b: K.lrn_bwd_plain(  # noqa: E731
-            x, dy, ls, alpha, beta, k, relu)
+    run = lambda x, dy, b: K.lrn_across_channels_bwd(  # noqa: E731
+        x, dy, ls, alpha, beta, k, relu)
+    plain = lambda x, dy, b: K.lrn_bwd_plain(  # noqa: E731
+        x, dy, ls, alpha, beta, k, relu)
     got = run(x, dy, b)
     torch.cuda.synchronize()
     want = plain(x, dy, b)
@@ -595,14 +595,13 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
             f"local_size {ls}: max_abs_err {max_err:.3g} bit-equal {exact}")
         results.setdefault(name, []).append(rec)
         return
-    nbytes = 3 * x.numel() * x.element_size() + (4 * shape[1] if bias
-                                                 else 0)
+    nbytes = 3 * x.numel() * x.element_size()
     sets = [(x.clone(), dy.clone(), b.clone())
             for _ in range(rotations(nbytes))]
     ms, host_us = time_ms(run, sets)
     plain_ms, _ = time_ms(plain, sets)
     lib_ms = None
-    if not relu and not bias:
+    if not relu:
         # the library yardstick: autograd's backward of
         # F.local_response_norm on a retained graph (the same dx)
         graphs = []
@@ -614,7 +613,7 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
             y, xg, dys, retain_graph=True)
         lib_ms, _ = time_ms(lib, graphs)
         del graphs
-    ops = x.numel() * lrn_bwd_ops_per_elem(ls, relu or bias, bias)
+    ops = x.numel() * lrn_bwd_ops_per_elem(ls, relu, False)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
@@ -626,6 +625,189 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, results,
         f"{host_us:.1f} us on the host) plain {plain_ms:.4f} ms library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+
+
+def k4_db_allowance(K, shape, mass):
+    """The rounding allowance of K4's d_bias against an exact sum: 2^-24
+    times the additions on the longest path of its sum (log2 of a tile's
+    positions, then the partials one thread of `sum_partials` adds in
+    turn, then its 256-wide tree) times the channel's sum of |dx|: the
+    bound of any summation of that depth."""
+    parts = shape[0] * -(-shape[2] * shape[3] // K.K4_TILE)
+    depth = math.ceil(math.log2(K.K4_TILE)) + -(-parts // 256) + 8
+    return 2.0 ** -24 * depth * mass
+
+
+def check_k4(K, torch, shape, dtype, results, timed=True, ls=5):
+    """K4 against its plain version on the same x, dy and bias: dx to
+    rtol / atol, d_bias to rtol / atol plus the rounding of its sum
+    (`k4_db_allowance`) against the exact sum of the dx it returns and,
+    with the dx differences added, against the plain version's d_bias;
+    a second call byte-equal.  Timed: the fused call, its share of the
+    byte bound, and the fused backward through BiasReluLRNAcrossChannels
+    against K4's dx-only build (the same kernel without d_bias's sums,
+    its dx checked equal) followed by a separate
+    dx.float().sum((0, 2, 3)), the d_bias pass the fusion replaces."""
+    name = "bias_relu_lrn_across_channels_bwd"
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"{name}{shape}{dtype}False{ls}".encode()))
+    x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=g)
+    alpha, beta, k = 1e-4, 0.75, 1.0
+    run = lambda x, dy, b: K.bias_relu_lrn_across_channels_bwd(  # noqa: E731
+        x, b, dy, ls, alpha, beta, k)
+    plain = lambda x, dy, b: K.bias_relu_lrn_bwd_plain(  # noqa: E731
+        x, b, dy, ls, alpha, beta, k)
+    got, got_db = run(x, dy, b)
+    again, again_db = run(x, dy, b)
+    torch.cuda.synchronize()
+    want, want_db = plain(x, dy, b)
+    err = (got.float() - want.float()).abs()
+    rtol, atol = ((BWD_RTOL, BWD_ATOL) if dtype == torch.float32
+                  else (BF16_RTOL, BF16_ATOL))
+    bad = err > atol + rtol * want.float().abs()
+    max_err = float(err.max())
+    check(not bool(bad.any()),
+          f"{name} {shape} {dtype} local_size {ls}: dx: {int(bad.sum())} "
+          f"elements outside rtol {rtol} atol {atol} (max abs err "
+          f"{max_err:.3g})")
+    check(torch.equal(got, again) and torch.equal(got_db, again_db),
+          f"{name} {shape} {dtype}: two calls differ")
+    dims = (0, 2, 3)
+    mass = got.double().abs().sum(dims)
+    allow = k4_db_allowance(K, shape, mass)
+    own = got.double().sum(dims)
+    e_own = (got_db.double() - own).abs()
+    lim_own = atol + rtol * own.abs() + allow
+    e_plain = (got_db.double() - want_db.double()).abs()
+    lim_plain = (atol + rtol * want_db.double().abs() + 2 * allow
+                 + (got.double() - want.double()).abs().sum(dims))
+    check(bool((e_own <= lim_own).all()),
+          f"{name} {shape} {dtype}: d_bias is not the sum of its dx "
+          f"(max err {float(e_own.max()):.3g}, "
+          f"{float((e_own / lim_own).max()):.3g} of the limit)")
+    check(bool((e_plain <= lim_plain).all()),
+          f"{name} {shape} {dtype}: d_bias against the plain version's "
+          f"(max err {float(e_plain.max()):.3g}, "
+          f"{float((e_plain / lim_plain).max()):.3g} of the limit)")
+    rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
+               relu=False, local_size=ls, max_abs_err=max_err,
+               bit_equal=bool(torch.equal(got, want)),
+               db_max_abs_err=float(e_own.max()),
+               db_of_limit=float((e_own / lim_own).max()),
+               db_vs_plain_max_abs_err=float(e_plain.max()),
+               db_vs_plain_of_limit=float((e_plain / lim_plain).max()),
+               db_bit_equal=bool(torch.equal(got_db, want_db)),
+               repeat_byte_equal=True)
+    head = (f"  {name} {tuple(shape)} {rec['dtype']} local_size {ls}: dx "
+            f"max_abs_err {max_err:.3g} (rtol {rtol:.3g} atol {atol:.3g}, "
+            f"bit-equal {rec['bit_equal']}); db max err "
+            f"{rec['db_max_abs_err']:.3g} against its dx's exact sum "
+            f"({rec['db_of_limit']:.3g} of the limit), "
+            f"{rec['db_vs_plain_max_abs_err']:.3g} against the plain "
+            f"version's ({rec['db_vs_plain_of_limit']:.3g}); repeat "
+            "byte-equal")
+    if not timed:
+        log(head)
+        results.setdefault(name, []).append(rec)
+        return
+    nbytes = 3 * x.numel() * x.element_size() + 8 * shape[1]
+    sets = [(x.clone(), dy.clone(), b.clone())
+            for _ in range(rotations(nbytes))]
+    ms, host_us = time_ms(run, sets)
+    plain_ms, _ = time_ms(plain, sets)
+    # the fused backward through the Function (dx and db from K4), and
+    # the dx-only build of K4 (its C entry point without the partial-sum
+    # buffer, on its own launch plan) followed by the separate f32 sum
+    # the fusion replaces
+    lib = K.cuda_build.library("lrn")
+    code = K._LRN_DTYPES[dtype]
+    n, c, hw = shape[0], shape[1], shape[2] * shape[3]
+    dx_plan = K.k4_plan(tuple(shape), ls, K._sm_count(0),
+                        lib.cos_bias_relu_lrn_bwd_occupancy(ls, code, 0))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dx_only(x, dy, b):
+        out = torch.empty_like(x)
+        status = lib.cos_bias_relu_lrn_bwd(
+            x.data_ptr(), b.data_ptr(), dy.data_ptr(), out.data_ptr(), None,
+            None, n, c, hw, ls, alpha / ls, -beta, -beta - 1.0, k,
+            2.0 * alpha * beta / ls, dx_plan.tiles, dx_plan.run, code,
+            stream)
+        check(status == 0, f"{name} dx only: cudaError {status}")
+        return out
+
+    check(torch.equal(dx_only(x, dy, b), got),
+          f"{name} {shape} {dtype}: the dx-only build's dx differs")
+    graphs = []
+    for xs, dys, bs in sets:
+        xg = xs.detach().requires_grad_(True)
+        bg = bs.detach().requires_grad_(True)
+        graphs.append((K.BiasReluLRNAcrossChannels.apply(
+            xg, bg, ls, alpha, beta, k), xg, bg, dys))
+    fused = lambda y, xg, bg, dys: torch.autograd.grad(  # noqa: E731
+        y, (xg, bg), dys, retain_graph=True)
+    fused_ms, _ = time_ms(fused, graphs)
+    del graphs
+    dx_only_ms, _ = time_ms(dx_only, sets)
+    separate = lambda x, dy, b: dx_only(x, dy, b).float().sum(  # noqa: E731
+        dims).to(b.dtype)
+    separate_ms, _ = time_ms(separate, sets)
+    sum_sets = [(run(*st)[0],) for st in sets]
+    sum_ms, _ = time_ms(lambda d: d.float().sum(dims), sum_sets)
+    del sum_sets
+    ops = x.numel() * (lrn_bwd_ops_per_elem(ls, True, True) + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    bound = 1e3 * max(t_bytes, t_ops)
+    rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms, library_ms=None,
+               bound_ms=bound,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               share_of_bound=bound / ms, fused_backward_ms=fused_ms,
+               dx_only_ms=dx_only_ms, dx_only_then_separate_sum_ms=separate_ms,
+               separate_sum_ms=sum_ms)
+    results.setdefault(name, []).append(rec)
+    log(head)
+    log(f"    kernel {ms:.4f} ms (launch path {host_us:.1f} us on the "
+        f"host) plain {plain_ms:.4f} ms bound {bound:.4f} ms "
+        f"({rec['bound_by']}): "
+        f"{rec['share_of_bound']:.3f} of the bound; fused backward "
+        f"{fused_ms:.4f} ms against K4's dx-only build then the separate "
+        f"sum {separate_ms:.4f} ms (dx only {dx_only_ms:.4f} ms, the sum "
+        f"alone {sum_ms:.4f} ms)")
+    check(fused_ms < separate_ms,
+          f"{name} {shape} {dtype}: the fused backward ({fused_ms:.4f} "
+          f"ms) is not faster than K4's dx only then the separate sum "
+          f"({separate_ms:.4f})")
+
+
+def check_k4_graph(K, torch, shape, dtype):
+    """K4 captured in a CUDA graph (as COS_STEPS_PER_LOOP captures the
+    solver's steps): the replay's dx and d_bias byte-equal to the eager
+    call's."""
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"k4 graph {shape}{dtype}".encode()))
+    x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=gen)
+    eager = K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with K.captured_launches():
+        with torch.cuda.graph(graph):
+            out = K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(out[0], eager[0]) and torch.equal(out[1], eager[1]),
+          f"K4 {shape} {dtype}: the graph's replay differs from the eager "
+          "call")
+    log(f"  bias_relu_lrn_across_channels_bwd {tuple(shape)} "
+        f"{str(dtype).replace('torch.', '')}: a CUDA graph's replay "
+        "byte-equal to the eager call (dx and d_bias)")
 
 
 def check_int8(K, torch, m, n, kk, results, timed=True):
@@ -1020,24 +1202,23 @@ def kernel_phase(K, torch) -> dict:
             continue
         check_lrn(K, torch, name, (TRAIN_B,) + shape[1:], torch.float32,
                   relu, bias, res)
-    bwd_cases = [  # the training path's shapes; the first of each is main
-        ("lrn_across_channels_bwd", (TRAIN_B, 96, 27, 27), False, False),
-        ("lrn_across_channels_bwd", (TRAIN_B, 256, 13, 13), False, False),
-        ("lrn_across_channels_bwd", (TRAIN_B, 96, 55, 55), True, False),
-        ("bias_relu_lrn_across_channels_bwd", (TRAIN_B, 96, 55, 55),
-         False, True),
-        ("bias_relu_lrn_across_channels_bwd", (TRAIN_B, 256, 27, 27),
-         False, True),
-    ]
+    bwd_cases = [  # K2 at the training path's shapes; the first is main
+        ((TRAIN_B, 96, 27, 27), False), ((TRAIN_B, 256, 13, 13), False),
+        ((TRAIN_B, 96, 55, 55), True)]
+    k4_cases = [  # K4: AlexNet's norm1 / norm2 at B=256 (the first is
+        # main) and GoogLeNet's fused norm2 (phase 23's shape)
+        (TRAIN_B, 96, 55, 55), (TRAIN_B, 256, 27, 27), (ZOO_B, 192, 56, 56)]
     for dtype in (torch.float32, torch.bfloat16):
-        for name, shape, relu, bias in bwd_cases:
-            check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, res)
-        for name, relu, bias in (("lrn_across_channels_bwd", False, False),
-                                 ("lrn_across_channels_bwd", True, False),
-                                 ("bias_relu_lrn_across_channels_bwd",
-                                  False, True)):
-            check_lrn_bwd(K, torch, name, (3, 13, 7, 9), dtype, relu, bias,
-                          res, timed=False)
+        for shape, relu in bwd_cases:
+            check_lrn_bwd(K, torch, "lrn_across_channels_bwd", shape, dtype,
+                          relu, res)
+        for shape in k4_cases:
+            check_k4(K, torch, shape, dtype, res)
+        for relu in (False, True):
+            check_lrn_bwd(K, torch, "lrn_across_channels_bwd",
+                          (3, 13, 7, 9), dtype, relu, res, timed=False)
+        check_k4(K, torch, (3, 13, 7, 9), dtype, res, timed=False)
+        check_k4_graph(K, torch, (16, 96, 55, 55), dtype)
     # windows wider than the register ring's (the runtime-window
     # variant), and a batch past grid.y's 65,535 at a small C*H*W
     for dtype in (torch.float32, torch.bfloat16):
@@ -1049,13 +1230,10 @@ def kernel_phase(K, torch) -> dict:
                                       False, True)):
                 check_lrn(K, torch, name, shape, dtype, relu, bias, res,
                           ls=ls, timed=False)
-            for name, relu, bias in (("lrn_across_channels_bwd", False,
-                                      False),
-                                     ("lrn_across_channels_bwd", True, False),
-                                     ("bias_relu_lrn_across_channels_bwd",
-                                      False, True)):
-                check_lrn_bwd(K, torch, name, shape, dtype, relu, bias, res,
-                              timed=False, ls=ls)
+            for relu in (False, True):
+                check_lrn_bwd(K, torch, "lrn_across_channels_bwd", shape,
+                              dtype, relu, res, timed=False, ls=ls)
+            check_k4(K, torch, shape, dtype, res, timed=False, ls=ls)
     # the dp ranks' shapes (phase 32): CaffeNet's B=256 over dp 2 (dp 4's
     # B=64 is the serving shape above), AlexNet's fused stem over dp 2
     for b in (TRAIN_B // 2, TRAIN_B // 4):
@@ -1064,12 +1242,11 @@ def kernel_phase(K, torch) -> dict:
             check_lrn(K, torch, name, shape, torch.float32, False, False,
                       res, timed=False)
             check_lrn_bwd(K, torch, name + "_bwd", shape, torch.float32,
-                          False, False, res, timed=False)
+                          False, res, timed=False)
     for shape in ((TRAIN_B // 2, 96, 55, 55), (TRAIN_B // 2, 256, 27, 27)):
         check_lrn(K, torch, "bias_relu_lrn_across_channels", shape,
                   torch.float32, False, True, res, timed=False)
-        check_lrn_bwd(K, torch, "bias_relu_lrn_across_channels_bwd", shape,
-                      torch.float32, False, True, res, timed=False)
+        check_k4(K, torch, shape, torch.float32, res, timed=False)
     for m, n, kk in ((B, 4096, 9216), (B, 4096, 4096), (B, 1000, 4096)):
         check_int8(K, torch, m, n, kk, res)
     for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
@@ -2902,7 +3079,8 @@ def googlenet_phase(K, torch, workdir, lmdb, res, device="cuda"):
     COS_FUSE_BIAS_RELU_LRN=1, where the peephole folds conv2/3x3's bias
     and relu into norm2 (K3 + K4) and norm1 stays K1 + K2 (8 each);
     each net's step against the all-plain step (STEP_LOSS_RTOL,
-    STEP_GRAD_TOL); K1-K4 timed at these shapes into `res`."""
+    STEP_GRAD_TOL); K1-K3 timed at these shapes into `res` (K4 at
+    norm2's shape: phase 3)."""
     from caffeonspark_tpu_torch.config import Config
     from caffeonspark_tpu_torch.models import zoo
     from caffeonspark_tpu_torch.net import Net
@@ -2937,14 +3115,16 @@ def googlenet_phase(K, torch, workdir, lmdb, res, device="cuda"):
         del kept
         gc.collect()
         torch.cuda.empty_cache()
-    log("  K1-K4 at GoogLeNet's norm shapes (B=32, f32; timed):")
+    log("  K1-K3 at GoogLeNet's norm shapes (B=32, f32; timed; K4 at "
+        "(32,192,56,56): phase 3):")
     for name, shape, bias in (
             ("lrn_across_channels", (ZOO_B, 64, 56, 56), False),
             ("lrn_across_channels", (ZOO_B, 192, 56, 56), False),
             ("bias_relu_lrn_across_channels", (ZOO_B, 192, 56, 56), True)):
         check_lrn(K, torch, name, shape, torch.float32, False, bias, res)
-        check_lrn_bwd(K, torch, name + "_bwd", shape, torch.float32, False,
-                      bias, res)
+        if not bias:
+            check_lrn_bwd(K, torch, name + "_bwd", shape, torch.float32,
+                          False, res)
     return dict(weights=weights, runs=runs, step_vs_plain=steps,
                 fused_bias_lrn=fused)
 
@@ -5267,10 +5447,10 @@ def gs_compare(key, mode, rec, params, ref_rec, ref):
         f"{dist:.3g} of default's update away")
 
 
-def ptxas_report(text: str) -> list:
-    """Registers and spills of each flash kernel instantiation, from the
-    `-Xptxas -v` output of nvcc (names demangled by c++filt where the
-    machine has it)."""
+def ptxas_report(text: str, keep) -> list:
+    """Registers and spills of each kernel instantiation whose mangled
+    name `keep` accepts, from the `-Xptxas -v` output of nvcc (names
+    demangled by c++filt where the machine has it)."""
     import re
     out, cur = [], None
     for line in text.splitlines():
@@ -5285,7 +5465,7 @@ def ptxas_report(text: str) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
-            if "flash_" in cur["kernel"]:
+            if keep(cur["kernel"]):
                 out.append(cur)
             cur = None
     try:
@@ -5348,9 +5528,15 @@ def main(argv) -> int:
         f"{'yes' if have['libjpeg'] else 'no'}, cv2 {have['cv2'] or 'no'}, "
         f"PIL {have['PIL'] or 'no'}")
     for name, text in report["nvcc"].items():
-        if text.strip() and name != "flash_attn":
+        if text.strip() and name not in ("flash_attn", "lrn"):
             log(f"--- nvcc {name}.cu ---\n{text.strip()}")
-    ptxas = ptxas_report(report["nvcc"].get("flash_attn", ""))
+    # the flash kernels, and lrn.cu's backward kernels: K2's
+    # (lrn_bwd_kernel, lrn_bwd_wide_kernel) and K4's (k4::bwd,
+    # k4::bwd_wide, k4::sum_partials)
+    ptxas = ptxas_report(report["nvcc"].get("flash_attn", ""),
+                         lambda k: "flash_" in k)
+    ptxas += ptxas_report(report["nvcc"].get("lrn", ""),
+                          lambda k: "lrn_bwd" in k or "2k4" in k)
     for r in ptxas:
         log(f"  ptxas {r['kernel'][:90]}: {r['registers']} registers, "
             f"spill stores {r.get('spill_stores')} loads "

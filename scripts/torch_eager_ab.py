@@ -2,15 +2,23 @@
 compare checkouts of this repository in one session on one card.
 
     python3 scripts/torch_eager_ab.py ROOT_A ROOT_B [--steps N] [--rounds R]
+                                      [--paths P [P ...]]
 
 Each ROOT is a checkout (its `chip_smoke.py` and
 `caffeonspark_tpu_torch/`).  The roots run in the order A, B, B, A,
 `--rounds` times over, each in a process of its own that builds the
 root's kernels and times, with the root's own `chip_smoke` helpers,
 `--steps` synchronized direct steps (`chip_smoke.direct_steps`, after 3
-warm-up steps) of two host-bound paths at their chip_smoke shapes:
-lstm_lm (LRCN widths, B 32, T 20) and the transformer LM (16 x 64,
-T 2048, B 4), both float32 with no mesh.  The last line of the output
+warm-up steps) of each of `--paths` at its chip_smoke shape, float32
+with no mesh: by default the two host-bound paths, lstm_lm (LRCN
+widths, B 32, T 20) and the transformer LM (16 x 64, T 2048, B 4); also
+`googlenet_fused_f32` (bvlc_googlenet, B 32, crop 224, with
+COS_FUSE_BIAS_RELU_LRN=1: K3 + K4 on norm2) and `alexnet_fused_f32`
+(AlexNet, B 256, crop 227, the same knob: K3 + K4 on norm1 and norm2),
+both on a 256-record seeded LMDB.  With `--device-busy`, each path
+also gets 3 steps under torch.profiler (`chip_smoke.profile_train_step`)
+whose device-busy ms land under "<path> device_busy".  The last line of
+the output
 is one JSON object: each run's median, minimum and step times, by root
 and path, and each root's median of its runs' medians.  With one ROOT
 the script times that root in this process and prints its JSON line.
@@ -27,7 +35,34 @@ import subprocess
 import sys
 
 
-def time_root(root: str, steps: int) -> dict:
+PATHS = ("lstm_lm_f32", "transformer_lm_f32", "googlenet_fused_f32",
+         "alexnet_fused_f32")
+FUSED = {"COS_FUSE_BIAS_RELU_LRN": "1"}
+
+
+def solver_configs(cs, workdir: str, paths) -> dict:
+    """{path: (solver prototxt, knobs)}, written with the root's own
+    chip_smoke helpers."""
+    out = {}
+    if "lstm_lm_f32" in paths:
+        out["lstm_lm_f32"] = (cs.write_lstm_config(workdir)[0], {})
+    if "transformer_lm_f32" in paths:
+        out["transformer_lm_f32"] = (cs.write_lm_config(workdir), {})
+    if {"googlenet_fused_f32", "alexnet_fused_f32"} & set(paths):
+        from caffeonspark_tpu_torch.models import zoo
+        lmdb = cs.write_train_data(workdir, n=cs.TRAIN_B)
+        if "googlenet_fused_f32" in paths:
+            out["googlenet_fused_f32"] = (cs.write_zoo_config(
+                workdir, zoo.googlenet, lmdb, cs.GOOGLENET_SOLVER, seed=3,
+                xavier_convs=True)[0], FUSED)
+        if "alexnet_fused_f32" in paths:
+            out["alexnet_fused_f32"] = (cs.write_train_config(
+                workdir, zoo.alexnet, lmdb, seed=2), FUSED)
+    return out
+
+
+def time_root(root: str, steps: int, paths=PATHS[:2],
+              device_busy: bool = False) -> dict:
     """{path: [ms of each step]} of `root`, measured in this process."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -42,15 +77,21 @@ def time_root(root: str, steps: int) -> dict:
     cuda_build.build_all()
     workdir = os.path.join(root, "build", "eager_ab")
     os.makedirs(workdir, exist_ok=True)
-    paths = {"lstm_lm_f32": cs.write_lstm_config(workdir)[0],
-             "transformer_lm_f32": cs.write_lm_config(workdir)}
     out = {}
-    for name, solver_path in paths.items():
-        solver, host = cs.make_solver(torch, solver_path, {}, "cuda")
-        params, state = solver.init()
-        cs.direct_steps(torch, solver, params, state, host, n=3)
-        out[name] = cs.direct_steps(torch, solver, params, state, host,
-                                    n=steps)
+    for name, (solver_path, env) in solver_configs(cs, workdir,
+                                                   paths).items():
+        with cs.env_set(env):
+            solver, host = cs.make_solver(torch, solver_path, env, "cuda")
+            params, state = solver.init()
+            cs.direct_steps(torch, solver, params, state, host, n=3)
+            out[name] = cs.direct_steps(torch, solver, params, state, host,
+                                        n=steps)
+            if device_busy:
+                profiles = [cs.profile_train_step(torch, name, solver, params,
+                                                  state, host)
+                            for _ in range(3)]
+                out[f"{name} device_busy"] = [
+                    p["device_busy_us"] / 1e3 for p in profiles if p]
         del solver, params, state, host
         torch.cuda.empty_cache()
     return out
@@ -61,16 +102,22 @@ def main(argv) -> int:
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--paths", nargs="+", choices=PATHS,
+                    default=list(PATHS[:2]))
+    ap.add_argument("--device-busy", action="store_true")
     args = ap.parse_args(argv)
     if len(args.roots) == 1:
-        print(json.dumps(time_root(args.roots[0], args.steps)), flush=True)
+        print(json.dumps(time_root(args.roots[0], args.steps, args.paths,
+                                   args.device_busy)), flush=True)
         return 0
     order = (list(args.roots) + list(reversed(args.roots))) * args.rounds
     runs = []
     for root in order:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), root, "--steps",
-             str(args.steps)], capture_output=True, text=True, timeout=900)
+             str(args.steps), "--paths", *args.paths,
+             *(["--device-busy"] if args.device_busy else [])],
+            capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-4000:])
             return proc.returncode

@@ -9,11 +9,13 @@ machine with a card and no JAX:
 (COS_TPU_TESTS=1 keeps tests/conftest.py from importing jax.)
 chip_smoke.py repeats these checks at the serving and training shapes.
 Tolerances: LRN forward rtol 2e-5 / atol 2e-6, backward rtol 3e-4 /
-atol 3e-5, int8 exact (every LRN and int8 check so far has been
-bit-equal); flash attention (K6-K9, whose sums run in another order
+atol 3e-5 (K4's d_bias plus the rounding of its sum, `_k4_check`), int8
+exact; flash attention (K6-K9, whose sums run in another order
 than the plain version's matmuls) forward rtol/atol 2e-5, gradients
 rtol 2e-4 / atol 1e-5, and in bf16 one bf16 ulp (2^-7) beyond those.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -85,9 +87,9 @@ def test_backward_kernels_match_plain_on_card(cuda_card):
                        K.lrn_bwd_plain(x, dy, ls, ALPHA, BETA, KK,
                                        relu).cpu(), 3e-4, 3e-5)
             _close(K.bias_relu_lrn_across_channels_bwd(
-                x, b, dy, ls, ALPHA, BETA, KK).cpu(),
+                x, b, dy, ls, ALPHA, BETA, KK)[0].cpu(),
                 K.bias_relu_lrn_bwd_plain(x, b, dy, ls, ALPHA, BETA,
-                                          KK).cpu(), 3e-4, 3e-5)
+                                          KK)[0].cpu(), 3e-4, 3e-5)
 
 
 @pytest.mark.cuda
@@ -112,7 +114,7 @@ def test_lrn_functions_launch_kernels_on_card(cuda_card):
         "flash_attention_bwd_dkv": 0, "flash_block_update": 0}
     _close(xg.grad.cpu(), K.lrn_bwd_plain(x, dy, 5, ALPHA, BETA, KK).cpu(),
            3e-4, 3e-5)
-    dx = K.bias_relu_lrn_bwd_plain(x, b, dy, 5, ALPHA, BETA, KK)
+    dx, _ = K.bias_relu_lrn_bwd_plain(x, b, dy, 5, ALPHA, BETA, KK)
     _close(xb.grad.cpu(), dx.cpu(), 3e-4, 3e-5)
     _close(bg.grad.cpu(), dx.sum((0, 2, 3)).cpu(), 3e-4, 3e-5)
 
@@ -140,9 +142,124 @@ def test_lrn_kernels_take_any_window_and_batch_on_card(cuda_card, shape,
                                                        BETA, KK),
                        K.lrn_plain(x, ls, ALPHA, BETA, KK, bias=b))
     _close(K.bias_relu_lrn_across_channels_bwd(x, b, dy, ls, ALPHA, BETA,
-                                               KK).cpu(),
-           K.bias_relu_lrn_bwd_plain(x, b, dy, ls, ALPHA, BETA, KK).cpu(),
-           3e-4, 3e-5)
+                                               KK)[0].cpu(),
+           K.bias_relu_lrn_bwd_plain(x, b, dy, ls, ALPHA, BETA,
+                                     KK)[0].cpu(), 3e-4, 3e-5)
+
+
+# K4 (dx and d_bias in one pass): BWD_SHAPES, odd planes (55x55, 27x27,
+# 13x13 put channel planes off 16-byte boundaries), a C below the
+# kernel's stage of 8 channels, and batches past 65,535
+K4_SHAPES = BWD_SHAPES + [(2, 96, 55, 55), (3, 96, 27, 27), (2, 256, 13, 13),
+                          (2, 3, 2, 2), (1, 1, 1, 1)]
+
+
+def _k4_inputs(shape, seed, device, dtype):
+    x = torch.from_numpy(_x(shape, seed)).to(device=device, dtype=dtype)
+    dy = torch.from_numpy(_x(shape, seed + 1, 1.0)).to(device=device,
+                                                       dtype=dtype)
+    b = torch.from_numpy(_x((shape[1],), seed + 2, 1.0)).to(device)
+    return x, b, dy
+
+
+def _k4_check(shape, ls, dtype, device):
+    """K4's (dx, db) against the plain version: dx within rtol 3e-4 /
+    atol 3e-5 (f32) or one bf16 ulp; db within the same bounds of the
+    exact sum of the dx it returns, plus the rounding of its summation
+    (2^-24 times the additions on its longest path, times the sum of
+    |dx|: log2 of a tile's positions, then one a partial that a thread
+    of its final sum adds, then a 256-wide tree), and of the plain
+    version's db with the dx differences added."""
+    x, b, dy = _k4_inputs(shape, 7 + sum(shape) + ls, device, dtype)
+    dx, db = K.bias_relu_lrn_across_channels_bwd(x, b, dy, ls, ALPHA, BETA,
+                                                 KK)
+    pdx, pdb = K.bias_relu_lrn_bwd_plain(x, b, dy, ls, ALPHA, BETA, KK)
+    rtol, atol = (3e-4, 3e-5) if dtype == torch.float32 else (BF16_ULP, 1e-6)
+    _close(dx.float().cpu(), pdx.float().cpu(), rtol, atol)
+    dims = (0, 2, 3)
+    got, d64 = db.double().cpu(), dx.double().cpu()
+    parts = shape[0] * -(-shape[2] * shape[3] // K.K4_TILE)
+    depth = math.ceil(math.log2(K.K4_TILE)) + -(-parts // 256) + 8
+    allow = 2.0 ** -24 * depth * d64.abs().sum(dims)
+    own = d64.sum(dims)
+    assert bool(((got - own).abs() <= atol + rtol * own.abs() + allow).all())
+    plain = pdb.double().cpu()
+    diff = (d64 - pdx.double().cpu()).abs().sum(dims)
+    assert bool(((got - plain).abs()
+                 <= atol + rtol * plain.abs() + 2 * allow + diff).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("local_size", [3, 5, 13, 15])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_k4_dx_and_db_match_plain_on_card(cuda_card, shape, local_size,
+                                          dtype):
+    """K4's dx and d_bias against the plain (dx, db) at the backward
+    shapes and odd planes, every window kind (the register rings up to
+    local_size 11, the runtime-window kernel above), f32 and bf16."""
+    _k4_check(shape, local_size, dtype, cuda_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,local_size", [((65_600, 4, 2, 3), 5),
+                                              ((65_600, 3, 2, 2), 13)])
+def test_k4_takes_a_batch_past_65535_on_card(cuda_card, shape, local_size,
+                                             dtype):
+    """K4 at N = 65,600 (a 1-D grid of (n, tile, run) blocks)."""
+    _k4_check(shape, local_size, dtype, cuda_card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_refuses_a_misaligned_start_by_name_on_card(cuda_card, dtype):
+    """x or dy that does not start on 16 bytes (a view one element into
+    its storage) is refused by name, not copied; a view 16 bytes in
+    launches and matches the plain version."""
+    shape = (2, 16, 5, 7)
+    x, b, dy = _k4_inputs(shape, 5, cuda_card, dtype)
+    n = x.numel()
+    per16 = 16 // x.element_size()
+    rtol, atol = (3e-4, 3e-5) if dtype == torch.float32 else (BF16_ULP, 1e-6)
+    for off, ok in ((1, False), (per16, True)):
+        xs = torch.zeros(n + off, device=cuda_card, dtype=dtype)
+        xs[off:] = x.reshape(-1)
+        xv = xs[off:].view(shape)
+        for args in ((xv, b, dy), (x, b, xv)):
+            if ok:
+                dx, _ = K.bias_relu_lrn_across_channels_bwd(*args)
+                pdx, _ = K.bias_relu_lrn_bwd_plain(*args)
+                _close(dx.float().cpu(), pdx.float().cpu(), rtol, atol)
+            else:
+                with pytest.raises(ValueError,
+                                   match="bias_relu_lrn_across_channels_bwd"):
+                    K.bias_relu_lrn_across_channels_bwd(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_repeats_and_graph_replay_are_byte_equal_on_card(cuda_card,
+                                                            dtype):
+    """Two calls give the same bytes of dx and d_bias (no atomics), and a
+    call captured in a CUDA graph replays to the eager call's bytes."""
+    x, b, dy = _k4_inputs((4, 96, 27, 27), 11, cuda_card, dtype)
+    dx, db = K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    dx2, db2 = K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    assert torch.equal(dx, dx2) and torch.equal(db, db2)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with K.captured_launches() as rec:
+        with torch.cuda.graph(graph):
+            gdx, gdb = K.bias_relu_lrn_across_channels_bwd(x, b, dy)
+    assert rec["counts"] == {"bias_relu_lrn_across_channels_bwd": 1}
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gdx, dx) and torch.equal(gdb, db)
 
 
 # (B·H, T, D): tiles of 64 rows whole and ragged, every padded width

@@ -82,8 +82,9 @@ def test_lrn_backward_matches_pallas_vjp(shape, relu):
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_bias_relu_lrn_backward_matches_pallas_vjp(shape):
-    """K4's plain version and BiasReluLRNAcrossChannels: dx and d_bias
-    against jax.grad through the fused Pallas kernel (interpret mode)."""
+    """K4's plain version (dx, d_bias) and BiasReluLRNAcrossChannels: dx
+    and d_bias against jax.grad through the fused Pallas kernel
+    (interpret mode)."""
     x = _x(shape, 7 + sum(shape), scale=2.0)
     b = np.random.RandomState(8).randn(shape[1]).astype(np.float32)
     dy = _x(shape, 9 + sum(shape), scale=1.0)
@@ -94,11 +95,12 @@ def test_bias_relu_lrn_backward_matches_pallas_vjp(shape):
             xj, bj, ls, ALPHA, BETA, KK, True) * jnp.asarray(dy))
     wx, wb = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(b))
 
-    plain = K.bias_relu_lrn_bwd_plain(torch.from_numpy(x),
-                                      torch.from_numpy(b),
-                                      torch.from_numpy(dy), ls, ALPHA, BETA,
-                                      KK)
+    plain, plain_db = K.bias_relu_lrn_bwd_plain(torch.from_numpy(x),
+                                                torch.from_numpy(b),
+                                                torch.from_numpy(dy), ls,
+                                                ALPHA, BETA, KK)
     _close(plain.numpy(), wx)
+    _close(plain_db.numpy(), wb)
 
     xt = torch.from_numpy(x).requires_grad_(True)
     bt = torch.from_numpy(b).requires_grad_(True)
