@@ -3,52 +3,31 @@
 //
 // Replaces (caffeonspark_tpu/ops/pallas_kernels.py):
 //   * `_lrn_fwd_call` (public `lrn_across_channels`, optional fuse_relu)
-//     -> entry point `cos_lrn_fwd`;
+//     -> entry point `cos_lrn_fwd` (K1);
 //   * `_bias_lrn_fwd_call` (public `bias_relu_lrn_across_channels`, the
-//     conv-stem epilogue lrn(relu(x + bias))) -> `cos_bias_relu_lrn_fwd`;
-//   * `_lrn_vjp_bwd` (kernel `_lrn_bwd_kernel`) -> `cos_lrn_bwd`;
+//     conv-stem epilogue lrn(relu(x + bias))) -> `cos_bias_relu_lrn_fwd`
+//     (K3);
+//   * `_lrn_vjp_bwd` (kernel `_lrn_bwd_kernel`) -> `cos_lrn_bwd` (K2);
 //   * `_bias_lrn_vjp_bwd` (kernel `_lrn_bwd_kernel_bias`, and the
 //     channel sum of its dx that XLA reduces after it)
-//     -> `cos_bias_relu_lrn_bwd`: dx and d_bias in one pass (its own
-//     design, in the last section below).
+//     -> `cos_bias_relu_lrn_bwd` (K4): dx and d_bias in one pass.
 //
 //   y[n,c,p] = x'[n,c,p] * exp(-beta * log(k + alpha/n * S[n,c,p]))
 //   S[n,c,p] = sum over |j - c| <= local_size/2 of x'[n,j,p]^2
 //   x' = x, relu(x) or relu(x + bias[c]) (compile-time variants).
 //
-// Forward (the backward section further down has its own notes).
-// What bounds it on the H100: memory.  Each element is read once and
-// written once (8 bytes in f32, 4 in bf16) for ~15 f32 operations, about
-// 2 operations per byte against the card's ~20 f32 operations per byte
-// of HBM bandwidth.  At B=64 the CaffeNet norm1 pass moves 35.8 MB:
-// about 10.7 us at 3.35 TB/s.
+// Backward, with x' as above (the normalizer recomputed from x', as the
+// TPU kernel recomputes it):
+//   s_j  = k + alpha/n * S_j
+//   u_j  = dy_j * x'_j * s_j^-beta / s_j
+//   dx_c = dy_c * s_c^-beta - (2 alpha beta / n) * x'_c * sum_W(u)_c
+//   dx_c = 0 where x'_c <= 0 when a ReLU is fused.
+// mul/add/div use the _rn intrinsics wherever a result must be the plain
+// version's, so nvcc contracts nothing into an FMA that the plain PyTorch
+// version does not perform.
 //
-// What the design does about it:
-//   * one thread owns one (n, h*w) position and walks a run of channels,
-//     so a warp's loads and stores of one channel plane are 32
-//     neighbouring addresses (coalesced along H*W in NCHW);
-//   * the 2*pad+1 window of x' values lives in a register ring shifted by
-//     one channel per step: inside its run a thread loads each element
-//     once and writes only y;
-//   * grid.x walks (n, block of h*w) pairs, so any N fits (no 65,535
-//     cap of grid.y); the channel axis is cut into runs (grid.y) so that
-//     layers with a small H*W (norm2: 13x13) still launch enough blocks
-//     to cover the SMs; a run re-reads only its 2*pad halo channels,
-//     which the neighbouring run also reads (an L2 hit in the common
-//     case);
-//   * windows up to local_size 11 are compile-time variants with the
-//     register ring; wider ones take one runtime-window variant that
-//     reads each window from memory, with the same operations in the
-//     same order (any local_size, as the Pallas LRN takes);
-//   * the window sum is taken directly from the ring in the order of the
-//     TPU kernel's `_window_sum` (centre, then -1/+1, -2/+2, ...) rather
-//     than as a running add/subtract, which would drift from it;
-//   * channels are loaded kUnroll at a time ahead of their use, so each
-//     thread keeps several independent loads in flight;
-//   * math is f32 for f32 and bf16 I/O alike (an f32 normalizer for
-//     bf16, as the TPU kernel does); mul/add use the _rn intrinsics so
-//     nvcc does not contract them into FMAs that the plain PyTorch
-//     version does not perform.
+// K4 (the next section) was rebuilt first; K1, K3 and K2 (the last
+// section) are built on its staging and its normalizer.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,395 +35,9 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kUnroll = 8;
-
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <typename T, int PAD, bool RELU, bool BIAS>
-__global__ void __launch_bounds__(kThreads)
-lrn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ bias,
-               T* __restrict__ y, int C, int HW, int hwb, int run,
-               float coef, float neg_beta, float k) {
-  const int n = blockIdx.x / hwb;
-  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
-  if (p >= HW) return;
-  const int64_t plane = (int64_t)HW;
-  const T* xp = x + (int64_t)n * C * plane + p;
-  T* yp = y + (int64_t)n * C * plane + p;
-  const int cs = blockIdx.y * run;
-  const int ce = min(C, cs + run);
-  constexpr int W = 2 * PAD + 1;
-
-  // x' of channel ch (0 outside [0, C): the zero-padded channel window)
-  auto load = [&](int ch) -> float {
-    if (ch < 0 || ch >= C) return 0.f;
-    float t = load_f32(xp + ch * plane);
-    if (BIAS) t = __fadd_rn(t, __ldg(bias + ch));
-    if (RELU) t = fmaxf(t, 0.f);
-    return t;
-  };
-
-  // ring[j] holds x' of channel c - PAD + j for j < W - 1; the value of
-  // channel c + PAD arrives from the prefetched block `nx`
-  float ring[W];
-#pragma unroll
-  for (int j = 0; j < W - 1; ++j) ring[j] = load(cs + j - PAD);
-
-  for (int c0 = cs; c0 < ce; c0 += kUnroll) {
-    float nx[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) nx[u] = load(c0 + u + PAD);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      ring[W - 1] = nx[u];
-      const int c = c0 + u;
-      if (c < ce) {
-        float acc = __fmul_rn(ring[PAD], ring[PAD]);
-#pragma unroll
-        for (int off = 1; off <= PAD; ++off) {
-          acc = __fadd_rn(acc, __fmul_rn(ring[PAD - off], ring[PAD - off]));
-          acc = __fadd_rn(acc, __fmul_rn(ring[PAD + off], ring[PAD + off]));
-        }
-        const float scale = __fadd_rn(k, __fmul_rn(coef, acc));
-        const float f = expf(__fmul_rn(neg_beta, logf(scale)));
-        store_f32(yp + c * plane, __fmul_rn(ring[PAD], f));
-      }
-#pragma unroll
-      for (int j = 0; j < W - 1; ++j) ring[j] = ring[j + 1];
-    }
-  }
-}
-
-// Channel run length: the whole C when the (HW, N) grid alone already
-// has about four blocks per SM, else the shortest run (a multiple of
-// kUnroll, at least 4 * pad so the halo stays a minor share) that gets
-// there.
-int channel_run(int N, int C, int HW, int pad) {
-  int sms = 132, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t blocks = (int64_t)((HW + kThreads - 1) / kThreads) * N;
-  const int64_t want = 4LL * sms;
-  if (blocks >= want) return C;
-  const int64_t runs = (want + blocks - 1) / blocks;
-  int run = (int)((C + runs - 1) / runs);
-  run = max(run, max(kUnroll, 4 * pad));
-  run = (run + kUnroll - 1) / kUnroll * kUnroll;
-  return min(run, C);
-}
-
-template <typename T, int PAD, bool RELU, bool BIAS>
-int launch(const void* x, const float* bias, void* y, int N, int C, int HW,
-           float coef, float neg_beta, float k, cudaStream_t s) {
-  const int run = channel_run(N, C, HW, PAD);
-  const int hwb = (HW + kThreads - 1) / kThreads;
-  dim3 grid(hwb * N, (C + run - 1) / run);
-  lrn_fwd_kernel<T, PAD, RELU, BIAS><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), bias, static_cast<T*>(y), C, HW, hwb, run,
-      coef, neg_beta, k);
-  return (int)cudaGetLastError();
-}
-
-// Windows wider than the register ring's (local_size > 11): a thread
-// sums each channel's window straight from memory (2 pad + 1 reads of
-// its column, neighbours' reads L1/L2 hits), in the same order and with
-// the same operations as the ring, so the two agree bit for bit.
-template <typename T, bool RELU, bool BIAS>
-__global__ void __launch_bounds__(kThreads)
-lrn_fwd_wide_kernel(const T* __restrict__ x, const float* __restrict__ bias,
-                    T* __restrict__ y, int C, int HW, int hwb, int run,
-                    int pad, float coef, float neg_beta, float k) {
-  const int n = blockIdx.x / hwb;
-  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
-  if (p >= HW) return;
-  const int64_t plane = (int64_t)HW;
-  const T* xp = x + (int64_t)n * C * plane + p;
-  T* yp = y + (int64_t)n * C * plane + p;
-  const int cs = blockIdx.y * run;
-  const int ce = min(C, cs + run);
-  auto load = [&](int ch) -> float {
-    if (ch < 0 || ch >= C) return 0.f;
-    float t = load_f32(xp + ch * plane);
-    if (BIAS) t = __fadd_rn(t, __ldg(bias + ch));
-    if (RELU) t = fmaxf(t, 0.f);
-    return t;
-  };
-  for (int c = cs; c < ce; ++c) {
-    const float xc = load(c);
-    float acc = __fmul_rn(xc, xc);
-    for (int off = 1; off <= pad; ++off) {
-      const float a = load(c - off), b = load(c + off);
-      acc = __fadd_rn(acc, __fmul_rn(a, a));
-      acc = __fadd_rn(acc, __fmul_rn(b, b));
-    }
-    const float scale = __fadd_rn(k, __fmul_rn(coef, acc));
-    const float f = expf(__fmul_rn(neg_beta, logf(scale)));
-    store_f32(yp + c * plane, __fmul_rn(xc, f));
-  }
-}
-
-template <typename T, bool RELU, bool BIAS>
-int launch_wide(int pad, const void* x, const float* bias, void* y, int N,
-                int C, int HW, float coef, float neg_beta, float k,
-                cudaStream_t s) {
-  const int run = channel_run(N, C, HW, pad);
-  const int hwb = (HW + kThreads - 1) / kThreads;
-  dim3 grid(hwb * N, (C + run - 1) / run);
-  lrn_fwd_wide_kernel<T, RELU, BIAS><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), bias, static_cast<T*>(y), C, HW, hwb, run,
-      pad, coef, neg_beta, k);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool RELU, bool BIAS>
-int dispatch_pad(int pad, const void* x, const float* bias, void* y, int N,
-                 int C, int HW, float coef, float neg_beta, float k,
-                 cudaStream_t s) {
-  switch (pad) {
-    case 0: return launch<T, 0, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    case 1: return launch<T, 1, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    case 2: return launch<T, 2, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    case 3: return launch<T, 3, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    case 4: return launch<T, 4, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    case 5: return launch<T, 5, RELU, BIAS>(x, bias, y, N, C, HW, coef, neg_beta, k, s);
-    default: return launch_wide<T, RELU, BIAS>(pad, x, bias, y, N, C, HW, coef, neg_beta, k, s);
-  }
-}
-
-int check_args(int N, int C, int HW, int local_size) {
-  if (N <= 0 || C <= 0 || HW <= 0 || local_size <= 0 ||
-      (int64_t)((HW + kThreads - 1) / kThreads) * N > 0x7fffffff)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-// ---------------------------------------------------------------------------
-// Backward (K2)
-//
-//   s_j  = k + alpha/n * S_j                   (recomputed from x', as the
-//                                               TPU kernel recomputes it)
-//   u_j  = dy_j * x'_j * s_j^-beta / s_j
-//   dx_c = dy_c * s_c^-beta - (2 alpha beta / n) * x'_c * sum_W(u)_c
-//   dx_c = 0 where x'_c <= 0 when a ReLU is fused.
-//
-// What bounds it on the H100: memory.  It reads x and dy and writes dx,
-// 12 bytes per element in f32, for about 2 * local_size + 20 f32
-// operations: ~2.5 operations per byte against ~20 the card can do per
-// byte of HBM bandwidth.
-//
-// What the design does about it: the forward's thread-per-(n, h*w)
-// walk over a channel run, with the window sums taken in the TPU
-// kernel's order.  dx_c needs u over c +- pad, and each u_j needs x'
-// over j +- pad, so a thread reads x' 2 * pad channels ahead of the dx
-// it writes.  It keeps three register rings, shifted by one channel per
-// step j:
-//   xr: x' of channels j - pad .. j + pad (for S_j; xr[0] is x'_{j-pad})
-//   ur: u  of channels j - 2 pad .. j     (the window of dx_{j-pad})
-//   tr: dy * s^-beta of channels j - pad .. j
-// and writes dx_c for c = j - pad.  A channel run [cs, ce) therefore
-// steps j over [cs - pad, ce + pad) and reads a halo of 2 * pad
-// channels of x (pad of dy) on each side; u and t are 0 outside [0, C),
-// as the zero-padded window of the TPU kernel has them.  mul/add/div
-// use the _rn intrinsics, so nvcc contracts nothing into an FMA that
-// the plain PyTorch version does not perform.
-// ---------------------------------------------------------------------------
-
-template <typename T, int PAD, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-lrn_bwd_kernel(const T* __restrict__ x,
-               const T* __restrict__ dy, T* __restrict__ dx, int C, int HW,
-               int hwb, int run, float coef, float neg_beta, float k,
-               float coef2) {
-  const int n = blockIdx.x / hwb;
-  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
-  if (p >= HW) return;
-  const int64_t plane = (int64_t)HW;
-  const int64_t base = (int64_t)n * C * plane + p;
-  const T* xp = x + base;
-  const T* dyp = dy + base;
-  T* dxp = dx + base;
-  const int cs = blockIdx.y * run;
-  const int ce = min(C, cs + run);
-  constexpr int W = 2 * PAD + 1;
-
-  auto load_x = [&](int ch) -> float {
-    if (ch < 0 || ch >= C) return 0.f;
-    float t = load_f32(xp + ch * plane);
-    if (RELU) t = fmaxf(t, 0.f);
-    return t;
-  };
-  auto load_dy = [&](int ch) -> float {
-    if (ch < 0 || ch >= C) return 0.f;
-    return load_f32(dyp + ch * plane);
-  };
-
-  const int j_begin = cs - PAD;
-  const int j_end = ce + PAD;
-  float xr[W], ur[W], tr[PAD + 1];
-#pragma unroll
-  for (int i = 0; i < W - 1; ++i) xr[i] = load_x(j_begin - PAD + i);
-#pragma unroll
-  for (int i = 0; i < W; ++i) ur[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i <= PAD; ++i) tr[i] = 0.f;
-
-  for (int j0 = j_begin; j0 < j_end; j0 += kUnroll) {
-    float nx[kUnroll], ndy[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      nx[u] = load_x(j0 + u + PAD);
-      ndy[u] = load_dy(j0 + u);
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = j0 + u;
-      xr[W - 1] = nx[u];
-      float uj = 0.f, tj = 0.f;
-      if (j >= 0 && j < C) {
-        float acc = __fmul_rn(xr[PAD], xr[PAD]);
-#pragma unroll
-        for (int off = 1; off <= PAD; ++off) {
-          acc = __fadd_rn(acc, __fmul_rn(xr[PAD - off], xr[PAD - off]));
-          acc = __fadd_rn(acc, __fmul_rn(xr[PAD + off], xr[PAD + off]));
-        }
-        const float s = __fadd_rn(k, __fmul_rn(coef, acc));
-        const float snb = expf(__fmul_rn(neg_beta, logf(s)));
-        uj = __fdiv_rn(__fmul_rn(__fmul_rn(ndy[u], xr[PAD]), snb), s);
-        tj = __fmul_rn(ndy[u], snb);
-      }
-      ur[W - 1] = uj;
-      tr[PAD] = tj;
-      const int c = j - PAD;
-      if (c >= cs && c < ce) {
-        float ws = ur[PAD];
-#pragma unroll
-        for (int off = 1; off <= PAD; ++off) {
-          ws = __fadd_rn(ws, ur[PAD - off]);
-          ws = __fadd_rn(ws, ur[PAD + off]);
-        }
-        const float xc = xr[0];
-        float d = __fsub_rn(tr[0], __fmul_rn(__fmul_rn(coef2, xc), ws));
-        if (RELU && !(xc > 0.f)) d = 0.f;
-        store_f32(dxp + c * plane, d);
-      }
-#pragma unroll
-      for (int i = 0; i < W - 1; ++i) {
-        xr[i] = xr[i + 1];
-        ur[i] = ur[i + 1];
-      }
-#pragma unroll
-      for (int i = 0; i < PAD; ++i) tr[i] = tr[i + 1];
-    }
-  }
-}
-
-template <typename T, int PAD, bool RELU>
-int launch_bwd(const void* x, const void* dy, void* dx,
-               int N, int C, int HW, float coef, float neg_beta, float k,
-               float coef2, cudaStream_t s) {
-  const int run = channel_run(N, C, HW, PAD);
-  const int hwb = (HW + kThreads - 1) / kThreads;
-  dim3 grid(hwb * N, (C + run - 1) / run);
-  lrn_bwd_kernel<T, PAD, RELU><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<T*>(dx), C, HW, hwb, run, coef, neg_beta, k, coef2);
-  return (int)cudaGetLastError();
-}
-
-// The backward for windows wider than the ring's: dx_c from u_j and t_j
-// of the channels j in c's window, each recomputed from its own window
-// of x' (O(local_size^2) reads, L1/L2 hits), with the ring's operations
-// in the ring's order.
-template <typename T, bool RELU>
-__global__ void __launch_bounds__(kThreads)
-lrn_bwd_wide_kernel(const T* __restrict__ x,
-                    const T* __restrict__ dy, T* __restrict__ dx, int C,
-                    int HW, int hwb, int run, int pad, float coef,
-                    float neg_beta, float k, float coef2) {
-  const int n = blockIdx.x / hwb;
-  const int p = (blockIdx.x - n * hwb) * kThreads + threadIdx.x;
-  if (p >= HW) return;
-  const int64_t plane = (int64_t)HW;
-  const int64_t base = (int64_t)n * C * plane + p;
-  const T* xp = x + base;
-  const T* dyp = dy + base;
-  T* dxp = dx + base;
-  const int cs = blockIdx.y * run;
-  const int ce = min(C, cs + run);
-  auto load_x = [&](int ch) -> float {
-    if (ch < 0 || ch >= C) return 0.f;
-    float t = load_f32(xp + ch * plane);
-    if (RELU) t = fmaxf(t, 0.f);
-    return t;
-  };
-  // u_j and t_j = dy_j * s_j^-beta (both 0 outside [0, C))
-  auto u_t = [&](int j, float& u, float& tj) {
-    u = tj = 0.f;
-    if (j < 0 || j >= C) return;
-    const float xj = load_x(j);
-    float acc = __fmul_rn(xj, xj);
-    for (int off = 1; off <= pad; ++off) {
-      const float a = load_x(j - off), b = load_x(j + off);
-      acc = __fadd_rn(acc, __fmul_rn(a, a));
-      acc = __fadd_rn(acc, __fmul_rn(b, b));
-    }
-    const float s = __fadd_rn(k, __fmul_rn(coef, acc));
-    const float snb = expf(__fmul_rn(neg_beta, logf(s)));
-    const float d = load_f32(dyp + j * plane);
-    u = __fdiv_rn(__fmul_rn(__fmul_rn(d, xj), snb), s);
-    tj = __fmul_rn(d, snb);
-  };
-  for (int c = cs; c < ce; ++c) {
-    float ws, tc, u, unused;
-    u_t(c, ws, tc);
-    for (int off = 1; off <= pad; ++off) {
-      u_t(c - off, u, unused);
-      ws = __fadd_rn(ws, u);
-      u_t(c + off, u, unused);
-      ws = __fadd_rn(ws, u);
-    }
-    const float xc = load_x(c);
-    float d = __fsub_rn(tc, __fmul_rn(__fmul_rn(coef2, xc), ws));
-    if (RELU && !(xc > 0.f)) d = 0.f;
-    store_f32(dxp + c * plane, d);
-  }
-}
-
-template <typename T, bool RELU>
-int launch_bwd_wide(int pad, const void* x, const void* dy,
-                    void* dx, int N, int C, int HW, float coef,
-                    float neg_beta, float k, float coef2, cudaStream_t s) {
-  const int run = channel_run(N, C, HW, pad);
-  const int hwb = (HW + kThreads - 1) / kThreads;
-  dim3 grid(hwb * N, (C + run - 1) / run);
-  lrn_bwd_wide_kernel<T, RELU><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<T*>(dx), C, HW, hwb, run, pad, coef, neg_beta, k, coef2);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, bool RELU>
-int dispatch_pad_bwd(int pad, const void* x,
-                     const void* dy, void* dx, int N, int C, int HW,
-                     float coef, float neg_beta, float k, float coef2,
-                     cudaStream_t s) {
-  switch (pad) {
-    case 0: return launch_bwd<T, 0, RELU>(x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    case 1: return launch_bwd<T, 1, RELU>(x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    case 2: return launch_bwd<T, 2, RELU>(x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    case 3: return launch_bwd<T, 3, RELU>(x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    case 4: return launch_bwd<T, 4, RELU>(x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    case 5: return launch_bwd<T, 5, RELU>(x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-    default: return launch_bwd_wide<T, RELU>(pad, x, dy, dx, N, C, HW, coef, neg_beta, k, coef2, s);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -973,67 +566,732 @@ const void* kernel(int pad, int dtype, bool db) {
 
 }  // namespace k4
 
+// ---------------------------------------------------------------------------
+// K1, K3 (the forward) and K2 (the backward): the staged kernels
+//
+// K1 and K3 compute y = x' s^-beta, K2 the backward formulas of the
+// section above with x' = x or relu(x) and, with a fused ReLU, the ReLU
+// mask.
+//
+// What bounds them on the H100: memory, or the normalizer's arithmetic.
+// The forward reads each element once and writes it once (8 bytes in
+// f32, 4 in bf16), the backward reads x and dy and writes dx (12 in f32,
+// 6 in bf16), for about 2 operations a byte against the card's ~20.  But
+// the normalizer is kept exact: the forward's y is the plain version's
+// bit for bit in both dtypes (y feeds every later layer, and in a bf16
+// net a change of its rounding spreads through the layers after it), K2's
+// f32 dx too (K2 shares its formula with K4, and the fused AlexNet step
+// is held to 1e-4 of the plain step's).  The precise logf / expf, and in
+// the backward the IEEE division, cost some forty instructions an
+// element: in f32 about as long as the copies, in bf16 longer.
+//
+// What the design does about it:
+//   * K4's staging: a block owns one sample n, a tile of TILE positions
+//     (one a thread) and a run of channels [cs, ce), planned on the host
+//     (ops/kernels.py `lrn_plan`: the tile 64, 96 or 128 wide, so that few
+//     of a plane's positions are padding (13x13 = 169 takes two tiles of
+//     96, 12 % of the slots idle, where 128 would leave 34 %); the runs
+//     cut from the card's SM count and the kernel's occupancy, read once a
+//     variant); the rows of the kStage channels a stage walks (the
+//     forward's x rows, the backward's x and dy rows) reach shared memory
+//     through a cp.async ring of 16-byte words (K4's `cp16`), three stages
+//     in flight in the forward's ring of four, two in the backward's of
+//     three, so the bytes in flight do not depend on the dtype or on how
+//     many warps fit on an SM;
+//   * a row may start anywhere: H*W is odd at 55x55, 27x27 and 13x13, and
+//     a tensor may be a view (a Slice top, a Concat's gradient) that
+//     starts at any element.  A row is copied as the 16-byte words that
+//     cover it and read back at its offset in the first word; the offset
+//     is the same in every stage (a stage moves a row by 8 H*W elements,
+//     a multiple of 16 bytes).  No byte outside a tensor is read: the word
+//     that would pass its end copies only the bytes inside it (cp.async's
+//     src-size), and the one word that would start before its first byte
+//     (a view off 16 bytes) is copied element by element.  Channels
+//     outside [0, C) are zero-filled rows (K3's bias entries there are 0),
+//     so the steps check no channel bound, and a stage whose outputs all
+//     lie in the run stores unchecked;
+//   * the steps walk the staged x channels i in order with register rings
+//     and take window sums centre first, then -1/+1, -2/+2, ..., as the
+//     TPU kernel's `_window_sum`.  The forward keeps x'^2 of i - 2 pad .. i
+//     and x' of i - pad .. i and writes y_c for c = i - pad; the backward
+//     is K4's body (x', x'^2, u and t = dy s^-beta rings, dx_c for
+//     c = i - 2 pad, `k4::Norm`) without the bias and d_bias, and with a
+//     whole stage's normalizers before its divisions (kBatch 8, where K4
+//     takes 4: 1-2.5 % faster here, scripts/lrn_variants.py);
+//   * the forward's normalizer: in f32 the plain version's operations
+//     (`lrn_y`).  In bf16 the hardware's lg2 / ex2 (`lrn_y_fast`), which
+//     round to the same bf16 value as `lrn_y` except within a few dozen
+//     f32 ulps of a bf16 rounding midpoint: a y within four times the two
+//     paths' error bound of one (about one y in 500), or whose s or power
+//     lies outside the range that bound covers, parks its window sum and
+//     x' in shared memory and is stored again with `lrn_y`'s y after the
+//     stage, so y is still the plain y bit for bit, and the steps carry
+//     no branch to the exact path;
+//   * K2 takes no normalizer for the first 2 pad steps of a run, which
+//     only fill the x' rings;
+//   * offsets are 64-bit: any C*H*W; the plan keeps N x tiles x runs
+//     under 2^31 blocks (a 1-D grid: any N).
+// Windows wider than the register rings (local_size > 11) take
+// `fwd_wide` / `bwd_wide`: the same blocks, the windows read from memory
+// (L1/L2 hits), the same operations in the same order.
+// ---------------------------------------------------------------------------
+
+namespace staged {
+
+using k4::commit;
+using k4::cp16;
+using k4::cp4;
+using k4::ex2;
+using k4::Flag;
+using k4::from_smem;
+using k4::lg2;
+using k4::Norm;
+using k4::Pow;
+using k4::store;
+using k4::wait_pending;
+
+constexpr int kStage = 8;       // channels a stage walks
+constexpr int kFwdStages = 4;   // the forward's ring: three stages in flight
+constexpr int kBwdStages = 3;   // the backward's (x and dy rows): two
+constexpr int kBatch = 8;       // backward steps whose normalizers go first
+static_assert(kStage % kBatch == 0, "a stage is whole batches");
+
+template <typename T, int TILE>
+struct Row {  // a staged row: the 16-byte words that cover TILE elements
+  static constexpr int kWords = TILE * (int)sizeof(T) / 16 + 1;
+  static constexpr int kBytes = kWords * 16;
+};
+
+struct Args {
+  unsigned long long x, x_end;     // first byte, one past the last
+  unsigned long long dy, dy_end;   // K2's (0 for K1, K3)
+  const float* bias;               // K3's (null for K1, K2)
+  void* out;                       // y (K1, K3) or dx (K2)
+  int C, HW, tiles, run, runs, pad;
+  float coef, nbeta, nbeta1, k, coef2;
+};
+
+// The block's place: sample n, tile, channel run [cs, ce).
+struct Place {
+  int n, tile, cs, ce, p0, len;
+};
+template <int TILE>
+__device__ __forceinline__ Place place(const Args& a) {
+  Place q;
+  const int b = blockIdx.x;
+  const int r = b % a.runs;
+  const int nt = b / a.runs;
+  q.tile = nt % a.tiles;
+  q.n = nt / a.tiles;
+  q.cs = r * a.run;
+  q.ce = min(a.C, q.cs + a.run);
+  q.p0 = q.tile * TILE;
+  q.len = min(TILE, a.HW - q.p0);
+  return q;
+}
+
+// the address of element `off` (signed, in elements) of a tensor at `base`
+template <typename T>
+__device__ __forceinline__ unsigned long long at_elem(unsigned long long base,
+                                                      long long off) {
+  return base + (unsigned long long)(off * (long long)sizeof(T));
+}
+
+// One thread's part of the ring's copy.  A stage holds ROWS rows of TILE
+// elements; kGroup = TILE / ROWS threads copy a row, thread g of the group
+// words g, g + kGroup, ...  Channels outside [lo, hi) are zero-filled (a
+// copy of 0 bytes from the aligned word at or below the tensor's start).
+template <typename T, int TILE, int ROWS>
+struct RowCopy {
+  static constexpr int kWords = Row<T, TILE>::kWords;
+  static constexpr int kGroup = TILE / ROWS;
+  static constexpr int kCopies = (kWords + kGroup - 1) / kGroup;
+  static_assert(TILE % ROWS == 0, "whole groups a row");
+  unsigned long long src, begin, end, blank, step;
+  int g, ch, lo, hi, nw;
+
+  // `row`: the address of the row's first element in the first stage, of
+  // channel `first`; [begin_, end_): the tensor's bytes
+  __device__ __forceinline__ void init(unsigned long long row, int first,
+                                       int lo_, int hi_, int len,
+                                       unsigned long long begin_,
+                                       unsigned long long end_, int g_,
+                                       int HW) {
+    nw = ((int)(row & 15) + len * (int)sizeof(T) + 15) >> 4;
+    src = (row & ~15ull) + 16ull * g_;
+    begin = begin_;
+    end = end_;
+    blank = begin_ & ~15ull;
+    step = (unsigned long long)kStage * HW * sizeof(T);
+    g = g_;
+    ch = first;
+    lo = lo_;
+    hi = hi_;
+  }
+  // issue this thread's words of the next stage's row into `dst_row`
+  __device__ __forceinline__ void issue(unsigned char* dst_row) {
+    const bool live = ch >= lo && ch < hi;
+#pragma unroll
+    for (int c = 0; c < kCopies; ++c) {
+      const int w = g + c * kGroup;
+      if (c == kCopies - 1 && w >= kWords) break;
+      unsigned char* dst = dst_row + 16 * w;
+      const unsigned long long at = src + 16ull * kGroup * c;
+      const bool used = live && w < nw;  // a word of the row: at < end
+      if (used && at < begin) {
+        // the tensor's first word starts before its first byte (a view
+        // off 16 bytes): its elements one by one (the bytes before the
+        // tensor are never read back)
+        for (unsigned long long b = begin; b < at + 16 && b < end;
+             b += sizeof(T))
+          *reinterpret_cast<T*>(dst + (b - at)) =
+              *reinterpret_cast<const T*>(b);
+        continue;
+      }
+      const int bytes = used ? (int)min(16ull, end - at) : 0;
+      cp16(dst, (const void*)(used ? at : blank), bytes);
+    }
+    ch += kStage;
+    src += step;
+  }
+};
+
+// y = x' s^-beta, s = k + coef * acc, with the plain version's (the TPU
+// kernel's) operations in its order, s^-beta = expf(-beta logf s): its
+// f32 y bit for bit.
+__device__ __forceinline__ float lrn_y(float acc, float x, float coef,
+                                      float k, float nbeta) {
+  const float s = __fadd_rn(k, __fmul_rn(coef, acc));
+  return __fmul_rn(x, expf(__fmul_rn(nbeta, logf(s))));
+}
+
+// lrn_y for a bf16 output from the hardware's lg2 / ex2, and whether it
+// rounds to the same bf16 value as lrn_y's (`sure`).  Their errors (lg2:
+// 2^-22 absolute on [0.5, 2], 2 ulp elsewhere; ex2: 2 ulp), with logf's
+// (1 ulp), expf's (2 ulp) and the roundings of both paths, keep this y
+// within 10 + 2.8 beta + 4.8 |p| f32 ulps of lrn_y's, p = log2 s^-beta,
+// for s normal and y finite.  `sure` holds where |p| < 1 (which fails
+// for an s that is not normal: lg2 of 0, a subnormal, a negative or an
+// infinite s is not finite), y is finite, and y lies more than
+// `margin` = 4 x (15 + 2.8 beta) ulps, four times that bound, from a
+// bf16 rounding midpoint (the low 16 bits 0x8000): all but about one y
+// in 400.  With d = low - 0x8000, |d| > margin is (unsigned)(d + margin)
+// > 2 margin.
+__device__ __forceinline__ float lrn_y_fast(float acc, float x, float coef,
+                                           float k, float nbeta, int margin,
+                                           bool& sure) {
+  const float s = __fadd_rn(k, __fmul_rn(coef, acc));
+  const float p = __fmul_rn(nbeta, lg2(s));
+  const float y = __fmul_rn(x, ex2(p));
+  const unsigned d = (__float_as_uint(y) & 0xffffu) + (unsigned)(margin -
+                                                                0x8000);
+  sure = fabsf(p) < 1.f && fabsf(y) <= 3.0e38f && d > 2u * (unsigned)margin;
+  return y;
+}
+
+// K1 (x' = x, or relu(x) with RELU) and K3 (x' = relu(x + bias), BIAS).
+// A stage holds the x rows of channels i0 .. i0 + 7 of its steps i.
+template <typename T, int TILE, int PAD, bool RELU, bool BIAS>
+__global__ void __launch_bounds__(TILE) fwd(const Args a) {
+  static_assert(!BIAS || RELU, "K3 fuses its ReLU");
+  constexpr int W = 2 * PAD + 1;
+  constexpr int RB = Row<T, TILE>::kBytes;
+  using Copy = RowCopy<T, TILE, kStage>;
+  __shared__ __align__(16) unsigned char rows[kFwdStages][kStage][RB];
+  __shared__ float bs[kFwdStages][kStage];
+
+  const Place q = place<TILE>(a);
+  const int tid = threadIdx.x;
+  const int C = a.C, HW = a.HW;
+  const long long sample = (long long)q.n * C * HW + q.p0;
+  const int i_begin = q.cs - PAD;  // x channel of the first step
+  const int i_end = q.ce + PAD;    // past the last x channel needed
+  const int n_st = (i_end - i_begin + kStage - 1) / kStage;
+
+  const int r = tid / Copy::kGroup;
+  Copy cp;
+  cp.init(at_elem<T>(a.x, sample + (long long)(i_begin + r) * HW),
+          i_begin + r, 0, min(C, i_end), q.len, a.x, a.x_end,
+          tid % Copy::kGroup, HW);
+  int bch = i_begin + tid;  // the bias entry threads 0 .. 7 copy (K3)
+  auto issue = [&](int st) {  // called once a stage, in order
+    cp.issue(&rows[st % kFwdStages][r][0]);
+    if constexpr (BIAS) {
+      if (tid < kStage) {
+        const bool live = bch >= 0 && bch < C && bch < i_end;
+        cp4(&bs[st % kFwdStages][tid], live ? a.bias + bch : a.bias,
+            live ? 4 : 0);
+      }
+      bch += kStage;
+    }
+  };
+
+  // ox[s]: the byte offset of this thread's element in row s of a stage
+  // (the same in every stage)
+  int ox[kStage];
+#pragma unroll
+  for (int s = 0; s < kStage; ++s)
+    ox[s] = s * RB +
+            (int)(at_elem<T>(a.x, sample + (long long)(i_begin + s) * HW) &
+                  15) +
+            tid * (int)sizeof(T);
+  const bool live_p = tid < q.len;
+  const float coef = a.coef, k = a.k, nbeta = a.nbeta;
+  // bf16: a step whose fast y is not `sure` parks its window sum and x'
+  // here and takes lrn_y's y after the stage, out of the steps' way
+  __shared__ float fix[sizeof(T) == 2 ? kStage : 1][2][TILE];
+  const int margin = 60 + (int)ceilf(11.2f * fabsf(nbeta));
+  unsigned unsure = 0;
+  float sr[W], xr[PAD + 1];
+#pragma unroll
+  for (int j = 0; j < W; ++j) sr[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j <= PAD; ++j) xr[j] = 0.f;
+  // y of channel c = i - PAD at step i: this thread's element
+  T* yp = static_cast<T*>(a.out) + sample + (long long)(i_begin - PAD) * HW +
+          tid;
+
+#pragma unroll
+  for (int st = 0; st < kFwdStages - 1; ++st) {
+    if (st < n_st) issue(st);
+    commit();
+  }
+  for (int st = 0; st < n_st; ++st) {
+    wait_pending<kFwdStages - 2>();
+    __syncthreads();
+    if (st + kFwdStages - 1 < n_st) issue(st + kFwdStages - 1);
+    commit();
+    const unsigned char* sb = &rows[st % kFwdStages][0][0];
+    const float* bias_s = bs[st % kFwdStages];
+    const int c0 = i_begin + st * kStage - PAD;  // y channel of step 0
+    // every step of the stage writes a y of this block's run
+    const bool whole = live_p && c0 >= q.cs && c0 + kStage <= q.ce;
+    auto steps = [&](auto checked) {
+      constexpr bool CHECK = decltype(checked)::value;
+#pragma unroll
+      for (int s = 0; s < kStage; ++s) {
+        float v = from_smem(sb + ox[s], T());
+        if constexpr (BIAS)
+          v = fmaxf(__fadd_rn(v, bias_s[s]), 0.f);
+        else if constexpr (RELU)
+          v = fmaxf(v, 0.f);
+#pragma unroll
+        for (int j = 0; j < W - 1; ++j) sr[j] = sr[j + 1];
+#pragma unroll
+        for (int j = 0; j < PAD; ++j) xr[j] = xr[j + 1];
+        sr[W - 1] = __fmul_rn(v, v);
+        xr[PAD] = v;
+        // y_c, c = i - PAD: x'^2 over c +- PAD is the whole ring (the
+        // run's first 2 PAD steps only fill the rings)
+        if (!CHECK || (live_p && c0 + s >= q.cs && c0 + s < q.ce)) {
+          float acc = sr[PAD];
+#pragma unroll
+          for (int off = 1; off <= PAD; ++off) {
+            acc = __fadd_rn(acc, sr[PAD - off]);
+            acc = __fadd_rn(acc, sr[PAD + off]);
+          }
+          if constexpr (sizeof(T) == 4) {
+            store(yp + (long long)s * HW, lrn_y(acc, xr[0], coef, k, nbeta));
+          } else {
+            bool sure;
+            store(yp + (long long)s * HW,
+                  lrn_y_fast(acc, xr[0], coef, k, nbeta, margin, sure));
+            if (!sure) {
+              fix[s][0][tid] = acc;
+              fix[s][1][tid] = xr[0];
+              unsure |= 1u << s;
+            }
+          }
+        }
+      }
+    };
+    if (whole)
+      steps(Flag<false>());
+    else
+      steps(Flag<true>());
+    if constexpr (sizeof(T) == 2) {
+      if (unsure) {  // rare: y near a bf16 rounding midpoint
+#pragma unroll
+        for (int s = 0; s < kStage; ++s)
+          if (unsure >> s & 1u)
+            store(yp + (long long)s * HW,
+                  lrn_y(fix[s][0][tid], fix[s][1][tid], coef, k, nbeta));
+        unsure = 0;
+      }
+    }
+    yp += (long long)kStage * HW;
+  }
+}
+
+// K1 / K3 for local_size > 11: each thread sums each channel's window
+// from memory, with the ring kernel's operations in its order.
+template <typename T, int TILE, bool RELU, bool BIAS>
+__global__ void __launch_bounds__(TILE) fwd_wide(const Args a) {
+  const Place q = place<TILE>(a);
+  const int tid = threadIdx.x;
+  if (tid >= q.len) return;
+  const int C = a.C, HW = a.HW, pad = a.pad;
+  const long long off = (long long)q.n * C * HW + q.p0 + tid;
+  const T* xp = reinterpret_cast<const T*>(a.x) + off;
+  T* yp = static_cast<T*>(a.out) + off;
+  auto xprime = [&](int ch) -> float {
+    if (ch < 0 || ch >= C) return 0.f;
+    float t = load_f32(xp + (long long)ch * HW);
+    if constexpr (BIAS) t = __fadd_rn(t, __ldg(a.bias + ch));
+    if constexpr (RELU) t = fmaxf(t, 0.f);
+    return t;
+  };
+  for (int c = q.cs; c < q.ce; ++c) {
+    const float xc = xprime(c);
+    float acc = __fmul_rn(xc, xc);
+    for (int o = 1; o <= pad; ++o) {
+      const float lo = xprime(c - o), hi = xprime(c + o);
+      acc = __fadd_rn(acc, __fmul_rn(lo, lo));
+      acc = __fadd_rn(acc, __fmul_rn(hi, hi));
+    }
+    store(yp + (long long)c * HW, lrn_y(acc, xc, a.coef, a.k, a.nbeta));
+  }
+}
+
+// K2.  A stage holds the x rows of channels i0 .. i0 + 7 and the dy rows
+// of i0 - PAD .. i0 + 7 - PAD (dy_j is used at step i = j + PAD).
+template <typename T, int TILE, int PAD, bool RELU>
+__global__ void __launch_bounds__(TILE) bwd(const Args a) {
+  constexpr int W = 2 * PAD + 1;
+  constexpr int RB = Row<T, TILE>::kBytes;
+  constexpr int kRows = 2 * kStage;  // a stage: x rows, then dy rows
+  using Copy = RowCopy<T, TILE, kRows>;
+  __shared__ __align__(16) unsigned char rows[kBwdStages][kRows][RB];
+
+  const Place q = place<TILE>(a);
+  const int tid = threadIdx.x;
+  const int C = a.C, HW = a.HW;
+  const long long sample = (long long)q.n * C * HW + q.p0;
+  const int i_begin = q.cs - 2 * PAD;  // x channel of the first step
+  const int i_end = q.ce + 2 * PAD;    // past the last x channel needed
+  const int n_st = (i_end - i_begin + kStage - 1) / kStage;
+
+  const int r = tid / Copy::kGroup;
+  const bool r_x = r < kStage;
+  Copy cp;
+  {
+    const int ch = i_begin + (r_x ? r : r - kStage - PAD);
+    const unsigned long long base = r_x ? a.x : a.dy;
+    cp.init(at_elem<T>(base, sample + (long long)ch * HW), ch,
+            r_x ? 0 : max(0, q.cs - PAD),
+            r_x ? min(C, i_end) : min(C, q.ce + PAD), q.len, base,
+            r_x ? a.x_end : a.dy_end, tid % Copy::kGroup, HW);
+  }
+
+  // ox[s] / oy[s]: the byte offset of this thread's element in the x / dy
+  // row of step s of a stage (the same in every stage)
+  int ox[kStage], oy[kStage];
+#pragma unroll
+  for (int s = 0; s < kStage; ++s) {
+    const int lx = (int)(at_elem<T>(a.x, sample +
+                                             (long long)(i_begin + s) * HW) &
+                         15);
+    const int ly = (int)(at_elem<T>(a.dy, sample + (long long)(i_begin + s -
+                                                                PAD) * HW) &
+                         15);
+    ox[s] = s * RB + lx + tid * (int)sizeof(T);
+    oy[s] = (kStage + s) * RB + ly + tid * (int)sizeof(T);
+  }
+  const bool live_p = tid < q.len;
+  const float coef = a.coef, k = a.k, nbeta = a.nbeta, nbeta1 = a.nbeta1,
+              coef2 = a.coef2;
+  float xr[W], sr[W], ur[W], tr[PAD + 1];
+#pragma unroll
+  for (int j = 0; j < W; ++j) xr[j] = sr[j] = ur[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j <= PAD; ++j) tr[j] = 0.f;
+  // dx of channel c = i - 2 PAD at step i: this thread's element
+  T* dxp = static_cast<T*>(a.out) + sample +
+           (long long)(i_begin - 2 * PAD) * HW + tid;
+
+#pragma unroll
+  for (int st = 0; st < kBwdStages - 1; ++st) {
+    if (st < n_st) cp.issue(&rows[st % kBwdStages][r][0]);
+    commit();
+  }
+  for (int st = 0; st < n_st; ++st) {
+    wait_pending<kBwdStages - 2>();
+    __syncthreads();
+    if (st + kBwdStages - 1 < n_st)
+      cp.issue(&rows[(st + kBwdStages - 1) % kBwdStages][r][0]);
+    commit();
+    const unsigned char* sb = &rows[st % kBwdStages][0][0];
+    const int c0 = i_begin + st * kStage - 2 * PAD;
+    // every step of the stage writes a dx of this block's run
+    const bool whole = live_p && c0 >= q.cs && c0 + kStage <= q.ce;
+    auto steps = [&](auto checked) {
+      constexpr bool CHECK = decltype(checked)::value;
+#pragma unroll
+      for (int h = 0; h < kStage; h += kBatch) {
+        // kBatch steps' normalizers first: their log / exp chains do not
+        // depend on one another and overlap; then their divisions (in
+        // f32 each a branch to the slow path) and dx
+        Pow pw[kBatch];
+        float xj[kBatch], xc[kBatch], dd[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int s = h + b;
+          float xp = from_smem(sb + ox[s], T());
+          if constexpr (RELU) xp = fmaxf(xp, 0.f);
+          dd[b] = from_smem(sb + oy[s], T());
+#pragma unroll
+          for (int j = 0; j < W - 1; ++j) {
+            xr[j] = xr[j + 1];
+            sr[j] = sr[j + 1];
+          }
+          xr[W - 1] = xp;
+          sr[W - 1] = __fmul_rn(xp, xp);
+          // step j = i - PAD: s_j from x'^2 over j +- PAD
+          float acc = sr[PAD];
+#pragma unroll
+          for (int off = 1; off <= PAD; ++off) {
+            acc = __fadd_rn(acc, sr[PAD - off]);
+            acc = __fadd_rn(acc, sr[PAD + off]);
+          }
+          // the run's first 2 PAD steps only fill the x' rings: no dx
+          // reads their u or t (j < cs - PAD)
+          if (CHECK && st * kStage + s < 2 * PAD)
+            pw[b] = Pow{1.f, 0.f};
+          else
+            pw[b] = Norm<sizeof(T) == 4>::pow(acc, coef, k, nbeta, nbeta1);
+          xj[b] = xr[PAD];
+          xc[b] = xr[0];
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int s = h + b;
+#pragma unroll
+          for (int j = 0; j < W - 1; ++j) ur[j] = ur[j + 1];
+#pragma unroll
+          for (int j = 0; j < PAD; ++j) tr[j] = tr[j + 1];
+          Norm<sizeof(T) == 4>::ut(pw[b], dd[b], xj[b], ur[W - 1], tr[PAD]);
+          // u_j and t_j are 0 outside [0, C), the zero-padded window (the
+          // zero rows give 0 there too, unless s = k is 0)
+          const int j = c0 + s + PAD;
+          if (j < 0 || j >= C) ur[W - 1] = tr[PAD] = 0.f;
+          // dx_c, c = i - 2 PAD: u over c +- PAD is the whole u ring
+          float ws = ur[PAD];
+#pragma unroll
+          for (int off = 1; off <= PAD; ++off) {
+            ws = __fadd_rn(ws, ur[PAD - off]);
+            ws = __fadd_rn(ws, ur[PAD + off]);
+          }
+          float d = Norm<sizeof(T) == 4>::dx(tr[0], coef2, xc[b], ws);
+          if constexpr (RELU) {
+            if (!(xc[b] > 0.f)) d = 0.f;
+          }
+          if (!CHECK || (live_p && c0 + s >= q.cs && c0 + s < q.ce))
+            store(dxp, d);
+          dxp += HW;
+        }
+      }
+    };
+    if (whole)
+      steps(Flag<false>());
+    else
+      steps(Flag<true>());
+  }
+}
+
+// K2 for local_size > 11: each thread recomputes the windows it needs
+// from memory, channel by channel, with the ring kernel's operations in
+// its order.
+template <typename T, int TILE, bool RELU>
+__global__ void __launch_bounds__(TILE) bwd_wide(const Args a) {
+  const Place q = place<TILE>(a);
+  const int tid = threadIdx.x;
+  if (tid >= q.len) return;
+  const int C = a.C, HW = a.HW, pad = a.pad;
+  const long long off = (long long)q.n * C * HW + q.p0 + tid;
+  const T* xp = reinterpret_cast<const T*>(a.x) + off;
+  const T* dyp = reinterpret_cast<const T*>(a.dy) + off;
+  T* dxp = static_cast<T*>(a.out) + off;
+  auto xprime = [&](int ch) -> float {
+    if (ch < 0 || ch >= C) return 0.f;
+    const float t = load_f32(xp + (long long)ch * HW);
+    return RELU ? fmaxf(t, 0.f) : t;
+  };
+  auto u_t = [&](int j, float& u, float& t) {
+    u = t = 0.f;
+    if (j < 0 || j >= C) return;
+    const float xj = xprime(j);
+    float acc = __fmul_rn(xj, xj);
+    for (int o = 1; o <= pad; ++o) {
+      const float lo = xprime(j - o), hi = xprime(j + o);
+      acc = __fadd_rn(acc, __fmul_rn(lo, lo));
+      acc = __fadd_rn(acc, __fmul_rn(hi, hi));
+    }
+    Norm<sizeof(T) == 4>::ut(
+        Norm<sizeof(T) == 4>::pow(acc, a.coef, a.k, a.nbeta, a.nbeta1),
+        load_f32(dyp + (long long)j * HW), xj, u, t);
+  };
+  for (int c = q.cs; c < q.ce; ++c) {
+    float ws, tc, u, unused;
+    u_t(c, ws, tc);
+    for (int o = 1; o <= pad; ++o) {
+      u_t(c - o, u, unused);
+      ws = __fadd_rn(ws, u);
+      u_t(c + o, u, unused);
+      ws = __fadd_rn(ws, u);
+    }
+    const float xc = xprime(c);
+    float d = Norm<sizeof(T) == 4>::dx(tc, a.coef2, xc, ws);
+    if (RELU && !(xc > 0.f)) d = 0.f;
+    store(dxp + (long long)c * HW, d);
+  }
+}
+
+// The kernels by window: the register rings up to pad 5, the
+// runtime-window kernels above.
+template <typename T, int TILE, bool RELU, bool BIAS>
+const void* fwd_of(int pad) {
+  switch (pad) {
+    case 0: return (const void*)fwd<T, TILE, 0, RELU, BIAS>;
+    case 1: return (const void*)fwd<T, TILE, 1, RELU, BIAS>;
+    case 2: return (const void*)fwd<T, TILE, 2, RELU, BIAS>;
+    case 3: return (const void*)fwd<T, TILE, 3, RELU, BIAS>;
+    case 4: return (const void*)fwd<T, TILE, 4, RELU, BIAS>;
+    case 5: return (const void*)fwd<T, TILE, 5, RELU, BIAS>;
+    default: return (const void*)fwd_wide<T, TILE, RELU, BIAS>;
+  }
+}
+template <typename T, int TILE, bool RELU>
+const void* bwd_of(int pad) {
+  switch (pad) {
+    case 0: return (const void*)bwd<T, TILE, 0, RELU>;
+    case 1: return (const void*)bwd<T, TILE, 1, RELU>;
+    case 2: return (const void*)bwd<T, TILE, 2, RELU>;
+    case 3: return (const void*)bwd<T, TILE, 3, RELU>;
+    case 4: return (const void*)bwd<T, TILE, 4, RELU>;
+    case 5: return (const void*)bwd<T, TILE, 5, RELU>;
+    default: return (const void*)bwd_wide<T, TILE, RELU>;
+  }
+}
+// which: 1 = K1, 2 = K2, 3 = K3
+template <typename T, int TILE>
+const void* of_tile(int which, int pad, bool relu) {
+  switch (which) {
+    case 1: return relu ? fwd_of<T, TILE, true, false>(pad)
+                        : fwd_of<T, TILE, false, false>(pad);
+    case 2: return relu ? bwd_of<T, TILE, true>(pad)
+                        : bwd_of<T, TILE, false>(pad);
+    case 3: return fwd_of<T, TILE, true, true>(pad);
+    default: return nullptr;
+  }
+}
+template <typename T>
+const void* of_dtype(int which, int pad, int tile, bool relu) {
+  switch (tile) {
+    case 64: return of_tile<T, 64>(which, pad, relu);
+    case 96: return of_tile<T, 96>(which, pad, relu);
+    case 128: return of_tile<T, 128>(which, pad, relu);
+    default: return nullptr;
+  }
+}
+// null for an unknown kernel, tile or dtype
+const void* kernel(int which, int local_size, int tile, int dtype,
+                   bool relu) {
+  if (local_size <= 0) return nullptr;
+  if (dtype == 0) return of_dtype<float>(which, local_size / 2, tile, relu);
+  if (dtype == 1)
+    return of_dtype<__nv_bfloat16>(which, local_size / 2, tile, relu);
+  return nullptr;
+}
+
+// One launch on the host's plan (`tile` positions and `run` channels a
+// block).
+int launch(int which, const void* x, const float* bias, const void* dy,
+           void* out, int N, int C, int HW, int local_size, float coef,
+           float nbeta, float nbeta1, float k, float coef2, int relu,
+           int tile, int run, int dtype, void* stream) {
+  const void* fn = kernel(which, local_size, tile, dtype, relu != 0);
+  const unsigned long long size = dtype == 0 ? 4 : 2;
+  const unsigned long long xa = (unsigned long long)x,
+                           dya = (unsigned long long)dy;
+  if (fn == nullptr || x == nullptr || out == nullptr ||
+      (which == 2) != (dy != nullptr) || (which == 3) != (bias != nullptr) ||
+      N <= 0 || C <= 0 || HW <= 0 || run <= 0 || run > C ||
+      ((xa | dya | (unsigned long long)out) & (size - 1)))
+    return (int)cudaErrorInvalidValue;
+  const long long tiles = (HW + tile - 1) / tile;
+  const long long runs = (C + run - 1) / run;
+  const long long blocks = (long long)N * tiles * runs;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned long long bytes = (unsigned long long)N * C * HW * size;
+  Args a{xa, xa + bytes, dya, dy ? dya + bytes : 0ull, bias, out,
+         C, HW, (int)tiles, run, (int)runs, local_size / 2,
+         coef, nbeta, nbeta1, k, coef2};
+  void* params[] = {&a};
+  cudaLaunchKernel(fn, dim3((unsigned)blocks), dim3(tile), params, 0,
+                   static_cast<cudaStream_t>(stream));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace staged
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() of the
-// launch (0 on success) or cudaErrorInvalidValue for refused arguments.
+// K1: y = lrn(x) (or lrn(relu(x)) with fuse_relu) on the host's plan:
+// `tile` positions a block (64, 96 or 128) and `run` channels a block
+// (ops/kernels.py `lrn_plan`).  x and y may start at any element.  coef
+// is alpha / local_size, nbeta -beta (rounded from the host's double, as
+// the plain version's scalar is); dtype: 0 = float32, 1 = bfloat16.
+// Returns cudaGetLastError() of the launch (0 on success) or
+// cudaErrorInvalidValue for refused arguments.
 extern "C" int cos_lrn_fwd(const void* x, void* y, int N, int C, int HW,
-                           int local_size, float coef, float beta, float k,
-                           int fuse_relu, int dtype, void* stream) {
-  int err = check_args(N, C, HW, local_size);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pad = local_size / 2;
-  if (dtype == 0) {
-    return fuse_relu
-        ? dispatch_pad<float, true, false>(pad, x, nullptr, y, N, C, HW, coef, -beta, k, s)
-        : dispatch_pad<float, false, false>(pad, x, nullptr, y, N, C, HW, coef, -beta, k, s);
-  }
-  if (dtype == 1) {
-    return fuse_relu
-        ? dispatch_pad<__nv_bfloat16, true, false>(pad, x, nullptr, y, N, C, HW, coef, -beta, k, s)
-        : dispatch_pad<__nv_bfloat16, false, false>(pad, x, nullptr, y, N, C, HW, coef, -beta, k, s);
-  }
-  return (int)cudaErrorInvalidValue;
+                           int local_size, float coef, float nbeta, float k,
+                           int fuse_relu, int tile, int run, int dtype,
+                           void* stream) {
+  return staged::launch(1, x, nullptr, nullptr, y, N, C, HW, local_size,
+                        coef, nbeta, 0.f, k, 0.f, fuse_relu, tile, run,
+                        dtype, stream);
 }
 
+// K3: y = lrn(relu(x + bias)), the bias an f32 column of C; the plan and
+// the rest as for cos_lrn_fwd.
 extern "C" int cos_bias_relu_lrn_fwd(const void* x, const float* bias, void* y,
                                      int N, int C, int HW, int local_size,
-                                     float coef, float beta, float k,
-                                     int dtype, void* stream) {
-  int err = check_args(N, C, HW, local_size);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pad = local_size / 2;
-  if (dtype == 0)
-    return dispatch_pad<float, true, true>(pad, x, bias, y, N, C, HW, coef, -beta, k, s);
-  if (dtype == 1)
-    return dispatch_pad<__nv_bfloat16, true, true>(pad, x, bias, y, N, C, HW, coef, -beta, k, s);
-  return (int)cudaErrorInvalidValue;
+                                     float coef, float nbeta, float k,
+                                     int tile, int run, int dtype,
+                                     void* stream) {
+  return staged::launch(3, x, bias, nullptr, y, N, C, HW, local_size, coef,
+                        nbeta, 0.f, k, 0.f, 1, tile, run, dtype, stream);
 }
 
-// dx of the across-channel LRN (optionally of lrn(relu(x))).  coef is
-// alpha / local_size, coef2 is 2 * alpha * beta / local_size.  dtype and
-// return value as for cos_lrn_fwd.
+// K2: dx of the across-channel LRN (optionally of lrn(relu(x))) for the
+// upstream gradient dy, on the host's plan as for cos_lrn_fwd; x, dy and
+// dx may start at any element.  coef2 is 2 * alpha * beta / local_size,
+// nbeta1 -beta - 1 (bf16 uses it; f32 uses nbeta alone); the rest as for
+// cos_lrn_fwd.
 extern "C" int cos_lrn_bwd(const void* x, const void* dy, void* dx, int N,
                            int C, int HW, int local_size, float coef,
-                           float beta, float k, float coef2, int fuse_relu,
-                           int dtype, void* stream) {
-  int err = check_args(N, C, HW, local_size);
-  if (err) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int pad = local_size / 2;
-  if (dtype == 0) {
-    return fuse_relu
-        ? dispatch_pad_bwd<float, true>(pad, x, dy, dx, N, C, HW, coef, -beta, k, coef2, s)
-        : dispatch_pad_bwd<float, false>(pad, x, dy, dx, N, C, HW, coef, -beta, k, coef2, s);
-  }
-  if (dtype == 1) {
-    return fuse_relu
-        ? dispatch_pad_bwd<__nv_bfloat16, true>(pad, x, dy, dx, N, C, HW, coef, -beta, k, coef2, s)
-        : dispatch_pad_bwd<__nv_bfloat16, false>(pad, x, dy, dx, N, C, HW, coef, -beta, k, coef2, s);
-  }
-  return (int)cudaErrorInvalidValue;
+                           float nbeta, float nbeta1, float k, float coef2,
+                           int fuse_relu, int tile, int run, int dtype,
+                           void* stream) {
+  if (dy == nullptr) return (int)cudaErrorInvalidValue;
+  return staged::launch(2, x, nullptr, dy, dx, N, C, HW, local_size, coef,
+                        nbeta, nbeta1, k, coef2, fuse_relu, tile, run, dtype,
+                        stream);
+}
+
+// Blocks of K1 (`kernel` 1), K2 (2) or K3 (3) for `local_size`, `tile`,
+// `dtype` and `fuse_relu` that fit on one SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the host's launch
+// plan; a negative cudaError on failure.
+extern "C" int cos_lrn_occupancy(int kernel, int local_size, int tile,
+                                 int dtype, int fuse_relu) {
+  const void* fn =
+      staged::kernel(kernel, local_size, tile, dtype, fuse_relu != 0);
+  if (fn == nullptr) return -(int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, tile, 0);
+  return e != cudaSuccess ? -(int)e : blocks;
 }
 
 // Blocks of the K4 kernel for `local_size` and `dtype` (with d_bias's

@@ -145,14 +145,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     as c_void_p (a bare int would be cut to 32 bits)."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "lrn":
-        lib.cos_lrn_fwd.argtypes = [P, P, I, I, I, I, F, F, F, I, I, P]
+        lib.cos_lrn_fwd.argtypes = [P, P, I, I, I, I, F, F, F, I, I, I, I,
+                                    P]
         lib.cos_lrn_fwd.restype = I
         lib.cos_bias_relu_lrn_fwd.argtypes = [P, P, P, I, I, I, I, F, F, F,
-                                              I, P]
+                                              I, I, I, P]
         lib.cos_bias_relu_lrn_fwd.restype = I
-        lib.cos_lrn_bwd.argtypes = [P, P, P, I, I, I, I, F, F, F, F, I, I,
-                                    P]
+        lib.cos_lrn_bwd.argtypes = [P, P, P, I, I, I, I, F, F, F, F, F, I,
+                                    I, I, I, P]
         lib.cos_lrn_bwd.restype = I
+        lib.cos_lrn_occupancy.argtypes = [I, I, I, I, I]
+        lib.cos_lrn_occupancy.restype = I
         lib.cos_bias_relu_lrn_bwd.argtypes = [P, P, P, P, P, P, I, I, I, I,
                                               F, F, F, F, F, I, I, I, P]
         lib.cos_bias_relu_lrn_bwd.restype = I

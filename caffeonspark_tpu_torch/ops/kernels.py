@@ -9,7 +9,8 @@ transformer's attention:
   * `lrn_across_channels_bwd`        K2, csrc/lrn.cu `cos_lrn_bwd`
     (its dx, recomputing the normalizer from x);
   * `bias_relu_lrn_across_channels`  K3, csrc/lrn.cu `cos_bias_relu_lrn_fwd`
-    (the conv-stem epilogue lrn(relu(x + bias)));
+    (the conv-stem epilogue lrn(relu(x + bias)); `lrn_plan` is K1's, K2's
+    and K3's launch plan);
   * `bias_relu_lrn_across_channels_bwd`  K4, csrc/lrn.cu
     `cos_bias_relu_lrn_bwd` (its dx and d_bias, the channel sum of dx,
     in one pass; `k4_plan` is its launch plan);
@@ -189,10 +190,6 @@ def _check_lrn_input(name: str, x: torch.Tensor, local_size: int) -> None:
         raise ValueError(f"{name}: input must be contiguous")
     if local_size < 1:
         raise ValueError(f"{name}: local_size {local_size} < 1")
-    n, _, h, w = x.shape
-    if n * -(-h * w // 128) > 2**31 - 1:   # grid.x: (n, block of h*w)
-        raise ValueError(f"{name}: {n} x {h}x{w} needs more than 2^31 - 1 "
-                         "blocks")
 
 
 def lrn_across_channels(x: torch.Tensor, local_size: int = 5,
@@ -201,18 +198,21 @@ def lrn_across_channels(x: torch.Tensor, local_size: int = 5,
                         fuse_relu: bool = False) -> torch.Tensor:
     """(N, C, H, W) -> Caffe LRN (alpha/local_size); with fuse_relu,
     lrn(relu(x)) in one pass.  Forward only: `LRNAcrossChannels` adds
-    the backward."""
+    the backward.  On the card x may be a view that starts at any
+    element."""
     name = "lrn_across_channels"
     if not _route(x, name):
         return lrn_plain(x, local_size, alpha, beta, k, fuse_relu)
     _check_lrn_input(name, x, local_size)
     n, c, h, w = x.shape
+    relu = int(bool(fuse_relu))
+    plan = _lrn_launch_plan(x, local_size, 1, relu)
     y = torch.empty_like(x)
     lib = cuda_build.library("lrn")
     with torch.cuda.device(x.device):
         status = lib.cos_lrn_fwd(
             x.data_ptr(), y.data_ptr(), n, c, h * w, int(local_size),
-            alpha / local_size, beta, k, int(bool(fuse_relu)),
+            alpha / local_size, -beta, k, relu, plan.tile, plan.run,
             _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
@@ -225,7 +225,8 @@ def bias_relu_lrn_across_channels(x: torch.Tensor, bias: torch.Tensor,
                                   beta: float = 0.75,
                                   k: float = 1.0) -> torch.Tensor:
     """(N, C, H, W) raw conv output + (C,) bias -> lrn(relu(x + bias)),
-    one fused pass (the bias is read as an f32 column)."""
+    one fused pass (the bias is read as an f32 column).  On the card x
+    may be a view that starts at any element."""
     name = "bias_relu_lrn_across_channels"
     if not _route(x, name):
         return lrn_plain(x, local_size, alpha, beta, k, bias=bias)
@@ -234,14 +235,15 @@ def bias_relu_lrn_across_channels(x: torch.Tensor, bias: torch.Tensor,
     if bias.shape != (c,) or bias.device != x.device:
         raise ValueError(f"{name}: bias {tuple(bias.shape)} on "
                          f"{bias.device} for {c} channels on {x.device}")
+    plan = _lrn_launch_plan(x, local_size, 3, 1)
     b = bias.to(torch.float32).contiguous()
     y = torch.empty_like(x)
     lib = cuda_build.library("lrn")
     with torch.cuda.device(x.device):
         status = lib.cos_bias_relu_lrn_fwd(
             x.data_ptr(), b.data_ptr(), y.data_ptr(), n, c, h * w,
-            int(local_size), alpha / local_size, beta, k,
-            _LRN_DTYPES[x.dtype],
+            int(local_size), alpha / local_size, -beta, k, plan.tile,
+            plan.run, _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
     _count(name, x.dtype)
@@ -306,20 +308,23 @@ def lrn_across_channels_bwd(x: torch.Tensor, dy: torch.Tensor,
                             beta: float = 0.75, k: float = 1.0,
                             fuse_relu: bool = False) -> torch.Tensor:
     """dx of `lrn_across_channels(x, ...)` for the upstream gradient dy
-    (K2); the normalizer and the ReLU mask are recomputed from x."""
+    (K2); the normalizer and the ReLU mask are recomputed from x.  On the
+    card x and dy may be views that start at any element."""
     name = "lrn_across_channels_bwd"
     if not _route(x, name):
         return lrn_bwd_plain(x, dy, local_size, alpha, beta, k, fuse_relu)
     _check_lrn_input(name, x, local_size)
     _check_grad_input(name, x, dy)
     n, c, h, w = x.shape
+    relu = int(bool(fuse_relu))
+    plan = _lrn_launch_plan(x, local_size, 2, relu)
     dx = torch.empty_like(x)
     lib = cuda_build.library("lrn")
     with torch.cuda.device(x.device):
         status = lib.cos_lrn_bwd(
             x.data_ptr(), dy.data_ptr(), dx.data_ptr(), n, c, h * w,
-            int(local_size), alpha / local_size, beta, k,
-            2.0 * alpha * beta / local_size, int(bool(fuse_relu)),
+            int(local_size), alpha / local_size, -beta, -beta - 1.0, k,
+            2.0 * alpha * beta / local_size, relu, plan.tile, plan.run,
             _LRN_DTYPES[x.dtype],
             torch.cuda.current_stream(x.device).cuda_stream)
     _check_status(name, status)
@@ -327,12 +332,20 @@ def lrn_across_channels_bwd(x: torch.Tensor, dy: torch.Tensor,
     return dx
 
 
-# K4's launch plan.  A block of the kernel owns one sample, K4_TILE
-# spatial positions (csrc/lrn.cu k4::kTile) and a run of channels; a run
-# reads 2 * pad halo channels of x on each side, and its shortest
-# length is K4_MIN_RUN (or C).
+# The LRN kernels' launch plans.  A block of each kernel owns one sample,
+# a tile of spatial positions (one a thread) and a run of channels; a run
+# reads halo channels of x past each end (K1 and K3 pad, K2 and K4
+# 2 * pad), and its shortest length is K4_MIN_RUN (or C).  K4's tile is
+# K4_TILE (csrc/lrn.cu k4::kTile); K1-K3 take theirs from LRN_TILES
+# (csrc/lrn.cu `staged::of_dtype`) and walk LRN_STAGE channels a stage.
 K4_TILE = 128
 K4_MIN_RUN = 8
+LRN_TILES = (64, 96, 128)
+LRN_PAD_SHARE = 0.15      # the share of a tile's slots a plane may leave idle
+LRN_STAGE = 8
+# K1-K3 by the number csrc/lrn.cu's `staged::kernel` takes
+LRN_KERNELS = {1: "lrn_across_channels", 2: "lrn_across_channels_bwd",
+               3: "bias_relu_lrn_across_channels"}
 
 
 class K4Plan(NamedTuple):
@@ -343,44 +356,109 @@ class K4Plan(NamedTuple):
     waves: float    # blocks over the card's resident blocks
 
 
-@functools.lru_cache(maxsize=256)
-def k4_plan(shape: Tuple[int, int, int, int], local_size: int, sms: int,
-            blocks_per_sm: int) -> K4Plan:
-    """The launch plan of K4 for an (N, C, H, W) input on a card of `sms`
-    SMs that holds `blocks_per_sm` of its blocks each.  The channel runs
-    are cut until N x tiles x runs fills at least one whole wave (where a
-    run of K4_MIN_RUN channels still can), and among those cuts the one
-    of least estimated time is kept: the steps of all blocks over the
-    blocks the card runs at once, plus the steps of one block (the last
-    blocks run alone).  A block takes run + 4 pad steps, so short runs
-    pay in halo and long ones in that tail.  Refuses a sample's C*H*W of
-    2^31 elements or more (the kernel's 32-bit offsets)."""
-    name = "bias_relu_lrn_across_channels_bwd"
-    n, c, h, w = (int(v) for v in shape)
-    if c * h * w >= 2**31:
-        raise ValueError(f"{name}: a sample's C*H*W is {c * h * w} elements; "
-                         "the kernel takes fewer than 2^31")
-    if min(n, c, h * w, local_size, sms, blocks_per_sm) < 1:
-        raise ValueError(f"{name}: no plan for {tuple(shape)}, local_size "
-                         f"{local_size}, {sms} SMs x {blocks_per_sm} blocks")
-    pad = local_size // 2
-    tiles = -(-h * w // K4_TILE)
-    wave = sms * blocks_per_sm
-    shortest = min(c, K4_MIN_RUN)
+class LRNPlan(NamedTuple):
+    tile: int       # positions a block (one of LRN_TILES)
+    tiles: int      # tiles of a sample's H*W
+    run: int        # channels a block writes (the last run may be shorter)
+    runs: int       # runs of C
+    blocks: int     # N * tiles * runs
+    waves: float    # blocks over the card's resident blocks
+
+
+def _cut_runs(name: str, shape, tiles: int, wave: int, steps,
+              tail: float = 1.0) -> Tuple[int, int, int]:
+    """(run, runs, blocks) of an LRN kernel's plan: the channel runs are
+    cut until N x tiles x runs fills at least one whole wave of `wave`
+    blocks (where a run of K4_MIN_RUN channels still can), and among
+    those cuts the one of least estimated time is kept: the steps of all
+    blocks over the blocks the card runs at once, plus `tail` times the
+    steps of one block (the last blocks run alone); `steps(run)` is a
+    block's, so short runs pay in halo and long ones in that tail."""
+    n, c = int(shape[0]), int(shape[1])
     best = None
-    for cut in range(1, c // shortest + 1):
+    for cut in range(1, c // min(c, K4_MIN_RUN) + 1):
         run = -(-c // cut)
         runs = -(-c // run)
         blocks = n * tiles * runs
-        steps = run + 4 * pad
-        key = (blocks < wave, blocks * steps / wave + steps, runs)
+        t = steps(run)
+        key = (blocks < wave, blocks * t / wave + tail * t, runs)
         if best is None or key < best[0]:
             best = (key, run, runs, blocks)
     _, run, runs, blocks = best
     if blocks > 2**31 - 1:
         raise ValueError(f"{name}: {tuple(shape)} needs {blocks} blocks, "
                          "more than 2^31 - 1")
+    return run, runs, blocks
+
+
+def _check_plan(name: str, shape, local_size: int, sms: int,
+                *blocks_per_sm: int) -> Tuple[int, int, int, int]:
+    n, c, h, w = (int(v) for v in shape)
+    if min(n, c, h * w, local_size, sms, *blocks_per_sm) < 1:
+        occ = blocks_per_sm[0] if len(blocks_per_sm) == 1 else blocks_per_sm
+        raise ValueError(f"{name}: no plan for {tuple(shape)}, local_size "
+                         f"{local_size}, {sms} SMs x {occ} blocks")
+    return n, c, h, w
+
+
+@functools.lru_cache(maxsize=256)
+def k4_plan(shape: Tuple[int, int, int, int], local_size: int, sms: int,
+            blocks_per_sm: int) -> K4Plan:
+    """The launch plan of K4 for an (N, C, H, W) input on a card of `sms`
+    SMs that holds `blocks_per_sm` of its blocks each: `_cut_runs`' runs
+    for a block of run + 4 pad steps.  Refuses a sample's C*H*W of 2^31
+    elements or more (the kernel's 32-bit offsets)."""
+    name = "bias_relu_lrn_across_channels_bwd"
+    n, c, h, w = _check_plan(name, shape, local_size, sms, blocks_per_sm)
+    if c * h * w >= 2**31:
+        raise ValueError(f"{name}: a sample's C*H*W is {c * h * w} elements; "
+                         "the kernel takes fewer than 2^31")
+    pad = local_size // 2
+    tiles = -(-h * w // K4_TILE)
+    wave = sms * blocks_per_sm
+    run, runs, blocks = _cut_runs(name, shape, tiles, wave,
+                                  lambda run: run + 4 * pad)
     return K4Plan(tiles, run, runs, blocks, blocks / wave)
+
+
+def lrn_tile(hw: int) -> int:
+    """K1-K3's tile for an H*W plane: the widest of LRN_TILES that leaves
+    under LRN_PAD_SHARE of its slots idle, else the one that leaves the
+    fewest (the widest of equals): 13x13 = 169 takes two tiles of 96
+    (12 % idle; 128 would leave 34 %), 27x27 six of 128, 55x55 24."""
+    def idle(t):
+        slots = -(-hw // t) * t
+        return (slots - hw) / slots
+    fits = [t for t in LRN_TILES if idle(t) < LRN_PAD_SHARE]
+    if fits:
+        return max(fits)
+    return min(LRN_TILES, key=lambda t: (idle(t), -t))
+
+
+@functools.lru_cache(maxsize=512)
+def lrn_plan(shape: Tuple[int, int, int, int], local_size: int, sms: int,
+             occupancy: Tuple[int, ...], kernel: int) -> LRNPlan:
+    """The launch plan of K1, K2 or K3 (`kernel` 1, 2, 3) for an (N, C, H,
+    W) input on a card of `sms` SMs that holds occupancy[i] blocks of
+    the kernel at tile LRN_TILES[i] each: `lrn_tile`'s tile and
+    `_cut_runs`' runs, a block's steps being its run and both halos (K1
+    and K3 pad a side, K2 2 pad) in whole stages of LRN_STAGE channels.
+    K2's tail counts half: its halo steps take the normalizer too, and on
+    the H100 its longer runs measured faster (scripts/lrn_variants.py)."""
+    name = LRN_KERNELS[kernel]
+    if len(occupancy) != len(LRN_TILES):
+        raise ValueError(f"{name}: occupancy {occupancy} is not one a tile "
+                         f"of {LRN_TILES}")
+    n, c, h, w = _check_plan(name, shape, local_size, sms, *occupancy)
+    halo = (2 if kernel == 2 else 1) * (local_size // 2)
+    tile = lrn_tile(h * w)
+    tiles = -(-h * w // tile)
+    wave = sms * occupancy[LRN_TILES.index(tile)]
+    run, runs, blocks = _cut_runs(
+        name, shape, tiles, wave,
+        lambda run: -(-(run + 2 * halo) // LRN_STAGE) * LRN_STAGE,
+        tail=0.5 if kernel == 2 else 1.0)
+    return LRNPlan(tile, tiles, run, runs, blocks, blocks / wave)
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,6 +475,33 @@ def _k4_blocks_per_sm(index: int, local_size: int, dtype_code: int) -> int:
         raise RuntimeError("bias_relu_lrn_across_channels_bwd: occupancy "
                            f"query failed (cudaError {-got})")
     return got
+
+
+@functools.lru_cache(maxsize=None)
+def _lrn_blocks_per_sm(index: int, kernel: int, local_size: int, tile: int,
+                       dtype_code: int, relu: int) -> int:
+    with torch.cuda.device(index):
+        got = cuda_build.library("lrn").cos_lrn_occupancy(
+            kernel, local_size, tile, dtype_code, relu)
+    if got <= 0:
+        raise RuntimeError(f"{LRN_KERNELS[kernel]}: occupancy query failed "
+                           f"(cudaError {-got})")
+    return got
+
+
+def _lrn_launch_plan(x: torch.Tensor, local_size: int, kernel: int,
+                     relu: int) -> LRNPlan:
+    """`lrn_plan` for a CUDA tensor, from the card's SM count and the
+    kernel variant's occupancy at each tile (the register-ring kernels by
+    pad up to 5, the runtime-window kernel above), each read once a
+    device and variant and kept."""
+    idx = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    ls, code = min(int(local_size), 13), _LRN_DTYPES[x.dtype]
+    occupancy = tuple(_lrn_blocks_per_sm(idx, kernel, ls, t, code, relu)
+                      for t in LRN_TILES)
+    return lrn_plan(tuple(x.shape), int(local_size), _sm_count(idx),
+                    occupancy, kernel)
 
 
 def _k4_card(device: torch.device, local_size: int,
@@ -490,8 +595,12 @@ class BiasReluLRNAcrossChannels(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, bias = ctx.saved_tensors
-        dx, db = bias_relu_lrn_across_channels_bwd(x, bias, dy.contiguous(),
-                                                   *ctx.args)
+        # K4 copies from 16-byte words: a contiguous narrow of a larger
+        # gradient (a channel Concat's backward at a batch of 1) can start
+        # off them, and takes a fresh copy here
+        x, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (x, dy.contiguous()))
+        dx, db = bias_relu_lrn_across_channels_bwd(x, bias, dy, *ctx.args)
         return dx, db, None, None, None, None
 
 

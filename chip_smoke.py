@@ -517,8 +517,12 @@ def check_lrn(K, torch, name, shape, dtype, relu, bias, results, ls=5,
           f"{name} {shape} {dtype} local_size {ls}: {int(bad.sum())} "
           f"elements outside rtol {rtol} atol {atol} (max abs err "
           f"{max_err:.3g})")
+    # y is the plain version's bit for bit in both dtypes (csrc/lrn.cu
+    # `staged::lrn_y`, `lrn_y_bf16`)
+    exact = bool(torch.equal(got, want))
+    check(exact, f"{name} {shape} {dtype} local_size {ls}: not bit-equal "
+                 f"to the plain version (max abs err {max_err:.3g})")
     if not timed:
-        exact = bool(torch.equal(got, want))
         results.setdefault(name, []).append(dict(
             shape=list(shape), dtype=str(dtype).replace("torch.", ""),
             relu=relu, local_size=ls, max_abs_err=max_err,
@@ -539,18 +543,23 @@ def check_lrn(K, torch, name, shape, dtype, relu, bias, results, ls=5,
         lib_ms, _ = time_ms(lib, sets)
     ops = x.numel() * lrn_ops_per_elem(ls, relu or bias, bias)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    plan = K._lrn_launch_plan(x, ls, 3 if bias else 1, int(relu or bias))
     rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
-               relu=relu, max_abs_err=max_err, ms=ms, host_us=host_us,
-               plain_ms=plain_ms,
+               relu=relu, max_abs_err=max_err, bit_equal=exact, ms=ms,
+               host_us=host_us, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               plan=plan._asdict())
+    rec["share_of_bound"] = rec["bound_ms"] / ms
     results.setdefault(name, []).append(rec)
     log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu}: "
-        f"max_abs_err {max_err:.3g} (rtol {rtol:.3g} atol {atol:.3g}) "
-        f"kernel {ms:.4f} ms (launch path {host_us:.1f} us on the host) "
-        f"plain {plain_ms:.4f} ms library "
+        f"max_abs_err {max_err:.3g} (rtol {rtol:.3g} atol {atol:.3g}, "
+        f"bit-equal) kernel {ms:.4f} ms (launch path {host_us:.1f} us on "
+        f"the host) plain {plain_ms:.4f} ms library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
+        f"{rec['share_of_bound']:.3f} of the bound; tile {plan.tile}, run "
+        f"{plan.run} ({plan.runs} runs, {plan.waves:.2f} waves)")
 
 
 def lrn_bwd_ops_per_elem(local_size: int, relu: bool, bias: bool) -> int:
@@ -587,6 +596,11 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, results, timed=True,
           f"{name} {shape} {dtype} local_size {ls}: {int(bad.sum())} "
           f"elements outside rtol {rtol} atol {atol} (max abs err "
           f"{max_err:.3g})")
+    # f32 dx is the plain version's bit for bit (K2 shares its formula
+    # with K4, and the fused AlexNet step is held to 1e-4)
+    check(exact or dtype != torch.float32,
+          f"{name} {shape} {dtype} local_size {ls}: not bit-equal to the "
+          f"plain version (max abs err {max_err:.3g})")
     rec = dict(shape=list(shape), dtype=str(dtype).replace("torch.", ""),
                relu=relu, local_size=ls, max_abs_err=max_err,
                bit_equal=exact)
@@ -615,16 +629,228 @@ def check_lrn_bwd(K, torch, name, shape, dtype, relu, results, timed=True,
         del graphs
     ops = x.numel() * lrn_bwd_ops_per_elem(ls, relu, False)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    plan = K._lrn_launch_plan(x, ls, 2, int(relu))
     rec.update(ms=ms, host_us=host_us, plain_ms=plain_ms,
                library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               plan=plan._asdict())
+    rec["share_of_bound"] = rec["bound_ms"] / ms
     results.setdefault(name, []).append(rec)
     log(f"  {name} {tuple(shape)} {rec['dtype']} relu={relu}: "
         f"max_abs_err {max_err:.3g} (rtol {rtol:.3g} atol {atol:.3g}, "
         f"bit-equal {exact}) kernel {ms:.4f} ms (launch path "
         f"{host_us:.1f} us on the host) plain {plain_ms:.4f} ms library "
         f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'} "
-        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}): "
+        f"{rec['share_of_bound']:.3f} of the bound; tile {plan.tile}, run "
+        f"{plan.run} ({plan.runs} runs, {plan.waves:.2f} waves)")
+
+
+def lrn_view(torch, t, off):
+    """t's values in a view `off` elements into a fresh allocation (which
+    starts on 16 bytes): a start anywhere in a 16-byte word, as a Slice
+    top or a Concat's gradient can have."""
+    s = torch.zeros(t.numel() + off, device=t.device, dtype=t.dtype)
+    s[off:] = t.reshape(-1)
+    return s[off:].view(t.shape)
+
+
+def check_lrn_starts(K, torch, shape, dtype, results, ls=5):
+    """K1 (with and without its ReLU), K3 and K2 (with and without) on x
+    and dy that start at each element of a 16-byte word (0-3 in f32, 0-7
+    in bf16; dy one element further), each against its plain version on
+    the same views: K1 and K3 bit for bit, K2 bit for bit in f32 and
+    within one bf16 ulp in bf16 (K4's refusal of such a start is K4's
+    alone)."""
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"starts{shape}{dtype}{ls}".encode()))
+    x = (torch.randn(shape, device="cuda", generator=g) * 3).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=g).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=g)
+    alpha, beta, k = 1e-4, 0.75, 1.0
+    per16 = 16 // x.element_size()
+    worst = {}
+    for off in range(per16):
+        xv = lrn_view(torch, x, off)
+        dyv = lrn_view(torch, dy, (off + 1) % per16)
+        cases = [("bias_relu_lrn_across_channels",
+                  K.bias_relu_lrn_across_channels(xv, b, ls, alpha, beta, k),
+                  K.lrn_plain(xv, ls, alpha, beta, k, bias=b), True)]
+        for relu in (False, True):
+            cases += [
+                ("lrn_across_channels",
+                 K.lrn_across_channels(xv, ls, alpha, beta, k, relu),
+                 K.lrn_plain(xv, ls, alpha, beta, k, relu), True),
+                ("lrn_across_channels_bwd",
+                 K.lrn_across_channels_bwd(xv, dyv, ls, alpha, beta, k,
+                                           relu),
+                 K.lrn_bwd_plain(xv, dyv, ls, alpha, beta, k, relu),
+                 dtype == torch.float32)]
+        torch.cuda.synchronize()
+        for name, got, want, exact in cases:
+            err = (got.float() - want.float()).abs()
+            worst[name] = max(worst.get(name, 0.0), float(err.max()))
+            if exact:
+                check(bool(torch.equal(got, want)),
+                      f"{name} {shape} {dtype} local_size {ls}, x {off} "
+                      "elements off 16 bytes: not bit-equal to the plain "
+                      "version")
+            else:
+                bad = err > BF16_ATOL + BF16_RTOL * want.float().abs()
+                check(not bool(bad.any()),
+                      f"{name} {shape} {dtype} local_size {ls}, x {off} "
+                      f"elements off 16 bytes: {int(bad.sum())} elements "
+                      "outside one bf16 ulp")
+    dt = str(dtype).replace("torch.", "")
+    for name, err in worst.items():
+        results.setdefault(name, []).append(dict(
+            shape=list(shape), dtype=dt, local_size=ls, max_abs_err=err,
+            starts=list(range(per16)),
+            bit_equal=name != "lrn_across_channels_bwd"
+            or dtype == torch.float32))
+    log(f"  K1, K3, K2 {tuple(shape)} {dt} local_size {ls} at x starts "
+        f"0-{per16 - 1} elements off 16 bytes (dy one further): against "
+        "the plain versions, K1 and K3 bit-equal, K2 "
+        + ("bit-equal" if dtype == torch.float32 else "within one bf16 ulp")
+        + " (max abs err " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                      worst.items()) + ")")
+
+
+def check_lrn_graph(K, torch, shape, dtype):
+    """K1, K3 and K2 called twice, and captured in a CUDA graph (as
+    COS_STEPS_PER_LOOP captures the solver's steps, one launch each
+    counted): both calls and the replay byte-equal."""
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        f"lrn graph {shape}{dtype}".encode()))
+    x = (torch.randn(shape, device="cuda", generator=gen) * 3).to(dtype)
+    dy = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    b = torch.randn(shape[1], device="cuda", generator=gen)
+
+    def calls():
+        return (K.lrn_across_channels(x), K.bias_relu_lrn_across_channels(x, b),
+                K.lrn_across_channels_bwd(x, dy))
+
+    eager, again = calls(), calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with K.captured_launches() as rec:
+        with torch.cuda.graph(graph):
+            captured = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    check(rec["counts"] == {"lrn_across_channels": 1,
+                            "bias_relu_lrn_across_channels": 1,
+                            "lrn_across_channels_bwd": 1},
+          f"K1 / K3 / K2 capture counted {rec['counts']}")
+    check(all(torch.equal(u, v) for u, v in zip(eager, again)),
+          f"K1 / K3 / K2 {shape} {dtype}: two calls differ")
+    check(all(torch.equal(u, v) for u, v in zip(captured, eager)),
+          f"K1 / K3 / K2 {shape} {dtype}: the graph's replay differs from "
+          "the eager calls")
+    log(f"  K1, K3, K2 {tuple(shape)} {str(dtype).replace('torch.', '')}: "
+        "two calls and a CUDA graph's replay byte-equal")
+
+
+# conv -> ReLU -> LRN (K3 and K4 under COS_FUSE_BIAS_RELU_LRN=1), whose
+# top joins a channel Concat second, at a batch of 1: Concat's backward
+# hands K4's Function a contiguous narrow of the joined gradient 588
+# bytes in, 12 past a 16-byte boundary (the same net as
+# tests/torch_common.py's)
+FUSED_LRN_CONCAT_NET = """
+name: "fused_lrn_concat"
+layer { name: "data" type: "Input" top: "data" top: "side" top: "target"
+  input_param { shape { dim: 1 dim: 3 dim: 9 dim: 9 }
+                shape { dim: 1 dim: 3 dim: 7 dim: 7 }
+                shape { dim: 1 dim: 10 } } }
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 16 kernel_size: 3
+    weight_filler { type: "gaussian" std: 0.1 }
+    bias_filler { type: "constant" value: 0.1 } } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "norm1" type: "LRN" bottom: "conv1" top: "norm1"
+  lrn_param { local_size: 5 alpha: 0.05 beta: 0.75 } }
+layer { name: "cat" type: "Concat" bottom: "side" bottom: "norm1"
+  top: "cat" }
+layer { name: "ip" type: "InnerProduct" bottom: "cat" top: "ip"
+  inner_product_param { num_output: 10 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "EuclideanLoss" bottom: "ip" bottom: "target"
+  top: "loss" }
+"""
+
+
+def check_fused_concat(K, torch) -> dict:
+    """The fused LRN behind a non-first Concat at a batch of 1 trains on
+    the card: one step launches K3 and K4 once each, K4 given an aligned
+    copy of its gradient, and its loss and every gradient match the same
+    step with every kernel plain (STEP_LOSS_RTOL; STEP_GRAD_TOL of each
+    gradient's max)."""
+    import numpy as np
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetParameter
+    handed = []
+    wrapper = K.bias_relu_lrn_across_channels_bwd
+
+    def seen(x, bias, dy, *args):
+        handed.append(dy.data_ptr() % 16)
+        return wrapper(x, bias, dy, *args)
+
+    def step():
+        net = Net(NetParameter.from_text(FUSED_LRN_CONCAT_NET),
+                  device="cuda")
+        check(net.fused_bias_lrn == {"norm1": "conv1"},
+              f"the concat net fused {net.fused_bias_lrn}")
+        params = net.init(seed=1)
+        rng = np.random.RandomState(0)
+        inputs = {k: torch.from_numpy(rng.randn(*s).astype(np.float32))
+                  .cuda() for k, s in (("data", (1, 3, 9, 9)),
+                                       ("side", (1, 3, 7, 7)),
+                                       ("target", (1, 10)))}
+        leaves = {ln: {bn: t.clone().requires_grad_(True)
+                       for bn, t in bl.items()} for ln, bl in params.items()}
+        loss, _ = net.loss(leaves, inputs)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), {
+            f"{ln}/{bn}": t.grad for ln, bl in leaves.items()
+            for bn, t in bl.items()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with env_set({"COS_FUSE_BIAS_RELU_LRN": "1"}):
+            K.reset_launch_counts()
+            K.bias_relu_lrn_across_channels_bwd = seen
+            try:
+                loss, grads = step()
+            finally:
+                K.bias_relu_lrn_across_channels_bwd = wrapper
+            launches = dict(K.launch_counts)
+            with plain_kernels(K):
+                want_loss, want = step()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    check(launches["bias_relu_lrn_across_channels"] == 1
+          and launches["bias_relu_lrn_across_channels_bwd"] == 1,
+          f"the concat net's step launched {launches}")
+    check(handed == [0], f"K4 was handed gradients {handed} bytes off 16")
+    check(abs(loss - want_loss) <= STEP_LOSS_RTOL * abs(want_loss),
+          f"the concat net's loss {loss} against the plain step's "
+          f"{want_loss}")
+    errs = {k: float((grads[k] - g).abs().max() / max(
+        float(g.abs().max()), 1e-30)) for k, g in want.items()}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= STEP_GRAD_TOL,
+          f"the concat net's {worst} gradient {errs[worst]:.3g} of its max "
+          "from the plain step's")
+    log(f"  fused LRN behind a Concat at batch 1: K3 / K4 launched once "
+        f"each, K4 handed an aligned gradient; loss {loss:.6g} against "
+        f"{want_loss:.6g}, gradients within {errs[worst]:.3g} of their max "
+        f"({worst})")
+    return dict(loss=loss, plain_loss=want_loss, grad_err_of_max=errs)
 
 
 def k4_db_allowance(K, shape, mass):
@@ -1247,6 +1473,16 @@ def kernel_phase(K, torch) -> dict:
         check_lrn(K, torch, "bias_relu_lrn_across_channels", shape,
                   torch.float32, False, True, res, timed=False)
         check_k4(K, torch, shape, torch.float32, res, timed=False)
+    # K1-K3 on views that start anywhere (13x13 on two tiles of 96, 27x27
+    # on tiles of 128, the runtime-window kernels), their repeats and
+    # CUDA graph replays; the fused LRN behind a Concat at batch 1
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, ls in (((8, 256, 13, 13), 5), ((8, 96, 27, 27), 5),
+                          ((8, 256, 13, 13), 13)):
+            check_lrn_starts(K, torch, shape, dtype, res, ls)
+        for shape in ((16, 256, 13, 13), (16, 96, 27, 27)):
+            check_lrn_graph(K, torch, shape, dtype)
+    res["fused_concat_batch_1"] = check_fused_concat(K, torch)
     for m, n, kk in ((B, 4096, 9216), (B, 4096, 4096), (B, 1000, 4096)):
         check_int8(K, torch, m, n, kk, res)
     for m, n, kk in ((1, 4096, 9216), (2, 1000, 4096), (4, 4096, 4096),
@@ -5530,13 +5766,14 @@ def main(argv) -> int:
     for name, text in report["nvcc"].items():
         if text.strip() and name not in ("flash_attn", "lrn"):
             log(f"--- nvcc {name}.cu ---\n{text.strip()}")
-    # the flash kernels, and lrn.cu's backward kernels: K2's
-    # (lrn_bwd_kernel, lrn_bwd_wide_kernel) and K4's (k4::bwd,
-    # k4::bwd_wide, k4::sum_partials)
+    # the flash kernels, and lrn.cu's: K4's (k4::bwd, k4::bwd_wide,
+    # k4::sum_partials) and K1-K3's (staged::fwd, staged::bwd) at
+    # local_size 5 (pad 2) and their runtime-window variants
     ptxas = ptxas_report(report["nvcc"].get("flash_attn", ""),
                          lambda k: "flash_" in k)
-    ptxas += ptxas_report(report["nvcc"].get("lrn", ""),
-                          lambda k: "lrn_bwd" in k or "2k4" in k)
+    ptxas += ptxas_report(report["nvcc"].get("lrn", ""), lambda k: "2k4" in k
+                          or ("6staged" in k and ("Li2E" in k
+                                                  or "wide" in k)))
     for r in ptxas:
         log(f"  ptxas {r['kernel'][:90]}: {r['registers']} registers, "
             f"spill stores {r.get('spill_stores')} loads "

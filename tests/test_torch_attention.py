@@ -33,6 +33,9 @@ from caffeonspark_tpu_torch.net import Net, data_layer_input_specs
 from caffeonspark_tpu_torch.ops import kernels as K
 from caffeonspark_tpu_torch.parallel import sp
 from caffeonspark_tpu_torch.proto import NetParameter
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 FWD_TOL = 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5

@@ -64,6 +64,9 @@ from caffeonspark_tpu_torch.proto import (NetParameter, NetState, Phase,
                                           SolverParameter)
 from caffeonspark_tpu_torch.serving import quant
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _input(name, *dims):

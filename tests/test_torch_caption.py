@@ -39,6 +39,9 @@ from caffeonspark_tpu_torch.proto import (NetParameter, NetState, Phase,
                                           SolverParameter)
 from caffeonspark_tpu_torch.solver import Solver
 from caffeonspark_tpu_torch.tools import conversions, image_caption, vocab
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 CAPTIONS = [
     "a dog runs in the park",

@@ -60,6 +60,9 @@ from caffeonspark_tpu_torch.serving import quant
 from caffeonspark_tpu_torch.serving.registry import (ModelRegistry,
                                                      build_serving_net)
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 WAIT_S = 60
 

@@ -24,6 +24,9 @@ from caffeonspark_tpu_torch.config import LATER_FLAGS, Config
 from caffeonspark_tpu_torch.data import LmdbWriter
 from caffeonspark_tpu_torch.proto.caffe import Datum
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 TINY_NET = """name: "Tiny"
 layer {{

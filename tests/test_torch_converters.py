@@ -21,6 +21,9 @@ from caffeonspark_tpu_torch.data.leveldb_io import LevelDBWriter
 from caffeonspark_tpu_torch.data.sequencefile import SequenceFileReader
 from caffeonspark_tpu_torch.tools import converters as TC
 from torch_port_helpers import datum_records
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

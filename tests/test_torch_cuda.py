@@ -9,8 +9,9 @@ machine with a card and no JAX:
 (COS_TPU_TESTS=1 keeps tests/conftest.py from importing jax.)
 chip_smoke.py repeats these checks at the serving and training shapes.
 Tolerances: LRN forward rtol 2e-5 / atol 2e-6, backward rtol 3e-4 /
-atol 3e-5 (K4's d_bias plus the rounding of its sum, `_k4_check`), int8
-exact; flash attention (K6-K9, whose sums run in another order
+atol 3e-5 (K4's d_bias plus the rounding of its sum, `_k4_check`); K1
+and K3 bit-equal, K2 bit-equal in f32 and within one bf16 ulp in bf16
+(`_k123_check`); int8 exact; flash attention (K6-K9, whose sums run in another order
 than the plain version's matmuls) forward rtol/atol 2e-5, gradients
 rtol 2e-4 / atol 1e-5, and in bf16 one bf16 ulp (2^-7) beyond those.
 """
@@ -22,6 +23,9 @@ import pytest
 import torch
 
 from caffeonspark_tpu_torch.ops import kernels as K
+from torch_common import cap_torch_threads, fused_lrn_concat_step
+
+cap_torch_threads()
 
 LRN_SHAPES = [(2, 8, 4, 4), (1, 96, 55, 55), (2, 5, 7, 9), (1, 12, 9, 11),
               (2, 8, 5, 7), (1, 6, 4, 5), (1, 7, 3, 3)]
@@ -260,6 +264,121 @@ def test_k4_repeats_and_graph_replay_are_byte_equal_on_card(cuda_card,
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(gdx, dx) and torch.equal(gdb, db)
+
+
+# K1, K2 and K3 (the staged kernels): CaffeNet's 13x13 plane (two tiles
+# of 96) and 27x27 (tiles of 128), a window of 13 (the runtime-window
+# kernels), a C below a stage of 8 channels, one element
+K123_CASES = [((2, 16, 13, 13), 5), ((3, 96, 27, 27), 5),
+              ((2, 20, 13, 13), 13), ((3, 5, 7, 9), 3), ((1, 1, 1, 1), 5)]
+
+
+def _k123_check(x, dy, b, ls):
+    """K1 (with and without the fused ReLU), K3 and K2 against their plain
+    versions on the same tensors: y bit for bit in f32 and bf16 (the
+    plain version's operations; in bf16 the same rounding), dx bit for
+    bit in f32 and within one bf16 ulp in bf16."""
+    for relu in (False, True):
+        assert torch.equal(K.lrn_across_channels(x, ls, ALPHA, BETA, KK, relu),
+                           K.lrn_plain(x, ls, ALPHA, BETA, KK, relu))
+        dx = K.lrn_across_channels_bwd(x, dy, ls, ALPHA, BETA, KK, relu)
+        pdx = K.lrn_bwd_plain(x, dy, ls, ALPHA, BETA, KK, relu)
+        if x.dtype == torch.float32:
+            assert torch.equal(dx, pdx)
+        else:
+            _close(dx.float().cpu(), pdx.float().cpu(), BF16_ULP, 1e-6)
+    assert torch.equal(K.bias_relu_lrn_across_channels(x, b, ls, ALPHA, BETA,
+                                                       KK),
+                       K.lrn_plain(x, ls, ALPHA, BETA, KK, bias=b))
+
+
+def _view_at(t, off):
+    """t's values in a view that starts `off` elements into a fresh
+    allocation (which starts on 16 bytes)."""
+    s = torch.zeros(t.numel() + off, device=t.device, dtype=t.dtype)
+    s[off:] = t.reshape(-1)
+    v = s[off:].view(t.shape)
+    assert v.data_ptr() % 16 == off * t.element_size() % 16
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,local_size", K123_CASES)
+def test_k1_k2_k3_match_plain_at_every_start_on_card(cuda_card, shape,
+                                                     local_size, dtype):
+    """K1, K2 and K3 on x and dy that start at each element of a 16-byte
+    word (0-3 in f32, 0-7 in bf16; dy one element further), as a Slice
+    top or a Concat's gradient can: no refusal (K4's is its own), and
+    `_k123_check` holds them against their plain versions."""
+    x, b, dy = _k4_inputs(shape, 13 + sum(shape) + local_size, cuda_card,
+                          dtype)
+    per16 = 16 // x.element_size()
+    for off in range(per16):
+        _k123_check(_view_at(x, off), _view_at(dy, (off + 1) % per16), b,
+                    local_size)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_k2_k3_repeats_and_graph_replay_are_byte_equal_on_card(cuda_card,
+                                                                  dtype):
+    """Two calls of K1, K3 and K2 give the same bytes, and the three
+    captured in a CUDA graph (one launch each counted) replay to the
+    eager calls' bytes."""
+    for shape in ((4, 256, 13, 13), (4, 96, 27, 27)):
+        x, b, dy = _k4_inputs(shape, 12, cuda_card, dtype)
+
+        def calls():
+            return (K.lrn_across_channels(x),
+                    K.bias_relu_lrn_across_channels(x, b),
+                    K.lrn_across_channels_bwd(x, dy))
+
+        eager = calls()
+        assert all(torch.equal(u, v) for u, v in zip(eager, calls()))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            calls()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with K.captured_launches() as rec:
+            with torch.cuda.graph(graph):
+                captured = calls()
+        assert rec["counts"] == {"lrn_across_channels": 1,
+                                 "bias_relu_lrn_across_channels": 1,
+                                 "lrn_across_channels_bwd": 1}
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, v) for u, v in zip(captured, eager))
+
+
+@pytest.mark.cuda
+def test_fused_lrn_behind_a_concat_at_batch_1_on_card(cuda_card,
+                                                      monkeypatch):
+    """The fused conv -> ReLU -> LRN whose top joins a channel Concat
+    second, at a batch of 1, under COS_FUSE_BIAS_RELU_LRN=1: K3 and K4
+    launch once each (K4 takes Concat's gradient, 12 bytes off 16,
+    through the Function's aligned copy), and the loss and every gradient
+    equal the same step with every LRN kernel swapped for its plain
+    version (K4's dx is the plain dx bit for bit; its d_bias sums in
+    another order: rtol 1e-5)."""
+    monkeypatch.setenv("COS_FUSE_BIAS_RELU_LRN", "1")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    K.reset_launch_counts()
+    loss, grads = fused_lrn_concat_step(cuda_card)
+    assert K.launch_counts["bias_relu_lrn_across_channels"] == 1
+    assert K.launch_counts["bias_relu_lrn_across_channels_bwd"] == 1
+    monkeypatch.setattr(K, "bias_relu_lrn_across_channels",
+                        lambda x, b, ls, a, be, k: K.lrn_plain(
+                            x, ls, a, be, k, bias=b))
+    monkeypatch.setattr(K, "bias_relu_lrn_across_channels_bwd",
+                        K.bias_relu_lrn_bwd_plain)
+    want_loss, want = fused_lrn_concat_step(cuda_card)
+    assert abs(loss - want_loss) <= 1e-6 * abs(want_loss)
+    for ln, bl in want.items():
+        for bn, g in bl.items():
+            _close(grads[ln][bn].cpu(), g.cpu(), 1e-5, 1e-6)
 
 
 # (B·H, T, D): tiles of 64 rows whole and ragged, every padded width

@@ -54,6 +54,9 @@ from caffeonspark_tpu_torch.parallel.comm import Shards, all_gather, \
     all_reduce
 from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 CPU = torch.device("cpu")
 LOSS_REL = 2e-4

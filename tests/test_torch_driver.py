@@ -34,6 +34,9 @@ from caffeonspark_tpu_torch.data import LmdbWriter
 from caffeonspark_tpu_torch.processor import CaffeProcessor
 from caffeonspark_tpu_torch.proto.caffe import Datum
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 NET = """name: "LeNetish"
 layer {{ name: "data" type: "MemoryData" top: "data" top: "label"

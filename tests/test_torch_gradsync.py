@@ -67,6 +67,9 @@ from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
 from caffeonspark_tpu_torch.solver import Solver
 from test_torch_batchnorm import _resnet_text
 from test_torch_driver import init_model, write_config
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 CPU = torch.device("cpu")
 EXACT = dict(atol=1e-6, rtol=1e-5)      # bucket / hier against JAX

@@ -20,6 +20,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 h5py = pytest.importorskip("h5py")
 

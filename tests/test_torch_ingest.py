@@ -44,6 +44,9 @@ from caffeonspark_tpu_torch.metrics import PipelineMetrics
 from caffeonspark_tpu_torch.proto import NetParameter
 from caffeonspark_tpu_torch.proto.caffe import (Datum,
                                                 TransformationParameter)
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 WAIT = 30.0      # the bound of every wait on a pool thread
 

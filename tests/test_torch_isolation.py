@@ -17,6 +17,9 @@ import subprocess
 import sys
 
 import pytest
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "caffeonspark_tpu_torch")

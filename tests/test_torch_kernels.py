@@ -26,6 +26,9 @@ import torch
 from caffeonspark_tpu.ops import pallas_kernels as PK
 from caffeonspark_tpu.parallel.gradsync import quantize_int8 as jax_q8
 from caffeonspark_tpu_torch.ops import kernels as K
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 2e-5, 2e-6
 BF16_RTOL = 2.0 ** -7

@@ -23,6 +23,9 @@ from caffeonspark_tpu import caffe_on_spark as jax_cos
 from caffeonspark_tpu.config import Config as JaxConfig
 from caffeonspark_tpu_torch import caffe_on_spark, config, mini_cluster
 from caffeonspark_tpu_torch.config import Config
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RESULT = sorted(n for n, c in config.LATER_KNOBS.items() if c == "result")

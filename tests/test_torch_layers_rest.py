@@ -35,6 +35,9 @@ from caffeonspark_tpu_torch.net import Net
 from caffeonspark_tpu_torch.ops import layers as L
 from caffeonspark_tpu_torch.proto import (BlobProto, LayerParameter,
                                           NetParameter, NetState, Phase)
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 TOP_RTOL = 1e-6
 GRAD_TOL = 1e-5

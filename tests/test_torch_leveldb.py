@@ -32,6 +32,9 @@ from caffeonspark_tpu_torch.data.source import CaffeDataSource
 from caffeonspark_tpu_torch.net import data_layer_input_specs
 from caffeonspark_tpu_torch.proto import NetParameter
 from torch_port_helpers import datum_records, lenet_cli_pair
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _kv(n, vlen=60, seed=0):

@@ -40,6 +40,9 @@ from caffeonspark_tpu_torch.models import zoo
 from caffeonspark_tpu_torch.proto import (NetParameter, SolverParameter,
                                           TopBlobType)
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 LM = dict(vocab=16, d_model=32, heads=2, layers=1, seq=128, batch=4)
 ADAM = ('type: "Adam" base_lr: 0.001 momentum: 0.9 momentum2: 0.999 '

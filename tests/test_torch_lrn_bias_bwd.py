@@ -20,6 +20,9 @@ import torch
 
 from caffeonspark_tpu.ops import pallas_kernels as PK
 from caffeonspark_tpu_torch.ops import kernels as K
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 ALPHA, BETA, KK = 0.05, 0.75, 1.0
 SHAPES = [(2, 8, 5, 7), (1, 12, 9, 11), (2, 16, 6, 7)]

@@ -58,6 +58,9 @@ from caffeonspark_tpu_torch.ops import layers as L
 from caffeonspark_tpu_torch.proto import (LayerParameter, NetParameter,
                                           NetState, Phase, SolverParameter)
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 UNIFORM = 'weight_filler { type: "uniform" min: -0.3 max: 0.3 }'
 BIAS = 'bias_filler { type: "uniform" min: -0.2 max: 0.2 }'

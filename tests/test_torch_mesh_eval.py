@@ -37,6 +37,9 @@ from caffeonspark_tpu_torch.serving.forward import BlobForward
 from caffeonspark_tpu_torch.solver import Solver
 from test_torch_driver import (init_model, read_json_rows,
                                read_parquet_rows, write_config)
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 CPU = torch.device("cpu")
 

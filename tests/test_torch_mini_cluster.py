@@ -65,6 +65,9 @@ from caffeonspark_tpu_torch.models import zoo
 from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
 from caffeonspark_tpu_torch.solver import Solver
 from test_steploop import E2E_NET, E2E_SOLVER, _write_lmdb
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 BF16 = torch.bfloat16
 # (per-step loss, validation loss: relative; final blobs: of the blob's

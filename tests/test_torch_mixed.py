@@ -48,6 +48,9 @@ from caffeonspark_tpu_torch.ops import kernels as K
 from caffeonspark_tpu_torch.proto import (NetParameter, NetState, Phase,
                                           SolverParameter)
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 BF16_RTOL, BF16_ATOL = 2.0 ** -6, 2.0 ** -8
 BF16 = torch.bfloat16

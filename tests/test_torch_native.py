@@ -47,6 +47,9 @@ from caffeonspark_tpu_torch.proto import (NetParameter, SolverParameter,
                                           TransformationParameter)
 from caffeonspark_tpu_torch.proto.caffe import Datum
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 cv2 = pytest.importorskip("cv2")
 

@@ -29,6 +29,9 @@ from caffeonspark_tpu_torch.proto import (NetState, Phase,
                                           TransformationParameter)
 from torch_port_helpers import (jax_params_numpy, narrow_net_text,
                                 torch_net_param)
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 1e-4, 1e-5
 FUSE_ENVS = {"unfused": {}, "relu": {"COS_FUSE_RELU_LRN": "1"},

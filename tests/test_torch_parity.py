@@ -14,6 +14,9 @@ definitions, so agreement here rules out a shared mistake:
 
 import numpy as np
 import pytest
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 torch = pytest.importorskip("torch")
 

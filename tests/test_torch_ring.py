@@ -54,6 +54,9 @@ from caffeonspark_tpu_torch.parallel import sp
 from caffeonspark_tpu_torch.parallel.mesh import build_mesh, parse_mesh_spec
 from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 CPU = torch.device("cpu")
 

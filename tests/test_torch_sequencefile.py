@@ -25,6 +25,9 @@ from caffeonspark_tpu_torch.data import sequencefile as TS
 from caffeonspark_tpu_torch.data.source import SeqImageDataSource
 from caffeonspark_tpu_torch.proto import NetParameter
 from torch_port_helpers import datum_records, lenet_cli_pair
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 CODECS = {"zlib": TS.DEFAULT_CODEC, "gzip": TS.GZIP_CODEC,
           "bz2": TS.BZIP2_CODEC}

@@ -38,6 +38,9 @@ from caffeonspark_tpu_torch.serving import (Client, InferenceService,
                                             make_buckets)
 from caffeonspark_tpu_torch.serving.forward import fetch_rows
 from torch_port_helpers import CROP, jax_params_numpy, narrow_net_text
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LMDB = "com.yahoo.ml.caffe.LMDB"

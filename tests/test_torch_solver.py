@@ -30,6 +30,9 @@ from caffeonspark_tpu.solver import learning_rate as jax_learning_rate
 from caffeonspark_tpu_torch import convert
 from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
 from caffeonspark_tpu_torch.solver import Solver, learning_rate
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 POLICIES = {
     "fixed": "",

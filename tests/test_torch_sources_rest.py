@@ -49,6 +49,9 @@ from caffeonspark_tpu_torch.data.source import (DataSource,
 from caffeonspark_tpu_torch.net import Net, data_layer_input_specs
 from caffeonspark_tpu_torch.proto import NetParameter
 from torch_port_helpers import datum_records
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _both(text, **kw):

@@ -52,6 +52,9 @@ from test_steploop import (E2E_NET, E2E_SOLVER, TINY_NET, _rand_batches,
                            _write_lmdb)
 from test_torch_driver import (init_model, read_json_rows,
                                write_config)
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 POLICIES = [
     "lr_policy: 'fixed'",

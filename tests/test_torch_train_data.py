@@ -44,6 +44,9 @@ from caffeonspark_tpu_torch.proto import (NetParameter, SolverParameter,
                                           TransformationParameter)
 from caffeonspark_tpu_torch.proto.caffe import DBBackend, Datum
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 
 def _records(n, c=1, h=28, w=28, seed=0):

@@ -33,6 +33,9 @@ from caffeonspark_tpu_torch.ops import kernels as K
 from caffeonspark_tpu_torch.ops import layers as L
 from caffeonspark_tpu_torch.proto import NetState, Phase
 from torch_port_helpers import BATCH, CROP, narrow_net_text, torch_net_param
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 RTOL, ATOL = 3e-4, 3e-5
 ALPHA, BETA, KK = 0.05, 0.75, 1.0

@@ -39,6 +39,9 @@ from caffeonspark_tpu_torch.net import Net
 from caffeonspark_tpu_torch.ops import kernels as K
 from caffeonspark_tpu_torch.proto import NetParameter, SolverParameter
 from caffeonspark_tpu_torch.solver import Solver
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 FWD_TOL = 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5

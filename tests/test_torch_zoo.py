@@ -23,6 +23,9 @@ from caffeonspark_tpu.proto import NetState as JaxNetState
 from caffeonspark_tpu_torch.models import zoo
 from caffeonspark_tpu_torch.net import Net
 from caffeonspark_tpu_torch.proto import NetParameter, NetState, Phase
+from torch_common import cap_torch_threads
+
+cap_torch_threads()
 
 TEXT_CASES = [
     ("vgg16", {}), ("vgg16", dict(batch_size=2, num_classes=10,
