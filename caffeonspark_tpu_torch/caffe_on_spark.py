@@ -22,7 +22,12 @@ over the TEST data layer's records to `<output>/test_result` (and
 stdout), and -features writes one SampleID row a record with the named
 blobs (and the -label blob) to `<output>/features.<fmt>`; after -train
 they use the just-trained weights, otherwise -model or -weights.
-`-mesh dp[,tp[,sp]]` (the JAX CLI's grammar; a bare N is dp N) trains
+`-clusterSize N -rank r` runs as the JAX package's local engine does
+without pyspark: this process trains alone on shard r of N of the
+records, its solver seeded by r, with no exchange (processes that train
+in lockstep are `mini_cluster -server -cluster -rank`).
+`-mesh dp[,tp[,sp]]` (the JAX CLI's grammar; a bare N is dp N; `-devices
+k` is `-mesh k`) trains
 with `parallel.dp.ParallelSolver`, the ranks all on `-device`'s card:
 each batch split over dp (the prototxt batch is the global batch), the
 large matmuls split by column over tp, every MultiHeadAttention a ring
@@ -156,13 +161,14 @@ def serve_main(conf: Config) -> int:
 
 
 class CaffeOnSpark:
-    """Driver facade on the local engine (one process, one device)."""
+    """Driver facade on the local engine (one process, one device; shard
+    -rank of -clusterSize of the records)."""
 
     def train(self, source: DataSource, conf: Config) -> None:
         """Synchronous training (CaffeOnSpark.train): the processor's
         solver thread runs max_iter steps while this thread feeds it the
         source's records, epoch after epoch, until it stops."""
-        proc = CaffeProcessor.instance(conf)
+        proc = CaffeProcessor.instance(conf, conf.rank)
         proc.start()
         try:
             gen = _record_loop(source, persistent=conf.isPersistent)
@@ -188,7 +194,7 @@ class CaffeOnSpark:
         if not test_interval or not test_iter:
             raise ValueError("trainWithValidation needs test_interval "
                              "and test_iter in the solver prototxt")
-        proc = CaffeProcessor.instance(conf)
+        proc = CaffeProcessor.instance(conf, conf.rank)
         proc.interleave_validation = True
         proc.start()
         try:
@@ -234,7 +240,7 @@ class CaffeOnSpark:
                        if b.strip()] if conf.features else None)
         if blob_names and conf.label and conf.label not in blob_names:
             blob_names.append(conf.label)
-        proc = CaffeProcessor.instance(conf)
+        proc = CaffeProcessor.instance(conf, conf.rank)
         if blob_names is None:
             blob_names = proc.default_feature_blobs()
         rows = proc.extract_features(source, blob_names)
@@ -294,8 +300,11 @@ def train_main(conf: Config) -> None:
         conf.modelPath = os.path.join(conf.outputPath or ".",
                                       "model.caffemodel")
     cos = CaffeOnSpark()
-    src = get_source(conf.train_data_layer(), phase_train=True, rank=0,
-                     num_ranks=1, resize=conf.resize)
+    # -clusterSize N -rank r without Spark: shard r of N (JAX
+    # caffe_on_spark.py:547-549)
+    src = get_source(conf.train_data_layer(), phase_train=True,
+                     rank=conf.rank, num_ranks=max(1, conf.clusterSize),
+                     resize=conf.resize)
     val_src = validation_source(conf)
     if val_src is None:
         cos.train(src, conf)

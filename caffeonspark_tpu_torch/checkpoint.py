@@ -16,8 +16,10 @@ Besides the binaryproto files:
   * sharded sidecars: the JAX package's multi-host writers leave a
     shape-only marker blob in the main file and the data in
     `<path>.shard<k>` npz slabs (`b<blob>__<start-stop_...>`).  Every
-    reader here assembles them dense (this package runs one process and
-    writes dense files);
+    reader here assembles them dense.  This package writes them for a
+    ZeRO-1 state split over a dp axis that spans processes
+    (`snapshot(..., write_main=)`): each process its own sidecar, rank 0
+    the model and the `.solverstate` with the markers;
   * the quant sidecar `<model>.quant`: a serving replica's int8 / bf16
     weights and their scales (`save_quant_sidecar`);
   * `AsyncSnapshotter`: write-behind snapshots (-async_snapshot).
@@ -395,30 +397,116 @@ def _state_blob_seq(net: Net, opt_state: OptState, solver_type: str
 
 def whole_state(opt_state: OptState) -> OptState:
     """The state with each ZeRO-1 blob's dp slices joined (an
-    all_gather), so that a snapshot from a mesh has dp 1's layout."""
+    all_gather), so that a snapshot from a mesh has dp 1's layout; a
+    blob whose slices span processes stays as it is (its sidecars)."""
 
     def whole(tree):
-        return {ln: {bn: t.whole() if isinstance(t, Shards) else t
+        return {ln: {bn: t.whole() if isinstance(t, Shards)
+                     and not t.spans else t
                      for bn, t in bl.items()} for ln, bl in tree.items()}
     return OptState(iter=opt_state.iter, history=whole(opt_state.history),
                     history2=whole(opt_state.history2))
 
 
+def state_is_sharded(opt_state: OptState) -> bool:
+    """True when a ZeRO-1 state blob's slices span processes: then every
+    process calls `snapshot` (its sidecar), rank 0 with `write_main`."""
+    return any(isinstance(t, Shards) and t.spans
+               for tree in (opt_state.history, opt_state.history2)
+               for bl in tree.values() for t in bl.values())
+
+
+def _slabs(blob: Shards, shape) -> Dict[str, np.ndarray]:
+    """This process's slices of a blob split over processes, keyed by
+    their bounds in the whole blob (`<start>-<stop>` a dimension, joined
+    by `_`: the JAX package's `_bounds_key`)."""
+    out = {}
+    for j, t in enumerate(blob):
+        size = t.shape[blob.dim]
+        start = (blob.first + j) * size
+        key = "_".join(f"{start}-{start + size}" if d == blob.dim
+                       else f"0-{n}" for d, n in enumerate(shape))
+        out[key] = _host_f32(t)
+    return out
+
+
+def _shard_path(state_path: str, blob: Shards) -> Tuple[str, int]:
+    """(`<state>.shard<process>`, processes) of a blob's slices."""
+    k = len(blob)
+    return f"{state_path}.shard{blob.first // k}", blob.parts // k
+
+
+def _write_state_sidecar(net: Net, opt_state: OptState, state_path: str,
+                         solver_type: str) -> None:
+    """This process's sidecar: the slices of every state blob split over
+    processes (`b<index>__<bounds>` in the `.solverstate`'s blob order,
+    and the number of processes), as the JAX package writes it."""
+    slabs: Dict[str, np.ndarray] = {}
+    path, procs = None, 1
+    for i, t in enumerate(_state_blob_seq(net, opt_state, solver_type)):
+        if isinstance(t, Shards) and t.spans:
+            shape = list(t[0].shape)
+            shape[t.dim] *= t.parts
+            for key, arr in _slabs(t, shape).items():
+                slabs[f"b{i}__{key}"] = arr
+            path, procs = _shard_path(state_path, t)
+    if path is None:
+        return
+
+    def write(tmp: str) -> None:
+        with open(tmp, "wb") as f:
+            np.savez(f, **slabs, **{_SIDECAR_META: np.asarray(procs,
+                                                              np.int64)})
+
+    write_atomic_with(path, write)
+
+
+def _state_proto(t) -> BlobProto:
+    """A state blob's entry in the `.solverstate`: its data, or a
+    shape-only marker when its slices span processes."""
+    if isinstance(t, Shards) and t.spans:
+        shape = list(t[0].shape)
+        shape[t.dim] *= t.parts
+        return BlobProto(shape=BlobShape(dim=shape))
+    return _to_blobproto(_host_f32(t))
+
+
 def snapshot(net: Net, params: Params, opt_state: OptState, prefix: str,
              *, fmt: int = SnapshotFormat.BINARYPROTO,
-             solver_type: str = "SGD") -> Tuple[str, str]:
+             solver_type: str = "SGD",
+             write_main: bool = True) -> Tuple[str, str]:
     """Write `<prefix>_iter_<it>.caffemodel[.h5]`, then its
     `.solverstate[.h5]` (the commit point: a state file always has its
     model); returns the two paths.  A ZeRO-1 state is gathered first
-    (`whole_state`)."""
+    (`whole_state`).  One split over processes is not: each process
+    writes its slices to `<state>.shard<process>` (between the model and
+    the state), the `.solverstate` carries shape-only markers for them,
+    and `write_main=False` (every process but rank 0) writes the sidecar
+    alone."""
     opt_state = whole_state(opt_state)
     it = int(opt_state.iter)
     h5 = fmt == SnapshotFormat.HDF5
+    sharded = state_is_sharded(opt_state)
     if h5:
+        if sharded:
+            raise ValueError("a ZeRO-1 state split over processes needs "
+                             "the BINARYPROTO snapshot_format (the .h5 "
+                             "container has no shape-only marker)")
         require_h5py()
     os.makedirs(os.path.dirname(os.path.abspath(prefix)), exist_ok=True)
     model_path = snapshot_filename(prefix, it, is_state=False, h5=h5)
     state_path = snapshot_filename(prefix, it, is_state=True, h5=h5)
+    if not write_main:
+        _write_state_sidecar(net, opt_state, state_path, solver_type)
+        return model_path, state_path
+    if sharded:
+        save_caffemodel(model_path, net, params)
+        _write_state_sidecar(net, opt_state, state_path, solver_type)
+        st = SolverState(iter=it, learned_net=os.path.basename(model_path))
+        st.history.extend(_state_proto(t) for t in
+                          _state_blob_seq(net, opt_state, solver_type))
+        _write_message(state_path, st)
+        return model_path, state_path
     hist = [_host_f32(t)
             for t in _state_blob_seq(net, opt_state, solver_type)]
     if h5:

@@ -4,11 +4,14 @@
 A copy of `caffeonspark_tpu/config.py` (Config.scala's option table,
 solver/net prototxt parsing, data-layer location by `include.phase`),
 cut to the flags this package acts on so far: training (`-train`, with
-interleaved validation when the solver asks for it; single process;
-`-mesh dp[,tp[,sp]]`; `-async_snapshot`), `-test`, `-features` /
-`-label` (on the mesh too), `-outputFormat` and serving.  `-device`
-picks where the net runs: `cuda` (the default) or `cpu`; a mesh's ranks
-all sit on that device.
+interleaved validation when the solver asks for it; `-mesh dp[,tp[,sp]]`
+or `-devices k`, k dp ranks; `-async_snapshot`; `-clusterSize N -rank r`,
+the JAX package's local engine without pyspark: this process trains
+alone on shard r of N of the records, its solver seeded by r),
+`-test`, `-features` / `-label` (on the mesh too), `-outputFormat` and
+serving.  `-connection` and `-lmdb_partitions` are parsed and act on
+nothing, as in the JAX package.  `-device` picks where the net runs:
+`cuda` (the default) or `cpu`; a mesh's ranks all sit on that device.
 
 The JAX command line's other flags are parsed too, and `validate`
 refuses each one by name when it is set (`LATER_FLAGS`): a run never
@@ -35,9 +38,6 @@ DATA_LAYER_TYPES = ("MemoryData", "CoSData", "Data", "HDF5Data", "ImageData")
 # "switch", the largest value a one-process run takes, or None for
 # "refused whenever given").  `validate` refuses each beyond that.
 LATER_FLAGS = {
-    "-devices": ("devices", int, 1),
-    "-connection": ("connection", str, None),
-    "-lmdb_partitions": ("lmdb_partitions", int, None),
     "-imageRoot": ("imageRoot", str, None),
     "-labelFile": ("labelFile", str, None),
     "-captionFile": ("captionFile", str, None),
@@ -50,8 +50,8 @@ LATER_FLAGS = {
     "-serveReplicas": ("serveReplicas", int, 1),
     "-deploy": ("deploy", "switch", None),
     "-deployRounds": ("deployRounds", int, None),
+    # the JAX package reads -server only in its Spark engine (item 6d)
     "-server": ("server", str, None),
-    "-rank": ("rank", int, 0),
 }
 
 # The JAX package's environment knobs that this package does not act on
@@ -224,8 +224,17 @@ def build_argparser() -> argparse.ArgumentParser:
       help="cache decoded source records in memory after epoch 0 "
            "(sourceRDD.persist analog)")
     a("-clusterSize", dest="clusterSize", type=int, default=1,
-      help="number of executor processes (1: the port trains on one "
-           "device so far)")
+      help="number of executors: without Spark this process trains alone "
+           "on shard -rank of them (the JAX package's local engine)")
+    a("-rank", dest="rank", type=int, default=0,
+      help="this executor's rank of -clusterSize")
+    a("-devices", dest="devices", type=int, default=None,
+      help="dp ranks sharing -device (as -mesh k)")
+    a("-connection", dest="connection", default=None,
+      help="ethernet | infiniband: parsed, acted on by nothing (as in "
+           "the JAX package)")
+    a("-lmdb_partitions", dest="lmdb_partitions", type=int, default=None,
+      help="parsed, acted on by nothing (as in the JAX package)")
     a("-resize", dest="resize", action="store_true",
       help="resize images to layer dims (encoded images only)")
     a("-features", dest="features", default="",
@@ -350,11 +359,12 @@ class Config:
                 and not str(self.device).startswith("cuda:"):
             raise ValueError(f"-device {self.device!r}: expected cuda, "
                              "cuda:<index> or cpu")
-        if self.clusterSize != 1:
-            raise ValueError(f"-clusterSize {self.clusterSize}: the PyTorch "
-                             "port trains in one process so far (its dp "
-                             "ranks share -device under -mesh; more "
-                             "processes are ROADMAP Queue 1 item 6c)")
+        if self.clusterSize < 1 or not 0 <= self.rank < self.clusterSize:
+            raise ValueError(f"-rank {self.rank} of -clusterSize "
+                             f"{self.clusterSize}: expected 0 <= rank < "
+                             "clusterSize")
+        if self.devices is not None and self.devices > 1 and not self.mesh:
+            self.mesh = str(self.devices)   # k dp ranks sharing -device
         if self.isTraining:
             if self.netParam is None:
                 raise ValueError("-train needs -conf (solver prototxt "

@@ -183,6 +183,7 @@ class DataSource:
             mean_dir=os.path.dirname(self.source_uri()) or None)
         self._device_transform = False
         self._device_fns: Dict = {}
+        self.block: Optional[Tuple[int, int]] = None
 
     # -- config ------------------------------------------------------------
     def _batch_size(self) -> int:
@@ -267,12 +268,35 @@ class DataSource:
         return batch
 
     # -- transformer-pool protocol -----------------------------------------
+    def take_block(self, index: int, blocks: int) -> "DataSource":
+        """Pack only block `index` of `blocks` of each batch: the batches
+        keep their records, order and augmentation draws (drawn for the
+        whole batch, then cut), and this source packs its block of them.
+        A process of a run whose dp axis spans `blocks` processes feeds
+        its block of the one stream's global batches, so that the
+        processes together train on what one process trains on."""
+        if not 0 <= index < blocks or self.batch_size % blocks:
+            raise ValueError(
+                f"layer {self.layer.name!r}: batch {self.batch_size} has "
+                f"no block {index} of {blocks} equal blocks")
+        self.block = (index, blocks) if blocks > 1 else None
+        return self
+
     def pack_batch(self, records: Sequence[ImageRecord],
                    draw: Optional[AugDraw] = None
                    ) -> Dict[str, np.ndarray]:
         """What the pool's workers call: next_batch with an optional
-        pre-draw.  Sources that pack their own blobs (DataFrameSource)
-        never get one (make_draw_fn returns None for them)."""
+        pre-draw, of this source's block of the batch (`take_block`).
+        Sources that pack their own blobs (DataFrameSource) never get a
+        draw (make_draw_fn returns None for them)."""
+        if self.block is not None:
+            i, n = self.block
+            if draw is None:
+                fn = self.make_draw_fn()
+                draw = fn(len(records)) if fn is not None else None
+            lo, hi = i * len(records) // n, (i + 1) * len(records) // n
+            records = records[lo:hi]
+            draw = draw.take(lo, hi) if draw is not None else None
         return self.next_batch(records, draw=draw)
 
     def _packs_images(self) -> bool:
@@ -365,13 +389,13 @@ class DataSource:
                 got_any = True
                 buf.append(rec)
                 if len(buf) == self.batch_size:
-                    yield self.next_batch(buf)
+                    yield self.pack_batch(buf)
                     buf = []
             if not got_any:
                 return
             if not loop:
                 if buf:
-                    yield self.next_batch(buf)
+                    yield self.pack_batch(buf)
                 return
             epoch += 1
 

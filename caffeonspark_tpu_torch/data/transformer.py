@@ -50,6 +50,12 @@ class AugDraw(NamedTuple):
     offs: Optional[Tuple[np.ndarray, np.ndarray]]
     flip: np.ndarray
 
+    def take(self, lo: int, hi: int) -> "AugDraw":
+        """Samples lo .. hi - 1 of the draw."""
+        offs = (None if self.offs is None
+                else (self.offs[0][lo:hi], self.offs[1][lo:hi]))
+        return AugDraw(offs, self.flip[lo:hi])
+
 
 def load_mean_file(path: str) -> np.ndarray:
     """mean.binaryproto -> (C, H, W) float32."""

@@ -1,6 +1,6 @@
 """Standalone trainer, no Spark: the counterpart of the JAX package's
 `mini_cluster.py` (the reference's `caffe_mini_cluster` bring-up
-harness), in one process on one device:
+harness), in one process or several, each on one device:
 
     python -m caffeonspark_tpu_torch.mini_cluster \\
         -solver lenet_memory_solver.prototxt \\
@@ -9,7 +9,8 @@ harness), in one process on one device:
         [-iterations N] [-display_every N] [-model out.caffemodel] \\
         [-output DIR] [-metrics steps.jsonl] [-pipeline_metrics m.json] \\
         [-profile DIR] [-dtype float32|bfloat16|mixed] \\
-        [-mesh dp[,tp[,sp]]] [-device cuda|cpu]
+        [-mesh dp[,tp[,sp]] | -devices k] [-device cuda|cpu] \\
+        [-server host:port -cluster N -rank I]
 
 It parses every flag of the JAX command line.  `-dtype bfloat16` keeps
 params and compute in bf16, `mixed` f32 master weights with bf16
@@ -18,10 +19,29 @@ another dtype (solver.py).  `-mesh dp[,tp[,sp]]` (a bare count N is dp
 N, as in the JAX package) trains with `parallel.dp.ParallelSolver`, its
 ranks all on the one device: the batch split over dp, large matmuls
 over tp, every MultiHeadAttention's time over sp (the ring), ZeRO-1
-under COS_ZERO=1; validation runs on the same layout.  Refused by name:
-`-devices` above 1, `-cluster` above 1, `-server`, `-rank` above 0, a
-mesh with ep or pp above 1, and the knobs of `config.LATER_KNOBS` that
-change a run's result.
+under COS_ZERO=1; validation runs on the same layout.  `-devices k` (a
+bare count) is `-mesh k`: k dp ranks sharing the device (the JAX
+package's GPUs per node).  Refused by name: a mesh with ep or pp above
+1, and the knobs of `config.LATER_KNOBS` that change a run's result.
+
+`-server host:port -cluster N -rank I` trains on N processes in lockstep
+(`parallel.mesh.distributed_init`, gloo; start one command per rank,
+rank 0 listening at host:port): the dp axis spans them, each holding its
+`-mesh k` / `-devices k` local dp ranks, so dp is N x k.  The prototxt
+batch is the global batch: process I feeds block I of each of the one
+record stream's batches (`DataSource.take_block`), and every process
+seeds Dropout's generator alike and takes its ranks' slices of the one
+global draw, so N processes train, bit for bit up to the order of the
+sums, what one process with `-mesh N*k` trains.  (The JAX package feeds
+each process its key range at the prototxt batch and seeds each by its
+rank; the port keeps the one-process run's batches instead.)  Every
+process starts from the same parameters, checked once by a checksum
+over the processes.  Rank 0 alone writes the snapshots' model and state,
+the final model, `-metrics`, `-pipeline_metrics` and the timing summary;
+every rank prints its `iter i/N` lines.  Under ZeRO-1 each rank also
+writes its state slices to `<state>.shard<rank>` at each snapshot.  A
+tp or sp axis across processes is ROADMAP Queue 1 item 6c2, refused by
+name.
 COS_STEPS_PER_LOOP=K > 1 takes K steps a chunk (one CUDA graph replay on
 a card, `Solver.train_step_many`), with single steps before each
 display, validation, snapshot and max_iter boundary.
@@ -33,7 +53,9 @@ either kind); `-model x.caffemodel.h5` writes the final model as HDF5.
 Signals (`caffe_mini_cluster.cpp:55-60`): SIGINT and SIGTERM stop after
 the current step with a snapshot and print the resume line; SIGHUP
 snapshots and goes on.  The previous handlers come back when `train`
-returns.
+returns.  Over several processes, signal every one: a signal-driven
+snapshot of a ZeRO-1 state split over processes warns that its sidecar
+set is whole only if every rank snapshots in the same iteration.
 
 One departure from the JAX package, on purpose: under `-dtype bfloat16`
 the batch's cast to bf16 skips the net inputs read as indices (token ids
@@ -73,8 +95,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-iterations", dest="iterations", type=int,
                    default=None, help="override max_iter")
     p.add_argument("-devices", dest="devices", default=None,
-                   help="device count (1: one device so far) or mesh spec "
-                   "dp[,tp[,sp[,ep]]]")
+                   help="local dp ranks k sharing -device (the reference's "
+                   "GPUs per node) or mesh spec dp[,tp[,sp[,ep]]]")
     p.add_argument("-mesh", dest="mesh", default=None,
                    help="mesh spec dp[,tp[,sp[,ep]]], a bare N being dp N "
                    "(wins over -devices); its ranks share -device")
@@ -83,11 +105,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("-output", dest="output", default=".",
                    help="snapshot output dir")
     p.add_argument("-server", dest="server", default=None,
-                   help="coordinator host:port (more processes: refused)")
+                   help="rendezvous host:port that rank 0 listens on")
     p.add_argument("-cluster", dest="cluster", type=int, default=None,
-                   help="number of processes (1 so far)")
+                   help="number of processes")
     p.add_argument("-rank", dest="rank", type=int, default=None,
-                   help="this process's rank (0 so far)")
+                   help="this process's rank")
     p.add_argument("-display_every", type=int, default=None,
                    help="override solver display interval")
     p.add_argument("-profile", dest="profile", default=None,
@@ -109,32 +131,16 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_more_ranks(args) -> Optional[str]:
-    """The mesh spec to build (None: no mesh), after refusing by name
-    every flag that asks for more than one process or device."""
-    if args.cluster is not None and args.cluster > 1:
-        raise ValueError(f"-cluster {args.cluster}: the PyTorch port trains "
-                         "in one process so far (more processes are "
-                         "ROADMAP Queue 1 item 6c)")
-    if args.server:
-        raise ValueError(f"-server {args.server}: the PyTorch port trains "
-                         "in one process so far")
-    if args.rank:
-        raise ValueError(f"-rank {args.rank}: the PyTorch port trains in "
-                         "one process so far")
+def mesh_spec(args) -> Optional[str]:
+    """This process's mesh spec (`-mesh`, else `-devices`; a bare k is k
+    dp ranks), or None for one rank; over several processes always a
+    spec, since the dp axis spans them."""
     spec = args.mesh or args.devices
-    if spec is None:
-        return None
-    spec = str(spec)
-    if "," not in spec and "=" not in spec:
-        if args.mesh is None and int(spec) > 1:
-            raise ValueError(f"-devices {spec}: the PyTorch port trains on "
-                             "one device so far (its dp ranks share it "
-                             "under -mesh N; more devices are ROADMAP "
-                             "Queue 1 item 6c)")
-        if int(spec) <= 1:
-            return None
-    return spec
+    if spec is not None:
+        spec = str(spec)
+        if "," in spec or "=" in spec or int(spec) > 1:
+            return spec
+    return "1" if int(args.cluster or 1) > 1 else None
 
 
 class MiniCluster:
@@ -142,18 +148,25 @@ class MiniCluster:
         from . import checkpoint
         from .config import check_env_knobs, resolve_net_path
         from .parallel.dp import ParallelSolver
+        from .parallel.mesh import (check_processes, distributed_init,
+                                    parse_mesh_spec)
         from .processor import run_mesh
         from .proto import read_net, read_solver
         from .proto.caffe import SnapshotFormat
         from .solver import Solver
 
         check_env_knobs()
-        spec = _refuse_more_ranks(args)
+        spec = mesh_spec(args)
         device = torch.device(args.device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"-device {args.device}: no CUDA device is "
                                "visible (pass -device cpu to train on the "
                                "CPU)")
+        if spec:
+            # before the rendezvous: no peer waits on a refusal
+            check_processes(parse_mesh_spec(spec), int(args.cluster or 1))
+        self.procs, self.rank = distributed_init(args.server, args.cluster,
+                                                 args.rank)
         self.sp = read_solver(args.solver)
         if (self.sp.snapshot_format == SnapshotFormat.HDF5
                 or (args.model or "").endswith(".h5")):
@@ -179,6 +192,8 @@ class MiniCluster:
         dtype = (torch.bfloat16 if args.dtype == "bfloat16"
                  else torch.float32)
         compute = torch.bfloat16 if args.dtype == "mixed" else None
+        # rank 0's seed on every process: each draws the global batch's
+        # Dropout numbers and its ranks take their slices
         self.solver = Solver(self.sp, self.net_param, rank=0, dtype=dtype,
                              compute_dtype=compute, device=device)
         self.mesh = run_mesh(spec, self.solver) if spec else None
@@ -188,6 +203,7 @@ class MiniCluster:
         if self.psolver is not None and self.mesh.size > 1 \
                 and self._interleaves():
             self.psolver.layout.check_batch(self.solver.test_net)
+        self.is_rank0 = self.rank == 0
         self.args = args
         self.prefix = os.path.join(args.output,
                                    self.sp.snapshot_prefix or "model")
@@ -220,6 +236,27 @@ class MiniCluster:
             saved[sig] = signal.signal(sig, fn)
         return saved
 
+    def _snapshot(self, net, params, st, signalled: bool,
+                  announce: bool = True) -> Optional[str]:
+        """Rank 0 writes the model and the state; under a ZeRO-1 state
+        split over processes every rank writes its sidecar (JAX
+        mini_cluster.py:574-628).  Returns the state's path."""
+        from . import checkpoint
+        sharded = checkpoint.state_is_sharded(st)
+        if signalled and sharded:
+            print("WARNING: signal-triggered snapshot with sharded (ZeRO) "
+                  "state: deliver the signal to every rank promptly or the "
+                  "sidecar set will be incomplete", file=sys.stderr)
+        if not (self.is_rank0 or sharded):
+            return None
+        m, s = checkpoint.snapshot(net, params, st, self.prefix,
+                                   fmt=self.sp.snapshot_format,
+                                   solver_type=self.solver.solver_type,
+                                   write_main=self.is_rank0)
+        if self.is_rank0 and announce:
+            print(f"snapshot → {m}", flush=True)
+        return s
+
     # ------------------------------------------------------------------
     def train(self) -> str:
         from . import checkpoint
@@ -247,6 +284,7 @@ class MiniCluster:
         if self.psolver is not None:
             params = self.psolver.shard_params(params)
             st = self.psolver.shard_opt_state(st)
+            self.psolver.check_start(params, st)
 
         layers = _data_layers(net)
         if not layers:
@@ -254,6 +292,9 @@ class MiniCluster:
         seed = int(sp.random_seed) if sp.random_seed >= 0 else 0
         src = get_source(layers[0], phase_train=True, rank=0, num_ranks=1,
                          seed=seed)
+        if self.mesh is not None and self.mesh.spans:
+            from .parallel.mesh import dp_data_rank
+            src.take_block(*dp_data_rank(self.mesh))
         device = solver.device
         max_iter = sp.max_iter
         display = sp.display or 0
@@ -277,7 +318,8 @@ class MiniCluster:
                            if kind.endswith(":T"))
         dxf = src.enable_device_transform(net.dtype)
         pmetrics = PipelineMetrics()
-        flusher = maybe_start_flusher(pmetrics, args.output)
+        flusher = (maybe_start_flusher(pmetrics, args.output)
+                   if self.is_rank0 else None)
         nthreads = transform_threads()
         feed = None
         if nthreads > 0:
@@ -316,7 +358,8 @@ class MiniCluster:
             metrics=pmetrics, chunked=True)
         if self.psolver is not None:
             pmetrics.set_info("mesh", self.psolver.layout.describe())
-        pmetrics.set_info("comm", solver.grad_sync.plan.comm_info())
+        pmetrics.set_info("comm",
+                          solver.grad_sync.plan.comm_info(self.procs))
         timer = StepTimer(batch_size=src.batch_size)
         timer.start()
         smoothed = None
@@ -357,7 +400,7 @@ class MiniCluster:
                               f"[{timer.steps_per_sec:.1f} it/s, "
                               f"{timer.records_per_sec:.0f} img/s]",
                               flush=True)
-                        if args.metrics:
+                        if args.metrics and self.is_rank0:
                             with open(args.metrics, "a") as mf:
                                 mf.write(json.dumps(
                                     {"iter": it, "loss": round(loss_f, 6),
@@ -376,18 +419,16 @@ class MiniCluster:
                                 params, cast_inputs(test_net, vb)))
                         val_report.finish_round()
                         row = val_report.rounds[-1]
-                        print("validation iter %d: %s" % (
-                            it, " ".join(f"{n}={v:.4f}"
-                                         for n, v in row.items())),
-                            flush=True)
+                        if self.is_rank0:
+                            print("validation iter %d: %s" % (
+                                it, " ".join(f"{n}={v:.4f}"
+                                             for n, v in row.items())),
+                                flush=True)
                     if (snap_every and it % snap_every == 0) \
                             or self._want_snapshot:
+                        signalled = self._want_snapshot
                         self._want_snapshot = False
-                        m, _ = checkpoint.snapshot(
-                            net, params, st, self.prefix,
-                            fmt=sp.snapshot_format,
-                            solver_type=solver.solver_type)
-                        print(f"snapshot → {m}", flush=True)
+                        self._snapshot(net, params, st, signalled)
         finally:
             for sig, fn in saved_handlers.items():
                 signal.signal(sig, fn)
@@ -398,15 +439,17 @@ class MiniCluster:
                 feed.close()
             if flusher is not None:
                 flusher.stop()
-            if args.pipeline_metrics and pmetrics.has_samples():
+            if args.pipeline_metrics and pmetrics.has_samples() \
+                    and self.is_rank0:
                 try:
                     pmetrics.dump(args.pipeline_metrics)
                     print(f"pipeline metrics → {args.pipeline_metrics}")
                 except OSError as e:
                     print(f"WARNING: could not write pipeline metrics: {e}",
                           file=sys.stderr)
-        print(timer.summary())
-        if interleave and val_report.rounds:
+        if self.is_rank0:
+            print(timer.summary())
+        if interleave and val_report.rounds and self.is_rank0:
             vpath = os.path.join(args.output, "validation.json")
             os.makedirs(args.output, exist_ok=True)
             with open(vpath, "w") as vf:
@@ -419,13 +462,14 @@ class MiniCluster:
             self.prefix, it, is_state=False,
             h5=sp.snapshot_format == SnapshotFormat.HDF5)
         if self._stop:
-            # interrupted: model + state, so that -snapshot resumes
-            _, s = checkpoint.snapshot(net, params, st, self.prefix,
-                                       fmt=sp.snapshot_format,
-                                       solver_type=solver.solver_type)
-            print(f"stopped at iter {it}; resume with -snapshot {s}")
-        checkpoint.save_model(model_path, net, params)   # .h5: HDF5
-        print(f"final model → {model_path}")
+            # interrupted: model + state, so that -snapshot resumes (the
+            # other ranks their sidecars of a state split over them)
+            s = self._snapshot(net, params, st, False, announce=False)
+            if self.is_rank0:
+                print(f"stopped at iter {it}; resume with -snapshot {s}")
+        if self.is_rank0:
+            checkpoint.save_model(model_path, net, params)   # .h5: HDF5
+            print(f"final model → {model_path}")
         self.final_params = params
         self.final_state = st
         return model_path

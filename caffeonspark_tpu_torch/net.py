@@ -45,7 +45,7 @@ import torch
 from torch import nn
 
 from .ops import layers as L
-from .parallel.comm import Shards, all_gather
+from .parallel.comm import Shards, all_gather_dp, process_sum
 from .proto.caffe import (LayerParameter, NetParameter, NetState,
                           NetStateRule, NormRegion, Phase, TopBlobType)
 
@@ -584,7 +584,9 @@ class Net(nn.Module):
         normalizers, Accuracy), and a random draw is the whole batch's,
         sliced (`Ctx.rand`); dp N then computes what dp 1 does on the
         global batch.  `mesh` (its dp axis one rank per entry) carries
-        the reductions between ranks; one rank needs none.
+        the reductions between ranks; one rank needs none, unless its
+        dp axis spans processes (the ranks of the other processes are
+        then its peers: `Mesh.spans`).
         `before_layer(name)`, when given, is called before each layer
         reads its params from `rank_params` (the gradient exchange's
         hooks: `parallel.gradsync.BucketHooks`)."""
@@ -595,12 +597,14 @@ class Net(nn.Module):
         if state_out is not None:
             ctx.state_out = state_out
         axes: Dict[str, Optional[int]] = {}
-        if n > 1:
+        if n > 1 or (mesh is not None and mesh.spans):
             if mesh is None:
                 raise ValueError(f"{n} dp ranks need their mesh (the "
                                  "reductions between them run over it)")
             axes = self.batch_axes()
             ctx.mesh = mesh
+            ctx.procs = mesh.procs
+            ctx.rank_offset = mesh.dp_offset
         cast = self.compute_dtype != self.dtype
         for lp in self.compute_layers:
             op = L.get_op(lp.type)
@@ -639,11 +643,14 @@ class Net(nn.Module):
         return lparams
 
     def join_ranks(self, rank_blobs: Sequence[Dict[str, torch.Tensor]],
-                   names: Sequence[str]) -> Dict[str, torch.Tensor]:
+                   names: Sequence[str], mesh=None
+                   ) -> Dict[str, torch.Tensor]:
         """The global value of each named blob from the dp ranks': joined
         on its batch axis (an all_gather), the sum of the ranks' shares
-        for a loss or an accuracy (`LayerOp.shares`), else rank 0's."""
-        if len(rank_blobs) == 1:
+        for a loss or an accuracy (`LayerOp.shares`), else rank 0's;
+        over the processes `mesh`'s dp axis spans too, when it does."""
+        spans = mesh is not None and mesh.spans
+        if len(rank_blobs) == 1 and not spans:
             return {n: rank_blobs[0][n] for n in names}
         axes = self.batch_axes()
         shared = {t for lp in self.compute_layers
@@ -652,12 +659,12 @@ class Net(nn.Module):
         for n in names:
             vals = [b[n] for b in rank_blobs]
             if axes.get(n) is not None:
-                out[n] = all_gather(vals, axes[n])
+                out[n] = all_gather_dp(vals, axes[n], mesh)
             elif n in shared:
                 total = vals[0]
                 for v in vals[1:]:
                     total = total + v.to(total.device)
-                out[n] = total
+                out[n] = process_sum(total, mesh)
             else:
                 out[n] = vals[0]
         return out

@@ -83,9 +83,13 @@ class Ctx:
     # inside a step
     consts: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
     # data parallelism (Net.forward_ranks): the dp rank the layer runs
-    # for, of `ranks`, and the batch axis of each of its bottoms
+    # for, of `ranks`, and the batch axis of each of its bottoms; over
+    # several processes (`procs` of them, each with `ranks` ranks) this
+    # process's first rank is global dp rank `rank_offset`
     rank: int = 0
     ranks: int = 1
+    procs: int = 1
+    rank_offset: int = 0
     bottom_axes: tuple = ()
     mesh: Optional[object] = None   # the ranks' Mesh (all_reduce)
     # a layer's global draw, cut into the ranks' slices (`rand`)
@@ -101,21 +105,30 @@ class Ctx:
         a blob that does not follow the batch)."""
         return self.bottom_axes[i] if i < len(self.bottom_axes) else None
 
+    @property
+    def spans(self) -> bool:
+        """More than one dp rank over every process."""
+        return self.ranks * self.procs > 1
+
     def rand(self, shape, device) -> torch.Tensor:
         """Uniform [0, 1) of `shape` from `generator`.  Across dp ranks,
         rank 0 draws the whole batch's numbers once (the rank's shape
-        with its batch axis times `ranks`) and each rank takes its
-        slice: dp N draws what dp 1 draws on the same global batch."""
+        with its batch axis times every process's ranks) and each rank
+        takes its slice at its global dp coordinate: dp N draws what dp
+        1 draws on the same global batch, over one process or several
+        (each process's generator is seeded alike and draws the whole
+        batch)."""
         ax = self.bottom_axis(0)
-        if self.ranks == 1 or ax is None:
+        if not self.spans or ax is None:
             return torch.rand(shape, generator=self.generator,
                               device=device)
         if self.rank == 0:
+            n = self.ranks * self.procs
             full = list(shape)
-            full[ax] *= self.ranks
+            full[ax] *= n
             self._draws[self.layer_name] = list(torch.chunk(
                 torch.rand(full, generator=self.generator, device=device),
-                self.ranks, dim=ax))
+                n, dim=ax))[self.rank_offset:self.rank_offset + self.ranks]
         return self._draws[self.layer_name][self.rank].to(device)
 
 
@@ -163,7 +176,7 @@ class LayerOp:
     def run(self, ctx, lp, rank_params, rank_bottoms) -> list:
         """Every dp rank's tops: one rank's through `apply`, several
         through `apply_ranks` at once, else `apply` rank by rank."""
-        if len(rank_bottoms) == 1:
+        if not ctx.spans:
             return [self.apply(ctx, lp, rank_params[0], rank_bottoms[0])]
         if self.apply_ranks is not None:
             return self.apply_ranks(ctx, lp, rank_params, rank_bottoms)
@@ -212,7 +225,7 @@ def _mean_loss_ranks(fn):
     global batch's loss (1/dp when axis 0 is the batch axis)."""
     def ranks(ctx, lp, params, bottoms):
         ns = [b[0].shape[0] for b in bottoms]
-        total = sum(ns) if ctx.bottom_axis(0) == 0 else ns[0]
+        total = sum(ns) * ctx.procs if ctx.bottom_axis(0) == 0 else ns[0]
         return [[fn(ctx, lp, prm, b)[0] * (n / total)]
                 for prm, b, n in zip(params, bottoms, ns)]
     return ranks
@@ -747,7 +760,7 @@ def _rank_means(ctx, xs, axes):
     `xs`: each rank's mean weighted by its share of the count, then
     all-reduced (one rank: its own mean)."""
     counts = [x.shape[0] * math.prod(x.shape[2:]) for x in xs]
-    m = sum(counts)
+    m = sum(counts) * ctx.procs
     parts = [torch.mean(x, dim=axes) * (c / m) if c != m
              else torch.mean(x, dim=axes) for x, c in zip(xs, counts)]
     return all_reduce(parts, ctx.mesh, "dp"), m
@@ -1185,10 +1198,11 @@ def _softmax_loss_terms(lp, scores, labels):
 
 
 def _global_count(values, mesh):
-    """A count summed over dp ranks: tensors all-reduced, floats added."""
+    """A count summed over dp ranks: tensors all-reduced, floats (counts
+    of the ranks' equal slices) added, times the processes."""
     if torch.is_tensor(values[0]):
         return all_reduce(list(values), mesh, "dp")[0]
-    return float(sum(values))
+    return float(sum(values)) * (mesh.procs if mesh is not None else 1)
 
 
 @register("SoftmaxWithLoss", is_loss=True, index_bottoms=(1,), ranks=True,
@@ -1200,9 +1214,9 @@ def _softmax_loss(ctx, lp, params, bottoms):
     terms = [_softmax_loss_terms(lp, b[0], b[1]) for b in bottoms]
     norm_mode = terms[0][2]
     valid = _global_count([t[1] for t in terms], ctx.mesh)
-    full = sum(t[4] for t in terms)
-    batch = (sum(t[3] for t in terms) if ctx.bottom_axis(0) == 0
-             else terms[0][3])
+    full = sum(t[4] for t in terms) * ctx.procs
+    batch = (sum(t[3] for t in terms) * ctx.procs
+             if ctx.bottom_axis(0) == 0 else terms[0][3])
     denom = _loss_normalizer(norm_mode, valid, batch, full)
     return [[t[0] / (denom.to(t[0].device) if torch.is_tensor(denom)
                      else denom)] for t in terms]
@@ -1332,7 +1346,7 @@ def _accuracy(ctx, lp, params, bottoms):
     batch's accuracy."""
     terms = [_accuracy_terms(lp, b[0], b[1]) for b in bottoms]
     if terms[0][1] is None:
-        total = sum(c.numel() for c, _ in terms)
+        total = sum(c.numel() for c, _ in terms) * ctx.procs
         return [[torch.mean(c) * (c.numel() / total) if c.numel() != total
                  else torch.mean(c)] for c, _ in terms]
     count = torch.clamp_min(_global_count(

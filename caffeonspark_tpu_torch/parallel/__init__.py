@@ -2,18 +2,19 @@
 `caffeonspark_tpu/parallel/`): device meshes and their layouts
 (`mesh.py`), the transport between ranks (`comm.py`), the gradient
 exchange (`gradsync.py`), the data- and tensor-parallel step with ZeRO-1
-(`dp.py`) and the sequence-parallel ring attention (`sp.py`).  The JAX
+(`dp.py`) and the sequence-parallel ring attention (`sp.py`), the dp
+axis over one process or several (`distributed_init`, gloo).  The JAX
 package's exports that the port has; its pipeline and sync modes are
 later slices."""
 
-from .mesh import (MeshLayout, build_mesh, dp_data_rank, lockstep_steps,
-                   parse_mesh_spec, tp_param_specs)
+from .mesh import (MeshLayout, build_mesh, distributed_init, dp_data_rank,
+                   lockstep_steps, parse_mesh_spec, tp_param_specs)
 from .sp import attention, ring_attention, sp_shard_time
 
 __all__ = ["MeshLayout", "ParallelSolver", "attention", "build_mesh",
-           "dp_data_rank", "lockstep_steps", "parse_mesh_spec",
-           "ring_attention", "sp_shard_time", "tp_param_specs",
-           "zero_state_specs"]
+           "distributed_init", "dp_data_rank", "lockstep_steps",
+           "parse_mesh_spec", "ring_attention", "sp_shard_time",
+           "tp_param_specs", "zero_state_specs"]
 
 
 def __getattr__(name):

@@ -32,21 +32,41 @@ its slice of the parameters from its slice of the reduced gradient and
 its state; an all_gather joins the slices.  Composes with
 COS_STATE_DTYPE.  Snapshots gather the state (`checkpoint.whole_state`):
 the files have dp 1's layout.
+
+Several processes (`mesh.distributed_init`, gloo): the dp axis spans
+them, each process running its own ranks' forward and backward
+(`Net.forward_ranks` over the processes: the couplings of the batch,
+the losses' normalizers and Dropout's one global draw, cross them) and
+exchanging the gradients through `parallel.comm`, so that every process
+applies the same update.  The step it is given is its block of the
+global batch (`DataSource.take_block`).  Every process starts from the
+same parameters, drawn from one seed; `check_start` holds them equal
+once, by a checksum over the processes.  Under ZeRO-1 a process holds
+the state slices of its own dp ranks, and a snapshot writes them as its
+sharded sidecar (`checkpoint.snapshot`).  COS_STEPS_PER_LOOP=K keeps
+its chunks, each K eager steps: a gloo collective cannot be captured in
+a CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 import os
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..net import Params
 from ..ops.layers import flash_mesh
-from ..solver import OptState, Solver, steps_many, take_step
-from .comm import Shards, all_gather, all_reduce, split
+from ..solver import OptState, Solver, eager_many, steps_many, take_step
+from .comm import (Shards, all_gather, all_gather_dp, all_reduce,
+                   process_sum, split)
 from .gradsync import RankGrads
 from .mesh import Mesh, MeshLayout, Spec, split_dim
+
+_LOG = logging.getLogger(__name__)
 
 ZERO_MIN_NUMEL = 16384  # split only state blobs big enough to matter
 
@@ -135,17 +155,18 @@ class ParallelSolver:
         self.mesh = mesh
         # one layout for the training step and the evaluation forward
         self.layout = MeshLayout(solver.train_net, mesh)
-        self.layout.check_batch()
-        if mesh.shape["dp"] > 1:
+        # the prototxt batch is the global batch, over every process
+        self.layout.check_batch(dp=mesh.dp_total)
+        if mesh.dp_total > 1:
             solver.train_net.batch_axes()   # refuses what dp cannot split
         self.tp_on = self.layout.tp_on
         if zero_dp is None:
             zero_dp = os.environ.get("COS_ZERO") == "1"
-        self.zero_on = bool(zero_dp) and mesh.shape["dp"] > 1
+        self.zero_on = bool(zero_dp) and mesh.dp_total > 1
         self.param_specs = self.layout.param_specs
         self.state_specs = (zero_state_specs(self.param_specs,
                                              self.layout.shapes,
-                                             mesh.shape["dp"])
+                                             mesh.dp_total)
                             if self.zero_on else self.param_specs)
         # the gradient exchange (gradsync.py): the mesh resolves
         # COS_GRAD_SYNC=auto and carries the reductions; the blobs split
@@ -187,7 +208,8 @@ class ParallelSolver:
 
     @property
     def num_dp_ranks(self) -> int:
-        return self.mesh.shape["dp"]
+        """The dp ranks over every process."""
+        return self.mesh.dp_total
 
     def global_batch(self, per_device_batch: int) -> int:
         """per_device_batch × dp (the JAX package's helper)."""
@@ -201,12 +223,40 @@ class ParallelSolver:
     def shard_params(self, params: Params) -> Params:
         return self.layout.place_params(params)
 
+    def check_start(self, params: Params, state: OptState) -> None:
+        """Every process starts from the same parameters and iteration:
+        each one's checksum (CRC-32 over the blobs' bytes, in the net's
+        blob order, and the iteration) is gathered over the processes,
+        and a process whose sum is not rank 0's is named.  One
+        collective; nothing with one process."""
+        if not self.mesh.spans:
+            return
+        import torch.distributed as dist
+        crc = zlib.crc32(str(int(state.iter)).encode())
+        for ln, specs in self.train_net.param_layout.items():
+            for bn, _, _ in specs:
+                t = params[ln][bn].detach().contiguous().to("cpu")
+                crc = zlib.crc32(t.view(torch.uint8).numpy().tobytes(), crc)
+        mine = torch.tensor([crc], dtype=torch.int64)
+        every = torch.empty(self.mesh.procs, dtype=torch.int64)
+        dist.all_gather_into_tensor(every, mine)
+        bad = [r for r, c in enumerate(every.tolist()) if c != every[0]]
+        if bad:
+            raise RuntimeError(
+                f"rank {', '.join(map(str, bad))}: parameters (or "
+                f"iteration) differ from rank 0's at the start (checksums "
+                f"{every.tolist()}); every process must start from the "
+                "same seed, -weights and -snapshot")
+
     def shard_opt_state(self, st: OptState) -> OptState:
         """The state on the mesh: under ZeRO-1 each split blob becomes
         its dp ranks' slices (`Shards`, each its own tensor on its
-        rank's device), the rest on the home device."""
+        rank's device; over several processes this process's ranks'
+        slices of the global split), the rest on the home device."""
         devs = self.mesh.axis_devices("dp")
         home = devs[0]
+        k, off = len(devs), self.mesh.dp_offset
+        n = self.mesh.dp_total
 
         def place(tree):
             out = {}
@@ -221,7 +271,8 @@ class ParallelSolver:
                     else:
                         out[ln][bn] = Shards(
                             [b.to(d).clone() for b, d in
-                             zip(split(t, len(devs), dim), devs)], dim)
+                             zip(split(t, n, dim)[off:off + k], devs)],
+                            dim, first=off, parts=n)
             return out
 
         return OptState(iter=st.iter, history=place(st.history),
@@ -249,18 +300,23 @@ class ParallelSolver:
                  if gs.use_hooks(max(1, int(self.param.iter_size))) else None)
         fwd_state: Dict[str, List[torch.Tensor]] = {}
         with flash_mesh(self.mesh):
-            loss, blobs = net.loss_ranks(
+            loss_graph, blobs = net.loss_ranks(
                 hooks.params if hooks is not None else leaves,
                 self.shard_batch(sub), train=True, generator=self.generator,
                 state_out=fwd_state, mesh=self.mesh, before_layer=hooks)
         if hooks is not None:
             hooks.done()
+        # this process's ranks' shares of the loss: over processes, the
+        # sum of every process's (the outputs join likewise)
+        loss = process_sum(loss_graph.detach(), self.mesh)
         flat = []
         for lv in leaves:
             for ln, bn in names:
                 x = lv[ln][bn]
                 flat.extend(x if isinstance(x, Shards) else (x,))
-        got = torch.autograd.grad(loss, flat, allow_unused=True)
+        got = torch.autograd.grad(loss_graph, flat, allow_unused=True)
+        # the hooks' reductions issued without waiting (processes), done
+        reduced = gs.finish() if hooks is not None else {}
         got = [torch.zeros_like(x) if g is None else g
                for x, g in zip(flat, got)]
         per_rank = len(got) // len(leaves)
@@ -277,17 +333,19 @@ class ParallelSolver:
                 i += len(x)
             elif (ln, bn) in bucketed:
                 # reduced once: by the hook, or by the exchange
-                grads.append(ranks[0][i].to(params[ln][bn].device)
-                             if hooks is not None
-                             else RankGrads([g[i] for g in ranks]))
+                if hooks is None:
+                    grads.append(RankGrads([g[i] for g in ranks]))
+                else:
+                    grads.append(reduced.get((ln, bn), ranks[0][i]).to(
+                        params[ln][bn].device))
                 i += 1
             else:
                 grads.append(all_reduce([g[i] for g in ranks], self.mesh,
                                         "dp")[0].to(params[ln][bn].device))
                 i += 1
-        outs = net.join_ranks(blobs, net.output_blobs)
-        return (loss.detach(), {n: v.detach() for n, v in outs.items()},
-                grads, fwd_state)
+        outs = net.join_ranks([{n: b[n].detach() for n in net.output_blobs}
+                               for b in blobs], net.output_blobs, self.mesh)
+        return loss, outs, grads, fwd_state
 
     def loss_grads_and_state(self, params: Params,
                              inputs: Dict[str, torch.Tensor]):
@@ -312,18 +370,19 @@ class ParallelSolver:
             self.solver.update_blob(w, g, h, h2, local_lr, dm)
             return
         dim = h.dim
-        n = len(h)
+        ws, gs = split(w, h.parts, dim), split(g, h.parts, dim)
         slices = []
-        for r, (wr, gr) in enumerate(zip(split(w, n, dim),
-                                         split(g, n, dim))):
+        for r in range(len(h)):
             dev = h[r].device
             w2, h_n, h2_n = self.solver.update_rule(
-                wr.to(dev), gr.to(dev), h[r], h2[r], local_lr, dm)
+                ws[h.first + r].to(dev), gs[h.first + r].to(dev), h[r],
+                h2[r], local_lr, dm)
             h[r].copy_(h_n)
             if h2_n is not None:
                 h2[r].copy_(h2_n)
             slices.append(w2)
-        w.copy_(all_gather(slices, dim))
+        # every process's slices, over the processes when they hold some
+        w.copy_(all_gather_dp(slices, dim, self.mesh if h.spans else None))
 
     def train_step(self, params: Params, state: OptState,
                    inputs: Dict[str, torch.Tensor]):
@@ -334,8 +393,19 @@ class ParallelSolver:
     def train_step_many(self, k: int):
         """k dp steps a block: on a card one CUDA graph (`GraphedSteps`
         captures the ranks' leaves, the all_reduce and the ZeRO slices),
-        on the CPU k eager steps."""
-        return steps_many(self, k)
+        on the CPU k eager steps; over several processes k eager steps
+        everywhere (a gloo collective cannot be captured), logged once."""
+        if not self.mesh.spans:
+            return steps_many(self, k)
+        fn = self._many.get(k)
+        if fn is None:
+            if self.device.type == "cuda":
+                _LOG.info("COS_STEPS_PER_LOOP=%d over %d processes: each "
+                          "chunk runs its steps eagerly, without a CUDA "
+                          "graph (a gloo collective cannot be captured)",
+                          k, self.mesh.procs)
+            fn = self._many[k] = functools.partial(eager_many, self, k)
+        return fn
 
     def eval_step(self):
         """The validation forward of the TEST net under this layout: the
@@ -345,8 +415,12 @@ class ParallelSolver:
             net = self.solver.test_net
             if net is None:
                 raise ValueError("no TEST-phase net in this config")
-            self.layout.check_batch(net)
-            self._eval = BlobForward(net, layout=self.layout)(
+            # over several processes each evaluates the whole replicated
+            # batch on its own ranks
+            layout = (MeshLayout(self.train_net, self.mesh.local())
+                      if self.mesh.spans else self.layout)
+            layout.check_batch(net)
+            self._eval = BlobForward(net, layout=layout)(
                 tuple(net.output_blobs))
         return self._eval
 

@@ -26,12 +26,9 @@ with one `comm.all_reduce`, after the whole backward
   COS_GRAD_SYNC=hier      bucket, and the reduction is a reduce-scatter
                           (rank r sums slice r of the flat, padded to a
                           multiple of dp) followed by an all_gather
-  COS_GRAD_SYNC=auto      default with no mesh or dp 1, else bucket.  The
-                          JAX package picks hier when more than one
-                          process holds the dp ranks; the port runs its
-                          ranks in one process, so that branch cannot
-                          arise until ROADMAP Queue 1 item 6c brings
-                          several processes
+  COS_GRAD_SYNC=auto      default with no mesh or dp 1; hier when the
+                          dp ranks span more than one process (the JAX
+                          package's rule); else bucket
 
 What the wire rounds.  In the JAX package the bf16 cast precedes the
 replication constraint on a value that is logically the global gradient
@@ -65,6 +62,17 @@ scale never leaves the device.
 Blobs split over tp (their gradients are per block, not replicated) and
 BatchNorm's running statistics (never optimized) stay out of the buckets
 and keep the per-blob path.
+
+Over several processes (the dp axis of the mesh spans them) every
+reduction sums this process's ranks first, then crosses the processes
+through gloo (`parallel.comm`).  The hooks issue each bucket's gloo
+collective without waiting (`async_op=True`), so it runs beside the
+backward of the layers below, and `finish` waits for them in issue
+order before the update.  The sums run at the gradient's dtype, so the
+bf16 or int8 wire rounds after the reduction, as on one process: what
+crosses the processes is the gradient's dtype, which `comm_info`
+counts (`cross_process_bytes_per_step`, a ring's 2 (P - 1) / P of the
+flat a process).
 """
 
 from __future__ import annotations
@@ -140,10 +148,14 @@ class GradSyncPlan(NamedTuple):
     def n_buckets(self) -> int:
         return len(self.buckets)
 
-    def comm_info(self) -> dict:
+    def comm_info(self, processes: int = 1) -> dict:
         """The `comm` block of the PipelineMetrics JSON: per-step
-        exchange traffic at a glance."""
-        return {
+        exchange traffic at a glance; over `processes` > 1, also the
+        bytes each process sends to the others a step (gloo's ring:
+        2 (P - 1) / P of its flat at the gradient's dtype, which the
+        reduction keeps; hier's reduce_scatter and all_gather move as
+        much)."""
+        info = {
             "mode": self.mode,
             "wire_dtype": self.wire_dtype or "grad",
             "bucket_mb": self.bucket_mb,
@@ -154,6 +166,11 @@ class GradSyncPlan(NamedTuple):
             "bytes_per_step_dense_f32": self.total_numel * 4,
             "skipped_blobs": len(self.skipped),
         }
+        if processes > 1:
+            info["processes"] = processes
+            info["cross_process_bytes_per_step"] = (
+                2 * (processes - 1) * self.total_bytes_grad // processes)
+        return info
 
     def exposed_wire_bytes(self, local_size: int = 1,
                            hide_bytes: Optional[int] = None) -> int:
@@ -314,7 +331,7 @@ class _BucketHook(torch.autograd.Function):
     def backward(ctx, *cts):
         m = len(ctx.bucket.entries)
         ranks = [list(cts[r * m:(r + 1) * m]) for r in range(ctx.n_ranks)]
-        out = ctx.gs._transform_bucket(ctx.bucket, ranks, None)
+        out = ctx.gs._hook_bucket(ctx.bucket, ranks)
         return (None, None, None,
                 *(g.to(c.device) for r in range(ctx.n_ranks)
                   for g, c in zip(out, ranks[r])))
@@ -386,6 +403,9 @@ class GradSync:
         self._skip: FrozenSet[Tuple[str, str]] = frozenset()
         self._plan: Optional[GradSyncPlan] = None
         self._generator: Optional[torch.Generator] = None
+        # the hooks' reductions in flight across processes, in issue
+        # order: (bucket, wait, the buffer the hook handed autograd)
+        self._pending: List[tuple] = []
 
     # -- topology ------------------------------------------------------
     def bind_mesh(self, mesh,
@@ -403,10 +423,15 @@ class GradSync:
     def mode(self) -> str:
         if self.requested != "auto":
             return self.requested
-        dp = self.mesh.shape.get("dp", 1) if self.mesh is not None else 1
-        # more than one process (the JAX package's hier branch) is
-        # ROADMAP Queue 1 item 6c: the port's ranks share one process
-        return "default" if dp <= 1 else "bucket"
+        dp = self.mesh.dp_total if self.mesh is not None else 1
+        if dp <= 1:
+            return "default"
+        return "hier" if self.mesh.spans else "bucket"
+
+    @property
+    def spans(self) -> bool:
+        """The dp ranks span processes."""
+        return self.mesh is not None and self.mesh.spans
 
     @property
     def enabled(self) -> bool:
@@ -451,18 +476,23 @@ class GradSync:
     def _reduce(self, flats: Sequence[torch.Tensor]) -> torch.Tensor:
         """The ranks' flats summed in rank order, on rank 0's device:
         one all_reduce, or hier's reduce_scatter and all_gather."""
-        if len(flats) == 1:
+        if len(flats) == 1 and not self.spans:
             return flats[0]
         if self.mode == "hier":
             n = flats[0].numel()
-            return comm.all_gather(
-                comm.reduce_scatter(flats, self.mesh, "dp"), 0)[:n]
+            return comm.all_gather_dp(
+                comm.reduce_scatter(flats, self.mesh, "dp"), 0,
+                self.mesh)[:n]
         return comm.all_reduce(flats, self.mesh, "dp")[0]
 
     def _transform_flat(self, flats: Sequence[torch.Tensor],
                         generator: Optional[torch.Generator]
                         ) -> torch.Tensor:
-        flat = self._reduce(flats)
+        return self._wire(self._reduce(flats), generator)
+
+    def _wire(self, flat: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The reduced flat through the wire dtype, back in its own."""
         wire, orig = self.plan.wire_dtype, flat.dtype
         if wire == "int8":
             q, scale = quantize_int8(flat, generator)
@@ -477,18 +507,46 @@ class GradSync:
                           ) -> List[torch.Tensor]:
         """The bucket's reduced gradients from each rank's leaves (one
         list per rank, in the bucket's entry order)."""
+        flat = self._transform_flat(self._flats(rank_leaves), generator)
+        return _unflatten(flat, bucket)
+
+    @staticmethod
+    def _flats(rank_leaves: Sequence[Sequence[torch.Tensor]]
+               ) -> List[torch.Tensor]:
+        """Each rank's leaves of a bucket as one flat, on rank 0's
+        device."""
         dev = rank_leaves[0][0].device
         flats = []
         for leaves in rank_leaves:
             parts = [g.reshape(-1) for g in leaves]
             flats.append((torch.cat(parts) if len(parts) > 1
                           else parts[0]).to(dev))
-        flat = self._transform_flat(flats, generator)
-        out, off = [], 0
-        for shape in bucket.shapes:
-            n = math.prod(shape)
-            out.append(flat[off:off + n].view(shape))
-            off += n
+        return flats
+
+    def _hook_bucket(self, bucket: Bucket,
+                     rank_leaves: Sequence[Sequence[torch.Tensor]]
+                     ) -> List[torch.Tensor]:
+        """A hook's reduced gradients.  Over processes the reduction is
+        issued without waiting: the hook hands autograd views of a buffer
+        that `finish` fills."""
+        if not self.spans:
+            return self._transform_bucket(bucket, rank_leaves, None)
+        flats = self._flats(rank_leaves)
+        wait = comm.start_reduce(flats, self.mesh,
+                                 hier=self.mode == "hier")
+        buf = flats[0].new_empty(flats[0].numel())
+        self._pending.append((bucket, wait, buf))
+        return _unflatten(buf, bucket)
+
+    def finish(self) -> Dict[Tuple[str, str], torch.Tensor]:
+        """Wait for the hooks' reductions in flight, in issue order, and
+        fill their buffers (after the wire's rounding): {(layer, blob):
+        reduced gradient}.  Empty when none is in flight (one process)."""
+        out: Dict[Tuple[str, str], torch.Tensor] = {}
+        pending, self._pending = self._pending, []
+        for bucket, wait, buf in pending:
+            buf.copy_(self._wire(wait(), None))
+            out.update(zip(bucket.entries, _unflatten(buf, bucket)))
         return out
 
     # -- path 1: backward hooks (overlap) --------------------------------
@@ -518,6 +576,16 @@ class GradSync:
             for (ln, bn), v in zip(bucket.entries, new):
                 out[ln][bn] = v
         return out
+
+
+def _unflatten(flat: torch.Tensor, bucket: Bucket) -> List[torch.Tensor]:
+    """The bucket's blobs as views of its flat, in entry order."""
+    out, off = [], 0
+    for shape in bucket.shapes:
+        n = math.prod(shape)
+        out.append(flat[off:off + n].view(shape))
+        off += n
+    return out
 
 
 def make_gradsync(net, **kw) -> GradSync:

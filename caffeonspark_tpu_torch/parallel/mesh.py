@@ -17,6 +17,15 @@ says where each parameter blob lives (replicated, or split over tp by
 names or None per dimension, JAX's PartitionSpec as a tuple.  ep and pp
 wait for MixtureOfExperts and the pipeline (ROADMAP Queue 1 item 8):
 `build_mesh`, which every mesh comes from, refuses them by name.
+
+Several processes (`distributed_init`: `torch.distributed` over gloo)
+extend the dp axis: each of `procs` processes holds `shape["dp"]` local
+dp ranks on its own device, so the global dp axis is procs x that, in
+the JAX package's order (dp the fastest axis, a process's ranks
+contiguous: process p holds global dp ranks p*k .. p*k + k - 1).  The
+collectives over dp (`parallel.comm`) first reduce a process's ranks,
+then call gloo.  A tp or sp axis would span processes in that order;
+it is refused by name (ROADMAP Queue 1 item 6c2).
 """
 
 from __future__ import annotations
@@ -74,18 +83,42 @@ class Mesh:
     """Ranks laid out on the axes (pp, ep, sp, tp, dp): `devices` is the
     numpy object array of shape (pp, ep, sp, tp, dp) whose entry is the
     torch.device of that rank; `shape` maps each axis name to its
-    extent, in AXES order."""
+    extent, in AXES order.  These are this process's ranks: with
+    `procs` > 1 processes, each holds as many, and the global dp axis is
+    `dp_total` = procs x shape["dp"], this process's ranks starting at
+    global dp rank `dp_offset`."""
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, procs: int = 1, proc: int = 0):
         if devices.ndim != len(AXES):
             raise ValueError(f"mesh devices need {len(AXES)} axes "
                              f"{AXES}, got shape {devices.shape}")
         self.devices = devices
         self.shape: Dict[str, int] = dict(zip(AXES, devices.shape))
+        self.procs = int(procs)
+        self.proc = int(proc)
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def spans(self) -> bool:
+        """True when the dp axis spans processes."""
+        return self.procs > 1
+
+    @property
+    def dp_total(self) -> int:
+        return self.shape["dp"] * self.procs
+
+    @property
+    def dp_offset(self) -> int:
+        return self.proc * self.shape["dp"]
+
+    def local(self) -> "Mesh":
+        """This process's ranks as a mesh of their own (no process
+        spanned): the evaluation forward, which every process runs whole
+        on the same replicated batch."""
+        return Mesh(self.devices)
 
     def axis_devices(self, axis_name: str) -> List[torch.device]:
         """The devices of the ranks along `axis_name`, at index 0 of
@@ -111,18 +144,94 @@ class Mesh:
         `MeshLayout.describe` keys: axes with extent > 1, the number of
         ranks, and the sharded blobs (none: every parameter is
         replicated)."""
-        axes = {ax: int(n) for ax, n in self.shape.items() if n > 1}
-        return {"axes": axes or {"dp": 1}, "devices": self.size,
-                "sharded_params": []}
+        return {"axes": global_axes(self), "devices": self.size * self.procs,
+                "sharded_params": [], **process_info(self)}
+
+
+def global_axes(mesh: Mesh) -> Dict[str, int]:
+    """The axes of extent > 1 over every process (dp: `dp_total`)."""
+    axes = {ax: int(n) for ax, n in mesh.shape.items() if n > 1}
+    if mesh.dp_total > 1:
+        axes["dp"] = mesh.dp_total
+    return axes or {"dp": 1}
+
+
+def process_info(mesh: Mesh) -> Dict[str, int]:
+    """The `processes` key of a description, when processes span it."""
+    return {"processes": mesh.procs} if mesh.spans else {}
+
+
+def distributed_init(server: Optional[str], cluster: Optional[int],
+                     rank: Optional[int]) -> Tuple[int, int]:
+    """Join the processes of one training run (the JAX package's
+    `distributed_init`, gloo here): `server` is the rendezvous
+    `host:port` that process 0 listens on, `cluster` the number of
+    processes, `rank` this one's.  A no-op for one process.  Returns
+    (processes, this rank).  The NodeAgent's `agent://host:port` form
+    is ROADMAP Queue 1 item 9, refused by name."""
+    n = int(cluster or 1)
+    if n <= 1:
+        if rank:
+            raise ValueError(f"-rank {rank} needs -cluster above it "
+                             "(one process is rank 0)")
+        return 1, 0
+    if not server:
+        raise ValueError(f"-cluster {n} needs -server host:port (the "
+                         "rendezvous that process 0 listens on)")
+    if server.startswith("agent://"):
+        raise ValueError(f"-server {server}: the NodeAgent's rendezvous "
+                         "is ROADMAP Queue 1 item 9 (give process 0's "
+                         "host:port)")
+    r = int(rank or 0)
+    if not 0 <= r < n:
+        raise ValueError(f"-rank {r} outside -cluster {n} (0..{n - 1})")
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank()) != (n, r):
+            raise RuntimeError(
+                f"torch.distributed already joined as rank "
+                f"{dist.get_rank()} of {dist.get_world_size()}, not "
+                f"{r} of {n}")
+        return n, r
+    dist.init_process_group("gloo", init_method=f"tcp://{server}",
+                            world_size=n, rank=r)
+    return n, r
+
+
+def process_group() -> Tuple[int, int]:
+    """(processes, this rank) of the joined run, or (1, 0)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def check_processes(dims: Dict[str, int], procs: int) -> None:
+    """Refuse by name a tp or sp axis over `procs` > 1 processes: in the
+    dp-fastest order it would span them (ROADMAP Queue 1 item 6c2)."""
+    across = {a: d for a, d in dims.items() if a in ("tp", "sp") and d > 1}
+    if procs > 1 and across:
+        raise ValueError(
+            f"mesh {across} over {procs} processes: in the dp-fastest "
+            "order a tp or sp axis would span processes, which the "
+            "PyTorch port does not run yet (ROADMAP Queue 1 item 6c2); "
+            "the dp axis spans them")
 
 
 def build_mesh(*, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
                pp: int = 1, ep: int = 1,
-               devices: Optional[Sequence] = None) -> Mesh:
+               devices: Optional[Sequence] = None,
+               procs: Optional[int] = None,
+               proc: Optional[int] = None) -> Mesh:
     """Mesh over `devices` (one rank each, in order; a device may repeat)
     with named axes (pp, ep, sp, tp, dp); dp is inferred as the
     remainder when unset.  The default is one rank per visible card.
-    ep and pp > 1 are refused by name."""
+    ep and pp > 1 are refused by name.  `devices` are this process's
+    ranks; `procs` / `proc` (default: the joined `torch.distributed`
+    run's, else 1 / 0) give the processes that each hold as many, the
+    dp axis spanning them; a tp or sp axis then is refused by name."""
+    if procs is None or proc is None:
+        procs, proc = process_group()
     if devices is None:
         count = torch.cuda.device_count()
         if count == 0:
@@ -145,18 +254,24 @@ def build_mesh(*, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
             f"mesh {later}: the PyTorch port runs the dp, tp and sp axes; "
             "ep and pp > 1 wait for MixtureOfExperts and the pipeline "
             "(ROADMAP Queue 1 item 8)")
+    check_processes({"tp": tp, "sp": sp}, procs)
     arr = np.empty(n, dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(pp, ep, sp, tp, dp))
-
+    return Mesh(arr.reshape(pp, ep, sp, tp, dp), procs=procs, proc=proc)
 
 
 def dp_data_rank(mesh: Mesh) -> Tuple[int, int]:
     """(data_rank, data_num_ranks) of this process: which shard of the
-    record stream it feeds.  One process holds every rank of the mesh
-    and feeds the whole stream (`ParallelSolver.shard_batch` splits each
-    batch over dp), as the JAX package's single-process form does."""
-    return 0, 1
+    record stream it feeds, from its dp coordinates as in the JAX
+    package (process p of P holds global dp rows p*k .. p*k + k - 1, so
+    it is shard p of P).  One process feeds the whole stream
+    (`ParallelSolver.shard_batch` splits each batch over its dp ranks).
+    The port's shard p is block p of each global batch of the one
+    stream (`DataSource.take_block`), so that P processes train what
+    one process trains."""
+    if not mesh.spans or mesh.dp_total <= 1:
+        return 0, 1
+    return mesh.proc, mesh.procs
 
 
 # ---------------------------------------------------------------------------
@@ -268,11 +383,13 @@ class MeshLayout:
         """The axis of each net input that dp splits."""
         return (net or self.net).input_batch_axes()
 
-    def check_batch(self, net=None) -> None:
-        """Refuse by name a data layer whose batch dp does not divide
-        (the JAX package cannot place such a batch on the mesh)."""
+    def check_batch(self, net=None, dp: Optional[int] = None) -> None:
+        """Refuse by name a data layer whose batch dp (this process's
+        ranks, or the `dp` given: the global axis for the training net,
+        whose prototxt batch is the global batch) does not divide (the
+        JAX package cannot place such a batch on the mesh)."""
         net = net or self.net
-        dp = self.dp
+        dp = self.dp if dp is None else dp
         axes = self.batch_axes(net)
         for name, shape, _ in net.input_specs:
             ax = axes[name]
@@ -297,14 +414,14 @@ class MeshLayout:
         """JSON-serializable layout summary (the metrics' `info.mesh`):
         axes with extent > 1, the number of ranks, and the split blobs
         as the JAX package lists them ("layer/blob:tp,None")."""
-        axes = {ax: int(n) for ax, n in self.mesh.shape.items() if n > 1}
         sharded = sorted(
             f"{ln}/{bn}:{','.join(str(a) for a in spec)}"
             for ln, blobs in self.param_specs.items()
             for bn, spec in blobs.items()
             if any(ax is not None for ax in spec))
-        return {"axes": axes or {"dp": 1}, "devices": self.mesh.size,
-                "sharded_params": sharded}
+        return {"axes": global_axes(self.mesh),
+                "devices": self.mesh.size * self.mesh.procs,
+                "sharded_params": sharded, **process_info(self.mesh)}
 
 
 def lockstep_steps(total_records: int, batch_per_step: int,

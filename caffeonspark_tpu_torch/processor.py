@@ -477,11 +477,13 @@ class CaffeProcessor:
                               loss_f, lr_f)
                 if validate and st.iter % test_interval == 0:
                     self._run_validation(eval_fwd, params, test_iter)
-                if snapped:
+                if snapped and self.rank == 0:
                     self._snapshot(params, st)
-            if sp.snapshot_after_train:
+            # -clusterSize N: rank 0 alone writes the files (JAX
+            # processor.py:486-503, 624)
+            if sp.snapshot_after_train and self.rank == 0:
                 self._snapshot(params, st, final=True)
-            if self.conf.modelPath:
+            if self.conf.modelPath and self.rank == 0:
                 checkpoint.save_caffemodel(self.conf.modelPath,
                                            solver.train_net, params)
             self.metrics.set_info("train", self._train_info())

@@ -283,8 +283,9 @@ or the package is not importable, and when any phase fails.  Phases:
      2,1,2 (K9 and K7 / K8: the sp 2 ring once per dp row); the f32
      LM's first-step reduced gradients at -mesh 2,2 and 2,1,2 held as
      CaffeNet's, and planted faults (rank 1's gradient dropped, tp
-     blocks joined in reverse) rejected; ep, pp, -serve -mesh and
-     -clusterSize 2 refused by name (phase 3 also checks K1-K4 at the
+     blocks joined in reverse) rejected; ep, pp, -serve -mesh and a tp
+     axis across processes (mini_cluster -cluster 2 -mesh 1,2) refused
+     by name (phase 3 also checks K1-K4 at the
      ranks' shapes, K6-K8 at (16, 2048, 64) bf16 and K9 at
      (32, 1024, 1024, 64));
  33. the gradient exchange (`parallel/gradsync.py`, COS_GRAD_SYNC) over
@@ -301,16 +302,32 @@ or the package is not importable, and when any phase fails.  Phases:
      profiled bucket step (the first bucket's reduction issued before
      conv1's backward); the f32 LM at -mesh 2,2 under bucket (its tp
      blocks skipped) byte-equal to default, K6-K8 launches equal;
- 34. a `kernels` JSON line: launches on the serving, image-net training,
+ 34. data-parallel training across processes: CaffeNet at the global
+     B=256 as two processes sharing the card (`mini_cluster -server
+     127.0.0.1:<port> -cluster 2 -rank I`, gloo; each process K1 / K2
+     once a step, half of one process's -mesh 2), under cuDNN
+     deterministic: under hier byte-equal to one process's -mesh 2; ZeRO-1
+     to step 4 with its `.shard<k>` sidecars, read back, and a resume to
+     8 on two processes byte-equal to the same resume in one; -devices 2
+     (dp 4) within DP_LOSS_RTOL / MP_PARAM_TOL of one process's -mesh 4,
+     and byte-equal to it with its sums associated as two processes'
+     ((r0 + r1) + (r2 + r3));
+     each collective of `parallel.comm` on CUDA tensors across the
+     processes (its route: gloo) against its sum; the median of 5
+     synchronized direct steps under default, bucket and hier with
+     COS_GRAD_OVERLAP on and off, beside one process's dp 2 (every
+     mode's losses and params byte-equal to it); a `multiproc` JSON
+     line;
+ 35. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
      dtype; graphed runs included), encoded and graphed CaffeNet,
      GoogLeNet, ResNet-50, snapshot, HDF5, sidecar, lstm_lm, caption
-     (features, captioner, decode), layer, data-path, dp and gradient
-     exchange paths, and the
+     (features, captioner, decode), layer, data-path, dp, gradient
+     exchange and multi-process paths, and the
      numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
      `kernel_records` line); a `ptxas` line; then the card line again;
- 35. the device line, last: {"ok": true, "device": {...}}.
+ 36. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5091,10 +5108,11 @@ def dp_eval(K, torch, label, solver_path, model, outdir, mode, dp1_launches,
 
 
 def dp_refusals(solver_path, lm_solver, model, device="cuda"):
-    """ep, pp, -serve -mesh and -clusterSize 2 refused by name before a
-    step runs (no output directory made)."""
+    """ep, pp, -serve -mesh and, through mini_cluster, -cluster 2 -mesh
+    1,2 (a tp axis across processes) refused by name before a step runs
+    (no output directory made; no rendezvous)."""
     import shutil
-    from caffeonspark_tpu_torch import caffe_on_spark
+    from caffeonspark_tpu_torch import caffe_on_spark, mini_cluster
     out = {}
     for key, argv, match in (
             ("ep", ["-conf", lm_solver, "-train", "-mesh", "1,1,1,2"],
@@ -5103,12 +5121,15 @@ def dp_refusals(solver_path, lm_solver, model, device="cuda"):
              "Queue 1 item 8"),
             ("serve_mesh", ["-conf", solver_path, "-serve", "-model", model,
                             "-mesh", "2"], "serving on a mesh"),
-            ("cluster_size", ["-conf", solver_path, "-train",
-                              "-clusterSize", "2"], "-clusterSize 2")):
+            ("tp_across_processes", ["-solver", lm_solver, "-cluster", "2",
+                                     "-server", "127.0.0.1:1", "-rank", "0",
+                                     "-mesh", "1,2"], "item 6c2")):
         d = os.path.join(os.path.dirname(model), f"refused_{key}")
         shutil.rmtree(d, ignore_errors=True)
+        entry = (mini_cluster.main if argv[0] == "-solver"
+                 else caffe_on_spark.main)
         try:
-            caffe_on_spark.main([*argv, "-output", d, "-device", device])
+            entry([*argv, "-output", d, "-device", device])
             msg = None
         except ValueError as e:
             msg = str(e)
@@ -5341,7 +5362,7 @@ def gs_run(K, torch, label, solver_path, env, dims, hosts, kernels, *,
             devices=[solver.device] * n, **dims), zero_dp=zero)
     params, state = ps.init()
     rec = dict(label=label, dims=dims, env=env, zero=zero, k=k,
-               comm=ps.grad_sync.plan.comm_info(),
+               comm=ps.grad_sync.plan.comm_info(ps.mesh.procs),
                skipped=len(ps.grad_sync.plan.skipped),
                hooks=ps.grad_sync.use_hooks(1))
     grads = None
@@ -5683,6 +5704,479 @@ def gs_compare(key, mode, rec, params, ref_rec, ref):
         f"{dist:.3g} of default's update away")
 
 
+# ---------------------------------------------------------------------------
+# phase 34: data-parallel training across processes (gloo), two processes
+# sharing the card
+# ---------------------------------------------------------------------------
+
+MP_SNAP = 4                # the ZeRO run's snapshot; the resumes start there
+# dp 4 over two processes against one process's -mesh 4 (the four
+# gradients associated otherwise): the final params' L2 distance over
+# the -mesh 4 run's own update's L2 norm, over the whole net, the
+# measure of GS_PARAM_TOL.  A sound run read 0.00116 on the H100 (losses
+# 3.4e-6 apart); phase 33's bf16 wire reads 0.0021-0.0025 against its
+# default run, its planted fault well above GS_PARAM_TOL's 0.01.  (A
+# blob's largest difference over its largest weight read 0.0113, at a
+# bias that had moved from zero by little.)
+MP_PARAM_TOL = 5e-3
+MP_CHILD_S = 600           # a pair of children's wait
+MP_DIRECT_STEPS = 6        # 1 warm-up, then the median of the last 5
+MP_STEP_MODES = {          # the direct steps' exchange configurations
+    "default": {},
+    "bucket": {"COS_GRAD_SYNC": "bucket"},
+    "bucket_no_hooks": {"COS_GRAD_SYNC": "bucket", "COS_GRAD_OVERLAP": "0"},
+    "hier": {"COS_GRAD_SYNC": "hier"},
+    "hier_no_hooks": {"COS_GRAD_SYNC": "hier", "COS_GRAD_OVERLAP": "0"}}
+MP_LRN = ("lrn_across_channels", "lrn_across_channels_bwd")
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def mp_children(mode, specs, label, logdir, env=None):
+    """`python3 chip_smoke.py --child <mode> <spec>` once per spec, all
+    started together, their output to `logdir`: each one's result (the
+    JSON after its `CHILD ` line) and output.  A child that fails ends
+    the others and fails the phase; so does a wait past MP_CHILD_S."""
+    os.makedirs(logdir, exist_ok=True)
+    here = os.path.abspath(__file__)
+    full_env = dict(os.environ, **(env or {}))
+    paths = [os.path.join(logdir, f"{mode}_{i}.log")
+             for i in range(len(specs))]
+    files = [open(p, "w") for p in paths]
+    procs = [subprocess.Popen([sys.executable, here, "--child", mode,
+                               json.dumps(spec)], stdout=f,
+                              stderr=subprocess.STDOUT, env=full_env,
+                              cwd=os.path.dirname(here))
+             for spec, f in zip(specs, files)]
+    deadline = time.monotonic() + MP_CHILD_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    out = []
+    for i, (p, path) in enumerate(zip(procs, paths)):
+        with open(path) as f:
+            text = f.read()
+        lines = [x for x in text.splitlines() if x.startswith("CHILD ")]
+        check(p.returncode == 0 and lines, f"{label}: child {i} exited "
+              f"{p.returncode} (a wait of {MP_CHILD_S} s):\n{text[-4000:]}")
+        res = json.loads(lines[-1][len("CHILD "):])
+        res["output"] = text
+        out.append(res)
+    return out
+
+
+def mp_pair(K, label, solver_path, args, env, outdir, launches_each,
+            device="cuda"):
+    """`mini_cluster -server 127.0.0.1:<free port> -cluster 2 -rank I` as
+    two processes on the card, -metrics every step: each child's launch
+    counts (each of MP_LRN `launches_each` times, no other kernel), both
+    print every iter line and only rank 0 the final model; rank 0's
+    losses and the model's path."""
+    import shutil
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    port = _free_port()
+    steps_path = os.path.join(outdir, "steps.jsonl")
+    model = os.path.join(outdir, "final.caffemodel")
+    t0 = time.monotonic()
+    kids = mp_children("mini_cluster", [dict(argv=[
+        "-solver", solver_path, "-output", outdir, "-model", model,
+        "-metrics", steps_path, "-display_every", "1", "-device", device,
+        "-server", f"127.0.0.1:{port}", "-cluster", "2", "-rank", str(r),
+        *args]) for r in range(2)], label, os.path.join(outdir, "logs"),
+        env)
+    wall_s = time.monotonic() - t0
+    with open(steps_path) as f:
+        steps = [json.loads(x) for x in f if x.strip()]
+    losses = [r["loss"] for r in steps]
+    check(all(math.isfinite(x) for x in losses) and losses,
+          f"{label}: losses {losses}")
+    for r, kid in enumerate(kids):
+        want = {k: (launches_each if k in MP_LRN else 0)
+                for k in kid["launches"]}
+        check(kid["launches"] == want, f"{label}: rank {r} launches "
+              f"{kid['launches']}, expected {want}")
+        last = steps[-1]["iter"]
+        check(f"iter {last}/" in kid["output"]
+              and ("final model →" in kid["output"]) == (r == 0),
+              f"{label}: rank {r}'s output lacks its iter lines or shows "
+              "another rank's final model line")
+    check(os.path.exists(model), f"{label}: rank 0 wrote no {model}")
+    log(f"  {label}: two processes, {len(losses)} steps in {wall_s:.1f} s; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; launches a "
+        f"process {kids[0]['launches']}")
+    return dict(label=label, wall_s=wall_s, losses=losses,
+                launches=[k["launches"] for k in kids]), model
+
+
+def mp_one(K, label, solver_path, args, env, outdir, launches_each,
+           device="cuda"):
+    """`mini_cluster` in this process (one process, -mesh), counts zeroed
+    before and read after; its final model is kept in memory, not
+    written (the card's disk counts every byte): (record, the model's
+    bytes, its params on the host)."""
+    import shutil
+    from caffeonspark_tpu_torch import checkpoint, mini_cluster
+    shutil.rmtree(outdir, ignore_errors=True)
+    os.makedirs(outdir)
+    steps_path = os.path.join(outdir, "steps.jsonl")
+    kept = {}
+
+    def keep(path, net, params):
+        kept["bytes"] = checkpoint.params_to_net_param(net,
+                                                       params).to_binary()
+        kept["params"] = {ln: {bn: t.detach().float().cpu().clone()
+                               for bn, t in bl.items()}
+                          for ln, bl in params.items()}
+
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with env_set(env), _patched(checkpoint, "save_model", keep):
+        rc = mini_cluster.main(
+            ["-solver", solver_path, "-output", outdir, "-metrics",
+             steps_path, "-display_every", "1", "-device", device, *args])
+    wall_s = time.monotonic() - t0
+    counts = dict(K.launch_counts)
+    check(rc == 0 and "bytes" in kept, f"{label}: mini_cluster returned "
+          f"{rc}")
+    with open(steps_path) as f:
+        losses = [json.loads(x)["loss"] for x in f if x.strip()]
+    want = {k: (launches_each if k in MP_LRN else 0) for k in counts}
+    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    log(f"  {label}: one process, {len(losses)} steps in {wall_s:.1f} s; "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; launches {counts}")
+    return (dict(label=label, wall_s=wall_s, losses=losses,
+                 launches=counts), kept["bytes"], kept["params"])
+
+
+@contextlib.contextmanager
+def mp_paired_sums():
+    """`comm.all_reduce` over 4 dp ranks in one process associated as
+    two processes of two ranks associate it: each process sums its two
+    ranks, gloo adds the two sums, (r0 + r1) + (r2 + r3) (rank order:
+    ((r0 + r1) + r2) + r3).  Patched where the port calls it."""
+    from caffeonspark_tpu_torch.ops import layers
+    from caffeonspark_tpu_torch.parallel import comm, dp
+    real = comm.all_reduce
+
+    def paired(tensors, mesh, axis_name):
+        if mesh is None or axis_name != "dp" or len(tensors) != 4:
+            return real(tensors, mesh, axis_name)
+        dev = tensors[0].device
+        total = ((tensors[0] + tensors[1].to(dev))
+                 + (tensors[2].to(dev) + tensors[3].to(dev)))
+        return [total.to(d) for d in mesh.axis_devices(axis_name)]
+
+    with _patched(comm, "all_reduce", paired), \
+            _patched(dp, "all_reduce", paired), \
+            _patched(layers, "all_reduce", paired):
+        yield
+
+
+def mp_init_params(solver_path):
+    """The seeded initial params of a -train config's net, as float64
+    numpy on the host (what `Solver.init` draws)."""
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.net import Net
+    from caffeonspark_tpu_torch.proto import NetState, Phase
+    conf = Config(["-conf", solver_path, "-train", "-device", "cpu"])
+    seed = int(conf.solverParameter.random_seed)
+    net = Net(conf.netParam, NetState(phase=Phase.TRAIN), device="cpu")
+    return {ln: {bn: t.double().numpy() for bn, t in bl.items()}
+            for ln, bl in net.init(seed if seed >= 0 else 1701).items()}
+
+
+def _file_bytes(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def params_digest(params) -> str:
+    """sha256 of the params' bytes, blob by blob in the net's order."""
+    import hashlib
+
+    import torch
+    h = hashlib.sha256()
+    for bl in params.values():
+        for t in bl.values():
+            h.update(t.detach().contiguous().cpu().view(-1).view(
+                torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mp_collectives(torch, rank, device):
+    """Each collective of `parallel.comm` over a dp axis spanning the two
+    processes, on the device's tensors (2^20 floats seeded by rank),
+    against its sum made here from both ranks' tensors: the route each
+    took (`comm.ROUTES`) and whether its bits are the sum's."""
+    from caffeonspark_tpu_torch.parallel import comm
+    from caffeonspark_tpu_torch.parallel.mesh import build_mesh
+    mesh = build_mesh(devices=[torch.device(device)])
+    n = 1 << 20
+    xs = [torch.randn(n, generator=torch.Generator().manual_seed(r)).to(
+        device) for r in range(2)]
+    total = xs[0] + xs[1]
+    got = {
+        "all_reduce": torch.equal(comm.all_reduce([xs[rank]], mesh,
+                                                  "dp")[0], total),
+        "reduce_scatter": torch.equal(comm.reduce_scatter(
+            [xs[rank]], mesh, "dp")[0], total.chunk(2)[rank]),
+        "all_gather": torch.equal(comm.all_gather_dp([xs[rank]], 0, mesh),
+                                  torch.cat(xs)),
+        "all_reduce_async": torch.equal(comm.start_reduce(
+            [xs[rank]], mesh, hier=False)(), total),
+        "hier_async": torch.equal(comm.start_reduce(
+            [xs[rank]], mesh, hier=True)(), total)}
+    return dict(equal=got, routes=dict(comm.ROUTES),
+                tensor_device=xs[0].device.type)
+
+
+def mp_steps_child(K, torch, spec):
+    """A child of the timing pair: the collectives' check, then
+    MP_DIRECT_STEPS synchronized ParallelSolver steps of this process's
+    half of the global batch under each of MP_STEP_MODES (`gs_run` over
+    a dp axis spanning the processes)."""
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.parallel.mesh import distributed_init
+    _, rank = distributed_init(spec["server"], 2, spec["rank"])
+    device = spec["device"]
+    coll = mp_collectives(torch, rank, device)
+    conf = Config(["-conf", spec["solver"], "-train", "-device", device])
+    hosts = []
+    for h in host_batches(conf, 2):
+        half = len(next(iter(h.values()))) // 2
+        hosts.append({k: v[rank * half:(rank + 1) * half]
+                      for k, v in h.items()})
+    recs = {}
+    for key, env in MP_STEP_MODES.items():
+        rec, params, _, _ = gs_run(K, torch, f"-cluster 2 {key}",
+                                   spec["solver"], env, {"dp": 1}, hosts,
+                                   MP_LRN, steps=MP_DIRECT_STEPS,
+                                   device=device)
+        recs[key] = {k: rec[k] for k in ("median_step_ms", "step_ms",
+                                         "losses", "hooks", "comm",
+                                         "launches")}
+        recs[key]["digest"] = params_digest(params)
+        del params
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    print("CHILD " + json.dumps({"collectives": coll, "steps": recs}),
+          flush=True)
+    return 0
+
+
+def child_main(argv) -> int:
+    """`chip_smoke.py --child <mode> <spec>`: one process of phase 34,
+    under cuDNN deterministic: `mini_cluster` (spec["argv"]; its launch
+    counts) or `steps` (mp_steps_child)."""
+    import torch
+    from caffeonspark_tpu_torch.ops import kernels as K
+    mode, spec = argv[0], json.loads(argv[1])
+    torch.backends.cudnn.deterministic = True
+    if mode == "mini_cluster":
+        from caffeonspark_tpu_torch import mini_cluster
+        K.reset_launch_counts()
+        rc = mini_cluster.main(spec["argv"])
+        print("CHILD " + json.dumps({"rc": rc,
+                                     "launches": dict(K.launch_counts)}),
+              flush=True)
+        return rc
+    check(mode == "steps", f"unknown child mode {mode!r}")
+    return mp_steps_child(K, torch, spec)
+
+
+def multiproc_phase(K, torch, workdir, lmdb, device="cuda"):
+    """CaffeNet at the global B 256 trained by two processes sharing the
+    card (`mini_cluster -server -cluster 2 -rank I`, gloo), each fed its
+    block of 128 of every global batch, under cuDNN deterministic, with
+    the counts zeroed before each run and read after (each process's
+    K1 / K2 launches half of one-process -mesh 2's):
+      * -cluster 2 under COS_GRAD_SYNC=hier: the final model byte-equal
+        to one process's -mesh 2 (default: at dp 2 hier's reduce_scatter
+        and all_gather give the same bits);
+      * -cluster 2 under COS_ZERO=1 (default exchange) to step MP_SNAP,
+        snapshotting there: rank 0's model and `.solverstate` (shape-
+        only markers) and each rank's `.shard<k>` sidecar, read back
+        whole; from it a resume to step 8 on two processes and one in
+        one process (-mesh 2), both under COS_ZERO=1: byte-equal final
+        models (the record stream and Dropout's generator restart at a
+        resume, so neither equals an unbroken run); the files deleted;
+      * -cluster 2 -devices 2 (dp 4, two ranks a process) against one
+        process's -mesh 4: losses within DP_LOSS_RTOL, the params'
+        distance within MP_PARAM_TOL of the update's norm; and byte-equal
+        to one process's -mesh 4 whose sums are associated as the two
+        processes associate them (`mp_paired_sums`);
+      * a timing pair: each collective of `parallel.comm` across the
+        processes on CUDA tensors against its sum, and the median of 5
+        synchronized direct steps under default, bucket and hier with
+        COS_GRAD_OVERLAP on and off, beside one process's dp 2 (default):
+        each mode's losses and final params (sha256) byte-equal to it.
+    The one-process runs keep their final models in memory (`mp_one`);
+    the phase writes 6 CaffeNet-sized files."""
+    import glob
+
+    import numpy as np
+    from caffeonspark_tpu_torch import checkpoint
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.models import zoo
+    solver = no_snapshots(write_train_config(workdir, zoo.caffenet, lmdb,
+                                             seed=1, suffix="Mp"))
+    zsolver = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
+                                 suffix="MpZero")
+    per_rank = 2 * TRAIN_ITERS
+    zero = {"COS_ZERO": "1"}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.monotonic()
+    runs = {}
+    try:
+        runs["mesh2"], m_mesh2, _ = mp_one(
+            K, "CaffeNet -mesh 2", solver, ["-mesh", "2"], {},
+            os.path.join(workdir, "mp_mesh2"), 2 * per_rank, device)
+        runs["cluster2_hier"], m = mp_pair(
+            K, "CaffeNet -cluster 2 hier", solver, [],
+            {"COS_GRAD_SYNC": "hier"}, os.path.join(workdir, "mp_c2_hier"),
+            per_rank, device)
+        hier_equal = _file_bytes(m) == m_mesh2
+        os.remove(m)
+        check(hier_equal and runs["cluster2_hier"]["losses"]
+              == runs["mesh2"]["losses"],
+              "-cluster 2 hier: the final model is not byte-equal to one "
+              "process's -mesh 2 (or the losses differ)")
+        zdir = os.path.join(workdir, "mp_zero")
+        runs["cluster2_zero_to4"], m = mp_pair(
+            K, "CaffeNet -cluster 2 COS_ZERO=1 to 4", zsolver,
+            ["-iterations", str(MP_SNAP)], zero, zdir,
+            2 * MP_SNAP, device)
+        name = os.path.basename(zsolver).split("_")[0]
+        state = os.path.join(zdir, f"{name}_train_iter_{MP_SNAP}.solverstate")
+        shards = sorted(os.path.basename(p)
+                        for p in glob.glob(state + ".shard*"))
+        check(shards == [os.path.basename(state) + f".shard{k}"
+                         for k in range(2)],
+              f"ZeRO-1 snapshot: sidecars {shards}")
+        it, _, hist = checkpoint._read_state(state)
+        check(it == MP_SNAP and all(np.isfinite(h).all() for h in hist),
+              f"ZeRO-1 snapshot read back: iter {it}, finite "
+              f"{[bool(np.isfinite(h).all()) for h in hist]}")
+        sidecar_bytes = sum(os.path.getsize(os.path.join(zdir, s))
+                            for s in shards)
+        runs["cluster2_zero_resume"], m_resume = mp_pair(
+            K, "CaffeNet -cluster 2 COS_ZERO=1 resume 4 -> 8", solver,
+            ["-snapshot", state], zero, os.path.join(workdir, "mp_zero_r2"),
+            2 * (TRAIN_ITERS - MP_SNAP), device)
+        runs["mesh2_zero_resume"], m_r1, _ = mp_one(
+            K, "CaffeNet -mesh 2 COS_ZERO=1 resume 4 -> 8", solver,
+            ["-mesh", "2", "-snapshot", state], zero,
+            os.path.join(workdir, "mp_zero_r1"),
+            4 * (TRAIN_ITERS - MP_SNAP), device)
+        resume_equal = _file_bytes(m_resume) == m_r1
+        os.remove(m_resume)
+        for p in glob.glob(os.path.join(zdir, "*_iter_*")):
+            os.remove(p)
+        check(resume_equal, "ZeRO-1 resume on two processes: the final "
+              "model is not byte-equal to the same resume in one process")
+        runs["mesh4"], _, p_mesh4 = mp_one(
+            K, "CaffeNet -mesh 4", solver, ["-mesh", "4"], {},
+            os.path.join(workdir, "mp_mesh4"), 4 * per_rank, device)
+        runs["cluster2_devices2"], m = mp_pair(
+            K, "CaffeNet -cluster 2 -devices 2", solver, ["-devices", "2"],
+            {}, os.path.join(workdir, "mp_c2_d2"), 2 * per_rank, device)
+        got = checkpoint.load_caffemodel_blobs(m)
+        m_d2 = _file_bytes(m)
+        os.remove(m)
+        # the same dp 4 in one process with the ranks' gradients summed
+        # as two processes of two ranks sum them: byte-equal
+        with mp_paired_sums():
+            runs["mesh4_paired"], m_paired, _ = mp_one(
+                K, "CaffeNet -mesh 4, sums (r0 + r1) + (r2 + r3)", solver,
+                ["-mesh", "4"], {}, os.path.join(workdir, "mp_mesh4p"),
+                4 * per_rank, device)
+        paired_equal = m_paired == m_d2
+        check(paired_equal, "-cluster 2 -devices 2: the final model is not "
+              "byte-equal to one process's -mesh 4 with its sums "
+              "associated as the two processes associate them")
+        init = mp_init_params(solver)
+        sq = [0.0, 0.0]
+        for ln, blobs in got.items():
+            for g, bn in zip(blobs, p_mesh4[ln]):
+                want = p_mesh4[ln][bn].numpy().astype(np.float64)
+                sq[0] += float(((g - want) ** 2).sum())
+                sq[1] += float(((want - init[ln][bn]) ** 2).sum())
+        rel = math.sqrt(sq[0]) / math.sqrt(sq[1])
+        lrel = max(abs(a - b) / abs(b) for a, b in zip(
+            runs["cluster2_devices2"]["losses"], runs["mesh4"]["losses"]))
+        check(lrel <= DP_LOSS_RTOL and rel <= MP_PARAM_TOL,
+              f"-cluster 2 -devices 2 against -mesh 4: losses rel {lrel:.3g} "
+              f"(tol {DP_LOSS_RTOL}), params {rel:.3g} of the update's L2 "
+              f"norm (tol {MP_PARAM_TOL})")
+        port = _free_port()
+        timing = mp_children("steps", [dict(
+            server=f"127.0.0.1:{port}", rank=r, solver=solver,
+            device=device) for r in range(2)], "the timing pair",
+            os.path.join(workdir, "mp_steps_logs"))
+        coll = timing[0]["collectives"]
+        check(all(all(t["collectives"]["equal"].values()) for t in timing),
+              "collectives across processes: "
+              f"{[t['collectives'] for t in timing]}")
+        conf = Config(["-conf", solver, "-train", "-device", device])
+        one, params, _, _ = gs_run(K, torch, "one process dp 2", solver, {},
+                                   {"dp": 2}, host_batches(conf, 2), MP_LRN,
+                                   steps=MP_DIRECT_STEPS, device=device)
+        want = params_digest(params)
+        del params
+        # at dp 2 every mode's two-process steps train default's one-
+        # process params bit for bit, on both ranks
+        unequal = sorted({k for t in timing for k, v in t["steps"].items()
+                          if v["digest"] != want
+                          or v["losses"] != one["losses"]})
+        check(not unequal, "synchronized steps at -cluster 2: the params "
+              f"or losses under {unequal} are not byte-equal to one "
+              "process's dp 2")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    steps = {k: v for k, v in timing[0]["steps"].items()}
+    log("  collectives across the two processes on "
+        f"{coll['tensor_device']} tensors: " + ", ".join(
+            f"{k}: {v}" for k, v in coll["routes"].items())
+        + " (no staging of the port's own; each equal to its sum: "
+        + ", ".join(f"{k} {v}" for k, v in coll["equal"].items()) + ")")
+    log("  synchronized direct steps, median of 5 (ms): one process dp 2 "
+        f"{one['median_step_ms']:.2f}; two processes " + ", ".join(
+            f"{k} {v['median_step_ms']:.2f}" for k, v in steps.items())
+        + f"; comm across processes a step (bytes): "
+        f"{steps['default']['comm'].get('cross_process_bytes_per_step')}")
+    wall = time.monotonic() - t_phase
+    log(f"  the multi-process phase: {wall:.1f} s; sidecars of the ZeRO "
+        f"snapshot {sidecar_bytes} bytes")
+    return dict(runs=runs, hier_byte_equal=hier_equal,
+                zero_resume_byte_equal=resume_equal,
+                dp4_paired_byte_equal=paired_equal,
+                dp4_loss_rel=lrel, dp4_param_rel=rel,
+                collectives=coll, steps=steps,
+                one_process_dp2_ms=one["median_step_ms"],
+                one_process_dp2_step_ms=one["step_ms"],
+                sidecar_bytes=sidecar_bytes, wall_s=wall)
+
+
 def ptxas_report(text: str, keep) -> list:
     """Registers and spills of each kernel instantiation whose mangled
     name `keep` accepts, from the `-Xptxas -v` output of nvcc (names
@@ -5717,6 +6211,8 @@ def ptxas_report(text: str, keep) -> list:
 
 
 def main(argv) -> int:
+    if argv[:1] == ["--child"]:
+        return child_main(argv[1:])     # one process of phase 34
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -6133,6 +6629,15 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     gsync = gradsync_phase(K, torch, workdir, lmdb, lm_solver)
+    log("data-parallel training across processes: CaffeNet at the global "
+        f"B={TRAIN_B} as two processes sharing the card (mini_cluster "
+        "-server 127.0.0.1:<port> -cluster 2 -rank I, gloo), against one "
+        "process's -mesh 2 and -mesh 4; ZeRO-1 sidecars; the collectives' "
+        "routes; synchronized steps by exchange mode; cuDNN deterministic; "
+        "counts zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    multiproc = multiproc_phase(K, torch, workdir, lmdb)
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_dp2tp2_mixed"] = dp["lm_dp2_tp2"]
@@ -6196,7 +6701,12 @@ def main(argv) -> int:
                    **{f"dp_{e['mode']}_mesh2": e["launches"].get(name, 0)
                       for e in dp["eval"]},
                    **{f"gradsync_{k}": r["launches"].get(name, 0)
-                      for k, r in gsync["runs"].items()}}
+                      for k, r in gsync["runs"].items()},
+                   **{f"multiproc_{k}": (
+                       sum(c.get(name, 0) for c in r["launches"])
+                       if isinstance(r["launches"], list)
+                       else r["launches"].get(name, 0))
+                      for k, r in multiproc["runs"].items()}}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -6252,6 +6762,7 @@ def main(argv) -> int:
     log(json.dumps({"datapath": datapath}))
     log(json.dumps({"dp": dp}))
     log(json.dumps({"gradsync": gsync}))
+    log(json.dumps({"multiproc": multiproc}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

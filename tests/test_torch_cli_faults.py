@@ -3,7 +3,9 @@ keep their training log bounded.
 
   * every JAX command-line flag the port does not act on yet is refused
     by name (`Config.validate`); flags no JAX version knows still pass,
-    as Spark passes its own;
+    as Spark passes its own; the process flags act (-devices,
+    -clusterSize / -rank) or are taken as in the JAX package
+    (-connection, -lmdb_partitions);
   * the training log folds its device-scalar losses to host floats at
     every display / snapshot boundary (at most LOSS_FOLD_MAX steps), and
     `info.train` is what the unfolded log gave, key for key.
@@ -89,6 +91,27 @@ def test_cli_refuses_each_jax_flag_it_lacks(tmp_path, flag):
                                  str(tmp_path / "out"), "-device", "cpu",
                                  *args])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("args,attr,value", [
+    (["-devices", "2"], "mesh", "2"),
+    (["-connection", "infiniband"], "connection", "infiniband"),
+    (["-lmdb_partitions", "4"], "lmdb_partitions", 4),
+    (["-clusterSize", "2", "-rank", "1"], "rank", 1)])
+def test_cli_acts_on_the_process_flags(tmp_path, args, attr, value):
+    """The flags that left `LATER_FLAGS`: -devices k is -mesh k (k dp
+    ranks sharing -device), -connection and -lmdb_partitions are parsed
+    and act on nothing (as in the JAX package), and -rank r of
+    -clusterSize N is the shard this process trains on."""
+    solver = _setup(tmp_path, 2)
+    conf = Config(["-conf", solver, "-train", "-device", "cpu", *args])
+    conf.validate()
+    assert getattr(conf, attr) == value
+    assert flag_names(args)[0] not in LATER_FLAGS
+
+
+def flag_names(args):
+    return [a for a in args if a.startswith("-")]
 
 
 @pytest.mark.parametrize("args", [

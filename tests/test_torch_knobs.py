@@ -8,7 +8,10 @@
     is refused by name by `Config.validate`, by `caffe_on_spark.main`
     and by `mini_cluster`; its default values pass;
   * the other knobs pass, named in one logged line;
-  * `mini_cluster` refuses more than one process or device by name;
+  * `mini_cluster` takes `-devices k` as k dp ranks, one process for
+    `-server` alone, and refuses by name what its process flags cannot
+    do (a tp or sp axis across processes, `-cluster` without `-server`,
+    `-rank` without `-cluster`, the NodeAgent's `agent://`);
   * `validation_source` returns the TEST layer's source exactly when
     the JAX function does, with and without -train.
 """
@@ -148,21 +151,33 @@ def test_other_knobs_named_in_one_logged_line(caplog):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["-devices", "2"], "-devices 2"), (["-cluster", "2"], "-cluster 2"),
-    (["-server", "h:1"], "-server h:1"), (["-rank", "1"], "-rank 1"),
+    (["-devices", "2"], "dp"), (["-cluster", "2"], "needs -server"),
+    (["-server", "h:1"], "one process"), (["-rank", "1"], "-rank 1"),
     (["-mesh", "2,1,1"], "dp"), (["-mesh", "1,2,1"], "tp"),
     (["-mesh", "1,1,1,2"], "ep"), (["-mesh", "pp=2"], "pp"),
-    (["-devices", "1", "-cluster", "1", "-rank", "0"], None)])
+    (["-devices", "1", "-cluster", "1", "-rank", "0"], None),
+    (["-cluster", "2", "-server", "h:1", "-rank", "0", "-mesh", "1,2"],
+     "item 6c2"),
+    (["-cluster", "2", "-server", "h:1", "-rank", "0", "-mesh", "1,1,2"],
+     "item 6c2"),
+    (["-cluster", "2", "-server", "agent://h:1", "-rank", "1"], "item 9")])
 def test_mini_cluster_refuses_more_ranks_by_name(argv, name, tmp_path):
-    """More processes or devices are refused by name, and so are ep and
-    pp; a mesh with dp or tp of 2 builds (its ranks share -device)."""
+    """-devices 2 is 2 dp ranks sharing -device and -server alone one
+    process; -cluster without -server, -rank without -cluster, a tp or
+    sp axis across processes and the NodeAgent's rendezvous are refused
+    by name before any rendezvous, and so are ep and pp; a mesh with dp
+    or tp of 2 builds (its ranks share -device)."""
     args = mini_cluster.build_argparser().parse_args(
         ["-solver", _solver(tmp_path), "-device", "cpu"] + argv)
     if name is None:
-        assert mini_cluster._refuse_more_ranks(args) is None
+        assert mini_cluster.mesh_spec(args) is None
         return
     if name in ("dp", "tp"):
         assert mini_cluster.MiniCluster(args).mesh.shape[name] == 2
+        return
+    if name == "one process":
+        mc = mini_cluster.MiniCluster(args)
+        assert (mc.procs, mc.rank, mc.mesh) == (1, 0, None)
         return
     with pytest.raises(ValueError, match=re.escape(name)):
         mini_cluster.MiniCluster(args)

@@ -224,12 +224,14 @@ def test_zero_snapshot_has_dp1_layout_and_resumes_on_the_mesh(tmp_path,
     (["-serve", "-model", "m.caffemodel", "-mesh", "2"],
      "serving on a mesh is ROADMAP Queue 1 item 7"),
     (["-test", "-mesh", "3"], "layer 'data': batch 16 .*dp axis"),
-    (["-train", "-clusterSize", "2"], "-clusterSize 2"),
-    (["-train", "-devices", "2"], "-devices 2")])
+    (["-train", "-clusterSize", "2", "-rank", "2"],
+     "-rank 2 of -clusterSize 2"),
+    (["-train", "-devices", "3"], "layer 'data': batch 16 .*dp axis")])
 def test_mesh_refusals_by_name(tmp_path, argv, match):
     """Serving on a mesh (item 7) waits, a batch of 16 over dp 3 is
-    refused naming its layer; -clusterSize and -devices above 1
-    (items 6b and 6c) are refused by name before a step runs."""
+    refused naming its layer (through -mesh 3, and -devices 3, which
+    is -mesh 3), and a -rank outside -clusterSize by name, before a
+    step runs."""
     solver = write_config(tmp_path)
     with pytest.raises(ValueError, match=match):
         caffe_on_spark.main(["-conf", solver, *argv, "-output",

@@ -378,17 +378,18 @@ def test_cli_resume_from_snapshot(tmp_path):
 
 
 def test_cli_refuses_what_waits_for_later_slices(tmp_path):
-    """-clusterSize 2 is refused by name; a SequenceFile source and an
-    HDF5Data layer, refused before the data-path slice, now read the
-    records the JAX package reads."""
+    """The CLI's -server (the JAX package's Spark engine, ROADMAP Queue 1
+    item 6d) is refused by name beside -clusterSize 2; a SequenceFile
+    source and an HDF5Data layer, refused before the data-path slice,
+    now read the records the JAX package reads."""
     from caffeonspark_tpu.data.hdf5 import HDF5Source as JaxHDF5Source
     from caffeonspark_tpu.data.sequencefile import SequenceFileWriter
     from caffeonspark_tpu_torch.data.hdf5 import HDF5Source
     from caffeonspark_tpu_torch.data.source import SeqImageDataSource
     solver = _cli_setup(tmp_path, extra="test_iter: 2\ntest_interval: 2\n")
-    with pytest.raises(ValueError, match="clusterSize"):
+    with pytest.raises(ValueError, match="^-server h:1"):
         caffe_on_spark.main(["-conf", solver, "-train", "-clusterSize",
-                             "2", "-device", "cpu"])
+                             "2", "-server", "h:1", "-device", "cpu"])
     seq = str(tmp_path / "recs.seq")
     recs = _records(6, 1, 2, 2, seed=2)
     with SequenceFileWriter(seq) as w:
