@@ -24,8 +24,9 @@ blobs (and the -label blob) to `<output>/features.<fmt>`; after -train
 they use the just-trained weights, otherwise -model or -weights.
 `-clusterSize N -rank r` runs as the JAX package's local engine does
 without pyspark: this process trains alone on shard r of N of the
-records, its solver seeded by r, with no exchange (processes that train
-in lockstep are `mini_cluster -server -cluster -rank`).
+records, its solver seeded by r, with no exchange, and its `-mesh` is
+this process's alone (processes that train in lockstep on one global
+mesh are `mini_cluster -server -cluster -rank [-mesh]`).
 `-mesh dp[,tp[,sp]]` (the JAX CLI's grammar; a bare N is dp N; `-devices
 k` is `-mesh k`) trains
 with `parallel.dp.ParallelSolver`, the ranks all on `-device`'s card:

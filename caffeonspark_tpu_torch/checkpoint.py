@@ -431,7 +431,13 @@ def _slabs(blob: Shards, shape) -> Dict[str, np.ndarray]:
 
 
 def _shard_path(state_path: str, blob: Shards) -> Tuple[str, int]:
-    """(`<state>.shard<process>`, processes) of a blob's slices."""
+    """(`<state>.shard<process>`, processes) of a blob's slices: the
+    joined `torch.distributed` run's rank and size (the JAX package's
+    process index and count), else the blob's place among its parts."""
+    from .parallel.mesh import process_group
+    procs, rank = process_group()
+    if procs > 1:
+        return f"{state_path}.shard{rank}", procs
     k = len(blob)
     return f"{state_path}.shard{blob.first // k}", blob.parts // k
 

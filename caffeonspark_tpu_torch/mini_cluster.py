@@ -26,22 +26,32 @@ package's GPUs per node).  Refused by name: a mesh with ep or pp above
 
 `-server host:port -cluster N -rank I` trains on N processes in lockstep
 (`parallel.mesh.distributed_init`, gloo; start one command per rank,
-rank 0 listening at host:port): the dp axis spans them, each holding its
-`-mesh k` / `-devices k` local dp ranks, so dp is N x k.  The prototxt
-batch is the global batch: process I feeds block I of each of the one
-record stream's batches (`DataSource.take_block`), and every process
-seeds Dropout's generator alike and takes its ranks' slices of the one
-global draw, so N processes train, bit for bit up to the order of the
-sums, what one process with `-mesh N*k` trains.  (The JAX package feeds
-each process its key range at the prototxt batch and seeds each by its
-rank; the port keeps the one-process run's batches instead.)  Every
-process starts from the same parameters, checked once by a checksum
-over the processes.  Rank 0 alone writes the snapshots' model and state,
-the final model, `-metrics`, `-pipeline_metrics` and the timing summary;
-every rank prints its `iter i/N` lines.  Under ZeRO-1 each rank also
-writes its state slices to `<state>.shard<rank>` at each snapshot.  A
-tp or sp axis across processes is ROADMAP Queue 1 item 6c2, refused by
-name.
+rank 0 listening at host:port), as the JAX package reads its flags: a
+`-mesh dp,tp,sp` with a comma names the global mesh, of which each
+process holds dp*tp*sp / N ranks on its device in the JAX package's
+dp-fastest order (`parallel.mesh.process_box`: `-mesh 1,2` puts tp rank
+I in process I, `-mesh 1,1,2` sp rank I, `-mesh 2,2` over 2 processes
+two dp ranks and tp rank I in each); a bare count k (or `-devices k`)
+is k local dp ranks a process, dp N x k.  The prototxt batch is the
+global batch: processes at the same dp coordinates feed the same block
+of each of the one record stream's batches (`DataSource.take_block`;
+`dp_data_rank`), so a tp- or sp-only mesh feeds every process identical
+records; every process seeds Dropout's generator alike and takes its
+dp ranks' slices of the one global draw, so tp and sp peers draw alike
+and N processes train, bit for bit up to the order of the sums, what
+one process with the same global mesh trains.  (The JAX package feeds
+each dp block its key range at the prototxt batch and seeds each by its
+dp coordinate; the port keeps the one-process run's batches instead.)
+A process holds only its tp ranks' column blocks of a blob split over
+tp, and of its optimizer state.  Every process starts from the same
+parameters, checked once by checksums over the processes.  Rank 0 alone
+writes the snapshots' model (gathered over the tp lines by every
+process at the snapshot's step), the state, the final model,
+`-metrics`, `-pipeline_metrics`, `validation.json` and the timing
+summary; every rank prints its `iter i/N` lines.  A state split over
+processes (ZeRO-1 over a dp axis across them, or tp blocks) is written
+by each rank to `<state>.shard<rank>` at each snapshot, which a
+one-process resume reassembles.
 COS_STEPS_PER_LOOP=K > 1 takes K steps a chunk (one CUDA graph replay on
 a card, `Solver.train_step_many`), with single steps before each
 display, validation, snapshot and max_iter boundary.
@@ -54,8 +64,11 @@ Signals (`caffe_mini_cluster.cpp:55-60`): SIGINT and SIGTERM stop after
 the current step with a snapshot and print the resume line; SIGHUP
 snapshots and goes on.  The previous handlers come back when `train`
 returns.  Over several processes, signal every one: a signal-driven
-snapshot of a ZeRO-1 state split over processes warns that its sidecar
-set is whole only if every rank snapshots in the same iteration.
+snapshot of a state split over processes warns that its sidecar set is
+whole only if every rank snapshots in the same iteration, and one of
+params split over a tp axis across processes is skipped with a warning
+(gathering them is a collective, and the signal may have reached one
+rank only), as in the JAX package.
 
 One departure from the JAX package, on purpose: under `-dtype bfloat16`
 the batch's cast to bf16 skips the net inputs read as indices (token ids
@@ -132,9 +145,10 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def mesh_spec(args) -> Optional[str]:
-    """This process's mesh spec (`-mesh`, else `-devices`; a bare k is k
-    dp ranks), or None for one rank; over several processes always a
-    spec, since the dp axis spans them."""
+    """The mesh spec (`-mesh`, else `-devices`; a bare k is k dp ranks a
+    process, a comma spec the global mesh: `parallel.mesh.mesh_dims`),
+    or None for one rank; over several processes always a spec, since
+    the mesh spans them."""
     spec = args.mesh or args.devices
     if spec is not None:
         spec = str(spec)
@@ -148,8 +162,7 @@ class MiniCluster:
         from . import checkpoint
         from .config import check_env_knobs, resolve_net_path
         from .parallel.dp import ParallelSolver
-        from .parallel.mesh import (check_processes, distributed_init,
-                                    parse_mesh_spec)
+        from .parallel.mesh import distributed_init, mesh_dims, process_box
         from .processor import run_mesh
         from .proto import read_net, read_solver
         from .proto.caffe import SnapshotFormat
@@ -164,7 +177,8 @@ class MiniCluster:
                                "CPU)")
         if spec:
             # before the rendezvous: no peer waits on a refusal
-            check_processes(parse_mesh_spec(spec), int(args.cluster or 1))
+            n = int(args.cluster or 1)
+            process_box(mesh_dims(spec, n), n, int(args.rank or 0) % n)
         self.procs, self.rank = distributed_init(args.server, args.cluster,
                                                  args.rank)
         self.sp = read_solver(args.solver)
@@ -237,15 +251,29 @@ class MiniCluster:
         return saved
 
     def _snapshot(self, net, params, st, signalled: bool,
-                  announce: bool = True) -> Optional[str]:
-        """Rank 0 writes the model and the state; under a ZeRO-1 state
-        split over processes every rank writes its sidecar (JAX
-        mini_cluster.py:574-628).  Returns the state's path."""
+                  announce: bool = True, lockstep: bool = True
+                  ) -> Optional[str]:
+        """Rank 0 writes the model and the state; under a state split
+        over processes every rank writes its sidecar (JAX
+        mini_cluster.py:574-628).  Params split over a tp axis across
+        processes are first gathered by every process (a collective, so
+        only at a `lockstep` boundary: otherwise skipped with a warning).
+        Returns the state's path."""
         from . import checkpoint
+        ps = self.psolver
+        if ps is not None and ps.split:
+            if not lockstep:
+                print("WARNING: signal-triggered snapshot skipped: params "
+                      "are split over processes and an unsynchronized "
+                      "gather would hang; wait for the next snapshot "
+                      "interval", file=sys.stderr)
+                return None
+            params = ps.gather_params(params)
+            st = ps.export_state(st)
         sharded = checkpoint.state_is_sharded(st)
         if signalled and sharded:
-            print("WARNING: signal-triggered snapshot with sharded (ZeRO) "
-                  "state: deliver the signal to every rank promptly or the "
+            print("WARNING: signal-triggered snapshot with sharded state: "
+                  "deliver the signal to every rank promptly or the "
                   "sidecar set will be incomplete", file=sys.stderr)
         if not (self.is_rank0 or sharded):
             return None
@@ -292,7 +320,7 @@ class MiniCluster:
         seed = int(sp.random_seed) if sp.random_seed >= 0 else 0
         src = get_source(layers[0], phase_train=True, rank=0, num_ranks=1,
                          seed=seed)
-        if self.mesh is not None and self.mesh.spans:
+        if self.mesh is not None and self.mesh.dp_blocks > 1:
             from .parallel.mesh import dp_data_rank
             src.take_block(*dp_data_rank(self.mesh))
         device = solver.device
@@ -358,8 +386,8 @@ class MiniCluster:
             metrics=pmetrics, chunked=True)
         if self.psolver is not None:
             pmetrics.set_info("mesh", self.psolver.layout.describe())
-        pmetrics.set_info("comm",
-                          solver.grad_sync.plan.comm_info(self.procs))
+        pmetrics.set_info("comm", solver.grad_sync.plan.comm_info(
+            self.mesh.dp_blocks if self.mesh is not None else 1))
         timer = StepTimer(batch_size=src.batch_size)
         timer.start()
         smoothed = None
@@ -424,11 +452,12 @@ class MiniCluster:
                                 it, " ".join(f"{n}={v:.4f}"
                                              for n, v in row.items())),
                                 flush=True)
-                    if (snap_every and it % snap_every == 0) \
-                            or self._want_snapshot:
+                    lockstep = bool(snap_every and it % snap_every == 0)
+                    if lockstep or self._want_snapshot:
                         signalled = self._want_snapshot
                         self._want_snapshot = False
-                        self._snapshot(net, params, st, signalled)
+                        self._snapshot(net, params, st, signalled,
+                                       lockstep=lockstep)
         finally:
             for sig, fn in saved_handlers.items():
                 signal.signal(sig, fn)
@@ -461,14 +490,21 @@ class MiniCluster:
         model_path = args.model or checkpoint.snapshot_filename(
             self.prefix, it, is_state=False,
             h5=sp.snapshot_format == SnapshotFormat.HDF5)
+        split = self.psolver is not None and bool(self.psolver.split)
         if self._stop:
             # interrupted: model + state, so that -snapshot resumes (the
             # other ranks their sidecars of a state split over them)
-            s = self._snapshot(net, params, st, False, announce=False)
-            if self.is_rank0:
+            s = self._snapshot(net, params, st, False, announce=False,
+                               lockstep=not split)
+            if self.is_rank0 and s is not None:
                 print(f"stopped at iter {it}; resume with -snapshot {s}")
-        if self.is_rank0:
-            checkpoint.save_model(model_path, net, params)   # .h5: HDF5
+        if split and not self._stop:
+            # every process joins the gather; rank 0 writes
+            whole = self.psolver.gather_params(params)
+        else:
+            whole = params
+        if self.is_rank0 and not (split and self._stop):
+            checkpoint.save_model(model_path, net, whole)   # .h5: HDF5
             print(f"final model → {model_path}")
         self.final_params = params
         self.final_state = st
@@ -493,8 +529,10 @@ def _data_layers(net):
 
 
 def main(argv=None) -> int:
+    from .parallel.mesh import distributed_close
     args = build_argparser().parse_args(argv)
     MiniCluster(args).train()
+    distributed_close()
     return 0
 
 

@@ -603,7 +603,7 @@ class Net(nn.Module):
                                  "reductions between them run over it)")
             axes = self.batch_axes()
             ctx.mesh = mesh
-            ctx.procs = mesh.procs
+            ctx.procs = mesh.dp_blocks
             ctx.rank_offset = mesh.dp_offset
         cast = self.compute_dtype != self.dtype
         for lp in self.compute_layers:

@@ -47,7 +47,8 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import sp
-from ..parallel.comm import Shards, all_gather, all_reduce
+from ..parallel.comm import (Shards, all_gather, all_reduce, gather_line,
+                              sum_line_grad, take_line)
 from ..proto.caffe import (BlobProto, EltwiseOp, FillerParameter,
                            LayerParameter, NormalizationMode, NormRegion,
                            PoolMethod)
@@ -84,8 +85,9 @@ class Ctx:
     consts: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
     # data parallelism (Net.forward_ranks): the dp rank the layer runs
     # for, of `ranks`, and the batch axis of each of its bottoms; over
-    # several processes (`procs` of them, each with `ranks` ranks) this
-    # process's first rank is global dp rank `rank_offset`
+    # several processes (`procs` blocks of the dp axis, each of `ranks`
+    # ranks: `Mesh.dp_blocks`) this process's first rank is global dp
+    # rank `rank_offset`
     rank: int = 0
     ranks: int = 1
     procs: int = 1
@@ -241,12 +243,18 @@ def _tp_products(x: torch.Tensor, w, transpose: bool = False
     """x @ w.T (x @ w when `transpose`).  A weight split over tp
     (`parallel.comm.Shards`, from `MeshLayout`) gives each tp rank its
     column block of the product, on its device; an all_gather joins the
-    blocks."""
+    blocks.  When the tp axis spans processes (`Shards.mesh`), this
+    process computes its blocks, which join its line's, and the input's
+    cotangent is summed over the line."""
     if not isinstance(w, Shards):
         return torch.matmul(x, w) if transpose else torch.matmul(x, w.T)
-    return all_gather([torch.matmul(x.to(wj.device), wj) if transpose
-                       else torch.matmul(x.to(wj.device), wj.T)
-                       for wj in w], dim=-1)
+    if w.mesh is not None:
+        x = sum_line_grad(x, w.mesh, "tp")
+    y = all_gather([torch.matmul(x.to(wj.device), wj) if transpose
+                    else torch.matmul(x.to(wj.device), wj.T)
+                    for wj in w], dim=-1)
+    return y if w.mesh is None else gather_line(y, y.dim() - 1, w.mesh,
+                                                "tp")
 
 
 def get_op(type_name: str) -> LayerOp:
@@ -436,6 +444,8 @@ def _embed(ctx, lp, params, bottoms):
     if isinstance(w, Shards):
         out = all_gather([F.embedding(ids.to(wj.device), wj) for wj in w],
                          dim=-1)
+        if w.mesh is not None:
+            out = gather_line(out, out.dim() - 1, w.mesh, "tp")
     else:
         out = F.embedding(ids, w)
     if lp.embed_param.bias_term:
@@ -1092,7 +1102,10 @@ def _attention_dispatch(q, k, v, *, causal: bool, dp_rank: int = 0):
       * otherwise: `FlashAttention` (K6, K7/K8);
     so the kernels launch once per (B/dp, H/tp) block, as the JAX
     package's shard_map runs them per device.  An all_gather joins the
-    head blocks.  Without a mesh: `FlashAttention` on the whole tensor.
+    head blocks; over a tp axis that spans processes, this process runs
+    the blocks of its global tp indices and its line of processes joins
+    them (`comm.take_line`, `comm.gather_line`).  Without a mesh:
+    `FlashAttention` on the whole tensor.
     One deliberate difference: the JAX route falls back to einsum
     attention when T or the local extent T / sp does not suit the TPU
     kernels' blocks; here the kernels run at any T, so the card never
@@ -1102,20 +1115,24 @@ def _attention_dispatch(q, k, v, *, causal: bool, dp_rank: int = 0):
         return K.flash_attention(q, k, v, causal)
     mesh = meshes[-1]
     row = mesh.sub(dp=dp_rank) if mesh.shape["dp"] > 1 else mesh
-    tp = row.shape["tp"]
+    tp, tp_local = row.totals["tp"], row.shape["tp"]
     n_tp = tp if tp > 1 and q.shape[1] % tp == 0 else 1
     h = q.shape[1] // n_tp
+    if n_tp > 1:
+        # this process's tp ranks' heads (all of them in one process)
+        q, k, v = (take_line(x, 1, row, "tp") for x in (q, k, v))
     outs = []
-    for j in range(n_tp):
-        blk = row.sub(tp=j) if tp > 1 else row
+    for j in range(tp_local if n_tp > 1 else 1):
+        blk = row.sub(tp=j) if tp_local > 1 else row
         dev = blk.devices.flat[0]
         qj, kj, vj = (x[:, j * h:(j + 1) * h].to(dev) for x in (q, k, v))
-        if blk.shape["sp"] > 1:
+        if blk.totals["sp"] > 1:
             outs.append(sp.ring_attention(qj, kj, vj, blk, causal=causal,
                                           flash=True))
         else:
             outs.append(K.flash_attention(qj, kj, vj, causal))
-    return all_gather(outs, dim=1)
+    out = all_gather(outs, dim=1)
+    return gather_line(out, 1, row, "tp") if n_tp > 1 else out
 
 
 @register("MultiHeadAttention", params=_mha_params)
@@ -1199,10 +1216,11 @@ def _softmax_loss_terms(lp, scores, labels):
 
 def _global_count(values, mesh):
     """A count summed over dp ranks: tensors all-reduced, floats (counts
-    of the ranks' equal slices) added, times the processes."""
+    of the ranks' equal slices) added, times the dp axis's processes."""
     if torch.is_tensor(values[0]):
         return all_reduce(list(values), mesh, "dp")[0]
-    return float(sum(values)) * (mesh.procs if mesh is not None else 1)
+    return float(sum(values)) * (mesh.dp_blocks if mesh is not None
+                                 else 1)
 
 
 @register("SoftmaxWithLoss", is_loss=True, index_bottoms=(1,), ranks=True,

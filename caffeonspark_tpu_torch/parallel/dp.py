@@ -33,19 +33,27 @@ its state; an all_gather joins the slices.  Composes with
 COS_STATE_DTYPE.  Snapshots gather the state (`checkpoint.whole_state`):
 the files have dp 1's layout.
 
-Several processes (`mesh.distributed_init`, gloo): the dp axis spans
-them, each process running its own ranks' forward and backward
+Several processes (`mesh.distributed_init`, gloo) hold one global
+mesh, each process its box of it (`mesh.process_box`), running its own
+ranks' forward and backward.  Over a dp axis that spans them
 (`Net.forward_ranks` over the processes: the couplings of the batch,
-the losses' normalizers and Dropout's one global draw, cross them) and
-exchanging the gradients through `parallel.comm`, so that every process
-applies the same update.  The step it is given is its block of the
-global batch (`DataSource.take_block`).  Every process starts from the
-same parameters, drawn from one seed; `check_start` holds them equal
-once, by a checksum over the processes.  Under ZeRO-1 a process holds
-the state slices of its own dp ranks, and a snapshot writes them as its
-sharded sidecar (`checkpoint.snapshot`).  COS_STEPS_PER_LOOP=K keeps
-its chunks, each K eager steps: a gloo collective cannot be captured in
-a CUDA graph.
+the losses' normalizers and Dropout's one global draw, cross them) the
+gradients are exchanged through `parallel.comm` over the dp line, so
+that every process applies the same update; the step it is given is
+its dp block of the global batch (`DataSource.take_block`).  Over a tp
+axis that spans them a process holds only its tp ranks' column blocks
+of a split blob and of its state (`MeshLayout.local_part`), the layers
+join the blocks over the tp line, and the replicated blobs' gradients,
+which every tp peer computes whole, are not summed over it; over an sp
+axis the ring crosses them (`parallel.sp`).  Every process starts from
+the same parameters, drawn from one seed; `check_start` holds them
+equal once, by checksums over the processes.  Under ZeRO-1 a process
+holds the state slices of its own dp ranks, and a snapshot writes them
+as its sharded sidecar (`checkpoint.snapshot`), as it writes its tp
+part of a split state (`export_state`); the dense model is gathered
+over the tp lines first (`gather_params`).  COS_STEPS_PER_LOOP=K keeps
+its chunks, each K eager steps: a gloo collective cannot be captured
+in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -62,7 +70,7 @@ from ..net import Params
 from ..ops.layers import flash_mesh
 from ..solver import OptState, Solver, eager_many, steps_many, take_step
 from .comm import (Shards, all_gather, all_gather_dp, all_reduce,
-                   process_sum, split)
+                   gather_line, process_sum, split)
 from .gradsync import RankGrads
 from .mesh import Mesh, MeshLayout, Spec, split_dim
 
@@ -107,15 +115,21 @@ def rank_blocks(t: torch.Tensor, spec: Spec, mesh: Mesh,
                 leaf: bool) -> object:
     """One dp rank's view of a param blob: the tensor, or its tp column
     blocks (`Shards`) when `spec` splits it over tp.  `leaf` makes each
-    a fresh autograd leaf (the rank's own gradient)."""
+    a fresh autograd leaf (the rank's own gradient).  When the tp axis
+    spans processes, `t` is this process's part (`MeshLayout.
+    local_part`), cut into its tp ranks' blocks: parts tp offset .. of
+    the global tp, joined over the line of processes by the layers."""
     def own(x):
         return x.detach().requires_grad_(True) if leaf else x
     dim = split_dim(spec, "tp")
-    if dim is None or mesh.shape["tp"] == 1:
+    if dim is None or mesh.totals["tp"] == 1:
         return own(t)
     devs = mesh.axis_devices("tp")
+    spans = mesh.axis_spans("tp")
     return Shards([own(b.to(d)) for b, d in
-                   zip(split(t, len(devs), dim), devs)], dim)
+                   zip(split(t, len(devs), dim), devs)], dim,
+                  first=mesh.offsets["tp"], parts=mesh.totals["tp"],
+                  mesh=mesh if spans else None)
 
 
 def rank_params(layout: MeshLayout, params: Params, leaf: bool = False
@@ -160,9 +174,16 @@ class ParallelSolver:
         if mesh.dp_total > 1:
             solver.train_net.batch_axes()   # refuses what dp cannot split
         self.tp_on = self.layout.tp_on
+        # {(layer, blob): dim} held as this process's part only
+        self.split = self.layout.split_over_processes()
         if zero_dp is None:
             zero_dp = os.environ.get("COS_ZERO") == "1"
         self.zero_on = bool(zero_dp) and mesh.dp_total > 1
+        if self.zero_on and self.split:
+            raise ValueError(
+                "COS_ZERO=1 with a tp axis across processes: the ZeRO-1 "
+                "slices of a process's tp part are ROADMAP Queue 1 item "
+                "6c3 (run ZeRO-1 with tp inside a process)")
         self.param_specs = self.layout.param_specs
         self.state_specs = (zero_state_specs(self.param_specs,
                                              self.layout.shapes,
@@ -225,34 +246,50 @@ class ParallelSolver:
 
     def check_start(self, params: Params, state: OptState) -> None:
         """Every process starts from the same parameters and iteration:
-        each one's checksum (CRC-32 over the blobs' bytes, in the net's
-        blob order, and the iteration) is gathered over the processes,
-        and a process whose sum is not rank 0's is named.  One
+        each one's checksums (CRC-32 over the blobs' bytes, in the net's
+        blob order: the replicated blobs and the iteration; apart, its
+        part of the blobs split over a tp axis across processes) are
+        gathered over the processes, and a process is named whose
+        replicated sum is not rank 0's, or whose split part's sum is not
+        that of the first process holding the same part.  One
         collective; nothing with one process."""
-        if not self.mesh.spans:
+        if self.mesh.procs <= 1:
             return
         import torch.distributed as dist
         crc = zlib.crc32(str(int(state.iter)).encode())
+        part = 0
         for ln, specs in self.train_net.param_layout.items():
             for bn, _, _ in specs:
                 t = params[ln][bn].detach().contiguous().to("cpu")
-                crc = zlib.crc32(t.view(torch.uint8).numpy().tobytes(), crc)
-        mine = torch.tensor([crc], dtype=torch.int64)
-        every = torch.empty(self.mesh.procs, dtype=torch.int64)
+                data = t.view(torch.uint8).numpy().tobytes()
+                if (ln, bn) in self.split:
+                    part = zlib.crc32(data, part)
+                else:
+                    crc = zlib.crc32(data, crc)
+        mine = torch.tensor([crc, self.mesh.offsets["tp"], part],
+                            dtype=torch.int64)
+        every = torch.empty(self.mesh.procs * 3, dtype=torch.int64)
         dist.all_gather_into_tensor(every, mine)
-        bad = [r for r, c in enumerate(every.tolist()) if c != every[0]]
+        rows = every.view(-1, 3).tolist()
+        first = {}
+        for r, (_, off, p) in enumerate(rows):
+            first.setdefault(off, p)
+        bad = [r for r, (c, off, p) in enumerate(rows)
+               if c != rows[0][0] or p != first[off]]
         if bad:
             raise RuntimeError(
                 f"rank {', '.join(map(str, bad))}: parameters (or "
-                f"iteration) differ from rank 0's at the start (checksums "
-                f"{every.tolist()}); every process must start from the "
-                "same seed, -weights and -snapshot")
+                f"iteration) differ from rank 0's at the start (checksums, "
+                f"tp offset, split part's: {rows}); every process must "
+                "start from the same seed, -weights and -snapshot")
 
     def shard_opt_state(self, st: OptState) -> OptState:
         """The state on the mesh: under ZeRO-1 each split blob becomes
         its dp ranks' slices (`Shards`, each its own tensor on its
         rank's device; over several processes this process's ranks'
-        slices of the global split), the rest on the home device."""
+        slices of the global split), the rest on the home device; a
+        blob split over a tp axis across processes keeps this process's
+        part (`MeshLayout.local_part`), as its param does."""
         devs = self.mesh.axis_devices("dp")
         home = devs[0]
         k, off = len(devs), self.mesh.dp_offset
@@ -266,6 +303,9 @@ class ParallelSolver:
                     dim = split_dim(self.state_specs[ln][bn], "dp")
                     if isinstance(t, Shards):
                         t = t.whole()
+                    if (ln, bn) in self.split and tuple(t.shape) == tuple(
+                            self.layout.shapes[ln][bn]):
+                        t = self.layout.local_part(t, self.split[(ln, bn)])
                     if dim is None:
                         out[ln][bn] = t.to(home)
                     else:
@@ -361,9 +401,18 @@ class ParallelSolver:
     def apply_update(self, params: Params, grads: Params, state: OptState,
                      lr, scalars=None) -> None:
         """Solver.apply_update; under ZeRO-1 each dp rank updates its
-        slice of a split blob."""
+        slice of a split blob; the clip's norm sums a blob split over a
+        tp axis across processes over its line."""
         self.solver.apply_update(params, grads, state, lr, scalars=scalars,
-                                 blob_update=self._update_blob)
+                                 blob_update=self._update_blob,
+                                 blob_sq=self._blob_sq if self.split
+                                 else None)
+
+    def _blob_sq(self, ln: str, bn: str, g: torch.Tensor) -> torch.Tensor:
+        sq = torch.sum(g * g)
+        if (ln, bn) in self.split:
+            sq = process_sum(sq, self.mesh, "tp")
+        return sq
 
     def _update_blob(self, w, g, h, h2, local_lr, dm) -> None:
         if not isinstance(h, Shards):
@@ -395,7 +444,7 @@ class ParallelSolver:
         captures the ranks' leaves, the all_reduce and the ZeRO slices),
         on the CPU k eager steps; over several processes k eager steps
         everywhere (a gloo collective cannot be captured), logged once."""
-        if not self.mesh.spans:
+        if self.mesh.procs <= 1:
             return steps_many(self, k)
         fn = self._many.get(k)
         if fn is None:
@@ -416,13 +465,43 @@ class ParallelSolver:
             if net is None:
                 raise ValueError("no TEST-phase net in this config")
             # over several processes each evaluates the whole replicated
-            # batch on its own ranks
+            # batch on its own dp ranks, with its tp and sp lines
             layout = (MeshLayout(self.train_net, self.mesh.local())
-                      if self.mesh.spans else self.layout)
+                      if self.mesh.procs > 1 else self.layout)
             layout.check_batch(net)
             self._eval = BlobForward(net, layout=layout)(
                 tuple(net.output_blobs))
         return self._eval
+
+    def gather_params(self, params: Params) -> Params:
+        """The params whole: each blob split over a tp axis across
+        processes joined over its line (a collective: every process
+        calls it at the same step, as the JAX package's
+        `gather_params_if_sharded`), the rest as they are."""
+        row = self.mesh.sub(dp=0)
+        with torch.no_grad():
+            return {ln: {bn: (gather_line(t, self.split[(ln, bn)], row, "tp")
+                              if (ln, bn) in self.split else t)
+                         for bn, t in bl.items()}
+                    for ln, bl in params.items()}
+
+    def export_state(self, st: OptState) -> OptState:
+        """The state for a snapshot: each blob split over a tp axis
+        across processes as this process's part of the whole (`Shards`
+        spanning processes), which `checkpoint.snapshot` writes to this
+        process's sidecar, as the JAX package writes a partitioned
+        state's."""
+        if not self.split:
+            return st
+        k = self.mesh.shape["tp"]
+        first, parts = self.mesh.offsets["tp"] // k, self.mesh.totals["tp"] // k
+
+        def wrap(tree):
+            return {ln: {bn: (Shards([t], self.split[(ln, bn)], first, parts)
+                              if (ln, bn) in self.split else t)
+                         for bn, t in bl.items()} for ln, bl in tree.items()}
+        return OptState(iter=st.iter, history=wrap(st.history),
+                        history2=wrap(st.history2))
 
     def state_bytes(self, st: OptState) -> List[int]:
         """Optimizer-state bytes held by each dp rank (a split blob

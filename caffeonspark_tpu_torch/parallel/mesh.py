@@ -19,13 +19,18 @@ wait for MixtureOfExperts and the pipeline (ROADMAP Queue 1 item 8):
 `build_mesh`, which every mesh comes from, refuses them by name.
 
 Several processes (`distributed_init`: `torch.distributed` over gloo)
-extend the dp axis: each of `procs` processes holds `shape["dp"]` local
-dp ranks on its own device, so the global dp axis is procs x that, in
-the JAX package's order (dp the fastest axis, a process's ranks
-contiguous: process p holds global dp ranks p*k .. p*k + k - 1).  The
-collectives over dp (`parallel.comm`) first reduce a process's ranks,
-then call gloo.  A tp or sp axis would span processes in that order;
-it is refused by name (ROADMAP Queue 1 item 6c2).
+hold one global mesh.  A `-mesh dp,tp,sp` over N processes is dp*tp*sp
+global ranks laid out in the JAX package's order (`build_mesh` reshapes
+every process's devices, process 0's first, to (pp, ep, sp, tp, dp): dp
+the fastest axis), so process p holds global ranks p*L .. p*L + L - 1,
+L = dp*tp*sp / N, and any axis may span processes: `-mesh 1,2` over 2
+puts tp rank p in process p, `-mesh 2,2` over 4 makes dp lines {0, 1},
+{2, 3} and tp lines {0, 2}, {1, 3}.  A process's ranks form a box of the
+mesh (`process_box`).  Each collective over an axis acts on this
+process's line of processes along it, a `torch.distributed` group that
+`build_mesh` makes on every process in one order (`Mesh.group`); the
+collectives (`parallel.comm`) first reduce or join a process's own
+ranks, then call gloo over the line.
 """
 
 from __future__ import annotations
@@ -83,12 +88,19 @@ class Mesh:
     """Ranks laid out on the axes (pp, ep, sp, tp, dp): `devices` is the
     numpy object array of shape (pp, ep, sp, tp, dp) whose entry is the
     torch.device of that rank; `shape` maps each axis name to its
-    extent, in AXES order.  These are this process's ranks: with
-    `procs` > 1 processes, each holds as many, and the global dp axis is
-    `dp_total` = procs x shape["dp"], this process's ranks starting at
-    global dp rank `dp_offset`."""
+    extent, in AXES order.  These are this process's ranks, a box of the
+    global mesh: `totals` gives each axis's global extent and `offsets`
+    this process's first coordinate on it (one process: `shape` and
+    zeros).  `groups` holds, for each axis that spans processes, the
+    `torch.distributed` group of this process's line along it (None: the
+    whole world), and `lines` the line's processes in line order.  Without `totals`, `procs` > 1 processes each holding
+    as many dp ranks extend the dp axis."""
 
-    def __init__(self, devices: np.ndarray, procs: int = 1, proc: int = 0):
+    def __init__(self, devices: np.ndarray, procs: int = 1, proc: int = 0,
+                 totals: Optional[Dict[str, int]] = None,
+                 offsets: Optional[Dict[str, int]] = None,
+                 groups: Optional[Dict[str, object]] = None,
+                 lines: Optional[Dict[str, List[int]]] = None):
         if devices.ndim != len(AXES):
             raise ValueError(f"mesh devices need {len(AXES)} axes "
                              f"{AXES}, got shape {devices.shape}")
@@ -96,33 +108,77 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(AXES, devices.shape))
         self.procs = int(procs)
         self.proc = int(proc)
+        if totals is None:
+            totals = dict(self.shape, dp=self.shape["dp"] * self.procs)
+            offsets = {a: (self.proc * self.shape["dp"] if a == "dp" else 0)
+                       for a in AXES}
+        self.totals: Dict[str, int] = {a: int(totals[a]) for a in AXES}
+        self.offsets: Dict[str, int] = {a: int((offsets or {}).get(a, 0))
+                                        for a in AXES}
+        self.groups: Dict[str, object] = dict(groups or {})
+        self.lines: Dict[str, List[int]] = dict(lines or {})
 
     @property
     def size(self) -> int:
-        return int(self.devices.size)
+        """The ranks over every process."""
+        return int(np.prod([self.totals[a] for a in AXES]))
+
+    def axis_spans(self, axis_name: str) -> bool:
+        """True when `axis_name` spans processes."""
+        return self.totals[axis_name] > self.shape[axis_name]
 
     @property
     def spans(self) -> bool:
         """True when the dp axis spans processes."""
-        return self.procs > 1
+        return self.axis_spans("dp")
+
+    def line_procs(self, axis_name: str) -> int:
+        """The processes on this process's line along `axis_name`."""
+        return self.totals[axis_name] // self.shape[axis_name]
+
+    def line_index(self, axis_name: str) -> int:
+        """This process's place on its line along `axis_name`."""
+        return self.offsets[axis_name] // self.shape[axis_name]
+
+    def peer(self, axis_name: str, step: int) -> int:
+        """The rank of the process `step` places along this process's
+        line (cyclic)."""
+        line = self.lines[axis_name]
+        return line[(line.index(self.proc) + step) % len(line)]
+
+    def group(self, axis_name: str):
+        """The `torch.distributed` group of this process's line along
+        `axis_name` (None: the default group, every process)."""
+        return self.groups.get(axis_name)
 
     @property
     def dp_total(self) -> int:
-        return self.shape["dp"] * self.procs
+        return self.totals["dp"]
 
     @property
     def dp_offset(self) -> int:
-        return self.proc * self.shape["dp"]
+        return self.offsets["dp"]
+
+    @property
+    def dp_blocks(self) -> int:
+        """The processes along the dp axis: the global batch is cut into
+        as many blocks, one a dp line's place."""
+        return self.line_procs("dp")
 
     def local(self) -> "Mesh":
-        """This process's ranks as a mesh of their own (no process
-        spanned): the evaluation forward, which every process runs whole
-        on the same replicated batch."""
-        return Mesh(self.devices)
+        """This process's dp ranks alone (a dp axis spanning no process),
+        its tp and sp lines as they are: the evaluation forward, which
+        every process runs on the same replicated batch."""
+        totals = dict(self.totals, dp=self.shape["dp"])
+        offsets = dict(self.offsets, dp=0)
+        keep = [a for a in AXES if a != "dp"]
+        return Mesh(self.devices, self.procs, self.proc, totals, offsets,
+                    {a: self.groups[a] for a in keep if a in self.groups},
+                    {a: self.lines[a] for a in keep if a in self.lines})
 
     def axis_devices(self, axis_name: str) -> List[torch.device]:
-        """The devices of the ranks along `axis_name`, at index 0 of
-        every other axis: the ranks of one ring."""
+        """The devices of this process's ranks along `axis_name`, at
+        index 0 of every other axis: the ranks of one ring."""
         i = AXES.index(axis_name)
         index = [0] * len(AXES)
         out = []
@@ -132,33 +188,39 @@ class Mesh:
         return out
 
     def sub(self, **index: int) -> "Mesh":
-        """The mesh of the ranks at `index` on the named axes (each kept
-        with extent 1): `sub(dp=r)` is dp row r, whose tp and sp ranks
-        run that row's attention blocks."""
+        """The mesh of this process's ranks at local `index` on the named
+        axes (each kept with extent 1, its global coordinate as offset):
+        `sub(dp=r)` is dp row r, whose tp and sp ranks (and lines of
+        processes) run that row's attention blocks."""
         sl = tuple(slice(index[a], index[a] + 1) if a in index
                    else slice(None) for a in AXES)
-        return Mesh(self.devices[sl])
+        totals = {a: 1 if a in index else self.totals[a] for a in AXES}
+        offsets = {a: self.offsets[a] + index.get(a, 0) for a in AXES}
+        keep = [a for a in AXES if a not in index]
+        return Mesh(self.devices[sl], self.procs, self.proc, totals,
+                    offsets,
+                    {a: self.groups[a] for a in keep if a in self.groups},
+                    {a: self.lines[a] for a in keep if a in self.lines})
 
     def describe(self) -> Dict[str, object]:
         """JSON-serializable summary with the JAX package's
         `MeshLayout.describe` keys: axes with extent > 1, the number of
         ranks, and the sharded blobs (none: every parameter is
         replicated)."""
-        return {"axes": global_axes(self), "devices": self.size * self.procs,
+        return {"axes": global_axes(self), "devices": self.size,
                 "sharded_params": [], **process_info(self)}
 
 
 def global_axes(mesh: Mesh) -> Dict[str, int]:
-    """The axes of extent > 1 over every process (dp: `dp_total`)."""
-    axes = {ax: int(n) for ax, n in mesh.shape.items() if n > 1}
-    if mesh.dp_total > 1:
-        axes["dp"] = mesh.dp_total
+    """The axes of extent > 1 over every process."""
+    axes = {ax: int(n) for ax, n in mesh.totals.items() if n > 1}
     return axes or {"dp": 1}
 
 
 def process_info(mesh: Mesh) -> Dict[str, int]:
-    """The `processes` key of a description, when processes span it."""
-    return {"processes": mesh.procs} if mesh.spans else {}
+    """The `processes` key of a description, when the mesh has
+    several."""
+    return {"processes": mesh.procs} if mesh.procs > 1 else {}
 
 
 def distributed_init(server: Optional[str], cluster: Optional[int],
@@ -198,6 +260,18 @@ def distributed_init(server: Optional[str], cluster: Optional[int],
     return n, r
 
 
+def distributed_close() -> None:
+    """Leave the joined run in step: a barrier, so that no process tears
+    its gloo connections down while a peer still talks on them, then the
+    process group (and every line's group) destroyed.  A no-op for one
+    process."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+        _GROUPS.clear()
+
+
 def process_group() -> Tuple[int, int]:
     """(processes, this rank) of the joined run, or (1, 0)."""
     import torch.distributed as dist
@@ -206,16 +280,77 @@ def process_group() -> Tuple[int, int]:
     return 1, 0
 
 
-def check_processes(dims: Dict[str, int], procs: int) -> None:
-    """Refuse by name a tp or sp axis over `procs` > 1 processes: in the
-    dp-fastest order it would span them (ROADMAP Queue 1 item 6c2)."""
-    across = {a: d for a, d in dims.items() if a in ("tp", "sp") and d > 1}
-    if procs > 1 and across:
+def process_box(dims: Dict[str, int], procs: int, proc: int
+                ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """(local extents, offsets) of process `proc`'s ranks in the global
+    mesh `dims` (an extent per axis) over `procs` processes: the global
+    ranks proc*L .. proc*L + L - 1 of the (pp, ep, sp, tp, dp) mesh
+    flattened with dp fastest (the JAX package's device order), L the
+    ranks over the processes.  Refused by name when the processes do
+    not divide the ranks, or when L ranks are no box of the mesh (every
+    faster axis whole, the first partial one cut evenly)."""
+    shape = [int(dims.get(a, 1)) for a in AXES]
+    total = int(np.prod(shape))
+    if total % procs:
         raise ValueError(
-            f"mesh {across} over {procs} processes: in the dp-fastest "
-            "order a tp or sp axis would span processes, which the "
-            "PyTorch port does not run yet (ROADMAP Queue 1 item 6c2); "
-            "the dp axis spans them")
+            f"mesh {_spell(dims)} ({total} ranks) over {procs} processes: "
+            "the processes must divide the ranks")
+    rem = total // procs
+    local = [1] * len(AXES)
+    for i in reversed(range(len(AXES))):
+        n = shape[i]
+        if rem % n == 0:
+            local[i], rem = n, rem // n
+        elif n % rem == 0:
+            local[i], rem = rem, 1
+        else:
+            raise ValueError(
+                f"mesh {_spell(dims)} over {procs} processes: "
+                f"{total // procs} ranks a process are no box of the mesh "
+                f"(the {AXES[i]} axis of {n} would be cut unevenly)")
+    coords = np.unravel_index(proc * (total // procs), shape)
+    return (dict(zip(AXES, local)),
+            {a: int(c) for a, c in zip(AXES, coords)})
+
+
+def _spell(dims: Dict[str, int]) -> str:
+    return ",".join(f"{a}={dims.get(a, 1)}" for a in AXES
+                    if dims.get(a, 1) > 1) or "dp=1"
+
+
+# the process groups of each global mesh, made once on every process in
+# one order: {(extents, procs): {axis: {line key: (group, members)}}}
+_GROUPS: Dict[tuple, Dict[str, Dict[tuple, tuple]]] = {}
+
+
+def _line_groups(dims: Dict[str, int], procs: int
+                 ) -> Dict[str, Dict[tuple, Tuple[object, List[int]]]]:
+    """The `torch.distributed` groups of every line of processes along
+    each axis that spans them, keyed by the line's offsets on the other
+    axes.  `new_group` is a collective over every process: each makes
+    every group, in this one order (axes in AXES order, lines sorted).
+    A line of every process uses the default group (None).  Each line
+    comes with its processes in line order."""
+    key = (tuple(int(dims.get(a, 1)) for a in AXES), procs)
+    if key in _GROUPS:
+        return _GROUPS[key]
+    import torch.distributed as dist
+    boxes = [process_box(dims, procs, q) for q in range(procs)]
+    out: Dict[str, Dict[tuple, tuple]] = {}
+    for a in AXES:
+        if boxes[0][0][a] == int(dims.get(a, 1)):
+            continue
+        lines: Dict[tuple, List[int]] = {}
+        for q, (_, offs) in enumerate(boxes):
+            lines.setdefault(tuple(offs[b] for b in AXES if b != a),
+                             []).append(q)
+        out[a] = {}
+        for lk in sorted(lines):
+            members = sorted(lines[lk], key=lambda q: boxes[q][1][a])
+            out[a][lk] = (None if len(members) == procs
+                          else dist.new_group(members), members)
+    _GROUPS[key] = out
+    return out
 
 
 def build_mesh(*, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
@@ -223,13 +358,16 @@ def build_mesh(*, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
                devices: Optional[Sequence] = None,
                procs: Optional[int] = None,
                proc: Optional[int] = None) -> Mesh:
-    """Mesh over `devices` (one rank each, in order; a device may repeat)
-    with named axes (pp, ep, sp, tp, dp); dp is inferred as the
-    remainder when unset.  The default is one rank per visible card.
-    ep and pp > 1 are refused by name.  `devices` are this process's
-    ranks; `procs` / `proc` (default: the joined `torch.distributed`
-    run's, else 1 / 0) give the processes that each hold as many, the
-    dp axis spanning them; a tp or sp axis then is refused by name."""
+    """The global mesh of dp x tp x sp (x pp x ep) ranks, dp inferred as
+    the remainder when unset; `devices` are this process's ranks (one
+    each, in order; a device may repeat), and `procs` / `proc` (default:
+    the joined `torch.distributed` run's, else 1 / 0) the processes
+    that each hold as many.  The global ranks are every process's in
+    process order reshaped to (pp, ep, sp, tp, dp), as the JAX package
+    reshapes `jax.devices()`; this process holds its box of them
+    (`process_box`), and the groups of its lines of processes are made
+    here.  The default is one rank per visible card.  ep and pp > 1 are
+    refused by name."""
     if procs is None or proc is None:
         procs, proc = process_group()
     if devices is None:
@@ -239,7 +377,7 @@ def build_mesh(*, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
                              "devices (e.g. [torch.device('cpu')] * n)")
         devices = [torch.device("cuda", i) for i in range(count)]
     devices = [torch.device(d) for d in devices]
-    n = len(devices)
+    n = len(devices) * procs
     fixed = tp * sp * pp * ep
     if n % fixed != 0:
         raise ValueError(
@@ -254,24 +392,46 @@ def build_mesh(*, dp: Optional[int] = None, tp: int = 1, sp: int = 1,
             f"mesh {later}: the PyTorch port runs the dp, tp and sp axes; "
             "ep and pp > 1 wait for MixtureOfExperts and the pipeline "
             "(ROADMAP Queue 1 item 8)")
-    check_processes({"tp": tp, "sp": sp}, procs)
-    arr = np.empty(n, dtype=object)
+    dims = {"pp": pp, "ep": ep, "sp": sp, "tp": tp, "dp": dp}
+    local, offsets = process_box(dims, procs, proc)
+    groups, lines = {}, {}
+    if procs > 1:
+        for a, by_key in _line_groups(dims, procs).items():
+            groups[a], lines[a] = by_key[tuple(offsets[b] for b in AXES
+                                               if b != a)]
+    arr = np.empty(len(devices), dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(pp, ep, sp, tp, dp), procs=procs, proc=proc)
+    return Mesh(arr.reshape([local[a] for a in AXES]), procs=procs,
+                proc=proc, totals=dims, offsets=offsets, groups=groups,
+                lines=lines)
+
+
+def mesh_dims(spec: str, procs: int = 1) -> Dict[str, int]:
+    """build_mesh kwargs of a `-mesh` / `-devices` spec over `procs`
+    processes, as the JAX package reads it: a spec with a comma (or a
+    named `axis=N`) is the global mesh; a bare count k is k dp ranks a
+    process (the reference's GPUs per node), dp k x procs."""
+    spec = str(spec)
+    dims = parse_mesh_spec(spec)
+    if "," not in spec and "=" not in spec:
+        dims = {"dp": dims["dp"] * procs}
+    return dims
 
 
 def dp_data_rank(mesh: Mesh) -> Tuple[int, int]:
-    """(data_rank, data_num_ranks) of this process: which shard of the
-    record stream it feeds, from its dp coordinates as in the JAX
-    package (process p of P holds global dp rows p*k .. p*k + k - 1, so
-    it is shard p of P).  One process feeds the whole stream
+    """(data_rank, data_num_ranks) of this process: which block of each
+    global batch it feeds, from its dp coordinates as in the JAX package
+    (processes at the same dp coordinates feed the same block: a tp- or
+    sp-only mesh feeds every process identical records; process p of a
+    dp axis of P blocks of k ranks holds global dp rows p*k .. p*k + k -
+    1, so it is block p of P).  One dp block feeds the whole stream
     (`ParallelSolver.shard_batch` splits each batch over its dp ranks).
-    The port's shard p is block p of each global batch of the one
-    stream (`DataSource.take_block`), so that P processes train what
+    The port's block p is block p of each global batch of the one
+    stream (`DataSource.take_block`), so that the processes train what
     one process trains."""
-    if not mesh.spans or mesh.dp_total <= 1:
+    if mesh.dp_blocks <= 1:
         return 0, 1
-    return mesh.proc, mesh.procs
+    return mesh.line_index("dp"), mesh.dp_blocks
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +484,7 @@ def validate_param_specs(specs: Dict[str, Dict[str, Spec]],
             for dim_i, ax in enumerate(spec):
                 if ax is None:
                     continue
-                size = mesh.shape.get(ax, 1)
+                size = mesh.totals.get(ax, 1)
                 dim = shapes[ln][bn][dim_i]
                 if size > 1 and dim % size != 0:
                     raise ValueError(
@@ -351,7 +511,7 @@ class MeshLayout:
     def __init__(self, net, mesh: Mesh):
         self.net = net
         self.mesh = mesh
-        self.tp_on = mesh.shape.get("tp", 1) > 1
+        self.tp_on = mesh.totals.get("tp", 1) > 1
         self.param_specs: Dict[str, Dict[str, Spec]] = (
             tp_param_specs(net) if self.tp_on
             else {ln: {bn: () for bn, _, _ in blobs}
@@ -370,7 +530,7 @@ class MeshLayout:
         over dp; with an sp axis, a time-major (T, B, ·) top's time over
         sp too (the JAX package's specs; the port's ring cuts the time
         itself, inside the attention)."""
-        has_sp = self.mesh.shape.get("sp", 1) > 1
+        has_sp = self.mesh.totals.get("sp", 1) > 1
         out: Dict[str, Spec] = {}
         for name, ax in self.batch_axes(net).items():
             spec = [None] * ax + ["dp"]
@@ -401,12 +561,37 @@ class MeshLayout:
                     f"not divisible by the mesh's dp axis ({dp} ranks)")
 
     # -- placement ------------------------------------------------------
+    def split_over_processes(self) -> Dict[Tuple[str, str], int]:
+        """{(layer, blob): dim} of the blobs split over a tp axis that
+        spans processes: a process holds only its tp ranks' column
+        blocks of each (and of its optimizer state)."""
+        if not self.mesh.axis_spans("tp"):
+            return {}
+        return {(ln, bn): split_dim(spec, "tp")
+                for ln, blobs in self.param_specs.items()
+                for bn, spec in blobs.items()
+                if split_dim(spec, "tp") is not None}
+
+    def local_part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This process's tp ranks' blocks of a whole blob split on
+        `dim`, joined: a tensor of its own (the rest is freed)."""
+        m = self.mesh
+        blocks = torch.chunk(t, m.totals["tp"], dim=dim)
+        off = m.offsets["tp"]
+        return torch.cat(blocks[off:off + m.shape["tp"]], dim=dim).clone()
+
     def place_params(self, params) -> Dict:
         """Each blob on the mesh's home device (its first rank's): the
         ranks' blocks are views of it, made by the step.  On one card
-        every rank shares one storage."""
+        every rank shares one storage.  A blob split over a tp axis that
+        spans processes keeps only this process's part (`local_part`;
+        a blob already cut is kept as it is)."""
         home = self.mesh.devices.flat[0]
-        return {ln: {bn: t.to(home) for bn, t in blobs.items()}
+        split = self.split_over_processes()
+        return {ln: {bn: (self.local_part(t, split[(ln, bn)])
+                          if (ln, bn) in split and tuple(t.shape)
+                          == tuple(self.shapes[ln][bn]) else t).to(home)
+                     for bn, t in blobs.items()}
                 for ln, blobs in params.items()}
 
     # -- identity -------------------------------------------------------
@@ -420,7 +605,7 @@ class MeshLayout:
             for bn, spec in blobs.items()
             if any(ax is not None for ax in spec))
         return {"axes": global_axes(self.mesh),
-                "devices": self.mesh.size * self.mesh.procs,
+                "devices": self.mesh.size,
                 "sharded_params": sharded, **process_info(self.mesh)}
 
 

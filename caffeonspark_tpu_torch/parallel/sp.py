@@ -12,10 +12,16 @@ on the host: `ring_attention` cuts the time axis into one block per rank
 (`sp_shard_time`) and `_ring_attention_local` loops over the ranks at
 each ring step.  A rank's tensors live on its mesh device; `ppermute`,
 the one transport function, hands rank i's tensor to rank i + 1 with
-`.to(device)`, a no-op when both ranks sit on one card.  A mesh over
-several cards (NCCL point-to-point in place of the `.to`, ranks in
-several processes) waits for the data-parallel slice: `ppermute` is the
-seam it replaces.
+`.to(device)`, a no-op when both ranks sit on one card.  When the sp
+axis spans processes, a process holds sp ranks off .. off + k - 1 of
+the global ring (`Mesh.offsets`): it runs the body for those, each
+rank's causal positions and diagonal tests taken from its global index,
+and `ppermute` hands its last rank's block to the next process on its
+sp line (`comm.shift_line`, gloo).  Every process of the line holds the
+whole replicated q, k and v: `ring_attention` takes its part of time
+(`comm.take_line`) and joins the outputs over the line
+(`comm.gather_line`), as `sp_shard_time` and the final `torch.cat`
+join them in one process.
 
 `flash=False` is the einsum ring, differentiated by autograd.
 `flash=True` is the fused ring: `RingFlash` (equal extents) and
@@ -39,6 +45,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..ops import kernels as K
+from .comm import gather_line, shift_line, take_line
 from .mesh import Mesh
 
 Tensors = List[torch.Tensor]
@@ -64,10 +71,23 @@ def ppermute(tensors: Sequence[torch.Tensor], mesh: Mesh,
     """The ring's one transport: rank i's tensor goes to rank (i + 1) % n
     of `axis_name`, on that rank's device (`lax.ppermute` with the
     permutation [(i, (i + 1) % n)]).  Differentiable; a no-op copy
-    between ranks of one device."""
+    between ranks of one device.  `tensors` are this process's ranks';
+    when the axis spans processes, its last rank's goes to the next
+    process on the line and its first rank's comes from the previous
+    one (`comm.shift_line`)."""
     devs = mesh.axis_devices(axis_name)
     n = len(devs)
-    return [tensors[(i - 1) % n].to(devs[i]) for i in range(n)]
+    if not mesh.axis_spans(axis_name):
+        return [tensors[(i - 1) % n].to(devs[i]) for i in range(n)]
+    first = shift_line([tensors[-1]], mesh, axis_name)[0]
+    return [first.to(devs[0])] + [tensors[i - 1].to(devs[i])
+                                   for i in range(1, n)]
+
+
+def ring_extent(mesh: Mesh, axis_name: str) -> "tuple[int, int]":
+    """(ranks of the whole ring, this process's first rank's global
+    index) along `axis_name`."""
+    return mesh.totals[axis_name], mesh.offsets[axis_name]
 
 
 def sp_shard_time(x: torch.Tensor, mesh: Mesh, *, time_axis: int = 2,
@@ -93,8 +113,9 @@ def _einsum_ring(qs: Tensors, ks: Tensors, vs: Tensors, mesh: Mesh,
                  axis_name: str, causal: bool) -> Tensors:
     """The einsum accumulate ring (JAX sp.py:98-133), differentiated by
     autograd: a carry of q's dtype starting at (-inf, 0, 0), a -inf
-    causal mask on global positions, the isfinite guard."""
-    n = len(qs)
+    causal mask on global positions, the isfinite guard.  `qs` are this
+    process's ranks', global sp indices off ..; the ring has n."""
+    n, off = ring_extent(mesh, axis_name)
     t_q, t_k = qs[0].shape[2], ks[0].shape[2]
     scale = 1.0 / math.sqrt(qs[0].shape[-1])
 
@@ -102,7 +123,7 @@ def _einsum_ring(qs: Tensors, ks: Tensors, vs: Tensors, mesh: Mesh,
         q = qs[idx]
         s = torch.einsum("bhqd,bhkd->bhqk", q, k_blk) * scale
         if causal:
-            qpos = idx * t_q + torch.arange(t_q, device=q.device)
+            qpos = (off + idx) * t_q + torch.arange(t_q, device=q.device)
             kpos = src * t_k + torch.arange(t_k, device=q.device)
             s = torch.where(qpos[:, None] >= kpos[None, :], s, -math.inf)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
@@ -121,13 +142,15 @@ def _einsum_ring(qs: Tensors, ks: Tensors, vs: Tensors, mesh: Mesh,
                         device=q.device)
         l0 = torch.zeros(q.shape[:-1], dtype=q.dtype, device=q.device)
         o0 = torch.zeros_like(q)
-        carry.append(accumulate(idx, m0, l0, o0, ks[idx], vs[idx], idx))
+        carry.append(accumulate(idx, m0, l0, o0, ks[idx], vs[idx],
+                                off + idx))
     k_blk, v_blk = list(ks), list(vs)
     for step in range(1, n):
         k_blk = ppermute(k_blk, mesh, axis_name)
         v_blk = ppermute(v_blk, mesh, axis_name)
         carry = [accumulate(idx, *carry[idx], k_blk[idx], v_blk[idx],
-                            (idx - step) % n) for idx in range(n)]
+                            (off + idx - step) % n)
+                 for idx in range(len(qs))]
     return [(o / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
             for q, (_, l, o) in zip(qs, carry)]
 
@@ -144,9 +167,10 @@ def _flash_ring_forward(qs: Tensors, ks: Tensors, vs: Tensors, mesh: Mesh,
     at (-inf, 0, 0), through K9 with the global offsets idx·t_q and
     src·t_k.  Causal runs skip the hops whose keys all lie after the
     rank's last query, (idx + 1)·t_q > src·t_k failing: n(n+1)/2 K9
-    launches in all for equal extents.  Returns the per-rank (out, lse),
+    launches in all for equal extents.  idx is the global sp index (this
+    process's ranks are off ..).  Returns the per-rank (out, lse),
     lse = m + log(l) (B, H, t_q) f32, the backward's residual."""
-    n = len(qs)
+    n, off = ring_extent(mesh, axis_name)
     b, h, t_q, d = qs[0].shape
     t_k = ks[0].shape[2]
     bh = b * h
@@ -162,13 +186,14 @@ def _flash_ring_forward(qs: Tensors, ks: Tensors, vs: Tensors, mesh: Mesh,
         if step:
             k_blk = ppermute(k_blk, mesh, axis_name)
             v_blk = ppermute(v_blk, mesh, axis_name)
-        for idx in range(n):
+        for i in range(len(qs)):
+            idx = off + i
             src = (idx - step) % n
             # contributes iff the last q row can see the first k row
             if causal and not (idx + 1) * t_q > src * t_k:
                 continue
-            carry[idx] = K.flash_block_update(
-                qf[idx], k_blk[idx], v_blk[idx], *carry[idx], idx * t_q,
+            carry[i] = K.flash_block_update(
+                qf[i], k_blk[i], v_blk[i], *carry[i], idx * t_q,
                 src * t_k, causal)
     outs, lses = [], []
     for q, (m, l, acc) in zip(qs, carry):
@@ -197,7 +222,7 @@ class RingFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mesh, axis_name, causal, *qkv):
-        n = len(qkv) // 3
+        n = len(qkv) // 3       # this process's ranks
         qs, ks, vs = list(qkv[:n]), list(qkv[n:2 * n]), list(qkv[2 * n:])
         outs, lses = _flash_ring_forward(qs, ks, vs, mesh, axis_name,
                                          causal)
@@ -212,6 +237,7 @@ class RingFlash(torch.autograd.Function):
         saved = ctx.saved_tensors
         qs, ks, vs, outs, lses = (saved[i * n:(i + 1) * n]
                                   for i in range(5))
+        ring, off = ring_extent(mesh, axis_name)
         b, h, t, d = qs[0].shape
         bh = b * h
         qf = [q.reshape(bh, t, d) for q in qs]
@@ -234,15 +260,16 @@ class RingFlash(torch.autograd.Function):
             block(i, qf[i], dof[i], lsef[i], delta[i], ctx.causal)
             for i in range(n))))
         vq, vdo, vlse, vdelta = qf, dof, lsef, delta
-        for s in range(1, n):
+        for s in range(1, ring):
             vq, vdo, vlse, vdelta, dqv = (ppermute(x, mesh, axis_name)
                                           for x in (vq, vdo, vlse, vdelta,
                                                     dqv))
             for idx in range(n):
-                j = (idx - s) % n          # the visiting q-group's home
+                # the visiting q-group's home, by global index
+                j = (off + idx - s) % ring
                 # visitor attends this shard's K/V iff it sits later in
                 # the global sequence (the diagonal was done at s = 0)
-                if ctx.causal and not j > idx:
+                if ctx.causal and not j > off + idx:
                     continue
                 dqh, dkh, dvh = block(idx, vq[idx], vdo[idx], vlse[idx],
                                       vdelta[idx], False)
@@ -278,6 +305,7 @@ class RingFlashCross(RingFlash):
         saved = ctx.saved_tensors
         qs, ks, vs, outs, lses = (saved[i * n:(i + 1) * n]
                                   for i in range(5))
+        ring, off = ring_extent(mesh, axis_name)
         t_q, t_k, d = qs[0].shape[2], ks[0].shape[2], qs[0].shape[3]
         scale = 1.0 / math.sqrt(d)
         kf = [k.float() for k in ks]
@@ -288,15 +316,17 @@ class RingFlashCross(RingFlash):
 
         def pair(idx, vq, vdo, vlse, vdelta, j):
             """Visitor q-group (home shard j) against the resident K/V of
-            rank idx: p from the saved lse, then ds -> (dq, dk, dv)."""
-            if causal and not (j + 1) * t_q > idx * t_k:
+            this process's rank idx (global off + idx): p from the saved
+            lse, then ds -> (dq, dk, dv)."""
+            home = off + idx
+            if causal and not (j + 1) * t_q > home * t_k:
                 return None
             q32 = vq.float()
             s = torch.einsum("bhqd,bhkd->bhqk", q32, kf[idx]) * scale
             p = torch.exp(s - vlse[..., None])
             if causal:
                 qpos = j * t_q + torch.arange(t_q, device=vq.device)
-                kpos = idx * t_k + torch.arange(t_k, device=vq.device)
+                kpos = home * t_k + torch.arange(t_k, device=vq.device)
                 p = torch.where(qpos[:, None] >= kpos[None, :], p, 0.0)
             dp = torch.einsum("bhqd,bhkd->bhqk", vdo, vf[idx])
             ds = p * (dp - vdelta[..., None])
@@ -310,7 +340,8 @@ class RingFlashCross(RingFlash):
 
         dqv, dk, dv = [], [], []
         for idx in range(n):
-            got = pair(idx, qs[idx], do32[idx], lses[idx], delta[idx], idx)
+            got = pair(idx, qs[idx], do32[idx], lses[idx], delta[idx],
+                       off + idx)
             if got is None:
                 got = (zeros(qs[idx], t_q), zeros(ks[idx], t_k),
                        zeros(ks[idx], t_k))
@@ -318,13 +349,13 @@ class RingFlashCross(RingFlash):
             dk.append(got[1])
             dv.append(got[2])
         vq, vdo, vlse, vdelta = list(qs), do32, list(lses), delta
-        for s in range(1, n):
+        for s in range(1, ring):
             vq, vdo, vlse, vdelta, dqv = (ppermute(x, mesh, axis_name)
                                           for x in (vq, vdo, vlse, vdelta,
                                                     dqv))
             for idx in range(n):
                 got = pair(idx, vq[idx], vdo[idx], vlse[idx], vdelta[idx],
-                           (idx - s) % n)
+                           (off + idx - s) % ring)
                 if got is not None:
                     dqv[idx] = dqv[idx] + got[0]
                     dk[idx] = dk[idx] + got[1]
@@ -359,10 +390,20 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     flash: False (default, the einsum accumulate, differentiated by
     autograd) | True (the fused ring, differentiable: K9 hops forward,
-    a second ring pass backward; see RingFlash / RingFlashCross)."""
+    a second ring pass backward; see RingFlash / RingFlashCross).
+    When the axis spans processes, q, k and v are every peer's whole
+    replicated tensors: this process runs its ranks' time blocks and
+    the output is joined over its line of processes."""
+    n = mesh.totals[axis_name]
+    for x in (q, k, v):
+        if x.shape[2] % n:
+            raise ValueError(f"time extent {x.shape[2]} not divisible by "
+                             f"the {axis_name} axis ({n} ranks)")
+    q, k, v = (take_line(x, 2, mesh, axis_name) for x in (q, k, v))
     outs = _ring_attention_local(
         sp_shard_time(q, mesh, axis_name=axis_name),
         sp_shard_time(k, mesh, axis_name=axis_name),
         sp_shard_time(v, mesh, axis_name=axis_name), mesh=mesh,
         axis_name=axis_name, causal=causal, flash=flash)
-    return torch.cat([o.to(q.device) for o in outs], dim=2)
+    return gather_line(torch.cat([o.to(q.device) for o in outs], dim=2),
+                       2, mesh, axis_name)

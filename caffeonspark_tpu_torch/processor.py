@@ -64,7 +64,7 @@ from .data.queue_runner import (DROP_LIMIT_DEFAULT, DROPPED, FeedQueue,
 from .data.source import STOP_MARK, DataSource, get_source
 from .metrics import PipelineMetrics, maybe_start_flusher
 from .parallel.dp import ParallelSolver
-from .parallel.mesh import Mesh, build_mesh, parse_mesh_spec
+from .parallel.mesh import Mesh, build_mesh, mesh_dims, process_group
 from .proto.caffe import SnapshotFormat
 from .solver import Solver
 
@@ -98,14 +98,19 @@ class ValidationReport:
 
 
 def run_mesh(spec: str, solver: Solver) -> Mesh:
-    """The mesh of `-mesh spec` (a bare count N is dp N), its ranks all
+    """The mesh of `-mesh spec` (a bare count N is dp N a process, a
+    comma spec the global mesh: `mesh_dims`), this process's ranks all
     on the solver's device (the counterpart of the JAX package's virtual
     devices); an sp axis that does not divide a time-major input's steps
     is refused here."""
-    dims = parse_mesh_spec(spec)
+    procs, _ = process_group()
+    dims = mesh_dims(spec, procs)
     n = math.prod(dims.values())
-    mesh = build_mesh(devices=[solver.device] * n, **dims)
-    n_sp = mesh.shape["sp"]
+    if n % procs:
+        raise ValueError(f"-mesh {spec}: {n} ranks over {procs} processes "
+                         "(the processes must divide the ranks)")
+    mesh = build_mesh(devices=[solver.device] * (n // procs), **dims)
+    n_sp = mesh.totals["sp"]
     for name, shape, kind in solver.train_net.input_specs:
         if kind.endswith(":T") and shape[0] % n_sp:
             raise ValueError(

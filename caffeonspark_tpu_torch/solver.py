@@ -374,8 +374,8 @@ class Solver:
 
     @torch.no_grad()
     def apply_update(self, params: Params, grads: Params, state: OptState,
-                     lr: torch.Tensor, scalars=None, blob_update=None
-                     ) -> None:
+                     lr: torch.Tensor, scalars=None, blob_update=None,
+                     blob_sq=None) -> None:
         """Caffe's ApplyUpdate, in place on params and state: clip, then
         regularize, then the solver type's rule (JAX solver.py:222-303,
         in the same operation order).  `scalars` (update_scalars' values,
@@ -385,7 +385,9 @@ class Solver:
         frozen into the graph at its capture value.  `blob_update(w, g,
         h, h2, local_lr, decay_mult)` updates one blob in place
         (`update_blob`; ZeRO-1 passes one that updates each dp rank's
-        slice)."""
+        slice); `blob_sq(layer, blob, g)`, Σ g² of a blob for the clip
+        (a process holding part of a blob passes the sum over its
+        peers)."""
         sp = self.param
         if scalars is None:
             scalars = self.update_scalars(lr, state.iter)
@@ -395,9 +397,10 @@ class Solver:
         if sp.clip_gradients > 0:
             thresh = sp.clip_gradients / max(1, int(sp.iter_size))
             # the JAX package's leaf order: sorted layer, then blob names
-            leaves = [grads[ln][bn] for ln in sorted(grads)
-                      for bn in sorted(grads[ln])]
-            gnorm = torch.sqrt(sum(torch.sum(g * g) for g in leaves))
+            sq = blob_sq or (lambda ln, bn, g: torch.sum(g * g))
+            gnorm = torch.sqrt(sum(sq(ln, bn, grads[ln][bn])
+                                   for ln in sorted(grads)
+                                   for bn in sorted(grads[ln])))
             scale = torch.where(gnorm > thresh,
                                 _w(thresh, gnorm) / gnorm, 1.0)
             grads = {ln: {bn: g * scale for bn, g in bl.items()}

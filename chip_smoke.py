@@ -318,16 +318,32 @@ or the package is not importable, and when any phase fails.  Phases:
      COS_GRAD_OVERLAP on and off, beside one process's dp 2 (every
      mode's losses and params byte-equal to it); a `multiproc` JSON
      line;
- 35. a `kernels` JSON line: launches on the serving, image-net training,
+ 35. the tp and sp axes across processes: two processes sharing the
+     card, each holding half of the global mesh (`mini_cluster -cluster
+     2 -mesh ...`), each against one process with the same -mesh: the
+     full-width LM at -mesh 1,1,2 (the ring's hop across processes) and
+     1,2 (head and column blocks), 4 f32 steps, byte-equal, the two
+     processes' K9 / K7 / K8 summing to one process's in the causal
+     ring's 1 : 2 and 2 : 1 shares (K6 / K7 / K8 on (B·H/2, T, D) blocks
+     half each), each one's bytes of the split blobs and their state
+     half; CaffeNet B 256 at -mesh 2,2 byte-equal, its snapshot at 4
+     (rank 0's dense model, `.shard0/.shard1`) read back and resumed to
+     8 on two processes and one, byte-equal; the validating CaffeNet at
+     -mesh 1,2 (rank 0's validation.json within MPM_VAL_TOL, rank 1's
+     none); the median of 5 synchronized direct steps of both LM meshes
+     beside one process's, the gloo bytes a step of the hops and joins,
+     whether gloo's send / recv take CUDA tensors; a `multiproc_mesh`
+     JSON line;
+ 36. a `kernels` JSON line: launches on the serving, image-net training,
      ingest, validating training, -test, -features, LM training, sp LM
      training, head_dim-256 and -512 LM training, mini_cluster (those by
      dtype; graphed runs included), encoded and graphed CaffeNet,
      GoogLeNet, ResNet-50, snapshot, HDF5, sidecar, lstm_lm, caption
      (features, captioner, decode), layer, data-path, dp, gradient
-     exchange and multi-process paths, and the
+     exchange, multi-process and multi-process mesh paths, and the
      numbers of phase 3 (K1-K4 also at GoogLeNet's shapes in the
      `kernel_records` line); a `ptxas` line; then the card line again;
- 36. the device line, last: {"ok": true, "device": {...}}.
+ 37. the device line, last: {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -5108,22 +5124,32 @@ def dp_eval(K, torch, label, solver_path, model, outdir, mode, dp1_launches,
 
 
 def dp_refusals(solver_path, lm_solver, model, device="cuda"):
-    """ep, pp, -serve -mesh and, through mini_cluster, -cluster 2 -mesh
-    1,2 (a tp axis across processes) refused by name before a step runs
-    (no output directory made; no rendezvous)."""
+    """ep, pp and -serve -mesh refused by name before a step runs (no
+    output directory made); and what mini_cluster's -cluster 2 -mesh 1,2
+    now lays out, without a rendezvous: the global mesh, rank r holding
+    tp rank r (phase 35 trains it)."""
     import shutil
     from caffeonspark_tpu_torch import caffe_on_spark, mini_cluster
+    from caffeonspark_tpu_torch.parallel.mesh import mesh_dims, process_box
     out = {}
+    args = mini_cluster.build_argparser().parse_args(
+        ["-solver", lm_solver, "-cluster", "2", "-server", "127.0.0.1:1",
+         "-mesh", "1,2"])
+    dims = mesh_dims(mini_cluster.mesh_spec(args), 2)
+    boxes = [process_box(dims, 2, r) for r in range(2)]
+    check(dims == {"dp": 1, "tp": 2} and all(
+        local["tp"] == 1 and offs["tp"] == r
+        for r, (local, offs) in enumerate(boxes)),
+        f"-cluster 2 -mesh 1,2: dims {dims}, boxes {boxes}")
+    out["tp_across_processes"] = (f"global mesh {dims}: rank r holds tp "
+                                  "rank r")
     for key, argv, match in (
             ("ep", ["-conf", lm_solver, "-train", "-mesh", "1,1,1,2"],
              "Queue 1 item 8"),
             ("pp", ["-conf", lm_solver, "-train", "-mesh", "pp=2"],
              "Queue 1 item 8"),
             ("serve_mesh", ["-conf", solver_path, "-serve", "-model", model,
-                            "-mesh", "2"], "serving on a mesh"),
-            ("tp_across_processes", ["-solver", lm_solver, "-cluster", "2",
-                                     "-server", "127.0.0.1:1", "-rank", "0",
-                                     "-mesh", "1,2"], "item 6c2")):
+                            "-mesh", "2"], "serving on a mesh")):
         d = os.path.join(os.path.dirname(model), f"refused_{key}")
         shutil.rmtree(d, ignore_errors=True)
         entry = (mini_cluster.main if argv[0] == "-solver"
@@ -5137,8 +5163,8 @@ def dp_refusals(solver_path, lm_solver, model, device="cuda"):
               f"dp refusal {key}: {msg!r}, expected a ValueError naming "
               f"{match!r} before any output")
         out[key] = msg
-    log("  refused by name: " + "; ".join(f"{k}: {v}"
-                                         for k, v in out.items()))
+    log("  refused by name, or laid out: " + "; ".join(
+        f"{k}: {v}" for k, v in out.items()))
     return out
 
 
@@ -5351,10 +5377,12 @@ def gs_run(K, torch, label, solver_path, env, dims, hosts, kernels, *,
     from caffeonspark_tpu_torch.data.queue_runner import to_device
     from caffeonspark_tpu_torch.parallel import ParallelSolver, build_mesh
     from caffeonspark_tpu_torch.solver import Solver
+    from caffeonspark_tpu_torch.parallel.mesh import process_group
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    n = math.prod(dims.values())
+    # `dims` is the global mesh; this process holds its share of it
+    n = math.prod(dims.values()) // process_group()[0]
     with env_set(env):
         conf = Config(["-conf", solver_path, "-train", "-device", device])
         solver = Solver(conf.solverParameter, conf.netParam, device=device)
@@ -5362,7 +5390,7 @@ def gs_run(K, torch, label, solver_path, env, dims, hosts, kernels, *,
             devices=[solver.device] * n, **dims), zero_dp=zero)
     params, state = ps.init()
     rec = dict(label=label, dims=dims, env=env, zero=zero, k=k,
-               comm=ps.grad_sync.plan.comm_info(ps.mesh.procs),
+               comm=ps.grad_sync.plan.comm_info(ps.mesh.dp_blocks),
                skipped=len(ps.grad_sync.plan.skipped),
                hooks=ps.grad_sync.use_hooks(1))
     grads = None
@@ -5783,7 +5811,7 @@ def mp_children(mode, specs, label, logdir, env=None):
 
 
 def mp_pair(K, label, solver_path, args, env, outdir, launches_each,
-            device="cuda"):
+            device="cuda", outputs=None):
     """`mini_cluster -server 127.0.0.1:<free port> -cluster 2 -rank I` as
     two processes on the card, -metrics every step: each child's launch
     counts (each of MP_LRN `launches_each` times, no other kernel), both
@@ -5809,8 +5837,7 @@ def mp_pair(K, label, solver_path, args, env, outdir, launches_each,
     check(all(math.isfinite(x) for x in losses) and losses,
           f"{label}: losses {losses}")
     for r, kid in enumerate(kids):
-        want = {k: (launches_each if k in MP_LRN else 0)
-                for k in kid["launches"]}
+        want = _want_launches(launches_each, kid["launches"], r)
         check(kid["launches"] == want, f"{label}: rank {r} launches "
               f"{kid['launches']}, expected {want}")
         last = steps[-1]["iter"]
@@ -5819,11 +5846,70 @@ def mp_pair(K, label, solver_path, args, env, outdir, launches_each,
               f"{label}: rank {r}'s output lacks its iter lines or shows "
               "another rank's final model line")
     check(os.path.exists(model), f"{label}: rank 0 wrote no {model}")
+    if outputs is not None:
+        outputs.extend(kid["output"] for kid in kids)
     log(f"  {label}: two processes, {len(losses)} steps in {wall_s:.1f} s; "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; launches a "
         f"process {kids[0]['launches']}")
     return dict(label=label, wall_s=wall_s, losses=losses,
-                launches=[k["launches"] for k in kids]), model
+                launches=[k["launches"] for k in kids],
+                split_bytes=[k.get("split_bytes") for k in kids],
+                shapes=[k.get("shapes") for k in kids]), model
+
+
+def _want_launches(launches_each, counts, rank=0):
+    """The launch counts a run must show: `launches_each` of each MP_LRN
+    kernel (an int), or the counts of a dict (of rank's dict, from a
+    list), every other kernel 0."""
+    if isinstance(launches_each, list):
+        launches_each = launches_each[rank]
+    if isinstance(launches_each, dict):
+        return {k: launches_each.get(k, 0) for k in counts}
+    return {k: (launches_each if k in MP_LRN else 0) for k in counts}
+
+
+def split_blob_bytes(mc) -> dict:
+    """A trained MiniCluster's bytes of the blobs a tp axis splits (its
+    params', and its optimizer state's): this process's part of each."""
+    ps = mc.psolver
+    if ps is None:
+        return {"params": 0, "state": 0}
+    names = [(ln, bn) for ln, bl in ps.layout.param_specs.items()
+             for bn, spec in bl.items() if "tp" in spec]
+
+    def size(t):
+        return t.numel() * t.element_size()
+    st = mc.final_state
+    return {"params": sum(size(mc.final_params[ln][bn]) for ln, bn in names),
+            "state": sum(size(tree[ln][bn]) for tree in (st.history,
+                                                         st.history2)
+                         for ln, bn in names if tree.get(ln, {}).get(bn)
+                         is not None)}
+
+
+@contextlib.contextmanager
+def flash_shapes(K, into):
+    """Record the first operand's shape of each K6-K8 launch (the
+    kernels' wrappers, spied on) into `into` {name: [shape, ...]}."""
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    real = {n: getattr(K, n) for n in names}
+
+    def spy(n):
+        def fn(*a, **kw):
+            if a[0].device.type != "meta":
+                shape = list(a[0].shape)
+                if shape not in into.setdefault(n, []):
+                    into[n].append(shape)
+            return real[n](*a, **kw)
+        return fn
+    for n in names:
+        setattr(K, n, spy(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(K, n, real[n])
 
 
 def mp_one(K, label, solver_path, args, env, outdir, launches_each,
@@ -5848,22 +5934,29 @@ def mp_one(K, label, solver_path, args, env, outdir, launches_each,
 
     K.reset_launch_counts()
     t0 = time.monotonic()
-    with env_set(env), _patched(checkpoint, "save_model", keep):
-        rc = mini_cluster.main(
-            ["-solver", solver_path, "-output", outdir, "-metrics",
-             steps_path, "-display_every", "1", "-device", device, *args])
+    shapes = {}
+    with env_set(env), _patched(checkpoint, "save_model", keep), \
+            flash_shapes(K, shapes):
+        mc = mini_cluster.MiniCluster(mini_cluster.build_argparser(
+        ).parse_args(["-solver", solver_path, "-output", outdir,
+                      "-metrics", steps_path, "-display_every", "1",
+                      "-device", device, *args]))
+        mc.train()
     wall_s = time.monotonic() - t0
     counts = dict(K.launch_counts)
-    check(rc == 0 and "bytes" in kept, f"{label}: mini_cluster returned "
-          f"{rc}")
+    check("bytes" in kept, f"{label}: mini_cluster wrote no final model")
     with open(steps_path) as f:
         losses = [json.loads(x)["loss"] for x in f if x.strip()]
-    want = {k: (launches_each if k in MP_LRN else 0) for k in counts}
-    check(counts == want, f"{label}: launches {counts}, expected {want}")
+    if launches_each is not None:
+        want = _want_launches(launches_each, counts)
+        check(counts == want, f"{label}: launches {counts}, expected "
+              f"{want}")
     log(f"  {label}: one process, {len(losses)} steps in {wall_s:.1f} s; "
         f"losses {', '.join(f'{x:.4f}' for x in losses)}; launches {counts}")
-    return (dict(label=label, wall_s=wall_s, losses=losses,
-                 launches=counts), kept["bytes"], kept["params"])
+    rec = dict(label=label, wall_s=wall_s, losses=losses, launches=counts,
+               split_bytes=split_blob_bytes(mc), shapes=shapes)
+    del mc
+    return rec, kept["bytes"], kept["params"]
 
 
 @contextlib.contextmanager
@@ -5967,7 +6060,7 @@ def mp_steps_child(K, torch, spec):
     recs = {}
     for key, env in MP_STEP_MODES.items():
         rec, params, _, _ = gs_run(K, torch, f"-cluster 2 {key}",
-                                   spec["solver"], env, {"dp": 1}, hosts,
+                                   spec["solver"], env, {"dp": 2}, hosts,
                                    MP_LRN, steps=MP_DIRECT_STEPS,
                                    device=device)
         recs[key] = {k: rec[k] for k in ("median_step_ms", "step_ms",
@@ -5984,21 +6077,39 @@ def mp_steps_child(K, torch, spec):
 
 
 def child_main(argv) -> int:
-    """`chip_smoke.py --child <mode> <spec>`: one process of phase 34,
-    under cuDNN deterministic: `mini_cluster` (spec["argv"]; its launch
-    counts) or `steps` (mp_steps_child)."""
+    """`chip_smoke.py --child <mode> <spec>`: one process of phase 34 or
+    35, under cuDNN deterministic: `mini_cluster` (spec["argv"]; its
+    launch counts, its bytes of the tp-split blobs, the K6-K8 shapes),
+    `steps` (mp_steps_child), `mesh_steps` (mesh_steps_child) or
+    `p2p_probe` (p2p_probe_child)."""
     import torch
     from caffeonspark_tpu_torch.ops import kernels as K
+    from caffeonspark_tpu_torch.parallel.mesh import distributed_close
     mode, spec = argv[0], json.loads(argv[1])
     torch.backends.cudnn.deterministic = True
+    rc = _child_mode(K, torch, mode, spec)
+    distributed_close()         # in step: no peer still on the wire
+    return rc
+
+
+def _child_mode(K, torch, mode, spec) -> int:
     if mode == "mini_cluster":
         from caffeonspark_tpu_torch import mini_cluster
         K.reset_launch_counts()
-        rc = mini_cluster.main(spec["argv"])
-        print("CHILD " + json.dumps({"rc": rc,
-                                     "launches": dict(K.launch_counts)}),
-              flush=True)
-        return rc
+        shapes = {}
+        with flash_shapes(K, shapes):
+            mc = mini_cluster.MiniCluster(
+                mini_cluster.build_argparser().parse_args(spec["argv"]))
+            mc.train()
+        print("CHILD " + json.dumps({"rc": 0,
+                                     "launches": dict(K.launch_counts),
+                                     "split_bytes": split_blob_bytes(mc),
+                                     "shapes": shapes}), flush=True)
+        return 0
+    if mode == "mesh_steps":
+        return mesh_steps_child(K, torch, spec)
+    if mode == "p2p_probe":
+        return p2p_probe_child(torch, spec)
     check(mode == "steps", f"unknown child mode {mode!r}")
     return mp_steps_child(K, torch, spec)
 
@@ -6177,6 +6288,322 @@ def multiproc_phase(K, torch, workdir, lmdb, device="cuda"):
                 sidecar_bytes=sidecar_bytes, wall_s=wall)
 
 
+# ---------------------------------------------------------------------------
+# phase 35: the tp and sp axes across processes, two processes sharing the
+# card
+# ---------------------------------------------------------------------------
+
+MPM_LM_STEPS = 4            # the LM runs' steps (a) and (b)
+MPM_VAL_TOL = 1e-4          # validation.json across processes against one
+MPM_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+MPM_RING = ("flash_block_update", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")
+
+
+MPM_PROBE_S = 90             # the send / recv probe's wait
+
+
+def p2p_probe_child(torch, spec):
+    """One process of the send / recv probe: one exchange of 2^20 floats
+    on the device between the two processes through gloo's own send and
+    recv, its bits checked (`CHILD` line), or the error gloo raised."""
+    import torch.distributed as dist
+    from caffeonspark_tpu_torch.parallel.mesh import distributed_init
+    _, rank = distributed_init(spec["server"], 2, spec["rank"])
+    x = torch.full((1 << 20,), float(rank + 1), device=spec["device"])
+    buf = torch.empty_like(x)
+    try:
+        ops = [dist.P2POp(dist.isend, x, 1 - rank),
+               dist.P2POp(dist.irecv, buf, 1 - rank)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        res = {"cuda_p2p": bool(torch.all(buf == float(2 - rank)))}
+    except Exception as e:      # noqa: BLE001 - the probe's finding
+        res = {"cuda_p2p": False, "error": f"{type(e).__name__}: {e}"[:300]}
+    print("CHILD " + json.dumps(res), flush=True)
+    return 0
+
+
+def p2p_probe(device):
+    """Whether gloo's send and recv take a CUDA tensor themselves (the
+    port's `comm.shift_line` stages through pinned host buffers either
+    way), in two throwaway processes: a crash or a hang (MPM_PROBE_S) is
+    the finding, reported, never a failure of the phase."""
+    port = _free_port()
+    here = os.path.abspath(__file__)
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--child", "p2p_probe", json.dumps(dict(
+            server=f"127.0.0.1:{port}", rank=r, device=device))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(here)) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=MPM_PROBE_S)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            outs.append(p.communicate()[0] + "\n(killed: no answer in "
+                        f"{MPM_PROBE_S} s)")
+    lines = [x for x in outs[0].splitlines() if x.startswith("CHILD ")]
+    if lines and procs[0].returncode == 0:
+        return json.loads(lines[-1][len("CHILD "):])
+    return {"cuda_p2p": False, "returncodes": [p.returncode for p in procs],
+            "error": outs[0][-300:]}
+
+
+def mesh_steps_child(K, torch, spec):
+    """A child of phase 35's timing pair: MP_DIRECT_STEPS synchronized
+    ParallelSolver steps of the LM on the global mesh spec["dims"]
+    (this process holds its half), fed the global batches whole (a tp
+    or sp mesh feeds every process the same records): the median, the
+    losses, the params gathered whole (sha256) and the bytes each axis
+    sent across processes a step."""
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.parallel import comm
+    from caffeonspark_tpu_torch.parallel.mesh import distributed_init
+    _, rank = distributed_init(spec["server"], 2, spec["rank"])
+    device = spec["device"]
+    conf = Config(["-conf", spec["solver"], "-train", "-device", device])
+    comm.reset_traffic()
+    rec, params, _, (ps, _, _) = gs_run(
+        K, torch, f"-cluster 2 {spec['dims']}", spec["solver"], {},
+        spec["dims"], host_batches(conf, 2), MPM_RING + MPM_FLASH[:1],
+        steps=MP_DIRECT_STEPS, device=device)
+    traffic = {k: v // MP_DIRECT_STEPS for k, v in comm.TRAFFIC.items()}
+    digest = params_digest(ps.gather_params(params))
+    print("CHILD " + json.dumps({
+        "median_step_ms": rec["median_step_ms"],
+        "step_ms": rec["step_ms"], "losses": rec["losses"],
+        "launches": rec["launches"], "digest": digest,
+        "bytes_per_step": traffic}), flush=True)
+    return 0
+
+
+def _half(counts, names):
+    """Half of each of `names`' launches in `counts`, the rest 0: each of
+    two processes' share of a tp run."""
+    return [{k: (v // 2 if k in names else 0) for k, v in counts.items()}
+            ] * 2
+
+
+def _ring_shares(counts):
+    """Each of two processes' share of an sp 2 causal ring's launches in
+    `counts`: of the ring's three K9 hops sp rank 0 folds its diagonal,
+    rank 1 its diagonal and rank 0's block (1 : 2); of its three K7 / K8
+    pairs rank 0 runs its diagonal and rank 1's visiting q-group, rank 1
+    its diagonal (2 : 1)."""
+    return [{k: (v * (r + 1) // 3 if k == "flash_block_update"
+                 else v * (2 - r) // 3 if k in MPM_RING else 0)
+             for k, v in counts.items()} for r in range(2)]
+
+
+def multiproc_mesh_phase(K, torch, workdir, lmdb, test_lmdb, lm_solver,
+                         device="cuda"):
+    """The tp and sp axes across two processes sharing the card
+    (`mini_cluster -server -cluster 2 -rank I -mesh ...`, gloo; each
+    process holds half of the global mesh), under cuDNN deterministic,
+    counts zeroed before each run and read after, each against one
+    process with the same -mesh (kept in memory, `mp_one`):
+      (a) the full-width LM at -mesh 1,1,2 -dtype float32, 4 steps: the
+          ring's hop across processes; losses and the final model
+          byte-equal; the two processes' K9, K7 and K8 summing to one
+          process's, each its sp rank's share of the causal ring
+          (`_ring_shares`); the ppermute route;
+      (b) the LM at -mesh 1,2, 4 steps: byte-equal; K6, K7 and K8 half,
+          on (B·H/2, T, D) blocks; each process's bytes of the split
+          blobs and of their Adam state half of one process's;
+      (c) CaffeNet B 256 at -mesh 2,2 (dp in a process, fc6 / fc7
+          columns across the two), 8 steps with a snapshot at 4: the
+          final model byte-equal to one process's; rank 0's dense model
+          and the `.shard0/.shard1` sidecars read back; a resume from 4
+          to 8 on two processes and in one, byte-equal; files deleted;
+      (d) the validating CaffeNet at -mesh 1,2: rank 0's validation.json
+          within MPM_VAL_TOL of one process's, rank 1 writing none;
+      (e) the timing pair: the median of 5 synchronized direct steps of
+          the LM at -mesh 1,1,2 and 1,2 on two processes beside one
+          process's (params by sha256 byte-equal to it), the gloo bytes
+          a step of the ring's hops and of the tp joins, and whether
+          gloo's own send / recv take CUDA tensors (`p2p_probe`)."""
+    import glob
+    import hashlib
+    import shutil
+
+    import numpy as np
+    from caffeonspark_tpu_torch import checkpoint
+    from caffeonspark_tpu_torch.config import Config
+    from caffeonspark_tpu_torch.models import zoo
+    from caffeonspark_tpu_torch.parallel import comm
+    lm = os.path.join(workdir, "lm_mpm_solver.prototxt")
+    shutil.copyfile(lm_solver, lm)
+    lm = no_snapshots(lm)
+    lm_args = ["-iterations", str(MPM_LM_STEPS), "-dtype", "float32"]
+    csolver = write_train_config(workdir, zoo.caffenet, lmdb, seed=1,
+                                 suffix="Mpm")
+    # the same net and solver without snapshots: only the pair's run
+    # writes one (at 4, which the resumes read, and at 8)
+    c_plain = os.path.join(workdir, "caffenet_mpm_plain_solver.prototxt")
+    shutil.copyfile(csolver, c_plain)
+    c_plain = no_snapshots(c_plain)
+    vsolver = no_snapshots(write_train_config(
+        workdir, zoo.caffenet, lmdb, seed=1, test_lmdb=test_lmdb,
+        suffix="Mpm"))
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.monotonic()
+    runs, equal = {}, {}
+    try:
+        # (a) and (b): the LM on each mesh, one process, then two
+        for key, spec, names, shares in (
+                ("sp", "1,1,2", MPM_RING, _ring_shares),
+                ("tp", "1,2", MPM_FLASH, lambda c: _half(c, MPM_FLASH))):
+            one, m_one, _ = mp_one(
+                K, f"LM -mesh {spec}", lm, ["-mesh", spec, *lm_args], {},
+                os.path.join(workdir, f"mpm_{key}1"), None, device)
+            check(all(one["launches"].get(n, 0) > 0 for n in names),
+                  f"LM -mesh {spec}: launches {one['launches']}")
+            two, m = mp_pair(
+                K, f"LM -cluster 2 -mesh {spec}", lm,
+                ["-mesh", spec, *lm_args], {},
+                os.path.join(workdir, f"mpm_{key}2"),
+                shares(one["launches"]), device)
+            got = _file_bytes(m)
+            os.remove(m)
+            equal[key] = (got == m_one and two["losses"] == one["losses"])
+            check(equal[key], f"LM -cluster 2 -mesh {spec}: the final model "
+                  "(or the losses) not byte-equal to one process's")
+            runs[f"lm_{key}_one"], runs[f"lm_{key}_two"] = one, two
+            runs[f"lm_{key}_two"]["sha256"] = hashlib.sha256(got).hexdigest()
+        tp1, tp2 = runs["lm_tp_one"], runs["lm_tp_two"]
+        halves = all(2 * sb[k] == tp1["split_bytes"][k] > 0
+                     for sb in tp2["split_bytes"] for k in ("params",
+                                                            "state"))
+        check(halves, f"LM -cluster 2 -mesh 1,2: each process's split blobs "
+              f"{tp2['split_bytes']}, one process's {tp1['split_bytes']}")
+        want_shape = [LM["batch"] * LM["heads"] // 2, LM["seq"],
+                      LM["d_model"] // LM["heads"]]
+        check(all(sh.get(n) == [want_shape] for sh in tp2["shapes"]
+                  for n in MPM_FLASH),
+              f"LM -cluster 2 -mesh 1,2: K6-K8 shapes {tp2['shapes']}, "
+              f"expected {want_shape}")
+        # (c) CaffeNet at -mesh 2,2: dp in a process, tp across the two
+        one, m_one, _ = mp_one(
+            K, "CaffeNet -mesh 2,2", c_plain, ["-mesh", "2,2"], {},
+            os.path.join(workdir, "mpm_c1"), 4 * TRAIN_ITERS, device)
+        cdir = os.path.join(workdir, "mpm_c2")
+        runs["caffenet_one"] = one
+        # each process runs both dp ranks' norms: as many as one process
+        runs["caffenet_two"], m = mp_pair(
+            K, "CaffeNet -cluster 2 -mesh 2,2", csolver, ["-mesh", "2,2"],
+            {}, cdir, 4 * TRAIN_ITERS, device)
+        equal["caffenet"] = _file_bytes(m) == m_one
+        check(equal["caffenet"] and runs["caffenet_two"]["losses"]
+              == one["losses"], "CaffeNet -cluster 2 -mesh 2,2: the final "
+              "model (or the losses) not byte-equal to one process's")
+        name = os.path.basename(csolver).split("_")[0]
+        state = os.path.join(cdir, f"{name}_train_iter_{MP_SNAP}.solverstate")
+        shards = sorted(os.path.basename(p)
+                        for p in glob.glob(state + ".shard*"))
+        check(shards == [os.path.basename(state) + f".shard{k}"
+                         for k in range(2)], f"-mesh 2,2 snapshot: {shards}")
+        it, _, hist = checkpoint._read_state(state)
+        dense = checkpoint.load_caffemodel_blobs(
+            state.replace(".solverstate", ".caffemodel"))
+        check(it == MP_SNAP and all(np.isfinite(h).all() for h in hist)
+              and dense["fc6"][0].shape == (4096, 9216),
+              f"-mesh 2,2 snapshot read back: iter {it}, fc6 "
+              f"{dense['fc6'][0].shape}")
+        sidecar_bytes = sum(os.path.getsize(os.path.join(cdir, x))
+                            for x in shards)
+        runs["caffenet_resume_two"], m_r2 = mp_pair(
+            K, "CaffeNet -cluster 2 -mesh 2,2 resume 4 -> 8", c_plain,
+            ["-mesh", "2,2", "-snapshot", state], {},
+            os.path.join(workdir, "mpm_r2"),
+            4 * (TRAIN_ITERS - MP_SNAP), device)
+        runs["caffenet_resume_one"], m_r1, _ = mp_one(
+            K, "CaffeNet -mesh 2,2 resume 4 -> 8", c_plain,
+            ["-mesh", "2,2", "-snapshot", state], {},
+            os.path.join(workdir, "mpm_r1"), 4 * (TRAIN_ITERS - MP_SNAP),
+            device)
+        equal["caffenet_resume"] = _file_bytes(m_r2) == m_r1
+        for d in (cdir, os.path.join(workdir, "mpm_r2"),
+                  os.path.join(workdir, "mpm_r1"),
+                  os.path.join(workdir, "mpm_c1")):
+            shutil.rmtree(d, ignore_errors=True)
+        check(equal["caffenet_resume"], "-mesh 2,2 resume on two "
+              "processes: not byte-equal to the same resume in one")
+        # (d) validation on the spanning mesh
+        # K1 in the TRAIN and TEST nets, K2 in training (every process)
+        val_lrn = {MP_LRN[0]: 2 * TRAIN_ITERS + VAL_ROUNDS * VAL_ITER * 2,
+                   MP_LRN[1]: 2 * TRAIN_ITERS}
+        vone, _, _ = mp_one(
+            K, "CaffeNet validating -mesh 1,2", vsolver, ["-mesh", "1,2"],
+            {}, os.path.join(workdir, "mpm_v1"), val_lrn, device)
+        outs = []
+        runs["validate_one"] = vone
+        runs["validate_two"], m = mp_pair(
+            K, "CaffeNet validating -cluster 2 -mesh 1,2", vsolver,
+            ["-mesh", "1,2"], {}, os.path.join(workdir, "mpm_v2"),
+            val_lrn, device, outputs=outs)
+        os.remove(m)
+
+        def rows(d):
+            with open(os.path.join(d, "validation.json")) as f:
+                return [json.loads(x) for x in f if x.strip()]
+        got = rows(os.path.join(workdir, "mpm_v2"))
+        want = rows(os.path.join(workdir, "mpm_v1"))
+        val_err = max(abs(g[k] - w[k]) for g, w in zip(got, want)
+                      for k in w)
+        check(len(got) == len(want) == VAL_ROUNDS and val_err
+              <= MPM_VAL_TOL and "validation rounds →" in outs[0]
+              and "validation rounds →" not in outs[1],
+              f"validation across processes: {got} against {want} (tol "
+              f"{MPM_VAL_TOL}); rank 1 wrote rounds: "
+              f"{'validation rounds →' in outs[1]}")
+        # (e) the timing pair
+        timing = {}
+        conf = Config(["-conf", lm, "-train", "-device", device])
+        for key, dims in (("sp", {"dp": 1, "tp": 1, "sp": 2}),
+                          ("tp", {"dp": 1, "tp": 2})):
+            port = _free_port()
+            kids = mp_children("mesh_steps", [dict(
+                server=f"127.0.0.1:{port}", rank=r, solver=lm, dims=dims,
+                device=device) for r in range(2)],
+                f"the {key} timing pair",
+                os.path.join(workdir, f"mpm_steps_{key}"))
+            ref, params, _, (ps, _, _) = gs_run(
+                K, torch, f"one process {dims}", lm, {}, dims,
+                host_batches(conf, 2), MPM_RING + MPM_FLASH[:1],
+                steps=MP_DIRECT_STEPS, device=device)
+            want = params_digest(params)
+            del params, ps
+            check(all(k["digest"] == want and k["losses"] == ref["losses"]
+                      for k in kids), f"timing pair {key}: two processes' "
+                  "params or losses not byte-equal to one process's")
+            timing[key] = dict(one_ms=ref["median_step_ms"],
+                               one_step_ms=ref["step_ms"],
+                               two_ms=kids[0]["median_step_ms"],
+                               two_step_ms=kids[0]["step_ms"],
+                               bytes_per_step=kids[0]["bytes_per_step"])
+        probe = p2p_probe(device)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    wall = time.monotonic() - t_phase
+    log(f"  ppermute across processes: {comm.ROUTES['ppermute']}; gloo "
+        f"send / recv on CUDA tensors themselves: {probe}")
+    log("  synchronized direct steps, median of 5 (ms): " + "; ".join(
+        f"-mesh {'1,1,2' if k == 'sp' else '1,2'} one process "
+        f"{t['one_ms']:.2f}, two processes {t['two_ms']:.2f} (gloo bytes a "
+        f"step a process: {t['bytes_per_step']})" for k, t in timing.items()))
+    log(f"  the tp / sp multi-process phase: {wall:.1f} s; -mesh 2,2 "
+        f"sidecars {sidecar_bytes} bytes; validation within {val_err:.3g}")
+    return dict(runs=runs, byte_equal=equal, val_err=val_err,
+                sidecar_bytes=sidecar_bytes, timing=timing, probe=probe,
+                split_bytes=dict(one=tp1["split_bytes"],
+                                 two=tp2["split_bytes"]),
+                route=comm.ROUTES["ppermute"], wall_s=wall)
+
+
 def ptxas_report(text: str, keep) -> list:
     """Registers and spills of each kernel instantiation whose mangled
     name `keep` accepts, from the `-Xptxas -v` output of nvcc (names
@@ -6212,7 +6639,7 @@ def ptxas_report(text: str, keep) -> list:
 
 def main(argv) -> int:
     if argv[:1] == ["--child"]:
-        return child_main(argv[1:])     # one process of phase 34
+        return child_main(argv[1:])     # one process of phase 34 or 35
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -6638,6 +7065,16 @@ def main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     multiproc = multiproc_phase(K, torch, workdir, lmdb)
+    log("the tp and sp axes across processes: two processes sharing the "
+        "card (mini_cluster -cluster 2 -mesh 1,1,2 / 1,2 / 2,2, gloo), each "
+        "holding half of the global mesh: the full-width LM's ring and "
+        "head blocks, CaffeNet's fc6 / fc7 columns, their sidecars and "
+        "resume, validation, the timing pair; cuDNN deterministic; counts "
+        "zeroed before each run):")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mpmesh = multiproc_mesh_phase(K, torch, workdir, lmdb, test_lmdb,
+                                  lm_solver)
     mc_paths = {f"mc_{r['label'].split()[0].lower()}_{r['dtype']}": r
                 for r in image_mc["runs"] + list(lm_mc["runs"].values())}
     mc_paths["mc_transformerlm_dp2tp2_mixed"] = dp["lm_dp2_tp2"]
@@ -6706,7 +7143,12 @@ def main(argv) -> int:
                        sum(c.get(name, 0) for c in r["launches"])
                        if isinstance(r["launches"], list)
                        else r["launches"].get(name, 0))
-                      for k, r in multiproc["runs"].items()}}
+                      for k, r in multiproc["runs"].items()},
+                   **{f"multiproc_mesh_{k}": (
+                       sum(c.get(name, 0) for c in r["launches"])
+                       if isinstance(r["launches"], list)
+                       else r["launches"].get(name, 0))
+                      for k, r in mpmesh["runs"].items()}}
         by_dtype: dict = {}
         for r in mc_paths.values():
             for key, v in r.get("launches_by_dtype", {}).items():
@@ -6763,6 +7205,7 @@ def main(argv) -> int:
     log(json.dumps({"dp": dp}))
     log(json.dumps({"gradsync": gsync}))
     log(json.dumps({"multiproc": multiproc}))
+    log(json.dumps({"multiproc_mesh": mpmesh}))
     log(json.dumps({"ptxas": ptxas}))
     log(json.dumps({"kernel_records": res}))
     log(json.dumps({"kernels": lines}))

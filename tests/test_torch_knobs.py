@@ -17,6 +17,7 @@
 """
 
 import logging
+import math
 import os
 import re
 
@@ -156,21 +157,32 @@ def test_other_knobs_named_in_one_logged_line(caplog):
     (["-mesh", "2,1,1"], "dp"), (["-mesh", "1,2,1"], "tp"),
     (["-mesh", "1,1,1,2"], "ep"), (["-mesh", "pp=2"], "pp"),
     (["-devices", "1", "-cluster", "1", "-rank", "0"], None),
-    (["-cluster", "2", "-server", "h:1", "-rank", "0", "-mesh", "1,2"],
-     "item 6c2"),
-    (["-cluster", "2", "-server", "h:1", "-rank", "0", "-mesh", "1,1,2"],
-     "item 6c2"),
+    (["-cluster", "2", "-server", "h:1", "-rank", "1", "-mesh", "1,2"],
+     "across tp"),
+    (["-cluster", "2", "-server", "h:1", "-rank", "1", "-mesh", "1,1,2"],
+     "across sp"),
     (["-cluster", "2", "-server", "agent://h:1", "-rank", "1"], "item 9")])
 def test_mini_cluster_refuses_more_ranks_by_name(argv, name, tmp_path):
     """-devices 2 is 2 dp ranks sharing -device and -server alone one
-    process; -cluster without -server, -rank without -cluster, a tp or
-    sp axis across processes and the NodeAgent's rendezvous are refused
-    by name before any rendezvous, and so are ep and pp; a mesh with dp
-    or tp of 2 builds (its ranks share -device)."""
+    process; -cluster without -server, -rank without -cluster and the
+    NodeAgent's rendezvous are refused by name before any rendezvous,
+    and so are ep and pp; a mesh with dp or tp of 2 builds (its ranks
+    share -device); -cluster 2 -mesh 1,2 (1,1,2) is the global mesh, of
+    which rank 1 holds tp (sp) rank 1 (checked without a rendezvous)."""
     args = mini_cluster.build_argparser().parse_args(
         ["-solver", _solver(tmp_path), "-device", "cpu"] + argv)
     if name is None:
         assert mini_cluster.mesh_spec(args) is None
+        return
+    if name.startswith("across "):
+        from caffeonspark_tpu_torch.parallel.mesh import (mesh_dims,
+                                                          process_box)
+        axis = name.split()[1]
+        dims = mesh_dims(mini_cluster.mesh_spec(args), 2)
+        assert dims[axis] == 2 and math.prod(dims.values()) == 2
+        local, offsets = process_box(dims, 2, args.rank)
+        assert local[axis] == 1 and offsets[axis] == 1
+        assert all(n == 1 for n in local.values())
         return
     if name in ("dp", "tp"):
         assert mini_cluster.MiniCluster(args).mesh.shape[name] == 2
